@@ -1,0 +1,5 @@
+"""Checkpoint reading (the reference's layout, numpy only)."""
+
+from repro_torch.ckpt.store import load_pytree
+
+__all__ = ["load_pytree"]

@@ -1,0 +1,126 @@
+"""Packed 2:4 weight × activation product: the CUDA kernel's wrappers.
+
+Replaces the TPU kernels ``repro/kernels/nm_spmm.py::nm_spmm`` and
+``::nm_spmm_decode``; the kernel itself is ``csrc/nm_spmm.cu`` (its header
+says what bounds it on the H100 and how the design answers that).
+
+Dispatch is by device and nothing else: a CPU tensor takes the plain
+PyTorch version beside each wrapper; a CUDA tensor launches the kernel
+or raises — there is no fallback.  Each wrapper counts its launches in
+a plain integer (``nm_spmm.launches``), bumped only where the kernel is
+launched.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import nm_spmm_ref
+
+ACTIVATIONS = {None: 0, "silu": 1, "gelu": 2}
+DTYPES = (torch.float32, torch.bfloat16)
+DECODE_MAX_M = 128          # the decode kernel's M limit (ops dispatch split)
+
+
+def _check(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+           name: str) -> None:
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{name}: tensors on {x.device} — the kernel "
+                           "runs on CUDA only (CPU tensors take the plain "
+                           "version)")
+    if x.dim() != 2 or vals.dim() != 2:
+        raise ValueError(f"{name}: x (M, K) and vals (K/2, N) expected")
+    m, k = x.shape
+    k2, n = vals.shape
+    if k2 * 2 != k or k % 4:
+        raise ValueError(f"{name}: vals rows {k2} != K/2 = {k / 2} "
+                         "(K must divide by 4)")
+    if idx.shape != vals.shape or idx.dtype != torch.int8:
+        raise ValueError(f"{name}: idx must be int8 of vals' shape")
+    if x.dtype not in DTYPES or vals.dtype != x.dtype:
+        raise ValueError(f"{name}: x and vals must share f32 or bf16, got "
+                         f"{x.dtype} / {vals.dtype}")
+    for t in (x, vals, idx):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous on "
+                             f"{x.device}")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ----------------------------------------------------------------------
+def nm_spmm_plain(x: torch.Tensor, vals: torch.Tensor,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`nm_spmm`: decompress, then an f32 matmul."""
+    return nm_spmm_ref(x, vals, idx)
+
+
+def nm_spmm(x: torch.Tensor, vals: torch.Tensor,
+            idx: torch.Tensor) -> torch.Tensor:
+    """y = x @ decompress_24(vals, idx): x (M, K), vals/idx (K/2, N) →
+    (M, N) f32.  The tiled kernel (any M; the dispatch sends M > 128)."""
+    if x.device.type == "cpu":
+        return nm_spmm_plain(x, vals, idx)
+    _check(x, vals, idx, "nm_spmm")
+    m, k = x.shape
+    n = vals.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    code = build.library().nm_spmm_launch(
+        x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        m, k, n, int(x.dtype == torch.bfloat16), _stream(x))
+    build.check(code, "nm_spmm")
+    nm_spmm.launches += 1
+    return out
+
+
+nm_spmm.launches = 0
+
+
+# ----------------------------------------------------------------------
+def nm_spmm_decode_plain(x: torch.Tensor, vals: torch.Tensor,
+                         idx: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         activation: Optional[str] = None) -> torch.Tensor:
+    """Plain version of :func:`nm_spmm_decode`."""
+    return nm_spmm_ref(x, vals, idx, bias=bias, activation=activation)
+
+
+def nm_spmm_decode(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None,
+                   activation: Optional[str] = None) -> torch.Tensor:
+    """y = act(x @ decompress_24(vals, idx) + bias) for skinny M ≤ 128
+    (every decode step and prefill chunk): x (M, K), bias (N,) f32 or
+    bf16 or None, ``activation`` None | "silu" | "gelu" → (M, N) f32,
+    bias and activation fused into the kernel's epilogue."""
+    if x.device.type == "cpu":
+        return nm_spmm_decode_plain(x, vals, idx, bias, activation)
+    _check(x, vals, idx, "nm_spmm_decode")
+    m, k = x.shape
+    n = vals.shape[1]
+    if m > DECODE_MAX_M:
+        raise ValueError(f"nm_spmm_decode: M={m} > {DECODE_MAX_M}")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown epilogue activation {activation!r}")
+    bias_ptr, bias_bf16 = None, 0
+    if bias is not None:
+        if (bias.numel() != n or bias.dtype not in DTYPES
+                or bias.device != x.device or not bias.is_contiguous()):
+            raise ValueError("nm_spmm_decode: bias must be a contiguous "
+                             f"({n},) f32/bf16 tensor on {x.device}")
+        bias_ptr, bias_bf16 = bias.data_ptr(), int(bias.dtype == torch.bfloat16)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    code = build.library().nm_spmm_decode_launch(
+        x.data_ptr(), vals.data_ptr(), idx.data_ptr(), bias_ptr, bias_bf16,
+        out.data_ptr(), m, k, n, ACTIVATIONS[activation],
+        int(x.dtype == torch.bfloat16), _stream(x))
+    build.check(code, "nm_spmm_decode")
+    nm_spmm_decode.launches += 1
+    return out
+
+
+nm_spmm_decode.launches = 0

@@ -1,0 +1,109 @@
+"""Public wrappers the model calls: packing, the packed matmul dispatch
+and paged attention.
+
+Dispatch follows the device of the tensors: CPU tensors take the plain
+PyTorch versions, CUDA tensors the hand-written kernels, and no ``try``
+ever gives way from a kernel to its plain version.  The one exception is
+the explicit, scoped :func:`override_dispatch` — the counterpart of the
+reference's ``ops.override_dispatch`` — which forces the plain versions
+on CUDA so that a run on the card can be held against them.
+
+Unlike the reference (which pads weights to 128-multiples on every
+call), nothing here pads: the kernels mask ragged edges themselves.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Iterator, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.nm_spmm import (DECODE_MAX_M, nm_spmm,
+                                         nm_spmm_decode, nm_spmm_decode_plain,
+                                         nm_spmm_plain)
+from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
+
+KERNELS = {"nm_spmm": nm_spmm, "nm_spmm_decode": nm_spmm_decode,
+           "paged_attn": paged_attn}
+
+_PLAIN: list = []          # override stack (innermost last)
+
+
+@contextlib.contextmanager
+def override_dispatch(plain: bool = True) -> Iterator[None]:
+    """Inside the scope, ``plain=True`` sends CUDA tensors to the plain
+    PyTorch versions instead of the kernels.  Scopes nest."""
+    _PLAIN.append(bool(plain))
+    try:
+        yield
+    finally:
+        _PLAIN.pop()
+
+
+def _plain() -> bool:
+    return bool(_PLAIN) and _PLAIN[-1]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+# ----------------------------------------------------------------------
+def compress_24(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense 2:4-sparse (K, N) → packed (vals, idx). See ref.compress_24."""
+    return ref.compress_24(w)
+
+
+def nm_matmul(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, *,
+              activation: Optional[str] = None,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """y = act(x @ w_sparse + bias) for packed 2:4 weights.
+
+    x: (..., K); vals/idx: (K/2, N) → (..., N) in ``out_dtype`` (x's
+    dtype by default).  The split is the reference's: M ≤ 128 rows
+    (every decode step, every 32-token prefill chunk) take the decode
+    kernel with bias and activation fused; larger M takes the tiled
+    kernel with the epilogue applied after.
+    """
+    k = x.shape[-1]
+    n = vals.shape[-1]
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k).contiguous()
+    plain = _plain()
+    if x2.shape[0] <= DECODE_MAX_M:
+        fn = nm_spmm_decode_plain if plain else nm_spmm_decode
+        y = fn(x2, vals, idx, bias, activation)
+    else:
+        y = (nm_spmm_plain if plain else nm_spmm)(x2, vals, idx)
+        if bias is not None:
+            y = y + bias.reshape(-1).float()
+        y = ref.activate(y, activation)
+    return y.reshape(*lead, n).to(out_dtype or x.dtype)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_tables: torch.Tensor,
+                    lengths: torch.Tensor, window: Optional[int] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paged GQA decode attention over block-table pages.
+
+    q: (B, KV, G, hd); k/v_pages: (P, page_size, KV, hd); block_tables:
+    (B, P_max) int32; lengths: (B,) int32.  Returns (B, KV, G, hd) in
+    the pages' dtype, or f32 when ``k_scale``/``v_scale`` engage the int8
+    pages (dequantized row-wise at load)."""
+    fn = paged_attn_plain if _plain() else paged_attn
+    out = fn(q, k_pages, v_pages, block_tables, lengths, window,
+             k_scale, v_scale)
+    if k_scale is not None:
+        return out
+    return out.to(v_pages.dtype)

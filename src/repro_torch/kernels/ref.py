@@ -1,0 +1,134 @@
+"""Plain PyTorch versions of the serve-path kernels (the allclose ground
+truth, and the path every wrapper takes for a CPU tensor).
+
+Each function runs the op sequence of its counterpart in the JAX
+package's ``kernels/ref.py``, so on f32 inputs the port's CPU path and
+the reference agree to rounding.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+# ----------------------------------------------------------------------
+# 2:4 compressed format
+# ----------------------------------------------------------------------
+def compress_24(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense (K, N) with 2:4 sparsity along K → (vals (K/2,N), idx (K/2,N)).
+
+    Every group of 4 consecutive K-rows holds ≤2 nonzeros per column; the
+    two kept entries' in-group positions go to ``idx`` (int8, ascending),
+    the values to ``vals``.  A group with fewer than 2 nonzeros pads its
+    unused slot with position 0 and value 0.
+    """
+    k, n = w.shape
+    if k % 4:
+        raise ValueError(f"K={k} must divide by 4")
+    g = w.reshape(k // 4, 4, n)
+    nz = g != 0
+    rank = torch.cumsum(nz.to(torch.int32), dim=1) * nz    # 1,2 at kept slots
+    pos = torch.arange(4, dtype=torch.int32, device=w.device)[None, :, None]
+    four = torch.full_like(rank, 4)
+    idx0 = torch.where(rank == 1, pos, four).amin(dim=1)
+    idx1 = torch.where(rank == 2, pos, four).amin(dim=1)
+    idx0c = torch.where(idx0 == 4, 0, idx0)
+    idx1c = torch.where(idx1 == 4, 0, idx1)
+    v0 = torch.gather(g, 1, idx0c[:, None, :].long())[:, 0, :]
+    v1 = torch.gather(g, 1, idx1c[:, None, :].long())[:, 0, :]
+    v0 = torch.where(idx0 == 4, torch.zeros_like(v0), v0)
+    v1 = torch.where(idx1 == 4, torch.zeros_like(v1), v1)
+    vals = torch.stack([v0, v1], dim=1).reshape(k // 2, n)
+    idx = torch.stack([idx0c, idx1c], dim=1).reshape(k // 2, n).to(torch.int8)
+    return vals, idx
+
+
+def decompress_24(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(K/2, N) pairs → dense (K, N).  The two slots of a group are
+    SUMMED into their positions: a padding slot (position 0, value 0)
+    must not overwrite a real value kept at position 0."""
+    k2, n = vals.shape
+    g = k2 // 2
+    v = vals.reshape(g, 2, n)
+    ix = idx.reshape(g, 2, n).to(torch.int32)
+    r = torch.arange(4, dtype=torch.int32, device=vals.device)[None, :, None]
+    hit = (ix[:, :, None, :] == r[:, None, :, :]).to(vals.dtype)
+    dense = torch.sum(v[:, :, None, :] * hit, dim=1)        # (g, 4, n)
+    return dense.reshape(g * 4, n)
+
+
+def activate(y: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
+    """The decode-epilogue activation: None | "silu" | "gelu" (the tanh
+    approximation, ``jax.nn.gelu``'s default)."""
+    if activation is None:
+        return y
+    if activation == "silu":
+        return F.silu(y)
+    if activation == "gelu":
+        return F.gelu(y, approximate="tanh")
+    raise ValueError(f"unknown epilogue activation {activation!r}")
+
+
+def nm_spmm_ref(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                activation: Optional[str] = None) -> torch.Tensor:
+    """y = act(x @ decompress(vals, idx) + bias). x: (..., K) → (..., N)
+    f32.  On f32 inputs this equals the dense ``x @ w`` bit for bit."""
+    w = decompress_24(vals, idx)
+    y = x.float() @ w.float()
+    if bias is not None:
+        y = y + bias.reshape(-1).float()
+    return activate(y, activation)
+
+
+# ----------------------------------------------------------------------
+def _einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with jnp's type promotion (bf16 × f32 → f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(spec, a.to(dt), b.to(dt))
+
+
+def paged_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                   v_pages: torch.Tensor, block_tables: torch.Tensor,
+                   lengths: torch.Tensor, window: Optional[int] = None,
+                   k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paged GQA decode: gather each request's pages contiguous, then the
+    einsum/softmax sequence of ``models.layers._sdpa``.
+
+    q: (B, KV, G, hd); k/v_pages: (P, page_size, KV, hd); block_tables:
+    (B, P_max) int32; lengths: (B,).  Returns (B, KV, G, hd) in v's
+    dtype, f32 for dequantized int8 pages (idle rows, length 0, are garbage — the
+    kernel writes zeros there and callers mask them).  ``k_scale`` /
+    ``v_scale`` (P, page_size, KV) f32 dequantize int8 pages row-wise
+    right after the gather.
+    """
+    b, kvh, g, hd = q.shape
+    _, page_size, _, _ = k_pages.shape
+    p_max = block_tables.shape[1]
+    s_len = p_max * page_size
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, s_len, kvh, hd)
+    v = v_pages[bt].reshape(b, s_len, kvh, hd)
+    if k_scale is not None:
+        ks = k_scale[bt].reshape(b, s_len, kvh)
+        vs = v_scale[bt].reshape(b, s_len, kvh)
+        k = k.float() * ks[..., None]
+        v = v.float() * vs[..., None]
+    qg = q[:, None]                                    # (B, 1, KV, G, hd)
+    scores = _einsum("btkgd,bskd->bkgts", qg, k).float()
+    scores = scores / math.sqrt(hd)
+    kpos = torch.arange(s_len, dtype=torch.int32, device=q.device)[None, :]
+    lengths = lengths.to(torch.int32)
+    ok = kpos < lengths[:, None]
+    if window is not None:
+        ok &= kpos >= lengths[:, None] - window
+    scores = torch.where(ok[:, None, None, None, :], scores,
+                         torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = _einsum("bkgts,bskd->btkgd", probs, v)
+    return out[:, 0]                                   # (B, KV, G, hd)

@@ -1,0 +1,342 @@
+"""Layer library for the dense decoder serve path: linear, rmsnorm, rope,
+GQA attention (full-sequence, chunked paged prefill, paged decode),
+gated MLPs, embeddings.
+
+Conventions follow ``repro.models.layers``: params are plain dicts,
+linear weights are stored (in, out), hidden states are (B, T, D).  A
+linear weight may be a 2:4-packed ``{"vals", "idx"}`` dict, which goes
+through ``kernels.ops.nm_matmul`` with its bias and activation.
+
+The paged KV pool is updated IN PLACE: the paged branches index-write
+the new K/V rows into the page tensors (the JAX code rebuilds the pool
+functionally and donates the old buffer).  Idle decode slots and padded
+prompt positions write to the scrap page 0, which attention never reads.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import activate
+from repro_torch.models.base import ArchConfig
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------------
+# Param init (the reference's scales; numbers come from a torch.Generator)
+# ----------------------------------------------------------------------
+def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    t = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return (t * scale).to(dtype)
+
+
+def _dense_init(gen, d_in, d_out, dtype, scale=None):
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return _normal(gen, (d_in, d_out), scale, dtype)
+
+
+def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
+           activation: Optional[str] = None) -> torch.Tensor:
+    """y = act(x @ w + b); a packed ``{"vals","idx"}`` w takes the 2:4
+    kernels with b / activation fused into their epilogue."""
+    if isinstance(w, dict):
+        return ops.nm_matmul(x, w["vals"], w["idx"], b,
+                             activation=activation, out_dtype=x.dtype)
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    if activation is not None:
+        y = activate(y, activation)
+    return y
+
+
+# ----------------------------------------------------------------------
+# Norms / rope
+# ----------------------------------------------------------------------
+def rmsnorm_init(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding. x: (..., T, n, hd); positions: (..., T)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                  device=x.device), exps)
+    ang = positions[..., :, None].float() * freq          # (..., T, half)
+    sin = torch.sin(ang)[..., :, None, :]                  # over heads
+    cos = torch.cos(ang)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Attention block (GQA, optional QKV bias)
+# ----------------------------------------------------------------------
+def attn_init(gen, cfg: ArchConfig, dtype) -> Params:
+    hd, h, kv, d = cfg.hd, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
+    dev = gen.device
+    p = {
+        "ln": rmsnorm_init(d, dtype, dev),
+        "wq": _dense_init(gen, d, h * hd, dtype),
+        "wk": _dense_init(gen, d, kv * hd, dtype),
+        "wv": _dense_init(gen, d, kv * hd, dtype),
+        "wo": _dense_init(gen, h * hd, d, dtype,
+                          scale=1.0 / math.sqrt(h * hd * 2 * cfg.num_layers)),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * hd,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((kv * hd,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((kv * hd,), dtype=dtype, device=dev)
+    return p
+
+
+def _qkv(p, h_in: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+    b, t, _ = h_in.shape
+    hd, nh, kv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    q = linear(h_in, p["wq"], p.get("bq")).reshape(b, t, nh, hd)
+    k = linear(h_in, p["wk"], p.get("bk")).reshape(b, t, kv, hd)
+    v = linear(h_in, p["wv"], p.get("bv")).reshape(b, t, kv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with jnp's type promotion (bf16 × f32 → f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(spec, a.to(dt), b.to(dt))
+
+
+def _sdpa(q, k, v, mask, nh: int, kv: int) -> torch.Tensor:
+    """Grouped scaled-dot-product attention in plain matmul + softmax
+    (the reference computes it outside any kernel too).
+
+    q: (B,T,H,hd), k/v: (B,S,KV,hd), mask: broadcastable to (B,KV,G,T,S).
+    """
+    b, t, _, hd = q.shape
+    g = nh // kv
+    qg = q.reshape(b, t, kv, g, hd)
+    scores = _einsum("btkgd,bskd->bkgts", qg, k).float()
+    scores = scores / math.sqrt(hd)
+    scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = _einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(b, t, nh * hd)
+
+
+def causal_mask(t: int, s: int, device):
+    """(1,1,1,T,S) boolean causal mask."""
+    qpos = torch.arange(t, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    return (kpos <= qpos)[None, None, None]
+
+
+# ----------------------------------------------------------------------
+# Paged KV pool writes (in place)
+# ----------------------------------------------------------------------
+def _paged_write(pages: torch.Tensor, vals: torch.Tensor,
+                 flat_idx: torch.Tensor) -> None:
+    """Write K/V rows into a paged pool at flat token slots
+    (page * page_size + offset).  Duplicate slots all land on the scrap
+    page 0 — garbage on garbage, never read back."""
+    p_, ps_, kvh, hd = pages.shape
+    pages.view(p_ * ps_, kvh, hd)[flat_idx.reshape(-1)] = (
+        vals.reshape(-1, kvh, hd).to(pages.dtype))
+
+
+def _paged_write_q8(pages: torch.Tensor, scales: torch.Tensor,
+                    vals: torch.Tensor, flat_idx: torch.Tensor) -> None:
+    """Quantizing twin of :func:`_paged_write` for int8 pages: each row
+    quantizes per (token, kv-head) with scale = amax(|row|)/127 over
+    head_dim, and the scale lands in the (P, page_size, KV) f32 scale
+    leaf at the same flat slot."""
+    p_, ps_, kvh, hd = pages.shape
+    rows = vals.reshape(-1, kvh, hd).float()
+    s = torch.amax(rows.abs(), dim=-1) / 127.0              # (R, KV)
+    q = torch.round(rows / torch.clamp(s, min=1e-8)[..., None]).to(torch.int8)
+    flat = flat_idx.reshape(-1)
+    pages.view(p_ * ps_, kvh, hd)[flat] = q
+    scales.view(p_ * ps_, kvh)[flat] = s
+
+
+def _paged_scatter(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                   flat: torch.Tensor) -> None:
+    """Write K/V rows into the pool leaves, quantizing when the cache
+    carries scale leaves (int8 KV pages)."""
+    if "k_scale" not in cache:
+        _paged_write(cache["k"], k, flat)
+        _paged_write(cache["v"], v, flat)
+        return
+    _paged_write_q8(cache["k"], cache["k_scale"], k, flat)
+    _paged_write_q8(cache["v"], cache["v_scale"], v, flat)
+
+
+def attn_paged_cache_init(cfg: ArchConfig, num_pages: int, page_size: int,
+                          dtype, device) -> Params:
+    """Paged pool leaves; int8 adds per-row f32 scale leaves."""
+    kv, hd = cfg.num_kv_heads, cfg.hd
+    shape = (num_pages, page_size, kv, hd)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        cache["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)
+    return cache
+
+
+# ----------------------------------------------------------------------
+def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
+               cache: Optional[Params] = None,
+               pos: Optional[torch.Tensor] = None,
+               paged: Optional[Params] = None,
+               page_size: Optional[int] = None) -> torch.Tensor:
+    """Pre-norm attention with residual.  Returns the new hidden state;
+    paged modes update ``cache`` in place.
+
+    Modes (global causal attention; sliding-window layers are not ported):
+      full-sequence (cache None): causal over T;
+      chunked paged prefill (``paged["start"]`` given, B = 1): the chunk's
+          K/V go into the pages first, then attention runs over the
+          gathered slot context — earlier chunks' keys read back from
+          the pool;
+      paged decode (T = 1, ``pos`` (B,) with -1 marking idle slots):
+          block-table attention through ``ops.paged_attention``.
+
+    int8 pages dequantize to f32; the attention output is cast back to
+    the hidden dtype before ``wo`` so that the residual stream keeps the
+    model dtype (a no-op for f32 models, where the reference's numbers
+    are matched exactly).
+    """
+    b, t, _ = h.shape
+    nh, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    dev = h.device
+    h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
+
+    if cache is None:
+        positions = torch.arange(t, device=dev)[None, :]
+        q, k, v = _qkv(p, h_in, cfg, positions)
+        out = _sdpa(q, k, v, causal_mask(t, t, dev), nh, kv)
+        return h + linear(out, p["wo"])
+
+    bt = paged["block_tables"]                               # (B, P_max)
+    p_max = bt.shape[1]
+    if paged.get("start") is not None:
+        lengths = paged["lengths"]                           # (B,)
+        tpos = paged["start"] + torch.arange(t, device=dev, dtype=torch.int32)
+        positions = tpos[None, :]
+        q, k, v = _qkv(p, h_in, cfg, positions)
+        col = torch.clamp(tpos // page_size, max=p_max - 1)  # masked below
+        page = bt[:, col.long()]                             # (B, T)
+        flat = page * page_size + tpos[None, :] % page_size
+        flat = torch.where(tpos[None, :] < lengths[:, None], flat,
+                           torch.zeros_like(flat))
+        _paged_scatter(cache, k, v, flat.long())
+        s_len = p_max * page_size
+        btl = bt.long()
+        kc = cache["k"][btl].reshape(b, s_len, kv, hd)
+        vc = cache["v"][btl].reshape(b, s_len, kv, hd)
+        if "k_scale" in cache:
+            kc = kc.float() * cache["k_scale"][btl].reshape(
+                b, s_len, kv)[..., None]
+            vc = vc.float() * cache["v_scale"][btl].reshape(
+                b, s_len, kv)[..., None]
+        kpos = torch.arange(s_len, device=dev, dtype=torch.int32)
+        ok = kpos[None, None, :] <= positions[:, :, None]    # (B, T, S)
+        out = _sdpa(q, kc, vc, ok[:, None, None], nh, kv).to(h.dtype)
+        return h + linear(out, p["wo"])
+
+    if t != 1:
+        raise ValueError("paged attention: T > 1 needs a chunk start")
+    wpos = torch.clamp(pos, min=0)
+    q, k1, v1 = _qkv(p, h_in, cfg, wpos[:, None])
+    page = torch.gather(bt, 1, (wpos // page_size)[:, None].long())[:, 0]
+    flat = page * page_size + wpos % page_size
+    flat = torch.where(pos >= 0, flat, torch.zeros_like(flat))  # idle → scrap
+    _paged_scatter(cache, k1[:, 0], v1[:, 0], flat.long())
+    lengths = torch.clamp(pos + 1, min=0).to(torch.int32)       # idle → 0
+    qg = q[:, 0].reshape(b, kv, nh // kv, hd)
+    out = ops.paged_attention(qg, cache["k"], cache["v"], bt, lengths,
+                              k_scale=cache.get("k_scale"),
+                              v_scale=cache.get("v_scale"))
+    out = out.reshape(b, 1, nh * hd).to(h.dtype)
+    return h + linear(out, p["wo"])
+
+
+# ----------------------------------------------------------------------
+# Dense MLP (swiglu / geglu / gelu)
+# ----------------------------------------------------------------------
+def mlp_init(gen, cfg: ArchConfig, dtype) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    p = {
+        "ln": rmsnorm_init(d, dtype, gen.device),
+        "wi": _dense_init(gen, d, f, dtype),
+        "wo": _dense_init(gen, f, d, dtype,
+                          scale=1.0 / math.sqrt(f * 2 * cfg.num_layers)),
+    }
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        p["wg"] = _dense_init(gen, d, f, dtype)
+    return p
+
+
+def mlp_apply(p, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
+    # glu gates fuse their activation into the projection epilogue (a true
+    # in-kernel epilogue for 2:4-packed weights)
+    if cfg.mlp_kind == "swiglu":
+        act = linear(h_in, p["wg"], activation="silu") * linear(h_in, p["wi"])
+    elif cfg.mlp_kind == "geglu":
+        act = linear(h_in, p["wg"], activation="gelu") * linear(h_in, p["wi"])
+    else:
+        act = linear(h_in, p["wi"], activation="gelu")
+    return h + linear(act, p["wo"])
+
+
+# ----------------------------------------------------------------------
+# Embedding / unembedding
+# ----------------------------------------------------------------------
+def embed_init(gen, cfg: ArchConfig, dtype) -> Params:
+    return {"tok": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype)}
+
+
+def embed_apply(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    h = p["tok"][tokens.long()]
+    if cfg.embed_scale:
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
+                             device=h.device)
+    return h
+
+
+def unembed_init(gen, cfg: ArchConfig, dtype) -> Params:
+    p = {"ln": rmsnorm_init(cfg.d_model, dtype, gen.device)}
+    if not cfg.tie_embeddings:
+        p["head"] = _dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    return p
+
+
+def unembed_apply(p, embed_p, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits in the model dtype (bf16 for a bf16 config, as the
+    reference).  The tied head is a dense product left to torch.matmul,
+    as the reference leaves it to XLA."""
+    h = rmsnorm(p["ln"], h, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return h @ embed_p["tok"].T.to(h.dtype)
+    return h @ p["head"].to(h.dtype)

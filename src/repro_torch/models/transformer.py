@@ -1,0 +1,164 @@
+"""The dense decoder LM: init, full-sequence forward, and the paged serve
+methods (``init_paged_cache`` / ``prefill_chunk`` / ``decode_step``).
+
+Only the dense decoder family (global attention + MLP blocks; no prefix,
+MoE, sliding window, qk-norm, frontend or encoder) is ported; ROADMAP.md
+lists the others.  Where
+the reference stacks the layers (L, ...) under ``layers/s0`` for
+``lax.scan``, the port keeps a per-layer list of param dicts and loops:
+``params["layers"][i] = {"attn": {...}, "mlp": {...}}``.  The paged cache
+is a per-layer list of ``{"k", "v"[, "k_scale", "v_scale"]}`` page
+tensors, updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.base import ArchConfig
+from repro_torch.models.layers import (Params, attn_apply, attn_init,
+                                       attn_paged_cache_init, embed_apply,
+                                       embed_init, mlp_apply, mlp_init,
+                                       unembed_apply, unembed_init)
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class LM:
+    """A dense decoder from one ArchConfig, on one device."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        if (cfg.prefix or cfg.moe is not None or cfg.encdec
+                or cfg.frontend is not None or cfg.qk_norm
+                or any(k != "attn" for k in cfg.period)):
+            raise ValueError(
+                f"{cfg.name}: only the dense decoder family is ported "
+                "(ROADMAP.md, slice 1 left out: the other families)")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dtype = DTYPES[cfg.dtype]
+
+    # ------------------------------------------------------------- init
+    def init(self, generator: torch.Generator) -> Params:
+        """Random params at the reference's scales (``_dense_init`` and
+        ``embed_init``), drawn from ``generator`` on its device."""
+        cfg, dt = self.cfg, self.dtype
+        params: Params = {"embed": embed_init(generator, cfg, dt),
+                          "unembed": unembed_init(generator, cfg, dt)}
+        params["layers"] = [
+            {"attn": attn_init(generator, cfg, dt),
+             **({"mlp": mlp_init(generator, cfg, dt)}
+                if cfg.block_has_mlp("attn") else {})}
+            for _ in range(cfg.num_layers)]
+        return params
+
+    def params_from_jax(self, flat: Dict[str, np.ndarray]) -> Params:
+        """The reference's path-keyed leaves (``ckpt/store.py::_flatten``
+        names: ``layers/s0/attn/wq``, ``embed/tok``, ...) → port params.
+        The stacked layer axis is unstacked; packed ``{"vals","idx"}``
+        leaves stay packed."""
+        period = len(self.cfg.period)
+        params: Params = {"layers": [{} for _ in range(self.cfg.num_layers)]}
+        for path, arr in flat.items():
+            parts = path.split("/")
+            if parts[0] == "layers":
+                j = int(parts[1][1:])                    # "s{j}"
+                for i in range(arr.shape[0]):
+                    _set_path(params["layers"][i * period + j], parts[2:],
+                              _to_torch(arr[i], self.device))
+            elif parts[0] in ("embed", "unembed"):
+                _set_path(params, parts, _to_torch(arr, self.device))
+            else:
+                raise ValueError(f"leaf {path!r}: not a dense-decoder param")
+        return params
+
+    # ---------------------------------------------------------- forward
+    def _block(self, p: Params, h: torch.Tensor, **kw) -> torch.Tensor:
+        h = attn_apply(p["attn"], h, self.cfg, **kw)
+        if "mlp" in p:
+            h = mlp_apply(p["mlp"], h, self.cfg)
+        return h
+
+    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal forward: tokens (B, T) → logits (B, T, V)
+        f32."""
+        h = embed_apply(params["embed"], tokens, self.cfg)
+        for p in params["layers"]:
+            h = self._block(p, h)
+        return unembed_apply(params["unembed"], params["embed"], h,
+                             self.cfg).float()
+
+    # ----------------------------------------------------------- paged
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         dtype: Optional[torch.dtype] = None
+                         ) -> List[Dict[str, torch.Tensor]]:
+        """One (num_pages, page_size, KV, hd) K and V pool per layer
+        (page 0 is the scrap page; serve.kvpool owns the allocator).
+        ``dtype`` int8 adds the per-row f32 scale leaves."""
+        dt = dtype or self.dtype
+        return [attn_paged_cache_init(self.cfg, num_pages, page_size, dt,
+                                      self.device)
+                for _ in range(self.cfg.num_layers)]
+
+    def prefill_chunk(self, params: Params, tokens: torch.Tensor,
+                      cache: List[Dict[str, torch.Tensor]], start: int,
+                      length: int, block_tables: torch.Tensor, *,
+                      page_size: int) -> torch.Tensor:
+        """One fixed-size chunk of ONE request's prompt.
+
+        tokens: (1, C) — prompt tokens ``start .. start+C``, zero-padded
+        past ``length``; block_tables: (1, P_max).  Writes the chunk's
+        K/V into the pages and returns the logits at position
+        ``min(length, start+C) - 1`` (the sampling logits when this is
+        the final chunk), (1, V) f32."""
+        h = embed_apply(params["embed"], tokens, self.cfg)
+        t = h.shape[1]
+        lengths = torch.full((1,), length, dtype=torch.int32,
+                             device=h.device)
+        paged = {"block_tables": block_tables, "lengths": lengths,
+                 "start": start}
+        for i, p in enumerate(params["layers"]):
+            h = self._block(p, h, cache=cache[i], paged=paged,
+                            page_size=page_size)
+        idx = min(max(length - 1 - start, 0), t - 1)
+        logits = unembed_apply(params["unembed"], params["embed"],
+                               h[:, idx:idx + 1], self.cfg)
+        return logits[:, 0, :].float()
+
+    def decode_step(self, params: Params, token: torch.Tensor,
+                    cache: List[Dict[str, torch.Tensor]], pos: torch.Tensor,
+                    block_tables: torch.Tensor, *,
+                    page_size: int) -> torch.Tensor:
+        """One paged decode token per slot: token (B,), pos (B,) write
+        positions with -1 marking idle slots, block_tables (B, P_max).
+        Returns logits (B, V) f32; the cache is updated in place."""
+        h = embed_apply(params["embed"], token[:, None], self.cfg)
+        paged = {"block_tables": block_tables}
+        for i, p in enumerate(params["layers"]):
+            h = self._block(p, h, cache=cache[i], pos=pos, paged=paged,
+                            page_size=page_size)
+        logits = unembed_apply(params["unembed"], params["embed"], h,
+                               self.cfg)
+        return logits[:, 0, :].float()
+
+
+# ----------------------------------------------------------------------
+def _set_path(tree: Dict[str, Any], parts: List[str], value) -> None:
+    for key in parts[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[parts[-1]] = value
+
+
+def _to_torch(arr: np.ndarray, device) -> torch.Tensor:
+    """numpy → torch on ``device`` (a copy).  bf16 — the ml_dtypes
+    bfloat16 that JAX hands out, or the raw 2-byte void that npz stores
+    it as — is carried over bit for bit through a uint16 view."""
+    arr = np.array(arr, order="C")
+    if arr.dtype.name == "bfloat16" or (arr.dtype.kind == "V"
+                                        and arr.dtype.itemsize == 2):
+        return torch.from_numpy(arr.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)

@@ -1,0 +1,123 @@
+"""ServeConfig: every serve-runtime knob, validated in one place.
+
+The reference's fields, with its validation.  Knobs whose feature is not
+ported yet raise a ``ValueError`` that names the ROADMAP.md item, so
+``prefix_cache`` and ``host_swap_pages`` default to OFF here (the
+reference defaults both on): the port serves greedy, continuous mode,
+recompute preemption only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+_MODES = ("continuous", "static")
+
+
+def _unported(knob: str, item: str) -> ValueError:
+    return ValueError(f"{knob} is not ported yet (ROADMAP.md, slice 1 left "
+                      f"out: {item})")
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """Every serve-runtime knob, validated in one place."""
+
+    # engine
+    mode: str = "continuous"
+    max_batch: int = 8
+    max_len: int = 256
+    eos_id: Optional[int] = None
+    # sampling: greedy only in the port
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    # paged runtime
+    page_size: int = 16
+    num_pages: Optional[int] = None     # None → dense-cache equivalent
+    prefill_chunk: int = 32
+    steps_per_sync: int = 8
+    # prefix caching + host swap: not ported, off
+    prefix_cache: bool = False
+    host_swap_pages: Optional[int] = 0
+    # KV page dtype: "fp32" keeps the model dtype, "int8" quantizes pages
+    # with per-row f32 scales (the default pool sizing then doubles the
+    # page count at the same bytes)
+    kv_dtype: str = "fp32"
+    # "auto" packs 2:4 leaves at engine load; "off" serves the tree as is
+    sparse_weights: str = "auto"
+    # front end
+    replicas: int = 1
+    queue_depth: Optional[int] = None   # wait-queue cap (QueueFull past it)
+    # observability: the port keeps plain counters only
+    metrics: bool = True
+    trace: bool = False
+    # fault injection: not ported
+    faults: Optional[Any] = None
+
+    def validate(self) -> "ServeConfig":
+        """The single validation point.  Returns self (chainable)."""
+        if self.mode not in _MODES:
+            raise ValueError(f"unknown serve mode {self.mode!r} "
+                             f"(expected one of {_MODES})")
+        if self.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if self.max_len < 1:
+            raise ValueError("max_len must be >= 1")
+        if self.page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        if self.num_pages is not None and self.num_pages < 2:
+            raise ValueError("num_pages must be >= 2 (page 0 is scrap)")
+        if self.prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        if self.steps_per_sync < 1:
+            raise ValueError("steps_per_sync must be >= 1")
+        if self.temperature < 0.0:
+            raise ValueError("temperature must be >= 0 (0 = greedy)")
+        if self.top_k is not None and self.top_k < 1:
+            raise ValueError("top_k must be >= 1")
+        if self.top_p is not None and not 0.0 < self.top_p <= 1.0:
+            raise ValueError("top_p must be in (0, 1]")
+        if self.host_swap_pages is not None and self.host_swap_pages < 0:
+            raise ValueError("host_swap_pages must be >= 0 (0 = off)")
+        if self.kv_dtype not in ("fp32", "int8"):
+            raise ValueError(f"unknown kv_dtype {self.kv_dtype!r} "
+                             "(expected 'fp32' or 'int8')")
+        if self.sparse_weights not in ("auto", "off"):
+            raise ValueError(f"unknown sparse_weights "
+                             f"{self.sparse_weights!r} "
+                             "(expected 'auto' or 'off')")
+        if self.replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        if self.queue_depth is not None and self.queue_depth < 1:
+            raise ValueError("queue_depth must be >= 1")
+        # the knobs of features that are not ported yet
+        if (self.temperature > 0.0 or self.top_k is not None
+                or self.top_p is not None):
+            raise _unported("sampled decoding (temperature/top_k/top_p)",
+                            "sampled decoding")
+        if self.prefix_cache:
+            raise _unported("prefix_cache", "the prefix cache and host swap")
+        if self.host_swap_pages != 0:
+            raise _unported("host_swap_pages", "the prefix cache and host "
+                            "swap")
+        if self.mode == "static":
+            raise _unported("mode='static'", "static mode")
+        if self.replicas > 1:
+            raise _unported("replicas > 1", "the front end")
+        if self.faults is not None:
+            raise _unported("faults", "faults")
+        if self.trace:
+            raise _unported("trace", "obs")
+        return self
+
+    def resolved_num_pages(self) -> int:
+        """The pool size: explicit, or the dense cache's token capacity +
+        the scrap page (doubled per slot for int8 pages)."""
+        if self.num_pages is not None:
+            return self.num_pages
+        per_slot = -(-self.max_len // self.page_size)
+        if self.kv_dtype == "int8":
+            per_slot *= 2
+        return self.max_batch * per_slot + 1

@@ -1,0 +1,273 @@
+"""Serving engine: continuous batching over a paged serve cache.
+
+A step loop over serve.scheduler: requests join the running batch as
+soon as a slot and prompt pages are free, their prompts stream in as
+fixed-size token chunks interleaved with everyone else's decode, and the
+decode inner loop runs as a burst of ``steps_per_sync`` greedy steps
+with the state on the device (serve.fused) — one host readback per
+burst.  When the pool runs dry the youngest request is preempted and
+recomputed; greedy decoding replays the same tokens.
+
+The port serves greedy, continuous mode only; ServeConfig refuses the
+knobs of what is not ported.  Counters are a plain dict
+(``engine.stats``), re-based at each ``generate()``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.serve import fused
+from repro_torch.serve.config import ServeConfig
+from repro_torch.serve.kvpool import PagedKVPool
+from repro_torch.serve.scheduler import Scheduler, SeqState
+from repro_torch.serve.sparse import compressed_param_tree, count_packed
+
+STAT_KEYS = ("requests", "tokens", "host_syncs", "device_steps",
+             "prefill_chunks", "slot_steps", "preemptions")
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray                   # (L,) int32
+    max_new_tokens: int = 16
+    priority: int = 0                    # wait-queue order: higher first,
+    deadline: Optional[float] = None     # then earlier deadline, arrival
+
+
+@dataclasses.dataclass
+class Result:
+    uid: int
+    tokens: np.ndarray                   # generated tokens (≤ max_new)
+    prompt_len: int
+    decode_steps: int = 0                # steps the slot was live for
+    preemptions: int = 0                 # times recomputed
+
+    @property
+    def utilization(self) -> float:
+        """Emitted tokens / slot-steps occupied."""
+        if self.decode_steps <= 0:
+            return 0.0
+        return len(self.tokens) / self.decode_steps
+
+
+@dataclasses.dataclass
+class StreamEvent:
+    """One request's newly emitted tokens at one host sync (a recompute
+    replays the delivered prefix, which the session suppresses)."""
+
+    uid: int
+    tokens: List[int]
+    finished: bool = False
+    result: Optional[Result] = None
+
+
+class ServeEngine:
+    def __init__(self, model, params, config: Optional[ServeConfig] = None,
+                 **knobs):
+        """``config`` carries every knob; bare keywords build one (or
+        override fields of the given one).  Validation happens once, in
+        ``ServeConfig.validate``."""
+        if config is None:
+            config = ServeConfig(**knobs)
+        elif knobs:
+            config = dataclasses.replace(config, **knobs)
+        config.validate()
+        self.config = config
+        self.model = model
+        self.max_batch, self.max_len = config.max_batch, config.max_len
+        # compressed-weight serving: leaves that verify as 2:4 are packed
+        # ONCE at load, so the device holds only (vals, idx)
+        if config.sparse_weights == "auto":
+            params = compressed_param_tree(params)
+        self.n_sparse_leaves = count_packed(params)
+        self.params = params
+        self.eos = -1 if config.eos_id is None else int(config.eos_id)
+        self.steps_per_sync = config.steps_per_sync
+        self.page_size = config.page_size
+        self.chunk_size = config.prefill_chunk
+        self.pool = PagedKVPool(
+            model, num_pages=config.resolved_num_pages(),
+            page_size=config.page_size, max_slots=config.max_batch,
+            max_len=config.max_len,
+            dtype=torch.int8 if config.kv_dtype == "int8" else None)
+        # output ring: burst length + 1 for a prefill burst's token 0
+        self._ring = self.steps_per_sync + 1
+        self.stats: Dict[str, int] = {k: 0 for k in STAT_KEYS}
+
+    def session(self) -> "ContinuousSession":
+        """An incremental session: ``submit`` at any time, each ``step()``
+        is one host-sync interval returning per-request StreamEvents."""
+        return ContinuousSession(self)
+
+    def generate(self, requests: Sequence[Request], seed: int = 0
+                 ) -> List[Result]:
+        """Serve a set of requests; ``self.stats`` then holds the run's
+        counters.  ``seed`` keys sampled decoding in the reference; the
+        port decodes greedily, so it is unused."""
+        del seed
+        self.stats = {k: 0 for k in STAT_KEYS}
+        session = self.session()
+        for r in requests:
+            session.submit(r)
+        results: List[Result] = []
+        while session.has_work():
+            for ev in session.step():
+                if ev.finished:
+                    results.append(ev.result)
+        return sorted(results, key=lambda r: r.uid)
+
+
+class ContinuousSession:
+    """Step-driven view of the continuous-batching loop: each
+    :meth:`step` admits, maps page capacity (may preempt), then makes ONE
+    device dispatch — the K-step decode burst, or a prompt chunk fused in
+    front of it — and reads the state back once."""
+
+    def __init__(self, engine: ServeEngine):
+        self.engine = engine
+        engine.pool.reset()
+        self.sched = Scheduler(engine.pool, engine.max_batch,
+                               max_waiting=engine.config.queue_depth,
+                               stats=engine.stats)
+        self._emitted: Dict[int, int] = {}    # uid -> tokens delivered
+
+    def submit(self, req: Request):
+        if len(req.prompt) + req.max_new_tokens > self.engine.max_len:
+            raise ValueError(f"request {req.uid} exceeds max_len")
+        self.engine.stats["requests"] += 1
+        return self.sched.submit(req)
+
+    def has_work(self) -> bool:
+        return self.sched.has_work()
+
+    def _event(self, seq) -> Optional[StreamEvent]:
+        sent = self._emitted.get(seq.req.uid, 0)
+        new = [int(t) for t in seq.tokens[sent:]]
+        fin = seq.state is SeqState.FINISHED
+        if not new and not fin:
+            return None
+        self._emitted[seq.req.uid] = sent + len(new)
+        result = None
+        if fin:
+            self._emitted.pop(seq.req.uid, None)
+            result = Result(uid=seq.req.uid,
+                            tokens=np.asarray(seq.tokens, np.int32),
+                            prompt_len=len(seq.req.prompt),
+                            decode_steps=seq.occupied_steps,
+                            preemptions=seq.preemptions)
+        return StreamEvent(uid=seq.req.uid, tokens=new, finished=fin,
+                           result=result)
+
+    # ------------------------------------------------- one sync interval
+    def step(self) -> List[StreamEvent]:
+        eng, sched, pool = self.engine, self.sched, self.engine.pool
+        stats = eng.stats
+        events: List[StreamEvent] = []
+        # 1) join-at-prefill: new requests take free slots/pages now
+        for seq in sched.admit():
+            if seq.req.max_new_tokens <= 0:        # nothing to emit
+                sched.finish(seq)
+                events.append(self._event(seq))
+        if sched.next_prefill() is None and not sched.decoding():
+            return events                          # blocked on slots/pages
+        # 2) page capacity for this interval's first write (may preempt)
+        sched.ensure_decode_capacity()
+        running = sched.decoding()
+        pseq = sched.next_prefill()
+        if pseq is None and not running:
+            return events
+        # 3) burst length: steps_per_sync clamped to the longest possible
+        #    remaining emission and to the pages the pool can map without
+        #    preempting
+        plen = len(pseq.req.prompt) if pseq is not None else 0
+        will_activate = (pseq is not None
+                         and pseq.n_prefilled + eng.chunk_size >= plen)
+        k = 1
+        if running:
+            k = min(eng.steps_per_sync,
+                    max(s.req.max_new_tokens - len(s.tokens)
+                        for s in running))
+        can_decode = True
+        if will_activate:
+            k = max(k, min(eng.steps_per_sync,
+                           max(1, pseq.req.max_new_tokens - 1)))
+        if pseq is not None and k > 1:
+            # ramp-up throttle: while more prompt work is queued and the
+            # batch has room, decode one step per chunk and let the
+            # activations accumulate (the reference's policy)
+            chunks_left = -(-(plen - pseq.n_prefilled) // eng.chunk_size)
+            backlog = (chunks_left > 1
+                       or any(s is not pseq and s.state is SeqState.PREFILL
+                              for s in sched.running)
+                       or len(sched.waiting) > 0)
+            room = (len(running) + (1 if will_activate else 0)
+                    < eng.max_batch)
+            if backlog and room:
+                k = 1
+        if will_activate:
+            pseq.n_written = plen
+            k, can_decode = sched.extend_with_activation(max(1, k), pseq)
+        elif running:
+            k = sched.extend_decode_capacity(max(1, k))
+        k = max(1, k)
+        # 4) ONE device dispatch for the interval
+        state = fused.init_burst_state(eng.max_batch, eng._ring)
+        for s in running:
+            state["tok"][s.slot] = s.tokens[-1]
+            state["pos"][s.slot] = s.n_written
+            state["uid"][s.slot] = s.req.uid
+            state["n_tok"][s.slot] = len(s.tokens)
+            state["max_new"][s.slot] = s.req.max_new_tokens
+        state["steps_left"] = np.asarray(k, np.int32)
+        st = fused.upload(state, eng.model.device)
+        tables = pool.tables_device()
+        if pseq is not None:
+            start = pseq.n_prefilled
+            chunk = np.zeros((1, eng.chunk_size), np.int32)
+            piece = pseq.req.prompt[start:start + eng.chunk_size]
+            chunk[0, :len(piece)] = piece
+            p = {"tokens": torch.from_numpy(chunk).to(eng.model.device),
+                 "start": start, "length": plen, "slot": pseq.slot,
+                 "uid": pseq.req.uid, "max_new": pseq.req.max_new_tokens,
+                 "pos0": plen if can_decode else -1}
+            fused.prefill_burst(eng.model, eng.params, pool.kv, tables, st,
+                                p, steps=k, page_size=eng.page_size,
+                                chunk_size=eng.chunk_size, eos=eng.eos)
+            pseq.n_prefilled = min(start + eng.chunk_size, plen)
+            pseq.occupied_steps += 1
+            stats["prefill_chunks"] += 1
+            stats["slot_steps"] += 1
+        else:
+            fused.decode_loop(eng.model, eng.params, pool.kv, tables, st,
+                              steps=k, page_size=eng.page_size, eos=eng.eos)
+        host = fused.read_back(st)            # the ONE host sync
+        stats["host_syncs"] += 1
+        stats["device_steps"] += k - host["steps_left"]
+        # 5) advance / retire from the state read back
+        live = list(running)
+        if will_activate:
+            pseq.state = SeqState.RUNNING
+            live.append(pseq)
+        for s in live:
+            n = int(host["n_out"][s.slot])
+            if n:
+                s.tokens.extend(int(t) for t in host["out"][s.slot, :n])
+                # the activated request's token 0 rode the chunk: only
+                # its remaining n-1 tokens took decode writes
+                adv = n - 1 if (will_activate and s is pseq) else n
+                s.n_written += adv
+                s.occupied_steps += adv
+                stats["slot_steps"] += adv
+            if bool(host["done"][s.slot]):
+                sched.finish(s)
+            ev = self._event(s)
+            if ev is not None:
+                events.append(ev)
+        stats["tokens"] += sum(len(e.tokens) for e in events)
+        return events

@@ -1,0 +1,234 @@
+"""Step-level request scheduler for continuous batching.
+
+State machine per request:
+
+    WAITING --admit--> PREFILL --last chunk--> RUNNING --finish--> FINISHED
+       ^                  |                       |
+       +--------------- preempt (recompute) -----+
+
+Every engine step the scheduler (1) **admits** waiting requests into
+free slots while the pool can back their prompts (join-at-prefill; the
+engine feeds admitted prompts through in fixed-size chunks, one chunk
+per step, interleaved with everyone else's decode); (2) **ensures decode
+capacity** — each decoding request about to cross a page boundary gets
+one more page, preempting the *youngest* admitted request when the pool
+is exhausted: its pages and slot are released and it re-queues with its
+original arrival, to recompute its prefix on re-admission (greedy
+decoding reproduces the same tokens); (3) **retires** requests at EOS /
+``max_new_tokens``, recycling slot and pages at once.
+
+The wait queue sorts by ``(-priority, deadline, arrival)`` and is exact
+FIFO when neither SLA field is set; the queue head blocks admission when
+the pool cannot back its prompt.  Swap preemption and the prefix index
+are not ported (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import heapq
+import itertools
+from typing import Dict, List, Optional, Tuple
+
+from repro_torch.serve.kvpool import PagedKVPool
+
+
+class SeqState(enum.Enum):
+    WAITING = "waiting"
+    PREFILL = "prefill"
+    RUNNING = "running"
+    FINISHED = "finished"
+
+
+class QueueFull(RuntimeError):
+    """Raised by :meth:`Scheduler.submit` past the ``max_waiting`` cap."""
+
+
+@dataclasses.dataclass
+class Sequence:
+    """Scheduler-side tracking of one request's lifecycle."""
+
+    req: "repro_torch.serve.engine.Request"        # noqa: F821
+    state: SeqState = SeqState.WAITING
+    slot: int = -1
+    n_prefilled: int = 0        # prompt tokens already chunk-prefilled
+    n_written: int = 0          # KV entries written (prompt + decoded)
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    occupied_steps: int = 0     # steps while slotted (chunks + decodes)
+    preemptions: int = 0
+    arrival: int = 0            # submission order, kept across preemption
+
+    def sort_key(self) -> Tuple[float, float, int]:
+        dl = self.req.deadline
+        return (-self.req.priority, dl if dl is not None else float("inf"),
+                self.arrival)
+
+
+class Scheduler:
+    def __init__(self, pool: PagedKVPool, max_slots: int,
+                 max_waiting: Optional[int] = None,
+                 stats: Optional[Dict[str, int]] = None):
+        self.pool = pool
+        self.max_waiting = max_waiting
+        self.stats = stats if stats is not None else {}
+        self.stats.setdefault("preemptions", 0)
+        self._waiting: List[Tuple[Tuple[float, float, int], Sequence]] = []
+        # admission-ordered (PREFILL + RUNNING): running[-1] is always the
+        # youngest — the preemption victim
+        self.running: List[Sequence] = []
+        self._free_slots = list(range(max_slots - 1, -1, -1))
+        self._arrivals = itertools.count()
+
+    @property
+    def waiting(self) -> List[Sequence]:
+        """The wait queue in admission order."""
+        return [s for _, s in sorted(self._waiting, key=lambda e: e[0])]
+
+    # ------------------------------------------------------------ intake
+    def submit(self, req) -> Sequence:
+        if (self.max_waiting is not None
+                and len(self._waiting) >= self.max_waiting):
+            raise QueueFull(f"wait queue at its depth cap "
+                            f"({self.max_waiting}) — retry later")
+        seq = Sequence(req=req, arrival=next(self._arrivals))
+        self._push(seq)
+        return seq
+
+    def _push(self, seq: Sequence) -> None:
+        heapq.heappush(self._waiting, (seq.sort_key(), seq))
+
+    def has_work(self) -> bool:
+        return bool(self._waiting or self.running)
+
+    # --------------------------------------------------------- admission
+    def admit(self) -> List[Sequence]:
+        """Move waiting requests into free slots while the pool can back
+        their prompts, in wait-queue order; the head blocking on pages
+        stalls admission (no bypass, so a large request cannot starve)."""
+        admitted: List[Sequence] = []
+        while self._waiting and self._free_slots:
+            seq = self._waiting[0][1]
+            need = self.pool.pages_for(len(seq.req.prompt))
+            if need > self.pool.capacity:
+                raise RuntimeError(
+                    f"request {seq.req.uid}: prompt needs {need} pages but "
+                    f"the pool only has {self.pool.capacity} — raise "
+                    f"num_pages or max_len")
+            fresh = self.pool.alloc(need)
+            if fresh is None:
+                break
+            heapq.heappop(self._waiting)
+            seq.slot = self._free_slots.pop()
+            if fresh:
+                self.pool.assign(seq.slot, fresh)
+            seq.state = SeqState.PREFILL
+            seq.n_prefilled = 0
+            self.running.append(seq)
+            admitted.append(seq)
+        return admitted
+
+    def next_prefill(self) -> Optional[Sequence]:
+        """The oldest admitted request with prompt chunks left to feed."""
+        for seq in self.running:
+            if seq.state is SeqState.PREFILL:
+                return seq
+        return None
+
+    def decoding(self) -> List[Sequence]:
+        """Admitted requests past prefill."""
+        return [s for s in self.running if s.state is SeqState.RUNNING]
+
+    # -------------------------------------------------- decode capacity
+    def ensure_decode_capacity(self) -> None:
+        """Before a decode step: every decoding request writing position
+        ``n_written`` must have that page mapped and exclusively owned.
+        Pool exhausted → preempt the youngest admitted request, retry."""
+        ps = self.pool.page_size
+        for seq in list(self.running):       # oldest first
+            if seq.state is not SeqState.RUNNING:
+                continue
+            while seq.state is SeqState.RUNNING:
+                if self.pool.slot_page_count(seq.slot) <= seq.n_written // ps:
+                    page = self.pool.alloc(1)
+                    if page is not None:
+                        self.pool.assign(seq.slot, page)
+                        continue
+                elif self.pool.ensure_writable(seq.slot, seq.n_written):
+                    break                    # mapped and exclusive
+                victim = self.running[-1]    # youngest
+                if victim is seq and len(self.running) == 1:
+                    raise RuntimeError(
+                        "kv pool exhausted by a single request — raise "
+                        "num_pages")
+                self.preempt(victim)
+                if victim is seq:
+                    break
+
+    def extend_decode_capacity(self, k: int) -> int:
+        """Burst lookahead: map pages so every decoding request can write
+        up to ``k`` more tokens without a host sync.  Never preempts —
+        the burst shortens instead.  Returns the safe burst length."""
+        k_safe, _ = self._extend(k, self.decoding(), activating=None)
+        return k_safe
+
+    def extend_with_activation(self, k: int, activating: Sequence
+                               ) -> Tuple[int, bool]:
+        """Burst lookahead when this interval's prefill chunk is the
+        request's final one: as :meth:`extend_decode_capacity`, with the
+        activating request in the decoding set (its ``n_written`` already
+        set to the prompt length).  ``can_decode`` is False when not even
+        one decode write of the activating slot can be backed; it then
+        activates frozen and waits for the next capacity pass."""
+        return self._extend(k, self.decoding(), activating)
+
+    def _extend(self, k: int, decoding: List[Sequence],
+                activating: Optional[Sequence]) -> Tuple[int, bool]:
+        ps = self.pool.page_size
+        if activating is not None:
+            decoding = decoding + [activating]
+
+        def extra_pages(seq: Sequence, kk: int) -> int:
+            drawn = len(seq.tokens) + (1 if seq is activating else 0)
+            want = max(0, min(kk, seq.req.max_new_tokens - drawn))
+            need = -(-(seq.n_written + want) // ps)
+            return max(0, need - self.pool.slot_page_count(seq.slot))
+
+        def total(kk: int) -> int:
+            return sum(extra_pages(s, kk) for s in decoding)
+
+        k_safe = k
+        while k_safe > 1 and total(k_safe) > self.pool.free_pages:
+            k_safe -= 1
+        can_decode = True
+        if activating is not None and total(k_safe) > self.pool.free_pages:
+            decoding.remove(activating)
+            can_decode = False
+        for seq in decoding:
+            n = extra_pages(seq, k_safe)
+            if n:
+                self.pool.assign(seq.slot, self.pool.alloc(n))
+        return k_safe, can_decode
+
+    # --------------------------------------------------------- lifecycle
+    def preempt(self, seq: Sequence) -> None:
+        """Recompute preemption: drop slot, pages and generated tokens and
+        re-queue with the original arrival (ahead of later submissions)."""
+        self._release(seq)
+        seq.state = SeqState.WAITING
+        seq.n_prefilled = 0
+        seq.n_written = 0
+        seq.tokens = []
+        seq.preemptions += 1
+        self.stats["preemptions"] += 1
+        self._push(seq)
+
+    def finish(self, seq: Sequence) -> None:
+        self._release(seq)
+        seq.state = SeqState.FINISHED
+
+    def _release(self, seq: Sequence) -> None:
+        self.pool.clear_slot(seq.slot)
+        self._free_slots.append(seq.slot)
+        self.running.remove(seq)
+        seq.slot = -1

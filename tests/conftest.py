@@ -56,3 +56,8 @@ def random_psd_hessian(key, m, scale=1.0):
     """A well-conditioned random PSD 'calibration' Hessian."""
     x = jax.random.normal(key, (m, 4 * m))
     return scale * (2.0 * (x @ x.T) / (4 * m)) + 0.1 * jnp.eye(m)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where CUDA is missing")
