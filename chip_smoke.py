@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: build the CUDA kernels, hold each
-against its plain PyTorch version on the card, then serve a 2:4-pruned
-Qwen1.5-0.5B at full width through ``ServeEngine.generate``.
+against its plain PyTorch version on the card, serve a 2:4-pruned
+Qwen1.5-0.5B at full width through ``ServeEngine.generate``, and run the
+paper's pruning pass (Algorithm 1, MM 2:4) on it at full width.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -12,7 +13,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
      the seven Qwen linears at M = 8 (decode) and M = 32 (prefill chunk)
      through nm_spmm_decode, the same seven at M = 256 through nm_spmm,
      paged_attn at B = 8 with ragged lengths, an idle slot, a window and
-     int8 pages.  Errors are taken on f32 inputs; times are device times
+     int8 pages; hessian_accum at m = 1024 / 2816 and T = 16384 tokens
+     (α = 1, β = 0 and the streaming-mean α, β); nm_select on 128-column
+     blocks and whole matrices of the seven Qwen linears.  Errors are
+     taken on f32 inputs; times are device times
      in the main path's bf16 (CUDA events around back-to-back calls while
      a spin kernel holds the card), weights rotated through more than
      the 50 MB L2 so that every launch streams them from device memory
@@ -27,10 +31,22 @@ Phases (any failure exits non-zero; no exception is swallowed):
      layer, packed by the engine — 8 greedy requests (64-token prompts,
      32 new tokens), one 512-token prompt at prefill_chunk 256 (the
      tiled nm_spmm), and the 8 requests again with int8 KV pages.  Every
-     launch counter is zeroed just before and read just after; each must
-     be > 0;
+     launch counter is zeroed just before and read just after; each
+     serving kernel's must be > 0;
   4. a profiler trace of one main-path run: device busy and idle share,
-     device time by kernel.
+     device time by kernel;
+  5. the prune path: Qwen1.5-0.5B at full width and depth (PRUNE_LAYERS),
+     bf16, random init; the paper's calibration protocol (128 random
+     sequences x 2048 tokens, batches of 8); MM 2:4 at blocksize 128
+     through ``repro_torch.launch.prune`` — both pruning kernels'
+     counters are zeroed just before and read just after, each must be
+     > 0; seconds per layer by stage; every pruned linear must pass
+     validate_nm, and the pruned model, packed, serves 8 greedy requests;
+  6. one f32 layer at Qwen width pruned with the kernels and with the
+     plain override: masks equal except in rows whose first difference
+     is a near tie of the plain run (loss gap below LAYER_TIE_REL), the
+     weights of rows whose masks agree within LAYER_W_TOL, and every
+     linear's reconstruction error within LAYER_ERR_REL.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — and its numbers), the nvidia-smi
@@ -40,6 +56,7 @@ line, and last the ``{"ok": true, "device": {...}}`` line.  Longer tables go to
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -57,6 +74,15 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12,      # f32 outside the tensor cores
               "bfloat16": 989e12}    # dense bf16 tensor cores
 KERNEL_TOL_REL = 2e-5                # |kernel - plain| / max(1, |plain|) in f32
+TIE_REL = 1e-6                       # nm_select: a loss gap below this is a tie
+LAYER_TIE_REL = 1e-4                 # phase 6: kernel and plain Hessians differ
+                                     # by ~1e-6, amplified by Hinv's condition
+LAYER_W_TOL = 1e-3                   # phase 6: |Δw| / max|w0| on agreeing rows
+LAYER_ERR_REL = 1e-3                 # phase 6: reconstruction error, relative
+PRUNE_LAYERS = 24                    # phase 5 depth: the full model (≈ 5 s a layer)
+PRUNE_ROW_CHUNK = 128                # rows per MRP solve: ≤ 1 GB (rows, k, k)
+SERVE_KERNELS = ("nm_spmm", "nm_spmm_decode", "paged_attn")
+PRUNE_KERNELS = ("hessian_accum", "nm_select")
 LOGIT_TOL = 1e-3                     # phase 2, f32 logits (and near-tie gap)
 L2_BYTES = 50 * 2**20
 SPIN_HZ = 2.0e9                      # spin-kernel cycles per second (≥ SM clock)
@@ -148,11 +174,12 @@ def bound(n_bytes: float, flops: float, dtype: str):
 def _sparse_weight(gen, k, n, dtype):
     import torch
 
-    from repro_torch.core.pruner import prune_matrix
+    from repro_torch.core.pruner import prune_linears
     from repro_torch.kernels import ops
 
     w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
-    w = prune_matrix(w.T, "2:4")[0].T.contiguous().to(dtype)
+    w = prune_linears({"layers": [{"mlp": {"wo": w}}]},
+                      "2:4")["layers"][0]["mlp"]["wo"].to(dtype)
     vals, idx = ops.compress_24(w)
     return w, vals, idx
 
@@ -313,6 +340,134 @@ def check_paged(gen, rows):
     return main
 
 
+def check_hessian(gen, rows):
+    """hessian_accum at the prune path's shapes: T = 16384 tokens (one
+    calibration batch, 8 x 2048) of the m = 1024 and m = 2816 captures."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hessian_accum import (hessian_accum,
+                                                   hessian_accum_plain)
+
+    t = 16384
+    per_m = []
+    for m in (1024, 2816):
+        # the streaming mean of the second batch: n_prev = t, n = 2t
+        ab = [("α=1 β=0", 1.0, 0.0), ("α=1/n β=n'/n", 1.0 / (2 * t), 0.5)]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(t, m, generator=gen, device="cuda").to(dtype)
+            h0 = torch.randn(m, m, generator=gen, device="cuda")
+            h0 = h0 + h0.T
+            for label, alpha, beta in ab:
+                got = (h0.clone() if beta else
+                       torch.full_like(h0, float("nan")))
+                hessian_accum(x, got, alpha, beta)
+                want = (ref.hessian_accum_ref(x.T) if beta == 0 else
+                        hessian_accum_plain(x, h0.clone(), alpha, beta))
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                tol = KERNEL_TOL_REL * max(1.0, want.abs().max().item())
+                sym = bool(torch.equal(got, got.T))
+                ok = err <= tol and sym
+                dname = "f32" if dtype == torch.float32 else "bf16"
+                row = dict(kernel="hessian_accum",
+                           shape=f"T={t} m={m} {dname} {label}",
+                           max_abs_err=err, tol=tol, ok=ok)
+                if dtype == torch.bfloat16 and beta:
+                    # speed on the path's call: bf16 captures, streaming α/β
+                    h = h0.clone()
+                    x32 = x.float()
+                    args = [(x, h, alpha, beta)]
+                    row["ms"] = device_ms(hessian_accum, args)
+                    row["plain_ms"] = device_ms(hessian_accum_plain, args)
+                    row["library_ms"] = device_ms(
+                        lambda a, b: torch.addmm(b, a.T, a, beta=beta,
+                                                 alpha=2 * alpha),
+                        [(x32, h)])
+                    n_bytes = t * m * 2 + 2 * m * m * 4
+                    flops = float(m) * (m + 1) * t    # the symmetric half
+                    # a bf16 x bf16 product is exact in f32, so bf16 tensor
+                    # cores with an f32 accumulator could do this work
+                    row["bound_ms"], row["bound_by"] = bound(
+                        n_bytes, flops, "bfloat16")
+                    per_m.append(row)
+                rows.append(row)
+                say(f"  hessian_accum   {row['shape']:34s} err {err:.3e} "
+                    f"tol {tol:.3e} symmetric {sym} "
+                    f"{'ok' if ok else 'FAIL'}"
+                    + (f"  ms {row['ms']:.5f} plain {row['plain_ms']:.5f} "
+                       f"lib {row['library_ms']:.5f} bound "
+                       f"{row['bound_ms']:.5f}" if "ms" in row else ""))
+            del x
+    return per_m
+
+
+def _near_tie_gap(w, hinv):
+    """Relative gap between the two smallest Eq. (12) pair losses of every
+    group, from the plain losses: (R, G)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    two = torch.topk(ref.nm_select_losses(w, hinv), 2, dim=-1,
+                     largest=False).values
+    return (two[..., 1] - two[..., 0]) / two[..., 0].abs().clamp_min(1e-30)
+
+
+def check_nm_select(gen, rows):
+    """nm_select on the seven Qwen linears (R, C): one 128-column block as
+    the MM loop hands it over (strided views of w and Hinv) and the whole
+    matrix.  Masks must be equal except at ties (plain gap < TIE_REL)."""
+    import torch
+
+    from repro_torch.kernels.nm_select import nm_select, nm_select_plain
+
+    hinvs = {}
+    for c in (1024, 2816):
+        a = torch.randn(c, c, generator=gen, device="cuda")
+        hinvs[c] = a @ a.T / c + torch.eye(c, device="cuda")
+    per_block = []
+    for name, k, n, _, _ in QWEN_LINEARS:
+        r, c = n, k                        # paper orientation (out, in)
+        w = torch.randn(r, c, generator=gen, device="cuda")
+        for label, wv, hv in (("block", w[:, 128:256],
+                               hinvs[c][128:256, 128:256]),
+                              ("full", w, hinvs[c])):
+            got = nm_select(wv, hv)
+            want = nm_select_plain(wv, hv)
+            torch.cuda.synchronize()
+            diff = (got != want).reshape(r, -1, 4).any(-1)
+            gap = _near_tie_gap(wv, hv)
+            ties = int((diff & (gap < TIE_REL)).sum())
+            bad = int((diff & (gap >= TIE_REL)).sum())
+            valid = bool((got.reshape(r, -1, 4).sum(-1) == 2).all())
+            ok = bad == 0 and valid
+            row = dict(kernel="nm_select",
+                       shape=f"{name} {label} R={r} C={wv.shape[1]}",
+                       max_abs_err=float(bad), tol=0.0, ok=ok, ties=ties)
+            if label == "block":
+                # speed in the path's dtype: the compensated weights are bf16
+                wb = w.to(torch.bfloat16)
+                args = [(wb[:, 128:256], hv)]
+                row["ms"] = device_ms(nm_select, args)
+                # ~110 small kernels a call: 4 calls stay inside the launch
+                # queue while the spin kernel holds the card
+                row["plain_ms"] = device_ms(nm_select_plain, args, n=4)
+                row["library_ms"] = None
+                g = r * 32
+                row["bound_ms"], row["bound_by"] = bound(
+                    r * 128 * 2 + r * 128 + 32 * 10 * 4, g * 6 * 14.0,
+                    "float32")
+                per_block.append(row)
+            rows.append(row)
+            say(f"  nm_select       {row['shape']:34s} differing groups "
+                f"{bad} ties {ties} exactly-2 {valid} "
+                f"{'ok' if ok else 'FAIL'}"
+                + (f"  ms {row['ms']:.5f} plain {row['plain_ms']:.5f} "
+                   f"bound {row['bound_ms']:.5f}" if "ms" in row else ""))
+    return per_block
+
+
 # ----------------------------------------------------------------------
 # phase 2: end to end, f32, reduced depth
 # ----------------------------------------------------------------------
@@ -468,7 +623,8 @@ def main_path():
     hbm = torch.cuda.max_memory_allocated()
     say(f"  launch counters over the main path: {counts}")
     say(f"  HBM held (max_memory_allocated): {hbm / 2**30:.3f} GiB")
-    for name, c in counts.items():
+    for name in SERVE_KERNELS:
+        c = counts[name]
         if c <= 0:
             fail(f"kernel {name} was not launched on the main path")
     a = outs["8 requests, bf16 KV"][0]
@@ -513,6 +669,191 @@ def profile_main(eng, reqs):
 
 
 # ----------------------------------------------------------------------
+# phase 5: the prune path
+# ----------------------------------------------------------------------
+def _pruned_masks(model, params):
+    """{linear name: bool mask (out, in), True = pruned} of every layer."""
+    from repro_torch.core.pruner import LINEARS
+
+    return {f"period{i}.s0.{sub}.{key}": (lp[sub][key].T == 0)
+            for i, lp in enumerate(params["layers"]) for sub, key in LINEARS}
+
+
+def prune_path():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.clock import StageClock
+    from repro_torch.core.masks import validate_nm
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prune as launch_prune
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              num_layers=PRUNE_LAYERS)
+    model = LM(cfg, device="cuda")
+    params = launch_prune.load_params(model, None, seed=0)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    ev = [{"tokens": t, "labels": t} for t in torch.randint(
+        0, cfg.vocab_size, (2, 4, 512), generator=gen, device="cuda")]
+    dense_ppl = launch_prune.eval_ppl(model, params, ev)
+    clock = StageClock("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                       # the prune path starts
+    t0 = time.monotonic()
+    pruned, reports = launch_prune.prune(
+        model, params, calib, "2:4", "MM", blocksize=128,
+        row_chunk=PRUNE_ROW_CHUNK, clock=clock)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()                    # ... and ends
+    hbm = torch.cuda.max_memory_allocated()
+    say(f"  {PRUNE_LAYERS} layers in {wall:.2f} s "
+        f"({wall / PRUNE_LAYERS:.2f} s a layer; 24 layers ≈ "
+        f"{24 * wall / PRUNE_LAYERS:.0f} s); HBM held {hbm / 2**30:.3f} GiB")
+    stages = {k: v / PRUNE_LAYERS for k, v in clock.seconds.items()}
+    say("  seconds per layer by stage: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(stages.items(),
+                                          key=lambda kv: -kv[1])))
+    for r in reports:
+        LOG.append(f"    {r.name:22s} {str(r.shape):14s} {r.seconds:7.3f} s "
+                   f"recon {r.recon_error:.4e} sparsity {r.sparsity:.4f}")
+    say(f"  launch counters over the prune path: {counts}")
+    for name in PRUNE_KERNELS:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the prune path")
+    masks = _pruned_masks(model, pruned)
+    if len(masks) != 7 * PRUNE_LAYERS or len(reports) != 7 * PRUNE_LAYERS:
+        fail(f"expected {7 * PRUNE_LAYERS} pruned linears")
+    for name, mask in masks.items():
+        if not validate_nm(mask, 2, 4):
+            fail(f"{name}: not 2:4 after MM pruning")
+    say(f"  all {len(masks)} pruned linears pass validate_nm(2, 4); "
+        f"mean sparsity {sum(r.sparsity for r in reports) / len(reports):.4f}")
+    pruned_ppl = launch_prune.eval_ppl(model, pruned, ev)
+    say(f"  perplexity on 2 x 4 x 512 random tokens: dense {dense_ppl:.2f}, "
+        f"MM 2:4 {pruned_ppl:.2f} (random weights: no gate)")
+    if not (math.isfinite(dense_ppl) and math.isfinite(pruned_ppl)):
+        fail("non-finite perplexity")
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=32,
+                                               dtype=np.int32),
+                    max_new_tokens=16) for i in range(8)]
+    eng = ServeEngine(model, pruned, max_batch=8, max_len=64, page_size=16,
+                      prefill_chunk=32)
+    if eng.n_sparse_leaves != 7 * PRUNE_LAYERS:
+        fail(f"packed {eng.n_sparse_leaves} linears, expected "
+             f"{7 * PRUNE_LAYERS}")
+    res = eng.generate(reqs)
+    torch.cuda.synchronize()
+    for r in res:
+        if len(r.tokens) != 16 or r.tokens.min() < 0 or (
+                r.tokens.max() >= cfg.vocab_size):
+            fail(f"pruned model: request {r.uid} emitted a bad stream")
+    say(f"  the pruned model, packed ({eng.n_sparse_leaves} linears), served "
+        f"{len(res)} requests x 16 tokens through ServeEngine")
+    return counts, stages, wall
+
+
+# ----------------------------------------------------------------------
+# phase 6: one f32 layer, kernels against the plain override
+# ----------------------------------------------------------------------
+@contextlib.contextmanager
+def record_plain_gaps(gaps):
+    """Within the scope, every 2:4 mask the plain path selects also
+    records its groups' near-tie gaps (in call order)."""
+    from repro_torch.kernels import ops
+
+    select = ops.nm_select_mask
+
+    def recording(w, hinv):
+        gaps.append(_near_tie_gap(w, hinv))
+        return select(w, hinv)
+
+    ops.nm_select_mask = recording
+    try:
+        yield
+    finally:
+        ops.nm_select_mask = select
+
+
+def prune_layer_f32():
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prune as launch_prune
+    from repro_torch.models.transformer import LM
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), num_layers=1,
+                              dtype="float32")
+    model = LM(cfg, device="cuda")
+    params = launch_prune.load_params(model, None, seed=1)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 16, 2048,
+                                        "cuda", seed=1)
+    runs = {}
+    gaps = []
+    for label in ("kernels", "plain"):
+        if label == "plain":
+            with ops.override_dispatch(plain=True), record_plain_gaps(gaps):
+                runs[label] = launch_prune.prune(
+                    model, params, calib, "2:4", "MM", blocksize=128,
+                    row_chunk=PRUNE_ROW_CHUNK)
+        else:
+            runs[label] = launch_prune.prune(
+                model, params, calib, "2:4", "MM", blocksize=128,
+                row_chunk=PRUNE_ROW_CHUNK)
+    (pk, rk), (pp, rp) = runs["kernels"], runs["plain"]
+    mk, mp = _pruned_masks(model, pk), _pruned_masks(model, pp)
+    dense = _pruned_masks(model, params)            # names, in report order
+    call = 0
+    worst_w = worst_err = worst_gap = 0.0
+    n_rows = n_groups = 0
+    for li, name in enumerate(dense):
+        rows_, cols = mk[name].shape
+        nblk = cols // 128
+        blk_gaps = gaps[call:call + nblk]
+        call += nblk
+        diff = (mk[name] != mp[name]).reshape(rows_, -1, 4).any(-1)
+        bad_rows = torch.nonzero(diff.any(-1)).flatten().tolist()
+        for r in bad_rows:
+            g0 = int(torch.nonzero(diff[r])[0])
+            gap = blk_gaps[g0 // 32][r, g0 % 32].item()
+            worst_gap = max(worst_gap, gap)
+            if gap >= LAYER_TIE_REL:
+                fail(f"phase 6 {name}: row {r} first differs at group {g0} "
+                     f"where the plain loss gap is {gap:.3e} >= "
+                     f"{LAYER_TIE_REL:g}")
+        n_rows += len(bad_rows)
+        n_groups += int(diff.sum())
+        sub, key = name.split(".")[-2:]
+        w0 = params["layers"][0][sub][key]
+        wk, wp = pk["layers"][0][sub][key], pp["layers"][0][sub][key]
+        agree = ~(mk[name] != mp[name]).any(-1)       # paper rows = out cols
+        dw = (wk - wp)[:, agree].abs().max().item() / w0.abs().max().item()
+        worst_w = max(worst_w, dw)
+        ek, ep = rk[li].recon_error, rp[li].recon_error
+        worst_err = max(worst_err, abs(ek - ep) / ep)
+    if call != len(gaps):
+        fail(f"phase 6: {len(gaps)} plain mask selections, expected {call}")
+    say(f"  masks: {n_groups} groups differ in {n_rows} rows, each row's "
+        f"first difference a near tie (largest plain gap there "
+        f"{worst_gap:.3e} < {LAYER_TIE_REL:g})")
+    say(f"  agreeing rows' weights: max |Δw| / max|w0| {worst_w:.3e} "
+        f"(tol {LAYER_W_TOL:g}); reconstruction error: max relative "
+        f"difference {worst_err:.3e} (tol {LAYER_ERR_REL:g})")
+    if worst_w > LAYER_W_TOL:
+        fail(f"phase 6: weights differ by {worst_w:.3e} on agreeing rows")
+    if worst_err > LAYER_ERR_REL:
+        fail(f"phase 6: reconstruction errors differ by {worst_err:.3e}")
+
+
+# ----------------------------------------------------------------------
 def main() -> int:
     import torch
 
@@ -548,6 +889,8 @@ def main() -> int:
     say("phase 1: kernels against their plain versions")
     per_kernel = check_nm_spmm(gen, rows)
     paged_main = check_paged(gen, rows)
+    hess_rows = check_hessian(gen, rows)
+    select_rows = check_nm_select(gen, rows)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -561,13 +904,27 @@ def main() -> int:
 
     say("phase 4: profile of one main-path run (8 requests)")
     prof = profile_main(eng, reqs)
+    del eng
+    torch.cuda.empty_cache()
+
+    say(f"phase 5: the prune path, Qwen1.5-0.5B width, {PRUNE_LAYERS} "
+        "layers, bf16, MM 2:4, 128 x 2048 calibration tokens")
+    prune_counts, stages, prune_wall = prune_path()
+    counts = {**counts, **{k: prune_counts[k] for k in PRUNE_KERNELS}}
+    torch.cuda.empty_cache()
+
+    say("phase 6: one f32 layer at Qwen width, kernels against plain")
+    prune_layer_f32()
 
     sources = {"nm_spmm": ("nm_spmm.cu", "nm_spmm.py:68"),
                "nm_spmm_decode": ("nm_spmm.cu", "nm_spmm.py:130"),
-               "paged_attn": ("paged_attn.cu", "paged_attn.py:97")}
+               "paged_attn": ("paged_attn.cu", "paged_attn.py:97"),
+               "hessian_accum": ("hessian_accum.cu", "hessian_accum.py:36"),
+               "nm_select": ("nm_select.cu", "nm_select.py:65")}
 
     def agg(name, rs, at):
         cu, tpu = sources[name]
+        lib = [r["library_ms"] for r in rs]
         return {"name": name, "route": "cuda", "check": "pass",
                 "source": f"src/repro_torch/kernels/csrc/{cu}",
                 "replaces": f"src/repro/kernels/{tpu}",
@@ -578,7 +935,7 @@ def main() -> int:
                 "plain_ms": sum(r["plain_ms"] for r in rs),
                 "bound_ms": sum(r["bound_ms"] for r in rs),
                 "bound_by": rs[0]["bound_by"],
-                "library_ms": sum(r["library_ms"] for r in rs),
+                "library_ms": None if None in lib else sum(lib),
                 "at": at}
 
     kernels = [
@@ -588,11 +945,17 @@ def main() -> int:
             "sum over the 7 linears of one layer, M=256, bf16"),
         agg("paged_attn", [paged_main],
             "B=8 KV=16 G=1 hd=64 ps=16, bf16 pages"),
+        agg("hessian_accum", hess_rows,
+            "sum of m=1024 and m=2816, T=16384 bf16 tokens, streaming α/β"),
+        agg("nm_select", select_rows,
+            "sum over one 128-column block of each of the 7 linears, bf16 w"),
     ]
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.txt", "w") as f:
         f.write("\n".join(LOG) + "\n")
-        f.write(json.dumps({"rows": rows, "profile": prof}) + "\n")
+        f.write(json.dumps({"rows": rows, "profile": prof,
+                            "prune_stages_s_per_layer": stages,
+                            "prune_wall_s": prune_wall}) + "\n")
     say(f"all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

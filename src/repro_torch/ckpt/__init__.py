@@ -1,5 +1,5 @@
-"""Checkpoint reading (the reference's layout, numpy only)."""
+"""Checkpoints in the reference's layout (numpy only)."""
 
-from repro_torch.ckpt.store import load_pytree
+from repro_torch.ckpt.store import load_pytree, save_pytree
 
-__all__ = ["load_pytree"]
+__all__ = ["load_pytree", "save_pytree"]

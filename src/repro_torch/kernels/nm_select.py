@@ -1,0 +1,70 @@
+"""Solution 𝔐 2:4 mask selection (Eq. 12): the CUDA kernel's wrapper.
+
+Replaces the TPU kernel ``repro/kernels/nm_select.py::nm_select``; the
+kernel itself is ``csrc/nm_select.cu`` (its header says what bounds it on
+the H100 and how the design answers that).
+
+``nm_select(w, hinv)`` takes w (R, C) and the (C, C) inverse Hessian — or
+a square block of a larger one, as a strided view: the kernel reads the
+4×4 diagonal blocks in place (the TPU wrapper gathers them into (G, 16)
+first).  It returns the bool mask (R, C), True = pruned, exactly 2 per
+group of 4, the first minimum in ``ref.NM_COMBOS_24`` order on ties.
+
+Dispatch is by device: a CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.  ``nm_select.launches`` counts
+kernel launches only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import nm_select_ref
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(w: torch.Tensor, hinv: torch.Tensor) -> None:
+    if w.device.type != "cuda":
+        raise RuntimeError(f"nm_select: tensors on {w.device} — the kernel "
+                           "runs on CUDA only (CPU tensors take the plain "
+                           "version)")
+    if w.dim() != 2 or w.shape[1] % 4 or w.dtype not in DTYPES:
+        raise ValueError("nm_select: w must be (R, C) f32 or bf16 with C "
+                         f"divisible by 4, got {tuple(w.shape)} {w.dtype}")
+    c = w.shape[1]
+    if (hinv.shape != (c, c) or hinv.dtype != torch.float32
+            or hinv.device != w.device):
+        raise ValueError(f"nm_select: hinv must be ({c}, {c}) f32 on "
+                         f"{w.device}")
+    for t in (w, hinv):
+        if t.stride(1) != 1 or (t.shape[0] > 1 and t.stride(0) < t.shape[1]):
+            raise ValueError("nm_select: w and hinv need unit column stride "
+                             "and non-overlapping rows")
+
+
+def nm_select_plain(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`nm_select`."""
+    return nm_select_ref(w, hinv)
+
+
+def nm_select(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
+    """Eq. (12) 2:4 mask: w (R, C), hinv (C, C) f32 → bool (R, C)."""
+    if w.device.type == "cpu":
+        return nm_select_plain(w, hinv)
+    _check(w, hinv)
+    r, c = w.shape
+    out = torch.empty((r, c), dtype=torch.bool, device=w.device)
+    if r == 0 or c == 0:
+        return out
+    code = build.library().nm_select_launch(
+        w.data_ptr(), int(w.dtype == torch.bfloat16), w.stride(0),
+        hinv.data_ptr(), hinv.stride(0), out.data_ptr(), r, c,
+        torch.cuda.current_stream(w.device).cuda_stream)
+    build.check(code, "nm_select")
+    nm_select.launches += 1
+    return out
+
+
+nm_select.launches = 0

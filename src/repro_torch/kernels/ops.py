@@ -1,5 +1,6 @@
-"""Public wrappers the model calls: packing, the packed matmul dispatch
-and paged attention.
+"""Public wrappers the model and the pruner call: packing, the packed
+matmul dispatch, paged attention, the calibration Hessian and the 2:4
+Eq. (12) mask.
 
 Dispatch follows the device of the tensors: CPU tensors take the plain
 PyTorch versions, CUDA tensors the hand-written kernels, and no ``try``
@@ -20,13 +21,17 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.hessian_accum import (hessian_accum,
+                                               hessian_accum_plain)
+from repro_torch.kernels.nm_select import nm_select, nm_select_plain
 from repro_torch.kernels.nm_spmm import (DECODE_MAX_M, nm_spmm,
                                          nm_spmm_decode, nm_spmm_decode_plain,
                                          nm_spmm_plain)
 from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
 
 KERNELS = {"nm_spmm": nm_spmm, "nm_spmm_decode": nm_spmm_decode,
-           "paged_attn": paged_attn}
+           "paged_attn": paged_attn, "hessian_accum": hessian_accum,
+           "nm_select": nm_select}
 
 _PLAIN: list = []          # override stack (innermost last)
 
@@ -107,3 +112,27 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if k_scale is not None:
         return out
     return out.to(v_pages.dtype)
+
+
+def hessian_update(x_tokens: torch.Tensor, h: torch.Tensor, alpha: float,
+                   beta: float) -> torch.Tensor:
+    """H ← β·H + α·2·XᵀX in place for token-major X (T, m): the streaming
+    Hessian's one launch (``core.hessian``)."""
+    fn = hessian_accum_plain if _plain() else hessian_accum
+    return fn(x_tokens, h, alpha, beta)
+
+
+def hessian_xxt(x: torch.Tensor) -> torch.Tensor:
+    """H = 2·x·xᵀ for x (m, T), f32 (the reference's signature).  The
+    kernel reads token-major xᵀ: a view when x is the transpose of a
+    contiguous (T, m) tensor, a copy when x is a contiguous (m, T) one."""
+    m = x.shape[0]
+    h = torch.empty((m, m), dtype=torch.float32, device=x.device)
+    return hessian_update(x.T.contiguous(), h, 1.0, 0.0)
+
+
+def nm_select_mask(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
+    """Solution 𝔐 2:4 mask (bool, True = pruned) for paper-orientation w
+    (R, C) and its (C, C) inverse Hessian — a strided block of a larger
+    inverse is read in place."""
+    return (nm_select_plain if _plain() else nm_select)(w, hinv)

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the serve-path kernels (the allclose ground
-truth, and the path every wrapper takes for a CPU tensor).
+"""Plain PyTorch versions of the kernels (the allclose ground truth, and
+the path every wrapper takes for a CPU tensor).
 
 Each function runs the op sequence of its counterpart in the JAX
 package's ``kernels/ref.py``, so on f32 inputs the port's CPU path and
@@ -14,6 +14,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+# the C(4,2) pruning pairs of a 2:4 group, in the reference's order (the
+# argmin over them takes the first minimum)
+NM_COMBOS_24 = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 
 # ----------------------------------------------------------------------
 # 2:4 compressed format
@@ -83,6 +86,54 @@ def nm_spmm_ref(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     if bias is not None:
         y = y + bias.reshape(-1).float()
     return activate(y, activation)
+
+
+# ----------------------------------------------------------------------
+# pruning-pass kernels
+# ----------------------------------------------------------------------
+def hessian_accum_ref(x: torch.Tensor) -> torch.Tensor:
+    """H = 2 · x xᵀ for x (m, T) — f32."""
+    x32 = x.float()
+    return 2.0 * (x32 @ x32.T)
+
+
+def nm_select_losses(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
+    """Eq. (12) loss ½·w·A⁻¹·wᵀ of each of the 6 pruning pairs of every
+    2:4 group, with A the pair's 2×2 block of Hinv inverted in closed
+    form.  w: (R, C); hinv: (C, C) (only its 4×4 diagonal blocks are
+    read) → (R, C/4, 6) f32, in the reference's operation order."""
+    r, c = w.shape
+    g = c // 4
+    w32 = w.float().reshape(r, g, 4)
+    cols = (torch.arange(g, device=w.device) * 4)[:, None] + torch.arange(
+        4, device=w.device)[None, :]
+    hg = hinv[cols[:, :, None], cols[:, None, :]].float()          # (g,4,4)
+    losses = []
+    for p, q in NM_COMBOS_24:
+        app = hg[:, p, p][None]
+        aqq = hg[:, q, q][None]
+        apq = hg[:, p, q][None]
+        wp = w32[:, :, p]
+        wq = w32[:, :, q]
+        det = app * aqq - apq * apq
+        losses.append(
+            0.5 * (wp * wp * aqq - 2 * wp * wq * apq + wq * wq * app) / det)
+    return torch.stack(losses, dim=-1)
+
+
+def nm_select_ref(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
+    """Solution 𝔐 2:4 mask via Eq. (12): w (R, C) paper orientation,
+    hinv (C, C) → bool mask (R, C), True = pruned, exactly 2 per group
+    of 4 (the first minimum in ``NM_COMBOS_24`` order on ties)."""
+    r, c = w.shape
+    best = torch.argmin(nm_select_losses(w, hinv), dim=-1)          # (r,g)
+    # position f is pruned iff the winning pair holds it (no constant
+    # table: nothing crosses from the host)
+    pos = []
+    for f in range(4):
+        hits = [ci for ci, pair in enumerate(NM_COMBOS_24) if f in pair]
+        pos.append((best == hits[0]) | (best == hits[1]) | (best == hits[2]))
+    return torch.stack(pos, dim=-1).reshape(r, c)
 
 
 # ----------------------------------------------------------------------

@@ -5,7 +5,10 @@ gated MLPs, embeddings.
 Conventions follow ``repro.models.layers``: params are plain dicts,
 linear weights are stored (in, out), hidden states are (B, T, D).  A
 linear weight may be a 2:4-packed ``{"vals", "idx"}`` dict, which goes
-through ``kernels.ops.nm_matmul`` with its bias and activation.
+through ``kernels.ops.nm_matmul`` with its bias and activation.  The
+full-sequence applies take ``caps``: ``None``, or a dict that collects
+each linear's INPUT under the linear's name (``attn.wq`` … ``mlp.wo``,
+as the reference names them) — the pruning engine's calibration capture.
 
 The paged KV pool is updated IN PLACE: the paged branches index-write
 the new K/V rows into the page tensors (the JAX code rebuilds the pool
@@ -42,9 +45,13 @@ def _dense_init(gen, d_in, d_out, dtype, scale=None):
 
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
+           caps: Optional[Dict[str, torch.Tensor]] = None, name: str = "",
            activation: Optional[str] = None) -> torch.Tensor:
-    """y = act(x @ w + b); a packed ``{"vals","idx"}`` w takes the 2:4
-    kernels with b / activation fused into their epilogue."""
+    """y = act(x @ w + b), recording x under ``name`` when capturing; a
+    packed ``{"vals","idx"}`` w takes the 2:4 kernels with b / activation
+    fused into their epilogue."""
+    if caps is not None and name:
+        caps[name] = x
     if isinstance(w, dict):
         return ops.nm_matmul(x, w["vals"], w["idx"], b,
                              activation=activation, out_dtype=x.dtype)
@@ -107,12 +114,16 @@ def attn_init(gen, cfg: ArchConfig, dtype) -> Params:
     return p
 
 
-def _qkv(p, h_in: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor):
+def _qkv(p, h_in: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+         caps=None, prefix: str = "attn."):
     b, t, _ = h_in.shape
     hd, nh, kv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
-    q = linear(h_in, p["wq"], p.get("bq")).reshape(b, t, nh, hd)
-    k = linear(h_in, p["wk"], p.get("bk")).reshape(b, t, kv, hd)
-    v = linear(h_in, p["wv"], p.get("bv")).reshape(b, t, kv, hd)
+    q = linear(h_in, p["wq"], p.get("bq"), caps=caps,
+               name=f"{prefix}wq").reshape(b, t, nh, hd)
+    k = linear(h_in, p["wk"], p.get("bk"), caps=caps,
+               name=f"{prefix}wk").reshape(b, t, kv, hd)
+    v = linear(h_in, p["wv"], p.get("bv"), caps=caps,
+               name=f"{prefix}wv").reshape(b, t, kv, hd)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -208,12 +219,15 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
                cache: Optional[Params] = None,
                pos: Optional[torch.Tensor] = None,
                paged: Optional[Params] = None,
-               page_size: Optional[int] = None) -> torch.Tensor:
+               page_size: Optional[int] = None,
+               caps: Optional[Dict[str, torch.Tensor]] = None,
+               prefix: str = "attn.") -> torch.Tensor:
     """Pre-norm attention with residual.  Returns the new hidden state;
     paged modes update ``cache`` in place.
 
     Modes (global causal attention; sliding-window layers are not ported):
-      full-sequence (cache None): causal over T;
+      full-sequence (cache None): causal over T; ``caps`` records the
+          linears' inputs under ``{prefix}wq`` … ``{prefix}wo``;
       chunked paged prefill (``paged["start"]`` given, B = 1): the chunk's
           K/V go into the pages first, then attention runs over the
           gathered slot context — earlier chunks' keys read back from
@@ -233,9 +247,9 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
 
     if cache is None:
         positions = torch.arange(t, device=dev)[None, :]
-        q, k, v = _qkv(p, h_in, cfg, positions)
+        q, k, v = _qkv(p, h_in, cfg, positions, caps, prefix)
         out = _sdpa(q, k, v, causal_mask(t, t, dev), nh, kv)
-        return h + linear(out, p["wo"])
+        return h + linear(out, p["wo"], caps=caps, name=f"{prefix}wo")
 
     bt = paged["block_tables"]                               # (B, P_max)
     p_max = bt.shape[1]
@@ -297,17 +311,21 @@ def mlp_init(gen, cfg: ArchConfig, dtype) -> Params:
     return p
 
 
-def mlp_apply(p, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def mlp_apply(p, h: torch.Tensor, cfg: ArchConfig, *,
+              caps: Optional[Dict[str, torch.Tensor]] = None,
+              prefix: str = "mlp.") -> torch.Tensor:
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
     # glu gates fuse their activation into the projection epilogue (a true
     # in-kernel epilogue for 2:4-packed weights)
-    if cfg.mlp_kind == "swiglu":
-        act = linear(h_in, p["wg"], activation="silu") * linear(h_in, p["wi"])
-    elif cfg.mlp_kind == "geglu":
-        act = linear(h_in, p["wg"], activation="gelu") * linear(h_in, p["wi"])
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        up = linear(h_in, p["wi"], caps=caps, name=f"{prefix}wi")
+        act = linear(h_in, p["wg"], caps=caps, name=f"{prefix}wg",
+                     activation="silu" if cfg.mlp_kind == "swiglu"
+                     else "gelu") * up
     else:
-        act = linear(h_in, p["wi"], activation="gelu")
-    return h + linear(act, p["wo"])
+        act = linear(h_in, p["wi"], caps=caps, name=f"{prefix}wi",
+                     activation="gelu")
+    return h + linear(act, p["wo"], caps=caps, name=f"{prefix}wo")
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""The dense decoder LM: init, full-sequence forward, and the paged serve
-methods (``init_paged_cache`` / ``prefill_chunk`` / ``decode_step``).
+"""The dense decoder LM: init, full-sequence forward and loss, the
+pruning contract (``calib_init`` / ``prunable_segments``), and the paged
+serve methods (``init_paged_cache`` / ``prefill_chunk`` /
+``decode_step``).
 
 Only the dense decoder family (global attention + MLP blocks; no prefix,
 MoE, sliding window, qk-norm, frontend or encoder) is ported; ROADMAP.md
@@ -13,11 +15,13 @@ tensors, updated in place.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.engine import LinearSpec, SegmentSpec
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, attn_apply, attn_init,
                                        attn_paged_cache_init, embed_apply,
@@ -25,6 +29,11 @@ from repro_torch.models.layers import (Params, attn_apply, attn_init,
                                        unembed_apply, unembed_init)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the prunable linears of a block, in the reference's capture-name order
+_ATTN_LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                 ("attn", "wo"))
+_MLP_LINEARS = {"swiglu": ("wi", "wg", "wo"), "geglu": ("wi", "wg", "wo"),
+                "gelu": ("wi", "wo"), "none": ()}
 
 
 class LM:
@@ -75,11 +84,32 @@ class LM:
                 raise ValueError(f"leaf {path!r}: not a dense-decoder param")
         return params
 
+    def params_to_flat(self, params: Params) -> Dict[str, np.ndarray]:
+        """The inverse of :meth:`params_from_jax`: port params → the
+        reference's path-keyed numpy leaves, layers stacked (L, ...) under
+        ``layers/s{j}``.  bf16 leaves come out as the 2-byte void arrays
+        that the reference's checkpoints hold."""
+        period = len(self.cfg.period)
+        flat: Dict[str, np.ndarray] = {}
+        for j in range(period):
+            stack = params["layers"][j::period]
+            for path, _ in _leaves(stack[0]):
+                flat[f"layers/s{j}/{path}"] = np.stack(
+                    [_to_numpy(_get_path(lp, path.split("/")))
+                     for lp in stack])
+        for key in ("embed", "unembed"):
+            for path, t in _leaves(params[key]):
+                flat[f"{key}/{path}"] = _to_numpy(t)
+        return flat
+
     # ---------------------------------------------------------- forward
-    def _block(self, p: Params, h: torch.Tensor, **kw) -> torch.Tensor:
-        h = attn_apply(p["attn"], h, self.cfg, **kw)
+    def _block(self, p: Params, h: torch.Tensor, caps=None,
+               name_prefix: str = "", **kw) -> torch.Tensor:
+        h = attn_apply(p["attn"], h, self.cfg, caps=caps,
+                       prefix=f"{name_prefix}attn.", **kw)
         if "mlp" in p:
-            h = mlp_apply(p["mlp"], h, self.cfg)
+            h = mlp_apply(p["mlp"], h, self.cfg, caps=caps,
+                          prefix=f"{name_prefix}mlp.")
         return h
 
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -90,6 +120,65 @@ class LM:
             h = self._block(p, h)
         return unembed_apply(params["unembed"], params["embed"], h,
                              self.cfg).float()
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token CE + z-loss, returned as the reference returns them:
+        (loss, {"ce", "zloss", "aux", "tokens"}); labels < 0 are ignored."""
+        logits = self.forward(params, batch["tokens"])
+        targets = batch["labels"].long()
+        lg = logits[:, logits.shape[1] - targets.shape[1]:][:, :-1]
+        tg = targets[:, 1:]
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, torch.clamp(tg, min=0)[..., None])[..., 0]
+        nll = lse - gold
+        weights = (tg >= 0).float()
+        denom = torch.clamp(weights.sum(), min=1.0)
+        ce = (nll * weights).sum() / denom
+        zloss = 1e-4 * ((lse ** 2) * weights).sum() / denom
+        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
+        return ce + zloss, {"ce": ce, "zloss": zloss, "aux": aux,
+                            "tokens": denom}
+
+    # ------------------------------------------------- pruning contract
+    def first_hidden(self, params: Params,
+                     batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The embedding output entering block 0."""
+        return embed_apply(params["embed"], batch["tokens"], self.cfg)
+
+    def calib_init(self, params: Params,
+                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The calibration state entering segment 0 (the hidden)."""
+        return self.first_hidden(params, batch)
+
+    def prunable_segments(self) -> List[SegmentSpec]:
+        """One segment per layer, named ``period{i}`` as the reference
+        names them; a segment's params are ``{"s0": layer params}`` and
+        its linears ``s0.attn.wq`` … ``s0.mlp.wo``."""
+        linears = [_linear_spec(("s0", sub, key), f"s0.{sub}.{key}",
+                                self.dtype) for sub, key in _ATTN_LINEARS]
+        if self.cfg.block_has_mlp("attn"):
+            linears += [_linear_spec(("s0", "mlp", key), f"s0.mlp.{key}",
+                                     self.dtype)
+                        for key in _MLP_LINEARS[self.cfg.mlp_kind]]
+
+        def apply(seg_params, h, capture=False):
+            caps = {} if capture else None
+            h = self._block(seg_params["s0"], h, caps=caps, name_prefix="s0.")
+            return h, caps or {}
+
+        def get_params(i, params):
+            return {"s0": params["layers"][i]}
+
+        def set_params(i, params, seg_params):
+            layers = list(params["layers"])
+            layers[i] = seg_params["s0"]
+            return {**params, "layers": layers}
+
+        return [SegmentSpec(name=f"period{i}", apply=apply, linears=linears,
+                            get_params=functools.partial(get_params, i),
+                            set_params=functools.partial(set_params, i))
+                for i in range(self.cfg.num_layers)]
 
     # ----------------------------------------------------------- paged
     def init_paged_cache(self, num_pages: int, page_size: int,
@@ -146,6 +235,50 @@ class LM:
 
 
 # ----------------------------------------------------------------------
+def _linear_spec(path: Tuple[str, ...], name: str, dtype) -> LinearSpec:
+    """Weights are stored (in, out); the paper works in (out, in): get
+    returns the transposed view, set stores the transpose back (a fresh
+    contiguous tensor in the model dtype, along freshly copied dicts)."""
+
+    def get(sp):
+        return _get_path(sp, path).T
+
+    def set_(sp, w):
+        sp = dict(sp)
+        node = sp
+        for key in path[:-1]:
+            node[key] = dict(node[key])
+            node = node[key]
+        node[path[-1]] = w.T.to(dtype).contiguous()
+        return sp
+
+    return LinearSpec(name=name, get=get, set=set_)
+
+
+def _get_path(tree, parts):
+    for key in parts:
+        tree = tree[key]
+    return tree
+
+
+def _leaves(tree, prefix: str = ""):
+    """(path, tensor) for every leaf of a nested dict, keys sorted."""
+    for key in sorted(tree):
+        path = f"{prefix}{key}"
+        if isinstance(tree[key], dict):
+            yield from _leaves(tree[key], path + "/")
+        else:
+            yield path, tree[key]
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch → numpy on the host; bf16 as 2-byte void (its bits)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
 def _set_path(tree: Dict[str, Any], parts: List[str], value) -> None:
     for key in parts[:-1]:
         tree = tree.setdefault(key, {})

@@ -15,8 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.pruner import prune_matrix
+from repro_torch.core.pruner import prune_linears, prune_matrix
 from repro_torch.kernels import ops
+from repro_torch.kernels.hessian_accum import (hessian_accum,
+                                               hessian_accum_plain)
+from repro_torch.kernels.nm_select import nm_select, nm_select_plain
 from repro_torch.kernels.nm_spmm import (nm_spmm, nm_spmm_decode,
                                          nm_spmm_decode_plain, nm_spmm_plain)
 from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
@@ -36,8 +39,9 @@ def gen():
 
 def _packed(gen, k, n, dtype):
     w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
-    w = prune_matrix(w.T, "2:4")[0].T.contiguous().to(dtype)
-    return ops.compress_24(w)
+    layers = [{"mlp": {"wo": w}}]
+    w = prune_linears({"layers": layers}, "2:4")["layers"][0]["mlp"]["wo"]
+    return ops.compress_24(w.to(dtype))
 
 
 def _close(got, want):
@@ -110,4 +114,60 @@ def test_launch_counters_count_kernel_launches_only(gen):
         ops.nm_matmul(x, vals, idx)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"nm_spmm": 1, "nm_spmm_decode": 1,
-                                   "paged_attn": 0}
+                                   "paged_attn": 0, "hessian_accum": 0,
+                                   "nm_select": 0}
+
+
+# ----------------------------------------------------------------------
+# pruning-pass kernels
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("t,m", [(16384, 1024), (200, 70), (1, 64),
+                                 (4097, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("alpha,beta", [(1.0, 0.0), (0.25, 0.75)])
+def test_hessian_accum_matches_plain(gen, t, m, dtype, alpha, beta):
+    x = torch.randn(t, m, generator=gen, device="cuda").to(dtype)
+    h0 = torch.randn(m, m, generator=gen, device="cuda")
+    h0 = h0 + h0.T
+    want = hessian_accum_plain(x, h0.clone(), alpha, beta)
+    got = h0.clone() if beta else torch.full_like(h0, float("nan"))
+    hessian_accum(x, got, alpha, beta)
+    _close(got, want)
+    assert torch.equal(got, got.T)                   # mirrored exactly
+
+
+@pytest.mark.parametrize("r,c", [(1024, 128), (2816, 1024), (33, 20),
+                                 (1, 4), (130, 4100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_select_matches_plain(gen, r, c, dtype):
+    w = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+    a = torch.randn(c, c, generator=gen, device="cuda")
+    hinv = a @ a.T / c + torch.eye(c, device="cuda")
+    got = nm_select(w, hinv)
+    assert torch.equal(got, nm_select_plain(w, hinv))
+    assert (got.reshape(r, c // 4, 4).sum(-1) == 2).all()
+
+
+def test_nm_select_reads_strided_views(gen):
+    """A column block of w and a diagonal block of Hinv, as the MM block
+    loop hands them over, without copies."""
+    w = torch.randn(64, 512, generator=gen, device="cuda")
+    a = torch.randn(512, 512, generator=gen, device="cuda")
+    hinv = a @ a.T / 512 + torch.eye(512, device="cuda")
+    wb, hb = w[:, 128:256], hinv[128:256, 128:256]
+    assert torch.equal(nm_select(wb, hb),
+                       nm_select_plain(wb.contiguous(), hb.contiguous()))
+
+
+def test_prune_matrix_mm_runs_both_kernels_and_matches_plain(gen):
+    x = torch.randn(4096, 256, generator=gen, device="cuda")
+    w = torch.randn(96, 256, generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    h = ops.hessian_xxt(x.T) / 4096
+    res = prune_matrix(w, h, "2:4", method="MM", blocksize=128)
+    counts = ops.launch_counts()
+    assert counts["hessian_accum"] == 1 and counts["nm_select"] == 2
+    with ops.override_dispatch(plain=True):
+        ref = prune_matrix(w, h, "2:4", method="MM", blocksize=128)
+    assert torch.equal(res.mask, ref.mask)
+    _close(res.w, ref.w)

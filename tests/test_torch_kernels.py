@@ -18,6 +18,9 @@ from repro.kernels import ref as jref
 from repro.kernels.nm_spmm import nm_spmm as j_nm_spmm
 from repro.kernels.paged_attn import paged_attn as j_paged_attn
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.hessian_accum import (hessian_accum,
+                                               hessian_accum_plain)
+from repro_torch.kernels.nm_select import nm_select, nm_select_plain
 from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_decode
 from repro_torch.kernels.paged_attn import paged_attn
 
@@ -137,6 +140,82 @@ def test_nm_matmul_dispatch_matches_reference_oracle(m, act):
 
 
 # ----------------------------------------------------------------------
+# pruning-pass kernels: the reference's sweep shapes and tolerances
+# (tests/test_kernels.py), its Pallas kernels in interpret mode
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("m,t", [(32, 128), (96, 320), (128, 128),
+                                 (70, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hessian_accum_plain_matches_pallas(m, t, dtype):
+    rng = np.random.default_rng(m * t)
+    x = rng.standard_normal((m, t)).astype(np.float32)
+    jx, tx = _both(x, dtype)
+    want = np.asarray(jops.hessian_xxt(jx))
+    h = torch.full((m, m), float("nan"))             # β = 0 never reads h
+    got = hessian_accum_plain(tx.T.contiguous(), h)  # token-major (T, m)
+    assert got is h and got.dtype == torch.float32
+    tol = 5e-2 if dtype == "bfloat16" else 1e-3
+    np.testing.assert_allclose(got.numpy(), want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(ops.hessian_xxt(tx).numpy(), want, rtol=tol,
+                               atol=tol)
+
+
+def test_hessian_accum_alpha_beta_is_the_streaming_mean():
+    """H ← β·H + α·2·XᵀX with the streaming-mean α, β equals the
+    reference's ``_accum_update`` (f32, 1e-6 relative)."""
+    from repro.core.hessian import _accum_update
+
+    rng = np.random.default_rng(5)
+    h0 = rng.standard_normal((24, 24)).astype(np.float32)
+    h0 = h0 + h0.T
+    x = rng.standard_normal((40, 24)).astype(np.float32)
+    want, _ = _accum_update(jnp.asarray(h0), jnp.float32(60.0),
+                            jnp.asarray(x.T))
+    got = hessian_accum(torch.from_numpy(x), torch.from_numpy(h0.copy()),
+                        alpha=float(np.float32(1) / np.float32(100)),
+                        beta=float(np.float32(60) / np.float32(100)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("r,c", [(16, 32), (48, 64), (128, 128), (33, 20)])
+def test_nm_select_plain_matches_pallas(r, c):
+    rng = np.random.default_rng(r * c)
+    w = rng.standard_normal((r, c)).astype(np.float32)
+    a = rng.standard_normal((c, c)).astype(np.float32)
+    hinv = (a @ a.T / c + np.eye(c)).astype(np.float32)
+    want = np.asarray(jops.nm_select_mask(jnp.asarray(w), jnp.asarray(hinv)))
+    got = nm_select_plain(torch.from_numpy(w), torch.from_numpy(hinv))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.nm_select_ref(jnp.asarray(w),
+                                                   jnp.asarray(hinv))))
+    assert (got.numpy().reshape(r, c // 4, 4).sum(-1) == 2).all()
+
+
+def test_nm_select_reads_a_block_of_hinv_in_place_and_keeps_tie_order():
+    """A strided diagonal block of a larger inverse gives the mask of its
+    contiguous copy; exact ties take the first pair in NM_COMBOS_24
+    order, as jnp.argmin does."""
+    rng = np.random.default_rng(9)
+    big = rng.standard_normal((48, 48)).astype(np.float32)
+    big = big @ big.T / 48 + np.eye(48, dtype=np.float32)
+    w = rng.standard_normal((8, 16)).astype(np.float32)
+    w[0, :4] = 1.0                                   # all six pairs tie
+    tb = torch.from_numpy(big)[16:32, 16:32]
+    got = ops.nm_select_mask(torch.from_numpy(w), tb)
+    np.testing.assert_array_equal(
+        got.numpy(), nm_select_plain(torch.from_numpy(w),
+                                     tb.contiguous()).numpy())
+    eye_mask = ops.nm_select_mask(torch.from_numpy(w), torch.eye(16))
+    np.testing.assert_array_equal(
+        eye_mask.numpy(), np.asarray(jref.nm_select_ref(
+            jnp.asarray(w), jnp.eye(16))))
+    assert eye_mask[0, :4].tolist() == [True, True, False, False]
+
+
+# ----------------------------------------------------------------------
 def _paged_setup(rng, b, kv, g, hd, ps, pmax, int8=False):
     n_pages = b * pmax + 1
     q = rng.standard_normal((b, kv, g, hd)).astype(np.float32)
@@ -211,8 +290,12 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
                                    rtol=1e-5, atol=1e-5)
     q, kp, vp, bt, lengths, _, _ = _paged_setup(rng, 2, 1, 1, 8, 4, 2)
     ops.paged_attention(*_to_torch(q, kp, vp, bt, lengths))
+    x = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+    ops.hessian_xxt(x)
+    ops.nm_select_mask(x, torch.eye(8))
     assert ops.launch_counts() == {"nm_spmm": 0, "nm_spmm_decode": 0,
-                                   "paged_attn": 0}
+                                   "paged_attn": 0, "hessian_accum": 0,
+                                   "nm_select": 0}
 
 
 def test_non_cpu_tensors_never_fall_back():
@@ -231,6 +314,10 @@ def test_non_cpu_tensors_never_fall_back():
     bt = torch.empty((1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="CUDA"):
         paged_attn(q, pages, pages, bt, torch.empty((1,), device="meta"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hessian_accum(x, torch.empty((32, 32), device="meta"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nm_select(x, torch.empty((32, 32), device="meta"))
 
 
 def test_override_dispatch_nests():

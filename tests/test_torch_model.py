@@ -177,12 +177,15 @@ def test_magnitude_24_masks_match_reference():
     w = rng.standard_normal((24, 32)).astype(np.float32)
     w[0, :4] = [0.5, -0.5, 0.5, 2.0]                # ties in |w|
     w[1, :4] = 0.0
-    jr = j_prune_matrix(jnp.asarray(w), jnp.eye(32), "2:4", method="magnitude")
-    tw, tmask = prune_matrix(torch.from_numpy(w), "2:4")
-    np.testing.assert_array_equal(tmask.numpy(), np.asarray(jr.mask))
-    np.testing.assert_array_equal(tw.numpy(), np.asarray(jr.w))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        prune_matrix(torch.from_numpy(w), "0.5")
+    for spec in ("2:4", "0.5"):
+        jr = j_prune_matrix(jnp.asarray(w), jnp.eye(32), spec,
+                            method="magnitude")
+        tr = prune_matrix(torch.from_numpy(w), torch.eye(32), spec,
+                          method="magnitude")
+        np.testing.assert_array_equal(tr.mask.numpy(), np.asarray(jr.mask))
+        np.testing.assert_array_equal(tr.w.numpy(), np.asarray(jr.w))
+    with pytest.raises(ValueError, match="N:M"):
+        prune_linears({"layers": []}, "0.5")
 
 
 def test_prune_linears_packs_every_linear():
