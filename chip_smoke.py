@@ -2,51 +2,71 @@
 """Chip smoke for the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, serve a 2:4-pruned
 Qwen1.5-0.5B at full width through ``ServeEngine.generate``, and run the
-paper's pruning pass (Algorithm 1, MM 2:4) on it at full width.
+pruning launcher's default path — the pipelined engine, Algorithm 1 with
+MM 2:4 — on it at full width and depth.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
   0. the card's name and power limit, and the kernels' build time;
-  1. every kernel against its plain version at the main path's shapes —
+  1. every kernel against its plain version at the main paths' shapes —
      the seven Qwen linears at M = 8 (decode) and M = 32 (prefill chunk)
      through nm_spmm_decode, the same seven at M = 256 through nm_spmm,
      paged_attn at B = 8 with ragged lengths, an idle slot, a window and
-     int8 pages; hessian_accum at m = 1024 / 2816 and T = 16384 tokens
-     (α = 1, β = 0 and the streaming-mean α, β); nm_select on 128-column
-     blocks and whole matrices of the seven Qwen linears.  Errors are
-     taken on f32 inputs; times are device times
-     in the main path's bf16 (CUDA events around back-to-back calls while
-     a spin kernel holds the card), weights rotated through more than
-     the 50 MB L2 so that every launch streams them from device memory
-     as a decode step does;
+     int8 pages; hessian_accum at m = 1024 / 2816 on T = 16384 tokens
+     (one serial batch; α = 1, β = 0 and the streaming-mean α, β) and on
+     T = 262144 (the pipelined engine's stacked capture); nm_select on
+     128-column blocks and whole matrices of the seven Qwen linears;
+     flash_attn in f32 and bf16, causal and not, T in {128, 200, 2048},
+     G in {1, 2}, then at (8, 2048, 16, 64) and (128, 2048, 16, 64)
+     bf16.  Errors are taken on f32 inputs (and bf16 for flash_attn);
+     times are device times in the main path's bf16 (CUDA events around
+     back-to-back calls while a spin kernel holds the card), weights
+     rotated through more than the 50 MB L2 so that every launch streams
+     them from device memory as a decode step does;
   2. end to end in f32 at reduced depth (Qwen width, 2 layers): the same
      requests served with the kernels and with the plain override; the
      per-step logits must agree within LOGIT_TOL and the greedy streams
      must be equal, except at a step whose plain top-two logit gap is
      below LOGIT_TOL (a near tie, printed);
-  3. the main path: Qwen1.5-0.5B, 24 layers, bf16, random init from a
-     seeded torch.Generator, magnitude 2:4 on the seven linears of every
-     layer, packed by the engine — 8 greedy requests (64-token prompts,
-     32 new tokens), one 512-token prompt at prefill_chunk 256 (the
-     tiled nm_spmm), and the 8 requests again with int8 KV pages.  Every
-     launch counter is zeroed just before and read just after; each
-     serving kernel's must be > 0;
-  4. a profiler trace of one main-path run: device busy and idle share,
+  3. the serving main path: Qwen1.5-0.5B, 24 layers, bf16, random init
+     from a seeded torch.Generator, magnitude 2:4 on the seven linears of
+     every layer, packed by the engine — 8 greedy requests (64-token
+     prompts, 32 new tokens), one 512-token prompt at prefill_chunk 256
+     (the tiled nm_spmm), and the 8 requests again with int8 KV pages.
+     Every launch counter is zeroed just before and read just after;
+     each serving kernel's must be > 0;
+  4. a profiler trace of one serving run: device busy and idle share,
      device time by kernel;
-  5. the prune path: Qwen1.5-0.5B at full width and depth (PRUNE_LAYERS),
+  5. the prune main path: the launcher's default engine (pipelined:
+     the 16 calibration batches stacked, one capture and one propagate
+     per layer) on Qwen1.5-0.5B at full width and depth (PRUNE_LAYERS),
      bf16, random init; the paper's calibration protocol (128 random
-     sequences x 2048 tokens, batches of 8); MM 2:4 at blocksize 128
-     through ``repro_torch.launch.prune`` — both pruning kernels'
-     counters are zeroed just before and read just after, each must be
-     > 0; seconds per layer by stage; every pruned linear must pass
+     sequences x 2048 tokens); MM 2:4 at blocksize 128 — the counters
+     are zeroed just before and read just after, and flash_attn,
+     hessian_accum and nm_select must each be > 0; wall, seconds per
+     layer, HBM held and the host syncs PyTorch reports
+     (``torch.cuda.set_sync_debug_mode``); every pruned linear must pass
      validate_nm, and the pruned model, packed, serves 8 greedy requests;
-  6. one f32 layer at Qwen width pruned with the kernels and with the
-     plain override: masks equal except in rows whose first difference
-     is a near tie of the plain run (loss gap below LAYER_TIE_REL), the
-     weights of rows whose masks agree within LAYER_W_TOL, and every
-     linear's reconstruction error within LAYER_ERR_REL.
+  5b. the serial and the pipelined engine on the same calibration, held
+     against each other in f32 at 2 layers — layer 0 (identical inputs):
+     masks equal except in rows whose first difference is a near tie of
+     the serial run (loss gap below LAYER_TIE_REL), every linear's
+     reconstruction error within LAYER_ERR_REL; layer 1: MASK_AGREE_MIN
+     of mask entries equal, errors within LAYER_ERR_REL — and in bf16 on
+     PRUNE_CMP_LAYERS layers, the serial one with its StageClock
+     breakdown and the pipelined one instrumented (each stage
+     synchronised): layer 0 MASK_AGREE_MIN equal and within
+     LAYER_ERR_REL, all layers' total reconstruction error within
+     PIPE_TOTAL_ERR_REL and equal sparsity (layer 0's captures and
+     Hessians compared first: where the engines part); then a bf16
+     pipelined run whose progress store raises after segment 2, rerun
+     from the store, must end bit-identical to the uninterrupted run;
+  6. one f32 layer at Qwen width pruned by the launcher's default engine
+     with the kernels and with the plain override (which must launch no
+     kernel): the tie rule and error bound of 5b, and the weights of
+     rows whose masks agree within LAYER_W_TOL.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — and its numbers), the nvidia-smi
@@ -74,15 +94,23 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12,      # f32 outside the tensor cores
               "bfloat16": 989e12}    # dense bf16 tensor cores
 KERNEL_TOL_REL = 2e-5                # |kernel - plain| / max(1, |plain|) in f32
+BF16_KERNEL_TOL_REL = 1e-4           # flash_attn on bf16 inputs, relative as above:
+                                     # both sides compute in f32 and the kernel
+                                     # keeps ~16 bits of P (8e-6 on an H100); P
+                                     # rounded once to bf16 is ~1e-3 off
+MASK_AGREE_MIN = 0.999               # phase 5b: mask entries that agree, and the
+PIPE_TOTAL_ERR_REL = 0.05            # total reconstruction error: the reference's
+                                     # pipelined-vs-serial contract
 TIE_REL = 1e-6                       # nm_select: a loss gap below this is a tie
-LAYER_TIE_REL = 1e-4                 # phase 6: kernel and plain Hessians differ
+LAYER_TIE_REL = 1e-4                 # phases 5b, 6: the two runs' Hessians differ
                                      # by ~1e-6, amplified by Hinv's condition
 LAYER_W_TOL = 1e-3                   # phase 6: |Δw| / max|w0| on agreeing rows
-LAYER_ERR_REL = 1e-3                 # phase 6: reconstruction error, relative
-PRUNE_LAYERS = 24                    # phase 5 depth: the full model (≈ 5 s a layer)
+LAYER_ERR_REL = 1e-3                 # phases 5b, 6: reconstruction error, relative
+PRUNE_LAYERS = 24                    # phase 5 depth: the full model (≈ 4 s a layer)
+PRUNE_CMP_LAYERS = 4                 # serial vs pipelined, and resume
 PRUNE_ROW_CHUNK = 128                # rows per MRP solve: ≤ 1 GB (rows, k, k)
 SERVE_KERNELS = ("nm_spmm", "nm_spmm_decode", "paged_attn")
-PRUNE_KERNELS = ("hessian_accum", "nm_select")
+PRUNE_KERNELS = ("hessian_accum", "nm_select", "flash_attn")
 LOGIT_TOL = 1e-3                     # phase 2, f32 logits (and near-tie gap)
 L2_BYTES = 50 * 2**20
 SPIN_HZ = 2.0e9                      # spin-kernel cycles per second (≥ SM clock)
@@ -402,6 +430,162 @@ def check_hessian(gen, rows):
     return per_m
 
 
+def check_hessian_stacked(gen, rows):
+    """hessian_accum on the pipelined engine's call: every calibration
+    token of a segment in one launch, T = 128 x 2048 = 262144 bf16 tokens,
+    α = 1/T, β = 0.  Both the kernel and the plain version sum T terms
+    in f32, whose rounding drifts as sqrt(T)·eps, so the tolerance is
+    KERNEL_TOL_REL (set at T = 16384) times sqrt(T / 16384); each side's
+    distance from an f64 product is printed beside it."""
+    import torch
+
+    from repro_torch.kernels.hessian_accum import (hessian_accum,
+                                                   hessian_accum_plain)
+
+    t = 128 * 2048
+    alpha = 1.0 / t
+    per_m = []
+    for m in (1024, 2816):
+        x = torch.randn(t, m, generator=gen, device="cuda").to(torch.bfloat16)
+        h = torch.empty(m, m, device="cuda")
+        got = hessian_accum(x, h.clone(), alpha, 0.0)
+        want = hessian_accum_plain(x, h.clone(), alpha, 0.0)
+        x64 = x.double()
+        exact = (2.0 * alpha) * (x64.T @ x64)
+        del x64
+        torch.cuda.synchronize()
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        err_k = (got.double() - exact).abs().max().item() / scale
+        err_p = (want.double() - exact).abs().max().item() / scale
+        tol = KERNEL_TOL_REL * math.sqrt(t / 16384) * scale
+        sym = bool(torch.equal(got, got.T))
+        del got, want, exact
+        x32 = x.float()
+        args = [(x, h, alpha, 0.0)]
+        ms = device_ms(hessian_accum, args, n=3, reps=3)
+        plain_ms = device_ms(hessian_accum_plain, args, n=3, reps=3)
+        lib_ms = device_ms(lambda a: torch.addmm(h, a.T, a, beta=0.0,
+                                                 alpha=2 * alpha),
+                           [(x32,)], n=3, reps=3)
+        b_ms, b_by = bound(t * m * 2 + m * m * 4, float(m) * (m + 1) * t,
+                           "bfloat16")
+        row = dict(kernel="hessian_accum",
+                   shape=f"T={t} m={m} bf16 α=1/T β=0 (stacked)",
+                   max_abs_err=err, tol=tol, ok=err <= tol and sym, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, rel_err_vs_f64=(err_k, err_p))
+        rows.append(row)
+        per_m.append(row)
+        say(f"  hessian_accum   {row['shape']:34s} err {err:.3e} tol "
+            f"{tol:.3e} symmetric {sym} {'ok' if row['ok'] else 'FAIL'}; "
+            f"vs f64: kernel {err_k:.2e} plain {err_p:.2e}  ms {ms:.5f} "
+            f"plain {plain_ms:.5f} lib {lib_ms:.5f} bound {b_ms:.5f}")
+        del x, x32, h, args
+    return per_m
+
+
+def _flash_inputs(gen, b, t, h, kv, hd, dtype):
+    import torch
+
+    q = torch.randn(b, t, h, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, t, kv, hd, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def _flash_bound(b, t, h, kv, hd, causal):
+    """Each input element read once (bf16), the f32 output written once;
+    2·B·H·T²·hd flops causal (QKᵀ and PV over the lower triangle), twice
+    that otherwise, on the bf16 tensor cores."""
+    n_bytes = (b * t * h * hd + 2 * b * t * kv * hd) * 2 + b * t * h * hd * 4
+    flops = (2.0 if causal else 4.0) * b * h * t * t * hd
+    return bound(n_bytes, flops, "bfloat16")
+
+
+def check_flash(gen, rows):
+    """flash_attn against flash_attn_plain: f32 and bf16, causal and not,
+    T in {128, 200, 2048}, G in {1, 2}; then the path's shapes in bf16 —
+    one serial calibration batch (8, 2048, 16, 64) and the pipelined
+    engine's stacked capture (128, 2048, 16, 64) — with device times,
+    the bound and scaled_dot_product_attention as a yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
+
+    def err_of(got, want, dtype):
+        err = (got - want).abs().max().item()
+        tol = ((KERNEL_TOL_REL if dtype == torch.float32
+                else BF16_KERNEL_TOL_REL) * max(1.0, want.abs().max().item()))
+        return err, tol
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for t in (128, 200, 2048):
+                for g in (1, 2):
+                    q, k, v = _flash_inputs(gen, 2, t, 4, 4 // g, 64, dtype)
+                    got = flash_attn(q, k, v, causal)
+                    route = flash_attn.last_kernel
+                    want = flash_attn_plain(q, k, v, causal)
+                    torch.cuda.synchronize()
+                    err, tol = err_of(got, want, dtype)
+                    dname = "f32" if dtype == torch.float32 else "bf16"
+                    row = dict(kernel="flash_attn",
+                               shape=f"B=2 T={t} H=4 G={g} hd=64 {dname} "
+                                     f"{'causal' if causal else 'full'}",
+                               max_abs_err=err, tol=tol, ok=err <= tol,
+                               route=route)
+                    rows.append(row)
+                    LOG.append(f"  flash_attn      {row['shape']:34s} err "
+                               f"{err:.3e} tol {tol:.3e} ({route}) "
+                               f"{'ok' if row['ok'] else 'FAIL'}")
+    say(f"  flash_attn      24 cases (f32/bf16, causal/full, T 128/200/2048,"
+        f" G 1/2): worst err/tol "
+        f"{max(r['max_abs_err'] / r['tol'] for r in rows if r['kernel'] == 'flash_attn'):.3e}")
+
+    timed = []
+    for b, label in ((8, "serial batch"), (128, "stacked capture")):
+        q, k, v = _flash_inputs(gen, b, 2048, 16, 16, 64, torch.bfloat16)
+        got = flash_attn(q, k, v, True)
+        route = flash_attn.last_kernel
+        chunk = 8                     # the plain version's (8·16, T, T) scores
+        want = torch.cat([flash_attn_plain(q[i:i + chunk], k[i:i + chunk],
+                                           v[i:i + chunk], True)
+                          for i in range(0, b, chunk)])
+        torch.cuda.synchronize()
+        err, tol = err_of(got, want, torch.bfloat16)
+        del got, want
+        n, reps = (30, 5) if b == 8 else (5, 3)
+
+        def plain_chunked(q, k, v, causal):
+            for i in range(0, q.shape[0], chunk):
+                flash_attn_plain(q[i:i + chunk], k[i:i + chunk],
+                                 v[i:i + chunk], causal)
+
+        args = [(q, k, v, True)]
+        ms = device_ms(flash_attn, args, n=n, reps=reps)
+        plain_ms = device_ms(plain_chunked, args, n=max(1, 32 // b), reps=3)
+        sdpa = [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))]
+        lib_ms = device_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, is_causal=True), sdpa, n=n, reps=reps)
+        b_ms, b_by = _flash_bound(b, 2048, 16, 16, 64, True)
+        row = dict(kernel="flash_attn",
+                   shape=f"B={b} T=2048 H=16 KV=16 hd=64 bf16 causal "
+                         f"({label})",
+                   max_abs_err=err, tol=tol, ok=err <= tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, route=route)
+        rows.append(row)
+        timed.append(row)
+        say(f"  flash_attn      {row['shape']:52s} ({route}) err {err:.3e} "
+            f"tol {tol:.3e} {'ok' if row['ok'] else 'FAIL'}  ms {ms:.5f} "
+            f"plain {plain_ms:.5f} lib {lib_ms:.5f} bound {b_ms:.5f} "
+            f"({b_by})")
+        del q, k, v, sdpa, args
+    return timed
+
+
 def _near_tie_gap(w, hinv):
     """Relative gap between the two smallest Eq. (12) pair losses of every
     group, from the plain losses: (R, G)."""
@@ -679,21 +863,53 @@ def _pruned_masks(model, params):
             for i, lp in enumerate(params["layers"]) for sub, key in LINEARS}
 
 
-def prune_path():
+@contextlib.contextmanager
+def count_syncs(box):
+    """Counts the host syncs PyTorch reports inside the scope
+    (``torch.cuda.set_sync_debug_mode``): ``box["n"]``, and
+    ``box["where"]`` the Python lines they came from, most first."""
+    import collections
+    import warnings
+
     import torch
 
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield box
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    box["n"] = len(syncs)
+    box["where"] = collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+        for w in syncs).most_common(6)
+
+
+def _qwen(layers, dtype="bfloat16", seed=0):
     from repro_torch.configs import get_config
-    from repro_torch.core.clock import StageClock
+    from repro_torch.launch import prune as launch_prune
+    from repro_torch.models.transformer import LM
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), num_layers=layers,
+                              dtype=dtype)
+    model = LM(cfg, device="cuda")
+    return cfg, model, launch_prune.load_params(model, None, seed=seed)
+
+
+def prune_path():
+    """The launcher's default path: the pipelined engine over the whole
+    model, with the host syncs it makes counted."""
+    import torch
+
+    from repro_torch.core.engine import PruningEngine
     from repro_torch.core.masks import validate_nm
     from repro_torch.kernels import ops
     from repro_torch.launch import prune as launch_prune
-    from repro_torch.models.transformer import LM
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
-                              num_layers=PRUNE_LAYERS)
-    model = LM(cfg, device="cuda")
-    params = launch_prune.load_params(model, None, seed=0)
+    cfg, model, params = _qwen(PRUNE_LAYERS)
     calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
                                         "cuda", seed=0)
     gen = torch.Generator(device="cuda")
@@ -701,29 +917,44 @@ def prune_path():
     ev = [{"tokens": t, "labels": t} for t in torch.randint(
         0, cfg.vocab_size, (2, 4, 512), generator=gen, device="cuda")]
     dense_ppl = launch_prune.eval_ppl(model, params, ev)
-    clock = StageClock("cuda")
+    pipeline = launch_prune.build_parser().get_default("pipeline")
+    if pipeline != "auto":
+        fail(f"the launcher defaults to --pipeline {pipeline}")
+    engine = PruningEngine(model, "2:4", method="MM", blocksize=128,
+                           row_chunk=PRUNE_ROW_CHUNK, pipeline=pipeline)
+    syncs = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()                       # the prune path starts
     t0 = time.monotonic()
-    pruned, reports = launch_prune.prune(
-        model, params, calib, "2:4", "MM", blocksize=128,
-        row_chunk=PRUNE_ROW_CHUNK, clock=clock)
+    with count_syncs(syncs), torch.no_grad():
+        pruned, reports = engine.run(params, calib)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = ops.launch_counts()                    # ... and ends
     hbm = torch.cuda.max_memory_allocated()
-    say(f"  {PRUNE_LAYERS} layers in {wall:.2f} s "
-        f"({wall / PRUNE_LAYERS:.2f} s a layer; 24 layers ≈ "
-        f"{24 * wall / PRUNE_LAYERS:.0f} s); HBM held {hbm / 2**30:.3f} GiB")
-    stages = {k: v / PRUNE_LAYERS for k, v in clock.seconds.items()}
-    say("  seconds per layer by stage: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in sorted(stages.items(),
-                                          key=lambda kv: -kv[1])))
+    ps = engine.last_pipeline_stats
+    say(f"  pipelined: {PRUNE_LAYERS} layers in {wall:.2f} s "
+        f"({wall / PRUNE_LAYERS:.3f} s a layer); HBM held "
+        f"{hbm / 2**30:.3f} GiB; {ps.segments} segments, {ps.batches} "
+        f"batches stacked into {ps.calib_shards} shard(s)")
+    say(f"  host time by stage (not synchronised), s a layer: capture "
+        f"{ps.capture_s / PRUNE_LAYERS:.3f}, solve "
+        f"{ps.solve_s / PRUNE_LAYERS:.3f}, propagate "
+        f"{ps.propagate_s / PRUNE_LAYERS:.3f}")
+    say(f"  host syncs in the run: {syncs['n']} "
+        f"({syncs['n'] / PRUNE_LAYERS:.1f} a layer); from {syncs['where']}")
     for r in reports:
         LOG.append(f"    {r.name:22s} {str(r.shape):14s} {r.seconds:7.3f} s "
                    f"recon {r.recon_error:.4e} sparsity {r.sparsity:.4f}")
-    say(f"  launch counters over the prune path: {counts}")
+    from repro_torch.kernels.flash_attn import flash_attn
+
+    say(f"  flash_attn's last launch took the {flash_attn.last_kernel} "
+        "kernel")
+    say(f"  launch counters over the prune path: {counts}; a layer: "
+        f"flash_attn {counts['flash_attn'] / PRUNE_LAYERS:g}, hessian_accum "
+        f"{counts['hessian_accum'] / PRUNE_LAYERS:g}, nm_select "
+        f"{counts['nm_select'] / PRUNE_LAYERS:g}")
     for name in PRUNE_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the prune path")
@@ -757,7 +988,244 @@ def prune_path():
             fail(f"pruned model: request {r.uid} emitted a bad stream")
     say(f"  the pruned model, packed ({eng.n_sparse_leaves} linears), served "
         f"{len(res)} requests x 16 tokens through ServeEngine")
-    return counts, stages, wall
+    return counts, dict(wall_s=wall, s_per_layer=wall / PRUNE_LAYERS,
+                        hbm_gib=hbm / 2**30, syncs=syncs["n"],
+                        host_stage_s=dict(capture=ps.capture_s,
+                                          solve=ps.solve_s,
+                                          propagate=ps.propagate_s))
+
+
+def compare_layer(model, params, run_a, run_b, gaps, layer, tag,
+                  gate=True):
+    """Layer ``layer`` pruned by two runs: masks equal except in rows
+    whose first difference is a near tie of run a (plain loss gap below
+    LAYER_TIE_REL, from ``gaps``: run a's mask selections in call order;
+    ``gaps=None`` counts the differing rows without the tie rule), and
+    every linear's reconstruction error within LAYER_ERR_REL (left to the
+    caller with ``gate=False``).  Returns the largest |Δw| / max|w0| on
+    rows whose masks agree, the largest relative reconstruction-error
+    difference and the share of mask entries that agree."""
+    import torch
+
+    (pa, ra), (pb, rb) = run_a, run_b
+    ma, mb = _pruned_masks(model, pa), _pruned_masks(model, pb)
+    names = [n for n in ma if n.startswith(f"period{layer}.")]
+    call = 0
+    worst_w = worst_err = worst_gap = 0.0
+    n_rows = n_groups = n_same = n_all = 0
+    for li, name in enumerate(names):
+        rows_, cols = ma[name].shape
+        nblk = cols // 128
+        blk_gaps = gaps[call:call + nblk] if gaps is not None else None
+        call += nblk
+        n_same += int((ma[name] == mb[name]).sum())
+        n_all += ma[name].numel()
+        diff = (ma[name] != mb[name]).reshape(rows_, -1, 4).any(-1)
+        bad_rows = torch.nonzero(diff.any(-1)).flatten().tolist()
+        for r in bad_rows if gaps is not None else ():
+            g0 = int(torch.nonzero(diff[r])[0])
+            gap = blk_gaps[g0 // 32][r, g0 % 32].item()
+            worst_gap = max(worst_gap, gap)
+            if gap >= LAYER_TIE_REL:
+                fail(f"{tag} {name}: row {r} first differs at group {g0} "
+                     f"where the loss gap is {gap:.3e} >= {LAYER_TIE_REL:g}")
+        n_rows += len(bad_rows)
+        n_groups += int(diff.sum())
+        sub, key = name.split(".")[-2:]
+        w0 = params["layers"][layer][sub][key]
+        wa, wb = pa["layers"][layer][sub][key], pb["layers"][layer][sub][key]
+        agree = ~(ma[name] != mb[name]).any(-1)       # paper rows = out cols
+        if agree.any():
+            dw = ((wa.float() - wb.float())[:, agree].abs().max().item()
+                  / w0.float().abs().max().item())
+            worst_w = max(worst_w, dw)
+        ea, eb = ra[layer * 7 + li].recon_error, rb[layer * 7 + li].recon_error
+        worst_err = max(worst_err, abs(ea - eb) / ea)
+    if gaps is not None and call > len(gaps):
+        fail(f"{tag}: {len(gaps)} mask selections recorded, expected "
+             f">= {call}")
+    ties = (f", each row's first difference a near tie (largest gap there "
+            f"{worst_gap:.3e} < {LAYER_TIE_REL:g})" if gaps is not None
+            else " (no tie rule)")
+    say(f"  {tag}: masks: {n_groups} groups differ in {n_rows} rows{ties}; "
+        f"{n_same / n_all:.6f} of mask entries agree; "
+        f"reconstruction error: max relative difference {worst_err:.3e} "
+        f"(tol {LAYER_ERR_REL:g}); agreeing rows' weights: max |Δw| / "
+        f"max|w0| {worst_w:.3e}")
+    if gate and worst_err > LAYER_ERR_REL:
+        fail(f"{tag}: reconstruction errors differ by {worst_err:.3e}")
+    return worst_w, worst_err, n_same / n_all
+
+
+def where_engines_part(model, params, calib):
+    """Where the bf16 engines part on layer 0: its captures from one
+    stacked apply (the pipelined engine's M = 128 x 2048 tokens) against
+    per-batch applies (the serial engine's M = 8 x 2048), and the
+    Hessians each engine accumulates from them (one update over every
+    token, or a running mean over the batches).  Printed, not gated."""
+    import torch
+
+    from repro_torch.core.calibration import CalibrationSet
+
+    seg = model.prunable_segments()[0]
+    sp = seg.get_params(params)
+    states = [model.calib_init(params, b) for b in calib]
+    n = states[0].shape[0]
+    _, stacked = seg.apply(sp, torch.cat(states), capture=True)
+    piped = CalibrationSet.from_captures(stacked)
+    serial = CalibrationSet()
+    differ = dict.fromkeys(stacked, 0)
+    for i, st in enumerate(states):
+        _, caps = seg.apply(sp, st, capture=True)
+        for name, x in caps.items():
+            differ[name] += int((x != stacked[name][i * n:(i + 1) * n]).sum())
+        serial.update(caps)
+        del caps
+    say("  layer 0 captures, per-batch vs stacked apply, elements that "
+        "differ: " + ", ".join(f"{k} {d}" for k, d in differ.items()))
+    rel = {k: ((serial.hessian(k) - piped.hessian(k)).abs().max()
+               / piped.hessian(k).abs().max()).item() for k in piped.names()}
+    say("  layer 0 Hessians, serial running mean vs stacked update, max "
+        "|dH| / max|H|: " + ", ".join(f"{k} {r:.3e}" for k, r in rel.items()))
+    del stacked, states, piped, serial
+    torch.cuda.empty_cache()
+
+
+def serial_vs_pipelined():
+    """The serial and the pipelined engine over the same calibration.
+    f32, 2 layers: layer 0 (identical inputs) under the tie rule and
+    LAYER_ERR_REL, as phase 6; layer 1 (inputs an f32 rounding apart)
+    MASK_AGREE_MIN of mask entries equal and within LAYER_ERR_REL.  bf16,
+    PRUNE_CMP_LAYERS layers, the serial engine with its StageClock
+    breakdown: layer 0 MASK_AGREE_MIN equal and within LAYER_ERR_REL; the
+    two engines' Hessians differ by the order of their f32 sums
+    (``where_engines_part`` prints it), the pruned weights then round to
+    different bf16 values, and deeper layers' masks drift apart at near
+    ties, so past layer 0 the quality is held: the total reconstruction error
+    within PIPE_TOTAL_ERR_REL (the reference's pipelined contract) and
+    per-linear sparsity equal.  Then resume — a pipelined run whose
+    store raises after segment 2, rerun, must end bit-identical to the
+    uninterrupted one."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import PruneProgressStore
+    from repro_torch.core.clock import StageClock
+    from repro_torch.core.engine import PruningEngine
+    from repro_torch.core.pipeline import run_pipelined
+    from repro_torch.launch import prune as launch_prune
+
+    kw = dict(blocksize=128, row_chunk=PRUNE_ROW_CHUNK)
+    # f32, layer 0: the tie rule
+    cfg, model, params = _qwen(2, dtype="float32")
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0)
+    gaps = []
+    with record_plain_gaps(gaps):
+        serial = launch_prune.prune(model, params, calib, "2:4", "MM",
+                                    pipeline="off", **kw)
+    piped = launch_prune.prune(model, params, calib, "2:4", "MM", **kw)
+    compare_layer(model, params, serial, piped, gaps, 0,
+                  "serial vs pipelined, f32, layer 0")
+    # layer 1: inputs that differ by f32 roundings, the pipelined contract
+    _, _, agree = compare_layer(model, params, serial, piped, None, 1,
+                                "serial vs pipelined, f32, layer 1")
+    if agree < MASK_AGREE_MIN:
+        fail(f"serial vs pipelined, f32, layer 1: {agree:.6f} of mask "
+             f"entries agree (min {MASK_AGREE_MIN})")
+    del model, params, serial, piped, gaps
+    torch.cuda.empty_cache()
+
+    layers = PRUNE_CMP_LAYERS
+    cfg, model, params = _qwen(layers)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0)
+    with torch.no_grad():
+        where_engines_part(model, params, calib)
+    clock = StageClock("cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    serial = launch_prune.prune(model, params, calib, "2:4", "MM",
+                                clock=clock, pipeline="off", **kw)
+    torch.cuda.synchronize()
+    t_serial = time.monotonic() - t0
+    stages = {k: v / layers for k, v in clock.seconds.items()}
+    say(f"  serial, bf16: {layers} layers in {t_serial:.2f} s "
+        f"({t_serial / layers:.3f} s a layer); seconds per layer by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    sorted(stages.items(), key=lambda kv: -kv[1])))
+    # instrumented: each stage synchronises at its end, so its seconds
+    # are its device cost (the results are the same bits)
+    engine = PruningEngine(model, "2:4", method="MM", **kw)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        piped = run_pipelined(engine, params, calib, instrument=True)
+    torch.cuda.synchronize()
+    t_piped = time.monotonic() - t0
+    ps = engine.last_pipeline_stats
+    piped_stages = {k: getattr(ps, f"{k}_s") / layers
+                    for k in ("capture", "solve", "propagate")}
+    say(f"  pipelined, bf16, instrumented: {layers} layers in {t_piped:.2f} s"
+        f" ({t_piped / layers:.3f} s a layer); seconds per layer by stage: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in piped_stages.items()))
+    # layer 0 (identical inputs): every linear's error within
+    # LAYER_ERR_REL and the masks MASK_AGREE_MIN equal; past it each
+    # layer's inputs differ by the bf16 rounding of the layer before, the
+    # masks drift apart at near ties, and the quality is held: the total
+    # reconstruction error (the reference's pipelined contract) and the
+    # sparsity
+    bf16 = [compare_layer(model, params, serial, piped, None, layer,
+                          f"serial vs pipelined, bf16, layer {layer}",
+                          gate=layer == 0) for layer in range(layers)]
+    tot_s, tot_p = (sum(r.recon_error for r in run[1])
+                    for run in (serial, piped))
+    tot_rel = abs(tot_p - tot_s) / tot_s
+    same_sparsity = all(a.sparsity == b.sparsity
+                        for a, b in zip(serial[1], piped[1]))
+    say(f"  serial vs pipelined, bf16, {layers} layers: total reconstruction "
+        f"error {tot_s:.6e} vs {tot_p:.6e}, relative {tot_rel:.3e} (tol "
+        f"{PIPE_TOTAL_ERR_REL:g}); per-linear sparsity equal: "
+        f"{same_sparsity}")
+    if (bf16[0][2] < MASK_AGREE_MIN or tot_rel > PIPE_TOTAL_ERR_REL
+            or not same_sparsity):
+        fail("serial vs pipelined, bf16: outside the pipelined contract")
+
+    class Bomb(PruneProgressStore):
+        def save(self, next_segment, flat):
+            super().save(next_segment, flat)
+            if next_segment == 2:
+                raise RuntimeError("simulated node failure")
+
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as out:
+        try:
+            launch_prune.prune(model, params, calib, "2:4", "MM",
+                               progress_store=Bomb(out), **kw)
+            fail("resume: the store did not interrupt the run")
+        except RuntimeError as e:
+            if "simulated node failure" not in str(e):
+                raise
+        seg, _ = PruneProgressStore(out).load()
+        t0 = time.monotonic()
+        resumed, reports = launch_prune.prune(
+            model, params, calib, "2:4", "MM",
+            progress_store=PruneProgressStore(out), **kw)
+        torch.cuda.synchronize()
+        t_res = time.monotonic() - t0
+    a, b = model.params_to_flat(piped[0]), model.params_to_flat(resumed)
+    same = all(np.array_equal(a[k].view(np.uint8), b[k].view(np.uint8))
+               for k in a)
+    say(f"  resume: interrupted after segment {seg}, rerun pruned "
+        f"{len(reports) // 7} segments in {t_res:.2f} s; final params "
+        f"bit-identical to the uninterrupted run: {same}")
+    if seg != 2 or len(reports) != 7 * (layers - 2) or not same:
+        fail("resume: the resumed run differs from the uninterrupted one")
+    return dict(serial_s_per_layer=t_serial / layers,
+                pipelined_s_per_layer=t_piped / layers,
+                serial_stages_s_per_layer=stages,
+                pipelined_stages_s_per_layer=piped_stages)
 
 
 # ----------------------------------------------------------------------
@@ -783,74 +1251,42 @@ def record_plain_gaps(gaps):
 
 
 def prune_layer_f32():
+    """One f32 layer pruned by the launcher's default (pipelined) engine
+    with the kernels and under the plain override; the plain run must
+    launch no kernel."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import prune as launch_prune
-    from repro_torch.models.transformer import LM
 
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), num_layers=1,
-                              dtype="float32")
-    model = LM(cfg, device="cuda")
-    params = launch_prune.load_params(model, None, seed=1)
+    cfg, model, params = _qwen(1, dtype="float32", seed=1)
     calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 16, 2048,
                                         "cuda", seed=1)
-    runs = {}
+    kw = dict(blocksize=128, row_chunk=PRUNE_ROW_CHUNK)
+    ops.reset_launch_counts()
+    kernels = launch_prune.prune(model, params, calib, "2:4", "MM", **kw)
+    torch.cuda.synchronize()
+    k_counts = ops.launch_counts()
     gaps = []
-    for label in ("kernels", "plain"):
-        if label == "plain":
-            with ops.override_dispatch(plain=True), record_plain_gaps(gaps):
-                runs[label] = launch_prune.prune(
-                    model, params, calib, "2:4", "MM", blocksize=128,
-                    row_chunk=PRUNE_ROW_CHUNK)
-        else:
-            runs[label] = launch_prune.prune(
-                model, params, calib, "2:4", "MM", blocksize=128,
-                row_chunk=PRUNE_ROW_CHUNK)
-    (pk, rk), (pp, rp) = runs["kernels"], runs["plain"]
-    mk, mp = _pruned_masks(model, pk), _pruned_masks(model, pp)
-    dense = _pruned_masks(model, params)            # names, in report order
-    call = 0
-    worst_w = worst_err = worst_gap = 0.0
-    n_rows = n_groups = 0
-    for li, name in enumerate(dense):
-        rows_, cols = mk[name].shape
-        nblk = cols // 128
-        blk_gaps = gaps[call:call + nblk]
-        call += nblk
-        diff = (mk[name] != mp[name]).reshape(rows_, -1, 4).any(-1)
-        bad_rows = torch.nonzero(diff.any(-1)).flatten().tolist()
-        for r in bad_rows:
-            g0 = int(torch.nonzero(diff[r])[0])
-            gap = blk_gaps[g0 // 32][r, g0 % 32].item()
-            worst_gap = max(worst_gap, gap)
-            if gap >= LAYER_TIE_REL:
-                fail(f"phase 6 {name}: row {r} first differs at group {g0} "
-                     f"where the plain loss gap is {gap:.3e} >= "
-                     f"{LAYER_TIE_REL:g}")
-        n_rows += len(bad_rows)
-        n_groups += int(diff.sum())
-        sub, key = name.split(".")[-2:]
-        w0 = params["layers"][0][sub][key]
-        wk, wp = pk["layers"][0][sub][key], pp["layers"][0][sub][key]
-        agree = ~(mk[name] != mp[name]).any(-1)       # paper rows = out cols
-        dw = (wk - wp)[:, agree].abs().max().item() / w0.abs().max().item()
-        worst_w = max(worst_w, dw)
-        ek, ep = rk[li].recon_error, rp[li].recon_error
-        worst_err = max(worst_err, abs(ek - ep) / ep)
-    if call != len(gaps):
-        fail(f"phase 6: {len(gaps)} plain mask selections, expected {call}")
-    say(f"  masks: {n_groups} groups differ in {n_rows} rows, each row's "
-        f"first difference a near tie (largest plain gap there "
-        f"{worst_gap:.3e} < {LAYER_TIE_REL:g})")
-    say(f"  agreeing rows' weights: max |Δw| / max|w0| {worst_w:.3e} "
-        f"(tol {LAYER_W_TOL:g}); reconstruction error: max relative "
-        f"difference {worst_err:.3e} (tol {LAYER_ERR_REL:g})")
+    ops.reset_launch_counts()
+    with ops.override_dispatch(plain=True), record_plain_gaps(gaps):
+        plain = launch_prune.prune(model, params, calib, "2:4", "MM", **kw)
+    torch.cuda.synchronize()
+    p_counts = ops.launch_counts()
+    say(f"  launches with the kernels: {k_counts}; under the plain "
+        f"override: {p_counts}")
+    if any(p_counts[k] for k in PRUNE_KERNELS) or not all(
+            k_counts[k] for k in PRUNE_KERNELS):
+        fail("phase 6: the plain override launched a kernel, or the "
+             "kernel run missed one")
+    n_sel = (6 * cfg.d_model + cfg.d_ff) // 128    # 128-column blocks
+    if len(gaps) != n_sel:
+        fail(f"phase 6: {len(gaps)} plain mask selections, expected {n_sel}")
+    worst_w, _, _ = compare_layer(model, params, plain, kernels, gaps, 0,
+                                  "kernels vs plain")
     if worst_w > LAYER_W_TOL:
-        fail(f"phase 6: weights differ by {worst_w:.3e} on agreeing rows")
-    if worst_err > LAYER_ERR_REL:
-        fail(f"phase 6: reconstruction errors differ by {worst_err:.3e}")
+        fail(f"phase 6: weights differ by {worst_w:.3e} on agreeing rows "
+             f"(tol {LAYER_W_TOL:g})")
 
 
 # ----------------------------------------------------------------------
@@ -889,8 +1325,10 @@ def main() -> int:
     say("phase 1: kernels against their plain versions")
     per_kernel = check_nm_spmm(gen, rows)
     paged_main = check_paged(gen, rows)
-    hess_rows = check_hessian(gen, rows)
+    check_hessian(gen, rows)
+    hess_rows = check_hessian_stacked(gen, rows)
     select_rows = check_nm_select(gen, rows)
+    flash_rows = check_flash(gen, rows)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -907,10 +1345,16 @@ def main() -> int:
     del eng
     torch.cuda.empty_cache()
 
-    say(f"phase 5: the prune path, Qwen1.5-0.5B width, {PRUNE_LAYERS} "
-        "layers, bf16, MM 2:4, 128 x 2048 calibration tokens")
-    prune_counts, stages, prune_wall = prune_path()
+    say(f"phase 5: the launcher's default (pipelined) prune path, "
+        f"Qwen1.5-0.5B, {PRUNE_LAYERS} layers, bf16, MM 2:4, 128 x 2048 "
+        "calibration tokens")
+    prune_counts, prune_run = prune_path()
     counts = {**counts, **{k: prune_counts[k] for k in PRUNE_KERNELS}}
+    torch.cuda.empty_cache()
+
+    say(f"phase 5b: serial and pipelined engines at {PRUNE_CMP_LAYERS} "
+        "layers, the same calibration; resume")
+    cmp_run = serial_vs_pipelined()
     torch.cuda.empty_cache()
 
     say("phase 6: one f32 layer at Qwen width, kernels against plain")
@@ -920,7 +1364,8 @@ def main() -> int:
                "nm_spmm_decode": ("nm_spmm.cu", "nm_spmm.py:130"),
                "paged_attn": ("paged_attn.cu", "paged_attn.py:97"),
                "hessian_accum": ("hessian_accum.cu", "hessian_accum.py:36"),
-               "nm_select": ("nm_select.cu", "nm_select.py:65")}
+               "nm_select": ("nm_select.cu", "nm_select.py:65"),
+               "flash_attn": ("flash_attn.cu", "flash_attn.py:76")}
 
     def agg(name, rs, at):
         cu, tpu = sources[name]
@@ -946,16 +1391,20 @@ def main() -> int:
         agg("paged_attn", [paged_main],
             "B=8 KV=16 G=1 hd=64 ps=16, bf16 pages"),
         agg("hessian_accum", hess_rows,
-            "sum of m=1024 and m=2816, T=16384 bf16 tokens, streaming α/β"),
+            "sum of m=1024 and m=2816, T=262144 bf16 tokens (the stacked "
+            "capture), α=1/T β=0"),
         agg("nm_select", select_rows,
             "sum over one 128-column block of each of the 7 linears, bf16 w"),
+        agg("flash_attn", flash_rows[1:],
+            "B=128 T=2048 H=16 KV=16 hd=64 bf16 causal (the stacked "
+            "capture); plain over 16 slices of B=8"),
     ]
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.txt", "w") as f:
         f.write("\n".join(LOG) + "\n")
         f.write(json.dumps({"rows": rows, "profile": prof,
-                            "prune_stages_s_per_layer": stages,
-                            "prune_wall_s": prune_wall}) + "\n")
+                            "prune": prune_run, "serial_vs_pipelined":
+                            cmp_run}) + "\n")
     say(f"all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

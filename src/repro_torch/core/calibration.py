@@ -7,13 +7,15 @@ linear's name.  Each capture is flattened token-major, (tokens, d_in),
 and feeds that linear's streaming Hessian accumulator directly — the
 ``hessian_accum`` kernel reads that layout, so nothing is transposed.
 
-The reference's weighted captures ``(x, weights)`` (MoE routed tokens)
-and its shard merges wait for the ports that need them (ROADMAP.md).
+Per-shard sets (the pipelined scheduler's ``calib_shard``) combine with
+:meth:`CalibrationSet.merge_all`.  The reference's weighted captures
+``(x, weights)`` (MoE routed tokens) wait for the port that needs them
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Iterable, Mapping, Sequence
 
 import torch
 
@@ -38,6 +40,36 @@ class CalibrationSet:
                 acc = HessianAccumulator(x2.shape[1], device=x2.device)
                 self.accs[name] = acc
             acc.update_tokens(x2)
+
+    @classmethod
+    def from_captures(cls, captures: Mapping[str, torch.Tensor]
+                      ) -> "CalibrationSet":
+        """One-shot construction from a single (batched) capture dict."""
+        out = cls()
+        out.update(captures)
+        return out
+
+    def merge(self, other: "CalibrationSet") -> "CalibrationSet":
+        out = CalibrationSet()
+        for name in set(self.accs) | set(other.accs):
+            a, b = self.accs.get(name), other.accs.get(name)
+            out.accs[name] = (b if a is None else a if b is None
+                              else a.merge(b))
+        return out
+
+    @classmethod
+    def merge_all(cls, sets: Sequence["CalibrationSet"]) -> "CalibrationSet":
+        """Merge N per-shard sets, one weighted mean per linear
+        (``HessianAccumulator.merge_many``)."""
+        sets = list(sets)
+        if len(sets) == 1:
+            return sets[0]
+        out = cls()
+        names = set().union(*(set(s.accs) for s in sets))
+        for name in sorted(names):
+            out.accs[name] = HessianAccumulator.merge_many(
+                [s.accs[name] for s in sets if name in s.accs])
+        return out
 
     def hessian(self, name: str) -> torch.Tensor:
         return self.accs[name].finalize()

@@ -1,5 +1,5 @@
 """Whole-model layer-wise pruning engine (paper Sec. 5; a port of
-``repro.core.engine`` with the serial semantics of ``pipeline="off"``).
+``repro.core.engine``).
 
 The engine walks the model segment by segment (one transformer block
 each), so peak memory is one segment's weights and Hessians:
@@ -15,15 +15,28 @@ Model contract (implemented by ``models.transformer.LM``):
 
   model.prunable_segments() -> list[SegmentSpec]
   model.calib_init(params, batch) -> h        # the hidden entering segment 0
+  model.params_to_flat / params_from_jax      # only with a progress_store
 
-The reference's pipelined scheduler (``core/pipeline.py``), mesh-sharded
-solves, ``PruneProgressStore`` resume and name-pattern ``skip`` are not
-ported (ROADMAP.md).
+By default (``pipeline="auto"``, as the reference) ``run`` drives the
+batched scheduler of :mod:`repro_torch.core.pipeline`: stacked
+calibration batches, one capture and one propagate per segment, and no
+host sync mid-segment.  ``pipeline="off"`` keeps the paper's serial
+per-batch loop, the semantic reference (equal masks up to near ties,
+tested).
+
+Fault tolerance: with a ``progress_store`` (``ckpt.PruneProgressStore``)
+the engine checkpoints (next segment, params) after every segment, and
+``run`` resumes from the last completed one — in both modes.  ``skip``
+leaves every linear whose ``segment.linear`` name contains one of its
+patterns unpruned.
+
+The reference's mesh-sharded solves are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -33,6 +46,9 @@ from repro_torch.core.calibration import CalibrationSet
 from repro_torch.core.clock import no_clock
 from repro_torch.core.pruner import PruneResult, prune_matrix
 from repro_torch.core.sparsity import SparsitySpec
+from repro_torch.obs import Obs
+
+log = logging.getLogger("repro_torch.engine")
 
 
 @dataclasses.dataclass
@@ -64,22 +80,28 @@ class LinearReport:
     method: str
     sparsity: float
     recon_error: float
-    seconds: float              # the solve's blocking wall-clock
+    # serial mode: the solve's blocking wall-clock; pipelined mode: the
+    # host's time to enqueue it (the stage seconds are in
+    # engine.last_pipeline_stats)
+    seconds: float
     shape: Tuple[int, int]
 
 
 class PruningEngine:
     """Drives Algorithm 1 across a whole model, one segment at a time.
 
-    ``clock`` (a ``core.clock.StageClock``) times the stages: capture,
-    hessian, propagate, and prune_matrix's inverse, mask, compensation
-    and recon_error."""
+    ``clock`` (a ``core.clock.StageClock``) times the serial engine's
+    stages: capture, hessian, propagate, and prune_matrix's inverse,
+    mask, compensation and recon_error.  The pipelined engine reports
+    its stages through ``obs`` and ``last_pipeline_stats`` instead."""
 
     def __init__(self, model, spec: SparsitySpec | str, method: str = "SM",
                  blocksize: int = 128, gamma: float = 0.01,
                  score: Optional[str] = None,
                  row_chunk: Optional[int] = None,
-                 row_balanced: bool = False, clock=no_clock):
+                 row_balanced: bool = False, skip: Sequence[str] = (),
+                 progress_store=None, pipeline="auto", calib_shard="auto",
+                 obs: Optional[Obs] = None, clock=no_clock):
         self.model = model
         self.spec = SparsitySpec.parse(spec) if isinstance(spec, str) else spec
         self.method = method
@@ -88,16 +110,79 @@ class PruningEngine:
         self.score = score
         self.row_chunk = row_chunk
         self.row_balanced = row_balanced
+        self.skip = tuple(skip)
+        self.progress_store = progress_store
+        if pipeline not in ("auto", "on", "off"):
+            raise ValueError(
+                f"pipeline={pipeline!r} not in ('auto', 'on', 'off')")
+        self.pipeline = pipeline
+        self.calib_shard = calib_shard
+        self.obs = obs if obs is not None else Obs.disabled()
         self.clock = clock
+        self.last_pipeline_stats = None
+
+    # ------------------------------------------------------------------
+    def _should_skip(self, name: str) -> bool:
+        return any(pat in name for pat in self.skip)
+
+    def _prune_one(self, w: torch.Tensor, hmat: torch.Tensor,
+                   sync: bool = True, clock=no_clock) -> PruneResult:
+        """One layer solve; ``sync=False`` leaves the loss on the device
+        (the reference's ``_prune_one(sync=False)``)."""
+        return prune_matrix(
+            w, hmat, self.spec, method=self.method,
+            blocksize=self.blocksize, gamma=self.gamma, score=self.score,
+            row_chunk=self.row_chunk, row_balanced=self.row_balanced,
+            clock=clock, sync=sync)
+
+    def _resume(self, params: Any) -> Tuple[int, Any]:
+        """(first segment to prune, params): the progress store's
+        checkpoint when it holds one, else (0, params)."""
+        if self.progress_store is None:
+            return 0, params
+        resumed = self.progress_store.load()
+        if resumed is None:
+            return 0, params
+        start_seg, flat = resumed
+        log.info("resuming pruning at segment %d", start_seg)
+        return start_seg, self.model.params_from_jax(flat)
+
+    def _checkpoint(self, next_segment: int, params: Any) -> None:
+        if self.progress_store is not None:
+            self.progress_store.save(next_segment,
+                                     self.model.params_to_flat(params))
+
+    def _finish(self) -> None:
+        if self.progress_store is not None:
+            self.progress_store.finalize()
 
     def run(self, params: Any, calib_batches: Sequence[Any]
             ) -> Tuple[Any, List[LinearReport]]:
-        """Prune the whole model; ``calib_batches``: token batches."""
+        """Prune the whole model; ``calib_batches``: token batches.  The
+        pipelined scheduler unless ``pipeline="off"``."""
+        if self.pipeline != "off":
+            from repro_torch.core.pipeline import run_pipelined
+
+            return run_pipelined(self, params, calib_batches)
+        return self._run_serial(params, calib_batches)
+
+    def _run_serial(self, params: Any, calib_batches: Sequence[Any]
+                    ) -> Tuple[Any, List[LinearReport]]:
+        """The paper's host-driven per-batch loop (``pipeline="off"``)."""
+        self.last_pipeline_stats = None
         clock = self.clock
         reports: List[LinearReport] = []
+        segments = self.model.prunable_segments()
+        start_seg, params = self._resume(params)
         with clock("capture"):
             hiddens = [self.model.calib_init(params, b) for b in calib_batches]
-        for seg in self.model.prunable_segments():
+        for seg in segments[:start_seg]:
+            with clock("propagate"):
+                seg_params = seg.get_params(params)
+                hiddens = [seg.apply(seg_params, h, capture=False)[0]
+                           for h in hiddens]
+        for si in range(start_seg, len(segments)):
+            seg = segments[si]
             seg_params = seg.get_params(params)
 
             # 1. capture + accumulate Hessians
@@ -111,23 +196,21 @@ class PruningEngine:
 
             # 2. prune each linear
             for lin in seg.linears:
+                name = f"{seg.name}.{lin.name}"
+                if self._should_skip(name):
+                    continue
                 if lin.name not in calib.accs:
                     raise KeyError(
                         f"segment {seg.name}: no capture for linear "
                         f"{lin.name!r} (captures: {sorted(calib.names())})")
                 w = lin.get(seg_params)
                 t0 = time.monotonic()
-                res: PruneResult = prune_matrix(
-                    w, calib.hessian(lin.name), self.spec,
-                    method=self.method, blocksize=self.blocksize,
-                    gamma=self.gamma, score=self.score,
-                    row_chunk=self.row_chunk,
-                    row_balanced=self.row_balanced, clock=clock)
+                res = self._prune_one(w, calib.hessian(lin.name), clock=clock)
                 seg_params = lin.set(seg_params, res.w)
                 reports.append(LinearReport(
-                    name=f"{seg.name}.{lin.name}", method=self.method,
-                    sparsity=res.sparsity, recon_error=res.loss,
-                    seconds=time.monotonic() - t0, shape=tuple(w.shape)))
+                    name=name, method=self.method, sparsity=res.sparsity,
+                    recon_error=res.loss, seconds=time.monotonic() - t0,
+                    shape=tuple(w.shape)))
             del calib
 
             # 3. write back + propagate with pruned weights
@@ -135,6 +218,8 @@ class PruningEngine:
             with clock("propagate"):
                 hiddens = [seg.apply(seg_params, h, capture=False)[0]
                            for h in hiddens]
+            self._checkpoint(si + 1, params)
+        self._finish()
         return params, reports
 
 

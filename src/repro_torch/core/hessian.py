@@ -8,8 +8,8 @@ card (``kernels.ops.hessian_update``: H ← β·H + α·2·XᵀX in place, no
 m×m temporary), reading the token-major captures without a transposed
 copy.  Dampening (Remark 4.1) adds γ·mean(diag H) to the diagonal.
 
-The weighted (MoE) update and the many-way merge of the reference wait
-for the ports that need them (ROADMAP.md).
+The weighted (MoE) update of the reference waits for the port that
+needs it (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -66,6 +66,25 @@ class HessianAccumulator:
         else:
             h = self.h
         return HessianAccumulator(self.dim, h=h, count=total)
+
+    @staticmethod
+    def merge_many(accs: "list[HessianAccumulator]") -> "HessianAccumulator":
+        """Token-weighted mean of N accumulators (the calibration-sharding
+        merge of ``core.pipeline``)."""
+        if len(accs) == 1:
+            return accs[0]
+        dim = accs[0].dim
+        if any(a.dim != dim for a in accs):
+            raise ValueError(
+                f"cannot merge accumulators of dims {[a.dim for a in accs]}")
+        total = float(np.float32(sum(np.float32(a.count) for a in accs)))
+        if total <= 0:
+            return HessianAccumulator(dim, h=accs[0].h, count=0.0)
+        # the counts stay host scalars: no copy to the device, no sync
+        h = accs[0].h * accs[0].count
+        for a in accs[1:]:
+            h.add_(a.h, alpha=a.count)
+        return HessianAccumulator(dim, h=h / max(total, 1.0), count=total)
 
     def finalize(self) -> torch.Tensor:
         return self.h

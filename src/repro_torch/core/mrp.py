@@ -35,11 +35,12 @@ from repro_torch.kernels import ops
 # Batched padded-row compensation (Solution 𝔐 for compensation)
 # ----------------------------------------------------------------------
 def _solve_rows(w_rows: torch.Tensor, hinv: torch.Tensor,
-                idx: torch.Tensor, valid: torch.Tensor):
-    """Eq. (13)/(12) for a chunk of rows: (w_rows + δw, loss per row)."""
+                idx: torch.Tensor, valid: torch.Tensor, exact: bool):
+    """Eq. (13)/(12) for a chunk of rows: (w_rows + δw, loss per row).
+    ``exact``: every slot is valid, so A needs no identity padding."""
     k = idx.shape[1]
     a = hinv[idx[:, :, None], idx[:, None, :]]                  # (c, k, k)
-    if not bool(valid.all()):           # N:M masks fill every slot
+    if not exact:
         vv = valid[:, :, None] & valid[:, None, :]
         eye = torch.eye(k, dtype=a.dtype, device=a.device)
         a = torch.where(vv, a, eye[None])
@@ -56,12 +57,14 @@ def _solve_rows(w_rows: torch.Tensor, hinv: torch.Tensor,
 
 
 def mrp_compensate(w: torch.Tensor, hinv: torch.Tensor, idx: torch.Tensor,
-                   valid: torch.Tensor, row_chunk: Optional[int] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   valid: torch.Tensor, row_chunk: Optional[int] = None,
+                   exact: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply Eq. (13) compensation for the pruned sets given per row.
 
     w (n, m); hinv (m, m); idx / valid (n, k_max) per-row pruned columns
-    and their validity; ``row_chunk`` bounds the (chunk, k, k) gather.
+    and their validity; ``row_chunk`` bounds the (chunk, k, k) gather;
+    ``exact``: every row prunes exactly k_max columns (N:M and
+    row-balanced masks), so no slot is padding.
     Returns (w_new in w's dtype with exact zeros at the pruned slots,
     Eq. (12) loss per row (n,) f32)."""
     n, m = w.shape
@@ -72,7 +75,7 @@ def mrp_compensate(w: torch.Tensor, hinv: torch.Tensor, idx: torch.Tensor,
     outs, losses = [], []
     for r0 in range(0, n, step):
         o, l_ = _solve_rows(w32[r0:r0 + step], hinv, idx[r0:r0 + step],
-                            valid[r0:r0 + step])
+                            valid[r0:r0 + step], exact)
         outs.append(o)
         losses.append(l_)
     w_new = outs[0] if len(outs) == 1 else torch.cat(outs)
@@ -86,15 +89,17 @@ def mrp_compensate(w: torch.Tensor, hinv: torch.Tensor, idx: torch.Tensor,
 
 def mrp_compensate_mask(w: torch.Tensor, hinv: torch.Tensor,
                         mask: torch.Tensor, k_max: Optional[int] = None,
-                        row_chunk: Optional[int] = None
+                        row_chunk: Optional[int] = None, exact: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Boolean mask (True = pruned) → Eq. (13).  ``k_max`` defaults to the
-    bucketed per-row maximum (a host sync)."""
+    bucketed per-row maximum (a host sync); ``exact``: every row prunes
+    exactly ``k_max`` columns."""
     if k_max is None:
         k_max = masks_lib.bucket_k(masks_lib.max_row_count(mask))
     k_max = min(int(k_max), mask.shape[1])
     idx, valid = masks_lib.padded_row_indices(mask, k_max)
-    return mrp_compensate(w, hinv, idx, valid, row_chunk=row_chunk)
+    return mrp_compensate(w, hinv, idx, valid, row_chunk=row_chunk,
+                          exact=exact)
 
 
 # ----------------------------------------------------------------------

@@ -43,7 +43,9 @@ LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
 class PruneResult:
     w: torch.Tensor       # pruned + compensated weights
     mask: torch.Tensor    # True = pruned
-    loss: float           # the reconstruction error of the result
+    # the reconstruction error of the result: a float, or a 0-dim device
+    # tensor from a ``sync=False`` solve
+    loss: Union[float, torch.Tensor]
     method: str
     spec: SparsitySpec
     stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -90,13 +92,20 @@ def prune_matrix(w: torch.Tensor, h: torch.Tensor,
                  blocksize: int = 128, gamma: float = 0.01,
                  score: Optional[str] = None,
                  row_chunk: Optional[int] = None,
-                 row_balanced: bool = False, clock=no_clock) -> PruneResult:
+                 row_balanced: bool = False, clock=no_clock,
+                 sync: bool = True) -> PruneResult:
     """Prune one linear layer's weight matrix, on w's device.  w: (n, m)
     paper orientation (y = w x); h: (m, m) f32 calibration Hessian.
 
     ``row_balanced=True`` selects an exact per-row pruned count instead
     of the per-block global count.  ``clock`` (a ``StageClock``) times the
-    stages: inverse, mask, compensation, recon_error."""
+    stages: inverse, mask, compensation, recon_error.
+
+    ``sync=False`` (the pipelined scheduler; the reference's
+    ``_prune_one(sync=False)``) leaves ``loss`` and the block losses as
+    device tensors, so that the solve never waits on the card.  N:M and
+    row-balanced specs then run without a host sync; an unstructured
+    global count still sizes its padded solve on the host."""
     if isinstance(spec, str):
         spec = SparsitySpec.parse(spec)
     if method not in METHODS:
@@ -114,8 +123,9 @@ def prune_matrix(w: torch.Tensor, h: torch.Tensor,
 
     def result(w_new, mask, stats=None) -> PruneResult:
         with clock("recon_error"):
-            err = reconstruction_error(w, w_new, h)
-        return PruneResult(w_new, mask, err, method, spec, stats or {})
+            err = reconstruction_error_traced(w, w_new, h)
+        return PruneResult(w_new, mask, float(err) if sync else err, method,
+                           spec, stats or {})
 
     # --- score-only baselines -------------------------------------------
     if method in ("magnitude", "wanda"):
@@ -172,10 +182,13 @@ def prune_matrix(w: torch.Tensor, h: torch.Tensor,
             mask_acc[:, c0:c1] = mblk
         with clock("compensation"):
             k_max = (b + 1) * per_blk if static_rows else None
+            # static rows prune exactly k_max columns each: no padding
             w_cur, loss_rows = mrp.mrp_compensate_mask(
-                w_cur, hinv, mask_acc, k_max=k_max, row_chunk=row_chunk)
+                w_cur, hinv, mask_acc, k_max=k_max, row_chunk=row_chunk,
+                exact=static_rows)
             block_losses.append(torch.sum(loss_rows))
-    losses = [float(x) for x in block_losses]
+    losses = ([float(x) for x in block_losses] if sync
+              else list(block_losses))
     return result(w_cur, mask_acc, {"final_mrp_loss": losses[-1],
                                     "block_mrp_losses": tuple(losses)})
 

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_PI64 = ctypes.POINTER(ctypes.c_int64)
 # C signature of every entry point: (argtypes), restype is int
 SIGNATURES = {
     "nm_spmm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -39,6 +40,8 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "hessian_accum_launch": (_P, _I, _P, _I, _I, _F, _F, _P),
     "nm_select_launch": (_P, _I, _I, _P, _I, _P, _I, _I, _P),
+    "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _PI64, _I, _I,
+                          ctypes.POINTER(_I), _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -1,0 +1,107 @@
+"""Full-sequence attention: the CUDA kernel's wrapper.
+
+Replaces the TPU kernel ``repro/kernels/flash_attn.py::flash_attn``
+(``_flash_kernel``); the kernel itself is ``csrc/flash_attn.cu`` (its
+header says what bounds it on the H100 and how the design answers that).
+
+``flash_attn(q, k, v, causal)`` takes the model's layouts: q (B, T, H, hd)
+and k / v (B, T, KV, hd) with H a multiple of KV (head h reads kv head
+h // (H / KV)), any strides with a unit last stride — the kernel reads
+them in place, no transposed copy — and returns (B, T, H, hd) f32.  The
+TPU kernel's (BH, T, D) signature is the case H = KV = 1
+(``ops.attention``).  Every T is exact: ragged tiles are masked, never
+padded with keys that would join a non-causal softmax.
+
+On the card bf16 inputs with head dim 32, 64 or 128 and K/V rows on
+16-byte boundaries (the model's layout) take the tensor-core kernel
+(``mma.sync``); other inputs (f32, other head dims or alignments) take
+the f32-FMA kernel of the same file.  ``flash_attn.last_kernel`` names
+the one the last launch took.
+
+Dispatch is by device: a CPU tensor takes the plain version; a CUDA
+tensor launches the kernel or raises.  ``flash_attn.launches`` counts
+kernel launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import flash_attn_ref
+
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_HD = 128
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attn: tensors on {q.device} — the kernel "
+                           "runs on CUDA only (CPU tensors take the plain "
+                           "version)")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attn: q must be (B, T, H, hd) and k, v "
+                         f"(B, T, KV, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    if k.shape[:2] != (b, t) or k.shape[3] != hd or kv == 0 or h % kv:
+        raise ValueError(f"flash_attn: k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)} (H must be a multiple of KV)")
+    if hd > MAX_HD or hd % 4:
+        raise ValueError(f"flash_attn: head dim {hd} must be a multiple of "
+                         f"4 and at most {MAX_HD}")
+    for x in (q, k, v):
+        if x.dtype != q.dtype or x.dtype not in DTYPES:
+            raise ValueError(f"flash_attn: q, k, v must all be f32 or all "
+                             f"bf16, got {q.dtype}, {k.dtype}, {v.dtype}")
+        if x.device != q.device or x.stride(3) != 1:
+            raise ValueError(f"flash_attn: q, k, v must lie on {q.device} "
+                             "with a unit last stride")
+
+
+def flash_attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     causal: bool = True) -> torch.Tensor:
+    """Plain version of :func:`flash_attn`: each head's softmax attention
+    through ``ref.flash_attn_ref`` on (B·H, T, hd) copies, f32."""
+    b, t, h, hd = q.shape
+    g = h // k.shape[2]
+
+    def heads_first(x):
+        return x.permute(0, 2, 1, 3).reshape(b * h, t, hd)
+
+    o = flash_attn_ref(heads_first(q),
+                       heads_first(k.repeat_interleave(g, dim=2)),
+                       heads_first(v.repeat_interleave(g, dim=2)), causal)
+    return o.reshape(b, h, t, hd).permute(0, 2, 1, 3).contiguous()
+
+
+def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool = True) -> torch.Tensor:
+    """Softmax attention, causal or not: q (B, T, H, hd), k / v
+    (B, T, KV, hd), f32 or bf16 → (B, T, H, hd) f32."""
+    if q.device.type == "cpu":
+        return flash_attn_plain(q, k, v, causal)
+    _check(q, k, v)
+    b, t, h, hd = q.shape
+    out = torch.empty((b, t, h, hd), dtype=torch.float32, device=q.device)
+    if b == 0 or t == 0:
+        return out
+    strides = (ctypes.c_int64 * 9)(*q.stride()[:3], *k.stride()[:3],
+                                   *v.stride()[:3])
+    used_mma = ctypes.c_int(0)
+    code = build.library().flash_attn_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, h,
+        k.shape[2], hd, strides, int(causal), int(q.dtype == torch.bfloat16),
+        ctypes.byref(used_mma),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(code, "flash_attn")
+    flash_attn.launches += 1
+    flash_attn.last_kernel = "tensor cores" if used_mma.value else "f32 FMA"
+    return out
+
+
+flash_attn.launches = 0
+flash_attn.last_kernel = None

@@ -1,6 +1,6 @@
 """Public wrappers the model and the pruner call: packing, the packed
-matmul dispatch, paged attention, the calibration Hessian and the 2:4
-Eq. (12) mask.
+matmul dispatch, paged attention, full-sequence attention, the
+calibration Hessian and the 2:4 Eq. (12) mask.
 
 Dispatch follows the device of the tensors: CPU tensors take the plain
 PyTorch versions, CUDA tensors the hand-written kernels, and no ``try``
@@ -9,8 +9,10 @@ the explicit, scoped :func:`override_dispatch` — the counterpart of the
 reference's ``ops.override_dispatch`` — which forces the plain versions
 on CUDA so that a run on the card can be held against them.
 
-Unlike the reference (which pads weights to 128-multiples on every
-call), nothing here pads: the kernels mask ragged edges themselves.
+Unlike the reference (which pads weights and sequences to 128-multiples
+on every call), nothing here pads: the kernels mask ragged edges
+themselves.  The reference's ``attention`` pads T with zero keys that
+join a non-causal softmax; :func:`attention` is exact at every T.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
 from repro_torch.kernels.hessian_accum import (hessian_accum,
                                                hessian_accum_plain)
 from repro_torch.kernels.nm_select import nm_select, nm_select_plain
@@ -31,7 +34,7 @@ from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
 
 KERNELS = {"nm_spmm": nm_spmm, "nm_spmm_decode": nm_spmm_decode,
            "paged_attn": paged_attn, "hessian_accum": hessian_accum,
-           "nm_select": nm_select}
+           "nm_select": nm_select, "flash_attn": flash_attn}
 
 _PLAIN: list = []          # override stack (innermost last)
 
@@ -112,6 +115,20 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if k_scale is not None:
         return out
     return out.to(v_pages.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True) -> torch.Tensor:
+    """Softmax attention, f32 out, in either layout:
+
+    * the reference's (BH, T, D) q, k, v → (BH, T, D);
+    * the model's (B, T, H, hd) q with (B, T, KV, hd) k / v, H a
+      multiple of KV → (B, T, H, hd), read in place through strides."""
+    fn = flash_attn_plain if _plain() else flash_attn
+    if q.dim() == 3:
+        return fn(q[:, :, None], k[:, :, None], v[:, :, None],
+                  causal)[:, :, 0]
+    return fn(q, k, v, causal)
 
 
 def hessian_update(x_tokens: torch.Tensor, h: torch.Tensor, alpha: float,

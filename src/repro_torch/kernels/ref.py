@@ -183,3 +183,19 @@ def paged_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = _einsum("bkgts,bskd->btkgd", probs, v)
     return out[:, 0]                                   # (B, KV, G, hd)
+
+
+# ----------------------------------------------------------------------
+# full-sequence attention
+# ----------------------------------------------------------------------
+def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True) -> torch.Tensor:
+    """q, k, v: (BH, T, D).  Plain softmax attention, f32 output."""
+    bh, t, d = q.shape
+    s = torch.einsum("btd,bsd->bts", q.float(), k.float()) / math.sqrt(d)
+    if causal:
+        mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                     device=q.device))
+        s = s.masked_fill(~mask[None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bts,bsd->btd", p, v.float())

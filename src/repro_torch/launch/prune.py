@@ -3,12 +3,13 @@ device (the port of ``repro.launch.prune``).
 
   # a checkpoint the reference trained, with its calibration/eval tokens
   python -m repro_torch.launch.prune --arch paper-tiny-lm \\
-      --ckpt /tmp/repro_train --tokens tokens.npz --sparsity 2:4 \\
-      --method SM --out /tmp/pruned --device cpu
+      --ckpt runs/train --tokens tokens.npz --sparsity 2:4 \\
+      --method SM --out runs/pruned --device cpu
 
   # random weights and random tokens from --seed, on the card
   python -m repro_torch.launch.prune --arch qwen1.5-0.5b \\
-      --sparsity 2:4 --method MM --calib-samples 128 --calib-seq 2048
+      --sparsity 2:4 --method MM --calib-samples 128 --calib-seq 2048 \\
+      --out runs/qwen-mm24
 
 Weights come from ``--ckpt`` (the reference trainer's ``CheckpointStore``
 directory) or from a random init seeded by ``--seed``.  Calibration and evaluation tokens come
@@ -20,25 +21,38 @@ Markov corpus needs JAX's threefry bit for bit: ROADMAP.md.)
 
 The launcher prints dense and pruned perplexity and the engine's
 summary, and writes ``<out>/pruned_params`` in the reference's layout,
-which ``repro_torch.launch.serve --params`` serves.  The reference's
-pipelined scheduler, mesh flags, resume store and stage trace are not
-ported.
+which ``repro_torch.launch.serve --params`` serves.
+
+By default (``--pipeline auto``) the engine runs the pipelined scheduler
+(``core.pipeline``: stacked calibration batches, no host sync
+mid-segment); ``--pipeline off`` runs the paper's serial loop.  Either
+way it is resumable: progress is checkpointed per segment in
+``<out>/prune_progress``, and a rerun of the same command continues at
+the interrupted block (a rerun with other weights, tokens or pruning
+settings refuses that progress: ``run_fingerprint``).  SIGTERM lands on the same path as Ctrl-C: the
+checkpointed progress survives, and the stage trace (``--trace-out``,
+Chrome-trace JSON of the capture/solve/propagate spans) is still
+written on the way out.  The reference's mesh flags are not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import os
+import signal
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import configs as cfglib
-from repro_torch.ckpt import load_pytree, save_pytree
+from repro_torch.ckpt import PruneProgressStore, load_pytree, save_pytree
 from repro_torch.core.clock import no_clock
 from repro_torch.core.engine import PruningEngine, summarize
 from repro_torch.models.transformer import LM
+from repro_torch.obs import Obs
 
 CALIB_BATCH = 8          # calibration_batches' batch
 EVAL_BATCH = 16          # the reference launcher's DataPipeline batch
@@ -66,9 +80,36 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gamma", type=float, default=0.01)
     ap.add_argument("--calib-samples", type=int, default=32)
     ap.add_argument("--calib-seq", type=int, default=64)
-    ap.add_argument("--out", default="/tmp/repro_torch_pruned")
+    ap.add_argument("--pipeline", default="auto",
+                    choices=("auto", "on", "off"),
+                    help="batched calibration/solve scheduler "
+                         "(core.pipeline); 'off' = the paper's serial loop")
+    ap.add_argument("--calib-shard", default="auto", type=_calib_shard,
+                    help="auto (one shard: no mesh) or an int: "
+                         "accumulate that many calibration shards and "
+                         "merge their Hessians")
+    ap.add_argument("--out", required=True,
+                    help="writes pruned_params/ here, and prune_progress/ "
+                         "while the run is in flight")
+    ap.add_argument("--metrics", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="prune stage seconds in the obs registry "
+                         "(prune_stage_seconds_total{stage})")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write Chrome-trace JSON of the pipelined "
+                         "capture/solve/propagate stage spans here")
     ap.add_argument("--device", default="cuda")
     return ap
+
+
+def _calib_shard(value: str):
+    if value == "auto":
+        return value
+    try:
+        return int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"--calib-shard {value!r}: auto or an int") from None
 
 
 def resolve_device(name: str) -> torch.device:
@@ -92,6 +133,28 @@ def load_params(model: LM, ckpt: Optional[str], seed: int = 0):
     return model.params_from_jax({k[len("params/"):]: v
                                   for k, v in flat.items()
                                   if k.startswith("params/")})
+
+
+def run_fingerprint(args, calib: List[Batch]) -> dict:
+    """What decides the pruned params, for ``PruneProgressStore``: a
+    progress checkpoint resumes only under the same values."""
+    if args.ckpt is None:
+        weights = {"seed": args.seed}
+    else:
+        with open(os.path.join(args.ckpt, "LATEST")) as f:
+            step = f.read().strip()
+        with open(os.path.join(args.ckpt, step, "manifest.json")) as f:
+            weights = {"ckpt_sha256": json.load(f)["sha256"]}
+    tokens = hashlib.sha256()
+    for b in calib:
+        tokens.update(b["tokens"].cpu().numpy().tobytes())
+    return dict(arch=args.arch, smoke=args.smoke, weights=weights,
+                calib_shape=[sum(len(b["tokens"]) for b in calib),
+                             calib[0]["tokens"].shape[1]],
+                calib_sha256=tokens.hexdigest(), sparsity=args.sparsity,
+                method=args.method, blocksize=args.blocksize,
+                gamma=args.gamma, pipelined=args.pipeline != "off",
+                calib_shard=args.calib_shard, device=args.device)
 
 
 def _batches(tokens: torch.Tensor, size: int) -> List[Batch]:
@@ -130,12 +193,31 @@ def eval_ppl(model: LM, params, batches: List[Batch]) -> float:
 @torch.no_grad()
 def prune(model: LM, params, calib: List[Batch], sparsity: str,
           method: str, blocksize: int = 64, gamma: float = 0.01,
-          row_chunk: Optional[int] = None, clock=no_clock):
-    """Algorithm 1 over the model: (pruned params, LinearReports)."""
+          row_chunk: Optional[int] = None, clock=no_clock,
+          **engine_kw):
+    """Algorithm 1 over the model: (pruned params, LinearReports).
+    ``engine_kw`` go to ``PruningEngine`` (``pipeline``, ``calib_shard``,
+    ``skip``, ``progress_store``, ``obs``); the default is the pipelined
+    scheduler."""
     engine = PruningEngine(model, sparsity, method=method,
                            blocksize=blocksize, gamma=gamma,
-                           row_chunk=row_chunk, clock=clock)
+                           row_chunk=row_chunk, clock=clock, **engine_kw)
     return engine.run(params, calib)
+
+
+def install_sigterm_handler():
+    """SIGTERM → KeyboardInterrupt: the progress store has checkpointed
+    every segment solved so far (a rerun resumes), and ``main``'s
+    ``finally`` still exports the stage trace.  Returns the previous
+    handler (None off the main thread, where nothing is installed)."""
+
+    def _raise(signum, frame):
+        raise KeyboardInterrupt
+
+    try:
+        return signal.signal(signal.SIGTERM, _raise)
+    except ValueError:
+        return None   # not the main thread
 
 
 def main(argv=None) -> None:
@@ -143,17 +225,46 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     cfg = (cfglib.get_smoke(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
+    # built up front so that an interrupted run still exports its spans
+    obs = Obs.create(metrics=args.metrics, trace=args.trace_out is not None)
+    previous = install_sigterm_handler()
+    try:
+        _run(args, cfg, device, obs)
+    finally:
+        if args.trace_out:
+            n = obs.tracer.export(args.trace_out)
+            print(f"wrote {n} trace events -> {args.trace_out}")
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+
+
+def _run(args, cfg, device, obs: Obs) -> None:
     model = LM(cfg, device=device)
     params = load_params(model, args.ckpt, args.seed)
     calib, ev = load_tokens(args.tokens, cfg.vocab_size, args.calib_samples,
                             args.calib_seq, device, args.seed)
     print(f"dense ppl: {eval_ppl(model, params, ev):.4f}")
-    pruned, reports = prune(model, params, calib, args.sparsity, args.method,
-                            args.blocksize, args.gamma)
+    engine = PruningEngine(model, args.sparsity, method=args.method,
+                           blocksize=args.blocksize, gamma=args.gamma,
+                           pipeline=args.pipeline,
+                           calib_shard=args.calib_shard,
+                           progress_store=PruneProgressStore(
+                               args.out, run_fingerprint(args, calib)),
+                           obs=obs)
+    with torch.no_grad():
+        pruned, reports = engine.run(params, calib)
     s = summarize(reports)
     print(f"pruned {s['linears']} linears, mean sparsity "
           f"{s['mean_sparsity']:.3f}, total recon error "
           f"{s['total_recon_error']:.4f}")
+    ps = engine.last_pipeline_stats
+    if ps is not None:
+        print(f"pipeline: {ps.segments} segments, {ps.batches} batches in "
+              f"{ps.calib_shards} calib shard(s), wall {ps.wall_s:.2f}s")
+    stage_s = obs.metrics.get("prune_stage_seconds_total")
+    if stage_s is not None:
+        print("prune_stage_seconds_total: " + ", ".join(
+            f"{stage} {c.value:.3f}" for (stage,), c in stage_s.children()))
     print(f"{args.method} {args.sparsity} ppl: "
           f"{eval_ppl(model, pruned, ev):.4f}")
     out = os.path.join(args.out, "pruned_params")

@@ -82,8 +82,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     hd = x.shape[-1]
     half = hd // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), exps)
+    freq = torch.pow(float(theta), exps)     # a host scalar: no copy, no sync
     ang = positions[..., :, None].float() * freq          # (..., T, half)
     sin = torch.sin(ang)[..., :, None, :]                  # over heads
     cos = torch.cos(ang)[..., :, None, :]
@@ -150,13 +149,6 @@ def _sdpa(q, k, v, mask, nh: int, kv: int) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = _einsum("bkgts,bskd->btkgd", probs, v)
     return out.reshape(b, t, nh * hd)
-
-
-def causal_mask(t: int, s: int, device):
-    """(1,1,1,T,S) boolean causal mask."""
-    qpos = torch.arange(t, device=device)[:, None]
-    kpos = torch.arange(s, device=device)[None, :]
-    return (kpos <= qpos)[None, None, None]
 
 
 # ----------------------------------------------------------------------
@@ -226,7 +218,11 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     paged modes update ``cache`` in place.
 
     Modes (global causal attention; sliding-window layers are not ported):
-      full-sequence (cache None): causal over T; ``caps`` records the
+      full-sequence (cache None): causal over T through
+          ``ops.attention`` (the ``flash_attn`` kernel on the card, which
+          reads q/k/v in place; the counterpart of the reference's
+          ``_sdpa`` and ``_sdpa_online``, with the probabilities kept in
+          f32 as ``_sdpa_online`` keeps them); ``caps`` records the
           linears' inputs under ``{prefix}wq`` … ``{prefix}wo``;
       chunked paged prefill (``paged["start"]`` given, B = 1): the chunk's
           K/V go into the pages first, then attention runs over the
@@ -235,8 +231,8 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
       paged decode (T = 1, ``pos`` (B,) with -1 marking idle slots):
           block-table attention through ``ops.paged_attention``.
 
-    int8 pages dequantize to f32; the attention output is cast back to
-    the hidden dtype before ``wo`` so that the residual stream keeps the
+    int8 pages and the full-sequence branch give f32 attention output,
+    which is cast back to the hidden dtype before ``wo`` so that the residual stream keeps the
     model dtype (a no-op for f32 models, where the reference's numbers
     are matched exactly).
     """
@@ -248,7 +244,8 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     if cache is None:
         positions = torch.arange(t, device=dev)[None, :]
         q, k, v = _qkv(p, h_in, cfg, positions, caps, prefix)
-        out = _sdpa(q, k, v, causal_mask(t, t, dev), nh, kv)
+        out = ops.attention(q, k, v, causal=True)           # (B, T, H, hd)
+        out = out.reshape(b, t, nh * hd).to(h.dtype)
         return h + linear(out, p["wo"], caps=caps, name=f"{prefix}wo")
 
     bt = paged["block_tables"]                               # (B, P_max)

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.pruner import prune_linears, prune_matrix
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
 from repro_torch.kernels.hessian_accum import (hessian_accum,
                                                hessian_accum_plain)
 from repro_torch.kernels.nm_select import nm_select, nm_select_plain
@@ -115,7 +116,7 @@ def test_launch_counters_count_kernel_launches_only(gen):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"nm_spmm": 1, "nm_spmm_decode": 1,
                                    "paged_attn": 0, "hessian_accum": 0,
-                                   "nm_select": 0}
+                                   "nm_select": 0, "flash_attn": 0}
 
 
 # ----------------------------------------------------------------------
@@ -171,3 +172,118 @@ def test_prune_matrix_mm_runs_both_kernels_and_matches_plain(gen):
         ref = prune_matrix(w, h, "2:4", method="MM", blocksize=128)
     assert torch.equal(res.mask, ref.mask)
     _close(res.w, ref.w)
+
+
+# ----------------------------------------------------------------------
+# full-sequence attention
+# ----------------------------------------------------------------------
+BF16_TOL_REL = 1e-4     # bf16 inputs, |kernel - plain| / max(1, |plain|):
+                        # both compute in f32, the kernel keeps ~16 bits of P
+
+
+@pytest.mark.parametrize("b,t,h,kv,hd", [
+    (2, 128, 2, 2, 32), (1, 200, 4, 2, 64), (2, 2048, 4, 2, 64),
+    (3, 100, 2, 1, 128), (1, 1, 1, 1, 64), (2, 65, 3, 3, 16)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_matches_plain(gen, b, t, h, kv, hd, causal, dtype):
+    q = torch.randn(b, t, h, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, t, kv, hd, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    got = flash_attn(q, k, v, causal)
+    tensor_cores = dtype == torch.bfloat16 and hd in (32, 64, 128)
+    assert flash_attn.last_kernel == ("tensor cores" if tensor_cores
+                                      else "f32 FMA")
+    want = flash_attn_plain(q, k, v, causal)
+    assert got.dtype == torch.float32 and got.shape == (b, t, h, hd)
+    if dtype == torch.float32:
+        _close(got, want)
+    else:
+        err = (got - want).abs().max().item()
+        assert err <= BF16_TOL_REL * max(1.0, want.abs().max().item()), err
+    assert torch.equal(got, flash_attn(q, k, v, causal))   # deterministic
+
+
+def test_flash_attn_reads_strided_views(gen):
+    """q, k, v as column slices of one packed (B, T, 3, H, hd) tensor."""
+    qkv = torch.randn(2, 150, 3, 4, 64, generator=gen, device="cuda")
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    got = flash_attn(q, k, v, True)
+    assert torch.equal(got, flash_attn(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), True))
+    _close(got, flash_attn_plain(q, k, v, True))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attn_tensor_cores_keep_probabilities_near_f32(gen, causal):
+    """The bf16 tensor-core kernel multiplies V by P split into two bf16
+    halves: ~16 bits of each probability, so it lands within 1e-4 of the
+    f32 plain version (one bf16 rounding of P would be ~1e-3 off)."""
+    q, k, v = (torch.randn(2, 512, 4, 64, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    got = flash_attn(q, k, v, causal)
+    assert flash_attn.last_kernel == "tensor cores"
+    assert (got - flash_attn_plain(q, k, v, causal)).abs().max().item() < 1e-4
+
+
+def test_flash_attn_unaligned_bf16_takes_the_fma_kernel(gen):
+    flat = torch.randn(2 * 100 * 2 * 64 + 1, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    k = flat[1:].view(2, 100, 2, 64)             # rows 2 bytes off 16
+    v = torch.randn(2, 100, 2, 64, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    q = torch.randn(2, 100, 4, 64, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    got = flash_attn(q, k, v, True)
+    assert flash_attn.last_kernel == "f32 FMA"
+    assert (got - flash_attn_plain(q, k, v, True)).abs().max().item() < 1e-4
+
+
+@pytest.mark.parametrize("t", [128, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_reference_signature(gen, t, causal):
+    from repro_torch.kernels.ref import flash_attn_ref
+
+    q, k, v = (torch.randn(4, t, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    ops.reset_launch_counts()
+    got = ops.attention(q, k, v, causal)
+    assert ops.launch_counts()["flash_attn"] == 1 and got.shape == q.shape
+    _close(got, flash_attn_ref(q, k, v, causal))
+
+
+def test_pipelined_prune_resumes_bit_identical_on_card(gen, tmp_path):
+    from repro_torch.ckpt import PruneProgressStore
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.engine import PruningEngine
+    from repro_torch.models.transformer import LM
+
+    model = LM(get_smoke("qwen1_5_0_5b"), device="cuda")
+    params = model.init(gen)
+    toks = torch.randint(0, model.cfg.vocab_size, (4, 2, 64), generator=gen,
+                         device="cuda")
+    calib = [{"tokens": x, "labels": x} for x in toks]
+    ops.reset_launch_counts()
+    ref, _ = PruningEngine(model, "2:4", method="MM", blocksize=32).run(
+        params, calib)
+    counts = ops.launch_counts()
+    assert counts["flash_attn"] == 2 * model.cfg.num_layers
+    assert counts["hessian_accum"] == 7 * model.cfg.num_layers
+
+    class Bomb(PruneProgressStore):
+        def save(self, next_segment, flat):
+            super().save(next_segment, flat)
+            raise RuntimeError("simulated node failure")
+
+    with pytest.raises(RuntimeError):
+        PruningEngine(model, "2:4", method="MM", blocksize=32,
+                      progress_store=Bomb(str(tmp_path))).run(params, calib)
+    got, reports = PruningEngine(
+        model, "2:4", method="MM", blocksize=32,
+        progress_store=PruneProgressStore(str(tmp_path))).run(params, calib)
+    assert len(reports) == 7 * (model.cfg.num_layers - 1)
+    for a, b in zip(model.params_to_flat(ref).values(),
+                    model.params_to_flat(got).values()):
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8))

@@ -1,0 +1,166 @@
+"""Full-sequence attention in the port against the JAX package, on CPU.
+
+On the CPU ``ops.attention`` and the model's full-sequence branch take
+``flash_attn_plain`` (the CUDA kernel is held against it on the card in
+``tests/test_torch_cuda.py``).  Tolerances are the reference's own for
+its kernel (``tests/test_kernels.py``): 2e-5 in f32, where both sides
+run the same softmax in f32 and differ only in summation order, and
+3e-2 with bf16 inputs.  The model-level comparisons keep the 1e-4 of
+``tests/test_torch_model.py``.
+
+One case pins a fault of the reference: its ``ops.attention`` pads T to
+a tile multiple with zero keys, which join a non-causal softmax.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.ckpt.store import _flatten
+from repro.configs import get_config as j_get_config
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import LM as JLM
+from repro.models import layers as jlayers
+from repro_torch import configs
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
+from repro_torch.models import layers
+from repro_torch.models.transformer import LM
+
+F32_TOL = 2e-5
+BF16_TOL = 3e-2
+MODEL_TOL = 1e-4
+
+
+def _qkv(seed, shape, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("bh,t,d", [(2, 128, 32), (4, 256, 64),
+                                    (1, 384, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_matches_reference_sweep(bh, t, d, causal):
+    q, k, v = _qkv(bh * t + d, (bh, t, d))
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (bh, t, d)
+    want_kernel = jops.attention(*map(jnp.asarray, (q, k, v)), causal=causal)
+    want_ref = jref.flash_attn_ref(*map(jnp.asarray, (q, k, v)),
+                                   causal=causal)
+    for want in (want_kernel, want_ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_bf16_matches_reference(causal):
+    q, k, v = _qkv(9, (2, 128, 64))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    got = ops.attention(tq, tk, tv, causal=causal)
+    want = jref.flash_attn_ref(jq, jk, jv, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("t", [100, 200])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_exact_at_ragged_t(t, causal):
+    q, k, v = _qkv(t, (2, t, 32))
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    want = jref.flash_attn_ref(*map(jnp.asarray, (q, k, v)), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+def test_reference_attention_pads_ragged_non_causal():
+    """The reference's fault: at T = 200 its zero-padded keys join the
+    non-causal softmax, so it leaves its own plain version (the port
+    does not: the case above)."""
+    q, k, v = map(jnp.asarray, _qkv(200, (2, 200, 32)))
+    padded = jops.attention(q, k, v, causal=False)
+    exact = jref.flash_attn_ref(q, k, v, causal=False)
+    assert float(jnp.max(jnp.abs(padded - exact))) > 1e-2
+    causal = jops.attention(q, k, v, causal=True)
+    np.testing.assert_allclose(np.asarray(causal),
+                               np.asarray(jref.flash_attn_ref(q, k, v)),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (4, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_grouped_layout_matches_reference_per_head(h, kv, causal):
+    """The model's (B, T, H, hd) / (B, T, KV, hd) layout: head i reads kv
+    head i // (H / KV), as the reference's ``_sdpa`` groups them."""
+    rng = np.random.default_rng(h * 10 + kv)
+    q = rng.standard_normal((2, 70, h, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 70, kv, 32)).astype(np.float32)
+            for _ in range(2))
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert got.shape == (2, 70, h, 32)
+    g = h // kv
+    for i in range(h):
+        want = jref.flash_attn_ref(jnp.asarray(q[:, :, i]),
+                                   jnp.asarray(k[:, :, i // g]),
+                                   jnp.asarray(v[:, :, i // g]),
+                                   causal=causal)
+        np.testing.assert_allclose(got[:, :, i].numpy(), np.asarray(want),
+                                   rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_cpu_flash_attn_is_the_plain_version_and_launches_nothing():
+    q, k, v = map(torch.from_numpy, _qkv(1, (1, 40, 2, 16)))
+    flash_attn.launches = 0
+    assert torch.equal(flash_attn(q, k, v, True),
+                       flash_attn_plain(q, k, v, True))
+    assert flash_attn.launches == 0
+
+
+# ----------------------------------------------------------------------
+# the model's full-sequence attention at f32
+# ----------------------------------------------------------------------
+def _tiny(kv):
+    """paper_tiny_lm (4 heads), with ``kv`` kv heads: G = 4 / kv."""
+    return (dataclasses.replace(j_get_config("paper_tiny_lm"),
+                                num_kv_heads=kv),
+            dataclasses.replace(configs.get_config("paper_tiny_lm"),
+                                num_kv_heads=kv))
+
+
+@pytest.mark.parametrize("kv", [4, 2])
+def test_attn_apply_matches_reference(kv):
+    jcfg, tcfg = _tiny(kv)
+    jp = jlayers.attn_init(jax.random.key(kv), jcfg, jnp.float32)
+    tp = jax.tree.map(lambda x: torch.from_numpy(np.array(x)), jp)
+    h = np.random.default_rng(kv).standard_normal((2, 50, 128)).astype(
+        np.float32)
+    jcaps, tcaps = {}, {}
+    want, _ = jlayers.attn_apply(jp, jnp.asarray(h), jcfg, caps=jcaps)
+    got = layers.attn_apply(tp, torch.from_numpy(h), tcfg, caps=tcaps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MODEL_TOL,
+                               atol=MODEL_TOL)
+    assert sorted(tcaps) == sorted(jcaps)
+    for name in jcaps:                  # attn.wo's input is the attention
+        np.testing.assert_allclose(tcaps[name].numpy(),
+                                   np.asarray(jcaps[name]), rtol=MODEL_TOL,
+                                   atol=MODEL_TOL)
+
+
+@pytest.mark.parametrize("kv", [4, 2])
+def test_lm_forward_matches_reference(kv):
+    jcfg, tcfg = _tiny(kv)
+    jm = JLM(jcfg)
+    jp = jm.init(jax.random.key(0))
+    tm = LM(tcfg, device="cpu")
+    tp = tm.params_from_jax(_flatten(jp))
+    toks = np.random.default_rng(kv).integers(0, 512, size=(2, 77)).astype(
+        np.int32)
+    want, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    got = tm.forward(tp, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MODEL_TOL,
+                               atol=MODEL_TOL)

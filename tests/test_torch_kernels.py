@@ -293,9 +293,10 @@ def test_cpu_tensors_take_plain_versions_and_launch_nothing():
     x = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
     ops.hessian_xxt(x)
     ops.nm_select_mask(x, torch.eye(8))
+    ops.attention(x[None], x[None], x[None])
     assert ops.launch_counts() == {"nm_spmm": 0, "nm_spmm_decode": 0,
                                    "paged_attn": 0, "hessian_accum": 0,
-                                   "nm_select": 0}
+                                   "nm_select": 0, "flash_attn": 0}
 
 
 def test_non_cpu_tensors_never_fall_back():

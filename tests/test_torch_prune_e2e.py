@@ -201,8 +201,8 @@ def test_params_to_flat_inverts_params_from_jax_in_bf16():
                            tp["layers"][i]["mlp"]["wg"].view(torch.int16))
 
 
-def test_launch_prune_refuses_missing_cuda():
+def test_launch_prune_refuses_missing_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        launch_prune.main(["--smoke"])
+        launch_prune.main(["--smoke", "--out", str(tmp_path)])
