@@ -18,9 +18,12 @@ Phases (any failure exits non-zero; no exception is swallowed):
      (one serial batch; α = 1, β = 0 and the streaming-mean α, β) and on
      T = 262144 (the pipelined engine's stacked capture); nm_select on
      128-column blocks and whole matrices of the seven Qwen linears;
-     flash_attn in f32 and bf16, causal and not, T in {128, 200, 2048},
-     G in {1, 2}, then at (8, 2048, 16, 64) and (128, 2048, 16, 64)
-     bf16.  Errors are taken on f32 inputs (and bf16 for flash_attn);
+     flash_attn in f32 and bf16, causal and not, T in {128, 129, 200,
+     257, 2048}, G in {1, 2}, then at (8, 2048, 16, 64) and (128, 2048,
+     16, 64) bf16; nm_spmm also at ragged M = 257, (200, 132, 200) and
+     with padding-slot groups, each asserting its route
+     (``nm_spmm.last_kernel``: tensor cores for bf16, f32 FMA for f32)
+     and the same bits twice.  Errors are taken on f32 and bf16 inputs;
      times are device times in the main path's bf16 (CUDA events around
      back-to-back calls while a spin kernel holds the card), weights
      rotated through more than the 50 MB L2 so that every launch streams
@@ -37,8 +40,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
      (the tiled nm_spmm), and the 8 requests again with int8 KV pages.
      Every launch counter is zeroed just before and read just after;
      each serving kernel's must be > 0;
-  4. a profiler trace of one serving run: device busy and idle share,
-     device time by kernel;
+  4. profiler traces of two serving runs (the 8 requests; the 512-token
+     prompt, whose chunks take the tiled nm_spmm): device busy and idle
+     share, device time by kernel;
   5. the prune main path: the launcher's default engine (pipelined:
      the 16 calibration batches stacked, one capture and one propagate
      per layer) on Qwen1.5-0.5B at full width and depth (PRUNE_LAYERS),
@@ -199,7 +203,11 @@ def bound(n_bytes: float, flops: float, dtype: str):
 # ----------------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # ----------------------------------------------------------------------
-def _sparse_weight(gen, k, n, dtype):
+def _sparse_weight(gen, k, n, dtype, padding=False):
+    """A magnitude-2:4 (K, N) weight, dense and packed.  ``padding``:
+    columns 0-2 of every group hold a kept value at position 0 beside a
+    padding slot, two padding slots, and a kept value at position 3
+    (idx (0, 0) and (3, 0), as compress_24 packs short groups)."""
     import torch
 
     from repro_torch.core.pruner import prune_linears
@@ -207,9 +215,24 @@ def _sparse_weight(gen, k, n, dtype):
 
     w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
     w = prune_linears({"layers": [{"mlp": {"wo": w}}]},
-                      "2:4")["layers"][0]["mlp"]["wo"].to(dtype)
+                      "2:4")["layers"][0]["mlp"]["wo"]
+    if padding:
+        grp = w.view(k // 4, 4, n)
+        grp[:, :, 0] = torch.tensor([1.5, 0.0, 0.0, 0.0], device="cuda")
+        grp[:, :, 1] = 0.0
+        grp[:, :, 2] = torch.tensor([0.0, 0.0, 0.0, -2.0], device="cuda")
+    w = w.to(dtype)
     vals, idx = ops.compress_24(w)
     return w, vals, idx
+
+
+def _route_of(kname, dtype):
+    """The route nm_spmm must take (the decode kernel has one route)."""
+    import torch
+
+    if kname != "nm_spmm":
+        return None
+    return "tensor cores" if dtype == torch.bfloat16 else "f32 FMA"
 
 
 def check_nm_spmm(gen, rows):
@@ -232,17 +255,29 @@ def check_nm_spmm(gen, rows):
                     if has_bias else None)
             extra = (bias, act) if kname == "nm_spmm_decode" else ()
             got = kern(x, vals, idx, *extra)
+            route_ok = getattr(kern, "last_kernel", None) == _route_of(
+                kname, torch.float32)
             want = plain(x, vals, idx, *extra)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
             tol = KERNEL_TOL_REL * max(1.0, want.abs().max().item())
-            # speed, bf16, weights rotated past L2
+            # bf16, the path's dtype: checked (both sides sum exact bf16
+            # products in f32) and timed, weights rotated past L2
             w, vals, idx = _sparse_weight(gen, k, n, torch.bfloat16)
             wbytes = vals.numel() * 3
             reps = max(2, -(-2 * L2_BYTES // wbytes))
             xb = torch.randn(m, k, generator=gen, device="cuda").to(
                 torch.bfloat16)
             bb = bias.to(torch.bfloat16) if bias is not None else None
+            bextra = (bb, act) if extra else ()
+            got = kern(xb, vals, idx, *bextra)
+            route_ok &= getattr(kern, "last_kernel", None) == _route_of(
+                kname, torch.bfloat16)
+            want = plain(xb, vals, idx, *bextra)
+            torch.cuda.synchronize()
+            err_b = (got - want).abs().max().item()
+            tol_b = KERNEL_TOL_REL * max(1.0, want.abs().max().item())
+            del got, want
             sets, lib_sets = [], []
             for _ in range(reps):
                 v2, i2 = vals.clone(), idx.clone()
@@ -254,19 +289,68 @@ def check_nm_spmm(gen, rows):
             n_bytes = (m * k * 2 + vals.numel() * 2 + idx.numel()
                        + (n * 2 if bb is not None else 0) + m * n * 4)
             b_ms, b_by = bound(n_bytes, 2.0 * m * n * (k // 2), "bfloat16")
-            ok = err <= tol
+            ok = err <= tol and err_b <= tol_b and route_ok
             row = dict(kernel=kname, shape=f"{name} M={m} K={k} N={n}",
-                       max_abs_err=err, tol=tol, ok=ok, ms=ms,
+                       max_abs_err=max(err, err_b), tol=tol, ok=ok,
+                       err_f32=err, err_bf16=err_b, tol_bf16=tol_b, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by)
+                       bound_by=b_by, route=getattr(kern, "last_kernel",
+                                                    None))
             rows.append(row)
-            say(f"  {kname:15s} {row['shape']:30s} err {err:.3e} tol "
-                f"{tol:.3e} {'ok' if ok else 'FAIL'}  ms {ms:.5f} plain "
+            say(f"  {kname:15s} {row['shape']:30s} err f32 {err:.3e} tol "
+                f"{tol:.3e}, bf16 {err_b:.3e} tol {tol_b:.3e}"
+                + (f" ({row['route']})" if row["route"] else "")
+                + f" {'ok' if ok else 'FAIL'}  ms {ms:.5f} plain "
                 f"{plain_ms:.5f} lib {lib_ms:.5f} bound {b_ms:.5f}")
             if m in (8, 256):
                 per_kernel[kname].append(row)
             del sets, lib_sets
+    check_nm_spmm_edges(gen, rows)
     return per_kernel
+
+
+def check_nm_spmm_edges(gen, rows):
+    """nm_spmm (the tiled kernel) off the path's round shapes, in both
+    routes: ragged M = 257 at the seven Qwen linears, (M, K, N) = (200,
+    132, 200) — rows not on 16 bytes, a K tile and an N tile cut short —
+    and a weight with padding-slot groups at mlp.wo's shape.  Each must
+    take its dtype's route and give the same bits twice."""
+    import torch
+
+    from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_plain
+
+    cases = [(f"{name} M=257 K={k} N={n}", 257, k, n, False)
+             for name, k, n, _, _ in QWEN_LINEARS]
+    cases += [("ragged M=200 K=132 N=200", 200, 132, 200, False),
+              ("padding slots M=256 K=2816 N=1024", 256, 2816, 1024, True)]
+    worst = 0.0
+    for label, m, k, n, padding in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            _, vals, idx = _sparse_weight(gen, k, n, dtype, padding)
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            got = nm_spmm(x, vals, idx)
+            route = nm_spmm.last_kernel
+            again = nm_spmm(x, vals, idx)
+            want = nm_spmm_plain(x, vals, idx)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = KERNEL_TOL_REL * max(1.0, want.abs().max().item())
+            same = bool(torch.equal(got, again))
+            ok = (err <= tol and same
+                  and route == _route_of("nm_spmm", dtype))
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            row = dict(kernel="nm_spmm", shape=f"{label} {dname}",
+                       max_abs_err=err, tol=tol, ok=ok, route=route,
+                       deterministic=same)
+            rows.append(row)
+            worst = max(worst, err / tol)
+            LOG.append(f"  nm_spmm         {row['shape']:42s} err {err:.3e} "
+                       f"tol {tol:.3e} ({route}) same bits {same} "
+                       f"{'ok' if ok else 'FAIL'}")
+    say(f"  nm_spmm         {2 * len(cases)} edge cases (M=257 x 7 linears, "
+        f"200x132x200, padding slots; bf16 and f32): worst err/tol "
+        f"{worst:.3e}, failed "
+        f"{sum(not r['ok'] for r in rows[-2 * len(cases):])}")
 
 
 def _paged_case(gen, b, kvh, g, hd, ps, p_max, lengths, dtype, int8):
@@ -505,7 +589,9 @@ def _flash_bound(b, t, h, kv, hd, causal):
 
 def check_flash(gen, rows):
     """flash_attn against flash_attn_plain: f32 and bf16, causal and not,
-    T in {128, 200, 2048}, G in {1, 2}; then the path's shapes in bf16 —
+    T in {128, 129, 200, 257, 2048} (T = 129 and 257 leave a 128-row
+    query tile ragged), G in {1, 2}, each on its dtype's route; then the
+    path's shapes in bf16 —
     one serial calibration batch (8, 2048, 16, 64) and the pipelined
     engine's stacked capture (128, 2048, 16, 64) — with device times,
     the bound and scaled_dot_product_attention as a yardstick."""
@@ -522,7 +608,7 @@ def check_flash(gen, rows):
 
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
-            for t in (128, 200, 2048):
+            for t in (128, 129, 200, 257, 2048):
                 for g in (1, 2):
                     q, k, v = _flash_inputs(gen, 2, t, 4, 4 // g, 64, dtype)
                     got = flash_attn(q, k, v, causal)
@@ -531,18 +617,22 @@ def check_flash(gen, rows):
                     torch.cuda.synchronize()
                     err, tol = err_of(got, want, dtype)
                     dname = "f32" if dtype == torch.float32 else "bf16"
+                    want_route = ("f32 FMA" if dtype == torch.float32
+                                  else "tensor cores")
                     row = dict(kernel="flash_attn",
                                shape=f"B=2 T={t} H=4 G={g} hd=64 {dname} "
                                      f"{'causal' if causal else 'full'}",
-                               max_abs_err=err, tol=tol, ok=err <= tol,
+                               max_abs_err=err, tol=tol,
+                               ok=err <= tol and route == want_route,
                                route=route)
                     rows.append(row)
                     LOG.append(f"  flash_attn      {row['shape']:34s} err "
                                f"{err:.3e} tol {tol:.3e} ({route}) "
                                f"{'ok' if row['ok'] else 'FAIL'}")
-    say(f"  flash_attn      24 cases (f32/bf16, causal/full, T 128/200/2048,"
-        f" G 1/2): worst err/tol "
-        f"{max(r['max_abs_err'] / r['tol'] for r in rows if r['kernel'] == 'flash_attn'):.3e}")
+    small = [r for r in rows if r["kernel"] == "flash_attn"]
+    say(f"  flash_attn      {len(small)} cases (f32/bf16, causal/full, T "
+        f"128/129/200/257/2048, G 1/2): worst err/tol "
+        f"{max(r['max_abs_err'] / r['tol'] for r in small):.3e}")
 
     timed = []
     for b, label in ((8, "serial batch"), (128, "stacked capture")):
@@ -816,7 +906,7 @@ def main_path():
     same = sum(int(np.sum(x.tokens == y.tokens)) for x, y in zip(a, b))
     say(f"  int8 vs bf16 KV: {same}/{sum(len(x.tokens) for x in a)} tokens "
         "equal position by position (random init: no gate)")
-    return counts, outs, hbm, engines[0], reqs
+    return counts, outs, hbm, engines, [rq for _, _, rq in runs]
 
 
 def r_max(reqs, uid):
@@ -825,7 +915,7 @@ def r_max(reqs, uid):
 
 def profile_main(eng, reqs):
     """Device busy / idle share and device time by kernel for one
-    main-path generate (8 requests)."""
+    main-path generate."""
     import torch
 
     torch.cuda.synchronize()
@@ -839,7 +929,9 @@ def profile_main(eng, reqs):
     busy = sum(d for d, _ in evs) / 1e6
     by = {}
     for d, name in evs:
-        key = ("nm_spmm kernels" if "nm_spmm_kernel" in name
+        key = ("nm_spmm tiled kernel (tensor cores)"
+               if "nm_spmm_tc_kernel" in name
+               else "nm_spmm_decode kernels" if "nm_spmm_kernel" in name
                else "paged_attn kernel" if "paged_attn_kernel" in name
                else name[:60])
         by[key] = by.get(key, 0.0) + d / 1e6
@@ -849,7 +941,8 @@ def profile_main(eng, reqs):
         f"{len(evs) / max(1, eng.stats['device_steps'] + eng.stats['prefill_chunks']):.0f} per step")
     for k, v in sorted(by.items(), key=lambda kv: -kv[1])[:10]:
         say(f"    {k:60s} {v * 1e3:9.3f} ms  ({v / wall:.3f} of wall)")
-    return dict(wall_s=wall, busy_s=busy, tokens=toks)
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:10]
+    return dict(wall_s=wall, busy_s=busy, tokens=toks, by_kernel_s=dict(top))
 
 
 # ----------------------------------------------------------------------
@@ -1338,11 +1431,13 @@ def main() -> int:
     e2e_f32()
 
     say("phase 3: main path, Qwen1.5-0.5B, 24 layers, bf16, 2:4-packed")
-    counts, outs, hbm, eng, reqs = main_path()
+    counts, outs, hbm, engines, run_reqs = main_path()
 
-    say("phase 4: profile of one main-path run (8 requests)")
-    prof = profile_main(eng, reqs)
-    del eng
+    say("phase 4: profile of main-path runs: 8 requests; the 512-token "
+        "prompt at chunk 256 (the tiled nm_spmm)")
+    prof = {"8 requests": profile_main(engines[0], run_reqs[0]),
+            "512-token prompt": profile_main(engines[1], run_reqs[1])}
+    del engines
     torch.cuda.empty_cache()
 
     say(f"phase 5: the launcher's default (pipelined) prune path, "

@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Time the port's tiled nm_spmm and flash_attn of two source trees on one
+card, in turns (A, B, B, A), at the main paths' shapes.
+
+    python3 scripts/torch_kernel_ab.py --tree build/parent --tree .
+
+Each ``--tree`` is a checkout of the repository; its ``src/repro_torch``
+is imported in a fresh process (so that two versions of the package never
+meet) and builds its own kernels under its own ``build/``.  Per tree and
+turn it prints one JSON line: the device time (ms) of the seven Qwen1.5-0.5B
+linears at M = 256 through ``nm_spmm`` (bf16, weights rotated past the
+50 MB L2, summed over the layer) and of ``flash_attn`` at (8 | 128, 2048,
+16, 64) bf16 causal, each beside its PyTorch yardstick (``torch.matmul`` on
+the dense weight, ``scaled_dot_product_attention``) timed in the same
+process.  Device times come from CUDA events around back-to-back calls
+while a spin kernel holds the card, median of 5.  Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+LINEARS = ((1024, 1024),) * 4 + ((1024, 2816),) * 2 + ((2816, 1024),)
+L2_BYTES = 50 * 2**20
+
+
+def _device_ms(fn, arg_sets, n=30, reps=5):
+    import torch
+
+    for a in arg_sets[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(*arg_sets[i % len(arg_sets)])
+    spin_s = 2 * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    while len(times) < reps:
+        torch.cuda._sleep(int(spin_s * 2.0e9))
+        e0.record()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(*arg_sets[(len(times) * n + i) % len(arg_sets)])
+        e1.record()
+        enq = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if enq < spin_s:
+            times.append(e0.elapsed_time(e1) / n)
+        else:
+            spin_s *= 2
+    return statistics.median(times)
+
+
+def measure(tree: str) -> dict:
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.kernels.nm_spmm import nm_spmm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.library()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    res = {"tree": tree, "nm_spmm_ms": 0.0, "matmul_ms": 0.0}
+    for k, n in LINEARS:
+        w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+        w = prune_linears({"layers": [{"mlp": {"wo": w}}]},
+                          "2:4")["layers"][0]["mlp"]["wo"].to(torch.bfloat16)
+        vals, idx = ops.compress_24(w)
+        x = torch.randn(256, k, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        reps = max(2, -(-2 * L2_BYTES // (vals.numel() * 3)))
+        sets = [(x, vals.clone(), idx.clone()) for _ in range(reps)]
+        res["nm_spmm_ms"] += _device_ms(nm_spmm, sets)
+        res["matmul_ms"] += _device_ms(torch.matmul,
+                                       [(x, w.clone()) for _ in range(reps)])
+        del sets
+    for b in (8, 128):
+        q, k, v = (torch.randn(b, 2048, 16, 64, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        n, reps = (30, 5) if b == 8 else (5, 3)
+        res[f"flash_b{b}_ms"] = _device_ms(flash_attn, [(q, k, v, True)],
+                                           n=n, reps=reps)
+        res[f"flash_b{b}_route"] = flash_attn.last_kernel
+        res[f"sdpa_b{b}_ms"] = _device_ms(
+            lambda a, b_, c: F.scaled_dot_product_attention(
+                a, b_, c, is_causal=True),
+            [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))],
+            n=n, reps=reps)
+        del q, k, v
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", action="append", default=[],
+                    help="a checkout to time (give two: A then B)")
+    ap.add_argument("--measure", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.measure:
+        import torch
+
+        if not torch.cuda.is_available():
+            print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
+            return 2
+        print(json.dumps(measure(args.measure)), flush=True)
+        return 0
+    if len(args.tree) != 2:
+        ap.error("give exactly two --tree")
+    a, b = args.tree
+    for tree in (a, b, b, a):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--measure", tree], capture_output=True,
+                              text=True)
+        if proc.returncode:
+            sys.stderr.write(proc.stderr[-4000:])
+            return proc.returncode
+        print(proc.stdout.strip().splitlines()[-1], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

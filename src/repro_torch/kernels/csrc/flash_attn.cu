@@ -11,42 +11,52 @@
 //
 // What bounds it on this card: a causal call does 2 B H T^2 hd flops
 // (QK^T and PV over the lower triangle) against 3 B T H hd input elements
-// and B T H hd f32 outputs — at the prune path's (8 x 2048, 16 heads,
-// hd 64) some 500 flops a byte, so it is bound by operations: 69 us on
-// the bf16 tensor cores.
+// and B T H hd f32 outputs — at the prune path's stacked capture (128 x
+// 2048, 16 heads, hd 64) some 500 flops a byte, so it is bound by
+// operations: 1.112 ms on the bf16 tensor cores (69 us at B = 8).
 //
 // Design.  The TPU kernel carries acc / m / l across a sequential kv grid
 // axis in VMEM; here the kv axis is a loop inside the block.  One block
-// owns one (b, h, 64-row query tile) and stages each 64-key K and V tile
-// in shared memory; the running max m and sum l of each query row stay in
-// registers, in f32, and are rescaled once per tile.  Scores are kept in
-// base 2 (scaled by log2(e) / sqrt(hd)), so every exponential is one
-// exp2f.  A causal block's loop ends at its diagonal tile; keys past T and
-// above the diagonal are masked to -inf, and the first query tiles
-// scheduled are the longest ones.  A row whose keys are all masked keeps
-// m = -inf and produces zeros, never NaN (the guard of the reference's
-// _sdpa_online).  The ragged last query and kv tiles are masked, never
-// padded.  No atomics: the same inputs give the same bits.  Offsets are
-// 64-bit: a stacked calibration q holds 268 M elements.
+// owns one (b, h, query tile); the running max m and sum l of each query
+// row stay in registers, in f32, and are rescaled once per key tile.
+// Scores are kept in base 2 (scaled by log2(e) / sqrt(hd)), so every
+// exponential is one exp2f.  A causal block's loop ends at its diagonal
+// tile, and the first query tiles scheduled are the longest ones.  A row
+// whose keys are all masked keeps m = -inf and produces zeros, never NaN
+// (the guard of the reference's _sdpa_online).  The ragged last query
+// and kv tiles are masked, never padded.  No atomics: the same inputs
+// give the same bits.  Offsets are 64-bit: a stacked calibration q holds
+// 268 M elements.
 //
-// Two kernels, chosen per call on the host:
+// Three kernels, chosen per call on the host:
 //
-// * flash_attn_mma_kernel — bf16 q/k/v with hd 32, 64 or 128, 16-byte
-//   aligned rows (the model's layout): tensor cores through mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate).  Each of the 4 warps owns 16
-//   query rows; S = Q K^T lands in the mma's accumulator layout, which is
-//   also the A-operand layout of P V, so P never leaves registers.  P is
-//   split into two bf16 halves (hi = bf16(p), lo = bf16(p - hi)) and both
-//   are multiplied by V, so the probabilities keep ~16 bits, as the
-//   reference's f32 online softmax keeps them (not the 8 of a bf16
-//   rounding).  V's B fragments come from ldmatrix.trans; shared rows
-//   are padded by 16 bytes so neither K's 32-bit loads nor ldmatrix
-//   conflict on banks.
+// * flash_attn_wgmma_kernel — bf16 q/k/v with hd 64 (the model's) and rows
+//   on 16 bytes: Hopper's warpgroup MMA (wgmma, bf16 in, f32 accumulate).
+//   A block of two warpgroups owns 128 query rows (64 each), so every K/V
+//   tile brought into shared memory serves 128 rows.  The 64-key K and V
+//   tiles stream through a ring of 3 stages filled by 16-byte cp.async
+//   copies, two tiles ahead of the products, with one __syncthreads a
+//   tile; keys past T are zero-filled by the copies' source size.  Q, K
+//   and V sit in shared memory in wgmma's 128-byte swizzle (no padding,
+//   no bank conflicts), so QK^T reads both operands through descriptors
+//   and PV reads V through one, transposed.  S lands in wgmma's
+//   accumulator layout, which is also the A-operand register layout of
+//   PV, so P never leaves registers.  P is split into two bf16 halves
+//   (hi = bf16(p), lo = bf16(p - hi)) and both are multiplied by V, so
+//   the probabilities keep ~16 bits, as the reference's f32 online
+//   softmax keeps them (not the 8 of a bf16 rounding).  Only a tile that
+//   holds a key past T or past one of the warpgroup's rows pays for the
+//   mask; a warpgroup whose rows all precede the tile skips it.
+// * flash_attn_mma_kernel — bf16 with hd 32 or 128: the same block of 128
+//   rows (8 warps of 16) and the same ring, on mma.sync m16n8k16, K's B
+//   fragments from ldmatrix (two k-steps a load) and V's from
+//   ldmatrix.trans, shared rows padded by 16 bytes.
 // * flash_attn_kernel — everything else (f32, other head dims or
-//   alignments), on the f32 FMA pipe: each query row is held by
-//   TPR = HDP / 32 neighbouring threads, each owning 32 of the head's
-//   dimensions in interleaved float4 chunks (no bank conflicts), a
-//   partial dot product per key summed over the row's lanes by shuffles.
+//   alignments), on the f32 FMA pipe with 64-row query tiles: each query
+//   row is held by TPR = HDP / 32 neighbouring threads, each owning 32 of
+//   the head's dimensions in interleaved float4 chunks (no bank
+//   conflicts), a partial dot product per key summed over the row's
+//   lanes by shuffles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -207,8 +217,37 @@ __device__ __forceinline__ void split2(float p0, float p1, uint32_t& hi,
   lo = pack2(p0 - __bfloat162float(h0), p1 - __bfloat162float(h1));
 }
 
+__device__ __forceinline__ void cp16(void* dst, const void* src,
+                                     int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int MMA_BQ = 128;     // query rows per block: 8 warps of 16
+constexpr int MMA_NT = 256;
+constexpr int MMA_BK = 64;      // keys per tile
+
+// the K / V ring: 3 stages (2 at hd 128, whose block holds one SM alone)
 template <int HD>
-__global__ void __launch_bounds__(128)
+struct MmaTile {
+  static constexpr int LD = HD + 8;             // padded row (+16 bytes)
+  static constexpr int STAGES = HD == 128 ? 2 : 3;
+  static constexpr int TILE = MMA_BK * LD;      // elements of one K tile
+  static constexpr int SMEM = STAGES * 2 * TILE * 2;
+};
+
+// hd 32: registers capped at 128 so that two blocks share an SM
+template <int HD>
+__global__ void __launch_bounds__(MMA_NT, HD == 128 ? 1 : 2)
     flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -217,25 +256,52 @@ __global__ void __launch_bounds__(128)
                           int64_t k_sb, int64_t k_st, int64_t k_sh,
                           int64_t v_sb, int64_t v_st, int64_t v_sh,
                           int causal, float sscale) {
-  constexpr int BK = 64;          // keys per tile
-  constexpr int LD = HD + 8;      // padded shared row (16 bytes more)
+  using Tile = MmaTile<HD>;
+  constexpr int BK = MMA_BK, LD = Tile::LD, STAGES = Tile::STAGES;
   constexpr int KS = HD / 16;     // k-steps of QK^T
   constexpr int ND = HD / 8;      // 8-wide output column tiles
   constexpr int CH = HD / 8;      // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 ks[BK][LD];
-  __shared__ __align__(16) __nv_bfloat16 vs[BK][LD];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* const smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  // slot st: K tile at smem + 2 st TILE, V tile right after it
 
   const int bh = blockIdx.x;
   const int b = bh / n_head, h = bh % n_head, kvh = h / group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // longest tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MMA_BQ;  // longest first
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tig = lane & 3;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;     // this thread's rows
+  const int w0 = q0 + warp * 16;                      // the warp's rows
+  const int r0 = w0 + g, r1 = r0 + 8;                 // this thread's rows
 
-  // Q as A fragments: reg 0 (row g, cols 2t..), 1 (row g+8), 2 (row g,
-  // cols 8+2t..), 3 (row g+8, cols 8+2t..) of each 16-column k-step
-  const __nv_bfloat16* qb =
-      q + (int64_t)b * q_sb + (int64_t)h * q_sh;
+  const __nv_bfloat16* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
+  const __nv_bfloat16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
+  const int k_end = causal ? min(n_tok, q0 + MMA_BQ) : n_tok;
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  // tile j -> ring slot: 16-byte copies, keys past T zero-filled
+  auto load = [&](int j, int slot) {
+    __nv_bfloat16* ks = smem + 2 * slot * Tile::TILE;
+    __nv_bfloat16* vs = ks + Tile::TILE;
+#pragma unroll
+    for (int i = threadIdx.x; i < BK * CH; i += MMA_NT) {
+      const int r = i / CH, c = (i % CH) * 8, key = j * BK + r;
+      const bool ok = key < n_tok;
+      cp16(ks + r * LD + c, ok ? kb + (int64_t)key * k_st + c : kb,
+           ok ? 16 : 0);
+      cp16(vs + r * LD + c, ok ? vb + (int64_t)key * v_st + c : vb,
+           ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load(st, st);
+    cp_commit();
+  }
+
+  // Q as A fragments (loaded while the first tiles are in flight): reg 0
+  // (row g, cols 2t..), 1 (row g+8), 2 (row g, cols 8+2t..), 3 (row g+8,
+  // cols 8+2t..) of each 16-column k-step
+  const __nv_bfloat16* qb = q + (int64_t)b * q_sb + (int64_t)h * q_sh;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
   uint32_t qa[KS][4];
 #pragma unroll
@@ -255,61 +321,68 @@ __global__ void __launch_bounds__(128)
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
 
-  const __nv_bfloat16* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
-  const __nv_bfloat16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
-  const uint32_t vs_base = static_cast<uint32_t>(__cvta_generic_to_shared(
-      &vs[lane & 15][(lane >> 4) * 8]));
-  const int k_end = causal ? min(n_tok, q0 + BQ) : n_tok;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    for (int i = threadIdx.x; i < BK * CH; i += 128) {
-      const int j = i / CH, c = (i % CH) * 8, key = k0 + j;
-      uint4 kk4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (key < n_tok) {
-        kk4 = *reinterpret_cast<const uint4*>(kb + (int64_t)key * k_st + c);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (int64_t)key * v_st + c);
-      }
-      *reinterpret_cast<uint4*>(&ks[j][c]) = kk4;
-      *reinterpret_cast<uint4*>(&vs[j][c]) = vv4;
-    }
-    __syncthreads();
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_wait<STAGES - 2>();            // tile j has landed
+    __syncthreads();                  // ... and every warp is past j-1
+    if (j + STAGES - 1 < n_tiles)
+      load(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+    cp_commit();
+    const int k0 = j * BK;
+    // a warp whose rows all lie past T, or all precede the tile's keys
+    if (w0 >= n_tok || (causal && k0 > w0 + 15)) continue;
+    const __nv_bfloat16* ks = smem + 2 * (j % STAGES) * Tile::TILE;
+    const __nv_bfloat16* vs = ks + Tile::TILE;
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys; one
+    // ldmatrix.x4 gives the B fragments of two k-steps of one key tile
     float s[8][4];
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* kr = &ks[nt * 8 + g][kk * 16 + tig * 2];
-        mma16816(s[nt], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
+      for (int kk = 0; kk < KS; kk += 2) {
+        const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(
+            ks + (nt * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8));
+        uint32_t b4[4];
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+            : "=r"(b4[0]), "=r"(b4[1]), "=r"(b4[2]), "=r"(b4[3])
+            : "r"(addr));
+        mma16816(s[nt], qa[kk], b4[0], b4[1]);
+        mma16816(s[nt], qa[kk + 1], b4[2], b4[3]);
       }
+    }
+    // raw scores here; the scale joins the exponent below (one fma).  The
+    // mask only where some key of the tile is past T or past one of the
+    // warp's rows
+    if (k0 + BK > n_tok || (causal && k0 + BK - 1 > w0)) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + nt * 8 + tig * 2 + e;
+          const bool in = key < n_tok;
+          if (!in || (causal && key > r0)) s[nt][e] = -CUDART_INF_F;
+          if (!in || (causal && key > r1)) s[nt][2 + e] = -CUDART_INF_F;
+        }
     }
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = k0 + nt * 8 + tig * 2 + e;
-        const bool in = key < n_tok;
-        s[nt][e] = (in && (!causal || key <= r0)) ? s[nt][e] * sscale
-                                                  : -CUDART_INF_F;
-        s[nt][2 + e] = (in && (!causal || key <= r1))
-                           ? s[nt][2 + e] * sscale
-                           : -CUDART_INF_F;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
+    for (int nt = 0; nt < 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {     // the row's 4 lanes
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
     }
     const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-    const float z0 = n0 == -CUDART_INF_F ? 0.f : n0;
-    const float z1 = n1 == -CUDART_INF_F ? 0.f : n1;
-    const float a0 = m0 == -CUDART_INF_F ? 0.f : exp2f(m0 - z0);
-    const float a1 = m1 == -CUDART_INF_F ? 0.f : exp2f(m1 - z1);
+    // the new maxima in base-2 units (0 while a row has no live key)
+    const float z0 = n0 == -CUDART_INF_F ? 0.f : n0 * sscale;
+    const float z1 = n1 == -CUDART_INF_F ? 0.f : n1 * sscale;
+    const float a0 = m0 == -CUDART_INF_F ? 0.f : exp2f(fmaf(m0, sscale, -z0));
+    const float a1 = m1 == -CUDART_INF_F ? 0.f : exp2f(fmaf(m1, sscale, -z1));
     l0 *= a0;
     l1 *= a1;
 #pragma unroll
@@ -323,26 +396,28 @@ __global__ void __launch_bounds__(128)
     m1 = n1;
 
     // O += P V, 16 keys at a time; S's accumulator layout is P's A layout
+    const uint32_t vs_base = static_cast<uint32_t>(__cvta_generic_to_shared(
+        vs + (lane & 15) * LD + (lane >> 4) * 8));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int jj = 0; jj < 4; ++jj) {
       float p[8];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[e] = exp2f(s[2 * j][e] - (e < 2 ? z0 : z1));
-        p[4 + e] = exp2f(s[2 * j + 1][e] - (e < 2 ? z0 : z1));
+        p[e] = exp2f(fmaf(s[2 * jj][e], sscale, e < 2 ? -z0 : -z1));
+        p[4 + e] = exp2f(fmaf(s[2 * jj + 1][e], sscale, e < 2 ? -z0 : -z1));
       }
       l0 += p[0] + p[1] + p[4] + p[5];
       l1 += p[2] + p[3] + p[6] + p[7];
       uint32_t hi[4], lo[4];
-      split2(p[0], p[1], hi[0], lo[0]);      // row g,   keys 16j + 2t
-      split2(p[2], p[3], hi[1], lo[1]);      // row g+8, keys 16j + 2t
-      split2(p[4], p[5], hi[2], lo[2]);      // row g,   keys 16j + 8 + 2t
-      split2(p[6], p[7], hi[3], lo[3]);      // row g+8, keys 16j + 8 + 2t
+      split2(p[0], p[1], hi[0], lo[0]);      // row g,   keys 16jj + 2t
+      split2(p[2], p[3], hi[1], lo[1]);      // row g+8, keys 16jj + 2t
+      split2(p[4], p[5], hi[2], lo[2]);      // row g,   keys 16jj + 8 + 2t
+      split2(p[6], p[7], hi[3], lo[3]);      // row g+8, keys 16jj + 8 + 2t
 #pragma unroll
       for (int d = 0; d < ND; d += 2) {
         uint32_t v0, v1, v2, v3;
         const uint32_t addr =
-            vs_base + (uint32_t)((j * 16 * LD + d * 8) * 2);
+            vs_base + (uint32_t)((jj * 16 * LD + d * 8) * 2);
         asm volatile(
             "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
             "{%0,%1,%2,%3}, [%4];\n"
@@ -354,8 +429,8 @@ __global__ void __launch_bounds__(128)
         mma16816(o[d + 1], lo, v2, v3);
       }
     }
-    __syncthreads();
   }
+  cp_wait<0>();
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -382,9 +457,24 @@ template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        float* out, int n_b, int n_tok, int n_head, int n_kv,
                        const int64_t* st, int causal, cudaStream_t s) {
-  const dim3 grid(n_b * n_head, (n_tok + BQ - 1) / BQ);
+  constexpr int smem = MmaTile<HD>::SMEM;
+  // the shared-memory limit, raised once per device (setting it on every
+  // launch would stall the stream)
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(flash_attn_mma_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  const dim3 grid(n_b * n_head, (n_tok + MMA_BQ - 1) / MMA_BQ);
   const float sscale = 1.4426950408889634f / sqrtf((float)HD);
-  flash_attn_mma_kernel<HD><<<grid, 128, 0, s>>>(
+  flash_attn_mma_kernel<HD><<<grid, MMA_NT, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), out, n_tok, n_head,
@@ -393,13 +483,297 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The tensor-core kernel takes bf16 rows of hd 32, 64 or 128 whose K and
-// V rows start on 16 bytes (its 16-byte tile loads).
-bool mma_ok(const void* k, const void* v, int hd, const int64_t* st) {
+// --------------------------------------------------------------------
+// warpgroup (wgmma) kernel: bf16, hd 64
+// --------------------------------------------------------------------
+// Q, K and V tiles are stored as the 128-byte swizzle atom of wgmma: a
+// row of 64 bf16 is 128 bytes, its 16-byte chunk c at chunk c ^ (row % 8),
+// 8-row groups 1024 bytes apart.  Q and K are QK^T's A and B operands,
+// K-major; V is PV's B operand, MN-major (transposed).  P's hi / lo halves
+// are PV's A operand in registers, in mma.sync's fragment layout, which
+// wgmma shares.
+constexpr int WG_TILE = 64 * 64 * 2;            // bytes of one K or V tile
+constexpr int WG_STAGES = 3;
+constexpr int WG_Q = WG_STAGES * 2 * WG_TILE;   // the 128-row Q tile
+constexpr int WG_SMEM = WG_Q + 2 * WG_TILE + 1024;        // + alignment
+
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);    // start address
+  // both byte offsets 1024 (8 rows): the stride between 8-row groups; the
+  // other offset is unused while a tile is one atom wide (64 bf16)
+  d |= (uint64_t)(1024 >> 4) << 16;                 // leading byte offset
+  d |= (uint64_t)(1024 >> 4) << 32;                 // stride byte offset
+  d |= (uint64_t)1 << 62;                           // 128-byte swizzle
+  return d;
+}
+
+// d (64 x 64 f32, this warpgroup) += a (64 x 16 bf16, registers) * B
+// (16 x 64 bf16 through desc, MN-major)
+__device__ __forceinline__ void wgmma64_rs(float* d, const uint32_t* a,
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+// d (64 x 64 f32) = or += A (64 x 16 bf16 through desc_a, K-major) * B
+// (16 x 64 bf16 through desc_b, K-major)
+__device__ __forceinline__ void wgmma64_ss(float* d, uint64_t desc_a,
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_fence_operand(float* d, int n) {
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__global__ void __launch_bounds__(MMA_NT, 2)
+    flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            float* __restrict__ out, int n_tok, int n_head,
+                            int group, int64_t q_sb, int64_t q_st,
+                            int64_t q_sh, int64_t k_sb, int64_t k_st,
+                            int64_t k_sh, int64_t v_sb, int64_t v_st,
+                            int64_t v_sh, int causal, float sscale) {
+  constexpr int HD = 64, BK = MMA_BK, STAGES = WG_STAGES;
+  extern __shared__ __align__(128) unsigned char wg_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_raw));
+  const uint32_t sbase = (raw + 1023) & ~1023u;       // atoms on 1024 bytes
+  unsigned char* const smem = wg_raw + (sbase - raw);
+  // slot st: K tile at sbase + 2 st WG_TILE, V tile right after it; Q at
+  // sbase + WG_Q
+
+  const int bh = blockIdx.x;
+  const int b = bh / n_head, h = bh % n_head, kvh = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MMA_BQ;  // longest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wg0 = q0 + (warp / 4) * 64;               // the warpgroup's rows
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;     // this thread's rows
+
+  const __nv_bfloat16* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
+  const __nv_bfloat16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
+  const int k_end = causal ? min(n_tok, q0 + MMA_BQ) : n_tok;
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  auto load = [&](int j, int slot) {
+    unsigned char* ks = smem + 2 * slot * WG_TILE;
+    unsigned char* vs = ks + WG_TILE;
+#pragma unroll
+    for (int i = threadIdx.x; i < BK * 8; i += MMA_NT) {
+      const int r = i / 8, c = i % 8, key = j * BK + r;
+      const bool ok = key < n_tok;
+      const int off = r * 128 + ((c ^ (r & 7)) << 4);
+      cp16(ks + off, ok ? kb + (int64_t)key * k_st + c * 8 : kb, ok ? 16 : 0);
+      cp16(vs + off, ok ? vb + (int64_t)key * v_st + c * 8 : vb, ok ? 16 : 0);
+    }
+  };
+  // the Q tile joins tile 0's copies; rows past T are zero-filled
+  const __nv_bfloat16* qb = q + (int64_t)b * q_sb + (int64_t)h * q_sh;
+#pragma unroll
+  for (int i = threadIdx.x; i < MMA_BQ * 8; i += MMA_NT) {
+    const int r = i / 8, c = i % 8, row = q0 + r;
+    const bool ok = row < n_tok;
+    cp16(smem + WG_Q + r * 128 + ((c ^ (r & 7)) << 4),
+         ok ? qb + (int64_t)row * q_st + c * 8 : qb, ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load(st, st);
+    cp_commit();
+  }
+  const uint32_t qs = sbase + WG_Q + (warp / 4) * WG_TILE;  // this group's
+
+  float o[32];          // (row g | g+8) x 8-column chunk d: o[4 d + e]
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_wait<STAGES - 2>();            // tile j has landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                  // ... and every warp is past j-1
+    if (j + STAGES - 1 < n_tiles)
+      load(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+    cp_commit();
+    const int k0 = j * BK;
+    // a warpgroup whose rows all lie past T, or all precede the keys
+    if (wg0 >= n_tok || (causal && k0 > wg0 + 63)) continue;
+    const uint32_t ks = sbase + 2 * (j % STAGES) * WG_TILE;
+    const uint32_t vs = ks + WG_TILE;
+
+    float s[32];        // S = Q K^T: (row g | g+8) x key chunk nt: s[4 nt + e]
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma64_ss(s, wg_desc(qs + kk * 32), wg_desc(ks + kk * 32), kk);
+    wg_commit_wait();
+    wg_fence_operand(s, 32);
+
+    if (k0 + BK > n_tok || (causal && k0 + BK - 1 > wg0)) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + nt * 8 + tig * 2 + e;
+          const bool in = key < n_tok;
+          if (!in || (causal && key > r0)) s[4 * nt + e] = -CUDART_INF_F;
+          if (!in || (causal && key > r1)) s[4 * nt + 2 + e] = -CUDART_INF_F;
+        }
+    }
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * nt], s[4 * nt + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {     // the row's 4 lanes
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
+    const float z0 = n0 == -CUDART_INF_F ? 0.f : n0 * sscale;
+    const float z1 = n1 == -CUDART_INF_F ? 0.f : n1 * sscale;
+    const float a0 = m0 == -CUDART_INF_F ? 0.f : exp2f(fmaf(m0, sscale, -z0));
+    const float a1 = m1 == -CUDART_INF_F ? 0.f : exp2f(fmaf(m1, sscale, -z1));
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int d = 0; d < 8; ++d) {
+      o[4 * d] *= a0;
+      o[4 * d + 1] *= a0;
+      o[4 * d + 2] *= a1;
+      o[4 * d + 3] *= a1;
+    }
+    m0 = n0;
+    m1 = n1;
+
+    // P's hi / lo halves as A fragments, 16 keys (two chunks) a k-step
+    uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = exp2f(fmaf(s[8 * jj + e], sscale, e < 2 ? -z0 : -z1));
+        p[4 + e] = exp2f(fmaf(s[8 * jj + 4 + e], sscale, e < 2 ? -z0 : -z1));
+      }
+      l0 += p[0] + p[1] + p[4] + p[5];
+      l1 += p[2] + p[3] + p[6] + p[7];
+      split2(p[0], p[1], hi[jj][0], lo[jj][0]);
+      split2(p[2], p[3], hi[jj][1], lo[jj][1]);
+      split2(p[4], p[5], hi[jj][2], lo[jj][2]);
+      split2(p[6], p[7], hi[jj][3], lo[jj][3]);
+    }
+    wg_fence_operand(o, 32);
+    wg_fence();
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const uint64_t dv = wg_desc(vs + jj * 16 * 128);
+      wgmma64_rs(o, hi[jj], dv);
+      wgmma64_rs(o, lo[jj], dv);
+    }
+    wg_commit_wait();
+    wg_fence_operand(o, 32);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float i0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float i1 = l1 > 0.f ? 1.f / l1 : 0.f;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    const int col = d * 8 + tig * 2;
+    if (r0 < n_tok)
+      *reinterpret_cast<float2*>(
+          out + (((int64_t)b * n_tok + r0) * n_head + h) * HD + col) =
+          make_float2(o[4 * d] * i0, o[4 * d + 1] * i0);
+    if (r1 < n_tok)
+      *reinterpret_cast<float2*>(
+          out + (((int64_t)b * n_tok + r1) * n_head + h) * HD + col) =
+          make_float2(o[4 * d + 2] * i1, o[4 * d + 3] * i1);
+  }
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         float* out, int n_b, int n_tok, int n_head, int n_kv,
+                         const int64_t* st, int causal, cudaStream_t s) {
+  static bool raised[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    err = cudaFuncSetAttribute(flash_attn_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WG_SMEM);
+    if (err != cudaSuccess) return err;
+    raised[dev] = true;
+  }
+  const dim3 grid(n_b * n_head, (n_tok + MMA_BQ - 1) / MMA_BQ);
+  const float sscale = 1.4426950408889634f / sqrtf(64.f);
+  flash_attn_wgmma_kernel<<<grid, MMA_NT, WG_SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), out, n_tok, n_head,
+      n_head / n_kv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      st[8], causal, sscale);
+  return cudaGetLastError();
+}
+
+// The tensor-core kernels take bf16 rows of hd 32, 64 or 128 whose K and
+// V rows start on 16 bytes (their 16-byte cp.async copies) and whose q
+// rows start on 4 bytes (the mma.sync kernel's 32-bit fragment loads;
+// the wgmma kernel copies q as K, so hd 64 also needs q on 16 bytes).
+bool mma_ok(const void* q, const void* k, const void* v, int hd,
+            const int64_t* st) {
   if (hd != 32 && hd != 64 && hd != 128) return false;
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
-      16)
+      16 || reinterpret_cast<uintptr_t>(q) % 4)
     return false;
+  for (int i = 0; i < 3; ++i)
+    if (st[i] % (hd == 64 ? 8 : 2)) return false;
+  if (hd == 64 && reinterpret_cast<uintptr_t>(q) % 16) return false;
   for (int i = 3; i < 9; ++i)
     if (st[i] % 8) return false;
   return true;
@@ -447,12 +821,12 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   if (n_b == 0 || n_tok == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (bf16 && mma_ok(k, v, hd, strides)) {
+  if (bf16 && mma_ok(q, k, v, hd, strides)) {
     *used_mma = 1;
     err = hd == 32    ? launch_mma<32>(q, k, v, out, n_b, n_tok, n_head, n_kv,
                                        strides, causal, s)
-          : hd == 64  ? launch_mma<64>(q, k, v, out, n_b, n_tok, n_head,
-                                       n_kv, strides, causal, s)
+          : hd == 64  ? launch_wgmma(q, k, v, out, n_b, n_tok, n_head,
+                                     n_kv, strides, causal, s)
                       : launch_mma<128>(q, k, v, out, n_b, n_tok, n_head,
                                         n_kv, strides, causal, s);
   } else if (bf16) {

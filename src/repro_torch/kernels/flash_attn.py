@@ -12,11 +12,12 @@ TPU kernel's (BH, T, D) signature is the case H = KV = 1
 (``ops.attention``).  Every T is exact: ragged tiles are masked, never
 padded with keys that would join a non-causal softmax.
 
-On the card bf16 inputs with head dim 32, 64 or 128 and K/V rows on
-16-byte boundaries (the model's layout) take the tensor-core kernel
-(``mma.sync``); other inputs (f32, other head dims or alignments) take
-the f32-FMA kernel of the same file.  ``flash_attn.last_kernel`` names
-the one the last launch took.
+On the card bf16 inputs with head dim 32, 64 or 128 and rows on 16-byte
+boundaries (the model's layout) take a tensor-core kernel (``wgmma`` at
+hd 64, ``mma.sync`` at 32 and 128); other inputs (f32, other head dims
+or alignments) take the f32-FMA kernel of the same file.
+``flash_attn.last_kernel`` names the route the last launch took
+("tensor cores" or "f32 FMA").
 
 Dispatch is by device: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  ``flash_attn.launches`` counts

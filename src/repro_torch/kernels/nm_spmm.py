@@ -4,6 +4,12 @@ Replaces the TPU kernels ``repro/kernels/nm_spmm.py::nm_spmm`` and
 ``::nm_spmm_decode``; the kernel itself is ``csrc/nm_spmm.cu`` (its header
 says what bounds it on the H100 and how the design answers that).
 
+On the card the tiled product takes the tensor-core kernel for bf16
+(``mma.sync`` on decompressed tiles, a ring filled by the Tensor Memory
+Accelerator, K split over a thread-block cluster) and the f32-FMA kernel
+for f32; ``nm_spmm.last_kernel`` names the route the last launch took
+("tensor cores" or "f32 FMA").
+
 Dispatch is by device and nothing else: a CPU tensor takes the plain
 PyTorch version beside each wrapper; a CUDA tensor launches the kernel
 or raises — there is no fallback.  Each wrapper counts its launches in
@@ -70,15 +76,18 @@ def nm_spmm(x: torch.Tensor, vals: torch.Tensor,
     m, k = x.shape
     n = vals.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
     code = build.library().nm_spmm_launch(
         x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        m, k, n, int(x.dtype == torch.bfloat16), _stream(x))
+        m, k, n, int(bf16), _stream(x))
     build.check(code, "nm_spmm")
     nm_spmm.launches += 1
+    nm_spmm.last_kernel = "tensor cores" if bf16 else "f32 FMA"
     return out
 
 
 nm_spmm.launches = 0
+nm_spmm.last_kernel = None
 
 
 # ----------------------------------------------------------------------

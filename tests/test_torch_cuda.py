@@ -70,6 +70,40 @@ def test_nm_spmm_matches_plain(gen, m, k, n, dtype):
     vals, idx = _packed(gen, k, n, dtype)
     x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     _close(nm_spmm(x, vals, idx), nm_spmm_plain(x, vals, idx))
+    assert nm_spmm.last_kernel == ("tensor cores" if dtype == torch.bfloat16
+                                   else "f32 FMA")
+
+
+def _packed_with_padding(gen, k, n, dtype):
+    """A pruned weight whose columns 0-2 of every 2:4 group hold a kept
+    value at position 0 beside a padding slot (idx (0, 0)), two padding
+    slots, and a kept value at position 3 (idx (3, 0)), as
+    ``compress_24`` packs groups with fewer than two nonzeros."""
+    w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+    w = prune_linears({"layers": [{"mlp": {"wo": w}}]},
+                      "2:4")["layers"][0]["mlp"]["wo"]
+    g = w.view(k // 4, 4, n)
+    g[:, :, 0] = torch.tensor([1.5, 0.0, 0.0, 0.0], device="cuda")
+    g[:, :, 1] = 0.0
+    g[:, :, 2] = torch.tensor([0.0, 0.0, 0.0, -2.0], device="cuda")
+    return ops.compress_24(w.to(dtype))
+
+
+@pytest.mark.parametrize("m", [129, 256, 257])
+def test_nm_spmm_bf16_tensor_cores_split_k(gen, m):
+    """The tensor-core route at K = 2816 (mlp.wo's depth, split over a
+    cluster) and a ragged N: within the f32 tolerance of the plain
+    version (bf16 products are exact in f32), padding-slot groups
+    included, and the same bits on a second call."""
+    k, n = 2816, 200
+    vals, idx = _packed_with_padding(gen, k, n, torch.bfloat16)
+    assert (idx.view(k // 4, 2, n)[:, :, 1] == 0).all()       # (0, 0)
+    assert (idx.view(k // 4, 2, n)[:, 0, 2] == 3).all()       # (3, 0)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    got = nm_spmm(x, vals, idx)
+    assert nm_spmm.last_kernel == "tensor cores"
+    _close(got, nm_spmm_plain(x, vals, idx))
+    assert torch.equal(got, nm_spmm(x, vals, idx))             # deterministic
 
 
 @pytest.mark.parametrize("b,kv,g,hd,ps,pmax,window,int8", [
@@ -201,6 +235,25 @@ def test_flash_attn_matches_plain(gen, b, t, h, kv, hd, causal, dtype):
     else:
         err = (got - want).abs().max().item()
         assert err <= BF16_TOL_REL * max(1.0, want.abs().max().item()), err
+    assert torch.equal(got, flash_attn(q, k, v, causal))   # deterministic
+
+
+@pytest.mark.parametrize("t", [127, 129, 130, 257])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attn_tensor_cores_ragged_query_tiles(gen, t, hd, causal):
+    """128-row query tiles with a ragged edge (T around 128 and 256),
+    grouped-query heads (G = 2), every head dim of the tensor-core
+    kernel: within BF16_TOL_REL of the plain version, deterministic."""
+    q = torch.randn(2, t, 4, hd, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(2, t, 2, hd, generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    got = flash_attn(q, k, v, causal)
+    assert flash_attn.last_kernel == "tensor cores"
+    want = flash_attn_plain(q, k, v, causal)
+    err = (got - want).abs().max().item()
+    assert err <= BF16_TOL_REL * max(1.0, want.abs().max().item()), err
     assert torch.equal(got, flash_attn(q, k, v, causal))   # deterministic
 
 
