@@ -12,18 +12,21 @@ Phases (any failure exits non-zero; no exception is swallowed):
   0. the card's name and power limit, and the kernels' build time;
   1. every kernel against its plain version at the main paths' shapes —
      the seven Qwen linears at M = 8 (decode) and M = 32 (prefill chunk)
-     through nm_spmm_decode, the same seven at M = 256 through nm_spmm,
+     through nm_spmm_decode, and at M = 1, 16, 64, 128 on attn.wq (bias)
+     and mlp.wg (silu), the same seven at M = 256 through nm_spmm,
      paged_attn at B = 8 with ragged lengths, an idle slot, a window and
      int8 pages; hessian_accum at m = 1024 / 2816 on T = 16384 tokens
-     (one serial batch; α = 1, β = 0 and the streaming-mean α, β) and on
-     T = 262144 (the pipelined engine's stacked capture); nm_select on
-     128-column blocks and whole matrices of the seven Qwen linears;
-     flash_attn in f32 and bf16, causal and not, T in {128, 129, 200,
-     257, 2048}, G in {1, 2}, then at (8, 2048, 16, 64) and (128, 2048,
-     16, 64) bf16; nm_spmm also at ragged M = 257, (200, 132, 200) and
-     with padding-slot groups, each asserting its route
-     (``nm_spmm.last_kernel``: tensor cores for bf16, f32 FMA for f32)
-     and the same bits twice.  Errors are taken on f32 and bf16 inputs;
+     (one serial batch; α = 1, β = 0 and the streaming-mean α, β), at a
+     ragged m = 130 on T = 4097, and on T = 262144 (the pipelined
+     engine's stacked capture); nm_select on 128-column blocks and whole
+     matrices of the seven Qwen linears; flash_attn in f32 and bf16,
+     causal and not, T in {128, 129, 200, 257, 2048}, G in {1, 2}, then
+     at (8, 2048, 16, 64) and (128, 2048, 16, 64) bf16; nm_spmm also at
+     ragged M = 257, (200, 132, 200) and with padding-slot groups.  Every
+     nm_spmm, nm_spmm_decode and hessian_accum row asserts its route
+     (``last_kernel``: tensor cores for bf16, f32 FMA for f32 and for
+     rows off 16 bytes) and the same bits from a second call; hessian_accum
+     rows also exact symmetry.  Errors are taken on f32 and bf16 inputs;
      times are device times in the main path's bf16 (CUDA events around
      back-to-back calls while a spin kernel holds the card), weights
      rotated through more than the 50 MB L2 so that every launch streams
@@ -49,8 +52,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
      bf16, random init; the paper's calibration protocol (128 random
      sequences x 2048 tokens); MM 2:4 at blocksize 128 — the counters
      are zeroed just before and read just after, and flash_attn,
-     hessian_accum and nm_select must each be > 0; wall, seconds per
-     layer, HBM held and the host syncs PyTorch reports
+     hessian_accum and nm_select must each be > 0, hessian_accum 7 a
+     layer; wall, seconds per layer, HBM held and the host syncs PyTorch
+     reports
      (``torch.cuda.set_sync_debug_mode``); every pruned linear must pass
      validate_nm, and the pruned model, packed, serves 8 greedy requests;
   5b. the serial and the pipelined engine on the same calibration, held
@@ -60,8 +64,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
      reconstruction error within LAYER_ERR_REL; layer 1: MASK_AGREE_MIN
      of mask entries equal, errors within LAYER_ERR_REL — and in bf16 on
      PRUNE_CMP_LAYERS layers, the serial one with its StageClock
-     breakdown and the pipelined one instrumented (each stage
-     synchronised): layer 0 MASK_AGREE_MIN equal and within
+     breakdown (hessian_accum 112 launches a layer) and the pipelined one
+     instrumented (each stage synchronised; the capture stage beside the
+     device time of its 7 hessian_accum launches): layer 0
+     MASK_AGREE_MIN equal and within
      LAYER_ERR_REL, all layers' total reconstruction error within
      PIPE_TOTAL_ERR_REL and equal sparsity (layer 0's captures and
      Hessians compared first: where the engines part); then a bf16
@@ -226,12 +232,12 @@ def _sparse_weight(gen, k, n, dtype, padding=False):
     return w, vals, idx
 
 
-def _route_of(kname, dtype):
-    """The route nm_spmm must take (the decode kernel has one route)."""
+def _route_of(dtype):
+    """The route nm_spmm, nm_spmm_decode and hessian_accum must take on
+    rows aligned to 16 bytes: the tensor cores for bf16, the f32-FMA kernel
+    for f32."""
     import torch
 
-    if kname != "nm_spmm":
-        return None
     return "tensor cores" if dtype == torch.bfloat16 else "f32 FMA"
 
 
@@ -255,8 +261,7 @@ def check_nm_spmm(gen, rows):
                     if has_bias else None)
             extra = (bias, act) if kname == "nm_spmm_decode" else ()
             got = kern(x, vals, idx, *extra)
-            route_ok = getattr(kern, "last_kernel", None) == _route_of(
-                kname, torch.float32)
+            route_ok = kern.last_kernel == _route_of(torch.float32)
             want = plain(x, vals, idx, *extra)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
@@ -271,8 +276,8 @@ def check_nm_spmm(gen, rows):
             bb = bias.to(torch.bfloat16) if bias is not None else None
             bextra = (bb, act) if extra else ()
             got = kern(xb, vals, idx, *bextra)
-            route_ok &= getattr(kern, "last_kernel", None) == _route_of(
-                kname, torch.bfloat16)
+            route_ok &= kern.last_kernel == _route_of(torch.bfloat16)
+            same = bool(torch.equal(got, kern(xb, vals, idx, *bextra)))
             want = plain(xb, vals, idx, *bextra)
             torch.cuda.synchronize()
             err_b = (got - want).abs().max().item()
@@ -289,24 +294,70 @@ def check_nm_spmm(gen, rows):
             n_bytes = (m * k * 2 + vals.numel() * 2 + idx.numel()
                        + (n * 2 if bb is not None else 0) + m * n * 4)
             b_ms, b_by = bound(n_bytes, 2.0 * m * n * (k // 2), "bfloat16")
-            ok = err <= tol and err_b <= tol_b and route_ok
+            ok = err <= tol and err_b <= tol_b and route_ok and same
             row = dict(kernel=kname, shape=f"{name} M={m} K={k} N={n}",
                        max_abs_err=max(err, err_b), tol=tol, ok=ok,
                        err_f32=err, err_bf16=err_b, tol_bf16=tol_b, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by, route=getattr(kern, "last_kernel",
-                                                    None))
+                       bound_by=b_by, route=kern.last_kernel,
+                       deterministic=same)
             rows.append(row)
             say(f"  {kname:15s} {row['shape']:30s} err f32 {err:.3e} tol "
-                f"{tol:.3e}, bf16 {err_b:.3e} tol {tol_b:.3e}"
-                + (f" ({row['route']})" if row["route"] else "")
-                + f" {'ok' if ok else 'FAIL'}  ms {ms:.5f} plain "
+                f"{tol:.3e}, bf16 {err_b:.3e} tol {tol_b:.3e} "
+                f"({row['route']}) same bits {same} "
+                f"{'ok' if ok else 'FAIL'}  ms {ms:.5f} plain "
                 f"{plain_ms:.5f} lib {lib_ms:.5f} bound {b_ms:.5f}")
             if m in (8, 256):
                 per_kernel[kname].append(row)
             del sets, lib_sets
     check_nm_spmm_edges(gen, rows)
+    check_decode_edges(gen, rows)
     return per_kernel
+
+
+def check_decode_edges(gen, rows):
+    """nm_spmm_decode at the batch sizes the timed rows skip — M = 1, 16
+    (two 8-row fragments), 64 and 128 (row blocks of 32) — on attn.wq with
+    its bias and mlp.wg with its silu, f32 and bf16: each on its dtype's
+    route, within tolerance, the same bits twice."""
+    import torch
+
+    from repro_torch.kernels.nm_spmm import (nm_spmm_decode,
+                                             nm_spmm_decode_plain)
+
+    cases = [(name, k, n, has_bias, act)
+             for name, k, n, has_bias, act in QWEN_LINEARS
+             if name in ("attn.wq", "mlp.wg")]
+    worst, n_rows = 0.0, 0
+    for m in (1, 16, 64, 128):
+        for name, k, n, has_bias, act in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                _, vals, idx = _sparse_weight(gen, k, n, dtype)
+                x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+                bias = (0.1 * torch.randn(n, generator=gen, device="cuda")
+                        ).to(dtype) if has_bias else None
+                got = nm_spmm_decode(x, vals, idx, bias, act)
+                route = nm_spmm_decode.last_kernel
+                same = bool(torch.equal(
+                    got, nm_spmm_decode(x, vals, idx, bias, act)))
+                want = nm_spmm_decode_plain(x, vals, idx, bias, act)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                tol = KERNEL_TOL_REL * max(1.0, want.abs().max().item())
+                ok = err <= tol and same and route == _route_of(dtype)
+                dname = "f32" if dtype == torch.float32 else "bf16"
+                row = dict(kernel="nm_spmm_decode",
+                           shape=f"{name} M={m} K={k} N={n} {dname}",
+                           max_abs_err=err, tol=tol, ok=ok, route=route,
+                           deterministic=same)
+                rows.append(row)
+                worst, n_rows = max(worst, err / tol), n_rows + 1
+                LOG.append(f"  nm_spmm_decode  {row['shape']:42s} err "
+                           f"{err:.3e} tol {tol:.3e} ({route}) same bits "
+                           f"{same} {'ok' if ok else 'FAIL'}")
+    say(f"  nm_spmm_decode  {n_rows} cases (M=1/16/64/128 x attn.wq with "
+        f"bias, mlp.wg with silu; bf16 and f32): worst err/tol "
+        f"{worst:.3e}, failed {sum(not r['ok'] for r in rows[-n_rows:])}")
 
 
 def check_nm_spmm_edges(gen, rows):
@@ -336,8 +387,7 @@ def check_nm_spmm_edges(gen, rows):
             err = (got - want).abs().max().item()
             tol = KERNEL_TOL_REL * max(1.0, want.abs().max().item())
             same = bool(torch.equal(got, again))
-            ok = (err <= tol and same
-                  and route == _route_of("nm_spmm", dtype))
+            ok = err <= tol and same and route == _route_of(dtype)
             dname = "f32" if dtype == torch.float32 else "bf16"
             row = dict(kernel="nm_spmm", shape=f"{label} {dname}",
                        max_abs_err=err, tol=tol, ok=ok, route=route,
@@ -454,38 +504,46 @@ def check_paged(gen, rows):
 
 def check_hessian(gen, rows):
     """hessian_accum at the prune path's shapes: T = 16384 tokens (one
-    calibration batch, 8 x 2048) of the m = 1024 and m = 2816 captures."""
+    calibration batch, 8 x 2048) of the m = 1024 and m = 2816 captures,
+    and a ragged bf16 m = 130 (rows off 16 bytes: the f32-FMA route) on
+    T = 4097.  Each row asserts its route, exact symmetry and the same
+    bits from a second call."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.hessian_accum import (hessian_accum,
                                                    hessian_accum_plain)
 
-    t = 16384
     per_m = []
-    for m in (1024, 2816):
+    for t, m in ((16384, 1024), (16384, 2816), (4097, 130)):
         # the streaming mean of the second batch: n_prev = t, n = 2t
         ab = [("α=1 β=0", 1.0, 0.0), ("α=1/n β=n'/n", 1.0 / (2 * t), 0.5)]
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(t, m, generator=gen, device="cuda").to(dtype)
             h0 = torch.randn(m, m, generator=gen, device="cuda")
             h0 = h0 + h0.T
+            route_want = "f32 FMA" if m % 8 else _route_of(dtype)
             for label, alpha, beta in ab:
-                got = (h0.clone() if beta else
-                       torch.full_like(h0, float("nan")))
-                hessian_accum(x, got, alpha, beta)
+                def fresh():                 # β = 0 must not read h
+                    return (h0.clone() if beta else
+                            torch.full_like(h0, float("nan")))
+                got = hessian_accum(x, fresh(), alpha, beta)
+                route = hessian_accum.last_kernel
+                same = bool(torch.equal(
+                    got, hessian_accum(x, fresh(), alpha, beta)))
                 want = (ref.hessian_accum_ref(x.T) if beta == 0 else
                         hessian_accum_plain(x, h0.clone(), alpha, beta))
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
                 tol = KERNEL_TOL_REL * max(1.0, want.abs().max().item())
                 sym = bool(torch.equal(got, got.T))
-                ok = err <= tol and sym
+                ok = err <= tol and sym and same and route == route_want
                 dname = "f32" if dtype == torch.float32 else "bf16"
                 row = dict(kernel="hessian_accum",
                            shape=f"T={t} m={m} {dname} {label}",
-                           max_abs_err=err, tol=tol, ok=ok)
-                if dtype == torch.bfloat16 and beta:
+                           max_abs_err=err, tol=tol, ok=ok, route=route,
+                           deterministic=same)
+                if dtype == torch.bfloat16 and beta and m % 8 == 0:
                     # speed on the path's call: bf16 captures, streaming α/β
                     h = h0.clone()
                     x32 = x.float()
@@ -505,8 +563,8 @@ def check_hessian(gen, rows):
                     per_m.append(row)
                 rows.append(row)
                 say(f"  hessian_accum   {row['shape']:34s} err {err:.3e} "
-                    f"tol {tol:.3e} symmetric {sym} "
-                    f"{'ok' if ok else 'FAIL'}"
+                    f"tol {tol:.3e} symmetric {sym} ({route}) same bits "
+                    f"{same} {'ok' if ok else 'FAIL'}"
                     + (f"  ms {row['ms']:.5f} plain {row['plain_ms']:.5f} "
                        f"lib {row['library_ms']:.5f} bound "
                        f"{row['bound_ms']:.5f}" if "ms" in row else ""))
@@ -533,6 +591,9 @@ def check_hessian_stacked(gen, rows):
         x = torch.randn(t, m, generator=gen, device="cuda").to(torch.bfloat16)
         h = torch.empty(m, m, device="cuda")
         got = hessian_accum(x, h.clone(), alpha, 0.0)
+        route = hessian_accum.last_kernel
+        same = bool(torch.equal(got, hessian_accum(x, h.clone(), alpha,
+                                                   0.0)))
         want = hessian_accum_plain(x, h.clone(), alpha, 0.0)
         x64 = x.double()
         exact = (2.0 * alpha) * (x64.T @ x64)
@@ -554,15 +615,19 @@ def check_hessian_stacked(gen, rows):
                            [(x32,)], n=3, reps=3)
         b_ms, b_by = bound(t * m * 2 + m * m * 4, float(m) * (m + 1) * t,
                            "bfloat16")
+        ok = (err <= tol and sym and same
+              and route == _route_of(torch.bfloat16))
         row = dict(kernel="hessian_accum",
                    shape=f"T={t} m={m} bf16 α=1/T β=0 (stacked)",
-                   max_abs_err=err, tol=tol, ok=err <= tol and sym, ms=ms,
+                   max_abs_err=err, tol=tol, ok=ok, ms=ms,
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by, rel_err_vs_f64=(err_k, err_p))
+                   bound_by=b_by, rel_err_vs_f64=(err_k, err_p), route=route,
+                   deterministic=same)
         rows.append(row)
         per_m.append(row)
         say(f"  hessian_accum   {row['shape']:34s} err {err:.3e} tol "
-            f"{tol:.3e} symmetric {sym} {'ok' if row['ok'] else 'FAIL'}; "
+            f"{tol:.3e} symmetric {sym} ({route}) same bits {same} "
+            f"{'ok' if ok else 'FAIL'}; "
             f"vs f64: kernel {err_k:.2e} plain {err_p:.2e}  ms {ms:.5f} "
             f"plain {plain_ms:.5f} lib {lib_ms:.5f} bound {b_ms:.5f}")
         del x, x32, h, args
@@ -931,7 +996,9 @@ def profile_main(eng, reqs):
     for d, name in evs:
         key = ("nm_spmm tiled kernel (tensor cores)"
                if "nm_spmm_tc_kernel" in name
-               else "nm_spmm_decode kernels" if "nm_spmm_kernel" in name
+               else "nm_spmm_decode kernel (tensor cores)"
+               if "nm_spmm_decode_tc_kernel" in name
+               else "nm_spmm_kernel (f32 FMA)" if "nm_spmm_kernel" in name
                else "paged_attn kernel" if "paged_attn_kernel" in name
                else name[:60])
         by[key] = by.get(key, 0.0) + d / 1e6
@@ -1051,6 +1118,9 @@ def prune_path():
     for name in PRUNE_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the prune path")
+    if counts["hessian_accum"] != 7 * PRUNE_LAYERS:
+        fail(f"{counts['hessian_accum']} hessian_accum launches, expected 7 "
+             "a layer (one stacked capture per linear)")
     masks = _pruned_masks(model, pruned)
     if len(masks) != 7 * PRUNE_LAYERS or len(reports) != 7 * PRUNE_LAYERS:
         fail(f"expected {7 * PRUNE_LAYERS} pruned linears")
@@ -1184,7 +1254,7 @@ def where_engines_part(model, params, calib):
     torch.cuda.empty_cache()
 
 
-def serial_vs_pipelined():
+def serial_vs_pipelined(hess_rows):
     """The serial and the pipelined engine over the same calibration.
     f32, 2 layers: layer 0 (identical inputs) under the tie rule and
     LAYER_ERR_REL, as phase 6; layer 1 (inputs an f32 rounding apart)
@@ -1198,7 +1268,8 @@ def serial_vs_pipelined():
     within PIPE_TOTAL_ERR_REL (the reference's pipelined contract) and
     per-linear sparsity equal.  Then resume — a pipelined run whose
     store raises after segment 2, rerun, must end bit-identical to the
-    uninterrupted one."""
+    uninterrupted one.  ``hess_rows``: phase 1's stacked hessian_accum
+    rows (m = 1024, 2816), the share of the capture stage they explain."""
     import tempfile
 
     import torch
@@ -1207,6 +1278,7 @@ def serial_vs_pipelined():
     from repro_torch.core.clock import StageClock
     from repro_torch.core.engine import PruningEngine
     from repro_torch.core.pipeline import run_pipelined
+    from repro_torch.kernels import ops
     from repro_torch.launch import prune as launch_prune
 
     kw = dict(blocksize=128, row_chunk=PRUNE_ROW_CHUNK)
@@ -1238,16 +1310,22 @@ def serial_vs_pipelined():
         where_engines_part(model, params, calib)
     clock = StageClock("cuda")
     torch.cuda.synchronize()
+    ops.reset_launch_counts()
     t0 = time.monotonic()
     serial = launch_prune.prune(model, params, calib, "2:4", "MM",
                                 clock=clock, pipeline="off", **kw)
     torch.cuda.synchronize()
     t_serial = time.monotonic() - t0
+    n_hess = ops.launch_counts()["hessian_accum"]
     stages = {k: v / layers for k, v in clock.seconds.items()}
     say(f"  serial, bf16: {layers} layers in {t_serial:.2f} s "
         f"({t_serial / layers:.3f} s a layer); seconds per layer by stage: "
         + ", ".join(f"{k} {v:.3f}" for k, v in
-                    sorted(stages.items(), key=lambda kv: -kv[1])))
+                    sorted(stages.items(), key=lambda kv: -kv[1]))
+        + f"; hessian_accum launches a layer {n_hess / layers:g}")
+    if n_hess != 7 * len(calib) * layers:
+        fail(f"serial: {n_hess} hessian_accum launches, expected "
+             f"{7 * len(calib)} a layer (7 linears x {len(calib)} batches)")
     # instrumented: each stage synchronises at its end, so its seconds
     # are its device cost (the results are the same bits)
     engine = PruningEngine(model, "2:4", method="MM", **kw)
@@ -1263,6 +1341,10 @@ def serial_vs_pipelined():
     say(f"  pipelined, bf16, instrumented: {layers} layers in {t_piped:.2f} s"
         f" ({t_piped / layers:.3f} s a layer); seconds per layer by stage: "
         + ", ".join(f"{k} {v:.3f}" for k, v in piped_stages.items()))
+    hess_ms = 6 * hess_rows[0]["ms"] + hess_rows[1]["ms"]
+    say(f"  capture stage {piped_stages['capture']:.3f} s a layer, of which "
+        f"its 7 stacked hessian_accum launches (6 at m = 1024, 1 at m = "
+        f"2816) take {hess_ms / 1e3:.4f} s at phase 1's device times")
     # layer 0 (identical inputs): every linear's error within
     # LAYER_ERR_REL and the masks MASK_AGREE_MIN equal; past it each
     # layer's inputs differ by the bf16 rounding of the layer before, the
@@ -1449,7 +1531,7 @@ def main() -> int:
 
     say(f"phase 5b: serial and pipelined engines at {PRUNE_CMP_LAYERS} "
         "layers, the same calibration; resume")
-    cmp_run = serial_vs_pipelined()
+    cmp_run = serial_vs_pipelined(hess_rows)
     torch.cuda.empty_cache()
 
     say("phase 6: one f32 layer at Qwen width, kernels against plain")

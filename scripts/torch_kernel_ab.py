@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's tiled nm_spmm and flash_attn of two source trees on one
-card, in turns (A, B, B, A), at the main paths' shapes.
+"""Time the port's nm_spmm, nm_spmm_decode, flash_attn and hessian_accum
+of two source trees on one card, in turns (A, B, B, A), at the main paths'
+shapes.
 
     python3 scripts/torch_kernel_ab.py --tree build/parent --tree .
 
@@ -8,12 +9,19 @@ Each ``--tree`` is a checkout of the repository; its ``src/repro_torch``
 is imported in a fresh process (so that two versions of the package never
 meet) and builds its own kernels under its own ``build/``.  Per tree and
 turn it prints one JSON line: the device time (ms) of the seven Qwen1.5-0.5B
-linears at M = 256 through ``nm_spmm`` (bf16, weights rotated past the
-50 MB L2, summed over the layer) and of ``flash_attn`` at (8 | 128, 2048,
-16, 64) bf16 causal, each beside its PyTorch yardstick (``torch.matmul`` on
-the dense weight, ``scaled_dot_product_attention``) timed in the same
-process.  Device times come from CUDA events around back-to-back calls
-while a spin kernel holds the card, median of 5.  Needs one CUDA card.
+linears at M = 256 through ``nm_spmm`` and at M = 8 (a decode step) and 32
+(a prefill chunk) through ``nm_spmm_decode`` with each linear's bias and
+activation (bf16, weights rotated past the 50 MB L2, summed over the
+layer), of ``flash_attn`` at (8 | 128, 2048, 16, 64) bf16 causal, and of
+``hessian_accum`` on the pipelined engine's stacked capture (T = 262144
+bf16 tokens, m = 1024 and 2816, α = 1/T, β = 0), each beside its PyTorch
+yardstick (``torch.matmul`` on the dense weight,
+``scaled_dot_product_attention``, ``torch.addmm`` on the f32 copy of the
+capture) timed in the same process, and the time of an empty kernel
+(one float add) between back-to-back launches; for a tree that plans its
+decode launches, the cluster size each linear gets.  Device times come
+from CUDA events around back-to-back calls while a spin kernel holds the
+card, median of 5.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ import sys
 import time
 
 LINEARS = ((1024, 1024),) * 4 + ((1024, 2816),) * 2 + ((2816, 1024),)
+EPILOGUES = ((True, None),) * 3 + ((False, None),) * 2 + ((False, "silu"),
+                                                         (False, None))
 L2_BYTES = 50 * 2**20
 
 
@@ -69,13 +79,18 @@ def measure(tree: str) -> dict:
     from repro_torch.core.pruner import prune_linears
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.flash_attn import flash_attn
-    from repro_torch.kernels.nm_spmm import nm_spmm
+    from repro_torch.kernels.hessian_accum import hessian_accum
+    from repro_torch.kernels import nm_spmm as K
+    from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_decode
 
     torch.backends.cuda.matmul.allow_tf32 = False
     build.library()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    res = {"tree": tree, "nm_spmm_ms": 0.0, "matmul_ms": 0.0}
+    tiny = torch.zeros(1, device="cuda")
+    res = {"tree": tree, "empty_launch_ms": _device_ms(lambda a: a.add_(1),
+                                                       [(tiny,)]),
+           "nm_spmm_ms": 0.0, "matmul_ms": 0.0}
     for k, n in LINEARS:
         w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
         w = prune_linears({"layers": [{"mlp": {"wo": w}}]},
@@ -89,6 +104,44 @@ def measure(tree: str) -> dict:
         res["matmul_ms"] += _device_ms(torch.matmul,
                                        [(x, w.clone()) for _ in range(reps)])
         del sets
+    for m in (8, 32):
+        res[f"decode_m{m}_ms"] = res[f"decode_m{m}_matmul_ms"] = 0.0
+        for (k, n), (has_bias, act) in zip(LINEARS, EPILOGUES):
+            w = torch.randn(k, n, generator=gen, device="cuda") / math.sqrt(k)
+            w = prune_linears({"layers": [{"mlp": {"wo": w}}]}, "2:4")[
+                "layers"][0]["mlp"]["wo"].to(torch.bfloat16)
+            vals, idx = ops.compress_24(w)
+            x = torch.randn(m, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            bias = (torch.randn(n, generator=gen, device="cuda").to(
+                torch.bfloat16) if has_bias else None)
+            reps = max(2, -(-2 * L2_BYTES // (vals.numel() * 3)))
+            sets = [(x, vals.clone(), idx.clone(), bias, act)
+                    for _ in range(reps)]
+            res[f"decode_m{m}_ms"] += _device_ms(nm_spmm_decode, sets)
+            res[f"decode_m{m}_route"] = getattr(nm_spmm_decode,
+                                                "last_kernel", None)
+            plan = getattr(K, "_decode_plan", None)
+            if plan is not None:       # blocks a cluster, per linear
+                res.setdefault(f"decode_m{m}_clusters", []).append(plan(
+                    torch.bfloat16, m, k, n, True,
+                    torch.cuda.current_device()).cluster)
+            res[f"decode_m{m}_matmul_ms"] += _device_ms(
+                torch.matmul, [(x, w.clone()) for _ in range(reps)])
+            del sets
+    t = 128 * 2048
+    for m in (1024, 2816):
+        x = torch.randn(t, m, generator=gen, device="cuda").to(torch.bfloat16)
+        h = torch.empty(m, m, device="cuda")
+        res[f"hessian_m{m}_ms"] = _device_ms(
+            hessian_accum, [(x, h, 1.0 / t, 0.0)], n=3, reps=3)
+        res[f"hessian_m{m}_route"] = getattr(hessian_accum, "last_kernel",
+                                             None)
+        x32 = x.float()
+        res[f"hessian_m{m}_addmm_ms"] = _device_ms(
+            lambda a: torch.addmm(h, a.T, a, beta=0.0, alpha=2.0 / t),
+            [(x32,)], n=3, reps=3)
+        del x, x32, h
     for b in (8, 128):
         q, k, v = (torch.randn(b, 2048, 16, 64, generator=gen,
                                device="cuda").to(torch.bfloat16)

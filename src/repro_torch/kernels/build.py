@@ -1,11 +1,12 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface — no PyTorch headers, so a build takes
-seconds.  The sources compile in parallel (one ``nvcc`` each, all started
-together) and link into ``build/repro_torch_kernels/<hash>/`` at the
-repository root, keyed by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one loads the cached library.
+Every ``csrc/*.cu`` (with the shared ``csrc/*.cuh`` headers) compiles with
+``nvcc`` for ``sm_90a`` into one shared library with a plain C interface —
+no PyTorch headers, so a build takes seconds.  The sources compile in
+parallel (one ``nvcc`` each, all started together) and link into
+``build/repro_torch_kernels/<hash>/`` at the repository root, keyed by a
+hash of the sources and flags, so a changed source rebuilds and an
+unchanged one loads the cached library.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a nonzero code into an exception.  Pointers and the
@@ -35,10 +36,12 @@ _PI64 = ctypes.POINTER(ctypes.c_int64)
 # C signature of every entry point: (argtypes), restype is int
 SIGNATURES = {
     "nm_spmm_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "nm_spmm_decode_launch": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    "nm_spmm_decode_launch": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P),
+    "nm_spmm_decode_clusters": (_I, _I, ctypes.POINTER(_I)),
     "paged_attn_launch": (_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "hessian_accum_launch": (_P, _I, _P, _I, _I, _F, _F, _P),
+    "hessian_accum_launch": (_P, _I, _I, _I, _P, _P, _I, _I, _F, _F, _P),
     "nm_select_launch": (_P, _I, _I, _P, _I, _P, _I, _I, _P),
     "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _PI64, _I, _I,
                           ctypes.POINTER(_I), _P),
@@ -60,7 +63,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu")):
+    for p in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

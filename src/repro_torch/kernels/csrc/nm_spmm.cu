@@ -6,20 +6,57 @@
 // x (M, K) f32 or bf16, vals (K/2, N) of x's dtype, idx (K/2, N) int8
 // in-group positions 0..3, bias (N,) f32 / bf16 or none, y (M, N) f32.
 //
-// What bounds it on this card: at decode M (a handful of rows) the
-// product is a weight stream, bound by device-memory bytes: vals (2 B a
-// pair in bf16) + idx (1 B a pair), each read once.  At the prefill
-// chunk's M = 256 it is still bound by bytes (at attn.wq 0.94 us of
-// bytes against 0.27 us of sparse bf16 operations), and so small that a
-// launch lives on latency: what matters is that every SM streams its
-// share of the packed weights with the copies in flight.
+// What bounds it on this card: at decode M (M = 8 a step, 32 a prefill
+// chunk) the product is a weight stream, bound by device-memory bytes:
+// vals (2 B a pair in bf16) + idx (1 B a pair), each read once — 19.3 MB
+// for the seven Qwen1.5-0.5B linears of a layer, 5.9 us at 3.35 TB/s,
+// where the sparse products (at M = 8, 0.16 GFLOP) take 0.2 us of the
+// tensor cores.  At the prefill chunk's M = 256 it is still bound by
+// bytes (at attn.wq 0.94 us of bytes against 0.27 us of sparse bf16
+// operations), and so small that a launch lives on latency: what matters
+// is that every SM streams its share of the packed weights with the
+// copies in flight.
 //
-// Three kernels:
+// Three kernels on two routes (nm_spmm.last_kernel and
+// nm_spmm_decode.last_kernel name the route a launch took):
 //
-// * nm_spmm_tc_kernel — the tiled product in bf16 (M > 128 rows) on the
-//   tensor cores.  A bf16 x bf16 product is exact in f32, so mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate) computes the reference's function
-//   (it casts both to f32 and takes an f32 dot).  A block of 4 warps owns
+// * nm_spmm_decode_tc_kernel — "tensor cores" for nm_spmm_decode: bf16,
+//   M <= 128, rows of vals on 16 bytes and of idx and x on 8 (N % 8 == 0
+//   and aligned pointers; nm_spmm.py::decode_plan decides).  A block of 8
+//   warps owns 128 output columns and 8, 16 or 32 rows of x (MB = 1, 2, 4
+//   batch fragments of 8: M <= 8, <= 16, else 32 rows a block and
+//   ceil(M / 32) row blocks).  Each lane streams 8 consecutive columns of
+//   one 2:4 group: 16 + 16 bytes of its two vals rows and 8 + 8 of its two
+//   idx rows, so the 8 lanes on a row read 128 + 64 contiguous bytes —
+//   whole sectors, in 16- and 8-byte read-once loads that ask the L2 for
+//   256-byte sector groups — and keeps DEPTH = 4 such 16-deep K steps in
+//   flight in registers, with x's fragments for them (8-byte loads of x,
+//   which the previous kernel left in L2), issued before anything else.
+//   It decompresses in registers: each slot's value goes to its position
+//   of a 64-bit word of four bf16 and the two slots are ADDED (a padding
+//   slot — value 0 at position 0 beside a kept value there — adds exactly
+//   zero), giving the mma's A fragment directly: A rows are output
+//   columns (16 a fragment; the lane's 8 columns are 4 fragments' rows g
+//   and g + 8), and the k16 step's 16 k slots are permuted so that lane
+//   (g, t) holds positions 0..3 of its own group t — the x fragment (B,
+//   16 k x 8 batch rows) is then x row g, columns 4t..4t+3.  mma.sync
+//   m16n8k16, bf16 in and f32 accumulate: a bf16 x bf16 product is exact
+//   in f32, so this is the plain version's function.  K is split over the
+//   block's 4 slices (two warps each, one per 64-column half) and over a
+//   cluster of cs <= 16 blocks, the largest for which the card holds the
+//   whole grid at once (cudaOccupancyMaxActiveClusters) with a K step for
+//   every slice: at M = 8 on an H100, 8 strips x 9 at N = 1024 and 22 x 5
+//   at N = 2816.  The partials are summed in a fixed order: the slices
+//   through shared memory, 0..3; then each block pushes its sum of a part
+//   of the tile into the block that finishes that part (st.async into its
+//   shared memory, counted by that block's mbarrier — no cluster-wide
+//   barrier after the products, only one at the start, split, to know that
+//   every block runs), which adds the cluster's blocks 0..cs-1, applies the
+//   epilogue (bias, then none / silu / gelu-tanh on the f32 sum) and
+//   stores 16 bytes a lane: no atomics, the same inputs give the same
+//   bits.  At M <= 8 the registers (<= 128) allow two blocks an SM.
+// * nm_spmm_tc_kernel — "tensor cores" for nm_spmm, the tiled product in
+//   bf16 (M > 128 rows).  A block of 4 warps owns
 //   a 64 x 64 output tile (each warp 32 x 32) and walks its K range in
 //   64-deep tiles through a 3-stage shared-memory ring: one thread asks
 //   the Tensor Memory Accelerator for the x tile, the packed vals tile and
@@ -32,9 +69,8 @@
 //   the 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)), so
 //   ldmatrix and the decompressing threads read them without bank
 //   conflicts.  Each packed tile is decompressed in shared memory into a
-//   dense bf16 (64, 64) tile by SUMMING each slot into its position (a
-//   padding slot points at position 0 with value 0 and may share it with
-//   a kept value; summing 0 is exact), double-buffered so that tile k+1
+//   dense bf16 (64, 64) tile by SUMMING each slot into its position,
+//   double-buffered so that tile k+1
 //   is decompressed while tile k's products run — one __syncthreads a
 //   K tile.  Fragments come from ldmatrix (.trans for the dense tile,
 //   whose rows are padded by 16 bytes).
@@ -51,23 +87,24 @@
 //   distributed shared memory in the fixed order 0..S-1 and writes them
 //   in 16-byte stores.  No atomics, no scratch: the same inputs give the
 //   same bits.
-// * nm_spmm_kernel — the same product in f32 (no TF32: the f32 packed
-//   path must stay f32 math, as the reference's dense-equivalence
-//   requires) and, with narrow tiles, the decode product of any dtype,
-//   on the f32 FMA pipe.  Each block owns an (BM, BN) output tile and
+// * nm_spmm_kernel — "f32 FMA": the tiled product and the decode product
+//   in f32 (no TF32: the f32 packed path must stay f32 math, as the
+//   reference's dense-equivalence requires), and the decode product of
+//   bf16 rows that are not aligned for the tensor-core route, on the f32
+//   FMA pipe.  Each block owns an (BM, BN) output tile and
 //   loops over the whole K; per K tile it decompresses the packed tile
 //   into shared memory as dense f32 (summing the slots, as above),
 //   stages the x tile as f32 beside it, and accumulates in f32
 //   registers while the next tile's global loads are in flight.  The
 //   epilogue (bias, then none / silu / gelu-tanh) runs on the f32
-//   accumulator before the single store.
+//   accumulator before the single store.  Decode shapes use narrow
+//   tiles (BN = 8) so that N alone spreads the work over the 132 SMs;
+//   the block's threads then split each K tile into KS slices and
+//   combine the slices through shared memory in a fixed order, so
+//   results are deterministic.
 //
-// Decode shapes use narrow tiles (BN = 8) so that N alone spreads the
-// work over the 132 SMs (N = 1024 gives 128 blocks, N = 2816 gives 352);
-// the block's threads then split each K tile into KS slices and combine
-// the slices through shared memory in a fixed order, so results are
-// deterministic.  Ragged M, N and K edges are masked in the kernel: the
-// caller never pads the weights.  K must divide by 4.
+// Ragged M, N and K edges are masked in the kernels: the caller never
+// pads the weights.  K must divide by 4.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -75,6 +112,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -248,6 +287,8 @@ void decode(const void* x, const void* vals, const void* idx,
 // --------------------------------------------------------------------
 namespace tc {
 
+using namespace sm90;
+
 constexpr int BM = 64, BN = 64, BK = 64;  // output tile, K tile
 constexpr int NTH = 128;                  // 4 warps, 32 x 32 each
 constexpr int STAGES = 3;                 // ring depth
@@ -266,76 +307,6 @@ constexpr int BAR_OFF = WS_OFF + 2 * WS_BYTES;
 constexpr int SMEM = 1024 + BAR_OFF + 8 * STAGES;
 static_assert(STAGE_BYTES % 1024 == 0 && VS_OFF % 1024 == 0, "swizzle atoms");
 static_assert(BM * RLD * 4 <= STAGES * STAGE_BYTES, "partial fits the ring");
-
-// byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src,
-                                     int src_bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT_%=;\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// a 2-D box of a tensor map into shared memory, completing on bar
-__device__ __forceinline__ void tma2d(uint32_t dst, const CUtensorMap* map,
-                                      int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t a) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t a) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // use_tma: the three tiles of a stage come by TMA (rows on 16 bytes);
 // otherwise by cp.async, 16 bytes a copy where vec_* says the operand's
@@ -365,8 +336,8 @@ __global__ void __launch_bounds__(NTH, 3)
   const uint32_t bars = sbase + BAR_OFF;
 
   if (use_tma && tid == 0) {
-    for (int st = 0; st < STAGES; ++st) bar_init(bars + 8 * st);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < STAGES; ++st) bar_init(bars + 8 * st, 1);
+    bar_init_fence();
   }
   __syncthreads();
 
@@ -606,43 +577,6 @@ cudaError_t configure(int* capacity) {   // capacity[0..2]: split 1, 2, 4
   return cudaSuccess;
 }
 
-// cuTensorMapEncodeTiled of libcuda, found through the CUDA runtime (no
-// link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a row-major (rows, cols) tensor of elem-byte elements, boxes of
-// (box_rows, box_cols); out-of-bounds elements read as zero
-bool encode(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
-            int elem, int rows, int cols, int box_rows, int box_cols,
-            CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return encoder()(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
-                   estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 cudaError_t run(const void* x, const void* vals, const void* idx,
                 void* out, int M, int K, int N, cudaStream_t stream) {
   int capacity[3];
@@ -700,6 +634,393 @@ cudaError_t run(const void* x, const void* vals, const void* idx,
 
 }  // namespace tc
 
+// --------------------------------------------------------------------
+// skinny-M bf16 product (decode steps, prefill chunks) on the tensor cores
+// --------------------------------------------------------------------
+namespace dec {
+
+using namespace sm90;
+
+constexpr int BN = 128;        // output columns a block
+constexpr int WN = 64;         // output columns a warp (8 a lane)
+constexpr int RLD = BN + 4;    // f32 partial row (+16 B)
+constexpr int MAX_DEV = 64;
+constexpr int SMEM_LIMIT = 200 * 1024;   // dynamic shared memory allowed
+constexpr int MAX_CLUSTER = 16;          // = nm_spmm.py DECODE_MAX_CLUSTER
+constexpr int KS = 4;          // K slices a block, two warps each
+constexpr int NTH = 64 * KS;
+constexpr int DEPTH = 4;       // k16 steps in flight a lane
+
+// one lane's share of a k16 step: 2:4 group (step * 4 + lane % 4), its two
+// packed rows, 8 consecutive columns — 16 + 16 bytes of vals, 8 + 8 of idx
+// — and its x fragments: columns 4t..4t+3 of the step's 16, rows g of the
+// MB 8-row batch fragments
+template <int MB>
+struct Step {
+  uint4 v0, v1;
+  uint2 i0, i1;
+  uint2 x[MB];
+};
+
+// a read-once load of the packed weights: not kept in L1, and the L2 asked
+// for the whole 256-byte sector group (the lanes on the next rows want it)
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 r;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+__device__ __forceinline__ uint2 ld_stream8(const void* p) {
+  uint2 r;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0,%1}, [%2];\n"
+               : "=r"(r.x), "=r"(r.y)
+               : "l"(p));
+  return r;
+}
+
+template <int MB>
+__device__ __forceinline__ void load_step(
+    Step<MB>& s, const __nv_bfloat16* __restrict__ x,
+    const __nv_bfloat16* __restrict__ vals, const int8_t* __restrict__ idx,
+    int step, int t, int n, int m_g, int M, int K, int N) {
+  const int grp = step * 4 + t;
+  if (grp < K / 4 && n < N) {
+    const size_t r0 = (size_t)(2 * grp) * N + n;
+    s.v0 = ld_stream16(vals + r0);
+    s.v1 = ld_stream16(vals + r0 + N);
+    s.i0 = ld_stream8(idx + r0);
+    s.i1 = ld_stream8(idx + r0 + N);
+  } else {                      // value 0 at position 0: adds nothing
+    s.v0 = s.v1 = make_uint4(0, 0, 0, 0);
+    s.i0 = s.i1 = make_uint2(0, 0);
+  }
+#pragma unroll
+  for (int b = 0; b < MB; ++b) {
+    const int m = m_g + 8 * b;
+    s.x[b] = (m < M && grp < K / 4)
+                 ? __ldg(reinterpret_cast<const uint2*>(x + (size_t)m * K +
+                                                        4 * grp))
+                 : make_uint2(0, 0);
+  }
+}
+
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 x, y;
+  memcpy(&x, &a, 4);
+  memcpy(&y, &b, 4);
+  const __nv_bfloat162 r = __hadd2(x, y);
+  uint32_t out;
+  memcpy(&out, &r, 4);
+  return out;
+}
+
+// the 8 columns' dense group rows as bf16 pairs: p01[c] = positions (0, 1),
+// p23[c] = (2, 3).  Each slot's value goes to its position in a 64-bit
+// word and the two slots are ADDED: a padding slot (value 0 at position 0)
+// beside a kept value at position 0 adds exactly zero.
+template <int MB>
+__device__ __forceinline__ void decompress(const Step<MB>& s, uint32_t* p01,
+                                           uint32_t* p23) {
+  const uint32_t v0[4] = {s.v0.x, s.v0.y, s.v0.z, s.v0.w};
+  const uint32_t v1[4] = {s.v1.x, s.v1.y, s.v1.z, s.v1.w};
+  const uint32_t i0[2] = {s.i0.x, s.i0.y}, i1[2] = {s.i1.x, s.i1.y};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const uint64_t a = (v0[c >> 1] >> (16 * (c & 1))) & 0xffffu;
+    const uint64_t b = (v1[c >> 1] >> (16 * (c & 1))) & 0xffffu;
+    const int pa = (i0[c >> 2] >> (8 * (c & 3))) & 3;
+    const int pb = (i1[c >> 2] >> (8 * (c & 3))) & 3;
+    const uint64_t da = a << (16 * pa), db = b << (16 * pb);
+    p01[c] = add_bf16x2((uint32_t)da, (uint32_t)db);
+    p23[c] = add_bf16x2((uint32_t)(da >> 32), (uint32_t)(db >> 32));
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of the same shared-memory byte in block `rank` of the cluster
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// 16 bytes into (another block's) shared memory, counted by its mbarrier
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// shared memory of one block: the slices' f32 partials, the cluster's
+// partials of this block's share of the output tile, and the mbarrier
+// that counts their bytes (at most 84 KB)
+struct Layout {
+  int recv_off, bar_off, share, bytes;
+};
+__host__ __device__ inline Layout layout(int mb, int ks, int cs) {
+  const int e = 8 * mb * (BN / 4);                 // float4s of the tile
+  Layout l;
+  l.recv_off = ks * 8 * mb * RLD * 4;
+  l.share = (e + cs - 1) / cs;
+  l.bar_off = l.recv_off + cs * l.share * 16;
+  l.bytes = l.bar_off + 8;
+  return l;
+}
+
+// y = act(x @ W + bias) for 8 * MB rows of x (blockIdx.y) and 128 columns
+// (blockIdx.x / cs); the cluster's cs blocks split the k16 steps, the KS
+// slices of a block split its share again.  At MB = 1 the registers allow
+// two blocks an SM.
+template <int MB>
+__global__ void __launch_bounds__(NTH, MB == 1 ? 2 : 1)
+    nm_spmm_decode_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                             const __nv_bfloat16* __restrict__ vals,
+                             const int8_t* __restrict__ idx,
+                             const void* __restrict__ bias, int bias_bf16,
+                             float* __restrict__ out, int M, int K, int N,
+                             int act, int cs) {
+  constexpr int ROWS = 8 * MB;
+  constexpr int E = ROWS * (BN / 4);    // float4s of the output tile
+  static_assert(E <= MB * NTH, "MB passes of the block cover any share");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay = layout(MB, KS, cs);
+  const uint32_t sbase =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int strip = blockIdx.x / cs, q = blockIdx.x % cs;
+  const int m0 = blockIdx.y * ROWS;
+  const int steps = (K / 4 + 3) / 4;
+  const int s0 = q * steps / cs, nb = (q + 1) * steps / cs - s0;
+  const int half = warp & 1, sl = warp >> 1;
+  const int w0 = s0 + sl * nb / KS, wn = s0 + (sl + 1) * nb / KS - w0;
+  const int n = strip * BN + half * WN + 8 * g;
+  const uint32_t bar = sbase + lay.bar_off;
+
+  // up to DEPTH k16 steps of packed weights and x in flight a lane, the
+  // first thing the block does
+  Step<MB> buf[DEPTH];
+#pragma unroll
+  for (int d = 0; d < DEPTH; ++d)
+    if (d < wn)
+      load_step(buf[d], x, vals, idx, w0 + d, t, n, m0 + g, M, K, N);
+
+  // this block's share of the output tile, [e_lo, e_hi) in float4s (one
+  // per lane and pass, MB passes), and the bias of its columns
+  const int e_lo = q * lay.share, e_hi = min(E, e_lo + lay.share);
+  float bv[MB][4];
+#pragma unroll
+  for (int it = 0; it < MB; ++it) {
+    const int e = e_lo + tid + it * NTH;
+    const int col = strip * BN + (e % (BN / 4)) * 4;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      bv[it][u] =
+          bias == nullptr || e >= e_hi || col >= N ? 0.f
+          : bias_bf16
+              ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[col + u])
+              : static_cast<const float*>(bias)[col + u];
+  }
+
+  if (tid == 0) {
+    bar_init(bar, 1);
+    bar_init_fence();
+  }
+  // the cluster's barrier completes once every block has started and
+  // initialised its mbarrier: only then may a block write into another's
+  // shared memory
+  if (cs > 1) cluster_arrive_relaxed();
+
+  float acc[4][MB][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int b = 0; b < MB; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][b][e] = 0.f;
+
+  for (int base = 0; base < wn; base += DEPTH) {
+#pragma unroll
+    for (int d = 0; d < DEPTH; ++d) {
+      const int i = base + d;
+      if (i < wn) {
+        // the mma's k slots (2t, 2t+1, 2t+8, 2t+9) are positions 0..3 of
+        // the lane's group: A row g = column 8g + 2j, row g + 8 = 8g + 2j + 1;
+        // B holds x row g, columns 4t..4t+3 of the step
+        uint32_t p01[8], p23[8], bx[MB][2];
+        decompress(buf[d], p01, p23);
+#pragma unroll
+        for (int b = 0; b < MB; ++b) {
+          bx[b][0] = buf[d].x[b].x;
+          bx[b][1] = buf[d].x[b].y;
+        }
+        if (i + DEPTH < wn)
+          load_step(buf[d], x, vals, idx, w0 + i + DEPTH, t, n, m0 + g, M, K,
+                    N);
+#pragma unroll
+        for (int b = 0; b < MB; ++b)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t a[4] = {p01[2 * j], p01[2 * j + 1], p23[2 * j],
+                                   p23[2 * j + 1]};
+            mma16816(acc[j][b], a, bx[b]);
+          }
+      }
+    }
+  }
+
+  // slice partials [KS][ROWS][RLD]: lane (g, t) holds rows 2t, 2t+1 of each
+  // 8-row batch fragment at columns 8g..8g+7 of its warp's half
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int b = 0; b < MB; ++b) {
+    float* p = red + (sl * ROWS + b * 8 + 2 * t) * RLD + half * WN + 8 * g;
+    *reinterpret_cast<float4*>(p) =
+        make_float4(acc[0][b][0], acc[0][b][2], acc[1][b][0], acc[1][b][2]);
+    *reinterpret_cast<float4*>(p + 4) =
+        make_float4(acc[2][b][0], acc[2][b][2], acc[3][b][0], acc[3][b][2]);
+    *reinterpret_cast<float4*>(p + RLD) =
+        make_float4(acc[0][b][1], acc[0][b][3], acc[1][b][1], acc[1][b][3]);
+    *reinterpret_cast<float4*>(p + RLD + 4) =
+        make_float4(acc[2][b][1], acc[2][b][3], acc[3][b][1], acc[3][b][3]);
+  }
+  __syncthreads();
+  if (cs > 1) cluster_wait();           // every block of the cluster runs
+  // this block's share of the tile takes one float4 from each block of the
+  // cluster, counted in bytes by the mbarrier
+  if (tid == 0) bar_expect(bar, e_hi > e_lo ? (e_hi - e_lo) * cs * 16 : 0);
+  // the block's partial = its slices 0..KS-1 in order, pushed into slot q
+  // of the receiver of the block that finishes that part of the tile
+  const uint32_t recv = sbase + lay.recv_off;
+  for (int e = tid; e < E; e += NTH) {
+    const float* p = red + (e / (BN / 4)) * RLD + (e % (BN / 4)) * 4;
+    float4 s = *reinterpret_cast<const float4*>(p);
+#pragma unroll
+    for (int k = 1; k < KS; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(p + k * ROWS * RLD);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    const int owner = e / lay.share;
+    st_async(mapa(recv + (q * lay.share + e - owner * lay.share) * 16, owner),
+             s, mapa(bar, owner));
+  }
+  bar_wait(bar, 0);                     // the cluster's partials are in
+
+  // ranks 0..cs-1 summed in order, then bias, activation and one store
+  const float4* rv = reinterpret_cast<const float4*>(smem + lay.recv_off);
+#pragma unroll
+  for (int it = 0; it < MB; ++it) {
+    const int e = e_lo + tid + it * NTH;
+    if (e >= e_hi) continue;
+    float4 v[MAX_CLUSTER];
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k)
+      if (k < cs) v[k] = rv[k * lay.share + e - e_lo];
+    float4 s = v[0];
+#pragma unroll
+    for (int k = 1; k < MAX_CLUSTER; ++k)
+      if (k < cs) {
+        s.x += v[k].x;
+        s.y += v[k].y;
+        s.z += v[k].z;
+        s.w += v[k].w;
+      }
+    const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
+    const int m = m0 + r, col = strip * BN + c;
+    if (m >= M || col >= N) continue;   // N % 8 == 0: col + 3 < N
+    const float4 y = make_float4(
+        epilogue(s.x, bv[it][0], act), epilogue(s.y, bv[it][1], act),
+        epilogue(s.z, bv[it][2], act), epilogue(s.w, bv[it][3], act));
+    *reinterpret_cast<float4*>(out + (size_t)m * N + col) = y;
+  }
+}
+
+// once per device: the shared-memory limit raised and clusters above 8
+// allowed for each instance
+template <int MB>
+cudaError_t configure() {
+  static int done[MAX_DEV] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEV) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(nm_spmm_decode_tc_kernel<MB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_LIMIT);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(nm_spmm_decode_tc_kernel<MB>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+    done[dev] = 1;
+  }
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t config(dim3 grid, int nth, int smem, int cs,
+                          cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(nth);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// how many clusters of cs blocks the card runs at once, one block an SM
+// (blocks counted at the shared-memory limit)
+template <int MB>
+cudaError_t clusters(int cs, int* n) {
+  cudaError_t err = configure<MB>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      config(dim3(cs), NTH, SMEM_LIMIT, cs, 0, attr);
+  return cudaOccupancyMaxActiveClusters(n, nm_spmm_decode_tc_kernel<MB>, &cfg);
+}
+
+template <int MB>
+cudaError_t run(const void* x, const void* vals, const void* idx,
+                const void* bias, int bias_bf16, void* out, int M, int K,
+                int N, int act, int cs, cudaStream_t stream) {
+  cudaError_t err = configure<MB>();
+  if (err != cudaSuccess) return err;
+  const int smem = layout(MB, KS, cs).bytes;
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      config(dim3((N + BN - 1) / BN * cs, (M + 8 * MB - 1) / (8 * MB)),
+             NTH, smem, cs, stream, attr);
+  return cudaLaunchKernelEx(&cfg, nm_spmm_decode_tc_kernel<MB>,
+                            static_cast<const __nv_bfloat16*>(x),
+                            static_cast<const __nv_bfloat16*>(vals),
+                            static_cast<const int8_t*>(idx), bias, bias_bf16,
+                            static_cast<float*>(out), M, K, N, act, cs);
+}
+
+}  // namespace dec
+
 }  // namespace
 
 extern "C" {
@@ -718,16 +1039,43 @@ int nm_spmm_launch(const void* x, const void* vals, const void* idx,
 
 // Skinny-M product (M <= 128, the reference's nm_spmm_decode) with the
 // fused epilogue: bias may be null (f32, or bf16 when bias_bf16); act 0
-// none, 1 silu, 2 gelu-tanh.
+// none, 1 silu, 2 gelu-tanh.  tc: the bf16 tensor-core route with mb 8-row
+// batch fragments a block and K split over a cluster of cs blocks (the
+// plan of nm_spmm.py::decode_plan); otherwise the FMA kernel.
 int nm_spmm_decode_launch(const void* x, const void* vals, const void* idx,
                           const void* bias, int bias_bf16, void* out, int M,
-                          int K, int N, int act, int is_bf16, void* stream) {
+                          int K, int N, int act, int is_bf16, int tc, int mb,
+                          int cs, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc) {
+    if (!is_bf16 || cs < 1 || cs > dec::MAX_CLUSTER)
+      return (int)cudaErrorInvalidValue;
+    if (mb == 1)
+      return (int)dec::run<1>(x, vals, idx, bias, bias_bf16, out, M, K, N,
+                              act, cs, s);
+    if (mb == 2)
+      return (int)dec::run<2>(x, vals, idx, bias, bias_bf16, out, M, K, N,
+                              act, cs, s);
+    if (mb == 4)
+      return (int)dec::run<4>(x, vals, idx, bias, bias_bf16, out, M, K, N,
+                              act, cs, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (is_bf16)
     decode<__nv_bfloat16>(x, vals, idx, bias, bias_bf16, out, M, K, N, act, s);
   else
     decode<float>(x, vals, idx, bias, bias_bf16, out, M, K, N, act, s);
   return (int)cudaGetLastError();
+}
+
+// How many clusters of cs tensor-core decode blocks (mb batch fragments)
+// the card runs at once: the host's cluster sizing (nm_spmm.py).
+int nm_spmm_decode_clusters(int mb, int cs, int* n) {
+  *n = 0;
+  if (mb == 1) return (int)dec::clusters<1>(cs, n);
+  if (mb == 2) return (int)dec::clusters<2>(cs, n);
+  if (mb == 4) return (int)dec::clusters<4>(cs, n);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -10,12 +10,22 @@ hands them over, with no transposed copy.  α = 1, β = 0 is the TPU
 kernel's H = 2·x·xᵀ; α = 1/n, β = n_prev/n is the streaming mean of
 ``core.hessian.HessianAccumulator.update`` in one launch.
 
+On the card bf16 captures whose rows start on 16 bytes take the
+tensor-core route, everything else the f32-FMA one; :func:`plan` — pure
+Python, so the CPU tests reach it — picks the route and the split of the
+token range, and ``hessian_accum.last_kernel`` names the route the last
+launch took ("tensor cores" or "f32 FMA").
+
 Dispatch is by device: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  ``hessian_accum.launches`` counts
-kernel launches only.
+kernel launches only (one a call: the product and the pass that sums
+its split and mirrors the tiles).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -23,6 +33,49 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import hessian_accum_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+TILE = {"tensor cores": 128, "f32 FMA": 64}   # output tile edge per route
+CHUNK = 32              # tokens per chunk: the split's unit
+BLOCKS_PER_SM = 2       # both kernels' __launch_bounds__ minimum
+MIN_CHUNKS = 4          # tokens a split range keeps at least: 4 chunks
+FILL = 0.9              # the smallest split whose waves are this full
+MAX_WAVES = 4
+
+
+class Plan(NamedTuple):
+    route: str          # "tensor cores" | "f32 FMA"
+    tile: int           # output tile edge
+    tiles: int          # lower-triangle tiles
+    split: int          # token ranges, each summed into its own partial
+
+
+def plan(dtype: torch.dtype, n_tok: int, m: int, aligned: bool,
+         sm_count: int) -> Plan:
+    """Route and split of one launch: bf16 rows on 16 bytes (``m % 8 ==
+    0`` and ``aligned``, x's pointer on 16 bytes) go to the tensor cores.
+    The split is the smallest S whose tiles x S blocks fill their waves
+    of ``BLOCKS_PER_SM x sm_count`` to FILL (else the fullest), with
+    every range at least MIN_CHUNKS chunks and at most MAX_WAVES waves."""
+    tc = dtype == torch.bfloat16 and m % 8 == 0 and aligned and n_tok > 0
+    route = "tensor cores" if tc else "f32 FMA"
+    nb = -(-m // TILE[route])
+    tiles = nb * (nb + 1) // 2
+    capacity = BLOCKS_PER_SM * sm_count
+    chunks = -(-n_tok // CHUNK)
+    s_max = max(1, min(chunks // MIN_CHUNKS, MAX_WAVES * capacity // tiles))
+    best, best_fill = 1, 0.0
+    for s in range(1, s_max + 1):
+        blocks = tiles * s
+        fill = blocks / (-(-blocks // capacity) * capacity)
+        if fill >= FILL:
+            return Plan(route, TILE[route], tiles, s)
+        if fill > best_fill:
+            best, best_fill = s, fill
+    return Plan(route, TILE[route], tiles, best)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(x: torch.Tensor, h: torch.Tensor) -> None:
@@ -59,13 +112,21 @@ def hessian_accum(x: torch.Tensor, h: torch.Tensor, alpha: float = 1.0,
     n_tok, m = x.shape
     if m == 0:
         return h
+    p = plan(x.dtype, n_tok, m, x.data_ptr() % 16 == 0,
+             _sm_count(x.device.index if x.device.index is not None
+                       else torch.cuda.current_device()))
+    scratch = torch.empty(p.split * p.tiles * p.tile * p.tile,
+                          dtype=torch.float32, device=x.device)
     code = build.library().hessian_accum_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), h.data_ptr(), n_tok, m,
-        float(alpha), float(beta),
+        x.data_ptr(), int(x.dtype == torch.bfloat16),
+        int(p.route == "tensor cores"), p.split, scratch.data_ptr(),
+        h.data_ptr(), n_tok, m, float(alpha), float(beta),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "hessian_accum")
     hessian_accum.launches += 1
+    hessian_accum.last_kernel = p.route
     return h
 
 
 hessian_accum.launches = 0
+hessian_accum.last_kernel = None

@@ -7,7 +7,11 @@ says what bounds it on the H100 and how the design answers that).
 On the card the tiled product takes the tensor-core kernel for bf16
 (``mma.sync`` on decompressed tiles, a ring filled by the Tensor Memory
 Accelerator, K split over a thread-block cluster) and the f32-FMA kernel
-for f32; ``nm_spmm.last_kernel`` names the route the last launch took
+for f32.  The skinny product takes the tensor-core kernel for bf16 whose
+rows are aligned (a weight stream decompressed in registers, K split
+over the warps of a block and a cluster; :func:`decode_plan`, pure
+Python, decides) and the f32-FMA kernel otherwise.  ``nm_spmm.last_kernel``
+and ``nm_spmm_decode.last_kernel`` name the route the last launch took
 ("tensor cores" or "f32 FMA").
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain
@@ -19,7 +23,9 @@ launched.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -29,6 +35,56 @@ from repro_torch.kernels.ref import nm_spmm_ref
 ACTIVATIONS = {None: 0, "silu": 1, "gelu": 2}
 DTYPES = (torch.float32, torch.bfloat16)
 DECODE_MAX_M = 128          # the decode kernel's M limit (ops dispatch split)
+# the tensor-core decode kernel's block: 128 output columns, K split over
+# 4 slices of 2 warps; clusters of up to 16 blocks
+DECODE_BN, DECODE_SLICES, DECODE_MAX_CLUSTER = 128, 4, 16
+
+
+class DecodePlan(NamedTuple):
+    route: str          # "tensor cores" | "f32 FMA"
+    mb: int             # 8-row batch fragments a block (tensor cores)
+    row_blocks: int     # blocks along M
+    cluster: int        # blocks splitting K, one cluster
+
+
+def decode_plan(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool,
+                clusters_at: Callable[[int, int], int]) -> DecodePlan:
+    """Route and shape of one ``nm_spmm_decode`` launch.  bf16 with ``n %
+    8 == 0`` and ``aligned`` (vals on 16 bytes, idx and x on 8) takes the
+    tensor cores; f32, and bf16 rows off those boundaries, take the FMA
+    kernel.  On the tensor cores a block holds 8, 16 or 32 rows of x
+    (M ≤ 8, ≤ 16, else 32 a block) and 128 columns, and K is split over
+    the largest cluster (≤ 16 blocks) for which the card runs the whole
+    grid at once — ``clusters_at(mb, c)``: how many clusters of c blocks
+    it holds — while every warp slice keeps a 16-deep K step; where no
+    cluster lets the grid run at once, no split (one block a cluster)."""
+    if not (dtype == torch.bfloat16 and n % 8 == 0 and aligned):
+        return DecodePlan("f32 FMA", 0, 0, 0)
+    mb = 1 if m <= 8 else 2 if m <= 16 else 4
+    row_blocks = -(-m // (8 * mb))
+    clusters = -(-n // DECODE_BN) * row_blocks
+    steps = -(-(k // 4) // 4)
+    for c in range(DECODE_MAX_CLUSTER, 1, -1):
+        if c * DECODE_SLICES <= steps and clusters <= clusters_at(mb, c):
+            return DecodePlan("tensor cores", mb, row_blocks, c)
+    return DecodePlan("tensor cores", mb, row_blocks, 1)
+
+
+@functools.lru_cache(maxsize=4096)
+def _decode_plan(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool,
+                 index: int) -> DecodePlan:
+    return decode_plan(dtype, m, k, n, aligned,
+                       functools.partial(_clusters_at, index))
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_at(index: int, mb: int, cs: int) -> int:
+    """Clusters of ``cs`` decode blocks the card ``index`` runs at once."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        build.check(build.library().nm_spmm_decode_clusters(
+            mb, cs, ctypes.byref(n)), "nm_spmm_decode_clusters")
+    return n.value
 
 
 def _check(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
@@ -122,14 +178,22 @@ def nm_spmm_decode(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
             raise ValueError("nm_spmm_decode: bias must be a contiguous "
                              f"({n},) f32/bf16 tensor on {x.device}")
         bias_ptr, bias_bf16 = bias.data_ptr(), int(bias.dtype == torch.bfloat16)
+    aligned = (vals.data_ptr() % 16 == 0 and idx.data_ptr() % 8 == 0
+               and x.data_ptr() % 8 == 0)
+    index = (x.device.index if x.device.index is not None
+             else torch.cuda.current_device())
+    p = _decode_plan(x.dtype, m, k, n, aligned, index)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     code = build.library().nm_spmm_decode_launch(
         x.data_ptr(), vals.data_ptr(), idx.data_ptr(), bias_ptr, bias_bf16,
         out.data_ptr(), m, k, n, ACTIVATIONS[activation],
-        int(x.dtype == torch.bfloat16), _stream(x))
+        int(x.dtype == torch.bfloat16), int(p.route == "tensor cores"),
+        p.mb, p.cluster, _stream(x))
     build.check(code, "nm_spmm_decode")
     nm_spmm_decode.launches += 1
+    nm_spmm_decode.last_kernel = p.route
     return out
 
 
 nm_spmm_decode.launches = 0
+nm_spmm_decode.last_kernel = None

@@ -59,8 +59,45 @@ def test_nm_spmm_decode_matches_plain(gen, m, k, n, act, dtype):
     vals, idx = _packed(gen, k, n, dtype)
     x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
     bias = torch.randn(n, generator=gen, device="cuda").to(dtype)
-    _close(nm_spmm_decode(x, vals, idx, bias, act),
-           nm_spmm_decode_plain(x, vals, idx, bias, act))
+    got = nm_spmm_decode(x, vals, idx, bias, act)
+    assert nm_spmm_decode.last_kernel == ("tensor cores"
+                                          if dtype == torch.bfloat16
+                                          else "f32 FMA")
+    _close(got, nm_spmm_decode_plain(x, vals, idx, bias, act))
+    assert torch.equal(got, nm_spmm_decode(x, vals, idx, bias, act))
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 33, 64, 128])
+@pytest.mark.parametrize("k", [132, 2816])
+@pytest.mark.parametrize("n", [64, 200, 2816])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nm_spmm_decode_routes_padding_slots(gen, m, k, n, dtype):
+    """Every batch-fragment count of the tensor-core decode kernel (M 1,
+    8, 16, 33, 64, 128), K split over a cluster (2816) or not (132), N
+    ragged against its 128-column strips (64, 200), padding-slot groups:
+    bf16 on the tensor cores and f32 on the FMA kernel, within the f32
+    tolerance of the plain version, the same bits twice."""
+    vals, idx = _packed_with_padding(gen, k, n, dtype)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    bias = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    act = ("silu", "gelu", None)[m % 3]
+    got = nm_spmm_decode(x, vals, idx, bias, act)
+    assert nm_spmm_decode.last_kernel == ("tensor cores"
+                                          if dtype == torch.bfloat16
+                                          else "f32 FMA")
+    _close(got, nm_spmm_decode_plain(x, vals, idx, bias, act))
+    assert torch.equal(got, nm_spmm_decode(x, vals, idx, bias, act))
+
+
+def test_nm_spmm_decode_unaligned_bf16_takes_the_fma_kernel(gen):
+    vals, idx = _packed(gen, 256, 96, torch.bfloat16)
+    flat = torch.empty(vals.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    shifted = flat[1:].view_as(vals)                 # rows 2 bytes off 16
+    shifted.copy_(vals)
+    x = torch.randn(8, 256, generator=gen, device="cuda").to(torch.bfloat16)
+    got = nm_spmm_decode(x, shifted, idx, None, "silu")
+    assert nm_spmm_decode.last_kernel == "f32 FMA"
+    _close(got, nm_spmm_decode_plain(x, vals, idx, None, "silu"))
 
 
 @pytest.mark.parametrize("m,k,n", [(130, 512, 128), (256, 1024, 2816),
@@ -157,18 +194,41 @@ def test_launch_counters_count_kernel_launches_only(gen):
 # pruning-pass kernels
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("t,m", [(16384, 1024), (200, 70), (1, 64),
-                                 (4097, 130)])
+                                 (4097, 130), (262144, 1024), (16384, 2816)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("alpha,beta", [(1.0, 0.0), (0.25, 0.75)])
 def test_hessian_accum_matches_plain(gen, t, m, dtype, alpha, beta):
+    """Both routes (bf16 rows on 16 bytes: tensor cores; else f32 FMA),
+    the split token range summed in order: within tolerance, exactly
+    symmetric, the same bits twice.  Both sides sum T terms in f32, so
+    past T = 16384 the tolerance grows as sqrt(T / 16384), as
+    chip_smoke's stacked row."""
     x = torch.randn(t, m, generator=gen, device="cuda").to(dtype)
+    if t > 16384:
+        alpha = alpha / t                            # the stacked call's 1/T
     h0 = torch.randn(m, m, generator=gen, device="cuda")
     h0 = h0 + h0.T
     want = hessian_accum_plain(x, h0.clone(), alpha, beta)
     got = h0.clone() if beta else torch.full_like(h0, float("nan"))
     hessian_accum(x, got, alpha, beta)
-    _close(got, want)
+    tc = dtype == torch.bfloat16 and m % 8 == 0
+    assert hessian_accum.last_kernel == ("tensor cores" if tc else "f32 FMA")
+    err = (got - want).abs().max().item()
+    tol = REL_TOL * max(1.0, math.sqrt(t / 16384))
+    assert err <= tol * max(1.0, want.abs().max().item()), err
     assert torch.equal(got, got.T)                   # mirrored exactly
+    again = h0.clone() if beta else torch.full_like(h0, float("nan"))
+    assert torch.equal(got, hessian_accum(x, again, alpha, beta))
+
+
+def test_hessian_accum_unaligned_bf16_takes_the_fma_kernel(gen):
+    flat = torch.randn(300 * 64 + 1, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    x = flat[1:].view(300, 64)                       # rows 2 bytes off 16
+    got = hessian_accum(x, torch.empty(64, 64, device="cuda"))
+    assert hessian_accum.last_kernel == "f32 FMA"
+    _close(got, hessian_accum_plain(x, torch.empty(64, 64, device="cuda")))
+    assert torch.equal(got, got.T)
 
 
 @pytest.mark.parametrize("r,c", [(1024, 128), (2816, 1024), (33, 20),
