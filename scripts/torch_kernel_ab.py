@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's nm_spmm, nm_spmm_decode, flash_attn and hessian_accum
-of two source trees on one card, in turns (A, B, B, A), at the main paths'
-shapes.
+"""Time the port's nm_spmm, nm_spmm_decode, flash_attn, hessian_accum,
+paged_attn and nm_select of two source trees on one card, in turns (A, B,
+B, A), at the main paths' shapes.
 
     python3 scripts/torch_kernel_ab.py --tree build/parent --tree .
 
@@ -14,10 +14,15 @@ linears at M = 256 through ``nm_spmm`` and at M = 8 (a decode step) and 32
 activation (bf16, weights rotated past the 50 MB L2, summed over the
 layer), of ``flash_attn`` at (8 | 128, 2048, 16, 64) bf16 causal, and of
 ``hessian_accum`` on the pipelined engine's stacked capture (T = 262144
-bf16 tokens, m = 1024 and 2816, α = 1/T, β = 0), each beside its PyTorch
-yardstick (``torch.matmul`` on the dense weight,
-``scaled_dot_product_attention``, ``torch.addmm`` on the f32 copy of the
-capture) timed in the same process, and the time of an empty kernel
+bf16 tokens, m = 1024 and 2816, α = 1/T, β = 0), of ``paged_attn`` on bf16
+pages (KV 16, hd 64, page 16) at B = 8 with chip_smoke's lengths, at the
+long-prompt serving run's B = 8 (one slot at 544 keys in a 36-page table)
+and at B = 1 over 544 keys, and of ``nm_select`` on one 128-column bf16 block of a
+1024- and a 2816-row weight (strided views of w and Hinv, as the MM loop
+hands them over), each beside its PyTorch yardstick (``torch.matmul`` on
+the dense weight, ``scaled_dot_product_attention`` — on the gathered pages
+for paged_attn —, ``torch.addmm`` on the f32 copy of the capture; none
+for nm_select) timed in the same process, and the time of an empty kernel
 (one float add) between back-to-back launches; for a tree that plans its
 decode launches, the cluster size each linear gets.  Device times come
 from CUDA events around back-to-back calls while a spin kernel holds the
@@ -82,6 +87,8 @@ def measure(tree: str) -> dict:
     from repro_torch.kernels.hessian_accum import hessian_accum
     from repro_torch.kernels import nm_spmm as K
     from repro_torch.kernels.nm_spmm import nm_spmm, nm_spmm_decode
+    from repro_torch.kernels.nm_select import nm_select
+    from repro_torch.kernels.paged_attn import paged_attn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     build.library()
@@ -156,7 +163,54 @@ def measure(tree: str) -> dict:
             [(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))],
             n=n, reps=reps)
         del q, k, v
+    for label, b, p_max, lens in (("b8", 8, 8, [96, 70, 65, 0, 33, 128, 17,
+                                                 81]),
+                                  ("b8long", 8, 36, [544] + [0] * 7),
+                                  ("b1", 1, 34, [544])):
+        q, kp, vp, bt, ln = _paged_inputs(gen, b, p_max, lens)
+        res[f"paged_{label}_ms"] = _device_ms(paged_attn,
+                                              [(q, kp, vp, bt, ln)])
+        plan = getattr(paged_attn, "last_plan", None)
+        if plan is not None:
+            res[f"paged_{label}_plan"] = [plan.split, plan.pages]
+        s_len = p_max * 16
+        kg, vg = (t[bt.long()].reshape(b, s_len, 16, 64).transpose(1, 2)
+                  .contiguous() for t in (kp, vp))
+        mask = (torch.arange(s_len, device="cuda")[None]
+                < ln[:, None])[:, None, None, :]
+        res[f"paged_{label}_sdpa_ms"] = _device_ms(
+            F.scaled_dot_product_attention, [(q, kg, vg, mask)])
+    for r in (1024, 2816):
+        a = torch.randn(1024, 1024, generator=gen, device="cuda")
+        hinv = a @ a.T / 1024 + torch.eye(1024, device="cuda")
+        w = torch.randn(r, 1024, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        res[f"nm_select_r{r}_ms"] = _device_ms(
+            nm_select, [(w[:, 128:256], hinv[128:256, 128:256])])
+        res[f"nm_select_r{r}_route"] = getattr(nm_select, "last_kernel",
+                                               None)
     return res
+
+
+def _paged_inputs(gen, b, p_max, lengths):
+    """bf16 q (B, 16, 1, 64) and pages (B·p_max + 1, 16, 16, 64), each
+    request's pages in order from page 1 on."""
+    import numpy as np
+    import torch
+
+    q = torch.randn(b, 16, 1, 64, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kp, vp = (torch.randn(b * p_max + 1, 16, 16, 64, generator=gen,
+                          device="cuda").to(torch.bfloat16)
+              for _ in range(2))
+    bt = np.zeros((b, p_max), np.int32)
+    pid = 1
+    for i, n in enumerate(lengths):
+        for j in range(-(-n // 16)):
+            bt[i, j] = pid
+            pid += 1
+    return (q, kp, vp, torch.from_numpy(bt).cuda(),
+            torch.tensor(lengths, dtype=torch.int32, device="cuda"))
 
 
 def main() -> int:

@@ -12,7 +12,10 @@ group of 4, the first minimum in ``ref.NM_COMBOS_24`` order on ties.
 
 Dispatch is by device: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.  ``nm_select.launches`` counts
-kernel launches only.
+kernel launches only; ``nm_select.last_kernel`` names the last launch's
+route: "vector loads" (each group's weights in one 8- or 16-byte load,
+Hinv's block rows in 16-byte loads) or "scalar loads" for views off those
+boundaries.
 """
 
 from __future__ import annotations
@@ -23,6 +26,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import nm_select_ref
 
 DTYPES = (torch.float32, torch.bfloat16)
+THREADS = 128           # a block's threads (csrc/nm_select.cu's NT)
+
+
+def plan(r: int, c: int) -> int:
+    """The grid's blocks: one thread per (row, group of 4)."""
+    return max(1, -(-(r * (c // 4)) // THREADS))
 
 
 def _check(w: torch.Tensor, hinv: torch.Tensor) -> None:
@@ -44,6 +53,14 @@ def _check(w: torch.Tensor, hinv: torch.Tensor) -> None:
                              "and non-overlapping rows")
 
 
+def _aligned(w: torch.Tensor, hinv: torch.Tensor) -> bool:
+    """Whether every group of w starts on its load's width (8 bytes for
+    bf16, 16 for f32) and every row of Hinv's 4×4 blocks on 16 bytes."""
+    return (w.data_ptr() % (4 * w.element_size()) == 0
+            and w.stride(0) % 4 == 0 and hinv.data_ptr() % 16 == 0
+            and hinv.stride(0) % 4 == 0)
+
+
 def nm_select_plain(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`nm_select`."""
     return nm_select_ref(w, hinv)
@@ -58,13 +75,16 @@ def nm_select(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
     out = torch.empty((r, c), dtype=torch.bool, device=w.device)
     if r == 0 or c == 0:
         return out
+    vec = _aligned(w, hinv)
     code = build.library().nm_select_launch(
         w.data_ptr(), int(w.dtype == torch.bfloat16), w.stride(0),
-        hinv.data_ptr(), hinv.stride(0), out.data_ptr(), r, c,
-        torch.cuda.current_stream(w.device).cuda_stream)
+        hinv.data_ptr(), hinv.stride(0), out.data_ptr(), r, c, plan(r, c),
+        int(vec), torch.cuda.current_stream(w.device).cuda_stream)
     build.check(code, "nm_select")
     nm_select.launches += 1
+    nm_select.last_kernel = "vector loads" if vec else "scalar loads"
     return out
 
 
 nm_select.launches = 0
+nm_select.last_kernel = None

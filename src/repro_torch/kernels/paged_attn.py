@@ -1,14 +1,18 @@
 """Paged GQA decode attention: the CUDA kernel's wrapper.
 
 Replaces the TPU kernel ``repro/kernels/paged_attn.py::paged_attn`` (its
-bf16/f32 and its int8-page variants); the kernel is ``csrc/paged_attn.cu``.
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  ``paged_attn.launches`` counts kernel launches.
+bf16/f32 and its int8-page variants); the kernel is ``csrc/paged_attn.cu``
+(its header says what bounds it on the H100 and how the design answers
+that).  A CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.  ``paged_attn.launches`` counts kernel launches,
+``paged_attn.last_plan`` is the last launch's :class:`Plan` and
+``paged_attn.last_kernel`` its route ("16-byte copies" or "scalar loads").
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -16,8 +20,61 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import paged_attn_ref
 
 _KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_NT, _MAX_ACC = 128, 8                 # csrc/paged_attn.cu's block layout
-_SMEM_LIMIT = 48 * 1024                # static launch, no opt-in
+# csrc/paged_attn.cu's block: NW warps; a lane holds LANE_ELEMS elements of a
+# K/V row (16 bytes of bf16 or int8, 32 of f32), so a row takes a
+# power-of-two group of at most 32 lanes: hd ≤ 32 · LANE_ELEMS
+NW = 4
+LANE_ELEMS = {torch.float32: 8, torch.bfloat16: 8, torch.int8: 16}
+ACC_MAX = 32           # accumulators a lane keeps: heads a block × LANE_ELEMS
+ROWS_MAX = 8           # rows a lane group stages a ring stage
+ROWS_TARGET = 4        # rows a lane group a split aims at
+MAX_SPLIT = 8          # blocks of one cluster (the portable size)
+
+
+class Plan(NamedTuple):
+    split: int          # S: blocks of one cluster sharing the page range
+    pages: int          # pages a split covers (the last split may run short)
+    heads: int          # query heads a block (1, 2 or 4)
+    head_blocks: int    # blocks along one kv head's G query heads
+    lanes: int          # lanes holding one K/V row
+    rows: int           # rows a lane group stages a ring stage
+    stages: int         # ring stages (1, or 2 when a split needs more rows)
+    blocks: int         # the grid: B × KV × head_blocks × split
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, kvh: int, g: int, hd: int, ps: int, p_max: int,
+         dtype: torch.dtype) -> Plan:
+    """Layout of one launch from shapes alone (never the lengths: the
+    device-resident decode burst must not read them back).  ``dtype`` is
+    the pages'.  A block holds up to 4 query heads (``heads ×
+    LANE_ELEMS ≤ ACC_MAX``), more heads take more blocks.  The block
+    table's ``p_max`` pages are split over S ≤ 8 blocks of a cluster so
+    that a lane group holds about ROWS_TARGET rows, with S = ⌈p_max /
+    pages⌉ (no split starts past the table).  The split depends on the
+    table's width alone, not on the batch: an idle slot's blocks exit at
+    once."""
+    e = LANE_ELEMS[dtype]
+    lanes = _pow2_at_least(-(-hd // e))
+    if lanes > 32:
+        raise ValueError(f"paged_attn: hd={hd} > {32 * e}: a K/V row takes "
+                         f"at most 32 lanes of {e} elements")
+    heads = 1
+    while heads * 2 <= min(g, ACC_MAX // e):
+        heads *= 2
+    head_blocks = -(-g // heads)
+    groups = NW * 32 // lanes
+    target = max(1, groups * ROWS_TARGET // ps)
+    pages = -(-p_max // min(MAX_SPLIT, -(-p_max // target)))
+    s = -(-p_max // pages)
+    k = -(-(pages * ps) // groups)         # rows a lane group holds
+    rows = min(ROWS_MAX, k)
+    return Plan(s, pages, heads, head_blocks, lanes, rows,
+                1 if k <= rows else 2, b * kvh * head_blocks * s)
 
 
 def paged_attn_plain(q, k_pages, v_pages, block_tables, lengths,
@@ -70,10 +127,6 @@ def paged_attn(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         raise ValueError("paged_attn: block_tables and lengths must be int32")
     if window is not None and window < 1:
         raise ValueError(f"paged_attn: window {window} < 1")
-    if g * hd > _NT * _MAX_ACC:
-        raise ValueError(f"paged_attn: G*hd={g * hd} > {_NT * _MAX_ACC}")
-    if 4 * (g * hd + 2 * ps * hd + g * ps + 3 * g) > _SMEM_LIMIT:
-        raise ValueError("paged_attn: page too large for shared memory")
     tensors = [q, k_pages, v_pages, block_tables, lengths]
     if quantized:
         tensors += [k_scale, v_scale]
@@ -82,17 +135,28 @@ def paged_attn(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
             raise ValueError(f"paged_attn: inputs must be contiguous on "
                              f"{q.device}")
     out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=q.device)
+    if b == 0 or p_max == 0:
+        out.zero_()
+        return out
+    p = plan(b, kvh, g, hd, ps, p_max, k_pages.dtype)
+    vec = (hd % LANE_ELEMS[k_pages.dtype] == 0 and k_pages.data_ptr() % 16 == 0
+           and v_pages.data_ptr() % 16 == 0)
     code = build.library().paged_attn_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, kvh, g, hd, ps, p_max, -1 if window is None else int(window),
-        _KIND[q.dtype], _KIND[k_pages.dtype],
+        _KIND[q.dtype], _KIND[k_pages.dtype], p.split, p.pages, p.heads,
+        p.rows, p.stages, p.lanes, int(vec),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(code, "paged_attn")
     paged_attn.launches += 1
+    paged_attn.last_plan = p
+    paged_attn.last_kernel = "16-byte copies" if vec else "scalar loads"
     return out
 
 
 paged_attn.launches = 0
+paged_attn.last_plan = None
+paged_attn.last_kernel = None

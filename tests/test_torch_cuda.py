@@ -143,13 +143,45 @@ def test_nm_spmm_bf16_tensor_cores_split_k(gen, m):
     assert torch.equal(got, nm_spmm(x, vals, idx))             # deterministic
 
 
-@pytest.mark.parametrize("b,kv,g,hd,ps,pmax,window,int8", [
-    (8, 16, 1, 64, 16, 8, None, False), (3, 2, 2, 16, 8, 3, 5, False),
-    (2, 1, 8, 32, 16, 2, None, False), (4, 4, 1, 64, 8, 4, None, True),
-    (3, 2, 4, 16, 8, 3, 5, True)])
-def test_paged_attn_matches_plain(gen, b, kv, g, hd, ps, pmax, window, int8):
+SERVE_LENGTHS = [96, 70, 65, 0, 33, 128, 17, 81]       # chip_smoke's batch
+
+
+@pytest.mark.parametrize("b,kv,g,hd,ps,pmax,window,int8,dtype,lengths", [
+    (8, 16, 1, 64, 16, 8, None, False, torch.float32, None),
+    (3, 2, 2, 16, 8, 3, 5, False, torch.float32, None),
+    (2, 1, 8, 32, 16, 2, None, False, torch.float32, None),
+    (4, 4, 1, 64, 8, 4, None, True, torch.float32, None),
+    (3, 2, 4, 16, 8, 3, 5, True, torch.float32, None),
+    # the serving shape in the model's dtype, and with int8 pages
+    (8, 16, 1, 64, 16, 8, None, False, torch.bfloat16, SERVE_LENGTHS),
+    (8, 16, 1, 64, 16, 8, None, True, torch.bfloat16, SERVE_LENGTHS),
+    # one request at 544 keys: 7 splits of 5 pages over a cluster
+    (1, 16, 1, 64, 16, 34, None, False, torch.bfloat16, [544]),
+    (1, 16, 1, 64, 16, 34, None, False, torch.float32, [537]),
+    # the long-prompt serving run: one slot at 544 keys among 7 idle ones
+    # in a table 36 pages wide (8 splits of 5 pages)
+    (8, 16, 1, 64, 16, 36, None, False, torch.bfloat16, [544] + [0] * 7),
+    (8, 16, 1, 64, 16, 36, None, False, torch.float32, [0] * 7 + [529]),
+    # gemma-2b's G 8 / hd 256 (G·hd = 2048)
+    (2, 1, 8, 256, 16, 2, None, False, torch.float32, None),
+    (2, 1, 8, 256, 16, 2, None, True, torch.float32, None),
+    (2, 1, 8, 256, 16, 2, None, False, torch.bfloat16, [31, 20]),
+    # a window that leaves splits 0-5 of 7 without a live key
+    (1, 16, 1, 64, 16, 34, 20, False, torch.float32, [530]),
+    (2, 16, 1, 64, 16, 34, 40, True, torch.bfloat16, [530, 0]),
+    # an all-idle batch: exact zeros, no key read
+    (4, 4, 1, 64, 16, 4, None, False, torch.float32, [0, 0, 0, 0]),
+    # a long context: two ring stages a split
+    (1, 4, 1, 64, 16, 256, None, False, torch.bfloat16, [4000]),
+    # hd off the 16-byte lane slice: the scalar route
+    (2, 2, 2, 20, 8, 3, None, False, torch.float32, None)])
+def test_paged_attn_matches_plain(gen, b, kv, g, hd, ps, pmax, window, int8,
+                                  dtype, lengths):
+    """Against the plain version on the same values in f32 (bf16 inputs
+    upcast: the plain version rounds bf16 probabilities, the kernel keeps
+    f32): within tolerance, idle slots exact zeros, the same bits twice."""
     n_pages = b * pmax + 1
-    q = torch.randn(b, kv, g, hd, generator=gen, device="cuda")
+    q = torch.randn(b, kv, g, hd, generator=gen, device="cuda").to(dtype)
     if int8:
         kp, vp = (torch.randint(-127, 128, (n_pages, ps, kv, hd),
                                 generator=gen, device="cuda").to(torch.int8)
@@ -158,10 +190,12 @@ def test_paged_attn_matches_plain(gen, b, kv, g, hd, ps, pmax, window, int8):
                   / 64 for _ in range(2))
     else:
         kp, vp = (torch.randn(n_pages, ps, kv, hd, generator=gen,
-                              device="cuda") for _ in range(2))
+                              device="cuda").to(dtype) for _ in range(2))
         ks = vs = None
-    lengths = np.random.default_rng(b).integers(1, pmax * ps + 1, size=b)
-    lengths[0] = 0                                  # an idle slot
+    if lengths is None:
+        lengths = np.random.default_rng(b).integers(1, pmax * ps + 1, size=b)
+        lengths[0] = 0                              # an idle slot
+    lengths = np.asarray(lengths)
     bt = np.zeros((b, pmax), np.int32)
     pid = 1
     for i, n_ in enumerate(lengths):
@@ -171,8 +205,33 @@ def test_paged_attn_matches_plain(gen, b, kv, g, hd, ps, pmax, window, int8):
     bt = torch.from_numpy(bt).cuda()
     ln = torch.from_numpy(lengths.astype(np.int32)).cuda()
     got = paged_attn(q, kp, vp, bt, ln, window, ks, vs)
-    _close(got, paged_attn_plain(q, kp, vp, bt, ln, window, ks, vs))
-    assert (got[0] == 0).all()
+    f32 = (lambda t: t) if int8 else (lambda t: t.float())
+    _close(got, paged_attn_plain(q.float(), f32(kp), f32(vp), bt, ln, window,
+                                 ks, vs))
+    assert (got[ln == 0] == 0).all()
+    assert torch.equal(got, paged_attn(q, kp, vp, bt, ln, window, ks, vs))
+    p = paged_attn.last_plan
+    assert 1 <= p.split <= min(pmax, 8) and p.split * p.pages >= pmax
+    assert paged_attn.last_kernel == (
+        "16-byte copies" if hd % (16 if int8 else 8) == 0 else "scalar loads")
+
+
+def test_paged_attn_offset_pages_take_scalar_loads(gen):
+    """Pages that start 2 bytes off 16 (a contiguous view at an odd
+    offset) take the scalar route, with the same numbers."""
+    b, kv, hd, ps, pmax = 2, 4, 64, 16, 3
+    shape = (b * pmax + 1, ps, kv, hd)
+    n = math.prod(shape)
+    kp, vp = (torch.randn(n + 1, generator=gen, device="cuda").to(
+        torch.bfloat16)[1:].view(shape) for _ in range(2))
+    q = torch.randn(b, kv, 1, hd, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    bt = torch.arange(1, b * pmax + 1, dtype=torch.int32,
+                      device="cuda").view(b, pmax)
+    ln = torch.tensor([40, 17], dtype=torch.int32, device="cuda")
+    got = paged_attn(q, kp, vp, bt, ln)
+    assert paged_attn.last_kernel == "scalar loads"
+    _close(got, paged_attn_plain(q.float(), kp.float(), vp.float(), bt, ln))
 
 
 def test_launch_counters_count_kernel_launches_only(gen):
@@ -234,11 +293,20 @@ def test_hessian_accum_unaligned_bf16_takes_the_fma_kernel(gen):
 @pytest.mark.parametrize("r,c", [(1024, 128), (2816, 1024), (33, 20),
                                  (1, 4), (130, 4100)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_nm_select_matches_plain(gen, r, c, dtype):
-    w = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_nm_select_matches_plain(gen, r, c, dtype, offset):
+    """Bit-equal masks, no tie allowance: the kernel rounds each step of
+    the pair losses as the plain version does.  ``offset`` 1 starts w
+    and Hinv one element off their load width: the scalar route."""
+    w = torch.randn(r * c + offset, generator=gen, device="cuda").to(dtype)
+    w = w[offset:].view(r, c)
     a = torch.randn(c, c, generator=gen, device="cuda")
-    hinv = a @ a.T / c + torch.eye(c, device="cuda")
+    hinv = torch.empty(c * c + offset, device="cuda")
+    hinv = hinv[offset:].view(c, c)
+    hinv.copy_(a @ a.T / c + torch.eye(c, device="cuda"))
     got = nm_select(w, hinv)
+    assert nm_select.last_kernel == ("scalar loads" if offset
+                                     else "vector loads")
     assert torch.equal(got, nm_select_plain(w, hinv))
     assert (got.reshape(r, c // 4, 4).sum(-1) == 2).all()
 
@@ -252,6 +320,11 @@ def test_nm_select_reads_strided_views(gen):
     wb, hb = w[:, 128:256], hinv[128:256, 128:256]
     assert torch.equal(nm_select(wb, hb),
                        nm_select_plain(wb.contiguous(), hb.contiguous()))
+    assert nm_select.last_kernel == "vector loads"
+    wb, hb = w[:, 130:258], hinv[130:258, 130:258]   # 8 bytes off 16
+    assert torch.equal(nm_select(wb, hb),
+                       nm_select_plain(wb.contiguous(), hb.contiguous()))
+    assert nm_select.last_kernel == "scalar loads"
 
 
 def test_prune_matrix_mm_runs_both_kernels_and_matches_plain(gen):

@@ -1,16 +1,22 @@
-"""The host-side plans of the port's two tensor-core routes, on CPU.
+"""The host-side plans of the port's kernels, on CPU.
 
-``hessian_accum.plan`` and ``nm_spmm.decode_plan`` are pure Python: which
-route each (dtype, shape, alignment) takes, how the Hessian's token range
-is split and how the decode product's K is split over a cluster.  The
-kernels themselves run only on the card (tests/test_torch_cuda.py).
+``hessian_accum.plan``, ``nm_spmm.decode_plan``, ``paged_attn.plan`` and
+``nm_select.plan`` are pure Python: which route each (dtype, shape,
+alignment) takes, how the Hessian's token range is split, how the decode
+product's K and the decode attention's pages are split over a cluster,
+and how nm_select's grid covers the groups.  The kernels themselves run
+only on the card (tests/test_torch_cuda.py).
 """
+
+import inspect
 
 import pytest
 import torch
 
 from repro_torch.kernels import hessian_accum as H
+from repro_torch.kernels import nm_select as N
 from repro_torch.kernels import nm_spmm as S
+from repro_torch.kernels import paged_attn as P
 
 SMS = 132                                            # an H100 SXM
 
@@ -116,3 +122,95 @@ def test_decode_without_room_for_a_cluster_does_not_split():
     assert p.route == "tensor cores" and p.cluster == 1
     assert S.decode_plan(torch.bfloat16, 8, 64, 128, True,
                          h100).cluster == 1
+
+
+# ----------------------------------------------------------------------
+# paged_attn: the page range split over a cluster, from shapes alone
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("b,p_max,split,pages", [
+    (8, 8, 2, 4),       # chip_smoke's batch of 8: 4 pages (64 keys) a split
+    (1, 34, 7, 5),      # one request at 512-544 keys: 7 splits of 5 pages
+    (8, 36, 8, 5),      # the long prompt among 7 idle slots
+    (1, 1, 1, 1),
+])
+def test_paged_plan_on_the_main_path(b, p_max, split, pages):
+    p = P.plan(b, 16, 1, 64, 16, p_max, torch.bfloat16)
+    assert (p.split, p.pages) == (split, pages)
+    assert (p.heads, p.head_blocks, p.lanes) == (1, 1, 8)
+    assert p.blocks == b * 16 * p.split
+    assert p.stages == 1 and p.rows * P.NW * 32 // p.lanes >= pages * 16
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_paged_plan_fills_about_one_wave(b):
+    """At the serving shapes the grid gives every SM work, within two
+    blocks a SM (128 threads and a few KB of shared memory each: one
+    wave)."""
+    p_max = 34 if b == 1 else 8
+    p = P.plan(b, 16, 1, 64, 16, p_max, torch.bfloat16)
+    assert 0.8 * SMS <= p.blocks <= 2 * SMS
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 64, 256])
+def test_paged_plan_split_follows_the_table_width_alone(b):
+    """The split is the same at any batch: the grid grows with B, an
+    idle slot's blocks exit at once."""
+    p = P.plan(b, 16, 1, 64, 16, 36, torch.bfloat16)
+    assert (p.split, p.pages, p.stages) == (8, 5, 1)
+    assert p.blocks == b * 16 * 8
+
+
+@pytest.mark.parametrize("p_max", [1, 2, 3, 4, 5, 7, 8, 9, 16, 17, 33, 34,
+                                   36, 64, 65, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_plan_never_splits_past_the_pages(p_max, dtype, ps):
+    p = P.plan(1, 16, 1, 64, ps, p_max, dtype)
+    assert 1 <= p.split <= min(P.MAX_SPLIT, p_max)
+    assert (p.split - 1) * p.pages < p_max <= p.split * p.pages
+    groups = P.NW * 32 // p.lanes
+    k = -(-(p.pages * ps) // groups)            # rows a lane group holds
+    assert p.rows == min(P.ROWS_MAX, k)
+    assert p.stages == (1 if k <= p.rows else 2)
+
+
+@pytest.mark.parametrize("dtype,heads,head_blocks,lanes", [
+    (torch.bfloat16, 4, 2, 32), (torch.float32, 4, 2, 32),
+    (torch.int8, 2, 4, 16)])
+def test_paged_plan_takes_gemma_heads(dtype, heads, head_blocks, lanes):
+    """G·hd = 2048 (gemma-2b: G 8, hd 256): the heads go to several
+    blocks, each lane keeping at most ACC_MAX accumulators."""
+    p = P.plan(2, 1, 8, 256, 16, 2, dtype)
+    assert (p.heads, p.head_blocks, p.lanes) == (heads, head_blocks, lanes)
+    assert p.heads * P.LANE_ELEMS[dtype] <= P.ACC_MAX
+
+
+def test_paged_plan_refuses_rows_wider_than_a_warp():
+    with pytest.raises(ValueError, match="hd=264"):
+        P.plan(1, 1, 1, 264, 16, 2, torch.bfloat16)
+    assert P.plan(1, 1, 1, 512, 16, 2, torch.int8).lanes == 32
+
+
+def test_paged_plan_reads_no_lengths():
+    """The plan runs before every decode step of the device-resident
+    burst: it takes shapes only, so it never reads lengths back."""
+    params = inspect.signature(P.plan).parameters
+    assert "lengths" not in params and "p_max" in params
+
+
+# ----------------------------------------------------------------------
+# nm_select: one thread a (row, group)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("r", [1024, 2816, 1000])
+@pytest.mark.parametrize("c", [128, 1024])
+def test_nm_select_plan_covers_every_group(r, c):
+    blocks = N.plan(r, c)
+    pairs = r * c // 4
+    assert blocks * N.THREADS >= pairs > (blocks - 1) * N.THREADS
+
+
+def test_nm_select_plan_gives_the_mm_block_many_blocks():
+    """One 128-column block of a 1024-row linear, as the MM loop hands it
+    over: ≥ 128 blocks, not the 16 of a 32-group x 64-row tiling."""
+    assert N.plan(1024, 128) >= 128
+    assert N.plan(2816, 128) >= SMS

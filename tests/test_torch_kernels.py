@@ -246,7 +246,8 @@ def _to_torch(*arrs):
 @pytest.mark.parametrize("b,kv,g,hd,ps,pmax,window,int8", [
     (3, 2, 2, 16, 8, 3, None, False), (2, 1, 4, 32, 16, 2, None, False),
     (4, 4, 1, 64, 8, 4, None, False), (3, 2, 2, 16, 8, 3, 5, False),
-    (4, 2, 4, 16, 8, 3, None, True), (3, 2, 2, 16, 8, 3, 5, True)])
+    (4, 2, 4, 16, 8, 3, None, True), (3, 2, 2, 16, 8, 3, 5, True),
+    (2, 1, 8, 256, 16, 2, None, False), (2, 1, 8, 256, 16, 2, None, True)])
 def test_paged_attn_plain_matches_pallas(b, kv, g, hd, ps, pmax, window,
                                          int8):
     rng = np.random.default_rng(b * hd + ps + int(int8))
