@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch port: build the CUDA kernels, hold each
 against its plain PyTorch version on the card, serve a 2:4-pruned
-Qwen1.5-0.5B at full width through ``ServeEngine.generate``, and run the
-pruning launcher's default path — the pipelined engine, Algorithm 1 with
-MM 2:4 — on it at full width and depth.
+Qwen1.5-0.5B at full width through ``ServeEngine.generate`` with the
+reference's serve defaults (the prefix cache, copy-on-write attach, host
+swap, cancel), and run the pruning launcher's default path — the
+pipelined engine, Algorithm 1 with MM 2:4 — on it at full width and
+depth.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -16,9 +18,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
      and mlp.wg (silu), the same seven at M = 256 through nm_spmm,
      paged_attn at B = 8 with ragged lengths, an idle slot, a window and
      int8 pages, at the long-prompt run's B = 8 with one slot at 544 keys
-     in a 36-page table, at B = 1 over 544 keys and at gemma-2b's G 8 /
-     hd 256 (each row on f32 and bf16 inputs, its plan printed, idle slots
-     exact zeros, the same bits twice); hessian_accum at m = 1024 / 2816 on T = 16384 tokens
+     in a 36-page table, at B = 1 over 544 keys, at gemma-2b's G 8 /
+     hd 256, and at B = 8 with every live row's first 3 pages shared (a
+     prefix-cache attach; bf16 and int8 pages) (each row on f32 and bf16
+     inputs, its plan printed, idle slots exact zeros, the same bits
+     twice); hessian_accum at m = 1024 / 2816 on T = 16384 tokens
      (one serial batch; α = 1, β = 0 and the streaming-mean α, β), at a
      ragged m = 130 on T = 4097, and on T = 262144 (the pipelined
      engine's stacked capture); nm_select on 128-column blocks and whole
@@ -44,9 +48,25 @@ Phases (any failure exits non-zero; no exception is swallowed):
      from a seeded torch.Generator, magnitude 2:4 on the seven linears of
      every layer, packed by the engine — 8 greedy requests (64-token
      prompts, 32 new tokens), one 512-token prompt at prefill_chunk 256
-     (the tiled nm_spmm), and the 8 requests again with int8 KV pages.
-     Every launch counter is zeroed just before and read just after;
-     each serving kernel's must be > 0;
+     (the tiled nm_spmm), and the 8 requests again with int8 KV pages,
+     each engine with the prefix cache and a pool-sized pinned swap arena
+     (its bytes and allocation time printed).  Every launch counter is
+     zeroed just before and read just after; each serving kernel's must
+     be > 0;
+  3b. the reference's default serve features on phase 3's model: the 8
+     requests with the defaults and with both features off, in turns
+     (tok/s); a staged shared-prefix schedule (12 requests: 48-token stem,
+     whole-prompt repeats, prompts extended by generated tokens) and two
+     long prompts at chunk 256 after an attach, each with the cache on
+     and off — equal streams, prefix hits and copy-on-write copies, fewer
+     prefill tokens and chunks, the device busy time of one profiled run
+     each; swap against recompute preemption on a 33-page pool in bf16
+     and int8 pages, in turns — equal streams, swap only in the swap run
+     (pages out == in > 0), more prefill tokens in the recompute run, the
+     bytes moved and the host<->device rate; cancel of a swapped-out and
+     of a decoding request — the pool's invariants and the arena's free
+     slots after each, the other streams unchanged.  The serving kernels'
+     launches over the phase must each be > 0;
   4. profiler traces of two serving runs (the 8 requests; the 512-token
      prompt, whose chunks take the tiled nm_spmm): device busy and idle
      share, device time by kernel, paged_attn's device time and launches;
@@ -407,7 +427,10 @@ def check_nm_spmm_edges(gen, rows):
         f"{sum(not r['ok'] for r in rows[-2 * len(cases):])}")
 
 
-def _paged_case(gen, b, kvh, g, hd, ps, p_max, lengths, dtype, int8):
+def _paged_case(gen, b, kvh, g, hd, ps, p_max, lengths, dtype, int8,
+                shared=0):
+    """``shared``: every live row maps the same first ``shared`` pages, as
+    a prefix-cache attach leaves them, then pages of its own."""
     import torch
 
     n_pages = b * p_max + 1
@@ -426,11 +449,14 @@ def _paged_case(gen, b, kvh, g, hd, ps, p_max, lengths, dtype, int8):
                          device="cuda").to(dtype)
         ks = vs = None
     bt = np.zeros((b, p_max), np.int32)
-    pid = 1
+    pid = 1 + shared
     for i, ln in enumerate(lengths):
         for j in range(-(-ln // ps)):
-            bt[i, j] = pid
-            pid += 1
+            if j < shared:
+                bt[i, j] = 1 + j
+            else:
+                bt[i, j] = pid
+                pid += 1
     bt = torch.from_numpy(bt).cuda()
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, kp, vp, bt, lens, ks, vs
@@ -442,9 +468,10 @@ def check_paged(gen, rows):
     the same values in f32, which keeps the probabilities unrounded as the
     kernel does — then timed in bf16 beside SDPA on the gathered pages.
     Idle slots must be exact zeros and a second call the same bits.
-    Returns the rows of the two serving runs' decode steps: the 8-request
-    batch and the 512-token prompt (one slot of the 36-page table live).
-    The B = 1 row is the same context without the idle slots."""
+    Returns the rows of the serving runs' decode steps: the 8-request
+    batch, the 512-token prompt (one slot of the 36-page table live) and
+    the 8 rows that share their first 3 pages (phase 3b's prefix-cache
+    attach).  The B = 1 row is the long context without the idle slots."""
     import torch
     import torch.nn.functional as F
 
@@ -463,12 +490,18 @@ def check_paged(gen, rows):
               None, False),
              ("B=2 KV=1 G=8 hd=256 (gemma-2b)", 2, 1, 8, 256, 16, 4,
               [50, 17], None, False)]
+    shared_lengths = [96, 70, 65, 0, 49, 128, 50, 81]   # slot 3 idle
+    cases = [(*c, 0) for c in cases] + [
+        ("B=8 3 shared pages, then own", 8, 16, 1, 64, 16, 8,
+         shared_lengths, None, False, 3),
+        ("B=8 3 shared pages, int8", 8, 16, 1, 64, 16, 8, shared_lengths,
+         None, True, 3)]
     main = {}
-    for label, b, kvh, g, hd, ps, p_max, lens, win, int8 in cases:
+    for label, b, kvh, g, hd, ps, p_max, lens, win, int8, shared in cases:
         errs, tols, oks = [], [], []
         for dtype in (torch.float32, torch.bfloat16):
             q, kp, vp, bt, ln, ks, vs = _paged_case(
-                gen, b, kvh, g, hd, ps, p_max, lens, dtype, int8)
+                gen, b, kvh, g, hd, ps, p_max, lens, dtype, int8, shared)
             got = paged_attn(q, kp, vp, bt, ln, win, ks, vs)
             f32 = (lambda t: t) if int8 else (lambda t: t.float())
             want = paged_attn_plain(q.float(), f32(kp), f32(vp), bt, ln, win,
@@ -508,9 +541,12 @@ def check_paged(gen, rows):
         lib_ms = device_ms(F.scaled_dot_product_attention,
                            [(ql, kg, vg, mask)])
         live = sum(min(n_, win or n_) for n_ in lens)
+        # key rows read once: a shared page's rows count once
+        rows_read = live - shared * ps * max(0, sum(
+            n_ > 0 for n_ in lens) - 1)
         row_b = 1 if int8 else 2
-        n_bytes = (q.numel() * 2 + 2 * live * kvh * hd * row_b
-                   + (2 * live * kvh * 4 if int8 else 0)
+        n_bytes = (q.numel() * 2 + 2 * rows_read * kvh * hd * row_b
+                   + (2 * rows_read * kvh * 4 if int8 else 0)
                    + sum(-(-n_ // ps) for n_ in lens) * 4 + b * 4
                    + b * kvh * g * hd * 4)
         b_ms, b_by = bound(n_bytes, 4.0 * live * kvh * g * hd, "bfloat16")
@@ -527,7 +563,7 @@ def check_paged(gen, rows):
             f"{plan.head_blocks}  ms {ms:.5f} plain {plain_ms:.5f} lib "
             f"{lib_ms:.5f} bound {b_ms:.5f}")
         main[label] = row
-    return main[cases[0][0]], main[cases[4][0]]
+    return main[cases[0][0]], main[cases[4][0]], main[cases[7][0]]
 
 
 def check_hessian(gen, rows):
@@ -892,6 +928,7 @@ def e2e_f32():
         rec = Recorder(model)
         eng = ServeEngine(rec, params, max_batch=8, max_len=96,
                           page_size=16, prefill_chunk=32)
+        say(f"  {label}: {arena_line(eng)}")
         if label == "plain":
             with ops.override_dispatch(plain=True):
                 res = eng.generate(reqs)
@@ -969,6 +1006,8 @@ def main_path():
     engines += [ServeEngine(model, engines[0].params, **kw)
                 for _, kw, _ in runs[1:]]
     packed = engines[0].n_sparse_leaves
+    for (label, _, _), eng in zip(runs, engines):
+        say(f"  {label}: {arena_line(eng)}")
     say(f"  packed {packed} linears (24 layers x 7)")
     if packed != cfg.num_layers * 7:
         fail(f"expected {cfg.num_layers * 7} packed linears, got {packed}")
@@ -1008,6 +1047,18 @@ def main_path():
     say(f"  int8 vs bf16 KV: {same}/{sum(len(x.tokens) for x in a)} tokens "
         "equal position by position (random init: no gate)")
     return counts, outs, hbm, engines, [rq for _, _, rq in runs]
+
+
+def arena_line(eng):
+    """The engine's pool and its pinned swap arena: pages, bytes and the
+    time the arena's allocation took."""
+    pool, arena = eng.pool, eng.pool.arena
+    return (f"pool {pool.num_pages} pages, prefix cache "
+            f"{'on' if pool.prefix is not None else 'off'}, swap arena "
+            + (f"{arena.capacity} pages = {arena.nbytes / 2**20:.1f} MiB "
+               f"{'pinned' if arena.pinned else 'pageable'} host memory, "
+               f"allocated in {arena.alloc_s * 1e3:.1f} ms"
+               if arena is not None else "off"))
 
 
 def r_max(reqs, uid):
@@ -1052,6 +1103,410 @@ def profile_main(eng, reqs):
     return dict(wall_s=wall, busy_s=busy, tokens=toks, by_kernel_s=dict(top),
                 paged_attn_launches=len(paged),
                 paged_attn_ms=sum(paged) / 1e3)
+
+
+# ----------------------------------------------------------------------
+# phase 3b: the reference's default serve features
+# ----------------------------------------------------------------------
+def profiled(fn):
+    """``fn()`` under the profiler: its result, wall, device busy time
+    and kernel count."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    evs = _device_us(prof)
+    return out, wall, sum(d for d, _ in evs) / 1e6, len(evs)
+
+
+def staged_prefix_run(eng, prompts, stage4):
+    """Phase 3b's shared-prefix schedule through one session (a prompt's
+    pages enter the index only when its last chunk activates it, so the
+    requests come in stages):
+      1. request 0 (a 48-token stem + 16 tokens of its own), stepped until
+         it activates;
+      2. requests 1-7 (the same stem, 16 of their own), until all decode;
+      3. requests 8 and 9 repeat the prompts of 2 and 5 whole (3 pages
+         shared, the 4th a copy-on-write source, one token prefilled);
+      4. once the first wave has retired, requests 10 and 11: the prompts
+         of 1 and 6 plus their first 20 generated tokens (``stage4``, or
+         built from this run's streams when None): 5 full pages and a
+         partial-tail copy at token 83.
+    Returns the streams by uid and the stage-4 prompts."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.scheduler import SeqState
+
+    ses = eng.session()
+    seqs, done = {}, {}
+    live = (SeqState.RUNNING, SeqState.FINISHED)
+
+    def submit(uid, prompt):
+        seqs[uid] = ses.submit(Request(uid=uid, prompt=prompt,
+                                       max_new_tokens=32))
+
+    def step_until(cond):
+        while not cond():
+            if not ses.has_work():
+                fail("phase 3b: the session ran dry before its stage ended")
+            for ev in ses.step():
+                if ev.finished:
+                    if ev.finish_reason != "length":
+                        fail(f"phase 3b: request {ev.uid} ended with "
+                             f"{ev.finish_reason!r}")
+                    done[ev.uid] = ev.result.tokens
+
+    submit(0, prompts[0])
+    step_until(lambda: seqs[0].state in live)
+    for u in range(1, 8):
+        submit(u, prompts[u])
+    step_until(lambda: all(seqs[u].state in live for u in range(8)))
+    submit(8, prompts[2])
+    submit(9, prompts[5])
+    step_until(lambda: all(u in done for u in range(8)))
+    if stage4 is None:
+        stage4 = [np.concatenate([prompts[u], done[u][:20]]) for u in (1, 6)]
+    submit(10, stage4[0])
+    submit(11, stage4[1])
+    step_until(lambda: not ses.has_work())
+    eng.pool.check_invariants()
+    return done, stage4
+
+
+def fmt_s(xs):
+    return " / ".join(f"{x:.3f}" for x in xs)
+
+
+def long_prefix_run(eng, a, rest):
+    """The long prompts at prefill chunk 256 (the tiled nm_spmm) after an
+    attach: request 0 (``a``, 512 tokens) runs to retirement; then
+    request 1 repeats it plus its first 20 generated tokens (33 full pages
+    and a partial-tail copy: one token prefilled, mid-page) beside
+    request 2, ``a[:300]`` + ``rest`` (18 full pages shared).  Returns
+    the streams by uid."""
+    from repro_torch.serve.engine import Request
+
+    ses = eng.session()
+    done = {}
+
+    def run(reqs):
+        for r in reqs:
+            ses.submit(r)
+        while ses.has_work():
+            for ev in ses.step():
+                if ev.finished:
+                    done[ev.uid] = ev.result.tokens
+
+    run([Request(uid=0, prompt=a, max_new_tokens=32)])
+    run([Request(uid=1, prompt=np.concatenate([a, done[0][:20]]),
+                 max_new_tokens=32),
+         Request(uid=2, prompt=np.concatenate([a[:300], rest]),
+                 max_new_tokens=32)])
+    eng.pool.check_invariants()
+    return done
+
+
+def default_serve_features(model, params, reqs):
+    """Phase 3b: the prefix cache with copy-on-write attach (the staged
+    shared-prefix schedule, cache on against off), swap against recompute
+    preemption (phase 3's 8 requests on a 33-page pool, bf16 and int8
+    pages) and cancel (mid-decode and swapped out) on Qwen1.5-0.5B at
+    full width and depth.  Token streams must be equal between the runs
+    compared — every kernel on the path computes each row of its launch
+    independently of the others.  Returns the serving kernels' launches
+    over the phase and its numbers."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.scheduler import SeqState
+
+    cfg = model.cfg
+    totals = {k: 0 for k in SERVE_KERNELS}
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        for k in SERVE_KERNELS:
+            totals[k] += c[k]
+        return out, {k: c[k] for k in SERVE_KERNELS}
+
+    kw = dict(max_batch=8, max_len=128, page_size=16, prefill_chunk=32)
+    # the defaults' host cost where nothing matches: phase 3's 8 random
+    # prompts with the cache and the arena on and with both off, in turns
+    engs = {True: ServeEngine(model, params, **kw),
+            False: ServeEngine(model, params, prefix_cache=False,
+                               host_swap_pages=0, **kw)}
+    plain, first = {True: [], False: []}, None
+    for on in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out, _ = counted(lambda: engs[on].generate(reqs))
+        plain[on].append(sum(len(r.tokens) for r in out)
+                         / (time.monotonic() - t0))
+        if engs[on].stats["prefix_hit_tokens"]:
+            fail("phase 3b: random prompts matched the prefix index")
+        first = first or out
+        if any(not np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(first, out)):
+            fail("phase 3b: defaults on and off give different streams")
+    say(f"  phase 3's 8 requests in turns, tok/s: defaults (prefix cache, "
+        f"arena) {fmt_s(plain[True])}; both off {fmt_s(plain[False])}")
+    del engs
+    rng = np.random.default_rng(5)
+    stem = rng.integers(0, cfg.vocab_size, 48, dtype=np.int32)
+    prompts = [np.concatenate([stem, rng.integers(0, cfg.vocab_size, 16,
+                                                  dtype=np.int32)])
+               for _ in range(8)]
+    runs, stage4 = {}, None
+    for cache in (False, True):
+        eng = ServeEngine(model, params, prefix_cache=cache, **kw)
+        tag = "on" if cache else "off"
+        say(f"  shared prefix, cache {tag}: {arena_line(eng)}")
+        before = dict(eng.stats)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        (streams, stage4), launches = counted(
+            lambda: staged_prefix_run(eng, prompts, stage4))
+        wall = time.monotonic() - t0
+        st = {k: v - before[k] for k, v in eng.stats.items()}
+        ((again, _), p_wall, busy, n_k), _ = counted(lambda: profiled(
+            lambda: staged_prefix_run(eng, prompts, stage4)))
+        for u, t in streams.items():
+            if not np.array_equal(t, again[u]):
+                fail(f"phase 3b: cache {tag}: request {u}'s stream differs "
+                     "between two runs of the same schedule")
+            if len(t) != 32 or t.min() < 0 or t.max() >= cfg.vocab_size:
+                fail(f"phase 3b: request {u} emitted a bad stream")
+        toks = sum(len(t) for t in streams.values())
+        runs[cache] = dict(streams=streams, stats=st, wall_s=wall,
+                           tok_s=toks / wall, launches=launches,
+                           busy_s=busy, profiled_wall_s=p_wall, kernels=n_k)
+        say(f"  shared prefix, cache {tag}: {toks} tokens in {wall:.3f} s = "
+            f"{toks / wall:.1f} tok/s; prefill tokens {st['prefill_tok']}, "
+            f"chunks {st['prefill_chunks']}, prefix hit tokens "
+            f"{st['prefix_hit_tokens']}, pages reused "
+            f"{st['prefix_pages_reused']}, cow copies {st['cow_copies']}, "
+            f"evictions {st['prefix_evictions']}; host syncs "
+            f"{st['host_syncs']}; profiled: wall {p_wall:.3f} s, device busy "
+            f"{busy:.3f} s, idle share {1 - busy / p_wall:.3f}, {n_k} kernels;"
+            f" launches {launches}")
+        del eng
+    # the long prompts: chunk 256, so every chunk takes the tiled nm_spmm
+    a = rng.integers(0, cfg.vocab_size, 512, dtype=np.int32)
+    rest = rng.integers(0, cfg.vocab_size, 232, dtype=np.int32)
+    long = {}
+    for cache in (False, True):
+        eng = ServeEngine(model, params, prefix_cache=cache, max_batch=8,
+                          max_len=576, page_size=16, prefill_chunk=256)
+        tag = "on" if cache else "off"
+        before = dict(eng.stats)
+        t0 = time.monotonic()
+        streams, launches = counted(lambda: long_prefix_run(eng, a, rest))
+        wall = time.monotonic() - t0
+        st = {k: v - before[k] for k, v in eng.stats.items()}
+        long[cache] = dict(streams=streams, stats=st, wall_s=wall,
+                           launches=launches)
+        say(f"  long prompts at chunk 256, cache {tag}: {arena_line(eng)}; "
+            f"wall {wall:.3f} s, prefill tokens {st['prefill_tok']}, chunks "
+            f"{st['prefill_chunks']}, prefix hit tokens "
+            f"{st['prefix_hit_tokens']}, cow copies {st['cow_copies']}; "
+            f"launches {launches}")
+        del eng
+    for u in range(3):
+        if not np.array_equal(long[False]["streams"][u],
+                              long[True]["streams"][u]):
+            fail(f"phase 3b: long prompt {u}'s stream differs with the "
+                 "prefix cache on")
+    lo, ln = long[False]["stats"], long[True]["stats"]
+    if not (ln["cow_copies"] > 0 and ln["prefill_tok"] < lo["prefill_tok"]):
+        fail(f"phase 3b: the long prompts did not attach: on {ln}, off {lo}")
+    if long[True]["launches"]["nm_spmm"] <= 0:
+        fail("phase 3b: the chunks after the attach did not launch the "
+             "tiled nm_spmm")
+
+    off, on = runs[False], runs[True]
+    for u in range(12):
+        if not np.array_equal(off["streams"][u], on["streams"][u]):
+            fail(f"phase 3b: request {u}'s stream differs with the prefix "
+                 f"cache on: {on['streams'][u].tolist()} vs "
+                 f"{off['streams'][u].tolist()}")
+    so, sn = off["stats"], on["stats"]
+    if not (sn["prefix_hit_tokens"] > 0 and sn["cow_copies"] > 0
+            and sn["prefill_tok"] < so["prefill_tok"]
+            and sn["prefill_chunks"] < so["prefill_chunks"]
+            and so["prefix_hit_tokens"] == 0):
+        fail(f"phase 3b: the prefix cache saved nothing: on {sn}, off {so}")
+    say(f"  cache on == off: 12 streams equal; prefill tokens "
+        f"{so['prefill_tok']} -> {sn['prefill_tok']} (saved "
+        f"{so['prefill_tok'] - sn['prefill_tok']}), chunks "
+        f"{so['prefill_chunks']} -> {sn['prefill_chunks']}; device busy "
+        f"{off['busy_s']:.3f} -> {on['busy_s']:.3f} s; tok/s "
+        f"{off['tok_s']:.1f} -> {on['tok_s']:.1f}")
+
+    # swap against recompute on a pool that must preempt
+    swap, swap_eng, swap_streams = {}, None, {}
+    for kv in ("fp32", "int8"):
+        engs, gather = {}, {}
+        for arena_pages in (None, 0):
+            eng = ServeEngine(model, params, num_pages=33,
+                              prefix_cache=False,
+                              host_swap_pages=arena_pages, kv_dtype=kv,
+                              **kw)
+            engs[arena_pages] = eng
+            if eng.pool.arena is not None:     # time the blocking D2H copy
+                inner = eng.pool.arena.gather
+
+                def timed(*a, _inner=inner):
+                    t0 = time.perf_counter()
+                    out = _inner(*a)
+                    gather["s"] += time.perf_counter() - t0
+                    return out
+
+                eng.pool.arena.gather = timed
+        page_bytes = sum(t[0].numel() * t.element_size()
+                         for layer in engs[0].pool.kv for t in layer.values())
+        res = {}
+        for arena_pages in (None, 0, 0, None):  # in turns: swap first
+            eng = engs[arena_pages]
+            gather["s"] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out, launches = counted(lambda: eng.generate(reqs))
+            wall = time.monotonic() - t0
+            if arena_pages in res:
+                r = res[arena_pages]
+                r["walls_s"].append(wall)
+                if any(not np.array_equal(a.tokens, b.tokens)
+                       for a, b in zip(r["out"], out)):
+                    fail("phase 3b: a preempting run's streams differ "
+                         "between two runs")
+                continue
+            res[arena_pages] = dict(out=out, stats=dict(eng.stats),
+                                    wall_s=wall, walls_s=[wall],
+                                    gather_s=gather["s"], launches=launches,
+                                    arena=arena_line(eng))
+        if kv == "fp32":
+            swap_eng = engs[None]             # the cancel run below reuses it
+            swap_streams = {r.uid: r.tokens for r in res[None]["out"]}
+        del engs, eng
+        sw, rc = res[None], res[0]
+        label = "bf16" if kv == "fp32" else "int8"
+        for a, b in zip(sw["out"], rc["out"]):
+            if a.uid != b.uid or not np.array_equal(a.tokens, b.tokens):
+                fail(f"phase 3b: {label} pages: request {a.uid}'s stream "
+                     "differs between swap and recompute preemption")
+        ss, sr = sw["stats"], rc["stats"]
+        if not (ss["preempt_swap"] > 0 and ss["preempt_recompute"] == 0
+                and ss["swap_out_pages"] == ss["swap_in_pages"] > 0):
+            fail(f"phase 3b: {label} pages: the swap run did not swap: {ss}")
+        if not (sr["preempt_recompute"] > 0
+                and sr["prefill_tok"] > ss["prefill_tok"]):
+            fail(f"phase 3b: {label} pages: the recompute run did not "
+                 f"recompute: {sr}")
+        out_b = ss["swap_out_pages"] * page_bytes
+        in_b = ss["swap_in_pages"] * page_bytes
+        swap[label] = dict(
+            swap_walls_s=sw["walls_s"], recompute_walls_s=rc["walls_s"],
+            swap_stats=ss, recompute_stats=sr, page_bytes=page_bytes,
+            out_bytes=out_b, in_bytes=in_b, gather_s=sw["gather_s"],
+            swap_in_wall_s=ss["swap_in_wall_s"],
+            launches=dict(swap=sw["launches"], recompute=rc["launches"]))
+        say(f"  swap vs recompute, {label} pages, 33-page pool: "
+            f"{sw['arena']}")
+        say(f"    streams equal; swap: walls {fmt_s(sw['walls_s'])} s, "
+            f"preemptions {ss['preempt_swap']} swap / "
+            f"{ss['preempt_recompute']} recompute, pages out "
+            f"{ss['swap_out_pages']} in {ss['swap_in_pages']} "
+            f"({page_bytes / 2**20:.3f} MiB a page), prefill tokens "
+            f"{ss['prefill_tok']}; recompute: walls {fmt_s(rc['walls_s'])} s, "
+            f"preemptions {sr['preempt_recompute']}, prefill tokens "
+            f"{sr['prefill_tok']}")
+        say(f"    device->host {out_b / 2**20:.1f} MiB in "
+            f"{sw['gather_s'] * 1e3:.2f} ms "
+            f"({out_b / max(sw['gather_s'], 1e-9) / 1e9:.2f} GB/s); "
+            f"host->device {in_b / 2**20:.1f} MiB in "
+            f"{ss['swap_in_wall_s'] * 1e3:.2f} ms (swap_in_wall_s, "
+            f"{in_b / max(ss['swap_in_wall_s'], 1e-9) / 1e9:.2f} GB/s)")
+
+    # cancel mid-decode and while swapped out
+    eng = swap_eng
+    ses = eng.session()
+    for r in reqs:
+        ses.submit(r)
+    arena = eng.pool.arena
+    done, gone = {}, {}
+
+    def held():
+        return sum(s.swap.n_host for s in ses.sched.waiting
+                   if s.swap is not None)
+
+    def cancel(seq, where):
+        ev = ses.cancel(seq.req.uid)
+        if ev is None or ev.finish_reason != "cancelled":
+            fail(f"phase 3b: cancel of request {seq.req.uid} ({where}) "
+                 "gave no terminal event")
+        eng.pool.check_invariants()
+        if arena.free_slots != arena.capacity - held():
+            fail(f"phase 3b: cancel ({where}) leaked arena slots: "
+                 f"{arena.free_slots} free of {arena.capacity}, "
+                 f"{held()} held")
+        gone[where] = (seq.req.uid, arena.free_slots, held())
+
+    def step():
+        for ev in ses.step():
+            if ev.finished:
+                done[ev.uid] = ev.result.tokens
+
+    ops.reset_launch_counts()
+    while ses.has_work():
+        if "swapped out" not in gone:
+            out = [s for s in ses.sched.waiting if s.swap is not None]
+            if out:
+                cancel(out[0], "swapped out")
+        elif "mid-decode" not in gone:
+            dec = [s for s in ses.sched.running
+                   if s.state is SeqState.RUNNING and s.tokens]
+            if dec:
+                cancel(dec[-1], "mid-decode")
+        if ses.has_work():
+            step()
+    c = ops.launch_counts()
+    for k in SERVE_KERNELS:
+        totals[k] += c[k]
+    if set(gone) != {"swapped out", "mid-decode"}:
+        fail(f"phase 3b: the cancel run cancelled only {sorted(gone)}")
+    eng.pool.check_invariants()
+    if arena.free_slots != arena.capacity:
+        fail("phase 3b: arena slots leaked after the cancel run")
+    for u, t in done.items():
+        if not np.array_equal(t, swap_streams[u]):
+            fail(f"phase 3b: request {u}'s stream changed when others "
+                 "were cancelled")
+    say(f"  cancel: request {gone['swapped out'][0]} while swapped out, "
+        f"request {gone['mid-decode'][0]} mid-decode; after each the pool's "
+        f"invariants held and the arena's free slots were its capacity "
+        f"({arena.capacity}) less the slots other swapped requests hold "
+        f"({gone['swapped out'][2]}, {gone['mid-decode'][2]}); the other "
+        f"{len(done)} streams equal the swap run's; launches "
+        f"{ {k: c[k] for k in SERVE_KERNELS} }")
+    say(f"  serving kernels' launches over phase 3b: {totals}")
+    for k in SERVE_KERNELS:
+        if totals[k] <= 0:
+            fail(f"kernel {k} was not launched in phase 3b")
+    for r in (*runs.values(), *long.values()):
+        del r["streams"]
+    return totals, dict(random_prompts_tok_s={"defaults": plain[True],
+                                              "off": plain[False]},
+                        prefix={"off": runs[False], "on": runs[True]},
+                        long_prefix={"off": long[False], "on": long[True]},
+                        swap=swap, cancel=gone)
 
 
 # ----------------------------------------------------------------------
@@ -1188,6 +1643,7 @@ def prune_path():
     if eng.n_sparse_leaves != 7 * PRUNE_LAYERS:
         fail(f"packed {eng.n_sparse_leaves} linears, expected "
              f"{7 * PRUNE_LAYERS}")
+    say(f"  serving the pruned model: {arena_line(eng)}")
     res = eng.generate(reqs)
     torch.cuda.synchronize()
     for r in res:
@@ -1544,7 +2000,7 @@ def main() -> int:
     rows = []
     say("phase 1: kernels against their plain versions")
     per_kernel = check_nm_spmm(gen, rows)
-    paged_main, paged_long = check_paged(gen, rows)
+    paged_main, paged_long, paged_shared = check_paged(gen, rows)
     check_hessian(gen, rows)
     hess_rows = check_hessian_stacked(gen, rows)
     select_rows = check_nm_select(gen, rows)
@@ -1560,6 +2016,12 @@ def main() -> int:
     say("phase 3: main path, Qwen1.5-0.5B, 24 layers, bf16, 2:4-packed")
     counts, outs, hbm, engines, run_reqs = main_path()
 
+    say("phase 3b: the reference's default serve features — prefix cache "
+        "with copy-on-write attach, host swap, cancel — Qwen1.5-0.5B, 24 "
+        "layers, bf16, 2:4-packed")
+    counts_3b, features = default_serve_features(
+        engines[0].model, engines[0].params, run_reqs[0])
+
     say("phase 4: profile of main-path runs: 8 requests; the 512-token "
         "prompt at chunk 256 (the tiled nm_spmm)")
     prof = {"8 requests": profile_main(engines[0], run_reqs[0]),
@@ -1571,7 +2033,8 @@ def main() -> int:
         f"Qwen1.5-0.5B, {PRUNE_LAYERS} layers, bf16, MM 2:4, 128 x 2048 "
         "calibration tokens")
     prune_counts, prune_run = prune_path()
-    counts = {**counts, **{k: prune_counts[k] for k in PRUNE_KERNELS}}
+    counts = {**{k: counts[k] + counts_3b[k] for k in SERVE_KERNELS},
+              **{k: prune_counts[k] for k in PRUNE_KERNELS}}
     torch.cuda.empty_cache()
 
     say(f"phase 5b: serial and pipelined engines at {PRUNE_CMP_LAYERS} "
@@ -1610,10 +2073,13 @@ def main() -> int:
             "sum over the 7 linears of one layer, M=8, bf16"),
         agg("nm_spmm", per_kernel["nm_spmm"],
             "sum over the 7 linears of one layer, M=256, bf16"),
-        agg("paged_attn", [paged_main],
-            "B=8 KV=16 G=1 hd=64 ps=16, bf16 pages; the long-prompt run's "
-            "step (B=8, p_max=36, one slot at 544 keys) "
-            f"{paged_long['ms']:.5f} ms, SDPA {paged_long['library_ms']:.5f}"),
+        agg("paged_attn", [paged_shared],
+            "B=8 KV=16 G=1 hd=64 ps=16, bf16 pages, every live row's first "
+            "3 pages shared (a prefix-cache attach, phase 3b); unshared "
+            f"B=8 {paged_main['ms']:.5f} ms, SDPA "
+            f"{paged_main['library_ms']:.5f}; the long-prompt run's step "
+            f"(B=8, p_max=36, one slot at 544 keys) {paged_long['ms']:.5f} "
+            f"ms, SDPA {paged_long['library_ms']:.5f}"),
         agg("hessian_accum", hess_rows,
             "sum of m=1024 and m=2816, T=262144 bf16 tokens (the stacked "
             "capture), α=1/T β=0"),
@@ -1627,6 +2093,7 @@ def main() -> int:
     with open(ROOT / "chiprun_out" / "chip_smoke.txt", "w") as f:
         f.write("\n".join(LOG) + "\n")
         f.write(json.dumps({"rows": rows, "profile": prof,
+                            "default_serve": features,
                             "prune": prune_run, "serial_vs_pipelined":
                             cmp_run}) + "\n")
     say(f"all phases passed in {time.monotonic() - t_start:.1f} s")

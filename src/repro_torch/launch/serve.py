@@ -51,6 +51,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-pages", type=int, default=None)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--steps-per-sync", type=int, default=8)
+    ap.add_argument("--prefix-cache", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="hash-based prefix reuse over refcounted KV "
+                         "pages: cached prompt pages attach shared "
+                         "without prefill, copy-on-write on divergence "
+                         "(token streams are bit-identical either way)")
+    ap.add_argument("--host-swap-pages", type=int, default=None,
+                    help="host-memory swap arena capacity in pages: "
+                         "preemption evicts a victim's exclusive pages "
+                         "to the host tier and streams them back on "
+                         "resume instead of recomputing (default: "
+                         "pool-sized; 0 disables → recompute-only)")
     ap.add_argument("--kv-dtype", default="fp32", choices=("fp32", "int8"))
     ap.add_argument("--device", default="cuda")
     return ap
@@ -85,6 +97,8 @@ def main(argv=None) -> None:
         page_size=args.page_size, num_pages=args.num_pages,
         prefill_chunk=args.prefill_chunk,
         steps_per_sync=args.steps_per_sync, kv_dtype=args.kv_dtype,
+        prefix_cache=args.prefix_cache,
+        host_swap_pages=args.host_swap_pages,
         sparse_weights="auto" if args.sparse else "off").validate()
     eng = ServeEngine(model, params, config)
     if args.sparse:
@@ -110,6 +124,15 @@ def main(argv=None) -> None:
           f"burst {st['device_steps'] / max(1, st['host_syncs']):.1f}"
           + (f" preemptions {st['preemptions']}" if st["preemptions"]
              else ""))
+    arena = eng.pool.arena
+    print(f"prefix cache {'on' if eng.pool.prefix else 'off'}: hit tokens "
+          f"{st['prefix_hit_tokens']} prefilled {st['prefill_tok']} "
+          f"cow copies {st['cow_copies']} evictions "
+          f"{st['prefix_evictions']}; swap arena "
+          + (f"{arena.capacity} pages ({arena.nbytes / 2**20:.1f} MiB): "
+             f"preempt swap {st['preempt_swap']} recompute "
+             f"{st['preempt_recompute']} pages out {st['swap_out_pages']} "
+             f"in {st['swap_in_pages']}" if arena is not None else "off"))
 
 
 if __name__ == "__main__":

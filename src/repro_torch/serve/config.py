@@ -1,10 +1,16 @@
 """ServeConfig: every serve-runtime knob, validated in one place.
 
-The reference's fields, with its validation.  Knobs whose feature is not
-ported yet raise a ``ValueError`` that names the ROADMAP.md item, so
-``prefix_cache`` and ``host_swap_pages`` default to OFF here (the
-reference defaults both on): the port serves greedy, continuous mode,
-recompute preemption only.
+The reference's fields, defaults and validation.  Knobs whose feature
+is not ported yet (sampled decoding, static mode, replicas, faults,
+tracing) raise a ``ValueError`` that names the ROADMAP.md item, so the
+port serves greedy, continuous mode.  As in the reference:
+
+  ``prefix_cache``      hash-based prefix reuse over refcounted pages
+                        (kvpool.PrefixCache), on by default;
+  ``host_swap_pages``   the host swap arena's capacity in pages
+                        (kvpool.HostArena): ``None`` sizes it to the pool
+                        (swap preferred), ``0`` turns swap off
+                        (recompute-only preemption).
 """
 
 from __future__ import annotations
@@ -38,9 +44,9 @@ class ServeConfig:
     num_pages: Optional[int] = None     # None → dense-cache equivalent
     prefill_chunk: int = 32
     steps_per_sync: int = 8
-    # prefix caching + host swap: not ported, off
-    prefix_cache: bool = False
-    host_swap_pages: Optional[int] = 0
+    # prefix caching + host swap
+    prefix_cache: bool = True
+    host_swap_pages: Optional[int] = None   # None → pool-sized; 0 → off
     # KV page dtype: "fp32" keeps the model dtype, "int8" quantizes pages
     # with per-row f32 scales (the default pool sizing then doubles the
     # page count at the same bytes)
@@ -97,11 +103,6 @@ class ServeConfig:
                 or self.top_p is not None):
             raise _unported("sampled decoding (temperature/top_k/top_p)",
                             "sampled decoding")
-        if self.prefix_cache:
-            raise _unported("prefix_cache", "the prefix cache and host swap")
-        if self.host_swap_pages != 0:
-            raise _unported("host_swap_pages", "the prefix cache and host "
-                            "swap")
         if self.mode == "static":
             raise _unported("mode='static'", "static mode")
         if self.replicas > 1:
@@ -121,3 +122,10 @@ class ServeConfig:
         if self.kv_dtype == "int8":
             per_slot *= 2
         return self.max_batch * per_slot + 1
+
+    def resolved_swap_pages(self) -> int:
+        """Host-arena capacity: explicit, or pool-sized (every live page
+        can swap out)."""
+        if self.host_swap_pages is not None:
+            return self.host_swap_pages
+        return self.resolved_num_pages()

@@ -5,17 +5,24 @@ soon as a slot and prompt pages are free, their prompts stream in as
 fixed-size token chunks interleaved with everyone else's decode, and the
 decode inner loop runs as a burst of ``steps_per_sync`` greedy steps
 with the state on the device (serve.fused) — one host readback per
-burst.  When the pool runs dry the youngest request is preempted and
-recomputed; greedy decoding replays the same tokens.
+burst.  When the pool runs dry the youngest request is preempted:
+swapped to the host arena when it has room (tokens kept, resume
+mid-stream), recomputed otherwise (greedy decoding replays the same
+tokens).  Admission consults the pool's prefix index: cached prompt
+pages attach shared, without prefill, with copy-on-write on divergence
+(serve.kvpool).  A session can cancel a request anywhere in its
+lifecycle, and retires requests whose hard deadline has passed.
 
 The port serves greedy, continuous mode only; ServeConfig refuses the
 knobs of what is not ported.  Counters are a plain dict
-(``engine.stats``), re-based at each ``generate()``.
+(``engine.stats``, which the scheduler and the pool write too), re-based
+at each ``generate()``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -23,12 +30,13 @@ import torch
 
 from repro_torch.serve import fused
 from repro_torch.serve.config import ServeConfig
-from repro_torch.serve.kvpool import PagedKVPool
-from repro_torch.serve.scheduler import Scheduler, SeqState
+from repro_torch.serve.kvpool import POOL_KEYS, PagedKVPool
+from repro_torch.serve.scheduler import SCHED_KEYS, Scheduler, SeqState
 from repro_torch.serve.sparse import compressed_param_tree, count_packed
 
 STAT_KEYS = ("requests", "tokens", "host_syncs", "device_steps",
-             "prefill_chunks", "slot_steps", "preemptions")
+             "prefill_chunks", "slot_steps", "cancelled",
+             "deadline_exceeded", *SCHED_KEYS, *POOL_KEYS)
 
 
 @dataclasses.dataclass
@@ -38,6 +46,9 @@ class Request:
     max_new_tokens: int = 16
     priority: int = 0                    # wait-queue order: higher first,
     deadline: Optional[float] = None     # then earlier deadline, arrival
+    # deadline is a time.monotonic() stamp; with deadline_hard set the
+    # request is also retired once it passes (finish_reason "timeout")
+    deadline_hard: bool = False
 
 
 @dataclasses.dataclass
@@ -46,7 +57,8 @@ class Result:
     tokens: np.ndarray                   # generated tokens (≤ max_new)
     prompt_len: int
     decode_steps: int = 0                # steps the slot was live for
-    preemptions: int = 0                 # times recomputed
+    preemptions: int = 0                 # times preempted (swap or
+    #                                      recompute)
 
     @property
     def utilization(self) -> float:
@@ -59,12 +71,16 @@ class Result:
 @dataclasses.dataclass
 class StreamEvent:
     """One request's newly emitted tokens at one host sync (a recompute
-    replays the delivered prefix, which the session suppresses)."""
+    replays the delivered prefix, which the session suppresses).  The
+    final event carries ``result`` and ``finish_reason``: "stop" (EOS),
+    "length" (max_new_tokens), "timeout" (hard deadline) or
+    "cancelled"."""
 
     uid: int
     tokens: List[int]
     finished: bool = False
     result: Optional[Result] = None
+    finish_reason: Optional[str] = None
 
 
 class ServeEngine:
@@ -91,14 +107,16 @@ class ServeEngine:
         self.steps_per_sync = config.steps_per_sync
         self.page_size = config.page_size
         self.chunk_size = config.prefill_chunk
+        self.stats: Dict[str, float] = {k: 0 for k in STAT_KEYS}
         self.pool = PagedKVPool(
             model, num_pages=config.resolved_num_pages(),
             page_size=config.page_size, max_slots=config.max_batch,
             max_len=config.max_len,
-            dtype=torch.int8 if config.kv_dtype == "int8" else None)
+            dtype=torch.int8 if config.kv_dtype == "int8" else None,
+            prefix_cache=config.prefix_cache,
+            host_swap_pages=config.resolved_swap_pages(), stats=self.stats)
         # output ring: burst length + 1 for a prefill burst's token 0
         self._ring = self.steps_per_sync + 1
-        self.stats: Dict[str, int] = {k: 0 for k in STAT_KEYS}
 
     def session(self) -> "ContinuousSession":
         """An incremental session: ``submit`` at any time, each ``step()``
@@ -111,7 +129,8 @@ class ServeEngine:
         counters.  ``seed`` keys sampled decoding in the reference; the
         port decodes greedily, so it is unused."""
         del seed
-        self.stats = {k: 0 for k in STAT_KEYS}
+        for k in self.stats:          # in place: the pool writes it too
+            self.stats[k] = 0
         session = self.session()
         for r in requests:
             session.submit(r)
@@ -132,9 +151,10 @@ class ContinuousSession:
     def __init__(self, engine: ServeEngine):
         self.engine = engine
         engine.pool.reset()
+        # no recurrent-state rows in the port: swap is always allowed
         self.sched = Scheduler(engine.pool, engine.max_batch,
                                max_waiting=engine.config.queue_depth,
-                               stats=engine.stats)
+                               stats=engine.stats, swap=True)
         self._emitted: Dict[int, int] = {}    # uid -> tokens delivered
 
     def submit(self, req: Request):
@@ -153,22 +173,49 @@ class ContinuousSession:
         if not new and not fin:
             return None
         self._emitted[seq.req.uid] = sent + len(new)
-        result = None
+        result = reason = None
         if fin:
             self._emitted.pop(seq.req.uid, None)
-            result = Result(uid=seq.req.uid,
-                            tokens=np.asarray(seq.tokens, np.int32),
-                            prompt_len=len(seq.req.prompt),
-                            decode_steps=seq.occupied_steps,
-                            preemptions=seq.preemptions)
+            result = _result(seq)
+            reason = ("stop" if len(seq.tokens) < seq.req.max_new_tokens
+                      else "length")
         return StreamEvent(uid=seq.req.uid, tokens=new, finished=fin,
-                           result=result)
+                           result=result, finish_reason=reason)
+
+    def cancel(self, uid: int, reason: str = "cancelled"
+               ) -> Optional[StreamEvent]:
+        """Retire a request anywhere in its lifecycle — waiting,
+        mid-prefill, mid-decode or swapped out.  Pages, slot and arena
+        slots are released at once; returns the terminal event (no new
+        tokens, ``finish_reason`` = ``reason``), or None for an unknown
+        uid (already finished, or never submitted)."""
+        seq = self.sched.cancel(uid)
+        if seq is None:
+            return None
+        self.engine.stats["deadline_exceeded" if reason == "timeout"
+                          else "cancelled"] += 1
+        self._emitted.pop(uid, None)
+        return StreamEvent(uid=uid, tokens=[], finished=True,
+                           result=_result(seq), finish_reason=reason)
+
+    def _expire_deadlines(self) -> List[StreamEvent]:
+        """The hard-deadline sweep, once per sync interval: every request
+        whose ``deadline_hard`` deadline has passed — waiting, swapped
+        out or slotted — is cancelled with ``finish_reason="timeout"``."""
+        now = time.monotonic()
+        expired = [s.req.uid for s in (*self.sched.running,
+                                       *self.sched.waiting)
+                   if s.req.deadline_hard and s.req.deadline is not None
+                   and now >= s.req.deadline]
+        return [ev for uid in expired
+                if (ev := self.cancel(uid, reason="timeout")) is not None]
 
     # ------------------------------------------------- one sync interval
     def step(self) -> List[StreamEvent]:
         eng, sched, pool = self.engine, self.sched, self.engine.pool
         stats = eng.stats
-        events: List[StreamEvent] = []
+        # 0) hard deadlines retire before what they hold shapes admission
+        events: List[StreamEvent] = self._expire_deadlines()
         # 1) join-at-prefill: new requests take free slots/pages now
         for seq in sched.admit():
             if seq.req.max_new_tokens <= 0:        # nothing to emit
@@ -254,6 +301,11 @@ class ContinuousSession:
         if will_activate:
             pseq.state = SeqState.RUNNING
             live.append(pseq)
+            if pool.prefix is not None:
+                # the prompt's full pages are written and immutable now
+                # (decode writes land past them): index them
+                pool.prefix.register(pseq.req.prompt,
+                                     pool.slot_pages(pseq.slot))
         for s in live:
             n = int(host["n_out"][s.slot])
             if n:
@@ -265,9 +317,25 @@ class ContinuousSession:
                 s.occupied_steps += adv
                 stats["slot_steps"] += adv
             if bool(host["done"][s.slot]):
+                if pool.prefix is not None:
+                    # index the generated continuation too, with the
+                    # partial tail; the KV covers positions < n_written
+                    # (the last sampled token never wrote its entry)
+                    kv_toks = np.concatenate([
+                        np.asarray(s.req.prompt, np.int32),
+                        np.asarray(s.tokens, np.int32)])[:s.n_written]
+                    pool.prefix.register(kv_toks, pool.slot_pages(s.slot),
+                                         include_partial=True)
                 sched.finish(s)
             ev = self._event(s)
             if ev is not None:
                 events.append(ev)
         stats["tokens"] += sum(len(e.tokens) for e in events)
         return events
+
+
+def _result(seq) -> Result:
+    return Result(uid=seq.req.uid, tokens=np.asarray(seq.tokens, np.int32),
+                  prompt_len=len(seq.req.prompt),
+                  decode_steps=seq.occupied_steps,
+                  preemptions=seq.preemptions)

@@ -1,4 +1,4 @@
-"""Paged serve cache: refcounted KV pages and per-slot block tables.
+"""Paged serve cache: refcounted KV pages, prefix reuse, host swap.
 
 The continuous-batching runtime stores every request's attention KV in
 fixed-size pages drawn from one pool — per layer a (num_pages,
@@ -8,7 +8,8 @@ page ids.
 
 Page ownership is refcounted: ``alloc`` hands out pages at refcount 1,
 ``retain``/``release`` move the count, and a page returns to the free
-list when its last reference drops.  A shared page (refcount > 1) is
+list when its last reference drops.  One page can back the same token
+prefix in many block tables at once; a shared page (refcount > 1) is
 read-only: :meth:`PagedKVPool.ensure_writable` copies it into a fresh
 page before a write lands in it.
 
@@ -16,18 +17,45 @@ Page 0 is the reserved scrap page: never allocated, it absorbs the
 writes of padded prompt positions and idle decode slots (attention
 masks by length, so scrap contents are never read).
 
-The page tensors are updated in place by the model's paged writes (the
-JAX pool is rebuilt functionally and donated instead).  The prefix
-cache, the host swap arena and the recurrent-state pool are not ported
-(ROADMAP.md).
+:class:`PrefixCache` is the hash-based prefix index over shared pages:
+prompts are hashed page by page (``h_i = blake2b(h_{i-1} ‖ tokens of
+page i)``, token-exact verified, so a collision is a miss and never
+wrong KV); matching full pages attach without prefill, and a matching
+partial tail attaches through an eager copy-on-write.  Entries are
+evicted LRU-leaf-first, lazily, from inside :meth:`PagedKVPool.alloc`.
+
+:class:`HostArena` is the host swap tier: preemption can move a
+victim's exclusive pages into preallocated host memory (pinned when the
+pool is on the card) and stream them back on resume instead of
+recomputing; shared pages stay on the device, pinned by the victim's
+:class:`SwapRecord`.
+
+The page tensors are updated in place by the model's paged writes and by
+the copies here (the JAX pool is rebuilt functionally and donated
+instead).  The recurrent-state pool is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+import hashlib
+import itertools
+import time
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+# the pool's counters, under the reference's names (``engine.stats`` keys)
+POOL_KEYS = ("cow_copies", "prefix_evictions", "swap_out_pages",
+             "swap_in_pages", "swap_in_wall_s")
+
+
+def _wait(device: torch.device) -> None:
+    """Block until the device's queued copies have landed."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 class PagedKVPool:
@@ -36,17 +64,22 @@ class PagedKVPool:
     Allocation state (free list, refcounts, block tables, per-slot page
     counts) is host-side numpy; :meth:`tables_device` keeps a device
     mirror of the block tables, re-uploading only rows that changed.
+    ``prefix_cache`` builds :attr:`prefix`, ``host_swap_pages`` > 0 the
+    swap arena :attr:`arena` of that many pages.  The counters go into
+    ``stats`` (the engine hands down its own dict).
     """
 
     def __init__(self, model, *, num_pages: int, page_size: int,
                  max_slots: int, max_len: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 prefix_cache: bool = False, host_swap_pages: int = 0,
+                 stats: Optional[Dict[str, float]] = None):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is scrap)")
         self.page_size = page_size
         self.num_pages = num_pages
         self.pages_per_slot = -(-max_len // page_size)
-        self.device = model.device
+        self.device = torch.device(model.device)
         self.kv = model.init_paged_cache(num_pages, page_size, dtype)
         self.block_tables = np.zeros((max_slots, self.pages_per_slot),
                                      np.int32)
@@ -55,6 +88,14 @@ class PagedKVPool:
         self._ref = np.zeros((num_pages,), np.int32)
         self._tables_dev: Optional[torch.Tensor] = None
         self._dirty: set = set()          # slot rows changed since upload
+        self.stats = stats if stats is not None else {}
+        for k in POOL_KEYS:
+            self.stats.setdefault(k, 0)
+        self.prefix: Optional[PrefixCache] = (
+            PrefixCache(self) if prefix_cache else None)
+        self.arena: Optional[HostArena] = (
+            HostArena(self, host_swap_pages) if host_swap_pages > 0
+            else None)
         self.reset()
 
     # ----------------------------------------------------------- alloc
@@ -72,9 +113,13 @@ class PagedKVPool:
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """Pop ``n`` pages at refcount 1; None if it would overdraw
-        (all-or-nothing, so a half-admitted request never holds pages)."""
+        (all-or-nothing, so a half-admitted request never holds pages).
+        A short free list first evicts prefix-index leaves LRU-first."""
         if n <= 0:
             return []
+        if self.prefix is not None:
+            while n > len(self._free) and self.prefix.evict_lru():
+                pass
         if n > len(self._free):
             return None
         out = self._free[-n:][::-1]
@@ -121,6 +166,13 @@ class PagedKVPool:
         self._n_pages[slot] = n + len(pages)
         self._dirty.add(slot)
 
+    def attach(self, slot: int, pages: Sequence[int]) -> None:
+        """Map already-live pages into a slot's table read-only (prefix
+        sharing): one ``retain`` per page + ``assign``."""
+        for p in pages:
+            self.retain(p)
+        self.assign(slot, pages)
+
     def slot_page_count(self, slot: int) -> int:
         return int(self._n_pages[slot])
 
@@ -135,14 +187,19 @@ class PagedKVPool:
         self._dirty.add(slot)
 
     def reset(self) -> None:
-        """Recycle every page.  The page tensors keep stale contents —
-        attention masks by length, so stale pages are never read."""
+        """Recycle every page, empty the prefix index and the arena.  The
+        page tensors keep stale contents — attention masks by length, so
+        stale pages are never read."""
         self.block_tables[:] = 0
         self._n_pages[:] = 0
         self._free = list(range(self.num_pages - 1, 0, -1))
         self._ref[:] = 0
         self._tables_dev = None
         self._dirty.clear()
+        if self.prefix is not None:
+            self.prefix.clear()
+        if self.arena is not None:
+            self.arena.reset()
 
     def tables_device(self) -> torch.Tensor:
         """Device mirror of the block tables: uploaded whole once, then
@@ -160,10 +217,12 @@ class PagedKVPool:
 
     # ------------------------------------------------------ copy-on-write
     def copy_page(self, src: int, dst: int) -> None:
-        """Every layer's ``dst`` page gets ``src``'s contents."""
+        """Every layer's ``dst`` page gets ``src``'s contents (int8 pages
+        with their scales)."""
         for layer in self.kv:
             for t in layer.values():
                 t[dst] = t[src]
+        self.stats["cow_copies"] += 1
 
     def ensure_writable(self, slot: int, pos: int) -> bool:
         """Make the page backing write position ``pos`` exclusively owned
@@ -182,3 +241,341 @@ class PagedKVPool:
         self.block_tables[slot, idx] = fresh[0]
         self._dirty.add(slot)
         return True
+
+    # ------------------------------------------------------------- swap
+    def swap_out(self, slot: int) -> Optional["SwapRecord"]:
+        """Swap preemption, evict side: copy the slot's exclusive pages
+        into the arena and release them; shared pages stay on the device
+        with the slot's reference moved to the returned record.  None
+        (slot untouched) when there is no arena or it lacks room."""
+        if self.arena is None:
+            return None
+        pages = self.slot_pages(slot)
+        host = [p for p in pages if self._ref[p] == 1]
+        if not self.arena.has_room(len(host)):
+            return None
+        by_page = dict(zip(host, self.arena.gather(self.kv, host)))
+        entries = [("host", by_page[p]) if p in by_page else ("kept", p)
+                   for p in pages]
+        self.release(host)            # the bytes now live in the arena
+        self.block_tables[slot] = 0   # kept refs move to the record
+        self._n_pages[slot] = 0
+        self._dirty.add(slot)
+        self.stats["swap_out_pages"] += len(host)
+        return SwapRecord(entries=entries)
+
+    def swap_in(self, slot: int, record: "SwapRecord") -> bool:
+        """Swap preemption, resume side: fresh pages for the record's
+        host part (False, nothing changed, when the pool cannot back
+        them), the arena's bytes uploaded into them, and the slot's table
+        rebuilt in logical order — kept pages back in place, the record's
+        reference becoming the table's."""
+        host_slots = [s for tag, s in record.entries if tag == "host"]
+        fresh = self.alloc(len(host_slots))
+        if fresh is None:
+            return False
+        t0 = time.monotonic()
+        if host_slots:
+            self.arena.scatter(self.kv, host_slots, fresh)
+        it = iter(fresh)
+        self.assign(slot, [s if tag == "kept" else next(it)
+                           for tag, s in record.entries])
+        self.arena.free(host_slots)
+        self.stats["swap_in_pages"] += len(host_slots)
+        self.stats["swap_in_wall_s"] += time.monotonic() - t0
+        return True
+
+    def drop_swap(self, record: "SwapRecord") -> None:
+        """Abandon a swap record (its request was cancelled): free its
+        arena slots and the kept pages' references."""
+        self.arena.free([s for tag, s in record.entries if tag == "host"])
+        self.release([p for tag, p in record.entries if tag == "kept"])
+
+
+@dataclasses.dataclass
+class SwapRecord:
+    """A swapped-out request's pages in logical order: ``("host",
+    arena_slot)`` for pages copied to the arena, ``("kept", page)`` for
+    shared pages kept on the device (the record holds their reference)."""
+
+    entries: List[Tuple[str, int]]
+
+    @property
+    def n_host(self) -> int:
+        return sum(1 for tag, _ in self.entries if tag == "host")
+
+
+# ----------------------------------------------------------------------
+# hash-based prefix index
+# ----------------------------------------------------------------------
+class _Entry:
+    __slots__ = ("digest", "parent", "page", "tokens", "children",
+                 "last_use", "partial")
+
+    def __init__(self, digest, parent, page, tokens, partial):
+        self.digest = digest
+        self.parent = parent
+        self.page = page
+        self.tokens = tokens
+        self.children = 0
+        self.last_use = 0
+        self.partial = partial
+
+
+class PrefixCache:
+    """Chain-hash index of cached token prefixes over pool pages.
+
+    Full pages chain: ``h_i = blake2b(h_{i-1} ‖ page-i tokens)``, so a
+    lookup walks the prompt page by page.  Every entry stores its exact
+    tokens and a match re-verifies them: a digest collision is a miss,
+    never wrong KV.  Partial tail pages (retired requests) index under
+    their parent's digest and match by longest common prefix; they
+    attach by copy-on-write, full pages attach read-only.  The index
+    holds one pool reference per entry page; eviction is LRU over leaf
+    entries, driven by :meth:`PagedKVPool.alloc`.
+    """
+
+    _ROOT = b"root"
+
+    def __init__(self, pool: PagedKVPool):
+        # a weak reference: the pool owns the index, and a cycle would
+        # keep a dropped pool's device pages until the cycle collector ran
+        self.pool = weakref.proxy(pool)
+        self._full: Dict[bytes, _Entry] = {}
+        self._partials: Dict[bytes, List[_Entry]] = {}
+        self._clock = itertools.count(1)
+
+    def __len__(self) -> int:
+        return len(self._full) + sum(len(v) for v in self._partials.values())
+
+    def clear(self) -> None:
+        """Drop every entry without releasing pages — only for
+        :meth:`PagedKVPool.reset`, which recycles the whole pool."""
+        self._full.clear()
+        self._partials.clear()
+
+    @staticmethod
+    def _digest(parent: bytes, tokens, partial: bool) -> bytes:
+        h = hashlib.blake2b(parent, digest_size=16)
+        h.update(b"P" if partial else b"F")
+        h.update(np.ascontiguousarray(tokens, np.int32).tobytes())
+        return h.digest()
+
+    # ------------------------------------------------------------ match
+    def match(self, prompt) -> Tuple[List[int], Optional[int], int]:
+        """Longest cached prefix of ``prompt``: ``(shared_pages, cow_src,
+        n_tokens)`` — full pages to attach read-only, an optional page to
+        copy-on-write, and the KV entries covered, capped at
+        ``len(prompt) - 1`` (the last prompt token is always prefilled so
+        that the final chunk yields token 0's logits; a fully covered
+        prompt turns its last matched page into the copy source)."""
+        ps = self.pool.page_size
+        prompt = np.asarray(prompt, np.int32)
+        n = len(prompt)
+        pages: List[int] = []
+        parent = self._ROOT
+        covered = 0
+        while covered + ps <= n:
+            piece = prompt[covered:covered + ps]
+            e = self._full.get(self._digest(parent, piece, False))
+            if e is None or not np.array_equal(e.tokens, piece):
+                break
+            e.last_use = next(self._clock)
+            pages.append(e.page)
+            parent = e.digest
+            covered += ps
+        if covered >= n:               # fully covered: cap at n-1
+            return pages[:-1], pages[-1], n - 1
+        best, best_m = None, 0
+        for e in self._partials.get(parent, ()):
+            m = _lcp(e.tokens, prompt[covered:covered + len(e.tokens)])
+            m = min(m, n - 1 - covered)
+            if m > best_m:
+                best, best_m = e, m
+        if best is not None:
+            best.last_use = next(self._clock)
+            return pages, best.page, covered + best_m
+        return pages, None, covered
+
+    # --------------------------------------------------------- register
+    def register(self, kv_tokens, pages: Sequence[int],
+                 include_partial: bool = False) -> None:
+        """Index a slot's written pages: ``kv_tokens`` are the tokens
+        whose KV the slot holds, ``pages`` its block-table row.  Full
+        pages chain-register; ``include_partial`` also registers the
+        trailing partial page (at retirement only — a live request still
+        writes its tail).  A known digest is a recency bump; each new
+        entry retains its page."""
+        ps = self.pool.page_size
+        kv_tokens = np.asarray(kv_tokens, np.int32)
+        parent = self._ROOT
+        n_full = len(kv_tokens) // ps
+        for i in range(n_full):
+            piece = kv_tokens[i * ps:(i + 1) * ps]
+            d = self._digest(parent, piece, False)
+            e = self._full.get(d)
+            if e is None:
+                e = _Entry(d, parent, int(pages[i]), piece.copy(), False)
+                self.pool.retain(e.page)
+                self._full[d] = e
+                pe = self._full.get(parent)
+                if pe is not None:
+                    pe.children += 1
+            elif not np.array_equal(e.tokens, piece):
+                return                 # digest collision: stop the chain
+            e.last_use = next(self._clock)
+            parent = d
+        if not include_partial:
+            return
+        tail = kv_tokens[n_full * ps:]
+        if len(tail) == 0 or n_full >= len(pages):
+            return
+        d = self._digest(parent, tail, True)
+        sibs = self._partials.setdefault(parent, [])
+        for s in sibs:
+            if s.digest == d:
+                s.last_use = next(self._clock)
+                return
+        e = _Entry(d, parent, int(pages[n_full]), tail.copy(), True)
+        e.last_use = next(self._clock)
+        self.pool.retain(e.page)
+        sibs.append(e)
+        pe = self._full.get(parent)
+        if pe is not None:
+            pe.children += 1
+
+    # ---------------------------------------------------------- evict
+    def evict_lru(self) -> bool:
+        """Evict the least recently used leaf entry (releasing its page
+        reference).  False when nothing is evictable."""
+        best: Optional[_Entry] = None
+        for e in self._full.values():
+            if e.children == 0 and (best is None
+                                    or e.last_use < best.last_use):
+                best = e
+        for sibs in self._partials.values():
+            for e in sibs:
+                if best is None or e.last_use < best.last_use:
+                    best = e
+        if best is None:
+            return False
+        if best.partial:
+            sibs = self._partials[best.parent]
+            sibs.remove(best)
+            if not sibs:
+                del self._partials[best.parent]
+        else:
+            del self._full[best.digest]
+        pe = self._full.get(best.parent)
+        if pe is not None:
+            pe.children -= 1
+        self.pool.release([best.page])
+        self.pool.stats["prefix_evictions"] += 1
+        return True
+
+
+def _lcp(a, b) -> int:
+    n = min(len(a), len(b))
+    if n == 0:
+        return 0
+    eq = np.asarray(a[:n]) == np.asarray(b[:n])
+    if eq.all():
+        return n
+    return int(np.argmin(eq))
+
+
+# ----------------------------------------------------------------------
+# host swap tier
+# ----------------------------------------------------------------------
+def _runs(slots: Sequence[int]) -> List[Tuple[int, int, int]]:
+    """``(first slot, index into slots, length)`` of each run of
+    consecutive slots."""
+    runs: List[Tuple[int, int, int]] = []
+    for i, s in enumerate(slots):
+        if runs and s == runs[-1][0] + runs[-1][2]:
+            a, j, n = runs[-1]
+            runs[-1] = (a, j, n + 1)
+        else:
+            runs.append((s, i, 1))
+    return runs
+
+
+class HostArena:
+    """The swap tier below the device pool: one host tensor per page
+    tensor of every layer, shaped like it with the page dim replaced by
+    the arena capacity; arena slot ``i`` across all of them holds one
+    logical page.  All of them are views of one preallocated byte buffer,
+    pinned when the pool is on the card, so that the copies are DMA.
+
+    ``gather`` and ``scatter`` wait for their copies before they return:
+    the pages ``gather`` read are released right after and the next
+    kernel may overwrite them, and the slots ``scatter`` read are freed
+    right after."""
+
+    def __init__(self, pool: PagedKVPool, capacity: int):
+        self.capacity = capacity
+        self.device = pool.device
+        t0 = time.monotonic()
+        shapes = []
+        total = 0
+        for layer in pool.kv:
+            for key, t in layer.items():
+                shape = (capacity, *t.shape[1:])
+                n = t.dtype.itemsize * int(np.prod(shape))
+                shapes.append((key, t.dtype, shape, total, n))
+                total += -(-n // 256) * 256
+        self.nbytes = total
+        self.pinned = self.device.type == "cuda"
+        blob = torch.empty(total, dtype=torch.uint8, pin_memory=self.pinned)
+        self._bufs: List[Dict[str, torch.Tensor]] = []
+        per_layer = len(pool.kv[0]) if pool.kv else 0
+        for i, (key, dt, shape, off, n) in enumerate(shapes):
+            if i % per_layer == 0:
+                self._bufs.append({})
+            self._bufs[-1][key] = blob[off:off + n].view(dt).view(shape)
+        self.alloc_s = time.monotonic() - t0
+        self._free: List[int] = []
+        self.reset()
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def has_room(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    def reset(self) -> None:
+        self._free = list(range(self.capacity - 1, -1, -1))
+
+    def free(self, slots: Sequence[int]) -> None:
+        self._free.extend(slots)
+
+    def gather(self, kv, pages: Sequence[int]) -> List[int]:
+        """Copy the device ``pages`` into fresh arena slots, in order;
+        the caller has checked :meth:`has_room`."""
+        slots = sorted(self._free.pop() for _ in pages)
+        if not pages:
+            return slots
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        runs = _runs(slots)
+        for layer, bufs in zip(kv, self._bufs):
+            for key, buf in bufs.items():
+                sel = layer[key].index_select(0, idx)
+                for a, j, n in runs:      # in place: buf[slots] = would
+                    buf.narrow(0, a, n).copy_(     # write a temporary
+                        sel.narrow(0, j, n), non_blocking=True)
+        _wait(self.device)
+        return slots
+
+    def scatter(self, kv, slots: Sequence[int], pages: Sequence[int]
+                ) -> None:
+        """Upload arena ``slots`` into the device ``pages``, in place."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        runs = _runs(slots)
+        for layer, bufs in zip(kv, self._bufs):
+            for key, buf in bufs.items():
+                for a, j, n in runs:
+                    layer[key].index_copy_(
+                        0, idx[j:j + n], buf.narrow(0, a, n).to(
+                            self.device, non_blocking=True))
+        _wait(self.device)

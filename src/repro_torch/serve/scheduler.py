@@ -4,7 +4,9 @@ State machine per request:
 
     WAITING --admit--> PREFILL --last chunk--> RUNNING --finish--> FINISHED
        ^                  |                       |
-       +--------------- preempt (recompute) -----+
+       +----------------- + ------ preempt ------+
+         (swap: exclusive pages to the host arena, streamed back on
+          resume · recompute: pages released, prefix replayed on re-admit)
 
 Every engine step the scheduler (1) **admits** waiting requests into
 free slots while the pool can back their prompts (join-at-prefill; the
@@ -12,15 +14,27 @@ engine feeds admitted prompts through in fixed-size chunks, one chunk
 per step, interleaved with everyone else's decode); (2) **ensures decode
 capacity** — each decoding request about to cross a page boundary gets
 one more page, preempting the *youngest* admitted request when the pool
-is exhausted: its pages and slot are released and it re-queues with its
-original arrival, to recompute its prefix on re-admission (greedy
-decoding reproduces the same tokens); (3) **retires** requests at EOS /
-``max_new_tokens``, recycling slot and pages at once.
+is exhausted; (3) **retires** requests at EOS / ``max_new_tokens``,
+recycling slot and pages at once.
+
+Preemption prefers **swap** when the pool has a host arena with room:
+the victim's exclusive pages go to the arena, its shared pages stay on
+the device pinned by its :class:`~repro_torch.serve.kvpool.SwapRecord`,
+and its tokens and prefill progress are kept — resume streams the pages
+back and continues where it stopped.  Otherwise **recompute**: pages and
+generated tokens are dropped and the prefix is replayed on re-admission
+(greedy decoding reproduces the same tokens).  Either way the victim
+re-queues with its original arrival.
+
+Admission consults the pool's prefix index when there is one: matched
+full pages attach read-only, a matched tail attaches through an eager
+copy-on-write, and prefill starts at the first uncovered position.  The
+matched pages are pinned before the fresh-page alloc, so that alloc's
+LRU eviction cannot recycle them.
 
 The wait queue sorts by ``(-priority, deadline, arrival)`` and is exact
 FIFO when neither SLA field is set; the queue head blocks admission when
-the pool cannot back its prompt.  Swap preemption and the prefix index
-are not ported (ROADMAP.md).
+the pool cannot back its prompt.
 """
 
 from __future__ import annotations
@@ -31,7 +45,12 @@ import heapq
 import itertools
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.serve.kvpool import PagedKVPool
+from repro_torch.serve.kvpool import PagedKVPool, SwapRecord
+
+# the scheduler's counters, under the reference's names; ``preemptions``
+# is swap + recompute
+SCHED_KEYS = ("preemptions", "preempt_swap", "preempt_recompute",
+              "prefix_hit_tokens", "prefill_tok", "prefix_pages_reused")
 
 
 class SeqState(enum.Enum):
@@ -58,6 +77,7 @@ class Sequence:
     occupied_steps: int = 0     # steps while slotted (chunks + decodes)
     preemptions: int = 0
     arrival: int = 0            # submission order, kept across preemption
+    swap: Optional[SwapRecord] = None   # set while swapped to the arena
 
     def sort_key(self) -> Tuple[float, float, int]:
         dl = self.req.deadline
@@ -68,11 +88,16 @@ class Sequence:
 class Scheduler:
     def __init__(self, pool: PagedKVPool, max_slots: int,
                  max_waiting: Optional[int] = None,
-                 stats: Optional[Dict[str, int]] = None):
+                 stats: Optional[Dict[str, float]] = None,
+                 swap: bool = False):
         self.pool = pool
         self.max_waiting = max_waiting
+        # swap preemption needs the pool's host arena; a bare Scheduler
+        # stays recompute-only
+        self.swap_enabled = swap and pool.arena is not None
         self.stats = stats if stats is not None else {}
-        self.stats.setdefault("preemptions", 0)
+        for k in SCHED_KEYS:
+            self.stats.setdefault(k, 0)
         self._waiting: List[Tuple[Tuple[float, float, int], Sequence]] = []
         # admission-ordered (PREFILL + RUNNING): running[-1] is always the
         # youngest — the preemption victim
@@ -104,26 +129,70 @@ class Scheduler:
     # --------------------------------------------------------- admission
     def admit(self) -> List[Sequence]:
         """Move waiting requests into free slots while the pool can back
-        their prompts, in wait-queue order; the head blocking on pages
-        stalls admission (no bypass, so a large request cannot starve)."""
+        them, in wait-queue order; the head blocking on pages stalls
+        admission (no bypass, so a large request cannot starve).
+
+        A swapped-out head resumes through :meth:`PagedKVPool.swap_in`
+        and re-enters PREFILL or RUNNING where it was preempted.  A fresh
+        head consults the prefix index: matched full pages attach shared,
+        a matched tail is copied into the first fresh page, and
+        ``n_prefilled`` starts at the covered length."""
         admitted: List[Sequence] = []
         while self._waiting and self._free_slots:
             seq = self._waiting[0][1]
+            if seq.swap is not None:
+                slot = self._free_slots[-1]
+                if not self.pool.swap_in(slot, seq.swap):
+                    break              # the pool cannot back the resume yet
+                heapq.heappop(self._waiting)
+                seq.slot = self._free_slots.pop()
+                seq.swap = None
+                seq.state = (SeqState.RUNNING
+                             if seq.n_prefilled >= len(seq.req.prompt)
+                             else SeqState.PREFILL)
+                self.running.append(seq)
+                admitted.append(seq)
+                continue
             need = self.pool.pages_for(len(seq.req.prompt))
             if need > self.pool.capacity:
                 raise RuntimeError(
                     f"request {seq.req.uid}: prompt needs {need} pages but "
                     f"the pool only has {self.pool.capacity} — raise "
                     f"num_pages or max_len")
-            fresh = self.pool.alloc(need)
+            shared: List[int] = []
+            cow_src: Optional[int] = None
+            n_reuse = 0
+            if self.pool.prefix is not None and need > 0:
+                shared, cow_src, n_reuse = self.pool.prefix.match(
+                    seq.req.prompt)
+            # pin the matched pages BEFORE alloc: its LRU eviction may
+            # drop their index entries, but pinned pages cannot recycle
+            pins = shared + ([cow_src] if cow_src is not None else [])
+            for p in pins:
+                self.pool.retain(p)
+            # the copy-on-write destination is one of the fresh pages
+            fresh = self.pool.alloc(need - len(shared))
             if fresh is None:
+                self.pool.release(pins)
                 break
             heapq.heappop(self._waiting)
             seq.slot = self._free_slots.pop()
+            if shared:           # the pins become the slot's references
+                self.pool.assign(seq.slot, shared)
+            if cow_src is not None:
+                cow_page, fresh = fresh[0], fresh[1:]
+                self.pool.assign(seq.slot, [cow_page])
+                self.pool.copy_page(cow_src, cow_page)
+                self.pool.release([cow_src])        # unpin the source
             if fresh:
                 self.pool.assign(seq.slot, fresh)
             seq.state = SeqState.PREFILL
-            seq.n_prefilled = 0
+            seq.n_prefilled = n_reuse
+            self.stats["prefix_hit_tokens"] += n_reuse
+            self.stats["prefill_tok"] += len(seq.req.prompt) - n_reuse
+            if n_reuse:
+                self.stats["prefix_pages_reused"] += (
+                    len(shared) + (1 if cow_src is not None else 0))
             self.running.append(seq)
             admitted.append(seq)
         return admitted
@@ -212,20 +281,58 @@ class Scheduler:
 
     # --------------------------------------------------------- lifecycle
     def preempt(self, seq: Sequence) -> None:
-        """Recompute preemption: drop slot, pages and generated tokens and
-        re-queue with the original arrival (ahead of later submissions)."""
+        """Preempt ``seq``: swap when enabled and the arena has room for
+        its exclusive pages (tokens and prefill progress kept), else
+        recompute (slot, pages and generated tokens dropped).  Either way
+        it re-queues with its original arrival (ahead of later
+        submissions)."""
+        seq.preemptions += 1
+        self.stats["preemptions"] += 1
+        if self.swap_enabled:
+            record = self.pool.swap_out(seq.slot)
+            if record is not None:
+                # swap_out cleared the table row; free the slot without
+                # releasing the kept references (the record owns them)
+                self._free_slots.append(seq.slot)
+                self.running.remove(seq)
+                seq.slot = -1
+                seq.swap = record
+                seq.state = SeqState.WAITING
+                self.stats["preempt_swap"] += 1
+                self._push(seq)
+                return
         self._release(seq)
         seq.state = SeqState.WAITING
         seq.n_prefilled = 0
         seq.n_written = 0
         seq.tokens = []
-        seq.preemptions += 1
-        self.stats["preemptions"] += 1
+        self.stats["preempt_recompute"] += 1
         self._push(seq)
 
     def finish(self, seq: Sequence) -> None:
         self._release(seq)
         seq.state = SeqState.FINISHED
+
+    def cancel(self, uid: int) -> Optional[Sequence]:
+        """Retire one request wherever it is: a slotted one releases slot
+        and pages, a waiting one leaves the queue, a swapped-out one also
+        frees its arena slots and kept references.  Returns the sequence
+        (now FINISHED), or None for an unknown uid."""
+        for seq in self.running:
+            if seq.req.uid == uid:
+                self.finish(seq)
+                return seq
+        for i, (_, seq) in enumerate(self._waiting):
+            if seq.req.uid == uid:
+                self._waiting[i] = self._waiting[-1]
+                self._waiting.pop()
+                heapq.heapify(self._waiting)
+                if seq.swap is not None:
+                    self.pool.drop_swap(seq.swap)
+                    seq.swap = None
+                seq.state = SeqState.FINISHED
+                return seq
+        return None
 
     def _release(self, seq: Sequence) -> None:
         self.pool.clear_slot(seq.slot)

@@ -216,6 +216,44 @@ def test_paged_attn_matches_plain(gen, b, kv, g, hd, ps, pmax, window, int8,
         "16-byte copies" if hd % (16 if int8 else 8) == 0 else "scalar loads")
 
 
+@pytest.mark.parametrize("dtype,int8", [
+    (torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True)])
+def test_paged_attn_shared_block_table(gen, dtype, int8):
+    """Every live row maps the same first 3 pages, as a prefix-cache
+    attach leaves them, then pages of its own (slot 3 idle): within
+    tolerance of the plain version, idle rows exact zeros, the same bits
+    twice."""
+    b, kv, hd, ps, pmax, shared = 8, 16, 64, 16, 8, 3
+    lengths = np.asarray([96, 70, 65, 0, 49, 128, 50, 81])
+    n_pages = b * pmax + 1
+    q = torch.randn(b, kv, 1, hd, generator=gen, device="cuda").to(dtype)
+    if int8:
+        kp, vp = (torch.randint(-127, 128, (n_pages, ps, kv, hd),
+                                generator=gen, device="cuda").to(torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand(n_pages, ps, kv, generator=gen, device="cuda")
+                  / 64 for _ in range(2))
+    else:
+        kp, vp = (torch.randn(n_pages, ps, kv, hd, generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        ks = vs = None
+    bt = np.zeros((b, pmax), np.int32)
+    pid = 1 + shared
+    for i, n_ in enumerate(lengths):
+        for j in range(-(-int(n_) // ps)):
+            bt[i, j] = 1 + j if j < shared else pid
+            pid += j >= shared
+    assert (bt[lengths > 0, :shared] == [1, 2, 3]).all()
+    bt = torch.from_numpy(bt).cuda()
+    ln = torch.from_numpy(lengths.astype(np.int32)).cuda()
+    got = paged_attn(q, kp, vp, bt, ln, None, ks, vs)
+    f32 = (lambda t: t) if int8 else (lambda t: t.float())
+    _close(got, paged_attn_plain(q.float(), f32(kp), f32(vp), bt, ln, None,
+                                 ks, vs))
+    assert (got[ln == 0] == 0).all()
+    assert torch.equal(got, paged_attn(q, kp, vp, bt, ln, None, ks, vs))
+
+
 def test_paged_attn_offset_pages_take_scalar_loads(gen):
     """Pages that start 2 bytes off 16 (a contiguous view at an odd
     offset) take the scalar route, with the same numbers."""

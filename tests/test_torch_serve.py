@@ -1,8 +1,10 @@
 """The port's serve stack on CPU: greedy token streams equal to the JAX
-ServeEngine's (continuous mode, prefix cache off, host swap off) on
-magnitude-2:4 params packed by both sides; the page pool, the
-scheduler, the config's refusals, the CLI, and the rule that the port
-imports neither jax nor the JAX package.
+ServeEngine's (continuous mode; with the prefix cache and host swap off,
+and with the reference's defaults — both on) on magnitude-2:4 params
+packed by both sides; the page pool, the scheduler, the config's
+defaults and refusals, the CLI, and the rule that the port imports
+neither jax nor the JAX package.  tests/test_torch_prefix_cache.py holds
+the prefix index and the swap tier.
 """
 
 import os
@@ -22,6 +24,7 @@ from repro.core.pruner import prune_matrix as j_prune_matrix
 from repro.models import LM as JLM
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
+from repro.serve.config import ServeConfig as JServeConfig
 from repro_torch import configs
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.engine import Request, ServeEngine
@@ -63,10 +66,23 @@ def pairs():
             for arch in ("paper_tiny_lm", "qwen1_5_0_5b")}
 
 
-def _requests(n=8):
+def _requests(n=8, shared=False):
+    """``shared``: from the fifth request on, each prompt starts with the
+    whole prompt of the request four before it (the first wave, whose
+    pages the prefix index holds by then), and request 5 repeats request
+    2's prompt."""
     rng = np.random.default_rng(0)
-    return [(i, rng.integers(0, 256, size=(4, 13, 20)[i % 3]).astype(
+    reqs = [(i, rng.integers(0, 256, size=(4, 13, 20)[i % 3]).astype(
         np.int32), (2, 5, 9, 14)[i % 4]) for i in range(n)]
+    if shared:
+        for u in range(4, n):
+            prev = reqs[u - 4][1] if u != 5 else reqs[2][1]
+            p = prev if u == 5 else np.concatenate([prev, reqs[u][1]])[:24]
+            reqs[u] = (u, p, reqs[u][2])
+    return reqs
+
+# the reference's serve defaults: the prefix cache and a pool-sized arena
+DEFAULTS = dict(prefix_cache=True, host_swap_pages=None, shared=True)
 
 
 @pytest.mark.parametrize("arch,knobs", [
@@ -76,16 +92,23 @@ def _requests(n=8):
     ("paper_tiny_lm", dict(kv_dtype="int8")),
     ("qwen1_5_0_5b", dict(steps_per_sync=8)),
     ("qwen1_5_0_5b", dict(num_pages=6, kv_dtype="int8")),
+    ("paper_tiny_lm", dict(DEFAULTS, steps_per_sync=8)),
+    ("paper_tiny_lm", dict(DEFAULTS, num_pages=6)),  # preempts by swap
+    ("paper_tiny_lm", dict(DEFAULTS, steps_per_sync=1, kv_dtype="int8")),
+    ("qwen1_5_0_5b", dict(DEFAULTS, num_pages=6, kv_dtype="int8")),
 ])
 def test_greedy_streams_match_reference(pairs, arch, knobs):
-    """Prompts of 4/13/20 tokens in 8-token chunks cross chunk and page
-    boundaries; 8 requests over 4 slots keep admission busy."""
+    """Prompts of 4/13/20 tokens (24 with a shared prefix) in 8-token
+    chunks cross chunk and page boundaries; 8 requests over 4 slots keep
+    admission busy.  Both engines run with the prefix cache and the
+    swap arena off, or with the reference's defaults (both on)."""
     jm, jp, tm, tp = pairs[arch]
-    base = dict(max_batch=4, max_len=48, page_size=8, prefill_chunk=8,
-                **knobs)
-    reqs = _requests()
-    jeng = JServeEngine(jm, jp, prefix_cache=False, host_swap_pages=0,
-                        **base)
+    knobs = dict(knobs)
+    reqs = _requests(shared=knobs.pop("shared", False))
+    base = dict(dict(max_batch=4, max_len=48, page_size=8,
+                     prefill_chunk=8, prefix_cache=False,
+                     host_swap_pages=0), **knobs)
+    jeng = JServeEngine(jm, jp, **base)
     want = jeng.generate([JRequest(uid=u, prompt=p, max_new_tokens=m)
                           for u, p, m in reqs])
     eng = ServeEngine(tm, tp, **base)
@@ -98,7 +121,14 @@ def test_greedy_streams_match_reference(pairs, arch, knobs):
         assert b.preemptions == a.preemptions
     if knobs.get("num_pages") == 6:
         assert sum(r.preemptions for r in got) > 0
-    assert eng.stats["host_syncs"] == jeng.stats["host_syncs"]
+    for key in ("host_syncs", "preempt_swap", "preempt_recompute",
+                "prefix_hit_tokens", "prefill_tok", "cow_copies",
+                "swap_out_pages", "swap_in_pages"):
+        assert eng.stats[key] == jeng.stats[key], key
+    if "prefix_cache" in knobs:
+        assert eng.stats["prefix_hit_tokens"] > 0
+        if knobs.get("num_pages") == 6:
+            assert eng.stats["preempt_swap"] > 0
     assert eng.stats["tokens"] == sum(len(r.tokens) for r in got)
     assert eng.stats["preemptions"] == sum(r.preemptions for r in got)
 
@@ -189,12 +219,35 @@ def test_scheduler_queue_cap_and_priority(tiny):
 
 @pytest.mark.parametrize("knob", [
     dict(temperature=0.7), dict(top_k=5), dict(top_p=0.9),
-    dict(prefix_cache=True), dict(host_swap_pages=4),
-    dict(host_swap_pages=None), dict(mode="static"), dict(replicas=2),
+    dict(mode="static"), dict(replicas=2),
     dict(faults=object()), dict(trace=True)])
 def test_config_refuses_unported_knobs(knob):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         ServeConfig(**knob).validate()
+
+
+@pytest.mark.parametrize("knob,swap_pages", [
+    (dict(prefix_cache=True), 8 * 16 + 1),
+    (dict(prefix_cache=False), 8 * 16 + 1),
+    (dict(host_swap_pages=4), 4),
+    (dict(host_swap_pages=None, num_pages=40), 40),
+    (dict(host_swap_pages=0), 0),
+    (dict(host_swap_pages=None, kv_dtype="int8"), 8 * 32 + 1)])
+def test_config_accepts_prefix_and_swap_knobs(knob, swap_pages):
+    """The ported knobs validate, and the arena is pool-sized unless set
+    (the reference's ``resolved_swap_pages``)."""
+    cfg = ServeConfig(**knob).validate()
+    assert cfg.resolved_swap_pages() == swap_pages
+    ref = JServeConfig(**knob).validate()
+    assert ref.resolved_swap_pages() == swap_pages
+
+
+def test_config_defaults_match_reference():
+    assert ServeConfig().prefix_cache is JServeConfig().prefix_cache is True
+    assert ServeConfig().host_swap_pages is None
+    assert JServeConfig().host_swap_pages is None
+    with pytest.raises(ValueError, match="host_swap_pages"):
+        ServeConfig(host_swap_pages=-1).validate()
 
 
 def test_config_validates_like_reference():
