@@ -3,9 +3,10 @@
 against its plain PyTorch version on the card, serve a 2:4-pruned
 Qwen1.5-0.5B at full width through ``ServeEngine.generate`` with the
 reference's serve defaults (the prefix cache, copy-on-write attach, host
-swap, cancel), and run the pruning launcher's default path — the
-pipelined engine, Algorithm 1 with MM 2:4 — on it at full width and
-depth.
+swap, cancel), sampled and in static mode, run the pruning launcher's
+default path — the pipelined engine, Algorithm 1 with MM 2:4 — on it at
+full width and depth, and train, prune and serve the tiny LM with the
+port's own trainer.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -67,6 +68,23 @@ Phases (any failure exits non-zero; no exception is swallowed):
      of a decoding request — the pool's invariants and the arena's free
      slots after each, the other streams unchanged.  The serving kernels'
      launches over the phase must each be > 0;
+  3c. sampled decoding on phase 3's model and requests — temperature 0.8
+     with top-k 40, with top-p 0.9, and plain temperature 1.0: streams
+     equal at steps_per_sync 8 and 1, and (top-k) on a 33-page pool with
+     swap and with recompute preemption equal to the unpreempted run's;
+     the card's threefry bits for the (8, 151936) draw equal to the CPU's;
+     categorical flips between the card and the CPU on the same logits
+     and keys (printed); sampled against greedy tok/s in turns; the
+     kernels and device time one sampled draw adds, and a profiled run
+     of each;
+  3d. static mode on the same model: one dense-cache bucket of the 8
+     requests — greedy streams equal to phase 3's continuous run except
+     where they part at a near tie (the two tokens' logit gap from a
+     full forward below STATIC_TIE), one host sync, the tiled nm_spmm in
+     the 512-row prefill; sampled in the fori variant and the while
+     variant (mixed max_new), each while stream a prefix of the fori
+     one; static against continuous greedy in f32 at 2 layers, near ties
+     at LOGIT_TOL;
   4. profiler traces of two serving runs (the 8 requests; the 512-token
      prompt, whose chunks take the tiled nm_spmm): device busy and idle
      share, device time by kernel, paged_attn's device time and launches;
@@ -100,7 +118,17 @@ Phases (any failure exits non-zero; no exception is swallowed):
   6. one f32 layer at Qwen width pruned by the launcher's default engine
      with the kernels and with the plain override (which must launch no
      kernel): the tie rule and error bound of 5b, and the weights of
-     rows whose masks agree within LAYER_W_TOL.
+     rows whose masks agree within LAYER_W_TOL;
+  8. train → prune → serve: every param leaf of paper_tiny_lm gets a
+     gradient through the differentiable route on the card;
+     ``repro_torch.launch.train`` with the reference's defaults (300
+     steps, batch 16 x 64), and the same run stopped at step 150 and
+     resumed — its step-300 checkpoint bit-identical (deterministic
+     algorithms), no kernel launched by training, the loss falling;
+     ``repro_torch.launch.prune --ckpt`` for MM 2:4 and SM 0.5 on the
+     synthetic corpus (dense and pruned perplexity printed, flash_attn,
+     hessian_accum and nm_select counted); the MM 2:4 model packed and
+     served sampled (top-p 0.9).
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — and its numbers), the nvidia-smi
@@ -115,6 +143,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1510,6 +1539,518 @@ def default_serve_features(model, params, reqs):
 
 
 # ----------------------------------------------------------------------
+# phase 3c: sampled decoding
+# ----------------------------------------------------------------------
+SAMPLINGS = (("temperature 0.8, top-k 40", dict(temperature=0.8, top_k=40)),
+             ("temperature 0.8, top-p 0.9", dict(temperature=0.8, top_p=0.9)),
+             ("temperature 1.0", dict(temperature=1.0)))
+
+
+def _streams(res):
+    return {r.uid: r.tokens for r in res}
+
+
+def _check_streams(label, reqs, res, vocab):
+    for r in res:
+        if len(r.tokens) != r_max(reqs, r.uid) or (
+                r.tokens.min() < 0 or r.tokens.max() >= vocab):
+            fail(f"{label}: request {r.uid} emitted a bad stream "
+                 f"{r.tokens.tolist()}")
+
+
+def _same(a, b) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[u], b[u])
+                                        for u in a)
+
+
+def sampled_decoding(model, params, reqs, greedy):
+    """Phase 3c: the three sampled settings of the reference launcher on
+    phase 3's model and requests — streams equal at steps_per_sync 1 and
+    8 and across swap, recompute and no preemption (the per-(uid, step)
+    key contract); the card's threefry bits equal to the CPU's; the
+    categorical flips between the card and the CPU on the same logits and
+    keys; sampled against greedy tokens/s in turns; the launches and
+    device time one sampled draw adds to a step.  Returns the serving
+    kernels' launches over the phase and its numbers."""
+    import torch
+
+    from repro_torch import random as rnd
+    from repro_torch.kernels import ops
+    from repro_torch.serve import fused
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = model.cfg
+    totals = {k: 0 for k in SERVE_KERNELS}
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        for k in SERVE_KERNELS:
+            totals[k] += c[k]
+        return out
+
+    kw = dict(max_batch=8, max_len=128, page_size=16, prefill_chunk=32)
+    out = {}
+    # threefry on the card against the CPU, at the draw's shape
+    keys = rnd.fold_in(rnd.fold_in(rnd.key(0, "cuda"),
+                                   torch.arange(8, device="cuda")), 5)
+    bits = rnd.random_bits(keys, (cfg.vocab_size,))
+    bits_cpu = rnd.random_bits(keys.cpu(), (cfg.vocab_size,))
+    if not torch.equal(bits.cpu(), bits_cpu):
+        fail("phase 3c: the card's threefry bits differ from the CPU's")
+    say(f"  threefry: the (8, {cfg.vocab_size}) bits of 8 (uid, step) keys "
+        "are equal on the card and the CPU, bit for bit")
+    # categorical flips, card against CPU: the prompts' last logits, keys
+    # of 8 uids x 4 steps, each setting
+    dense = model.init_cache(len(reqs), 64 + 1)
+    toks = torch.from_numpy(np.stack([r.prompt for r in reqs])).cuda()
+    with torch.no_grad():
+        logits = model.prefill(params, toks, dense)
+    del dense
+    lg = logits.repeat(4, 1)                                   # (32, V)
+    uids = torch.arange(8, device="cuda").repeat(4).to(torch.int32)
+    steps = torch.arange(4, device="cuda").repeat_interleave(8).to(
+        torch.int32)
+    flips = {}
+    for label, knobs in SAMPLINGS:
+        kn = dict(dict(top_k=None, top_p=None), **knobs)
+        a = fused.sample_rows(lg, uids, steps, rnd.key(0, "cuda"), **kn)
+        b = fused.sample_rows(lg.cpu(), uids.cpu(), steps.cpu(),
+                              rnd.key(0), **kn)
+        flips[label] = int((a.cpu() != b).sum())
+    say(f"  categorical draws card vs CPU on the same logits and keys "
+        f"(32 draws a setting, V = {cfg.vocab_size}): flips {flips}")
+    out["flips_of_32"] = flips
+    # the launches and device time one sampled draw adds
+    kn = dict(temperature=0.8, top_k=40, top_p=None)
+    draw = lambda: fused.sample_rows(logits, uids[:8], steps[:8],  # noqa
+                                     rnd.key(0, "cuda"), **kn)
+    draw()
+    # four calls a profile: the profiler has dropped a lone short call
+    _, wall, busy, n_k = profiled(lambda: [draw() for _ in range(4)])
+    wall, busy, n_k = wall / 4, busy / 4, n_k / 4
+    _, gwall, gbusy, gn_k = profiled(
+        lambda: [torch.argmax(logits, -1) for _ in range(4)])
+    gbusy, gn_k = gbusy / 4, gn_k / 4
+    say(f"  one sampled draw (8 rows, top-k 40; the mean of 4): {n_k:g} "
+        f"kernels, device {busy * 1e3:.3f} ms, host {wall * 1e3:.3f} ms; "
+        f"greedy argmax: {gn_k:g} kernels, device {gbusy * 1e3:.3f} ms")
+    out["draw"] = dict(kernels=n_k, device_ms=busy * 1e3,
+                       host_ms=wall * 1e3, greedy_kernels=gn_k,
+                       greedy_device_ms=gbusy * 1e3)
+    # streams at steps_per_sync 8 and 1, each setting
+    base = {}
+    for label, knobs in SAMPLINGS:
+        res = {}
+        for sps in (8, 1):
+            eng = ServeEngine(model, params, steps_per_sync=sps, **knobs,
+                              **kw)
+            r = counted(lambda: eng.generate(reqs))
+            _check_streams(f"phase 3c {label}", reqs, r, cfg.vocab_size)
+            res[sps] = _streams(r)
+            del eng
+        if not _same(res[8], res[1]):
+            fail(f"phase 3c: {label}: streams differ between "
+                 "steps_per_sync 8 and 1")
+        if _same(res[8], greedy):
+            fail(f"phase 3c: {label}: the sampled streams equal the greedy "
+                 "ones")
+        base[label] = res[8]
+        say(f"  {label}: streams equal at steps_per_sync 8 and 1")
+    # a 33-page pool: swap, recompute — against the unpreempted streams
+    label, knobs = SAMPLINGS[0]
+    for arena in (None, 0):
+        eng = ServeEngine(model, params, num_pages=33, prefix_cache=False,
+                          host_swap_pages=arena, **knobs, **kw)
+        r = counted(lambda: eng.generate(reqs))
+        st = eng.stats
+        kind = "preempt_swap" if arena is None else "preempt_recompute"
+        if st[kind] <= 0:
+            fail(f"phase 3c: the 33-page pool did not {kind}: {st}")
+        if not _same(_streams(r), base[label]):
+            fail(f"phase 3c: {label}: {kind} changed the streams")
+        say(f"  {label}, 33-page pool: {st[kind]} x {kind}, streams equal "
+            "to the unpreempted run's")
+        del eng
+    # sampled against greedy tokens/s, in turns
+    engs = {"greedy": ServeEngine(model, params, **kw),
+            "sampled": ServeEngine(model, params, **knobs, **kw)}
+    rates = {"greedy": [], "sampled": []}
+    for which in ("greedy", "sampled", "greedy", "sampled", "sampled",
+                  "greedy"):
+        eng = engs[which]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        r = counted(lambda: eng.generate(reqs))
+        dt = time.monotonic() - t0
+        rates[which].append(sum(len(x.tokens) for x in r) / dt)
+    say(f"  tok/s in turns: greedy {fmt_s(rates['greedy'])}, sampled "
+        f"({label}) {fmt_s(rates['sampled'])}")
+    prof = {}
+    for which, eng in engs.items():
+        r, wall, busy, n_k = profiled(lambda: eng.generate(reqs))
+        steps_run = eng.stats["device_steps"] + eng.stats["prefill_chunks"]
+        prof[which] = dict(wall_s=wall, busy_s=busy, kernels=n_k,
+                           kernels_per_step=n_k / max(1, steps_run),
+                           busy_ms_per_step=busy * 1e3 / max(1, steps_run))
+        say(f"  profiled {which}: wall {wall:.3f} s, device busy "
+            f"{busy:.3f} s, idle share {1 - busy / wall:.3f}, {n_k} "
+            f"kernels, {n_k / max(1, steps_run):.0f} and "
+            f"{busy * 1e3 / max(1, steps_run):.3f} device ms a step")
+    out.update(tok_s=rates, profile=prof)
+    del engs
+    say(f"  serving kernels' launches over phase 3c: {totals}")
+    for k in ("nm_spmm_decode", "paged_attn"):
+        if totals[k] <= 0:
+            fail(f"kernel {k} was not launched in phase 3c")
+    return totals, out
+
+
+# ----------------------------------------------------------------------
+# phase 3d: static mode
+# ----------------------------------------------------------------------
+STATIC_TIE = 0.0625      # phase 3d, bf16: |logit(a) - logit(b)| where the
+                         # static and continuous greedy streams part (four
+                         # bf16 ulps at the logits' magnitude)
+
+
+def _first_divergence(model, params, reqs, got, want, tol, label):
+    """Where two greedy streams part: the two tokens' logit gap from a
+    full-sequence forward of the shared context; a gap of ``tol`` or
+    more fails (not a near tie).  Returns the number of streams that
+    part."""
+    import torch
+
+    parted = 0
+    for r in reqs:
+        a, b = want[r.uid], got[r.uid]
+        diff = np.nonzero(a != b)[0]
+        if len(diff) == 0:
+            continue
+        parted += 1
+        j = int(diff[0])
+        ctx = np.concatenate([r.prompt, a[:j]])
+        with torch.no_grad():
+            lg = model.forward(params, torch.from_numpy(ctx)[None].cuda())
+        gap = abs((lg[0, -1, int(a[j])] - lg[0, -1, int(b[j])]).item())
+        say(f"  {label}: request {r.uid} parts at token {j}: logit gap "
+            f"{gap:.3e} (tol {tol:g})")
+        if gap >= tol:
+            fail(f"{label}: request {r.uid} parts at token {j} with a gap "
+                 f"{gap:.3e} >= {tol:g}: not a near tie")
+    return parted
+
+
+def static_mode(model, params, reqs, greedy):
+    """Phase 3d: static mode on phase 3's model and requests (one bucket
+    of 8 64-token prompts): greedy streams equal to the continuous greedy
+    run's (except where they part at a near tie), one host sync a bucket,
+    the tiled nm_spmm in the prefill (8 x 64 = 512 rows); sampled in both
+    variants — ``fori`` (EOS off, one max_new) and ``while`` (mixed
+    max_new), whose streams must be prefixes of the fori run's (the same
+    split sequence, the same batch); then the f32 check at 2 layers:
+    static against continuous greedy, near ties at LOGIT_TOL.  Returns
+    the serving kernels' and flash_attn's launches and the phase's numbers."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = model.cfg
+    counted = (*SERVE_KERNELS, "flash_attn")        # the prefill's attention
+    totals = {k: 0 for k in counted}
+    kw = dict(max_batch=8, max_len=128, mode="static")
+    out = {}
+
+    def run(eng, rq):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = eng.generate(rq)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        c = ops.launch_counts()
+        for k in counted:
+            totals[k] += c[k]
+        _check_streams("phase 3d", rq, res, cfg.vocab_size)
+        if eng.stats["host_syncs"] != 1:
+            fail(f"phase 3d: {eng.stats['host_syncs']} host syncs for one "
+                 "bucket")
+        toks = sum(len(r.tokens) for r in res)
+        return _streams(res), c, toks / dt
+
+    eng = ServeEngine(model, params, **kw)
+    st, c, rate = run(eng, reqs)
+    if c["nm_spmm"] <= 0 or c["flash_attn"] <= 0:
+        fail("phase 3d: the prefill did not launch the tiled nm_spmm and "
+             f"flash_attn: {c}")
+    parted = _first_divergence(model, params, reqs, st, greedy, STATIC_TIE,
+                               "phase 3d greedy static vs continuous")
+    same = sum(int(np.sum(st[u] == greedy[u])) for u in st)
+    say(f"  greedy: {len(reqs) - parted}/{len(reqs)} streams equal to the "
+        f"continuous run's ({same}/{sum(len(v) for v in st.values())} "
+        f"tokens), 1 host sync, {rate:.1f} tok/s; launches "
+        f"{ {k: c[k] for k in counted} }")
+    out["greedy"] = dict(parted=parted, tok_s=rate, launches=c)
+    del eng
+    knobs = dict(temperature=0.8, top_k=40)
+    fori = ServeEngine(model, params, **knobs, **kw)
+    st_f, c_f, rate_f = run(fori, reqs)
+    mixed = [Request(uid=r.uid, prompt=r.prompt,
+                     max_new_tokens=(8, 16, 24, 32)[r.uid % 4])
+             for r in reqs]
+    wl = ServeEngine(model, params, **knobs, **kw)
+    st_w, c_w, rate_w = run(wl, mixed)
+    if wl.stats["device_steps"] != 32 or fori.stats["device_steps"] != 32:
+        fail("phase 3d: a bucket ran other than 32 steps")
+    for r in mixed:
+        if not np.array_equal(st_w[r.uid], st_f[r.uid][:r.max_new_tokens]):
+            fail(f"phase 3d: the while variant's stream of request {r.uid} "
+                 "is not a prefix of the fori variant's")
+    if _same(st_f, st):
+        fail("phase 3d: the sampled static streams equal the greedy ones")
+    say(f"  sampled (temperature 0.8, top-k 40): fori {rate_f:.1f} tok/s, "
+        f"while (max_new 8/16/24/32) {rate_w:.1f} tok/s; each while "
+        "stream is the prefix of the fori stream")
+    out["sampled"] = dict(fori_tok_s=rate_f, while_tok_s=rate_w)
+    del fori, wl
+
+    # f32 at 2 layers: static against continuous greedy
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.models.transformer import LM
+
+    cfg32 = dataclasses.replace(get_config("qwen1.5-0.5b"), num_layers=2,
+                                dtype="float32")
+    m32 = LM(cfg32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    p32 = prune_linears(m32.init(gen), "2:4")
+    cont = ServeEngine(m32, p32, max_batch=8, max_len=128, page_size=16,
+                       prefill_chunk=32)
+    want = _streams(cont.generate(reqs))
+    got, _, _ = run(ServeEngine(m32, cont.params, **kw), reqs)
+    parted32 = _first_divergence(m32, cont.params, reqs, got, want,
+                                 LOGIT_TOL, "phase 3d f32 static vs "
+                                 "continuous")
+    say(f"  f32, 2 layers: {len(reqs) - parted32}/{len(reqs)} greedy static "
+        "streams equal to the continuous run's")
+    out["f32_parted"] = parted32
+    say(f"  kernels' launches over phase 3d: {totals}")
+    for k in counted:
+        if totals[k] <= 0 and k != "paged_attn":
+            fail(f"kernel {k} was not launched in phase 3d")
+    return totals, out
+
+
+# ----------------------------------------------------------------------
+# phase 8: train -> prune -> serve the tiny LM on the card
+# ----------------------------------------------------------------------
+def _launch(mod, argv):
+    """A launcher's ``main(argv)`` with its standard output captured
+    (echoed into the log); returns (its return value, the text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = mod.main(argv)
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        say(f"    | {line}")
+    return ret, text
+
+
+def _train(argv):
+    """``python -m repro_torch.launch.train`` in a process of its own: it
+    runs under deterministic algorithms, which cuBLAS allows only when
+    CUBLAS_WORKSPACE_CONFIG is set before the process's first product
+    (the launcher sets it; here the earlier phases have run products
+    already).  Returns its standard output, echoed into the log."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.strip().splitlines():
+        say(f"    | {line}")
+    if proc.returncode != 0:
+        fail(f"phase 8: the trainer exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _number_after(text, prefix):
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            return float(line[len(prefix):].split()[0])
+    fail(f"phase 8: no {prefix!r} line in the launcher's output")
+
+
+def train_prune_serve():
+    """Phase 8: ``repro_torch.launch.train`` with the reference's defaults
+    (paper_tiny_lm, 300 steps, batch 16, seq 64, lr 1e-3 warmup-cosine,
+    a checkpoint every 50), an identical run stopped at step 150 and
+    resumed (its step-300 checkpoint must equal the uninterrupted one's
+    bit for bit, under deterministic algorithms); every param leaf's
+    gradient on the card; ``repro_torch.launch.prune --ckpt`` for MM 2:4
+    and SM 0.5 (the synthetic corpus's calibration and eval batches;
+    flash_attn, hessian_accum and nm_select counted); the MM 2:4 model
+    packed and served sampled.  Returns the kernels' launches over the
+    phase and its numbers."""
+    import shutil
+
+    import torch
+
+    from repro_torch import random as rnd
+    from repro_torch.ckpt import CheckpointStore, load_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prune as launch_prune
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    work = ROOT / "build" / "phase8"
+    shutil.rmtree(work, ignore_errors=True)
+    out = {}
+    totals = {k: 0 for k in ops.KERNELS}
+
+    def count(c):
+        for k in totals:
+            totals[k] += c[k]
+
+    # every leaf gets a gradient through the differentiable route
+    cfg = get_config("paper_tiny_lm")
+    model = LM(cfg, device="cuda")
+    params = model.init(rnd.key(0, "cuda"))
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    batch = DataPipeline(cfg, 16, 64, device="cuda").batch_at(0)
+    ops.reset_launch_counts()
+    loss, _ = model.loss_fn(params, batch, differentiable=True)
+    grads = torch.autograd.grad(loss, leaves)
+    loss = loss.detach()
+    torch.cuda.synchronize()
+    if any(ops.launch_counts().values()):
+        fail(f"phase 8: the training route launched a kernel: "
+             f"{ops.launch_counts()}")
+    if not all(g is not None and bool(torch.isfinite(g).all())
+               and float(g.abs().sum()) > 0 for g in grads):
+        fail("phase 8: a param leaf got no gradient on the card")
+    say(f"  differentiable loss {float(loss):.4f}: all {len(grads)} param "
+        "leaves have finite, nonzero gradients on the card, no kernel "
+        "launched")
+    del params, leaves, grads, loss
+
+    # train: uninterrupted, and stopped at 150 then resumed
+    runs = {}
+    for tag, stops in (("uninterrupted", (None,)),
+                       ("resumed", (150, None))):
+        d = str(work / tag)
+        t0 = time.monotonic()
+        parts = []
+        for stop in stops:
+            text = _train(["--out", d] + ([] if stop is None
+                                          else ["--stop-at", str(stop)]))
+            m = re.search(r"trained (\d+) steps.*\nloss ([\d.]+) -> "
+                          r"([\d.]+); ([\d.]+) ms a step \(median\) on "
+                          r"\S+; HBM held ([\d.]+) MiB", text)
+            if m is None:
+                fail(f"phase 8: no training summary in {text!r}")
+            parts.append([float(g) for g in m.groups()])
+        wall = time.monotonic() - t0
+        runs[tag] = dict(wall_s=wall, first_loss=parts[0][1],
+                         last_loss=parts[-1][2],
+                         ms_per_step=[p[3] for p in parts],
+                         hbm_mib=max(p[4] for p in parts),
+                         steps=int(sum(p[0] for p in parts)))
+        say(f"  train ({tag}): {runs[tag]['steps']} steps in {wall:.1f} s "
+            f"(processes included), loss {runs[tag]['first_loss']:.4f} -> "
+            f"{runs[tag]['last_loss']:.4f}, "
+            f"{' / '.join(f'{m:.2f}' for m in runs[tag]['ms_per_step'])} "
+            f"ms a step, HBM held {runs[tag]['hbm_mib']:.1f} MiB")
+    full = runs["uninterrupted"]
+    if not full["last_loss"] < full["first_loss"] - 1.0:
+        fail(f"phase 8: the loss did not fall: {full}")
+    a, _ = load_pytree(str(work / "uninterrupted" / "step_00000300"))
+    b, _ = load_pytree(str(work / "resumed" / "step_00000300"))
+    if a.keys() != b.keys():
+        fail("phase 8: the resumed checkpoint has other leaves")
+    diff = [k for k in a if not np.array_equal(a[k], b[k])]
+    if diff:
+        fail(f"phase 8: the resumed run differs from the uninterrupted one "
+             f"in {diff[:5]}")
+    say(f"  resumed at 150 -> 300: all {len(a)} checkpoint leaves "
+        "(params, moments, step) bit-identical to the uninterrupted run's")
+    out["train"] = runs
+
+    # prune the checkpoint, MM 2:4 and SM 0.5
+    ckpt = str(work / "uninterrupted")
+    if CheckpointStore(ckpt).latest_step() != 300:
+        fail("phase 8: the trainer's latest checkpoint is not step 300")
+    prune_runs = {}
+    for method, sparsity in (("MM", "2:4"), ("SM", "0.5")):
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        _, text = _launch(launch_prune, [
+            "--arch", "paper_tiny_lm", "--ckpt", ckpt, "--method", method,
+            "--sparsity", sparsity, "--out", str(work / f"{method}")])
+        torch.cuda.synchronize()
+        c = ops.launch_counts()
+        count(c)
+        pr = dict(wall_s=time.monotonic() - t0,
+                  dense_ppl=_number_after(text, "dense ppl: "),
+                  pruned_ppl=_number_after(text, f"{method} {sparsity} ppl: "),
+                  launches={k: c[k] for k in PRUNE_KERNELS})
+        prune_runs[f"{method} {sparsity}"] = pr
+        if "synthetic corpus" not in text:
+            fail("phase 8: the prune launcher did not take the corpus")
+        for k in ("flash_attn", "hessian_accum") + (
+                ("nm_select",) if method == "MM" else ()):
+            if c[k] <= 0:
+                fail(f"phase 8: {method} {sparsity}: kernel {k} was not "
+                     "launched")
+        say(f"  prune {method} {sparsity}: dense ppl {pr['dense_ppl']:.4f}, "
+            f"pruned {pr['pruned_ppl']:.4f}, {pr['wall_s']:.1f} s, launches "
+            f"{pr['launches']}")
+    out["prune"] = prune_runs
+
+    # serve the MM 2:4 model, sampled
+    flat, _ = load_pytree(str(work / "MM" / "pruned_params"))
+    pruned = model.params_from_jax(flat)
+    eng = ServeEngine(model, pruned, max_batch=8, max_len=128, page_size=16,
+                      prefill_chunk=32, temperature=0.8, top_p=0.9)
+    if eng.n_sparse_leaves != cfg.num_layers * 7:
+        fail(f"phase 8: {eng.n_sparse_leaves} packed leaves, expected "
+             f"{cfg.num_layers * 7}")
+    pipe = DataPipeline(cfg, 8, 32, device="cuda")
+    prompts = pipe.eval_batch(100)["tokens"].cpu().numpy()
+    reqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=32)
+            for i in range(8)]
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = eng.generate(reqs, seed=0)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    c = ops.launch_counts()
+    count(c)
+    _check_streams("phase 8 serve", reqs, res, cfg.vocab_size)
+    toks = sum(len(r.tokens) for r in res)
+    for k in ("nm_spmm_decode", "paged_attn"):
+        if c[k] <= 0:
+            fail(f"phase 8: serving the pruned model did not launch {k}")
+    say(f"  served the MM 2:4 model (packed {eng.n_sparse_leaves} linears), "
+        f"sampled top-p 0.9: {toks} tokens in {dt:.3f} s = {toks / dt:.1f} "
+        f"tok/s; launches {c}")
+    out["serve"] = dict(tok_s=toks / dt, launches=c)
+    say(f"  kernels' launches over phase 8: {totals}")
+    shutil.rmtree(work, ignore_errors=True)
+    return totals, out
+
+
+# ----------------------------------------------------------------------
 # phase 5: the prune path
 # ----------------------------------------------------------------------
 def _pruned_masks(model, params):
@@ -2021,6 +2562,19 @@ def main() -> int:
         "layers, bf16, 2:4-packed")
     counts_3b, features = default_serve_features(
         engines[0].model, engines[0].params, run_reqs[0])
+    greedy = _streams(outs["8 requests, bf16 KV"][0])
+
+    say("phase 3c: sampled decoding — temperature 0.8 with top-k 40, with "
+        "top-p 0.9, plain temperature 1.0 — Qwen1.5-0.5B, 24 layers, bf16, "
+        "2:4-packed")
+    counts_3c, sampled = sampled_decoding(engines[0].model,
+                                          engines[0].params, run_reqs[0],
+                                          greedy)
+
+    say("phase 3d: static mode — one dense-cache bucket of the 8 requests, "
+        "greedy and sampled (fori and while variants)")
+    counts_3d, static = static_mode(engines[0].model, engines[0].params,
+                                    run_reqs[0], greedy)
 
     say("phase 4: profile of main-path runs: 8 requests; the 512-token "
         "prompt at chunk 256 (the tiled nm_spmm)")
@@ -2033,8 +2587,10 @@ def main() -> int:
         f"Qwen1.5-0.5B, {PRUNE_LAYERS} layers, bf16, MM 2:4, 128 x 2048 "
         "calibration tokens")
     prune_counts, prune_run = prune_path()
-    counts = {**{k: counts[k] + counts_3b[k] for k in SERVE_KERNELS},
+    counts = {**{k: counts[k] + counts_3b[k] + counts_3c[k] + counts_3d[k]
+                 for k in SERVE_KERNELS},
               **{k: prune_counts[k] for k in PRUNE_KERNELS}}
+    counts["flash_attn"] += counts_3d["flash_attn"]
     torch.cuda.empty_cache()
 
     say(f"phase 5b: serial and pipelined engines at {PRUNE_CMP_LAYERS} "
@@ -2044,6 +2600,13 @@ def main() -> int:
 
     say("phase 6: one f32 layer at Qwen width, kernels against plain")
     prune_layer_f32()
+    torch.cuda.empty_cache()
+
+    say("phase 8: train paper_tiny_lm (the reference's defaults), stop at "
+        "150 and resume, prune the checkpoint (MM 2:4, SM 0.5), serve it "
+        "sampled")
+    counts_8, trained = train_prune_serve()
+    counts = {k: counts[k] + counts_8[k] for k in counts}
 
     sources = {"nm_spmm": ("nm_spmm.cu", "nm_spmm.py:68"),
                "nm_spmm_decode": ("nm_spmm.cu", "nm_spmm.py:130"),
@@ -2093,9 +2656,10 @@ def main() -> int:
     with open(ROOT / "chiprun_out" / "chip_smoke.txt", "w") as f:
         f.write("\n".join(LOG) + "\n")
         f.write(json.dumps({"rows": rows, "profile": prof,
-                            "default_serve": features,
-                            "prune": prune_run, "serial_vs_pipelined":
-                            cmp_run}) + "\n")
+                            "default_serve": features, "sampled": sampled,
+                            "static": static, "prune": prune_run,
+                            "serial_vs_pipelined": cmp_run,
+                            "train_prune_serve": trained}) + "\n")
     say(f"all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,5 +1,7 @@
 """Checkpoints in the reference's layout (numpy only)."""
 
-from repro_torch.ckpt.store import PruneProgressStore, load_pytree, save_pytree
+from repro_torch.ckpt.store import (CheckpointStore, PruneProgressStore,
+                                    load_pytree, save_pytree)
 
-__all__ = ["PruneProgressStore", "load_pytree", "save_pytree"]
+__all__ = ["CheckpointStore", "PruneProgressStore", "load_pytree",
+           "save_pytree"]

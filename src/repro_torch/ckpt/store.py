@@ -6,8 +6,14 @@ Layout (``repro/ckpt/store.py``):
     arrays.npz        every pytree leaf, path-keyed ("layers/s0/attn/wq")
     manifest.json     {keys, shapes, dtypes, sha256, extra}
 
-The pruning launcher's ``--out`` holds ``pruned_params/`` and, while a
-run is in flight, ``prune_progress/`` (:class:`PruneProgressStore`).
+The trainer's ``--out`` is a :class:`CheckpointStore`: ``step_*``
+directories, ``LATEST`` naming the newest complete one, the oldest
+pruned past ``keep``.  Its leaves carry the reference's paths for
+``{"params", "opt": OptState, "ef"}`` — ``params/layers/s0/attn/wq``
+(layers stacked), ``opt/.step``, ``opt/.mu/...``, ``opt/.nu/...``,
+``ef`` — so each package restores the other's checkpoints.  The pruning
+launcher's ``--out`` holds ``pruned_params/`` and, while a run is in
+flight, ``prune_progress/`` (:class:`PruneProgressStore`).
 
 The sha256 of ``arrays.npz`` is checked against the manifest, so a torn
 or corrupted file is refused.  npz keeps bf16 leaves as raw 2-byte void
@@ -22,7 +28,7 @@ import io
 import json
 import os
 import shutil
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -70,6 +76,77 @@ def save_pytree(path: str, flat: Dict[str, np.ndarray],
     if os.path.isdir(path):
         shutil.rmtree(path)
     os.replace(tmp, path)
+
+
+# ----------------------------------------------------------------------
+class CheckpointStore:
+    """Step-indexed checkpoint directory with retention and a LATEST
+    pointer (the reference's ``CheckpointStore``), over path-keyed flat
+    dicts of numpy leaves."""
+
+    def __init__(self, root: str, keep: int = 3):
+        self.root = root
+        self.keep = keep
+        os.makedirs(root, exist_ok=True)
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.root, f"step_{step:08d}")
+
+    def save(self, step: int, flat: Dict[str, np.ndarray],
+             extra: Optional[dict] = None) -> str:
+        """Write step ``step`` atomically, then point LATEST at it (the
+        pointer last), then drop the oldest past ``keep``."""
+        path = self._step_dir(step)
+        save_pytree(path, flat, extra={"step": step, **(extra or {})})
+        latest_tmp = os.path.join(self.root, f".LATEST.tmp-{os.getpid()}")
+        with open(latest_tmp, "w") as f:
+            f.write(os.path.basename(path))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(latest_tmp, os.path.join(self.root, "LATEST"))
+        for s in self.list_steps()[:-self.keep]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+        return path
+
+    def list_steps(self) -> List[int]:
+        steps = []
+        for name in os.listdir(self.root):
+            if name.startswith("step_"):
+                try:
+                    steps.append(int(name[len("step_"):]))
+                except ValueError:        # a temporary: step_X.tmp-<pid>
+                    pass
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        latest = os.path.join(self.root, "LATEST")
+        if os.path.exists(latest):
+            with open(latest) as f:
+                name = f.read().strip()
+            if os.path.isdir(os.path.join(self.root, name)):
+                try:
+                    return int(name[len("step_"):])
+                except ValueError:
+                    pass
+        steps = self.list_steps()        # LATEST torn: scan instead
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None,
+                convert: Optional[Callable] = None
+                ) -> Optional[Tuple[int, object, dict]]:
+        """(step, leaves, extra) of the newest *valid* checkpoint ≤
+        ``step`` (or the newest), or None.  Walks back past checkpoints
+        that fail to load — torn or corrupted writes — and past those
+        ``convert`` (flat dict → the caller's tree) refuses, as the
+        reference walks past those its template refuses."""
+        steps = [s for s in self.list_steps() if step is None or s <= step]
+        for s in reversed(steps):
+            try:
+                flat, extra = load_pytree(self._step_dir(s))
+                return s, (convert(flat) if convert else flat), extra
+            except Exception:   # corrupt or foreign — keep walking back
+                continue
+        return None
 
 
 # ----------------------------------------------------------------------

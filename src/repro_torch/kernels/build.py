@@ -11,6 +11,13 @@ unchanged one loads the cached library.
 Each C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a nonzero code into an exception.  Pointers and the
 stream go in as ``ctypes.c_void_p`` (a plain int would be cut to 32 bits).
+
+The kernels have no backward: a wrapper writes into a fresh tensor that
+autograd knows nothing of.  :func:`refuse_grad` runs in every wrapper
+before the kernel route touches the library, and raises where an input
+requires grad — an output without a ``grad_fn`` would drop that
+gradient silently.  The trainer takes the model's differentiable route
+instead (``LM.loss_fn(..., differentiable=True)``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -138,3 +147,15 @@ def ptxas_report() -> str:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernel
+    ``name`` would return an output with no ``grad_fn``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the kernel has no "
+            "backward — its output would drop the gradient; train through "
+            "LM.loss_fn(..., differentiable=True), or call it under "
+            "torch.no_grad()")

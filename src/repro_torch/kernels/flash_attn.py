@@ -85,6 +85,7 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, T, KV, hd), f32 or bf16 → (B, T, H, hd) f32."""
     if q.device.type == "cpu":
         return flash_attn_plain(q, k, v, causal)
+    build.refuse_grad("flash_attn", q, k, v)
     _check(q, k, v)
     b, t, h, hd = q.shape
     out = torch.empty((b, t, h, hd), dtype=torch.float32, device=q.device)

@@ -108,6 +108,7 @@ def hessian_accum(x: torch.Tensor, h: torch.Tensor, alpha: float = 1.0,
     f32.  With β = 0, ``h`` is written without being read.  Returns h."""
     if x.device.type == "cpu":
         return hessian_accum_plain(x, h, alpha, beta)
+    build.refuse_grad("hessian_accum", x, h)
     _check(x, h)
     n_tok, m = x.shape
     if m == 0:

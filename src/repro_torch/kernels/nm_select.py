@@ -70,6 +70,7 @@ def nm_select(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
     """Eq. (12) 2:4 mask: w (R, C), hinv (C, C) f32 → bool (R, C)."""
     if w.device.type == "cpu":
         return nm_select_plain(w, hinv)
+    build.refuse_grad("nm_select", w, hinv)
     _check(w, hinv)
     r, c = w.shape
     out = torch.empty((r, c), dtype=torch.bool, device=w.device)

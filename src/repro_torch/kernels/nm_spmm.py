@@ -128,6 +128,7 @@ def nm_spmm(x: torch.Tensor, vals: torch.Tensor,
     (M, N) f32.  The tiled kernel (any M; the dispatch sends M > 128)."""
     if x.device.type == "cpu":
         return nm_spmm_plain(x, vals, idx)
+    build.refuse_grad("nm_spmm", x, vals)
     _check(x, vals, idx, "nm_spmm")
     m, k = x.shape
     n = vals.shape[1]
@@ -164,6 +165,7 @@ def nm_spmm_decode(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
     bias and activation fused into the kernel's epilogue."""
     if x.device.type == "cpu":
         return nm_spmm_decode_plain(x, vals, idx, bias, activation)
+    build.refuse_grad("nm_spmm_decode", x, vals, bias)
     _check(x, vals, idx, "nm_spmm_decode")
     m, k = x.shape
     n = vals.shape[1]

@@ -104,6 +104,7 @@ def paged_attn(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_attn_plain(q, k_pages, v_pages, block_tables, lengths,
                                 window, k_scale, v_scale)
+    build.refuse_grad("paged_attn", q, k_pages, v_pages, k_scale, v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_attn: tensors on {q.device} — the kernel "
                            "runs on CUDA only")

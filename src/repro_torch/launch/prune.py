@@ -1,7 +1,12 @@
 """Pruning launcher: the paper's Algorithm 1 over a whole model, on one
 device (the port of ``repro.launch.prune``).
 
-  # a checkpoint the reference trained, with its calibration/eval tokens
+  # a checkpoint the trainer wrote (this package's or the reference's),
+  # calibrated and evaluated on the synthetic corpus it was trained on
+  python -m repro_torch.launch.prune --arch paper-tiny-lm \\
+      --ckpt runs/train --sparsity 2:4 --method SM --out runs/pruned
+
+  # the same with calibration/eval tokens from a file, on the CPU
   python -m repro_torch.launch.prune --arch paper-tiny-lm \\
       --ckpt runs/train --tokens tokens.npz --sparsity 2:4 \\
       --method SM --out runs/pruned --device cpu
@@ -11,13 +16,20 @@ device (the port of ``repro.launch.prune``).
       --sparsity 2:4 --method MM --calib-samples 128 --calib-seq 2048 \\
       --out runs/qwen-mm24
 
-Weights come from ``--ckpt`` (the reference trainer's ``CheckpointStore``
-directory) or from a random init seeded by ``--seed``.  Calibration and evaluation tokens come
-from ``--tokens file.npz`` — int32 ``calib`` (N, T) and ``eval`` (M, T),
-as the reference's ``calibration_batches`` and ``DataPipeline.eval_batch``
-make them, split here into batches of 8 and 16 — or, without it, from a
-``torch.Generator`` seeded by ``--seed``.  (The reference's synthetic
-Markov corpus needs JAX's threefry bit for bit: ROADMAP.md.)
+Weights come from ``--ckpt`` (a trainer's ``CheckpointStore`` directory:
+the newest checkpoint that loads, past torn writes) or from a random
+init seeded by ``--seed``.  Calibration and evaluation tokens:
+
+  * with ``--tokens file.npz``: int32 ``calib`` (N, T) and ``eval``
+    (M, T), split into batches of 8 and 16;
+  * else, with ``--ckpt``: the synthetic corpus the trainer learns, as
+    the reference's launcher takes it — ``calibration_batches(cfg,
+    --calib-samples, --calib-seq)`` and 8 ``DataPipeline(cfg, 16,
+    --calib-seq).eval_batch`` batches, seed 0;
+  * else (random weights): token ids from a ``torch.Generator`` seeded
+    by ``--seed`` — random weights learned no corpus, and at a large
+    vocabulary the corpus's (V, V) table cannot be built (92 GB at
+    Qwen1.5-0.5B's).
 
 The launcher prints dense and pruned perplexity and the engine's
 summary, and writes ``<out>/pruned_params`` in the reference's layout,
@@ -48,9 +60,11 @@ import numpy as np
 import torch
 
 from repro_torch import configs as cfglib
-from repro_torch.ckpt import PruneProgressStore, load_pytree, save_pytree
+from repro_torch.ckpt import (CheckpointStore, PruneProgressStore,
+                              save_pytree)
 from repro_torch.core.clock import no_clock
 from repro_torch.core.engine import PruningEngine, summarize
+from repro_torch.data import DataPipeline, calibration_batches
 from repro_torch.models.transformer import LM
 from repro_torch.obs import Obs
 
@@ -66,11 +80,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="paper_tiny_lm")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ckpt", default=None,
-                    help="reference checkpoint dir (default: random init "
-                         "from --seed)")
+                    help="a trainer's checkpoint dir, this package's or "
+                         "the reference's (default: random init from "
+                         "--seed)")
     ap.add_argument("--tokens", default=None,
                     help=".npz with int32 'calib' (N, T) and 'eval' (M, T) "
-                         "(default: random tokens from --seed)")
+                         "(default: the synthetic corpus with --ckpt, "
+                         "random ids from --seed without: random weights "
+                         "learned no corpus, and a large vocabulary's "
+                         "(V, V) corpus table may not fit)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sparsity", default="2:4",
                     help='"0.5" unstructured or "N:M"')
@@ -121,18 +139,20 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_params(model: LM, ckpt: Optional[str], seed: int = 0):
-    """Params from the newest step of a reference ``CheckpointStore``
-    directory, or a random init drawn from a ``torch.Generator`` seeded
-    with ``seed``."""
+    """Params from the newest valid step of a ``CheckpointStore``
+    directory (either package's trainer), or a random init drawn from a
+    ``torch.Generator`` seeded with ``seed``."""
     if ckpt is None:
         gen = torch.Generator(device=model.device)
         gen.manual_seed(seed)
         return model.init(gen)
-    with open(os.path.join(ckpt, "LATEST")) as f:
-        flat, _ = load_pytree(os.path.join(ckpt, f.read().strip()))
-    return model.params_from_jax({k[len("params/"):]: v
-                                  for k, v in flat.items()
-                                  if k.startswith("params/")})
+    restored = CheckpointStore(ckpt).restore(
+        convert=lambda flat: model.params_from_jax(
+            {k[len("params/"):]: v for k, v in flat.items()
+             if k.startswith("params/")}))
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt}")
+    return restored[1]
 
 
 def run_fingerprint(args, calib: List[Batch]) -> dict:
@@ -141,9 +161,9 @@ def run_fingerprint(args, calib: List[Batch]) -> dict:
     if args.ckpt is None:
         weights = {"seed": args.seed}
     else:
-        with open(os.path.join(args.ckpt, "LATEST")) as f:
-            step = f.read().strip()
-        with open(os.path.join(args.ckpt, step, "manifest.json")) as f:
+        step = CheckpointStore(args.ckpt).latest_step()
+        with open(os.path.join(args.ckpt, f"step_{step:08d}",
+                               "manifest.json")) as f:
             weights = {"ckpt_sha256": json.load(f)["sha256"]}
     tokens = hashlib.sha256()
     for b in calib:
@@ -161,10 +181,22 @@ def _batches(tokens: torch.Tensor, size: int) -> List[Batch]:
     return [{"tokens": t, "labels": t} for t in torch.split(tokens, size)]
 
 
+def corpus_tokens(cfg, calib_samples: int, seq: int, device
+                  ) -> Tuple[List[Batch], List[Batch]]:
+    """The reference launcher's calibration and evaluation batches from
+    the synthetic corpus: ``calibration_batches`` and the first
+    EVAL_BATCHES ``eval_batch``es of a batch-16 pipeline, seed 0."""
+    calib = calibration_batches(cfg, n_samples=calib_samples, seq_len=seq,
+                                device=device)
+    pipe = DataPipeline(cfg, EVAL_BATCH, seq, seed=0, device=device)
+    return calib, [pipe.eval_batch(i) for i in range(EVAL_BATCHES)]
+
+
 def load_tokens(path: Optional[str], vocab: int, calib_samples: int,
                 seq: int, device, seed: int = 0
                 ) -> Tuple[List[Batch], List[Batch]]:
-    """(calibration batches of 8, evaluation batches of 16) on ``device``."""
+    """(calibration batches of 8, evaluation batches of 16) on ``device``
+    from an ``.npz``, or random ids from ``seed``."""
     if path is not None:
         with np.load(path) as z:
             calib = torch.from_numpy(np.asarray(z["calib"], np.int32))
@@ -241,8 +273,17 @@ def main(argv=None) -> None:
 def _run(args, cfg, device, obs: Obs) -> None:
     model = LM(cfg, device=device)
     params = load_params(model, args.ckpt, args.seed)
-    calib, ev = load_tokens(args.tokens, cfg.vocab_size, args.calib_samples,
-                            args.calib_seq, device, args.seed)
+    corpus = args.tokens is None and args.ckpt is not None
+    if corpus:
+        calib, ev = corpus_tokens(cfg, args.calib_samples, args.calib_seq,
+                                  device)
+    else:
+        calib, ev = load_tokens(args.tokens, cfg.vocab_size,
+                                args.calib_samples, args.calib_seq, device,
+                                args.seed)
+    print("calibration/eval tokens: "
+          + ("--tokens" if args.tokens else "synthetic corpus" if corpus
+             else f"random ids from --seed {args.seed}"))
     print(f"dense ppl: {eval_ppl(model, params, ev):.4f}")
     engine = PruningEngine(model, args.sparsity, method=args.method,
                            blocksize=args.blocksize, gamma=args.gamma,

@@ -1,13 +1,19 @@
-"""Serving driver (batch CLI): continuous-batching greedy decode off a
-(2:4-pruned) model on one device.
+"""Serving launcher (batch CLI): continuous batching (or static buckets)
+off a (2:4-pruned) model on one device, greedy or sampled.
 
   # 8 random-prompt requests through the engine on the card
   python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --magnitude-24 --sparse --requests 8 --max-new 32
 
-  # a checkpoint the JAX pruner wrote (its 2:4 leaves pack at --sparse)
+  # a checkpoint either pruner wrote (its 2:4 leaves pack at --sparse),
+  # sampled: temperature 0.8, top-p 0.9, keyed per (uid, step)
   python -m repro_torch.launch.serve --arch paper-tiny-lm \\
-      --params /path/to/pruned_params --sparse
+      --params runs/pruned/pruned_params --sparse \\
+      --sampling top-p --temperature 0.8
+
+  # static mode: prompt-length buckets over a dense cache
+  python -m repro_torch.launch.serve --arch paper-tiny-lm \\
+      --serve-mode static --device cpu
 
 The flags are the reference's for the knobs the port has, plus
 ``--device`` and ``--magnitude-24`` (magnitude 2:4 pruning of random or
@@ -47,6 +53,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--sampling", default="greedy",
+                    choices=("greedy", "temperature", "top-k", "top-p"),
+                    help="greedy argmax, plain temperature, or top-k / "
+                         "top-p (nucleus) filtering — keyed per (uid, "
+                         "step) in continuous mode, so preemption replays "
+                         "identical tokens; a zero temperature becomes 1.0 "
+                         "for the sampled modes")
+    ap.add_argument("--top-k", type=int, default=40,
+                    help="k for --sampling top-k")
+    ap.add_argument("--top-p", type=float, default=0.9,
+                    help="nucleus mass for --sampling top-p")
+    ap.add_argument("--serve-mode", default="continuous",
+                    choices=("continuous", "static"),
+                    help="continuous batching (paged KV) or static "
+                         "prompt-length buckets (dense cache)")
+
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None)
     ap.add_argument("--prefill-chunk", type=int, default=32)
@@ -89,10 +112,22 @@ def load_model(args):
     return cfg, model, params
 
 
+def sampling_knobs(args) -> dict:
+    """``--sampling`` → (temperature, top_k, top_p), as the reference's
+    ``ServeConfig.from_args``."""
+    temperature = args.temperature
+    top_k = args.top_k if args.sampling == "top-k" else None
+    top_p = args.top_p if args.sampling == "top-p" else None
+    if args.sampling != "greedy" and temperature <= 0.0:
+        temperature = 1.0
+    return dict(temperature=temperature, top_k=top_k, top_p=top_p)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     cfg, model, params = load_model(args)
     config = ServeConfig(
+        mode=args.serve_mode, **sampling_knobs(args),
         max_batch=args.max_batch, max_len=args.max_len,
         page_size=args.page_size, num_pages=args.num_pages,
         prefill_chunk=args.prefill_chunk,
@@ -119,11 +154,13 @@ def main(argv=None) -> None:
     toks = sum(len(r.tokens) for r in results)
     st = eng.stats
     print(f"{toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s on "
-          f"{model.device}) host-syncs/token "
+          f"{model.device}) [{eng.mode}] host-syncs/token "
           f"{st['host_syncs'] / max(1, toks):.2f} "
           f"burst {st['device_steps'] / max(1, st['host_syncs']):.1f}"
           + (f" preemptions {st['preemptions']}" if st["preemptions"]
              else ""))
+    if eng.pool is None:
+        return                                      # static: no pool
     arena = eng.pool.arena
     print(f"prefix cache {'on' if eng.pool.prefix else 'off'}: hit tokens "
           f"{st['prefix_hit_tokens']} prefilled {st['prefill_tok']} "

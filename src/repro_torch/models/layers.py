@@ -1,6 +1,6 @@
-"""Layer library for the dense decoder serve path: linear, rmsnorm, rope,
-GQA attention (full-sequence, chunked paged prefill, paged decode),
-gated MLPs, embeddings.
+"""Layer library for the dense decoder: linear, rmsnorm, rope, GQA
+attention (full-sequence, dense-cache prefill and decode, chunked paged
+prefill, paged decode), gated MLPs, embeddings.
 
 Conventions follow ``repro.models.layers``: params are plain dicts,
 linear weights are stored (in, out), hidden states are (B, T, D).  A
@@ -10,10 +10,16 @@ full-sequence applies take ``caps``: ``None``, or a dict that collects
 each linear's INPUT under the linear's name (``attn.wq`` … ``mlp.wo``,
 as the reference names them) — the pruning engine's calibration capture.
 
-The paged KV pool is updated IN PLACE: the paged branches index-write
-the new K/V rows into the page tensors (the JAX code rebuilds the pool
-functionally and donates the old buffer).  Idle decode slots and padded
-prompt positions write to the scrap page 0, which attention never reads.
+The paged KV pool and the dense cache are updated IN PLACE: the cache
+branches index-write the new K/V rows into the cache tensors (the JAX
+code rebuilds them functionally and donates the old buffer).  Idle
+decode slots and padded prompt positions write to the scrap page 0,
+which attention never reads.
+
+Params are drawn either from a ``torch.Generator`` (sequential draws) or
+from a threefry key (``repro_torch.random``), which reproduces the
+reference's ``jax.random`` init: the same key splits, the same normals
+up to the last ulp of the inverse error function.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch import random as rnd
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import activate
 from repro_torch.models.base import ArchConfig
@@ -31,17 +38,30 @@ Params = Dict[str, Any]
 
 
 # ----------------------------------------------------------------------
-# Param init (the reference's scales; numbers come from a torch.Generator)
+# Param init (the reference's scales; numbers come from a torch.Generator
+# or a threefry key)
 # ----------------------------------------------------------------------
-def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    t = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
+def sub_keys(rng, n: int) -> list:
+    """``n`` sources for the sub-inits: the reference's ``split(key, n)``
+    for a key; the generator itself, ``n`` times (its draws go in
+    order)."""
+    if isinstance(rng, torch.Generator):
+        return [rng] * n
+    return list(rnd.split(rng, n).unbind(0))
+
+
+def _normal(rng, shape, scale: float, dtype) -> torch.Tensor:
+    if isinstance(rng, torch.Generator):
+        t = torch.randn(shape, generator=rng, device=rng.device,
+                        dtype=torch.float32)
+    else:
+        t = rnd.normal(rng, shape)
     return (t * scale).to(dtype)
 
 
-def _dense_init(gen, d_in, d_out, dtype, scale=None):
+def _dense_init(rng, d_in, d_out, dtype, scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return _normal(gen, (d_in, d_out), scale, dtype)
+    return _normal(rng, (d_in, d_out), scale, dtype)
 
 
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
@@ -95,15 +115,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ----------------------------------------------------------------------
 # Attention block (GQA, optional QKV bias)
 # ----------------------------------------------------------------------
-def attn_init(gen, cfg: ArchConfig, dtype) -> Params:
+def attn_init(rng, cfg: ArchConfig, dtype) -> Params:
     hd, h, kv, d = cfg.hd, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
-    dev = gen.device
+    dev = rng.device
+    ks = sub_keys(rng, 6)
     p = {
         "ln": rmsnorm_init(d, dtype, dev),
-        "wq": _dense_init(gen, d, h * hd, dtype),
-        "wk": _dense_init(gen, d, kv * hd, dtype),
-        "wv": _dense_init(gen, d, kv * hd, dtype),
-        "wo": _dense_init(gen, h * hd, d, dtype,
+        "wq": _dense_init(ks[0], d, h * hd, dtype),
+        "wk": _dense_init(ks[1], d, kv * hd, dtype),
+        "wv": _dense_init(ks[2], d, kv * hd, dtype),
+        "wo": _dense_init(ks[3], h * hd, d, dtype,
                           scale=1.0 / math.sqrt(h * hd * 2 * cfg.num_layers)),
     }
     if cfg.qkv_bias:
@@ -136,7 +157,8 @@ def _einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _sdpa(q, k, v, mask, nh: int, kv: int) -> torch.Tensor:
     """Grouped scaled-dot-product attention in plain matmul + softmax
-    (the reference computes it outside any kernel too).
+    (the reference computes it outside any kernel too): the training
+    forward's attention, dense-cache decode and chunked paged prefill.
 
     q: (B,T,H,hd), k/v: (B,S,KV,hd), mask: broadcastable to (B,KV,G,T,S).
     """
@@ -149,6 +171,49 @@ def _sdpa(q, k, v, mask, nh: int, kv: int) -> torch.Tensor:
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = _einsum("bkgts,bskd->btkgd", probs, v)
     return out.reshape(b, t, nh * hd)
+
+
+# full-sequence training attention switches to the online softmax past
+# this many positions (the reference's threshold and KV chunk)
+ONLINE_ATTN_THRESHOLD = 8192
+ONLINE_ATTN_CHUNK = 1024
+
+
+def _sdpa_online(q, k, v, nh: int, kv: int,
+                 chunk: int = ONLINE_ATTN_CHUNK) -> torch.Tensor:
+    """Causal grouped attention by online softmax over KV chunks (the
+    reference's ``_sdpa_online``): the same function as :func:`_sdpa`
+    with a causal mask, O(T·chunk) memory, P kept in f32."""
+    b, t, _, hd = q.shape
+    g = nh // kv
+    s = k.shape[1]
+    if s % chunk:
+        raise ValueError(f"S={s} not divisible by chunk={chunk}")
+    qg = q.reshape(b, t, kv, g, hd).float() / math.sqrt(hd)
+    qpos = torch.arange(t, device=q.device)
+    m = torch.full((b, kv, g, t), float("-inf"), device=q.device)
+    lsum = torch.zeros((b, kv, g, t), device=q.device)
+    acc = torch.zeros((b, kv, g, t, hd), device=q.device)
+    for ci in range(s // chunk):
+        kc = k[:, ci * chunk:(ci + 1) * chunk].float()
+        vc = v[:, ci * chunk:(ci + 1) * chunk].float()
+        kpos = ci * chunk + torch.arange(chunk, device=q.device)
+        ok = kpos[None, :] <= qpos[:, None]                    # (t, chunk)
+        sc = torch.einsum("btkgd,bckd->bkgtc", qg, kc)
+        sc = torch.where(ok, sc, torch.full_like(sc, float("-inf")))
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        msafe = torch.where(torch.isfinite(m_new), m_new,
+                            torch.zeros_like(m_new))
+        p = torch.exp(sc - msafe[..., None])
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - msafe),
+                            torch.zeros_like(m))
+        lsum = lsum * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgtc,bckd->bkgtd",
+                                                    p, vc)
+        m = m_new
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4)                          # (b,t,kv,g,hd)
+    return out.reshape(b, t, nh * hd).to(v.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -191,6 +256,14 @@ def _paged_scatter(cache: Params, k: torch.Tensor, v: torch.Tensor,
     _paged_write_q8(cache["v"], cache["v_scale"], v, flat)
 
 
+def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
+                    device) -> Params:
+    """The dense decode cache of one layer: (B, max_len, KV, hd) K and V."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def attn_paged_cache_init(cfg: ArchConfig, num_pages: int, page_size: int,
                           dtype, device) -> Params:
     """Paged pool leaves; int8 adds per-row f32 scale leaves."""
@@ -213,9 +286,10 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
                paged: Optional[Params] = None,
                page_size: Optional[int] = None,
                caps: Optional[Dict[str, torch.Tensor]] = None,
-               prefix: str = "attn.") -> torch.Tensor:
+               prefix: str = "attn.",
+               differentiable: bool = False) -> torch.Tensor:
     """Pre-norm attention with residual.  Returns the new hidden state;
-    paged modes update ``cache`` in place.
+    cache modes update ``cache`` in place.
 
     Modes (global causal attention; sliding-window layers are not ported):
       full-sequence (cache None): causal over T through
@@ -223,7 +297,17 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
           reads q/k/v in place; the counterpart of the reference's
           ``_sdpa`` and ``_sdpa_online``, with the probabilities kept in
           f32 as ``_sdpa_online`` keeps them); ``caps`` records the
-          linears' inputs under ``{prefix}wq`` … ``{prefix}wo``;
+          linears' inputs under ``{prefix}wq`` … ``{prefix}wo``.  With
+          ``differentiable`` (the trainer's route) the attention is the
+          reference's training math in torch ops instead — :func:`_sdpa`,
+          or :func:`_sdpa_online` past ONLINE_ATTN_THRESHOLD positions —
+          since the kernel has no backward;
+      dense-cache prefill (cache a dense ``{"k", "v"}``, ``pos`` None):
+          the full-sequence attention over the prompt, whose K/V then fill
+          ``cache[:, :T]``;
+      dense-cache decode (T = 1, ``pos`` a host int): this token's K/V
+          written at ``pos``, attention over the cache's positions
+          ≤ ``pos`` in torch ops (jnp in the reference);
       chunked paged prefill (``paged["start"]`` given, B = 1): the chunk's
           K/V go into the pages first, then attention runs over the
           gathered slot context — earlier chunks' keys read back from
@@ -241,12 +325,33 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     dev = h.device
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
 
-    if cache is None:
+    if paged is None and (cache is None or pos is None):
         positions = torch.arange(t, device=dev)[None, :]
         q, k, v = _qkv(p, h_in, cfg, positions, caps, prefix)
-        out = ops.attention(q, k, v, causal=True)           # (B, T, H, hd)
-        out = out.reshape(b, t, nh * hd).to(h.dtype)
+        if not differentiable:
+            out = ops.attention(q, k, v, causal=True)       # (B, T, H, hd)
+            out = out.reshape(b, t, nh * hd)
+        elif t > ONLINE_ATTN_THRESHOLD:
+            out = _sdpa_online(q, k, v, nh, kv, ONLINE_ATTN_CHUNK)
+        else:
+            ok = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+            out = _sdpa(q, k, v, ok, nh, kv)
+        if cache is not None:                               # dense prefill
+            cache["k"][:, :t] = k.to(cache["k"].dtype)
+            cache["v"][:, :t] = v.to(cache["v"].dtype)
+        out = out.to(h.dtype)
         return h + linear(out, p["wo"], caps=caps, name=f"{prefix}wo")
+
+    if paged is None:                                       # dense decode
+        if t != 1:
+            raise ValueError("dense-cache decode takes one token a row")
+        positions = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+        q, k1, v1 = _qkv(p, h_in, cfg, positions)
+        cache["k"][:, pos] = k1[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos] = v1[:, 0].to(cache["v"].dtype)
+        kpos = torch.arange(cache["k"].shape[1], device=dev)
+        out = _sdpa(q, cache["k"], cache["v"], kpos <= pos, nh, kv)
+        return h + linear(out.to(h.dtype), p["wo"])
 
     bt = paged["block_tables"]                               # (B, P_max)
     p_max = bt.shape[1]
@@ -295,16 +400,17 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
 # ----------------------------------------------------------------------
 # Dense MLP (swiglu / geglu / gelu)
 # ----------------------------------------------------------------------
-def mlp_init(gen, cfg: ArchConfig, dtype) -> Params:
+def mlp_init(rng, cfg: ArchConfig, dtype) -> Params:
     d, f = cfg.d_model, cfg.d_ff
+    ks = sub_keys(rng, 3)
     p = {
-        "ln": rmsnorm_init(d, dtype, gen.device),
-        "wi": _dense_init(gen, d, f, dtype),
-        "wo": _dense_init(gen, f, d, dtype,
+        "ln": rmsnorm_init(d, dtype, rng.device),
+        "wi": _dense_init(ks[0], d, f, dtype),
+        "wo": _dense_init(ks[1], f, d, dtype,
                           scale=1.0 / math.sqrt(f * 2 * cfg.num_layers)),
     }
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        p["wg"] = _dense_init(gen, d, f, dtype)
+        p["wg"] = _dense_init(ks[2], d, f, dtype)
     return p
 
 
@@ -328,8 +434,8 @@ def mlp_apply(p, h: torch.Tensor, cfg: ArchConfig, *,
 # ----------------------------------------------------------------------
 # Embedding / unembedding
 # ----------------------------------------------------------------------
-def embed_init(gen, cfg: ArchConfig, dtype) -> Params:
-    return {"tok": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype)}
+def embed_init(rng, cfg: ArchConfig, dtype) -> Params:
+    return {"tok": _normal(rng, (cfg.vocab_size, cfg.d_model), 0.02, dtype)}
 
 
 def embed_apply(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -340,10 +446,10 @@ def embed_apply(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return h
 
 
-def unembed_init(gen, cfg: ArchConfig, dtype) -> Params:
-    p = {"ln": rmsnorm_init(cfg.d_model, dtype, gen.device)}
+def unembed_init(rng, cfg: ArchConfig, dtype) -> Params:
+    p = {"ln": rmsnorm_init(cfg.d_model, dtype, rng.device)}
     if not cfg.tie_embeddings:
-        p["head"] = _dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+        p["head"] = _dense_init(rng, cfg.d_model, cfg.vocab_size, dtype)
     return p
 
 

@@ -1,7 +1,10 @@
-"""The dense decoder LM: init, full-sequence forward and loss, the
-pruning contract (``calib_init`` / ``prunable_segments``), and the paged
-serve methods (``init_paged_cache`` / ``prefill_chunk`` /
-``decode_step``).
+"""The dense decoder LM: init, full-sequence forward and loss (the
+kernel route, and the differentiable route the trainer takes), the
+pruning contract (``calib_init`` / ``prunable_segments``), the dense-cache
+serve methods of static mode (``init_cache`` / ``prefill`` /
+``decode_step``) and the paged ones of continuous mode
+(``init_paged_cache`` / ``prefill_chunk`` / ``decode_step`` with block
+tables).
 
 Only the dense decoder family (global attention + MLP blocks; no prefix,
 MoE, sliding window, qk-norm, frontend or encoder) is ported; ROADMAP.md
@@ -10,7 +13,8 @@ the reference stacks the layers (L, ...) under ``layers/s0`` for
 ``lax.scan``, the port keeps a per-layer list of param dicts and loops:
 ``params["layers"][i] = {"attn": {...}, "mlp": {...}}``.  The paged cache
 is a per-layer list of ``{"k", "v"[, "k_scale", "v_scale"]}`` page
-tensors, updated in place.
+tensors, the dense cache a per-layer list of (B, max_len, KV, hd)
+``{"k", "v"}``; both are updated in place.
 """
 
 from __future__ import annotations
@@ -21,12 +25,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import random as rnd
 from repro_torch.core.engine import LinearSpec, SegmentSpec
 from repro_torch.models.base import ArchConfig
-from repro_torch.models.layers import (Params, attn_apply, attn_init,
-                                       attn_paged_cache_init, embed_apply,
-                                       embed_init, mlp_apply, mlp_init,
-                                       unembed_apply, unembed_init)
+from repro_torch.models.layers import (Params, attn_apply, attn_cache_init,
+                                       attn_init, attn_paged_cache_init,
+                                       embed_apply, embed_init, mlp_apply,
+                                       mlp_init, sub_keys, unembed_apply,
+                                       unembed_init)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the prunable linears of a block, in the reference's capture-name order
@@ -51,17 +57,30 @@ class LM:
         self.dtype = DTYPES[cfg.dtype]
 
     # ------------------------------------------------------------- init
-    def init(self, generator: torch.Generator) -> Params:
+    def init(self, rng) -> Params:
         """Random params at the reference's scales (``_dense_init`` and
-        ``embed_init``), drawn from ``generator`` on its device."""
+        ``embed_init``) on the device of ``rng``: a ``torch.Generator``
+        (sequential draws), or a threefry key (``random.key(seed)``),
+        which reproduces the reference's ``LM.init(jax.random.key(seed))``
+        — its key splits (``split(key, 8)``; layer ``i`` from
+        ``split(fold_in(keys[3], 0), L)[i]``, then ``split(·, 3)`` into
+        mixer and MLP) and its normals up to the last ulp."""
         cfg, dt = self.cfg, self.dtype
-        params: Params = {"embed": embed_init(generator, cfg, dt),
-                          "unembed": unembed_init(generator, cfg, dt)}
-        params["layers"] = [
-            {"attn": attn_init(generator, cfg, dt),
-             **({"mlp": mlp_init(generator, cfg, dt)}
-                if cfg.block_has_mlp("attn") else {})}
-            for _ in range(cfg.num_layers)]
+        keys = sub_keys(rng, 8)
+        if isinstance(rng, torch.Generator):
+            layer_keys = [rng] * cfg.num_layers
+        else:
+            layer_keys = list(rnd.split(rnd.fold_in(keys[3], 0),
+                                        cfg.num_layers).unbind(0))
+        params: Params = {"embed": embed_init(keys[0], cfg, dt),
+                          "unembed": unembed_init(keys[1], cfg, dt)}
+        params["layers"] = []
+        for lk in layer_keys:
+            k_mix, k_ffn, _ = sub_keys(lk, 3)
+            block = {"attn": attn_init(k_mix, cfg, dt)}
+            if cfg.block_has_mlp("attn"):
+                block["mlp"] = mlp_init(k_ffn, cfg, dt)
+            params["layers"].append(block)
         return params
 
     def params_from_jax(self, flat: Dict[str, np.ndarray]) -> Params:
@@ -105,6 +124,8 @@ class LM:
     # ---------------------------------------------------------- forward
     def _block(self, p: Params, h: torch.Tensor, caps=None,
                name_prefix: str = "", **kw) -> torch.Tensor:
+        """One decoder block; ``kw`` goes to the attention (cache, pos,
+        paged, page_size, differentiable)."""
         h = attn_apply(p["attn"], h, self.cfg, caps=caps,
                        prefix=f"{name_prefix}attn.", **kw)
         if "mlp" in p:
@@ -112,20 +133,27 @@ class LM:
                           prefix=f"{name_prefix}mlp.")
         return h
 
-    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, params: Params, tokens: torch.Tensor,
+                differentiable: bool = False) -> torch.Tensor:
         """Full-sequence causal forward: tokens (B, T) → logits (B, T, V)
-        f32."""
+        f32.  ``differentiable`` takes the training route: attention in
+        torch ops (the reference's ``_sdpa``), which autograd can
+        differentiate — the kernels have no backward and refuse inputs
+        that require grad."""
         h = embed_apply(params["embed"], tokens, self.cfg)
         for p in params["layers"]:
-            h = self._block(p, h)
+            h = self._block(p, h, differentiable=differentiable)
         return unembed_apply(params["unembed"], params["embed"], h,
                              self.cfg).float()
 
-    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
+                differentiable: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token CE + z-loss, returned as the reference returns them:
-        (loss, {"ce", "zloss", "aux", "tokens"}); labels < 0 are ignored."""
-        logits = self.forward(params, batch["tokens"])
+        (loss, {"ce", "zloss", "aux", "tokens"}); labels < 0 are ignored.
+        The trainer passes ``differentiable=True`` (see :meth:`forward`);
+        evaluation keeps the kernel route."""
+        logits = self.forward(params, batch["tokens"], differentiable)
         targets = batch["labels"].long()
         lg = logits[:, logits.shape[1] - targets.shape[1]:][:, :-1]
         tg = targets[:, 1:]
@@ -180,6 +208,28 @@ class LM:
                             set_params=functools.partial(set_params, i))
                 for i in range(self.cfg.num_layers)]
 
+    # ----------------------------------------------------- dense cache
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: Optional[torch.dtype] = None
+                   ) -> List[Dict[str, torch.Tensor]]:
+        """The dense decode cache of static mode: one (B, max_len, KV, hd)
+        K and V per layer."""
+        dt = dtype or self.dtype
+        return [attn_cache_init(self.cfg, batch, max_len, dt, self.device)
+                for _ in range(self.cfg.num_layers)]
+
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                cache: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
+        """The prompts (B, T) through the model, filling ``cache[:, :T]``
+        in place; returns the last position's logits (B, V) f32.  The
+        attention is the full-sequence one (``flash_attn`` on the card)."""
+        h = embed_apply(params["embed"], tokens, self.cfg)
+        for i, p in enumerate(params["layers"]):
+            h = self._block(p, h, cache=cache[i])
+        logits = unembed_apply(params["unembed"], params["embed"],
+                               h[:, -1:], self.cfg)
+        return logits[:, 0, :].float()
+
     # ----------------------------------------------------------- paged
     def init_paged_cache(self, num_pages: int, page_size: int,
                          dtype: Optional[torch.dtype] = None
@@ -218,14 +268,17 @@ class LM:
         return logits[:, 0, :].float()
 
     def decode_step(self, params: Params, token: torch.Tensor,
-                    cache: List[Dict[str, torch.Tensor]], pos: torch.Tensor,
-                    block_tables: torch.Tensor, *,
-                    page_size: int) -> torch.Tensor:
-        """One paged decode token per slot: token (B,), pos (B,) write
-        positions with -1 marking idle slots, block_tables (B, P_max).
-        Returns logits (B, V) f32; the cache is updated in place."""
+                    cache: List[Dict[str, torch.Tensor]], pos,
+                    block_tables: Optional[torch.Tensor] = None, *,
+                    page_size: Optional[int] = None) -> torch.Tensor:
+        """One decode token per row: token (B,).  Paged (``block_tables``
+        (B, P_max) given): ``pos`` (B,) write positions with -1 marking
+        idle slots.  Dense cache (static mode): ``pos`` the host int
+        position every row writes.  Returns logits (B, V) f32; the cache
+        is updated in place."""
         h = embed_apply(params["embed"], token[:, None], self.cfg)
-        paged = {"block_tables": block_tables}
+        paged = None if block_tables is None else {
+            "block_tables": block_tables}
         for i, p in enumerate(params["layers"]):
             h = self._block(p, h, cache=cache[i], pos=pos, paged=paged,
                             page_size=page_size)

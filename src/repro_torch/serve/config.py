@@ -1,9 +1,15 @@
 """ServeConfig: every serve-runtime knob, validated in one place.
 
 The reference's fields, defaults and validation.  Knobs whose feature
-is not ported yet (sampled decoding, static mode, replicas, faults,
-tracing) raise a ``ValueError`` that names the ROADMAP.md item, so the
-port serves greedy, continuous mode.  As in the reference:
+is not ported yet (replicas, faults, tracing) raise a ``ValueError``
+that names the ROADMAP.md item.  As in the reference:
+
+  ``temperature``       0 decodes greedily; > 0 samples (per-(uid, step)
+                        keys in continuous mode), after ``top_k`` /
+                        ``top_p`` filtering when they are set;
+  ``mode``              "continuous" (paged, continuous batching) or
+                        "static" (prompt-length buckets over a dense
+                        cache, one host sync a bucket);
 
   ``prefix_cache``      hash-based prefix reuse over refcounted pages
                         (kvpool.PrefixCache), on by default;
@@ -22,8 +28,8 @@ _MODES = ("continuous", "static")
 
 
 def _unported(knob: str, item: str) -> ValueError:
-    return ValueError(f"{knob} is not ported yet (ROADMAP.md, slice 1 left "
-                      f"out: {item})")
+    return ValueError(f"{knob} is not ported yet (ROADMAP.md, Queue 1: "
+                      f"{item})")
 
 
 @dataclasses.dataclass
@@ -35,7 +41,7 @@ class ServeConfig:
     max_batch: int = 8
     max_len: int = 256
     eos_id: Optional[int] = None
-    # sampling: greedy only in the port
+    # sampling: temperature 0 = greedy
     temperature: float = 0.0
     top_k: Optional[int] = None
     top_p: Optional[float] = None
@@ -99,12 +105,6 @@ class ServeConfig:
         if self.queue_depth is not None and self.queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
         # the knobs of features that are not ported yet
-        if (self.temperature > 0.0 or self.top_k is not None
-                or self.top_p is not None):
-            raise _unported("sampled decoding (temperature/top_k/top_p)",
-                            "sampled decoding")
-        if self.mode == "static":
-            raise _unported("mode='static'", "static mode")
         if self.replicas > 1:
             raise _unported("replicas > 1", "the front end")
         if self.faults is not None:

@@ -1,22 +1,33 @@
-"""Serving engine: continuous batching over a paged serve cache.
+"""Serving engine: continuous batching over a paged serve cache, or
+static prompt-length buckets over a dense cache.
 
-A step loop over serve.scheduler: requests join the running batch as
-soon as a slot and prompt pages are free, their prompts stream in as
-fixed-size token chunks interleaved with everyone else's decode, and the
-decode inner loop runs as a burst of ``steps_per_sync`` greedy steps
-with the state on the device (serve.fused) — one host readback per
-burst.  When the pool runs dry the youngest request is preempted:
-swapped to the host arena when it has room (tokens kept, resume
-mid-stream), recomputed otherwise (greedy decoding replays the same
-tokens).  Admission consults the pool's prefix index: cached prompt
-pages attach shared, without prefill, with copy-on-write on divergence
-(serve.kvpool).  A session can cancel a request anywhere in its
-lifecycle, and retires requests whose hard deadline has passed.
+Continuous mode (the default) is a step loop over serve.scheduler:
+requests join the running batch as soon as a slot and prompt pages are
+free, their prompts stream in as fixed-size token chunks interleaved
+with everyone else's decode, and the decode inner loop runs as a burst
+of ``steps_per_sync`` steps with the state on the device (serve.fused) —
+one host readback per burst.  When the pool runs dry the youngest
+request is preempted: swapped to the host arena when it has room
+(tokens kept, resume mid-stream), recomputed otherwise.  Admission
+consults the pool's prefix index: cached prompt pages attach shared,
+without prefill, with copy-on-write on divergence (serve.kvpool).  A
+session can cancel a request anywhere in its lifecycle, and retires
+requests whose hard deadline has passed.
 
-The port serves greedy, continuous mode only; ServeConfig refuses the
-knobs of what is not ported.  Counters are a plain dict
-(``engine.stats``, which the scheduler and the pool write too), re-based
-at each ``generate()``.
+Decoding is greedy at temperature 0 and sampled otherwise (top-k /
+top-p filtering optional).  Every continuous-mode draw is keyed per
+(request uid, step) off the session's ``key(seed)``, so a stream does
+not depend on the batch, on ``steps_per_sync`` or on preemption: a
+recompute replays the same tokens.
+
+Static mode (``mode="static"``) buckets requests by prompt length; a
+bucket is one batched prefill into a dense cache and one device loop
+(serve.fused.static_burst) over its decode steps, read back once.  Each
+bucket's key is the next ``split`` of ``key(seed)``.
+
+ServeConfig refuses the knobs of what is not ported.  Counters are a
+plain dict (``engine.stats``, which the scheduler and the pool write
+too), re-based at each ``generate()``.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import random as rnd
 from repro_torch.serve import fused
 from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.kvpool import POOL_KEYS, PagedKVPool
@@ -103,11 +115,17 @@ class ServeEngine:
             params = compressed_param_tree(params)
         self.n_sparse_leaves = count_packed(params)
         self.params = params
+        self.mode = config.mode
         self.eos = -1 if config.eos_id is None else int(config.eos_id)
+        self.sampling = dict(temperature=config.temperature,
+                             top_k=config.top_k, top_p=config.top_p)
         self.steps_per_sync = config.steps_per_sync
         self.page_size = config.page_size
         self.chunk_size = config.prefill_chunk
         self.stats: Dict[str, float] = {k: 0 for k in STAT_KEYS}
+        self.pool = None
+        if self.mode == "static":
+            return                    # a dense cache per bucket, no pool
         self.pool = PagedKVPool(
             model, num_pages=config.resolved_num_pages(),
             page_size=config.page_size, max_slots=config.max_batch,
@@ -118,20 +136,26 @@ class ServeEngine:
         # output ring: burst length + 1 for a prefill burst's token 0
         self._ring = self.steps_per_sync + 1
 
-    def session(self) -> "ContinuousSession":
+    def session(self, seed: int = 0) -> "ContinuousSession":
         """An incremental session: ``submit`` at any time, each ``step()``
-        is one host-sync interval returning per-request StreamEvents."""
-        return ContinuousSession(self)
+        is one host-sync interval returning per-request StreamEvents.
+        ``seed`` keys sampled decoding."""
+        if self.mode != "continuous":
+            raise RuntimeError(
+                "streaming sessions need the continuous paged runtime "
+                f"(engine is mode={self.mode!r})")
+        return ContinuousSession(self, seed=seed)
 
     def generate(self, requests: Sequence[Request], seed: int = 0
                  ) -> List[Result]:
-        """Serve a set of requests; ``self.stats`` then holds the run's
-        counters.  ``seed`` keys sampled decoding in the reference; the
-        port decodes greedily, so it is unused."""
-        del seed
+        """Serve a set of requests (continuous batching; static mode
+        buckets by prompt length); ``self.stats`` then holds the run's
+        counters.  ``seed`` keys sampled decoding."""
         for k in self.stats:          # in place: the pool writes it too
             self.stats[k] = 0
-        session = self.session()
+        if self.mode == "static":
+            return self._generate_static(requests, seed)
+        session = self.session(seed)
         for r in requests:
             session.submit(r)
         results: List[Result] = []
@@ -141,6 +165,64 @@ class ServeEngine:
                     results.append(ev.result)
         return sorted(results, key=lambda r: r.uid)
 
+    # ------------------------------------------------------ static mode
+    def _generate_static(self, requests: Sequence[Request], seed: int
+                         ) -> List[Result]:
+        """Buckets by prompt length, in length order, at most
+        ``max_batch`` a bucket; each bucket runs under the next split of
+        the run's key: ``key, bucket_key = split(key)``."""
+        buckets: Dict[int, List[Request]] = {}
+        for r in requests:
+            buckets.setdefault(len(r.prompt), []).append(r)
+        results: List[Result] = []
+        key = rnd.key(seed, self.model.device)
+        for plen in sorted(buckets):
+            bucket = buckets[plen]
+            for i in range(0, len(bucket), self.max_batch):
+                key, bk = rnd.split(key).unbind(0)
+                results.extend(self._run_bucket(
+                    bucket[i:i + self.max_batch], bk))
+        return sorted(results, key=lambda r: r.uid)
+
+    def _run_bucket(self, reqs: List[Request], key: torch.Tensor
+                    ) -> List[Result]:
+        """One batched prefill into a dense cache, then the whole decode
+        loop on the device and ONE host readback."""
+        b = len(reqs)
+        plen = len(reqs[0].prompt)
+        max_new = max(r.max_new_tokens for r in reqs)
+        if plen + max_new > self.max_len:
+            raise ValueError("bucket exceeds max_len")
+        dev = self.model.device
+        toks = torch.from_numpy(np.stack([np.asarray(r.prompt, np.int32)
+                                          for r in reqs])).to(dev)
+        cache = self.model.init_cache(b, self.max_len)
+        logits = self.model.prefill(self.params, toks, cache)
+        max_new_arr = np.asarray([r.max_new_tokens for r in reqs], np.int32)
+        # EOS off and one max_new_tokens: the done scan could never fire
+        # early, so the fori variant drops that bookkeeping
+        early_exit = not (self.config.eos_id is None
+                          and len(set(max_new_arr.tolist())) == 1)
+        out, n_emitted, steps_run = fused.static_burst(
+            self.model, self.params, cache, logits, key, max_new_arr, plen,
+            max_new, early_exit=early_exit, eos=self.eos, **self.sampling)
+        blob = torch.cat([out.reshape(-1), n_emitted,
+                          steps_run.reshape(1)]).cpu().numpy()
+        out = blob[:b * max_new].reshape(b, max_new)   # ONE sync a bucket
+        n_emitted = blob[b * max_new:b * max_new + b]
+        steps = int(blob[-1])
+        st = self.stats
+        st["host_syncs"] += 1
+        st["device_steps"] += steps
+        st["requests"] += b
+        st["tokens"] += int(n_emitted.sum())
+        st["slot_steps"] += steps * b
+        # every request holds its slot for the whole bucket: the gap to
+        # n_emitted is the scrap-position waste continuous batching saves
+        return [Result(uid=r.uid, tokens=out[i, :n_emitted[i]].copy(),
+                       prompt_len=plen, decode_steps=steps)
+                for i, r in enumerate(reqs)]
+
 
 class ContinuousSession:
     """Step-driven view of the continuous-batching loop: each
@@ -148,13 +230,14 @@ class ContinuousSession:
     device dispatch — the K-step decode burst, or a prompt chunk fused in
     front of it — and reads the state back once."""
 
-    def __init__(self, engine: ServeEngine):
+    def __init__(self, engine: ServeEngine, seed: int = 0):
         self.engine = engine
         engine.pool.reset()
         # no recurrent-state rows in the port: swap is always allowed
         self.sched = Scheduler(engine.pool, engine.max_batch,
                                max_waiting=engine.config.queue_depth,
                                stats=engine.stats, swap=True)
+        self.base_key = rnd.key(seed, engine.model.device)
         self._emitted: Dict[int, int] = {}    # uid -> tokens delivered
 
     def submit(self, req: Request):
@@ -284,15 +367,19 @@ class ContinuousSession:
                  "uid": pseq.req.uid, "max_new": pseq.req.max_new_tokens,
                  "pos0": plen if can_decode else -1}
             fused.prefill_burst(eng.model, eng.params, pool.kv, tables, st,
-                                p, steps=k, page_size=eng.page_size,
-                                chunk_size=eng.chunk_size, eos=eng.eos)
+                                self.base_key, p, steps=k,
+                                page_size=eng.page_size,
+                                chunk_size=eng.chunk_size, eos=eng.eos,
+                                **eng.sampling)
             pseq.n_prefilled = min(start + eng.chunk_size, plen)
             pseq.occupied_steps += 1
             stats["prefill_chunks"] += 1
             stats["slot_steps"] += 1
         else:
             fused.decode_loop(eng.model, eng.params, pool.kv, tables, st,
-                              steps=k, page_size=eng.page_size, eos=eng.eos)
+                              self.base_key, steps=k,
+                              page_size=eng.page_size, eos=eng.eos,
+                              **eng.sampling)
         host = fused.read_back(st)            # the ONE host sync
         stats["host_syncs"] += 1
         stats["device_steps"] += k - host["steps_left"]

@@ -1,38 +1,97 @@
-"""The decode burst: K greedy decode steps with the scheduler state kept
-on the device, and the prefill-chunk burst that runs one prompt chunk in
-front of them.
+"""The decode burst: K decode steps with the scheduler state kept on the
+device, the prefill-chunk burst that runs one prompt chunk in front of
+them, the sampling they share, and static mode's bucket loop.
 
-The reference runs the burst as a jitted ``lax.while_loop``; here it is a
-plain Python loop over ``LM.decode_step`` whose per-step bookkeeping
-(sample, record into the output ring, EOS / length done-detection,
-position advance) is tensor ops on the device, so the host never waits
-inside a burst.  The state goes up as one int32 blob and comes back as
-one blob: one host readback per burst, as in the reference.  CUDA graphs
-are a later step.
+The reference runs the bursts as jitted ``lax.while_loop`` /
+``fori_loop`` bodies; here they are plain Python loops over
+``LM.decode_step`` whose per-step bookkeeping (sample, record into the
+output ring, EOS / length done-detection, position advance) is tensor
+ops on the device, so the host never waits inside a burst.  The state
+goes up as one int32 blob and comes back as one blob: one host readback
+per burst, as in the reference.  CUDA graphs are a later step.
 
-The reference's loop exits early once every slot is idle; here the K
-steps always run, but a step taken with every slot idle changes nothing
-(its writes go to the scrap page) and does not count against
-``steps_left`` — so the state read back is the reference's.
+The reference's loops exit early once every slot is idle (every request
+of a static bucket done); here the K steps always run, but a step taken
+with nothing live changes nothing that is read back (its writes go to
+the scrap page, or past every emitted token) and does not count against
+``steps_left`` / ``steps_run`` — so the state read back is the
+reference's.
+
+Sampling is the reference's: greedy argmax at temperature 0; otherwise
+the temperature-scaled logits filtered by top-k / top-p, then
+``random.categorical``.  Continuous mode keys every row's draw by
+``fold_in(fold_in(base_key, uid), step)`` (:func:`sample_rows`) — so a
+stream depends on neither the batch, nor ``steps_per_sync``, nor
+preemption; static mode draws one batch-keyed sample a step under the
+bucket key's ``split`` sequence (:func:`sample_batch`).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import random as rnd
 
 FIELDS = ("tok", "pos", "uid", "n_tok", "max_new", "done", "n_out",
           "steps_left")
 
 
-def sample_rows(logits: torch.Tensor) -> torch.Tensor:
-    """Greedy draw per row: argmax, the first maximum winning (as
-    ``jnp.argmax``).  Sampled decoding is not ported (ROADMAP.md)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+# ----------------------------------------------------------------------
+# sampling (shared by the bursts and the static loop)
+# ----------------------------------------------------------------------
+def filter_logits(rows: torch.Tensor, top_k: Optional[int],
+                  top_p: Optional[float]) -> torch.Tensor:
+    """Top-k / top-p (nucleus) filtering of temperature-scaled logit
+    rows (..., V): filtered-out entries go to -inf.  Row by row the
+    reference's ops: top-k keeps every entry tied with the k-th value;
+    top-p keeps the smallest descending prefix whose mass reaches p (the
+    exclusive cumsum below p, so the first entry always survives)."""
+    v = rows.shape[-1]
+    ninf = torch.tensor(float("-inf"), dtype=rows.dtype, device=rows.device)
+    if top_k is not None and 0 < top_k < v:
+        kth = torch.topk(rows, top_k, dim=-1).values[..., -1:]
+        rows = torch.where(rows < kth, ninf, rows)
+    if top_p is not None and 0.0 < top_p < 1.0:
+        srt = torch.sort(rows, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        keep = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        inf = torch.tensor(float("inf"), dtype=rows.dtype, device=rows.device)
+        thr = torch.where(keep, srt, inf).amin(dim=-1, keepdim=True)
+        rows = torch.where(rows < thr, ninf, rows)
+    return rows
 
 
+def sample_rows(logits: torch.Tensor, uids: torch.Tensor,
+                steps: torch.Tensor, base_key: torch.Tensor, *,
+                temperature: float, top_k: Optional[int],
+                top_p: Optional[float]) -> torch.Tensor:
+    """Per-(uid, step)-keyed draw of every row — the continuous-mode
+    sample.  Row ``i`` uses ``fold_in(fold_in(base_key, uids[i]),
+    steps[i])``; idle rows draw values that are never recorded.  At
+    temperature 0 the argmax (the first maximum, as ``jnp.argmax``)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    keys = rnd.fold_in(rnd.fold_in(base_key, uids), steps)
+    rows = filter_logits(logits / temperature, top_k, top_p)
+    return rnd.categorical(keys, rows).to(torch.int32)
+
+
+def sample_batch(logits: torch.Tensor, key: torch.Tensor, *,
+                 temperature: float, top_k: Optional[int],
+                 top_p: Optional[float]) -> torch.Tensor:
+    """Static-mode sampling: one batch-keyed draw per step."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    rows = filter_logits(logits / temperature, top_k, top_p)
+    return rnd.categorical(key, rows).to(torch.int32)
+
+
+# ----------------------------------------------------------------------
+# continuous mode: the bursts
+# ----------------------------------------------------------------------
 def init_burst_state(max_batch: int, ring: int) -> Dict[str, np.ndarray]:
     """Host template of the burst state.  All slots start idle (``pos``
     -1); the engine fills the running slots before each burst.  ``out``
@@ -79,12 +138,14 @@ def read_back(st: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def decode_loop(model, params, kv, tables: torch.Tensor,
-                st: Dict[str, torch.Tensor], *, steps: int, page_size: int,
-                eos: int) -> None:
+                st: Dict[str, torch.Tensor], base_key: torch.Tensor, *,
+                steps: int, page_size: int, eos: int, **sampling) -> None:
     """Run ``steps`` fused decode steps on the state in place.  Per step:
-    ``decode_step`` writes this token's KV and yields logits, the greedy
-    token is recorded into the output ring, EOS / ``max_new`` mark the
-    slot done (``pos`` frozen to -1) and live slots advance ``pos``."""
+    ``decode_step`` writes this token's KV and yields logits,
+    :func:`sample_rows` draws the next token under the per-(uid, step)
+    key (``sampling``: temperature, top_k, top_p), the token is recorded
+    into the output ring, EOS / ``max_new`` mark the slot done (``pos``
+    frozen to -1) and live slots advance ``pos``."""
     b = st["tok"].shape[0]
     ring = st["out"].shape[1]
     rows = torch.arange(b, device=tables.device)
@@ -94,7 +155,8 @@ def decode_loop(model, params, kv, tables: torch.Tensor,
         alive = active.any()
         logits = model.decode_step(params, st["tok"], kv, pos, tables,
                                    page_size=page_size)
-        sampled = sample_rows(logits)
+        sampled = sample_rows(logits, st["uid"], st["n_tok"], base_key,
+                              **sampling)
         ai = active.to(torch.int32)
         col = torch.clamp(st["n_out"], max=ring - 1).long()
         cell = st["out"][rows, col]
@@ -111,8 +173,9 @@ def decode_loop(model, params, kv, tables: torch.Tensor,
 
 
 def prefill_burst(model, params, kv, tables: torch.Tensor,
-                  st: Dict[str, torch.Tensor], p: Dict, *, steps: int,
-                  page_size: int, chunk_size: int, eos: int) -> None:
+                  st: Dict[str, torch.Tensor], base_key: torch.Tensor,
+                  p: Dict, *, steps: int, page_size: int, chunk_size: int,
+                  eos: int, **sampling) -> None:
     """One chunk of one request's prompt, then the decode loop.
 
     ``p`` carries the chunk: ``tokens`` (1, C) on the device, host ints
@@ -121,15 +184,18 @@ def prefill_burst(model, params, kv, tables: torch.Tensor,
     when the host could not map a page for the slot's first decode write
     (the slot then activates frozen: token 0 is recorded and decoding
     waits for the next sync).  On the final chunk the slot is activated
-    in the state: token 0 is the greedy draw from the chunk's last
-    logits, recorded into the ring; EOS or ``max_new <= 1`` finish it at
-    once."""
+    in the state: token 0 is drawn from the chunk's last logits under
+    the per-(uid, 0) key, recorded into the ring; EOS or ``max_new <= 1``
+    finish it at once."""
     slot = p["slot"]
     logits = model.prefill_chunk(params, p["tokens"], kv, p["start"],
                                  p["length"], tables[slot:slot + 1],
                                  page_size=page_size)
     if p["start"] + chunk_size >= p["length"]:
-        tok0 = sample_rows(logits)[0]
+        uid = torch.full((1,), p["uid"], dtype=torch.int32,
+                         device=logits.device)
+        tok0 = sample_rows(logits, uid, torch.zeros_like(uid), base_key,
+                           **sampling)[0]
         done0 = (tok0 == eos) | (p["max_new"] <= 1)
         st["tok"][slot] = tok0
         st["pos"][slot] = torch.where(done0, -1, p["pos0"])
@@ -139,6 +205,54 @@ def prefill_burst(model, params, kv, tables: torch.Tensor,
         st["done"][slot] = done0.to(torch.int32)
         st["out"][slot, 0] = tok0
         st["n_out"][slot] = 1
-    decode_loop(model, params, kv, tables, st, steps=steps,
-                page_size=page_size, eos=eos)
+    decode_loop(model, params, kv, tables, st, base_key, steps=steps,
+                page_size=page_size, eos=eos, **sampling)
 
+
+
+# ----------------------------------------------------------------------
+# static mode: the bucket loop
+# ----------------------------------------------------------------------
+def static_burst(model, params, cache, logits: torch.Tensor,
+                 key: torch.Tensor, max_new: np.ndarray, pos0: int,
+                 width: int, *, early_exit: bool, eos: int, **sampling
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A static bucket's whole sample / record / advance loop on the
+    device (``make_static_burst``): ``(out (B, width), n_emitted (B,),
+    steps_run ())`` as device tensors, read back by the caller in one
+    sync.
+
+    Each step splits the bucket key — ``key, sk = split(key)`` — draws
+    the batch under ``sk`` (:func:`sample_batch`), records it and feeds it
+    to the dense-cache ``decode_step`` at position ``pos0 + step``.
+    ``early_exit=False`` is the reference's ``fori`` variant (EOS off and
+    one ``max_new_tokens`` in the bucket: every step emits for every
+    row, no done bookkeeping); otherwise the ``while`` variant's
+    bookkeeping: a row emits while it is not done and ``step <
+    max_new``, and is done after EOS or at ``max_new``; steps taken once
+    every row is done emit nothing and are not counted in
+    ``steps_run``."""
+    b, dev = logits.shape[0], logits.device
+    out = torch.zeros((b, width), dtype=torch.int32, device=dev)
+    if not early_exit:
+        for i in range(width):
+            key, sk = rnd.split(key).unbind(0)
+            tok = sample_batch(logits, sk, **sampling)
+            out[:, i] = tok
+            logits = model.decode_step(params, tok, cache, pos0 + i)
+        full = torch.full((b,), width, dtype=torch.int32, device=dev)
+        return out, full, torch.tensor(width, dtype=torch.int32, device=dev)
+    max_new_t = torch.as_tensor(max_new, dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    n_emitted = torch.zeros((b,), dtype=torch.int32, device=dev)
+    steps_run = torch.zeros((), dtype=torch.int32, device=dev)
+    for step in range(width):
+        steps_run += (~done.all()).to(torch.int32)
+        key, sk = rnd.split(key).unbind(0)
+        tok = sample_batch(logits, sk, **sampling)
+        emit = ~done & (step < max_new_t)
+        out[:, step] = torch.where(emit, tok, out[:, step])
+        done = done | (emit & (tok == eos)) | (step >= max_new_t)
+        n_emitted += emit.to(torch.int32)
+        logits = model.decode_step(params, tok, cache, pos0 + step)
+    return out, n_emitted, steps_run

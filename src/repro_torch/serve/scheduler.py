@@ -23,7 +23,7 @@ the device pinned by its :class:`~repro_torch.serve.kvpool.SwapRecord`,
 and its tokens and prefill progress are kept — resume streams the pages
 back and continues where it stopped.  Otherwise **recompute**: pages and
 generated tokens are dropped and the prefix is replayed on re-admission
-(greedy decoding reproduces the same tokens).  Either way the victim
+(the per-(uid, step) keys reproduce the same tokens).  Either way the victim
 re-queues with its original arrival.
 
 Admission consults the pool's prefix index when there is one: matched

@@ -511,3 +511,58 @@ def test_pipelined_prune_resumes_bit_identical_on_card(gen, tmp_path):
     for a, b in zip(model.params_to_flat(ref).values(),
                     model.params_to_flat(got).values()):
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+# ----------------------------------------------------------------------
+# slice 8: threefry on the card, the gradient guard, the trainer's route
+# ----------------------------------------------------------------------
+def test_threefry_on_card_equals_cpu(gen):
+    """The integer bit path runs the same ops on both devices."""
+    from repro_torch import random as rnd
+
+    keys = rnd.fold_in(rnd.fold_in(rnd.key(7, "cuda"),
+                                   torch.arange(8, device="cuda")), 3)
+    for shape in ((151936,), (3, 5)):
+        assert torch.equal(rnd.random_bits(keys, shape).cpu(),
+                           rnd.random_bits(keys.cpu(), shape))
+        assert torch.equal(rnd.uniform(keys, shape).cpu(),
+                           rnd.uniform(keys.cpu(), shape))
+    assert torch.equal(rnd.split(keys, 4).cpu(), rnd.split(keys.cpu(), 4))
+
+
+def test_wrappers_refuse_grad_on_card(gen):
+    q = torch.randn((1, 64, 2, 32), device="cuda", generator=gen,
+                    requires_grad=True)
+    with pytest.raises(RuntimeError, match="flash_attn: an input requires"):
+        flash_attn(q, q, q)
+    with torch.no_grad():
+        assert flash_attn(q, q, q).shape == q.shape
+    x = torch.randn((4, 64), device="cuda", generator=gen,
+                    requires_grad=True)
+    vals, idx = _packed(gen, 64, 32, torch.float32)
+    with pytest.raises(RuntimeError, match="nm_spmm_decode: an input"):
+        nm_spmm_decode(x, vals, idx)
+
+
+def test_differentiable_route_trains_on_card(gen):
+    """Every param leaf gets a gradient, no kernel launches, and the loss
+    equals the kernel route's."""
+    from repro_torch import configs
+    from repro_torch import random as rnd
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import tree_leaves
+
+    cfg = configs.get_smoke("paper_tiny_lm")
+    model = LM(cfg, device="cuda")
+    params = model.init(rnd.key(0, "cuda"))
+    batch = DataPipeline(cfg, 4, 32, device="cuda").batch_at(0)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    ops.reset_launch_counts()
+    loss, _ = model.loss_fn(params, batch, differentiable=True)
+    grads = torch.autograd.grad(loss, leaves)
+    assert not any(ops.launch_counts().values())
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+    with torch.no_grad():
+        plain, _ = model.loss_fn(params, batch)
+    assert abs(float(loss.detach()) - float(plain)) <= 1e-4 * float(plain)

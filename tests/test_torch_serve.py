@@ -218,12 +218,20 @@ def test_scheduler_queue_cap_and_priority(tiny):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(temperature=0.7), dict(top_k=5), dict(top_p=0.9),
-    dict(mode="static"), dict(replicas=2),
-    dict(faults=object()), dict(trace=True)])
+    dict(replicas=2), dict(faults=object()), dict(trace=True)])
 def test_config_refuses_unported_knobs(knob):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         ServeConfig(**knob).validate()
+
+
+@pytest.mark.parametrize("knob", [
+    dict(temperature=0.7), dict(top_k=5), dict(top_p=0.9),
+    dict(mode="static"), dict(mode="static", temperature=0.8, top_k=40)])
+def test_config_accepts_sampling_and_static_mode(knob):
+    """Sampled decoding and static mode are ported: the knobs validate
+    in the port as in the reference."""
+    ServeConfig(**knob).validate()
+    JServeConfig(**knob).validate()
 
 
 @pytest.mark.parametrize("knob,swap_pages", [
