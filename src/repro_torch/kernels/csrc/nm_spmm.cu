@@ -73,7 +73,11 @@
 //   double-buffered so that tile k+1
 //   is decompressed while tile k's products run — one __syncthreads a
 //   K tile.  Fragments come from ldmatrix (.trans for the dense tile,
-//   whose rows are padded by 16 bytes).
+//   whose rows are padded by 16 bytes).  Every PROMOTE = 2 K tiles the
+//   mma accumulator is added into an f32 total in registers and cleared:
+//   the tensor cores' f32 accumulation does not round to nearest, and
+//   over one chain of K = 24576 (Jamba's mlp.wo at M = 256, no split)
+//   its error passed the f32 tolerance of the plain version.
 //   At M = 256 the tile traffic, not the products, sets the pace: every
 //   block streams its x and packed tiles from L2, so the grid is sized to
 //   run in one wave.  The grid is (N/64) x (M/64) x S: the host splits K
@@ -295,6 +299,10 @@ constexpr int STAGES = 3;                 // ring depth
 constexpr int PK = BK / 2;                // packed rows a K tile
 constexpr int WLD = BN + 8;               // dense weight tile row (+16 B)
 constexpr int RLD = BN + 8;               // f32 partial tile row
+// K tiles the mma accumulator sums before it is added into the f32 total:
+// the tensor cores' f32 accumulation does not round to nearest, and its
+// error grows with the chain (past tolerance at K = 24576 in one chain)
+constexpr int PROMOTE = 2;
 // a stage: the x tile (64 x 128 B, 128-byte swizzle), the vals tile
 // (32 x 128 B, 128-byte swizzle), the idx tile (32 x 64 B)
 constexpr int XS_OFF = 0, VS_OFF = BM * BK * 2, IS_OFF = VS_OFF + PK * BN * 2;
@@ -437,13 +445,13 @@ __global__ void __launch_bounds__(NTH, 3)
   };
 
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  float acc[2][4][4];
+  float acc[2][4][4], tot[2][4][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = tot[i][j][e] = 0.f;
 
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
@@ -487,6 +495,17 @@ __global__ void __launch_bounds__(NTH, 3)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) mma16816(acc[mi][ni], a[mi], b[ni]);
     }
+    if ((i + 1) % PROMOTE == 0 || i + 1 == t_count) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            tot[mi][ni][e] += acc[mi][ni][e];
+            acc[mi][ni][e] = 0.f;
+          }
+    }
   }
   cp_wait<0>();
   __syncthreads();                       // the ring is free
@@ -501,9 +520,9 @@ __global__ void __launch_bounds__(NTH, 3)
     for (int ni = 0; ni < 4; ++ni) {
       const int r = wm + mi * 16 + g, c = wn + ni * 8 + 2 * t4;
       *reinterpret_cast<float2*>(&red[r][c]) =
-          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+          make_float2(tot[mi][ni][0], tot[mi][ni][1]);
       *reinterpret_cast<float2*>(&red[r + 8][c]) =
-          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+          make_float2(tot[mi][ni][2], tot[mi][ni][3]);
     }
   namespace cg = cooperative_groups;
   if (split > 1)

@@ -1,20 +1,23 @@
-"""The dense decoder LM: init, full-sequence forward and loss (the
-kernel route, and the differentiable route the trainer takes), the
-pruning contract (``calib_init`` / ``prunable_segments``), the dense-cache
-serve methods of static mode (``init_cache`` / ``prefill`` /
-``decode_step``) and the paged ones of continuous mode
-(``init_paged_cache`` / ``prefill_chunk`` / ``decode_step`` with block
-tables).
+"""The decoder LM: init, full-sequence forward and loss (the kernel
+route, and the differentiable route the trainer takes), the pruning
+contract (``calib_init`` / ``prunable_segments``), the dense-cache serve
+methods of static mode (``init_cache`` / ``prefill`` / ``decode_step``)
+and the paged ones of continuous mode (``init_paged_cache`` /
+``prefill_chunk`` / ``decode_step`` with block tables).
 
-Only the dense decoder family (global attention + MLP blocks; no prefix,
-MoE, sliding window, qk-norm, frontend or encoder) is ported; ROADMAP.md
-lists the others.  Where
-the reference stacks the layers (L, ...) under ``layers/s0`` for
-``lax.scan``, the port keeps a per-layer list of param dicts and loops:
-``params["layers"][i] = {"attn": {...}, "mlp": {...}}``.  The paged cache
-is a per-layer list of ``{"k", "v"[, "k_scale", "v_scale"]}`` page
-tensors, the dense cache a per-layer list of (B, max_len, KV, hd)
-``{"k", "v"}``; both are updated in place.
+Ported block kinds: global attention and Mamba (``period`` ⊂ {"attn",
+"mamba"}), each with its dense MLP where ``cfg.block_has_mlp`` says so —
+the dense decoders, the Mamba LM and the Mamba/attention hybrid.  No
+prefix, MoE, sliding window, xLSTM, qk-norm, frontend or encoder;
+ROADMAP.md lists them.  Where the reference stacks the layers (L, ...)
+under ``layers/s{j}`` for ``lax.scan``, the port keeps a per-layer list
+of param dicts and loops: layer ``i`` is slot ``i % len(period)`` of
+period ``i // len(period)``, ``params["layers"][i] = {"attn" | "mamba":
+{...}, "mlp": {...}}``.  The caches are per-layer lists too: an
+attention layer's paged ``{"k", "v"[, "k_scale", "v_scale"]}`` page
+tensors or dense (B, max_len, KV, hd) ``{"k", "v"}``, a Mamba layer's
+``{"conv", "ssm"}`` state rows (one per serve slot when paged); all are
+updated in place.
 """
 
 from __future__ import annotations
@@ -33,52 +36,72 @@ from repro_torch.models.layers import (Params, attn_apply, attn_cache_init,
                                        embed_apply, embed_init, mlp_apply,
                                        mlp_init, sub_keys, unembed_apply,
                                        unembed_init)
+from repro_torch.models.ssm import mamba_apply, mamba_cache_init, mamba_init
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# the prunable linears of a block, in the reference's capture-name order
-_ATTN_LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
-                 ("attn", "wo"))
+PORTED_KINDS = ("attn", "mamba")
+# the prunable linears of a block kind, in the reference's capture-name
+# order (``_BLOCK_LINEARS``)
+_BLOCK_LINEARS = {
+    "attn": (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo")),
+    "mamba": (("mamba", "in_proj"), ("mamba", "x_proj"),
+              ("mamba", "dt_proj"), ("mamba", "out_proj")),
+}
 _MLP_LINEARS = {"swiglu": ("wi", "wg", "wo"), "geglu": ("wi", "wg", "wo"),
                 "gelu": ("wi", "wo"), "none": ()}
 
 
 class LM:
-    """A dense decoder from one ArchConfig, on one device."""
+    """A decoder of attention and Mamba blocks from one ArchConfig, on one
+    device."""
+
+    # block kinds whose paged serve cache is slot-pooled recurrent state
+    # (serve.kvpool.StatePool resets their rows; the reference also lists
+    # mlstm and slstm, which the port refuses)
+    STATE_KINDS = ("mamba",)
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         if (cfg.prefix or cfg.moe is not None or cfg.encdec
                 or cfg.frontend is not None or cfg.qk_norm
-                or any(k != "attn" for k in cfg.period)):
+                or any(k not in PORTED_KINDS for k in cfg.period)):
             raise ValueError(
-                f"{cfg.name}: only the dense decoder family is ported "
-                "(ROADMAP.md, slice 1 left out: the other families)")
+                f"{cfg.name}: only attention and Mamba blocks with dense "
+                "MLPs are ported (ROADMAP.md, Queue 1 item 7: the other "
+                "families)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.dtype]
+        period = cfg.period
+        self.kinds = [period[i % len(period)] for i in range(cfg.num_layers)]
 
     # ------------------------------------------------------------- init
     def init(self, rng) -> Params:
-        """Random params at the reference's scales (``_dense_init`` and
-        ``embed_init``) on the device of ``rng``: a ``torch.Generator``
-        (sequential draws), or a threefry key (``random.key(seed)``),
-        which reproduces the reference's ``LM.init(jax.random.key(seed))``
-        — its key splits (``split(key, 8)``; layer ``i`` from
-        ``split(fold_in(keys[3], 0), L)[i]``, then ``split(·, 3)`` into
-        mixer and MLP) and its normals up to the last ulp."""
+        """Random params at the reference's scales (``_dense_init``,
+        ``embed_init``, ``mamba_init``) on the device of ``rng``: a
+        ``torch.Generator`` (sequential draws), or a threefry key
+        (``random.key(seed)``), which reproduces the reference's
+        ``LM.init(jax.random.key(seed))`` — its key splits (``split(key,
+        8)``; slot ``j`` of period ``p`` from ``split(fold_in(keys[3], j),
+        n_periods)[p]``, then ``split(·, 3)`` into mixer and MLP) and its
+        normals up to the last ulp."""
         cfg, dt = self.cfg, self.dtype
         keys = sub_keys(rng, 8)
+        n_slots = len(cfg.period)
         if isinstance(rng, torch.Generator):
             layer_keys = [rng] * cfg.num_layers
         else:
-            layer_keys = list(rnd.split(rnd.fold_in(keys[3], 0),
-                                        cfg.num_layers).unbind(0))
+            slot_keys = [rnd.split(rnd.fold_in(keys[3], j), cfg.n_periods)
+                         for j in range(n_slots)]
+            layer_keys = [slot_keys[i % n_slots][i // n_slots]
+                          for i in range(cfg.num_layers)]
         params: Params = {"embed": embed_init(keys[0], cfg, dt),
                           "unembed": unembed_init(keys[1], cfg, dt)}
         params["layers"] = []
-        for lk in layer_keys:
+        for kind, lk in zip(self.kinds, layer_keys):
             k_mix, k_ffn, _ = sub_keys(lk, 3)
-            block = {"attn": attn_init(k_mix, cfg, dt)}
-            if cfg.block_has_mlp("attn"):
+            block = ({"attn": attn_init(k_mix, cfg, dt)} if kind == "attn"
+                     else {"mamba": mamba_init(k_mix, cfg, dt)})
+            if cfg.block_has_mlp(kind):
                 block["mlp"] = mlp_init(k_ffn, cfg, dt)
             params["layers"].append(block)
         return params
@@ -100,7 +123,8 @@ class LM:
             elif parts[0] in ("embed", "unembed"):
                 _set_path(params, parts, _to_torch(arr, self.device))
             else:
-                raise ValueError(f"leaf {path!r}: not a dense-decoder param")
+                raise ValueError(f"leaf {path!r}: not a param of a ported "
+                                 "block kind")
         return params
 
     def params_to_flat(self, params: Params) -> Dict[str, np.ndarray]:
@@ -122,12 +146,20 @@ class LM:
         return flat
 
     # ---------------------------------------------------------- forward
-    def _block(self, p: Params, h: torch.Tensor, caps=None,
-               name_prefix: str = "", **kw) -> torch.Tensor:
-        """One decoder block; ``kw`` goes to the attention (cache, pos,
-        paged, page_size, differentiable)."""
-        h = attn_apply(p["attn"], h, self.cfg, caps=caps,
-                       prefix=f"{name_prefix}attn.", **kw)
+    def _block(self, p: Params, h: torch.Tensor, kind: str, caps=None,
+               name_prefix: str = "", cache=None, pos=None, paged=None,
+               page_size=None, differentiable: bool = False) -> torch.Tensor:
+        """One block (mixer, then its MLP if it has one); the cache modes
+        are the mixer's (``attn_apply`` / ``ssm.mamba_apply``)."""
+        if kind == "attn":
+            h = attn_apply(p["attn"], h, self.cfg, caps=caps,
+                           prefix=f"{name_prefix}attn.", cache=cache,
+                           pos=pos, paged=paged, page_size=page_size,
+                           differentiable=differentiable)
+        else:
+            h = mamba_apply(p["mamba"], h, self.cfg, caps=caps,
+                            prefix=f"{name_prefix}mamba.", cache=cache,
+                            pos=pos, paged=paged)
         if "mlp" in p:
             h = mlp_apply(p["mlp"], h, self.cfg, caps=caps,
                           prefix=f"{name_prefix}mlp.")
@@ -141,8 +173,8 @@ class LM:
         differentiate — the kernels have no backward and refuse inputs
         that require grad."""
         h = embed_apply(params["embed"], tokens, self.cfg)
-        for p in params["layers"]:
-            h = self._block(p, h, differentiable=differentiable)
+        for kind, p in zip(self.kinds, params["layers"]):
+            h = self._block(p, h, kind, differentiable=differentiable)
         return unembed_apply(params["unembed"], params["embed"], h,
                              self.cfg).float()
 
@@ -180,43 +212,58 @@ class LM:
         return self.first_hidden(params, batch)
 
     def prunable_segments(self) -> List[SegmentSpec]:
-        """One segment per layer, named ``period{i}`` as the reference
-        names them; a segment's params are ``{"s0": layer params}`` and
-        its linears ``s0.attn.wq`` … ``s0.mlp.wo``."""
-        linears = [_linear_spec(("s0", sub, key), f"s0.{sub}.{key}",
-                                self.dtype) for sub, key in _ATTN_LINEARS]
-        if self.cfg.block_has_mlp("attn"):
-            linears += [_linear_spec(("s0", "mlp", key), f"s0.mlp.{key}",
-                                     self.dtype)
-                        for key in _MLP_LINEARS[self.cfg.mlp_kind]]
+        """One segment per period, named ``period{i}`` as the reference
+        names them; a segment's params are ``{"s{j}": params of its slot
+        j}`` and its linears, slot by slot, ``s{j}.attn.wq`` …
+        ``s{j}.attn.wo`` or ``s{j}.mamba.in_proj`` … ``s{j}.mamba.out_proj``,
+        then ``s{j}.mlp.*`` where the slot has an MLP."""
+        cfg = self.cfg
+        slots = [f"s{j}" for j in range(len(cfg.period))]
+        linears = []
+        for sk, kind in zip(slots, cfg.period):
+            names = list(_BLOCK_LINEARS[kind])
+            if cfg.block_has_mlp(kind):
+                names += [("mlp", key) for key in _MLP_LINEARS[cfg.mlp_kind]]
+            linears += [_linear_spec((sk, sub, key), f"{sk}.{sub}.{key}",
+                                     self.dtype) for sub, key in names]
 
         def apply(seg_params, h, capture=False):
             caps = {} if capture else None
-            h = self._block(seg_params["s0"], h, caps=caps, name_prefix="s0.")
+            for sk, kind in zip(slots, cfg.period):
+                h = self._block(seg_params[sk], h, kind, caps=caps,
+                                name_prefix=f"{sk}.")
             return h, caps or {}
 
+        def layer_ids(i):
+            return range(i * len(slots), (i + 1) * len(slots))
+
         def get_params(i, params):
-            return {"s0": params["layers"][i]}
+            return {sk: params["layers"][li]
+                    for sk, li in zip(slots, layer_ids(i))}
 
         def set_params(i, params, seg_params):
             layers = list(params["layers"])
-            layers[i] = seg_params["s0"]
+            for sk, li in zip(slots, layer_ids(i)):
+                layers[li] = seg_params[sk]
             return {**params, "layers": layers}
 
         return [SegmentSpec(name=f"period{i}", apply=apply, linears=linears,
                             get_params=functools.partial(get_params, i),
                             set_params=functools.partial(set_params, i))
-                for i in range(self.cfg.num_layers)]
+                for i in range(cfg.n_periods)]
 
     # ----------------------------------------------------- dense cache
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None
                    ) -> List[Dict[str, torch.Tensor]]:
         """The dense decode cache of static mode: one (B, max_len, KV, hd)
-        K and V per layer."""
+        K and V per attention layer, the (B, ...) conv and SSM state per
+        Mamba layer."""
         dt = dtype or self.dtype
         return [attn_cache_init(self.cfg, batch, max_len, dt, self.device)
-                for _ in range(self.cfg.num_layers)]
+                if kind == "attn"
+                else mamba_cache_init(self.cfg, batch, dt, self.device)
+                for kind in self.kinds]
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 cache: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
@@ -224,43 +271,57 @@ class LM:
         in place; returns the last position's logits (B, V) f32.  The
         attention is the full-sequence one (``flash_attn`` on the card)."""
         h = embed_apply(params["embed"], tokens, self.cfg)
-        for i, p in enumerate(params["layers"]):
-            h = self._block(p, h, cache=cache[i])
+        for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
+            h = self._block(p, h, kind, cache=cache[i])
         logits = unembed_apply(params["unembed"], params["embed"],
                                h[:, -1:], self.cfg)
         return logits[:, 0, :].float()
 
     # ----------------------------------------------------------- paged
     def init_paged_cache(self, num_pages: int, page_size: int,
-                         dtype: Optional[torch.dtype] = None
+                         dtype: Optional[torch.dtype] = None,
+                         max_slots: Optional[int] = None
                          ) -> List[Dict[str, torch.Tensor]]:
-        """One (num_pages, page_size, KV, hd) K and V pool per layer
-        (page 0 is the scrap page; serve.kvpool owns the allocator).
-        ``dtype`` int8 adds the per-row f32 scale leaves."""
+        """One (num_pages, page_size, KV, hd) K and V pool per attention
+        layer (page 0 is the scrap page; serve.kvpool owns the allocator),
+        ``dtype`` int8 adding the per-row f32 scale leaves; per Mamba
+        layer the state rows of ``max_slots`` serve slots, at the model
+        dtype when the pages are int8 (serve.kvpool.StatePool resets a
+        row at admission)."""
         dt = dtype or self.dtype
+        state_dt = self.dtype if dt == torch.int8 else dt
+        if max_slots is None and any(k in self.STATE_KINDS
+                                     for k in self.kinds):
+            raise ValueError(
+                f"{self.cfg.name}: recurrent-state mixers need max_slots for "
+                "the slot-pooled state (serve.kvpool.StatePool)")
         return [attn_paged_cache_init(self.cfg, num_pages, page_size, dt,
                                       self.device)
-                for _ in range(self.cfg.num_layers)]
+                if kind == "attn"
+                else mamba_cache_init(self.cfg, max_slots, state_dt,
+                                      self.device)
+                for kind in self.kinds]
 
     def prefill_chunk(self, params: Params, tokens: torch.Tensor,
                       cache: List[Dict[str, torch.Tensor]], start: int,
                       length: int, block_tables: torch.Tensor, *,
-                      page_size: int) -> torch.Tensor:
+                      page_size: int, slot: int = 0) -> torch.Tensor:
         """One fixed-size chunk of ONE request's prompt.
 
         tokens: (1, C) — prompt tokens ``start .. start+C``, zero-padded
-        past ``length``; block_tables: (1, P_max).  Writes the chunk's
-        K/V into the pages and returns the logits at position
-        ``min(length, start+C) - 1`` (the sampling logits when this is
-        the final chunk), (1, V) f32."""
+        past ``length``; block_tables: (1, P_max); ``slot`` the request's
+        serve slot.  Writes the chunk's K/V into the pages, carries slot
+        ``slot``'s recurrent state forward, and returns the logits at
+        position ``min(length, start+C) - 1`` (the sampling logits when
+        this is the final chunk), (1, V) f32."""
         h = embed_apply(params["embed"], tokens, self.cfg)
         t = h.shape[1]
         lengths = torch.full((1,), length, dtype=torch.int32,
                              device=h.device)
         paged = {"block_tables": block_tables, "lengths": lengths,
-                 "start": start}
-        for i, p in enumerate(params["layers"]):
-            h = self._block(p, h, cache=cache[i], paged=paged,
+                 "start": start, "length": length, "slot": slot}
+        for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
+            h = self._block(p, h, kind, cache=cache[i], paged=paged,
                             page_size=page_size)
         idx = min(max(length - 1 - start, 0), t - 1)
         logits = unembed_apply(params["unembed"], params["embed"],
@@ -273,14 +334,14 @@ class LM:
                     page_size: Optional[int] = None) -> torch.Tensor:
         """One decode token per row: token (B,).  Paged (``block_tables``
         (B, P_max) given): ``pos`` (B,) write positions with -1 marking
-        idle slots.  Dense cache (static mode): ``pos`` the host int
-        position every row writes.  Returns logits (B, V) f32; the cache
-        is updated in place."""
+        idle slots, whose state rows stay as they are.  Dense cache
+        (static mode): ``pos`` the host int position every row writes.
+        Returns logits (B, V) f32; the cache is updated in place."""
         h = embed_apply(params["embed"], token[:, None], self.cfg)
         paged = None if block_tables is None else {
             "block_tables": block_tables}
-        for i, p in enumerate(params["layers"]):
-            h = self._block(p, h, cache=cache[i], pos=pos, paged=paged,
+        for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
+            h = self._block(p, h, kind, cache=cache[i], pos=pos, paged=paged,
                             page_size=page_size)
         logits = unembed_apply(params["unembed"], params["embed"], h,
                                self.cfg)

@@ -8,9 +8,12 @@ with everyone else's decode, and the decode inner loop runs as a burst
 of ``steps_per_sync`` steps with the state on the device (serve.fused) —
 one host readback per burst.  When the pool runs dry the youngest
 request is preempted: swapped to the host arena when it has room
-(tokens kept, resume mid-stream), recomputed otherwise.  Admission
-consults the pool's prefix index: cached prompt pages attach shared,
-without prefill, with copy-on-write on divergence (serve.kvpool).  A
+(tokens kept, resume mid-stream), recomputed otherwise — always
+recomputed for a model with recurrent state (Mamba), whose state rows
+the arena does not tier; admission resets a slot's state rows
+(kvpool.StatePool).  Admission consults the pool's prefix index: cached
+prompt pages attach shared, without prefill, with copy-on-write on
+divergence (serve.kvpool; no index for recurrent state).  A
 session can cancel a request anywhere in its lifecycle, and retires
 requests whose hard deadline has passed.
 
@@ -42,7 +45,7 @@ import torch
 from repro_torch import random as rnd
 from repro_torch.serve import fused
 from repro_torch.serve.config import ServeConfig
-from repro_torch.serve.kvpool import POOL_KEYS, PagedKVPool
+from repro_torch.serve.kvpool import POOL_KEYS, PagedKVPool, StatePool
 from repro_torch.serve.scheduler import SCHED_KEYS, Scheduler, SeqState
 from repro_torch.serve.sparse import compressed_param_tree, count_packed
 
@@ -124,6 +127,8 @@ class ServeEngine:
         self.chunk_size = config.prefill_chunk
         self.stats: Dict[str, float] = {k: 0 for k in STAT_KEYS}
         self.pool = None
+        self.state_pool = None
+        self._swap_ok = False
         if self.mode == "static":
             return                    # a dense cache per bucket, no pool
         self.pool = PagedKVPool(
@@ -133,6 +138,12 @@ class ServeEngine:
             dtype=torch.int8 if config.kv_dtype == "int8" else None,
             prefix_cache=config.prefix_cache,
             host_swap_pages=config.resolved_swap_pages(), stats=self.stats)
+        state = StatePool(model, self.pool.kv)
+        self.state_pool = state if state.has_state else None
+        # swap preemption preserves KV pages only: recurrent-state rows
+        # live outside the page pool, so those models keep recompute
+        self._swap_ok = (self.state_pool is None
+                         and self.pool.arena is not None)
         # output ring: burst length + 1 for a prefill burst's token 0
         self._ring = self.steps_per_sync + 1
 
@@ -233,10 +244,9 @@ class ContinuousSession:
     def __init__(self, engine: ServeEngine, seed: int = 0):
         self.engine = engine
         engine.pool.reset()
-        # no recurrent-state rows in the port: swap is always allowed
         self.sched = Scheduler(engine.pool, engine.max_batch,
                                max_waiting=engine.config.queue_depth,
-                               stats=engine.stats, swap=True)
+                               stats=engine.stats, swap=engine._swap_ok)
         self.base_key = rnd.key(seed, engine.model.device)
         self._emitted: Dict[int, int] = {}    # uid -> tokens delivered
 
@@ -300,10 +310,14 @@ class ContinuousSession:
         # 0) hard deadlines retire before what they hold shapes admission
         events: List[StreamEvent] = self._expire_deadlines()
         # 1) join-at-prefill: new requests take free slots/pages now
+        #    (recurrent-state slot rows reset to the init state — stale
+        #    state cannot be masked by length as pages are)
         for seq in sched.admit():
             if seq.req.max_new_tokens <= 0:        # nothing to emit
                 sched.finish(seq)
                 events.append(self._event(seq))
+            elif eng.state_pool is not None:
+                eng.state_pool.reset_slot(seq.slot)
         if sched.next_prefill() is None and not sched.decoding():
             return events                          # blocked on slots/pages
         # 2) page capacity for this interval's first write (may preempt)

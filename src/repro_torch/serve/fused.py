@@ -4,7 +4,8 @@ them, the sampling they share, and static mode's bucket loop.
 
 The reference runs the bursts as jitted ``lax.while_loop`` /
 ``fori_loop`` bodies; here they are plain Python loops over
-``LM.decode_step`` whose per-step bookkeeping (sample, record into the
+``LM.decode_step`` (which leaves idle and prefilling slots' recurrent
+state rows as they are) whose per-step bookkeeping (sample, record into the
 output ring, EOS / length done-detection, position advance) is tensor
 ops on the device, so the host never waits inside a burst.  The state
 goes up as one int32 blob and comes back as one blob: one host readback
@@ -190,7 +191,7 @@ def prefill_burst(model, params, kv, tables: torch.Tensor,
     slot = p["slot"]
     logits = model.prefill_chunk(params, p["tokens"], kv, p["start"],
                                  p["length"], tables[slot:slot + 1],
-                                 page_size=page_size)
+                                 page_size=page_size, slot=slot)
     if p["start"] + chunk_size >= p["length"]:
         uid = torch.full((1,), p["uid"], dtype=torch.int32,
                          device=logits.device)

@@ -30,9 +30,20 @@ pool is on the card) and stream them back on resume instead of
 recomputing; shared pages stay on the device, pinned by the victim's
 :class:`SwapRecord`.
 
-The page tensors are updated in place by the model's paged writes and by
-the copies here (the JAX pool is rebuilt functionally and donated
-instead).  The recurrent-state pool is not ported (ROADMAP.md).
+Recurrent mixers (Mamba) carry O(1) state a request instead of
+per-token KV: their leaves in the same per-layer cache list are rows
+indexed by serve slot, and :class:`StatePool` resets a slot's rows at
+admission.  A model without attention layers has no pages at all
+(``has_kv_pages``): prompts cost 0 pages and nothing is paged.  A model
+with recurrent state gets no prefix index — unlike the reference, which
+builds one and then prefills an attached request's recurrent layers from
+the reset state at the first uncovered position (ROADMAP.md, "One fault
+of the reference") — and its engine keeps recompute preemption, since
+the host arena tiers pages only.
+
+The page tensors and state rows are updated in place by the model's
+writes and by the copies here (the JAX pool is rebuilt functionally and
+donated instead).
 """
 
 from __future__ import annotations
@@ -80,7 +91,18 @@ class PagedKVPool:
         self.num_pages = num_pages
         self.pages_per_slot = -(-max_len // page_size)
         self.device = torch.device(model.device)
-        self.kv = model.init_paged_cache(num_pages, page_size, dtype)
+        kinds = model.cfg.period
+        # pure recurrent-state models have no KV pages: prompts cost 0
+        # pages and decode never extends a block table
+        self.has_kv_pages = "attn" in kinds
+        self.has_state = any(k in model.STATE_KINDS for k in kinds)
+        self.kv = model.init_paged_cache(num_pages, page_size, dtype,
+                                         max_slots=max_slots)
+        # the attention layers' page leaves (what copy-on-write and the
+        # swap arena move); state rows are not pages
+        self.page_layers = [layer for layer, kind in zip(self.kv,
+                                                         model.kinds)
+                            if kind == "attn"]
         self.block_tables = np.zeros((max_slots, self.pages_per_slot),
                                      np.int32)
         self._n_pages = np.zeros((max_slots,), np.int32)
@@ -91,11 +113,14 @@ class PagedKVPool:
         self.stats = stats if stats is not None else {}
         for k in POOL_KEYS:
             self.stats.setdefault(k, 0)
+        # no prefix index over recurrent state: an attach skips the
+        # prefill of the covered tokens, which state rows cannot skip
         self.prefix: Optional[PrefixCache] = (
-            PrefixCache(self) if prefix_cache else None)
+            PrefixCache(self) if prefix_cache and self.has_kv_pages
+            and not self.has_state else None)
         self.arena: Optional[HostArena] = (
-            HostArena(self, host_swap_pages) if host_swap_pages > 0
-            else None)
+            HostArena(self, host_swap_pages)
+            if host_swap_pages > 0 and self.has_kv_pages else None)
         self.reset()
 
     # ----------------------------------------------------------- alloc
@@ -109,6 +134,10 @@ class PagedKVPool:
         return len(self._free)
 
     def pages_for(self, n_tokens: int) -> int:
+        """Pages backing ``n_tokens`` KV entries — 0 for pure
+        recurrent-state models (nothing to page)."""
+        if not self.has_kv_pages:
+            return 0
         return -(-n_tokens // self.page_size)
 
     def alloc(self, n: int) -> Optional[List[int]]:
@@ -219,7 +248,7 @@ class PagedKVPool:
     def copy_page(self, src: int, dst: int) -> None:
         """Every layer's ``dst`` page gets ``src``'s contents (int8 pages
         with their scales)."""
-        for layer in self.kv:
+        for layer in self.page_layers:
             for t in layer.values():
                 t[dst] = t[src]
         self.stats["cow_copies"] += 1
@@ -254,7 +283,8 @@ class PagedKVPool:
         host = [p for p in pages if self._ref[p] == 1]
         if not self.arena.has_room(len(host)):
             return None
-        by_page = dict(zip(host, self.arena.gather(self.kv, host)))
+        by_page = dict(zip(host, self.arena.gather(self.page_layers,
+                                                   host)))
         entries = [("host", by_page[p]) if p in by_page else ("kept", p)
                    for p in pages]
         self.release(host)            # the bytes now live in the arena
@@ -276,7 +306,7 @@ class PagedKVPool:
             return False
         t0 = time.monotonic()
         if host_slots:
-            self.arena.scatter(self.kv, host_slots, fresh)
+            self.arena.scatter(self.page_layers, host_slots, fresh)
         it = iter(fresh)
         self.assign(slot, [s if tag == "kept" else next(it)
                            for tag, s in record.entries])
@@ -518,7 +548,7 @@ class HostArena:
         t0 = time.monotonic()
         shapes = []
         total = 0
-        for layer in pool.kv:
+        for layer in pool.page_layers:
             for key, t in layer.items():
                 shape = (capacity, *t.shape[1:])
                 n = t.dtype.itemsize * int(np.prod(shape))
@@ -528,7 +558,7 @@ class HostArena:
         self.pinned = self.device.type == "cuda"
         blob = torch.empty(total, dtype=torch.uint8, pin_memory=self.pinned)
         self._bufs: List[Dict[str, torch.Tensor]] = []
-        per_layer = len(pool.kv[0]) if pool.kv else 0
+        per_layer = len(pool.page_layers[0])
         for i, (key, dt, shape, off, n) in enumerate(shapes):
             if i % per_layer == 0:
                 self._bufs.append({})
@@ -579,3 +609,39 @@ class HostArena:
                         0, idx[j:j + n], buf.narrow(0, a, n).to(
                             self.device, non_blocking=True))
         _wait(self.device)
+
+
+# ----------------------------------------------------------------------
+# recurrent-state slot rows
+# ----------------------------------------------------------------------
+class StatePool:
+    """Slot-recycled fixed-state rows for recurrent mixers (the
+    reference's ``StatePool``).
+
+    A Mamba layer's continuous-batching cache is its dense decode cache
+    with batch = ``max_slots``: slot index == row, and ``decode_step``
+    advances every live row as dense decode does.  What pages get from
+    masking by length, state rows need explicitly: a retired request's
+    rows would leak into the next occupant of the slot, so
+    :meth:`reset_slot` overwrites them with the block's init state at
+    admission — recompute preemption re-admits through the same reset,
+    which is what makes the replayed prefix reproduce the stream.
+
+    The rows live in the pool's per-layer cache list; this class knows
+    which layers hold state (``model.STATE_KINDS``).  A Mamba block's init
+    state is zeros (``ssm.mamba_cache_init``)."""
+
+    def __init__(self, model, kv: List[Dict[str, torch.Tensor]]):
+        self.entries = [layer for layer, kind in zip(kv, model.kinds)
+                        if kind in model.STATE_KINDS]
+
+    @property
+    def has_state(self) -> bool:
+        return bool(self.entries)
+
+    def reset_slot(self, slot: int) -> None:
+        """Overwrite slot ``slot``'s state rows with the init state, in
+        place (the engine's cache tensors stay the same objects)."""
+        for layer in self.entries:
+            for t in layer.values():
+                t[slot].zero_()

@@ -26,6 +26,10 @@ generated tokens are dropped and the prefix is replayed on re-admission
 (the per-(uid, step) keys reproduce the same tokens).  Either way the victim
 re-queues with its original arrival.
 
+A model with recurrent state is preempted by recompute only (the engine
+turns swap off), and one without attention layers has no pages: the
+page passes below are no-ops for it.
+
 Admission consults the pool's prefix index when there is one: matched
 full pages attach read-only, a matched tail attaches through an eager
 copy-on-write, and prefill starts at the first uncovered position.  The
@@ -92,8 +96,9 @@ class Scheduler:
                  swap: bool = False):
         self.pool = pool
         self.max_waiting = max_waiting
-        # swap preemption needs the pool's host arena; a bare Scheduler
-        # stays recompute-only
+        # swap preemption needs the pool's host arena and no recurrent
+        # state rows (the engine decides); a bare Scheduler stays
+        # recompute-only
         self.swap_enabled = swap and pool.arena is not None
         self.stats = stats if stats is not None else {}
         for k in SCHED_KEYS:
@@ -212,7 +217,10 @@ class Scheduler:
     def ensure_decode_capacity(self) -> None:
         """Before a decode step: every decoding request writing position
         ``n_written`` must have that page mapped and exclusively owned.
-        Pool exhausted → preempt the youngest admitted request, retry."""
+        Pool exhausted → preempt the youngest admitted request, retry.
+        A no-op for pure recurrent-state models (nothing pages)."""
+        if not self.pool.has_kv_pages:
+            return
         ps = self.pool.page_size
         for seq in list(self.running):       # oldest first
             if seq.state is not SeqState.RUNNING:
@@ -237,7 +245,10 @@ class Scheduler:
     def extend_decode_capacity(self, k: int) -> int:
         """Burst lookahead: map pages so every decoding request can write
         up to ``k`` more tokens without a host sync.  Never preempts —
-        the burst shortens instead.  Returns the safe burst length."""
+        the burst shortens instead.  Returns the safe burst length (``k``
+        for pure recurrent-state models)."""
+        if not self.pool.has_kv_pages:
+            return k
         k_safe, _ = self._extend(k, self.decoding(), activating=None)
         return k_safe
 
@@ -249,6 +260,8 @@ class Scheduler:
         set to the prompt length).  ``can_decode`` is False when not even
         one decode write of the activating slot can be backed; it then
         activates frozen and waits for the next capacity pass."""
+        if not self.pool.has_kv_pages:
+            return k, True
         return self._extend(k, self.decoding(), activating)
 
     def _extend(self, k: int, decoding: List[Sequence],

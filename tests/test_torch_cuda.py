@@ -174,7 +174,10 @@ SERVE_LENGTHS = [96, 70, 65, 0, 33, 128, 17, 81]       # chip_smoke's batch
     # a long context: two ring stages a split
     (1, 4, 1, 64, 16, 256, None, False, torch.bfloat16, [4000]),
     # hd off the 16-byte lane slice: the scalar route
-    (2, 2, 2, 20, 8, 3, None, False, torch.float32, None)])
+    (2, 2, 2, 20, 8, 3, None, False, torch.float32, None),
+    # Jamba's attention slot: KV 8, G 8, hd 128 (bf16 and int8 pages)
+    (8, 8, 8, 128, 16, 8, None, False, torch.bfloat16, SERVE_LENGTHS),
+    (8, 8, 8, 128, 16, 8, None, True, torch.bfloat16, SERVE_LENGTHS)])
 def test_paged_attn_matches_plain(gen, b, kv, g, hd, ps, pmax, window, int8,
                                   dtype, lengths):
     """Against the plain version on the same values in f32 (bf16 inputs
@@ -566,3 +569,91 @@ def test_differentiable_route_trains_on_card(gen):
     with torch.no_grad():
         plain, _ = model.loss_fn(params, batch)
     assert abs(float(loss.detach()) - float(plain)) <= 1e-4 * float(plain)
+
+
+@pytest.mark.parametrize("m,k,n,act", [(8, 8192, 24576, "silu"),
+                                       (8, 24576, 8192, None),
+                                       (256, 8192, 24576, None),
+                                       (256, 24576, 8192, None)])
+def test_nm_spmm_at_jamba_ffn_shapes(gen, m, k, n, act):
+    """Jamba's FFN (d_model 8192, d_ff 24576) packed 2:4, bf16: the
+    decode kernel's cluster K-split at K = 24576 and the tiled kernel,
+    within the f32 tolerance of the plain version, the same bits twice."""
+    vals, idx = _packed(gen, k, n, torch.bfloat16)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    if m <= 128:
+        got = nm_spmm_decode(x, vals, idx, None, act)
+        assert nm_spmm_decode.last_kernel == "tensor cores"
+        _close(got, nm_spmm_decode_plain(x, vals, idx, None, act))
+        assert torch.equal(got, nm_spmm_decode(x, vals, idx, None, act))
+    else:
+        got = nm_spmm(x, vals, idx)
+        assert nm_spmm.last_kernel == "tensor cores"
+        _close(got, nm_spmm_plain(x, vals, idx))
+        assert torch.equal(got, nm_spmm(x, vals, idx))
+
+
+def _hybrid_cfg(dtype="float32"):
+    from repro_torch.models.base import ArchConfig
+
+    return ArchConfig(name="hybrid-cuda-test", family="hybrid",
+                      num_layers=4, d_model=64, num_heads=4, num_kv_heads=2,
+                      head_dim=16, d_ff=128, vocab_size=256,
+                      period=("mamba", "attn"), mlp_kind="swiglu",
+                      ssm_mlp=True, ssm_state=4, ssm_conv=4, dtype=dtype)
+
+
+def test_hybrid_serves_on_card_continuous_equals_static(gen):
+    """A 2:4-pruned Mamba/attention hybrid on the card: continuous (with
+    a starved pool too) and static greedy streams equal; the packed FFN
+    and attention linears launch the 2:4 kernels, the attention slot
+    paged_attn; recompute preemption only, no prefix index."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    model = LM(_hybrid_cfg(), device="cuda")
+    params = prune_linears(model.init(gen), "2:4")
+    params["unembed"]["head"] = params["unembed"]["head"] * 8.0
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 256, size=(4, 7, 12)[i % 3],
+                                               dtype=np.int32),
+                    max_new_tokens=(2, 5, 9, 14)[i % 4]) for i in range(8)]
+    static = ServeEngine(model, params, max_batch=4, max_len=48,
+                         mode="static").generate(reqs)
+    for kw in (dict(), dict(num_pages=6)):
+        eng = ServeEngine(model, params, max_batch=4, max_len=48,
+                          page_size=8, prefill_chunk=8, **kw)
+        assert eng.pool.prefix is None and not eng._swap_ok
+        ops.reset_launch_counts()
+        res = eng.generate(reqs)
+        counts = ops.launch_counts()
+        assert counts["nm_spmm_decode"] > 0 and counts["paged_attn"] > 0
+        for a, b in zip(res, static):
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+        assert eng.stats["preempt_swap"] == 0
+        if kw:
+            assert eng.stats["preempt_recompute"] > 0
+
+
+def test_mamba_differentiable_route_on_card(gen):
+    """The tiny Mamba LM's training route on the card: every leaf gets a
+    finite gradient, no kernel launches, the loss equals the eval
+    route's."""
+    from repro_torch import random as rnd
+    from repro_torch.configs.paper_tiny_lm import MAMBA
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import tree_leaves
+
+    model = LM(MAMBA, device="cuda")
+    params = model.init(rnd.key(0, "cuda"))
+    batch = DataPipeline(MAMBA, 4, 32, device="cuda").batch_at(0)
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    ops.reset_launch_counts()
+    loss, _ = model.loss_fn(params, batch, differentiable=True)
+    grads = torch.autograd.grad(loss, leaves)
+    assert not any(ops.launch_counts().values())
+    assert all(torch.isfinite(g).all() for g in grads)
+    with torch.no_grad():
+        plain, _ = model.loss_fn(params, batch)
+    assert abs(float(loss.detach()) - float(plain)) <= 1e-5 * float(plain)

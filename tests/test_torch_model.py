@@ -226,6 +226,7 @@ def test_load_pytree_reads_reference_checkpoint(tmp_path, dtype):
 def test_lm_refuses_unported_families():
     with pytest.raises(ValueError, match="ROADMAP"):
         LM(configs.get_smoke("qwen1_5_0_5b").__class__(
-            name="ssm", family="ssm", num_layers=2, d_model=32, num_heads=2,
-            num_kv_heads=2, d_ff=0, vocab_size=64, period=("mamba",)),
+            name="xlstm", family="ssm", num_layers=2, d_model=32,
+            num_heads=2, num_kv_heads=2, d_ff=0, vocab_size=64,
+            period=("mlstm",)),
            device="cpu")

@@ -581,10 +581,29 @@ def test_engine_prefix_parity_sampled():
     pass
 
 
-@pytest.mark.skip(reason="recurrent-state archs are not ported (ROADMAP.md "
-                  "Queue 1 item 5: Mamba; item 7: the other families)")
 def test_swap_disabled_for_recurrent_state():
-    pass
+    """Hybrid/recurrent archs keep recompute preemption: their state
+    rows live outside the page pool, so a KV-only swap would resume
+    from the wrong state (kvpool.StatePool docstring)."""
+    from repro_torch import random as rnd
+    from repro_torch.models.base import ArchConfig
+
+    cfg = ArchConfig(name="hyb-swap-test", family="hybrid", num_layers=4,
+                     d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                     d_ff=128, vocab_size=256, period=("mamba", "attn"),
+                     ssm_state=4, dtype="float32")
+    model = LM(cfg, device="cpu")
+    params = model.init(rnd.key(1))
+    eng = ServeEngine(model, params, max_batch=2, max_len=32,
+                      page_size=8, host_swap_pages=64)
+    assert eng.state_pool is not None
+    assert eng._swap_ok is False
+    # and a tight run still completes via recompute
+    reqs = [Request(uid=i, prompt=np.arange(1, 6, dtype=np.int32),
+                    max_new_tokens=8) for i in range(3)]
+    res = eng.generate(reqs)
+    assert all(len(r.tokens) == 8 for r in res)
+    assert eng.stats["preempt_swap"] == 0
 
 
 @pytest.mark.skip(reason="meshes are not ported (ROADMAP.md Queue 1 item "
