@@ -7,7 +7,9 @@ swap, cancel), sampled and in static mode, run the pruning launcher's
 default path — the pipelined engine, Algorithm 1 with MM 2:4 — on it at
 full width and depth, train, prune and serve the tiny LM with the port's
 own trainer, serve Jamba-1.5-Large's blocks without the experts at full
-width, and run the paper's Table 3 on the tiny Mamba LM.
+width, run the paper's Table 3 on the tiny Mamba LM, and serve the
+pruned Qwen1.5-0.5B over HTTP/SSE through the front end (two replicas,
+the supervisor, injected faults, the CLI's server).
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -161,11 +163,29 @@ Phases (any failure exits non-zero; no exception is swallowed):
      dense and pruned perplexity and last-token accuracy on the 8 eval
      batches of ``benchmarks/common.py`` (finite, 2:4 where asked; SM < SS
      reported, not gated); the MM model served greedily, continuous
-     against static (equal except at near ties, LOGIT_TOL).
+     against static (equal except at near ties, LOGIT_TOL);
+  11. the serving front end: phase 3's model and engine settings behind
+     ``launch.serve.make_router`` — two replicas on one registry, the
+     HTTP/SSE Server on 127.0.0.1 (port 0) and the Supervisor.  11a: 16
+     SSE clients (64-token prompts, 32 new, greedy), every stream in more
+     than one frame and equal to its JSON response and to one engine's
+     ``generate``; 4 prompts repeated one after another reuse prefix
+     pages; /healthz, 404, /metrics (both replicas' TTFT counts, host
+     syncs and tokens > 0, the preemption series), /stats ``_summary``;
+     aggregate tok/s and idle share of one replica, then two, profiled,
+     on 16 fresh requests; TTFT / TPOT from the histograms; the trace's
+     request spans equal to the requests.  11b: engine_step on r0's third
+     burst and a client that hangs up mid-stream — the other streams
+     equal 11a's, the restart, failover, cancel and recovery series
+     tick, the pools' invariants hold and no arena slot leaks.  11c: the
+     16 sampled (temperature 0.8, top-p 0.9) through two replicas equal
+     one engine's ``generate``.  11d: ``python -m
+     repro_torch.launch.serve --server --port 0 --replicas 2`` answers a
+     streamed completion and exits 0 on SIGTERM after "draining...".
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
-shapes, and its launches over phases 3-10), the nvidia-smi
+shapes, and its launches over phases 3-11), the nvidia-smi
 line, and last the ``{"ok": true, "device": {...}}`` line.  Longer tables go to
 ``chiprun_out/chip_smoke.txt``.
 """
@@ -178,6 +198,7 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -237,14 +258,16 @@ def fail(msg: str) -> None:
 # timing
 # ----------------------------------------------------------------------
 def _device_us(prof) -> list:
-    """Per-kernel device durations (µs, name) from a profiler run."""
+    """Per-kernel device durations (µs, name) from a profiler run, read
+    off the raw Kineto events: ``prof.events()`` builds a Python event
+    tree first, tens of µs of host time an event — most of a phase's
+    wall once a run launches 10⁵ kernels."""
     import torch
 
-    out = []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out.append((e.time_range.elapsed_us(), e.name))
-    return out
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.duration_ns() / 1e3, e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_user_annotation()]
 
 
 def device_ms(fn, arg_sets, n: int = 30, reps: int = 5) -> float:
@@ -2264,8 +2287,7 @@ def hybrid_full_width(gen, rows):
     pre = run(f"8 requests, {STARVED_PAGES}-page pool", starved, reqs)
     # the stem pair: one request after the other, so that a prefix index
     # (were there one) would hold the first's pages when the second comes
-    for k in eng.stats:
-        eng.stats[k] = 0
+    before = dict(eng.stats)
     session = eng.session()
     got = {}
     for r in pair:
@@ -2274,7 +2296,7 @@ def hybrid_full_width(gen, rows):
             for ev in session.step():
                 if ev.finished:
                     got[ev.uid] = ev.result.tokens
-    hits = eng.stats["prefix_hit_tokens"]          # session-only counts
+    hits = eng.stats["prefix_hit_tokens"] - before["prefix_hit_tokens"]
     pair_static = _streams(static.generate(pair))
     counts = ops.launch_counts()                    # ... and ends
     hbm = torch.cuda.max_memory_allocated()
@@ -3006,6 +3028,454 @@ def prune_layer_f32():
 
 
 # ----------------------------------------------------------------------
+# phase 11: the serving front end on the card
+# ----------------------------------------------------------------------
+FRONT_KNOBS = dict(max_batch=8, max_len=128, page_size=16, prefill_chunk=32,
+                   steps_per_sync=8)          # phase 3's engine
+FRONT_CLI = ["--arch", "qwen1.5-0.5b", "--magnitude-24", "--sparse"]
+FRONT_N = 16                                   # requests a wave
+
+
+async def _http(host, port, method, path, obj=None, hang_up=False):
+    """One HTTP/1.1 exchange with the in-process server: (status, head,
+    body).  ``hang_up``: close the connection after the first SSE frame
+    (a client that leaves mid-stream)."""
+    import asyncio
+
+    body = json.dumps(obj).encode() if obj is not None else b""
+    r, w = await asyncio.open_connection(host, port)
+    w.write(f"{method} {path} HTTP/1.1\r\nHost: chip\r\n"
+            f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    await w.drain()
+    if hang_up:
+        head = await r.readuntil(b"\r\n\r\n")
+        await r.readuntil(b"\n\n")
+        w.close()
+        return int(head.split()[1]), head, b""
+    data = await r.read()
+    w.close()
+    head, _, rest = data.partition(b"\r\n\r\n")
+    return int(head.split()[1]), head, rest
+
+
+def _serve_http(router, scenario):
+    """``scenario(host, port)`` against a Server over ``router`` on
+    127.0.0.1, port 0; the listener closes after it."""
+    import asyncio
+
+    from repro_torch.serve.frontend import Server
+
+    async def run():
+        srv = Server(router, port=0)
+        host, port = await srv.start()
+        try:
+            return await scenario(host, port)
+        finally:
+            srv._server.close()
+            await srv._server.wait_closed()
+
+    return asyncio.run(run())
+
+
+def _totals(router, name):
+    """{replica label: value} of one counter family over the router's
+    registry."""
+    out = {}
+    for reg in router.registries():
+        fam = reg.get(name)
+        for labels, child in (fam.children() if fam is not None else []):
+            out[labels[0]] = out.get(labels[0], 0) + child.value
+    return out
+
+
+def _idle_wait(router, what):
+    deadline = time.monotonic() + 60
+    while any(r.load for r in router.replicas):
+        if time.monotonic() > deadline:
+            fail(f"phase 11 {what}: requests still in flight "
+                 f"{[r.load for r in router.replicas]}")
+        time.sleep(0.01)
+
+
+def _pool_checks(router, what):
+    """The pools' invariants and the arenas' free slots, each under its
+    replica's lock (no worker steps meanwhile)."""
+    for rep in router.replicas:
+        with rep._lock:
+            pool = rep.engine.pool
+            pool.check_invariants()
+            if pool.arena is not None and (pool.arena.free_slots
+                                           != pool.arena.capacity):
+                fail(f"phase 11 {what}: {rep.name} leaked arena slots: "
+                     f"{pool.arena.free_slots} of {pool.arena.capacity}")
+
+
+def frontend_on_card(smi, cli=FRONT_CLI):
+    """Phase 11: Qwen1.5-0.5B (full width and depth, bf16, magnitude 2:4,
+    packed) behind the front end — two replicas on one Obs, the HTTP/SSE
+    Server on 127.0.0.1 and the Supervisor:
+      11a. 16 SSE clients (64-token prompts, 32 new, greedy): each stream
+           in more than one frame, equal to its non-stream JSON and to one
+           engine's ``generate``; 4 prompts repeated one after another must
+           reuse prefix pages; /healthz, 404, /metrics (both replicas'
+           TTFT counts, host syncs and tokens > 0; the preemption series),
+           /stats with ``_summary``; aggregate tok/s and idle share of one
+           replica, then two, under the profiler, 16 fresh prompts each;
+           the trace's request spans;
+      11b. chaos: engine_step:after=2,replica=r0 and one client hanging up
+           mid-stream — the other 15 streams equal 11a's, r0 restarted,
+           requests failed over and cancelled, recovery observed, the
+           pools' invariants and no arena slot leaked;
+      11c. the 16 sampled (temperature 0.8, top-p 0.9) through two
+           replicas equal to one engine's ``generate``;
+      11d. ``python -m repro_torch.launch.serve --server --port 0
+           --replicas 2``, started before 11c and up beside it, answers a
+           streamed completion and exits 0 on SIGTERM after "draining...".
+    Returns the serving kernels' launches over 11a-11c and the numbers."""
+    import asyncio
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_router
+    from repro_torch.models.transformer import LM
+    from repro_torch.obs.metrics import merge_histograms
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.frontend import (CompletionRequest, Router,
+                                            Supervisor, sse_decode)
+
+    cfg = get_config("qwen1.5-0.5b")
+    model = LM(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    one = ServeEngine(model, prune_linears(model.init(gen), "2:4"),
+                      **FRONT_KNOBS)
+    params = one.params                        # packed once, shared
+    rng = np.random.default_rng(11)
+
+    def wave(uid0=0, n=FRONT_N):
+        return [Request(uid=uid0 + i, prompt=rng.integers(
+            0, cfg.vocab_size, 64, dtype=np.int32), max_new_tokens=32)
+            for i in range(n)]
+
+    def body(r, **kw):
+        return dict(dict(prompt=[int(t) for t in r.prompt],
+                         max_tokens=r.max_new_tokens, uid=r.uid), **kw)
+
+    def creqs(reqs):
+        return [CompletionRequest(**body(r)) for r in reqs]
+
+    a = wave()
+    want = {r.uid: r.tokens.tolist() for r in one.generate(a)}
+    out = {}
+    totals = {k: 0 for k in SERVE_KERNELS}
+
+    def count(c):
+        for k in SERVE_KERNELS:
+            totals[k] += c[k]
+
+    # ---------------------------------------------------------- 11a
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    router = make_router(model, params, ServeConfig(replicas=2, trace=True,
+                                                    **FRONT_KNOBS))
+    for rep in router.replicas:
+        say(f"  {rep.name}: {arena_line(rep.engine)} ({smi})")
+    ops.reset_launch_counts()
+    lat = {}
+
+    async def scenario_a(host, port):
+        t0 = time.monotonic()
+        sse = await asyncio.gather(*[_http(host, port, "POST",
+                                           "/v1/completions",
+                                           body(r, stream=True)) for r in a])
+        lat["sse_wall_s"] = time.monotonic() - t0
+        for key, name in (("ttft", "serve_ttft_seconds"),
+                          ("tpot", "serve_tpot_seconds")):
+            h = merge_histograms([reg.get(name)
+                                  for reg in router.registries()])
+            lat[key] = dict(count=h.count, p50_ms=h.quantile(0.5) * 1e3,
+                            p99_ms=h.quantile(0.99) * 1e3)
+        whole = await asyncio.gather(*[_http(host, port, "POST",
+                                             "/v1/completions", body(r))
+                                       for r in a])
+        reused0 = sum(_totals(router,
+                              "serve_prefix_pages_reused_total").values())
+        seq = [await _http(host, port, "POST", "/v1/completions",
+                           body(r, uid=100 + r.uid)) for r in a[:4]]
+        reused = int(sum(_totals(router, "serve_prefix_pages_reused_total")
+                         .values()) - reused0)
+        gets = {p: await _http(host, port, "GET", p)
+                for p in ("/healthz", "/nope", "/metrics", "/stats")}
+        return sse, whole, seq, reused, gets
+
+    sse, whole, seq, reused, gets = _serve_http(router, scenario_a)
+    c = ops.launch_counts()
+    count(c)
+    hbm = torch.cuda.max_memory_allocated()
+    frames = []
+    for r, (status, _, rest) in zip(a, sse):
+        chunks = sse_decode(rest)
+        toks = [t for ch in chunks for t in ch.tokens]
+        frames.append(len(chunks))
+        if status != 200 or len(chunks) < 2 or not chunks[-1].finished:
+            fail(f"phase 11a: request {r.uid}: status {status}, "
+                 f"{len(chunks)} frames")
+        if toks != want[r.uid]:
+            fail(f"phase 11a: request {r.uid}'s stream differs from one "
+                 f"engine's generate: {toks} vs {want[r.uid]}")
+    for r, (status, _, rest) in zip(a, whole):
+        if status != 200 or json.loads(rest)["tokens"] != want[r.uid]:
+            fail(f"phase 11a: request {r.uid}'s JSON response differs from "
+                 "its stream")
+    for r, (status, _, rest) in zip(a, seq):
+        if status != 200 or json.loads(rest)["tokens"] != want[r.uid]:
+            fail(f"phase 11a: repeated prompt {r.uid} gave another stream")
+    if reused <= 0:
+        fail("phase 11a: the repeated prompts reused no prefix page")
+    status, _, health = gets["/healthz"]
+    if status != 200 or not all(v["healthy"] for v in
+                                json.loads(health).values()):
+        fail(f"phase 11a: /healthz answered {status} {health!r}")
+    if gets["/nope"][0] != 404:
+        fail(f"phase 11a: /nope answered {gets['/nope'][0]}")
+    metrics = gets["/metrics"][2].decode()
+    for name in ("serve_ttft_seconds_count", "serve_host_syncs_total",
+                 "serve_tokens_total"):
+        for lbl in ("r0", "r1"):
+            m = re.search(rf'^{name}\{{replica="{lbl}"\}} (\S+)$', metrics,
+                          re.M)
+            if m is None or float(m.group(1)) <= 0:
+                fail(f"phase 11a: /metrics has no {name} > 0 for {lbl}")
+    for name in ("serve_preempt_swap_total", "serve_preempt_recompute_total"):
+        if f"# TYPE {name} counter" not in metrics:
+            fail(f"phase 11a: /metrics lacks {name}")
+    stats = json.loads(gets["/stats"][2])
+    if "_summary" not in stats or "ttft_ms_p50" not in stats["_summary"]:
+        fail("phase 11a: /stats has no _summary")
+    if c["nm_spmm_decode"] <= 0 or c["paged_attn"] <= 0:
+        fail(f"phase 11a: launches {c}")
+    toks = sum(len(v) for v in want.values())
+    say(f"  11a: {FRONT_N} SSE streams ({min(frames)}-{max(frames)} frames "
+        f"each) equal to one engine's generate and to their JSON responses;"
+        f" SSE wave {toks} tokens in {lat['sse_wall_s']:.3f} s = "
+        f"{toks / lat['sse_wall_s']:.1f} tok/s over HTTP; TTFT p50 "
+        f"{lat['ttft']['p50_ms']:.1f} ms p99 {lat['ttft']['p99_ms']:.1f} ms, "
+        f"TPOT p50 {lat['tpot']['p50_ms']:.2f} ms (n={lat['ttft']['count']},"
+        f" histograms); 4 repeated prompts reused {reused} prefix pages; "
+        f"launches {c}; HBM held with two replicas {hbm / 2**30:.3f} GiB "
+        f"({smi})")
+    # one replica against two, 16 fresh prompts each, once each and both
+    # under the profiler (a wave of 8 would fit one replica's batch, and a
+    # second replica could not win); the two-replica leg's idle share is
+    # the one this phase reports
+    one_router = Router([router.replicas[0]])
+    rates, prof = {}, {}
+    for n, r_ in ((1, one_router), (2, router)):
+        reqs = wave(1000 * n)
+        ops.reset_launch_counts()
+        res, p_wall, busy, n_k = profiled(
+            lambda: r_.complete(creqs(reqs)))
+        count(ops.launch_counts())
+        n_tok = sum(len(x.tokens) for x in res)
+        if n_tok != FRONT_N * 32:
+            fail(f"phase 11a: {n} replica(s) emitted {n_tok} tokens")
+        rates[n] = n_tok / p_wall
+        prof[n] = dict(wall_s=p_wall, busy_s=busy, kernels=n_k)
+        say(f"  {n} replica(s), Router.complete of {FRONT_N} requests under "
+            f"the profiler: {rates[n]:.3f} tok/s, wall {p_wall:.3f} s, "
+            f"device busy {busy:.3f} s, idle share {1 - busy / p_wall:.3f}, "
+            f"{n_k} kernels ({smi})")
+    ratio = rates[2] / rates[1]
+    say(f"  aggregate tok/s, two replicas / one = {ratio:.3f} ({smi})")
+    router.drain(timeout=60)
+    n_req = FRONT_N * 2 + 4 + 2 * FRONT_N
+    tracer = router.replicas[0].engine.obs.tracer
+    spans = len(tracer.events("request", ph="b"))
+    ends = len(tracer.events("request", ph="e"))
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    n_ev = tracer.export(str(ROOT / "chiprun_out" / "phase11_trace.json"))
+    if spans != n_req or ends != n_req:
+        fail(f"phase 11a: {spans} request spans opened and {ends} closed "
+             f"for {n_req} requests")
+    say(f"  trace: {spans} request spans for {n_req} requests, {n_ev} events"
+        f" (chiprun_out/phase11_trace.json; {smi})")
+    router.close()
+    out["11a"] = dict(frames=frames, sse_wall_s=lat["sse_wall_s"],
+                      ttft=lat["ttft"], tpot=lat["tpot"], reused=reused,
+                      launches=c, hbm_bytes=hbm, tok_s=rates, ratio=ratio,
+                      profiled=prof,
+                      arena_bytes=[r.engine.pool.arena.nbytes
+                                   for r in router.replicas],
+                      arena_alloc_s=[r.engine.pool.arena.alloc_s
+                                     for r in router.replicas])
+    del router, one_router
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------- 11b
+    plan = FaultPlan.parse(["engine_step:after=2,replica=r0"])
+    chaos = make_router(model, params, ServeConfig(replicas=2, faults=plan,
+                                                   **FRONT_KNOBS))
+    sup = Supervisor(chaos, poll_s=0.05)
+    sup.start()
+    gone = a[-1].uid
+
+    async def scenario_b(host, port):
+        return await asyncio.gather(*[
+            _http(host, port, "POST", "/v1/completions",
+                  body(r, stream=True), hang_up=r.uid == gone) for r in a])
+
+    try:
+        ops.reset_launch_counts()
+        outs = _serve_http(chaos, scenario_b)
+        _idle_wait(chaos, "b")
+        count(ops.launch_counts())
+    finally:
+        sup.stop()
+    for r, (status, _, rest) in zip(a, outs):
+        if r.uid == gone:
+            continue
+        toks = [t for ch in sse_decode(rest) for t in ch.tokens]
+        if status != 200 or toks != want[r.uid]:
+            fail(f"phase 11b: request {r.uid}'s stream differs from 11a's "
+                 f"under the injected crash: {toks}")
+    restarts = _totals(chaos, "replica_restarts_total")
+    failed_over = sum(_totals(chaos, "requests_failed_over_total").values())
+    cancelled = sum(_totals(chaos, "requests_cancelled_total").values())
+    rec = merge_histograms([reg.get("serve_recovery_seconds")
+                            for reg in chaos.registries()])
+    if (plan.fired.get("engine_step") != 1 or restarts.get("r0", 0) < 1
+            or failed_over < 1 or cancelled < 1 or rec.count < 1):
+        fail(f"phase 11b: fired {plan.fired}, restarts {restarts}, failed "
+             f"over {failed_over}, cancelled {cancelled}, recoveries "
+             f"{rec.count}")
+    _pool_checks(chaos, "b")
+    say(f"  11b: engine_step fired on r0, restarts {restarts}, failed over "
+        f"{failed_over:.0f}, cancelled {cancelled:.0f}; recovery "
+        f"{rec.sum:.4f} s over {rec.count} (serve_recovery_seconds); "
+        f"{FRONT_N - 1} surviving streams equal 11a's; pools sound, no "
+        f"arena slot leaked ({smi})")
+    out["11b"] = dict(restarts=restarts, failed_over=failed_over,
+                      cancelled=cancelled, recovery_s=rec.sum,
+                      recoveries=rec.count)
+    chaos.close()
+    del chaos
+    torch.cuda.empty_cache()
+
+    # 11d's server process comes up while 11c runs (11c times nothing)
+    cli_proc, cli_lines, cli_ready, cli_up = _start_cli_server(cli)
+    try:
+        _sampled_parity(model, params, a, want, creqs, count, smi)
+        _cli_server(cli_proc, cli_lines, cli_ready, cli_up, smi)
+    finally:
+        if cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.wait()
+    del one
+    torch.cuda.empty_cache()
+    out["11d"] = dict(cli_up)
+    return totals, out
+
+
+def _sampled_parity(model, params, a, want, creqs, count, smi):
+    """11c: the 16 at temperature 0.8, top-p 0.9 through two replicas
+    equal one engine's ``generate``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import make_router
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import ServeEngine
+
+    sampled = dict(FRONT_KNOBS, temperature=0.8, top_p=0.9)
+    ops.reset_launch_counts()
+    s_one = ServeEngine(model, params, **sampled)
+    s_want = {r.uid: r.tokens.tolist() for r in s_one.generate(a)}
+    s_router = make_router(model, params, ServeConfig(replicas=2,
+                                                      **sampled))
+    got = s_router.complete(creqs(a))
+    s_router.drain(timeout=60)
+    count(ops.launch_counts())
+    placed = sorted({x.replica for x in got})
+    for x in got:
+        if x.tokens != s_want[x.uid]:
+            fail(f"phase 11c: sampled request {x.uid} differs between two "
+                 "replicas and one engine's generate")
+    if s_want == want or placed != ["r0", "r1"]:
+        fail(f"phase 11c: sampled streams equal the greedy ones, or one "
+             f"replica served all ({placed})")
+    say(f"  11c: {FRONT_N} sampled streams (temperature 0.8, top-p 0.9) "
+        f"through r0 and r1 equal one engine's generate ({smi})")
+    s_router.close()
+    del s_router, s_one
+    torch.cuda.empty_cache()
+
+
+def _start_cli_server(cli):
+    """Start ``python -m repro_torch.launch.serve ... --server --port 0
+    --replicas 2``; a thread reads its output and notes when it says
+    where it serves."""
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *cli,
+         "--server", "--port", "0", "--replicas", "2"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, ready, up = [], threading.Event(), {}
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line)
+            m = re.match(r"serving on http://([\d.]+):(\d+)", line)
+            if m and not ready.is_set():
+                up.update(host=m.group(1), port=int(m.group(2)),
+                          up_s=time.monotonic() - t0)
+                ready.set()
+        ready.set()                              # the process ended
+
+    up["thread"] = threading.Thread(target=pump, daemon=True)
+    up["thread"].start()
+    return proc, lines, ready, up
+
+
+def _cli_server(proc, lines, ready, up, smi):
+    """11d: the CLI's server answers one streamed completion and exits 0
+    on SIGTERM after "draining..."."""
+    import asyncio
+
+    from repro_torch.serve.frontend import sse_decode
+
+    ready.wait(timeout=300)
+    if "port" not in up:
+        fail(f"phase 11d: the server did not come up (exit {proc.poll()}): "
+             f"{''.join(lines)}")
+    status, _, rest = asyncio.run(_http(
+        up["host"], up["port"], "POST", "/v1/completions",
+        {"prompt": [3, 1, 4, 1, 5, 9, 2, 6], "max_tokens": 12,
+         "stream": True}))
+    chunks = sse_decode(rest)
+    n_tok = sum(len(ch.tokens) for ch in chunks)
+    if status != 200 or not chunks or not chunks[-1].finished or n_tok != 12:
+        fail(f"phase 11d: the CLI server answered {status}, {n_tok} tokens")
+    proc.send_signal(signal.SIGTERM)
+    proc.wait(timeout=120)
+    up.pop("thread").join(timeout=10)
+    text = "".join(lines)
+    if proc.returncode != 0 or "draining..." not in text:
+        fail(f"phase 11d: SIGTERM gave exit {proc.returncode}: {text!r}")
+    up["frames"] = len(chunks)
+    say(f"  11d: the CLI server came up in {up['up_s']:.1f} s (beside 11c), "
+        f"streamed {n_tok} tokens in {len(chunks)} frames, and drained on "
+        f"SIGTERM (exit 0; {smi})")
+
+
+# ----------------------------------------------------------------------
 def main(argv) -> int:
     """``argv`` empty runs every phase; ``--train-mamba OUT [STOP_AT]`` is
     phase 10's trainer process."""
@@ -3128,6 +3598,17 @@ def main(argv) -> int:
         "0.5 and MM 2:4, served continuous against static")
     counts_10, table3 = mamba_table3()
     counts = {k: counts[k] + counts_9[k] + counts_10[k] for k in counts}
+    torch.cuda.empty_cache()
+
+    say(f"phase 11: the serving front end — Qwen1.5-0.5B, 24 layers, bf16, "
+        f"2:4-packed, two replicas on one registry behind the HTTP/SSE "
+        f"server and the supervisor; chaos, sampled, the CLI ({smi})")
+    t11 = time.monotonic()
+    counts_11, frontend = frontend_on_card(smi)
+    say(f"  phase 11 took {time.monotonic() - t11:.1f} s; serving kernels' "
+        f"launches over 11a-11c: {counts_11}")
+    for k in SERVE_KERNELS:
+        counts[k] += counts_11[k]
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -3186,7 +3667,8 @@ def main(argv) -> int:
                             "serial_vs_pipelined": cmp_run,
                             "train_prune_serve": trained,
                             "hybrid_full_width": hybrid,
-                            "table3": table3}) + "\n")
+                            "table3": table3, "frontend": frontend},
+                           default=str) + "\n")
     say(f"all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

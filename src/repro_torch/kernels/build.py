@@ -27,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -58,6 +59,8 @@ SIGNATURES = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()              # one build, whichever thread asks
+_COUNT_LOCK = threading.Lock()
 build_seconds: Optional[float] = None     # wall time of this process's build
 
 
@@ -118,19 +121,31 @@ def library() -> ctypes.CDLL:
     global _LIB, build_seconds
     if _LIB is not None:
         return _LIB
-    out_dir = BUILD_ROOT / _digest()
-    path = out_dir / "librepro_torch_kernels.so"
-    if not path.exists():
-        t0 = time.monotonic()
-        path = _build(out_dir)
-        build_seconds = time.monotonic() - t0
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _LIB = lib
-    return lib
+    with _LIB_LOCK:
+        if _LIB is not None:
+            return _LIB
+        out_dir = BUILD_ROOT / _digest()
+        path = out_dir / "librepro_torch_kernels.so"
+        if not path.exists():
+            t0 = time.monotonic()
+            path = _build(out_dir)
+            build_seconds = time.monotonic() - t0
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+        return lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a wrapper's ``launches``, under one lock: the serve
+    front end's replica threads launch concurrently, and an unlocked
+    ``+= 1`` can lose a count.  (``last_kernel`` / ``last_plan`` stay
+    unlocked: with two threads they name whichever launch came last.)"""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def ptxas_report() -> str:

@@ -100,7 +100,7 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.byref(used_mma),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(code, "flash_attn")
-    flash_attn.launches += 1
+    build.count_launch(flash_attn)
     flash_attn.last_kernel = "tensor cores" if used_mma.value else "f32 FMA"
     return out
 

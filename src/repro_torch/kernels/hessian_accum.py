@@ -124,7 +124,7 @@ def hessian_accum(x: torch.Tensor, h: torch.Tensor, alpha: float = 1.0,
         h.data_ptr(), n_tok, m, float(alpha), float(beta),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "hessian_accum")
-    hessian_accum.launches += 1
+    build.count_launch(hessian_accum)
     hessian_accum.last_kernel = p.route
     return h
 

@@ -82,7 +82,7 @@ def nm_select(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
         hinv.data_ptr(), hinv.stride(0), out.data_ptr(), r, c, plan(r, c),
         int(vec), torch.cuda.current_stream(w.device).cuda_stream)
     build.check(code, "nm_select")
-    nm_select.launches += 1
+    build.count_launch(nm_select)
     nm_select.last_kernel = "vector loads" if vec else "scalar loads"
     return out
 

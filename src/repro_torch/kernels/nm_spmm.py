@@ -138,7 +138,7 @@ def nm_spmm(x: torch.Tensor, vals: torch.Tensor,
         x.data_ptr(), vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
         m, k, n, int(bf16), _stream(x))
     build.check(code, "nm_spmm")
-    nm_spmm.launches += 1
+    build.count_launch(nm_spmm)
     nm_spmm.last_kernel = "tensor cores" if bf16 else "f32 FMA"
     return out
 
@@ -192,7 +192,7 @@ def nm_spmm_decode(x: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
         int(x.dtype == torch.bfloat16), int(p.route == "tensor cores"),
         p.mb, p.cluster, _stream(x))
     build.check(code, "nm_spmm_decode")
-    nm_spmm_decode.launches += 1
+    build.count_launch(nm_spmm_decode)
     nm_spmm_decode.last_kernel = p.route
     return out
 

@@ -7,7 +7,9 @@ PyTorch versions, CUDA tensors the hand-written kernels, and no ``try``
 ever gives way from a kernel to its plain version.  The one exception is
 the explicit, scoped :func:`override_dispatch` — the counterpart of the
 reference's ``ops.override_dispatch`` — which forces the plain versions
-on CUDA so that a run on the card can be held against them.
+on CUDA so that a run on the card can be held against them.  Its scope
+is the calling thread's: a check in the main thread reroutes none of the
+serve front end's replica threads, and the other way round.
 
 Unlike the reference (which pads weights and sequences to 128-multiples
 on every call), nothing here pads: the kernels mask ragged edges
@@ -18,11 +20,12 @@ join a non-causal softmax; :func:`attention` is exact at every T.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
 from repro_torch.kernels.hessian_accum import (hessian_accum,
                                                hessian_accum_plain)
@@ -36,32 +39,44 @@ KERNELS = {"nm_spmm": nm_spmm, "nm_spmm_decode": nm_spmm_decode,
            "paged_attn": paged_attn, "hessian_accum": hessian_accum,
            "nm_select": nm_select, "flash_attn": flash_attn}
 
-_PLAIN: list = []          # override stack (innermost last)
+_LOCAL = threading.local()  # .plain: this thread's override stack
+
+
+def _stack() -> list:
+    st = getattr(_LOCAL, "plain", None)
+    if st is None:
+        st = _LOCAL.plain = []
+    return st
 
 
 @contextlib.contextmanager
 def override_dispatch(plain: bool = True) -> Iterator[None]:
-    """Inside the scope, ``plain=True`` sends CUDA tensors to the plain
-    PyTorch versions instead of the kernels.  Scopes nest."""
-    _PLAIN.append(bool(plain))
+    """Inside the scope, ``plain=True`` sends this thread's CUDA tensors
+    to the plain PyTorch versions instead of the kernels.  Scopes nest."""
+    st = _stack()
+    st.append(bool(plain))
     try:
         yield
     finally:
-        _PLAIN.pop()
+        st.pop()
 
 
 def _plain() -> bool:
-    return bool(_PLAIN) and _PLAIN[-1]
+    st = _stack()
+    return bool(st) and st[-1]
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Kernel launches per wrapper since the last reset, over every
+    thread (the counters are bumped under a lock)."""
+    with build._COUNT_LOCK:
+        return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    with build._COUNT_LOCK:
+        for fn in KERNELS.values():
+            fn.launches = 0
 
 
 # ----------------------------------------------------------------------

@@ -152,7 +152,7 @@ def paged_attn(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         p.rows, p.stages, p.lanes, int(vec),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(code, "paged_attn")
-    paged_attn.launches += 1
+    build.count_launch(paged_attn)
     paged_attn.last_plan = p
     paged_attn.last_kernel = "16-byte copies" if vec else "scalar loads"
     return out

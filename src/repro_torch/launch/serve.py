@@ -1,9 +1,14 @@
-"""Serving launcher (batch CLI): continuous batching (or static buckets)
-off a (2:4-pruned) model on one device, greedy or sampled.
+"""Serving launcher: continuous batching (or static buckets) off a
+(2:4-pruned) model on one device — a batch CLI or a streaming HTTP
+server.
 
-  # 8 random-prompt requests through the engine on the card
+  # batch: 8 random-prompt requests through the router, on the card
   python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --magnitude-24 --sparse --requests 8 --max-new 32
+
+  # server: OpenAI-style /v1/completions with SSE streaming, two replicas
+  python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      --magnitude-24 --sparse --server --port 8000 --replicas 2
 
   # a checkpoint either pruner wrote (its 2:4 leaves pack at --sparse),
   # sampled: temperature 0.8, top-p 0.9, keyed per (uid, step)
@@ -11,20 +16,28 @@ off a (2:4-pruned) model on one device, greedy or sampled.
       --params runs/pruned/pruned_params --sparse \\
       --sampling top-p --temperature 0.8
 
-  # static mode: prompt-length buckets over a dense cache
-  python -m repro_torch.launch.serve --arch paper-tiny-lm \\
-      --serve-mode static --device cpu
-
-The flags are the reference's for the knobs the port has, plus
+As the reference's launcher, both paths go through the front end's
+request and response objects: continuous batch mode builds
+``CompletionRequest``s and calls ``Router.complete`` over
+``--replicas`` engines on one shared ``Obs`` registry — a client of the
+server's own code path.  ``--serve-mode static`` lowers the same wire
+objects onto ``ServeEngine.generate``.  Every knob goes through one
+``ServeConfig.from_args``.  The flags are the reference's, plus
 ``--device`` and ``--magnitude-24`` (magnitude 2:4 pruning of random or
-loaded weights before packing: the paper's own pruning pass is the next
-slice).  The router and the HTTP front end are not ported: the CLI calls
-``ServeEngine.generate`` directly.
+loaded weights before packing).  SIGTERM drains like Ctrl-C wherever a
+router serves (the continuous batch and the server): "draining...", the
+in-flight requests finish, the trace is written and the process exits 0.
+The batch takes it as the KeyboardInterrupt of
+``install_sigterm_handler``, the server in its event loop
+(``_serve_until_sigterm``); a static-mode batch has nothing to drain and
+stops where it is.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import signal
 import time
 
 import numpy as np
@@ -34,8 +47,28 @@ from repro_torch import configs as cfglib
 from repro_torch.ckpt import load_pytree
 from repro_torch.core.pruner import prune_linears
 from repro_torch.models.transformer import LM
+from repro_torch.obs import Obs
+from repro_torch.obs.metrics import merge_histograms
 from repro_torch.serve.config import ServeConfig
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.frontend import (CompletionRequest,
+                                        CompletionResponse, Replica, Router,
+                                        Supervisor, run_server,
+                                        to_engine_request)
+
+
+def install_sigterm_handler():
+    """SIGTERM takes Ctrl-C's path (a KeyboardInterrupt in the main
+    thread): the batch drains first, then the trace export.  Returns the
+    handler it replaced (None off the main thread)."""
+
+    def _raise(signum, frame):
+        raise KeyboardInterrupt
+
+    try:
+        return signal.signal(signal.SIGTERM, _raise)
+    except ValueError:
+        return None                # not the main thread
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
-    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="serve slots per engine replica")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--sampling", default="greedy",
                     choices=("greedy", "temperature", "top-k", "top-p"),
@@ -69,7 +103,6 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("continuous", "static"),
                     help="continuous batching (paged KV) or static "
                          "prompt-length buckets (dense cache)")
-
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None)
     ap.add_argument("--prefill-chunk", type=int, default=32)
@@ -88,6 +121,38 @@ def build_parser() -> argparse.ArgumentParser:
                          "pool-sized; 0 disables → recompute-only)")
     ap.add_argument("--kv-dtype", default="fp32", choices=("fp32", "int8"))
     ap.add_argument("--device", default="cuda")
+    # ------------------------------------------------- server front end
+    ap.add_argument("--server", action="store_true",
+                    help="run the streaming HTTP front end instead of a "
+                         "one-shot batch")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="0 picks a free port (printed)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind the "
+                         "least-loaded router (--server / batch "
+                         "continuous mode)")
+    ap.add_argument("--queue-depth", type=int, default=None,
+                    help="per-replica wait-queue cap; a full queue "
+                         "answers 429 instead of buffering unboundedly")
+    # ------------------------------------------------- observability
+    ap.add_argument("--metrics", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="the metrics registry behind /metrics, /stats "
+                         "and the end-of-run report; --no-metrics makes "
+                         "every instrumentation point a no-op")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="record request-lifecycle spans and write "
+                         "Chrome-trace JSON here on exit (token streams "
+                         "are the same with tracing on or off)")
+    # ------------------------------------------------- fault injection
+    ap.add_argument("--inject-fault", action="append", default=None,
+                    metavar="SITE[:K=V,...]",
+                    help="deterministic fault injection (repeatable): "
+                         "SITE is one of engine_step|replica_worker|"
+                         "pool_alloc|slow_burst|swap_error; keys "
+                         "after=N, count=N, delay_s=S, replica=rK — e.g. "
+                         "--inject-fault engine_step:after=2,replica=r0")
     return ap
 
 
@@ -112,64 +177,185 @@ def load_model(args):
     return cfg, model, params
 
 
-def sampling_knobs(args) -> dict:
-    """``--sampling`` → (temperature, top_k, top_p), as the reference's
-    ``ServeConfig.from_args``."""
-    temperature = args.temperature
-    top_k = args.top_k if args.sampling == "top-k" else None
-    top_p = args.top_p if args.sampling == "top-p" else None
-    if args.sampling != "greedy" and temperature <= 0.0:
-        temperature = 1.0
-    return dict(temperature=temperature, top_k=top_k, top_p=top_p)
+def make_engine(model, params, config: ServeConfig,
+                obs: Obs = None) -> ServeEngine:
+    return ServeEngine(model, params, config, obs=obs)
 
 
-def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
-    cfg, model, params = load_model(args)
-    config = ServeConfig(
-        mode=args.serve_mode, **sampling_knobs(args),
-        max_batch=args.max_batch, max_len=args.max_len,
-        page_size=args.page_size, num_pages=args.num_pages,
-        prefill_chunk=args.prefill_chunk,
-        steps_per_sync=args.steps_per_sync, kv_dtype=args.kv_dtype,
-        prefix_cache=args.prefix_cache,
-        host_swap_pages=args.host_swap_pages,
-        sparse_weights="auto" if args.sparse else "off").validate()
-    eng = ServeEngine(model, params, config)
+def make_router(model, params, config: ServeConfig,
+                obs: Obs = None) -> Router:
+    """``config.replicas`` engines behind a least-loaded router.  Every
+    replica has the same seed (a request's stream does not depend on
+    which replica serves it: per-(uid, step) keys) and writes its
+    ``replica``-labelled series into the one ``obs`` registry.  The first
+    engine packs the 2:4 weights; the others serve that packed copy."""
+    if obs is None:
+        obs = Obs.create(metrics=config.metrics, trace=config.trace)
+    engines = []
+    for i in range(config.replicas):
+        engines.append(make_engine(model, params, config,
+                                   obs=obs.labelled(f"r{i}")))
+        params = engines[0].params
+    return Router([Replica(e, name=f"r{i}") for i, e in enumerate(engines)])
+
+
+def _random_requests(cfg, args):
+    rng = np.random.default_rng(0)
+    return [CompletionRequest(
+        uid=i, prompt=rng.integers(0, cfg.vocab_size, size=8,
+                                   dtype=np.int32).tolist(),
+        max_tokens=args.max_new) for i in range(args.requests)]
+
+
+def run_batch(cfg, model, params, args, config: ServeConfig,
+              obs: Obs) -> None:
+    creqs = _random_requests(cfg, args)
+    if config.mode == "continuous":
+        router = make_router(model, params, config, obs=obs)
+        engines = [r.engine for r in router.replicas]
+        _print_packed(args, engines[0])
+        t0 = time.monotonic()
+        try:
+            results = router.complete(creqs)
+        except KeyboardInterrupt:              # Ctrl-C or SIGTERM
+            print("draining...", flush=True)
+            router.drain(timeout=30)
+            return
+        dt = time.monotonic() - t0
+        router.drain(timeout=30)
+        _summary(results, engines, dt)
+        return
+    # static buckets have no sessions: the same wire objects, lowered
+    # onto generate()
+    eng = make_engine(model, params, config, obs=obs.labelled("r0"))
+    _print_packed(args, eng)
+    t0 = time.monotonic()
+    raw = eng.generate([to_engine_request(c, c.uid) for c in creqs])
+    dt = time.monotonic() - t0
+    _summary([CompletionResponse.from_result(r) for r in raw], [eng], dt)
+
+
+def _print_packed(args, eng) -> None:
     if args.sparse:
         print(f"packed {eng.n_sparse_leaves} 2:4-sparse weights "
               "(nm_spmm path)")
-    rng = np.random.default_rng(0)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=8,
-                                               dtype=np.int32),
-                    max_new_tokens=args.max_new)
-            for i in range(args.requests)]
-    t0 = time.monotonic()
-    results = eng.generate(reqs)
-    if model.device.type == "cuda":
-        torch.cuda.synchronize()
-    dt = time.monotonic() - t0
-    for r in results[:4]:
-        print(f"req {r.uid}: {r.tokens.tolist()}")
+
+
+def _registries(engines):
+    regs = []
+    for e in engines:
+        reg = e.obs.metrics
+        if reg.enabled and all(reg is not x for x in regs):
+            regs.append(reg)
+    return regs
+
+
+def _summary(results, engines, dt) -> None:
+    """The end-of-run report, read from the registry (the source
+    ``/metrics`` reads too)."""
     toks = sum(len(r.tokens) for r in results)
-    st = eng.stats
+    for r in results[:4]:
+        print(f"req {r.uid}: {list(r.tokens)}"
+              + (f"  [{r.replica}]" if r.replica else ""))
+    preempts = sum(r.preemptions for r in results)
+    regs = _registries(engines)
+
+    def total(name: str) -> int:
+        return int(sum(f.total() for f in (reg.get(name) for reg in regs)
+                       if f is not None))
+
+    syncs = total("serve_host_syncs_total")
+    burst = total("serve_device_steps_total") / syncs if syncs else 0.0
+    slot_steps = total("serve_slot_steps_total")
+    util = total("serve_tokens_total") / slot_steps if slot_steps else 0.0
+    eng = engines[0]
     print(f"{toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s on "
-          f"{model.device}) [{eng.mode}] host-syncs/token "
-          f"{st['host_syncs'] / max(1, toks):.2f} "
-          f"burst {st['device_steps'] / max(1, st['host_syncs']):.1f}"
-          + (f" preemptions {st['preemptions']}" if st["preemptions"]
-             else ""))
+          f"{eng.model.device}) [{eng.mode}] host-syncs/token "
+          f"{syncs / max(1, toks):.2f} burst {burst:.1f} util {util:.2f}"
+          + (f" preemptions {preempts}" if preempts else ""))
+    ttft = merge_histograms(
+        [f for f in (reg.get("serve_ttft_seconds") for reg in regs)
+         if f is not None])
+    if ttft is not None and ttft.count:
+        print(f"ttft p50 {ttft.quantile(0.5) * 1e3:.1f}ms "
+              f"p95 {ttft.quantile(0.95) * 1e3:.1f}ms (n={ttft.count})")
     if eng.pool is None:
         return                                      # static: no pool
     arena = eng.pool.arena
     print(f"prefix cache {'on' if eng.pool.prefix else 'off'}: hit tokens "
-          f"{st['prefix_hit_tokens']} prefilled {st['prefill_tok']} "
-          f"cow copies {st['cow_copies']} evictions "
-          f"{st['prefix_evictions']}; swap arena "
-          + (f"{arena.capacity} pages ({arena.nbytes / 2**20:.1f} MiB): "
-             f"preempt swap {st['preempt_swap']} recompute "
-             f"{st['preempt_recompute']} pages out {st['swap_out_pages']} "
-             f"in {st['swap_in_pages']}" if arena is not None else "off"))
+          f"{total('serve_prefix_hit_tokens_total')} prefilled "
+          f"{total('serve_prefill_tokens_total')} cow copies "
+          f"{total('serve_cow_copies_total')} evictions "
+          f"{total('serve_prefix_evictions_total')}; swap arena "
+          + (f"{arena.capacity} pages ({arena.nbytes / 2**20:.1f} MiB) a "
+             f"replica: preempt swap {total('serve_preempt_swap_total')} "
+             f"recompute {total('serve_preempt_recompute_total')} pages "
+             f"out {total('serve_swap_out_pages_total')} in "
+             f"{total('serve_swap_in_pages_total')}"
+             if arena is not None else "off"))
+
+
+def _export_trace(obs: Obs, path) -> None:
+    if path and obs.tracer.enabled:
+        n = obs.tracer.export(path)
+        print(f"wrote {n} trace events -> {path}")
+
+
+async def _serve_until_sigterm(router: Router, host: str, port: int) -> None:
+    """``run_server`` with SIGTERM taken inside the event loop: the signal
+    cancels the server task at its await, and its shutdown drains.  (A
+    KeyboardInterrupt raised from a plain signal handler can land inside a
+    transport's close callback; the connection then never detaches, and
+    the server's ``wait_closed`` waits for ever.)"""
+    task = asyncio.ensure_future(run_server(router, host, port))
+
+    def stop() -> None:
+        print("draining...", flush=True)
+        task.cancel()
+
+    asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop)
+    await task
+
+
+def run_frontend(cfg, model, params, args, config: ServeConfig,
+                 obs: Obs) -> None:
+    if config.mode != "continuous":
+        raise SystemExit("--server needs the continuous runtime "
+                         "(streaming sessions); drop --serve-mode static")
+    router = make_router(model, params, config, obs=obs)
+    _print_packed(args, router.replicas[0].engine)
+    # supervision: restart crashed or stalled workers and fail their
+    # in-flight requests over
+    sup = Supervisor(router)
+    sup.start()
+    try:
+        asyncio.run(_serve_until_sigterm(router, args.host, args.port))
+    except KeyboardInterrupt:                  # Ctrl-C
+        print("draining...", flush=True)
+        sup.stop()
+        router.drain(timeout=30)
+    finally:
+        sup.stop()
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    # the server takes SIGTERM in its event loop (_serve_until_sigterm)
+    previous = None if args.server else install_sigterm_handler()
+    config = ServeConfig.from_args(args)       # the one knob intake point
+    # one obs bundle for the process: every replica labels its series
+    # into this registry and tracer
+    obs = Obs.create(metrics=config.metrics, trace=config.trace)
+    cfg, model, params = load_model(args)
+    try:
+        if args.server:
+            run_frontend(cfg, model, params, args, config, obs)
+        else:
+            run_batch(cfg, model, params, args, config, obs)
+    finally:
+        _export_trace(obs, args.trace_out)
+        if previous is not None:       # a caller's own handler comes back
+            signal.signal(signal.SIGTERM, previous)
 
 
 if __name__ == "__main__":

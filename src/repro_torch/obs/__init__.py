@@ -1,23 +1,27 @@
-"""Observability for the prune path: a metrics registry of labelled
-counters and a Chrome-trace span recorder (a port of the part of
-``repro.obs`` that the pruning launcher uses; the serving half —
-gauges, histograms, the front end's ``/metrics`` — waits for the
-serving slice that needs it).
+"""Observability: a metrics registry and a Chrome-trace recorder (a port
+of ``repro.obs``).
 
-:class:`Obs` bundles one registry and one tracer.  ``Obs.create`` builds
-an enabled bundle; ``Obs.disabled()`` turns every call site into a
-no-op.
+:class:`Obs` bundles one registry, one tracer and the label of the
+emitting replica or component.  The serve launcher builds one enabled
+bundle and hands each replica a labelled view (``obs.labelled("r1")``):
+every serve series then carries a ``replica`` label while all replicas
+write one registry, which the front end's ``/metrics`` and ``/stats``
+read without racing the worker threads.  A bare engine or pool with no
+bundle builds its own metrics-only one; ``Obs.disabled()`` turns every
+call site into a no-op.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
-from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
+from repro_torch.obs.metrics import (COUNT_BUCKETS, LATENCY_BUCKETS,
+                                     NULL_REGISTRY, MetricsRegistry,
+                                     exp_buckets)
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 
 __all__ = ["Obs", "MetricsRegistry", "Tracer", "NULL_REGISTRY",
-           "NULL_TRACER"]
+           "NULL_TRACER", "LATENCY_BUCKETS", "COUNT_BUCKETS", "exp_buckets"]
 
 
 @dataclass(frozen=True)
@@ -41,3 +45,7 @@ class Obs:
     @property
     def enabled(self) -> bool:
         return self.metrics.enabled or self.tracer.enabled
+
+    def labelled(self, label: str) -> "Obs":
+        """The same registry and tracer under another label."""
+        return replace(self, label=label)

@@ -1,8 +1,6 @@
 """ServeConfig: every serve-runtime knob, validated in one place.
 
-The reference's fields, defaults and validation.  Knobs whose feature
-is not ported yet (replicas, faults, tracing) raise a ``ValueError``
-that names the ROADMAP.md item.  As in the reference:
+The reference's fields, defaults and validation.  As in the reference:
 
   ``temperature``       0 decodes greedily; > 0 samples (per-(uid, step)
                         keys in continuous mode), after ``top_k`` /
@@ -16,20 +14,29 @@ that names the ROADMAP.md item.  As in the reference:
   ``host_swap_pages``   the host swap arena's capacity in pages
                         (kvpool.HostArena): ``None`` sizes it to the pool
                         (swap preferred), ``0`` turns swap off
-                        (recompute-only preemption).
+                        (recompute-only preemption);
+  ``replicas``          data-parallel engines behind the front end's
+                        least-loaded router (``launch/serve.py``);
+  ``queue_depth``       each replica's wait-queue cap: past it a submit
+                        raises ``QueueFull`` (HTTP 429);
+  ``metrics``           the counter / gauge / histogram registry behind
+                        ``engine.stats`` and ``/metrics`` (off: every
+                        call site a no-op);
+  ``trace``             Chrome-trace request spans (``--trace-out``);
+  ``faults``            a :class:`~repro_torch.serve.faults.FaultPlan`
+                        shared by every replica built from this config.
+
+Token streams are the same under every combination of the last three.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
+
+from repro_torch.serve.faults import FaultPlan
 
 _MODES = ("continuous", "static")
-
-
-def _unported(knob: str, item: str) -> ValueError:
-    return ValueError(f"{knob} is not ported yet (ROADMAP.md, Queue 1: "
-                      f"{item})")
 
 
 @dataclasses.dataclass
@@ -62,11 +69,11 @@ class ServeConfig:
     # front end
     replicas: int = 1
     queue_depth: Optional[int] = None   # wait-queue cap (QueueFull past it)
-    # observability: the port keeps plain counters only
+    # observability
     metrics: bool = True
     trace: bool = False
-    # fault injection: not ported
-    faults: Optional[Any] = None
+    # fault injection (None: nothing ever fires)
+    faults: Optional[FaultPlan] = None
 
     def validate(self) -> "ServeConfig":
         """The single validation point.  Returns self (chainable)."""
@@ -104,13 +111,9 @@ class ServeConfig:
             raise ValueError("replicas must be >= 1")
         if self.queue_depth is not None and self.queue_depth < 1:
             raise ValueError("queue_depth must be >= 1")
-        # the knobs of features that are not ported yet
-        if self.replicas > 1:
-            raise _unported("replicas > 1", "the front end")
         if self.faults is not None:
-            raise _unported("faults", "faults")
-        if self.trace:
-            raise _unported("trace", "obs")
+            for spec in self.faults.specs:
+                spec.validate()
         return self
 
     def resolved_num_pages(self) -> int:
@@ -129,3 +132,30 @@ class ServeConfig:
         if self.host_swap_pages is not None:
             return self.host_swap_pages
         return self.resolved_num_pages()
+
+    @classmethod
+    def from_args(cls, args) -> "ServeConfig":
+        """The ``launch/serve.py`` flags → knobs, as the reference's
+        ``from_args`` (``--sparse`` sets ``sparse_weights``).
+        ``--sampling`` resolves to (temperature, top_k, top_p): the
+        sampled modes need a live draw, so a zero temperature becomes
+        1.0."""
+        temperature = args.temperature
+        top_k = args.top_k if args.sampling == "top-k" else None
+        top_p = args.top_p if args.sampling == "top-p" else None
+        if args.sampling != "greedy" and temperature <= 0.0:
+            temperature = 1.0
+        return cls(
+            mode=args.serve_mode, max_batch=args.max_batch,
+            max_len=args.max_len, temperature=temperature, top_k=top_k,
+            top_p=top_p, page_size=args.page_size,
+            num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
+            steps_per_sync=args.steps_per_sync,
+            prefix_cache=args.prefix_cache,
+            host_swap_pages=args.host_swap_pages, kv_dtype=args.kv_dtype,
+            sparse_weights="auto" if args.sparse else "off",
+            replicas=args.replicas, queue_depth=args.queue_depth,
+            metrics=args.metrics, trace=args.trace_out is not None,
+            faults=(FaultPlan.parse(args.inject_fault)
+                    if args.inject_fault else None),
+        ).validate()

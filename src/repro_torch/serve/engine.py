@@ -28,9 +28,14 @@ bucket is one batched prefill into a dense cache and one device loop
 (serve.fused.static_burst) over its decode steps, read back once.  Each
 bucket's key is the next ``split`` of ``key(seed)``.
 
-ServeConfig refuses the knobs of what is not ported.  Counters are a
-plain dict (``engine.stats``, which the scheduler and the pool write
-too), re-based at each ``generate()``.
+Counters, latency histograms and request spans go to the engine's
+:class:`~repro_torch.obs.Obs` bundle (``obs=``; the serve launcher
+shares one among its replicas, each under its own label) through
+:class:`~repro_torch.serve.metrics.ServeMetrics`, which the scheduler
+and the pool bind too.  ``engine.stats`` is the reference's flat view
+over them, re-based at each ``generate()``.  The ``engine_step`` and
+``slow_burst`` fault sites (serve.faults) fire on the host just before
+each burst dispatch, before anything of the burst is launched.
 """
 
 from __future__ import annotations
@@ -43,15 +48,19 @@ import numpy as np
 import torch
 
 from repro_torch import random as rnd
+from repro_torch.obs import Obs
 from repro_torch.serve import fused
 from repro_torch.serve.config import ServeConfig
-from repro_torch.serve.kvpool import POOL_KEYS, PagedKVPool, StatePool
-from repro_torch.serve.scheduler import SCHED_KEYS, Scheduler, SeqState
+from repro_torch.serve.kvpool import PagedKVPool, StatePool
+from repro_torch.serve.metrics import POOL_KEYS, SCHED_KEYS, ServeMetrics
+from repro_torch.serve.scheduler import Scheduler, SeqState
 from repro_torch.serve.sparse import compressed_param_tree, count_packed
 
 STAT_KEYS = ("requests", "tokens", "host_syncs", "device_steps",
              "prefill_chunks", "slot_steps", "cancelled",
-             "deadline_exceeded", *SCHED_KEYS, *POOL_KEYS)
+             "deadline_exceeded", *SCHED_KEYS, *POOL_KEYS, "decode_wall_s",
+             "sparse_dispatch", "kv_quant_pages", "replica_restarts",
+             "failed_over")
 
 
 @dataclasses.dataclass
@@ -100,10 +109,11 @@ class StreamEvent:
 
 class ServeEngine:
     def __init__(self, model, params, config: Optional[ServeConfig] = None,
-                 **knobs):
+                 *, obs: Optional[Obs] = None, **knobs):
         """``config`` carries every knob; bare keywords build one (or
         override fields of the given one).  Validation happens once, in
-        ``ServeConfig.validate``."""
+        ``ServeConfig.validate``.  ``obs`` is the metrics / trace bundle
+        (default: a private one from ``config.metrics`` / ``trace``)."""
         if config is None:
             config = ServeConfig(**knobs)
         elif knobs:
@@ -125,7 +135,12 @@ class ServeEngine:
         self.steps_per_sync = config.steps_per_sync
         self.page_size = config.page_size
         self.chunk_size = config.prefill_chunk
-        self.stats: Dict[str, float] = {k: 0 for k in STAT_KEYS}
+        if obs is None:
+            obs = Obs.create(metrics=config.metrics, trace=config.trace)
+        self.obs = obs
+        self.m = ServeMetrics(obs)
+        self._stats_base: Dict[str, float] = {}
+        self.faults = config.faults
         self.pool = None
         self.state_pool = None
         self._swap_ok = False
@@ -137,7 +152,8 @@ class ServeEngine:
             max_len=config.max_len,
             dtype=torch.int8 if config.kv_dtype == "int8" else None,
             prefix_cache=config.prefix_cache,
-            host_swap_pages=config.resolved_swap_pages(), stats=self.stats)
+            host_swap_pages=config.resolved_swap_pages(), obs=obs,
+            faults=self.faults)
         state = StatePool(model, self.pool.kv)
         self.state_pool = state if state.has_state else None
         # swap preemption preserves KV pages only: recurrent-state rows
@@ -147,23 +163,34 @@ class ServeEngine:
         # output ring: burst length + 1 for a prefill burst's token 0
         self._ring = self.steps_per_sync + 1
 
-    def session(self, seed: int = 0) -> "ContinuousSession":
+    @property
+    def stats(self) -> Dict[str, float]:
+        """The flat counter view (engine, scheduler and pool series) read
+        from the registry: cumulative since the engine was built,
+        re-based at each ``generate()``.  Reading it races no worker
+        thread: the registry's counters are locked."""
+        cur = self.m.snapshot()
+        base = self._stats_base
+        return {k: cur[k] - base.get(k, 0) for k in STAT_KEYS}
+
+    def session(self, seed: int = 0, max_waiting: Optional[int] = None
+                ) -> "ContinuousSession":
         """An incremental session: ``submit`` at any time, each ``step()``
         is one host-sync interval returning per-request StreamEvents.
-        ``seed`` keys sampled decoding."""
+        ``seed`` keys sampled decoding; ``max_waiting`` caps the wait
+        queue (``scheduler.QueueFull`` past it, the front end's 429)."""
         if self.mode != "continuous":
             raise RuntimeError(
                 "streaming sessions need the continuous paged runtime "
                 f"(engine is mode={self.mode!r})")
-        return ContinuousSession(self, seed=seed)
+        return ContinuousSession(self, seed=seed, max_waiting=max_waiting)
 
     def generate(self, requests: Sequence[Request], seed: int = 0
                  ) -> List[Result]:
         """Serve a set of requests (continuous batching; static mode
         buckets by prompt length); ``self.stats`` then holds the run's
         counters.  ``seed`` keys sampled decoding."""
-        for k in self.stats:          # in place: the pool writes it too
-            self.stats[k] = 0
+        self._stats_base = self.m.snapshot()   # the registry is monotonic
         if self.mode == "static":
             return self._generate_static(requests, seed)
         session = self.session(seed)
@@ -214,6 +241,7 @@ class ServeEngine:
         # early, so the fori variant drops that bookkeeping
         early_exit = not (self.config.eos_id is None
                           and len(set(max_new_arr.tolist())) == 1)
+        t0 = time.monotonic()
         out, n_emitted, steps_run = fused.static_burst(
             self.model, self.params, cache, logits, key, max_new_arr, plen,
             max_new, early_exit=early_exit, eos=self.eos, **self.sampling)
@@ -222,12 +250,18 @@ class ServeEngine:
         out = blob[:b * max_new].reshape(b, max_new)   # ONE sync a bucket
         n_emitted = blob[b * max_new:b * max_new + b]
         steps = int(blob[-1])
-        st = self.stats
-        st["host_syncs"] += 1
-        st["device_steps"] += steps
-        st["requests"] += b
-        st["tokens"] += int(n_emitted.sum())
-        st["slot_steps"] += steps * b
+        t1 = time.monotonic()
+        m = self.m
+        m.decode_wall.inc(t1 - t0)
+        m.host_syncs.inc()
+        m.device_steps.inc(steps)
+        m.burst_steps.observe(steps)
+        m.requests.inc(b)
+        m.tokens.inc(int(n_emitted.sum()))
+        m.slot_steps.inc(steps * b)
+        self.obs.tracer.complete(
+            "static_bucket", t0, t1, track=self.obs.label,
+            args={"batch": b, "prompt_len": plen, "steps": steps})
         # every request holds its slot for the whole bucket: the gap to
         # n_emitted is the scrap-position waste continuous batching saves
         return [Result(uid=r.uid, tokens=out[i, :n_emitted[i]].copy(),
@@ -241,23 +275,31 @@ class ContinuousSession:
     device dispatch — the K-step decode burst, or a prompt chunk fused in
     front of it — and reads the state back once."""
 
-    def __init__(self, engine: ServeEngine, seed: int = 0):
+    def __init__(self, engine: ServeEngine, seed: int = 0,
+                 max_waiting: Optional[int] = None):
         self.engine = engine
         engine.pool.reset()
         self.sched = Scheduler(engine.pool, engine.max_batch,
-                               max_waiting=engine.config.queue_depth,
-                               stats=engine.stats, swap=engine._swap_ok)
+                               max_waiting=max_waiting,
+                               swap=engine._swap_ok, obs=engine.obs)
         self.base_key = rnd.key(seed, engine.model.device)
         self._emitted: Dict[int, int] = {}    # uid -> tokens delivered
 
     def submit(self, req: Request):
+        """Queue a request (admitted at the next step).  Raises
+        ``ValueError`` for one that can never fit and
+        ``scheduler.QueueFull`` past ``max_waiting``."""
         if len(req.prompt) + req.max_new_tokens > self.engine.max_len:
             raise ValueError(f"request {req.uid} exceeds max_len")
-        self.engine.stats["requests"] += 1
         return self.sched.submit(req)
 
     def has_work(self) -> bool:
         return self.sched.has_work()
+
+    @property
+    def depth(self) -> int:
+        """Requests in flight, waiting and slotted (the router's load)."""
+        return len(self.sched.waiting) + len(self.sched.running)
 
     def _event(self, seq) -> Optional[StreamEvent]:
         sent = self._emitted.get(seq.req.uid, 0)
@@ -266,9 +308,23 @@ class ContinuousSession:
         if not new and not fin:
             return None
         self._emitted[seq.req.uid] = sent + len(new)
+        m = self.engine.m
+        if new and sent == 0 and seq.first_tok_ts == 0.0:
+            # the first delivered token (a recompute's replay is
+            # suppressed above, so this fires once a request)
+            seq.first_tok_ts = time.monotonic()
+            m.ttft.observe(seq.first_tok_ts - seq.submit_ts)
+            m.obs.tracer.instant("first_token", track=m.label,
+                                 args={"uid": seq.req.uid})
         result = reason = None
         if fin:
             self._emitted.pop(seq.req.uid, None)
+            if seq.first_tok_ts and len(seq.tokens) > 1:
+                m.tpot.observe((time.monotonic() - seq.first_tok_ts)
+                               / (len(seq.tokens) - 1))
+            m.obs.tracer.async_end("request", seq.req.uid, track=m.label,
+                                   args={"tokens": len(seq.tokens),
+                                         "preemptions": seq.preemptions})
             result = _result(seq)
             reason = ("stop" if len(seq.tokens) < seq.req.max_new_tokens
                       else "length")
@@ -285,8 +341,14 @@ class ContinuousSession:
         seq = self.sched.cancel(uid)
         if seq is None:
             return None
-        self.engine.stats["deadline_exceeded" if reason == "timeout"
-                          else "cancelled"] += 1
+        m = self.engine.m
+        (m.deadline_exceeded if reason == "timeout" else m.cancelled).inc()
+        m.obs.tracer.instant("cancel", track=m.label,
+                             args={"uid": uid, "reason": reason,
+                                   "tokens": len(seq.tokens)})
+        m.obs.tracer.async_end("request", uid, track=m.label,
+                               args={"tokens": len(seq.tokens),
+                                     "finish_reason": reason})
         self._emitted.pop(uid, None)
         return StreamEvent(uid=uid, tokens=[], finished=True,
                            result=_result(seq), finish_reason=reason)
@@ -306,7 +368,7 @@ class ContinuousSession:
     # ------------------------------------------------- one sync interval
     def step(self) -> List[StreamEvent]:
         eng, sched, pool = self.engine, self.sched, self.engine.pool
-        stats = eng.stats
+        m = eng.m
         # 0) hard deadlines retire before what they hold shapes admission
         events: List[StreamEvent] = self._expire_deadlines()
         # 1) join-at-prefill: new requests take free slots/pages now
@@ -371,6 +433,9 @@ class ContinuousSession:
         state["steps_left"] = np.asarray(k, np.int32)
         st = fused.upload(state, eng.model.device)
         tables = pool.tables_device()
+        t0 = time.monotonic()
+        if eng.faults is not None:            # the fault seam: the burst
+            eng.faults.burst_hook(eng.obs.label)   # is not launched yet
         if pseq is not None:
             start = pseq.n_prefilled
             chunk = np.zeros((1, eng.chunk_size), np.int32)
@@ -387,16 +452,29 @@ class ContinuousSession:
                                 **eng.sampling)
             pseq.n_prefilled = min(start + eng.chunk_size, plen)
             pseq.occupied_steps += 1
-            stats["prefill_chunks"] += 1
-            stats["slot_steps"] += 1
+            m.prefill_chunks.inc()
+            m.slot_steps.inc()
         else:
             fused.decode_loop(eng.model, eng.params, pool.kv, tables, st,
                               self.base_key, steps=k,
                               page_size=eng.page_size, eos=eng.eos,
                               **eng.sampling)
         host = fused.read_back(st)            # the ONE host sync
-        stats["host_syncs"] += 1
-        stats["device_steps"] += k - host["steps_left"]
+        t1 = time.monotonic()
+        steps_run = k - host["steps_left"]
+        m.decode_wall.inc(t1 - t0)
+        m.host_syncs.inc()
+        m.device_steps.inc(steps_run)
+        if eng.n_sparse_leaves:
+            # this interval's packed projections took the nm_spmm kernels
+            m.sparse_dispatch.inc()
+        m.burst_steps.observe(steps_run)
+        eng.obs.tracer.complete(
+            "prefill_burst" if pseq is not None else "decode_burst", t0, t1,
+            track=eng.obs.label,
+            args={"k": k, "steps": steps_run, "decoding": len(running),
+                  **({"chunk_uid": int(pseq.req.uid)}
+                     if pseq is not None else {})})
         # 5) advance / retire from the state read back
         live = list(running)
         if will_activate:
@@ -416,7 +494,7 @@ class ContinuousSession:
                 adv = n - 1 if (will_activate and s is pseq) else n
                 s.n_written += adv
                 s.occupied_steps += adv
-                stats["slot_steps"] += adv
+                m.slot_steps.inc(adv)
             if bool(host["done"][s.slot]):
                 if pool.prefix is not None:
                     # index the generated continuation too, with the
@@ -431,7 +509,7 @@ class ContinuousSession:
             ev = self._event(s)
             if ev is not None:
                 events.append(ev)
-        stats["tokens"] += sum(len(e.tokens) for e in events)
+        m.tokens.inc(sum(len(e.tokens) for e in events))
         return events
 
 

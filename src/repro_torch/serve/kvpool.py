@@ -44,6 +44,14 @@ the host arena tiers pages only.
 The page tensors and state rows are updated in place by the model's
 writes and by the copies here (the JAX pool is rebuilt functionally and
 donated instead).
+
+The counters (copy-on-write copies, evictions, swap pages and seconds,
+int8 pages) live in the engine's metrics registry
+(:class:`~repro_torch.serve.metrics.ServeMetrics`); ``stats`` is the
+reference's per-run view over them, re-based at every :meth:`reset`.
+Two fault sites live here (``serve.faults``): ``pool_alloc`` makes
+:meth:`PagedKVPool.alloc` report exhaustion, ``swap_error`` makes the
+arena fail — both on paths real exhaustion takes anyway.
 """
 
 from __future__ import annotations
@@ -58,9 +66,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-# the pool's counters, under the reference's names (``engine.stats`` keys)
-POOL_KEYS = ("cow_copies", "prefix_evictions", "swap_out_pages",
-             "swap_in_pages", "swap_in_wall_s")
+from repro_torch.obs import Obs
+from repro_torch.serve.metrics import POOL_KEYS, ServeMetrics
 
 
 def _wait(device: torch.device) -> None:
@@ -76,15 +83,16 @@ class PagedKVPool:
     counts) is host-side numpy; :meth:`tables_device` keeps a device
     mirror of the block tables, re-uploading only rows that changed.
     ``prefix_cache`` builds :attr:`prefix`, ``host_swap_pages`` > 0 the
-    swap arena :attr:`arena` of that many pages.  The counters go into
-    ``stats`` (the engine hands down its own dict).
+    swap arena :attr:`arena` of that many pages.  The engine hands down
+    its ``obs`` bundle and fault plan; a bare pool gets a private
+    metrics-only bundle.
     """
 
     def __init__(self, model, *, num_pages: int, page_size: int,
                  max_slots: int, max_len: int,
                  dtype: Optional[torch.dtype] = None,
                  prefix_cache: bool = False, host_swap_pages: int = 0,
-                 stats: Optional[Dict[str, float]] = None):
+                 obs: Optional[Obs] = None, faults=None):
         if num_pages < 2:
             raise ValueError("num_pages must be >= 2 (page 0 is scrap)")
         self.page_size = page_size
@@ -96,6 +104,7 @@ class PagedKVPool:
         # pages and decode never extends a block table
         self.has_kv_pages = "attn" in kinds
         self.has_state = any(k in model.STATE_KINDS for k in kinds)
+        self.quantized = dtype == torch.int8
         self.kv = model.init_paged_cache(num_pages, page_size, dtype,
                                          max_slots=max_slots)
         # the attention layers' page leaves (what copy-on-write and the
@@ -110,9 +119,10 @@ class PagedKVPool:
         self._ref = np.zeros((num_pages,), np.int32)
         self._tables_dev: Optional[torch.Tensor] = None
         self._dirty: set = set()          # slot rows changed since upload
-        self.stats = stats if stats is not None else {}
-        for k in POOL_KEYS:
-            self.stats.setdefault(k, 0)
+        self.obs = obs if obs is not None else Obs.create(trace=False)
+        self.faults = faults
+        self.m = ServeMetrics(self.obs)
+        self._stats_base: Dict[str, float] = {}
         # no prefix index over recurrent state: an attach skips the
         # prefill of the covered tokens, which state rows cannot skip
         self.prefix: Optional[PrefixCache] = (
@@ -133,6 +143,12 @@ class PagedKVPool:
     def free_pages(self) -> int:
         return len(self._free)
 
+    @property
+    def stats(self) -> Dict[str, float]:
+        """The pool's counters since the last :meth:`reset`."""
+        cur = self.m.snapshot()
+        return {k: cur[k] - self._stats_base.get(k, 0) for k in POOL_KEYS}
+
     def pages_for(self, n_tokens: int) -> int:
         """Pages backing ``n_tokens`` KV entries — 0 for pure
         recurrent-state models (nothing to page)."""
@@ -146,6 +162,9 @@ class PagedKVPool:
         A short free list first evicts prefix-index leaves LRU-first."""
         if n <= 0:
             return []
+        if self.faults is not None and self.faults.hit(
+                "pool_alloc", self.obs.label):
+            return None                     # injected exhaustion
         if self.prefix is not None:
             while n > len(self._free) and self.prefix.evict_lru():
                 pass
@@ -154,6 +173,8 @@ class PagedKVPool:
         out = self._free[-n:][::-1]
         del self._free[-n:]
         self._ref[out] = 1
+        if self.quantized:
+            self.m.kv_quant_pages.inc(n)
         return out
 
     def retain(self, page: int) -> None:
@@ -225,6 +246,7 @@ class PagedKVPool:
         self._ref[:] = 0
         self._tables_dev = None
         self._dirty.clear()
+        self._stats_base = self.m.snapshot()
         if self.prefix is not None:
             self.prefix.clear()
         if self.arena is not None:
@@ -251,7 +273,9 @@ class PagedKVPool:
         for layer in self.page_layers:
             for t in layer.values():
                 t[dst] = t[src]
-        self.stats["cow_copies"] += 1
+        self.m.cow_copies.inc()
+        self.obs.tracer.instant("cow_copy", track=self.obs.label,
+                                args={"src": src, "dst": dst})
 
     def ensure_writable(self, slot: int, pos: int) -> bool:
         """Make the page backing write position ``pos`` exclusively owned
@@ -279,6 +303,9 @@ class PagedKVPool:
         (slot untouched) when there is no arena or it lacks room."""
         if self.arena is None:
             return None
+        if self.faults is not None and self.faults.hit(
+                "swap_error", self.obs.label):
+            return None                     # injected: recompute instead
         pages = self.slot_pages(slot)
         host = [p for p in pages if self._ref[p] == 1]
         if not self.arena.has_room(len(host)):
@@ -291,7 +318,9 @@ class PagedKVPool:
         self.block_tables[slot] = 0   # kept refs move to the record
         self._n_pages[slot] = 0
         self._dirty.add(slot)
-        self.stats["swap_out_pages"] += len(host)
+        self.m.swap_out_pages.inc(len(host))
+        self.obs.tracer.instant("swap_out", track=self.obs.label,
+                                args={"slot": slot, "pages": len(host)})
         return SwapRecord(entries=entries)
 
     def swap_in(self, slot: int, record: "SwapRecord") -> bool:
@@ -300,6 +329,9 @@ class PagedKVPool:
         them), the arena's bytes uploaded into them, and the slot's table
         rebuilt in logical order — kept pages back in place, the record's
         reference becoming the table's."""
+        if self.faults is not None and self.faults.hit(
+                "swap_error", self.obs.label):
+            return False                    # injected: retry later
         host_slots = [s for tag, s in record.entries if tag == "host"]
         fresh = self.alloc(len(host_slots))
         if fresh is None:
@@ -311,8 +343,12 @@ class PagedKVPool:
         self.assign(slot, [s if tag == "kept" else next(it)
                            for tag, s in record.entries])
         self.arena.free(host_slots)
-        self.stats["swap_in_pages"] += len(host_slots)
-        self.stats["swap_in_wall_s"] += time.monotonic() - t0
+        t1 = time.monotonic()
+        self.m.swap_in_pages.inc(len(host_slots))
+        self.m.swap_in_wall.inc(t1 - t0)
+        self.obs.tracer.complete("swap_in", t0, t1, track=self.obs.label,
+                                 args={"slot": slot,
+                                       "pages": len(host_slots)})
         return True
 
     def drop_swap(self, record: "SwapRecord") -> None:
@@ -500,7 +536,7 @@ class PrefixCache:
         if pe is not None:
             pe.children -= 1
         self.pool.release([best.page])
-        self.pool.stats["prefix_evictions"] += 1
+        self.pool.m.prefix_evictions.inc()
         return True
 
 

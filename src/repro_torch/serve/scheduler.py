@@ -39,6 +39,13 @@ LRU eviction cannot recycle them.
 The wait queue sorts by ``(-priority, deadline, arrival)`` and is exact
 FIFO when neither SLA field is set; the queue head blocks admission when
 the pool cannot back its prompt.
+
+Counters (requests, rejections, preemptions, prefix hits) go to the
+metrics registry of the scheduler's ``obs`` bundle — the pool's unless
+the engine hands one down — with the reference's spans: the request's
+async span opens at submit, ``queue_wait`` covers submit → first
+admission, and ``swap_resume``, ``prefix_attach``, ``preempt_swap`` and
+``preempt_recompute`` are instants.
 """
 
 from __future__ import annotations
@@ -47,14 +54,12 @@ import dataclasses
 import enum
 import heapq
 import itertools
+import time
 from typing import Dict, List, Optional, Tuple
 
+from repro_torch.obs import Obs
 from repro_torch.serve.kvpool import PagedKVPool, SwapRecord
-
-# the scheduler's counters, under the reference's names; ``preemptions``
-# is swap + recompute
-SCHED_KEYS = ("preemptions", "preempt_swap", "preempt_recompute",
-              "prefix_hit_tokens", "prefill_tok", "prefix_pages_reused")
+from repro_torch.serve.metrics import SCHED_KEYS, ServeMetrics
 
 
 class SeqState(enum.Enum):
@@ -82,6 +87,12 @@ class Sequence:
     preemptions: int = 0
     arrival: int = 0            # submission order, kept across preemption
     swap: Optional[SwapRecord] = None   # set while swapped to the arena
+    # time.monotonic() stamps (0.0: not yet), kept across preemption:
+    # the queue wait is submit → first admission, TTFT submit → first
+    # delivered token
+    submit_ts: float = 0.0
+    first_tok_ts: float = 0.0
+    admitted_once: bool = False
 
     def sort_key(self) -> Tuple[float, float, int]:
         dl = self.req.deadline
@@ -92,17 +103,15 @@ class Sequence:
 class Scheduler:
     def __init__(self, pool: PagedKVPool, max_slots: int,
                  max_waiting: Optional[int] = None,
-                 stats: Optional[Dict[str, float]] = None,
-                 swap: bool = False):
+                 swap: bool = False, obs: Optional[Obs] = None):
         self.pool = pool
         self.max_waiting = max_waiting
         # swap preemption needs the pool's host arena and no recurrent
         # state rows (the engine decides); a bare Scheduler stays
         # recompute-only
         self.swap_enabled = swap and pool.arena is not None
-        self.stats = stats if stats is not None else {}
-        for k in SCHED_KEYS:
-            self.stats.setdefault(k, 0)
+        self.obs = obs if obs is not None else pool.obs
+        self.m = ServeMetrics(self.obs)
         self._waiting: List[Tuple[Tuple[float, float, int], Sequence]] = []
         # admission-ordered (PREFILL + RUNNING): running[-1] is always the
         # youngest — the preemption victim
@@ -115,13 +124,25 @@ class Scheduler:
         """The wait queue in admission order."""
         return [s for _, s in sorted(self._waiting, key=lambda e: e[0])]
 
+    @property
+    def stats(self) -> Dict[str, float]:
+        """The scheduler's counters (cumulative, from the registry)."""
+        cur = self.m.snapshot()
+        return {k: cur[k] for k in SCHED_KEYS}
+
     # ------------------------------------------------------------ intake
     def submit(self, req) -> Sequence:
         if (self.max_waiting is not None
                 and len(self._waiting) >= self.max_waiting):
+            self.m.rejected.inc()
             raise QueueFull(f"wait queue at its depth cap "
                             f"({self.max_waiting}) — retry later")
-        seq = Sequence(req=req, arrival=next(self._arrivals))
+        seq = Sequence(req=req, arrival=next(self._arrivals),
+                       submit_ts=time.monotonic())
+        self.m.requests.inc()
+        self.obs.tracer.async_begin("request", req.uid, track=self.obs.label,
+                                    args={"prompt_len": len(req.prompt),
+                                          "max_new": req.max_new_tokens})
         self._push(seq)
         return seq
 
@@ -130,6 +151,18 @@ class Scheduler:
 
     def has_work(self) -> bool:
         return bool(self._waiting or self.running)
+
+    def _note_admitted(self, seq: Sequence) -> None:
+        """The queue wait, at the first admission only (a re-queue after
+        preemption is a capacity event, not another wait)."""
+        if seq.admitted_once:
+            return
+        seq.admitted_once = True
+        now = time.monotonic()
+        self.m.queue_wait.observe(now - seq.submit_ts)
+        self.obs.tracer.complete("queue_wait", seq.submit_ts, now,
+                                 track=self.obs.label,
+                                 args={"uid": seq.req.uid})
 
     # --------------------------------------------------------- admission
     def admit(self) -> List[Sequence]:
@@ -157,6 +190,9 @@ class Scheduler:
                              else SeqState.PREFILL)
                 self.running.append(seq)
                 admitted.append(seq)
+                self._note_admitted(seq)
+                self.obs.tracer.instant("swap_resume", track=self.obs.label,
+                                        args={"uid": seq.req.uid})
                 continue
             need = self.pool.pages_for(len(seq.req.prompt))
             if need > self.pool.capacity:
@@ -193,13 +229,18 @@ class Scheduler:
                 self.pool.assign(seq.slot, fresh)
             seq.state = SeqState.PREFILL
             seq.n_prefilled = n_reuse
-            self.stats["prefix_hit_tokens"] += n_reuse
-            self.stats["prefill_tok"] += len(seq.req.prompt) - n_reuse
+            self.m.prefix_hit_tokens.inc(n_reuse)
+            self.m.prefill_tok.inc(len(seq.req.prompt) - n_reuse)
             if n_reuse:
-                self.stats["prefix_pages_reused"] += (
-                    len(shared) + (1 if cow_src is not None else 0))
+                reused = len(shared) + (1 if cow_src is not None else 0)
+                self.m.prefix_pages_reused.inc(reused)
+                self.obs.tracer.instant(
+                    "prefix_attach", track=self.obs.label,
+                    args={"uid": seq.req.uid, "pages": reused,
+                          "tokens": n_reuse})
             self.running.append(seq)
             admitted.append(seq)
+            self._note_admitted(seq)
         return admitted
 
     def next_prefill(self) -> Optional[Sequence]:
@@ -300,7 +341,6 @@ class Scheduler:
         it re-queues with its original arrival (ahead of later
         submissions)."""
         seq.preemptions += 1
-        self.stats["preemptions"] += 1
         if self.swap_enabled:
             record = self.pool.swap_out(seq.slot)
             if record is not None:
@@ -311,7 +351,10 @@ class Scheduler:
                 seq.slot = -1
                 seq.swap = record
                 seq.state = SeqState.WAITING
-                self.stats["preempt_swap"] += 1
+                self.m.preempt_swap.inc()
+                self.obs.tracer.instant("preempt_swap", track=self.obs.label,
+                                        args={"uid": seq.req.uid,
+                                              "host_pages": record.n_host})
                 self._push(seq)
                 return
         self._release(seq)
@@ -319,7 +362,9 @@ class Scheduler:
         seq.n_prefilled = 0
         seq.n_written = 0
         seq.tokens = []
-        self.stats["preempt_recompute"] += 1
+        self.m.preempt_recompute.inc()
+        self.obs.tracer.instant("preempt_recompute", track=self.obs.label,
+                                args={"uid": seq.req.uid})
         self._push(seq)
 
     def finish(self, seq: Sequence) -> None:

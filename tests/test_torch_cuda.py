@@ -657,3 +657,59 @@ def test_mamba_differentiable_route_on_card(gen):
     with torch.no_grad():
         plain, _ = model.loss_fn(params, batch)
     assert abs(float(loss.detach()) - float(plain)) <= 1e-5 * float(plain)
+
+
+def test_replica_threads_serve_on_card_under_no_grad(gen):
+    """Two replica worker threads serve the card: the workers step under
+    ``torch.no_grad()`` — params that require grad (a trainer's live
+    leaves) reach the kernel wrappers without tripping ``refuse_grad`` —
+    and their streams equal a main-thread ``generate``, whichever
+    replica served a request.  ``launch_counts()`` is exact with both
+    workers launching: 7 packed linears a layer for every model pass
+    (each burst's k decode steps, plus its chunk) and one paged_attn a
+    layer for every decode step, read off the bursts' trace spans."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.frontend import (CompletionRequest, Replica,
+                                            Router)
+
+    cfg = get_smoke("qwen1_5_0_5b")
+    model = LM(cfg, device="cuda")
+    params = prune_linears(model.init(gen), "2:4")
+    knobs = dict(max_batch=4, max_len=48, page_size=8, prefill_chunk=8,
+                 steps_per_sync=2)
+    ref = ServeEngine(model, params, **knobs)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 256, size=(4, 7, 12)[i % 3],
+                                               dtype=np.int32),
+                    max_new_tokens=(5, 9, 14)[i % 3]) for i in range(8)]
+    want = {r.uid: r.tokens.tolist() for r in ref.generate(reqs)}
+    live = dict(ref.params)
+    live["embed"] = {k: v.clone().requires_grad_(True)
+                     for k, v in ref.params["embed"].items()}
+    router = Router([Replica(ServeEngine(model, live, trace=True, **knobs),
+                             name=f"r{i}") for i in range(2)])
+    try:
+        ops.reset_launch_counts()
+        with torch.enable_grad():                 # the caller's grad mode
+            out = router.complete([CompletionRequest(
+                prompt=r.prompt.tolist(), max_tokens=r.max_new_tokens,
+                uid=r.uid) for r in reqs])
+        counts = ops.launch_counts()
+    finally:
+        router.close()
+    assert sorted({o.replica for o in out}) == ["r0", "r1"]
+    assert {o.uid: o.tokens for o in out} == want
+    steps = chunks = 0
+    for rep in router.replicas:
+        for ev in rep.engine.obs.tracer.events(ph="X"):
+            if ev["name"] in ("decode_burst", "prefill_burst"):
+                steps += ev["args"]["k"]
+                chunks += ev["name"] == "prefill_burst"
+    layers = cfg.num_layers
+    assert steps > 0 and chunks > 0
+    assert counts["nm_spmm_decode"] == 7 * layers * (steps + chunks)
+    assert counts["paged_attn"] == layers * steps
+    for k in ("nm_spmm", "hessian_accum", "nm_select", "flash_attn"):
+        assert counts[k] == 0

@@ -332,6 +332,65 @@ def test_override_dispatch_nests():
     assert not ops._plain()
 
 
+def test_override_dispatch_is_thread_local():
+    """A scope opened in one thread reroutes none of another thread's
+    launches: the serve front end's replica threads keep the kernels
+    while a check in the main thread holds one against its plain
+    version, and the other way round."""
+    import threading
+
+    seen = {}
+    inside, release = threading.Event(), threading.Event()
+
+    def worker(name, plain):
+        with ops.override_dispatch(plain):
+            seen[name + "_in"] = ops._plain()
+            if name == "a":
+                inside.set()
+            release.wait(timeout=10)
+        seen[name + "_out"] = ops._plain()
+
+    with ops.override_dispatch():
+        t = threading.Thread(target=lambda: seen.update(
+            other=ops._plain()))
+        t.start()
+        t.join()
+        assert ops._plain()
+    assert seen.pop("other") is False
+    a = threading.Thread(target=worker, args=("a", True))
+    a.start()
+    assert inside.wait(timeout=10)
+    assert not ops._plain()                   # the main thread: kernels
+    b = threading.Thread(target=worker, args=("b", False))
+    b.start()
+    release.set()
+    a.join()
+    b.join()
+    assert seen == {"a_in": True, "a_out": False, "b_in": False,
+                    "b_out": False}
+
+
+def test_launch_counts_exact_across_threads():
+    """Two workers bumping one wrapper's count lose nothing: the bump is
+    taken under the build module's lock, which ``launch_counts`` and
+    ``reset_launch_counts`` take too."""
+    import threading
+
+    from repro_torch.kernels import build
+
+    ops.reset_launch_counts()
+    threads = [threading.Thread(target=lambda: [
+        build.count_launch(paged_attn) for _ in range(20000)])
+        for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert ops.launch_counts()["paged_attn"] == 40000
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+
+
 def test_activate_matches_reference():
     y = np.linspace(-6, 6, 101).astype(np.float32)
     for act in (None, "silu", "gelu"):

@@ -2,7 +2,7 @@
 ServeEngine's (continuous mode; with the prefix cache and host swap off,
 and with the reference's defaults — both on) on magnitude-2:4 params
 packed by both sides; the page pool, the scheduler, the config's
-defaults and refusals, the CLI, and the rule that the port imports
+defaults and validation, the CLI, and the rule that the port imports
 neither jax nor the JAX package.  tests/test_torch_prefix_cache.py holds
 the prefix index and the swap tier.
 """
@@ -217,11 +217,36 @@ def test_scheduler_queue_cap_and_priority(tiny):
     assert [s.req.uid for s in sched.admit()] == [1]
 
 
+def _bad_plan(plan_cls, spec_cls):
+    plan = plan_cls([spec_cls("engine_step")])
+    plan.specs.append(spec_cls("nonsense"))       # past the constructor
+    return plan
+
+
 @pytest.mark.parametrize("knob", [
-    dict(replicas=2), dict(faults=object()), dict(trace=True)])
+    dict(replicas=2), dict(faults=2), dict(trace=True)])
 def test_config_refuses_unported_knobs(knob):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        ServeConfig(**knob).validate()
+    """The front end's knobs, refused until the front end was ported,
+    now validate in the port as in the reference, and both refuse the
+    same bad values."""
+    from repro.serve.faults import FaultPlan as JFaultPlan
+    from repro.serve.faults import FaultSpec as JFaultSpec
+    from repro_torch.serve.faults import FaultPlan, FaultSpec
+
+    good, bad = {
+        "replicas": (lambda P, S: dict(replicas=2),
+                     lambda P, S: dict(replicas=0)),
+        "faults": (lambda P, S: dict(faults=P.parse(
+                       ["engine_step:after=2,replica=r0"])),
+                   lambda P, S: dict(faults=_bad_plan(P, S))),
+        "trace": (lambda P, S: dict(trace=True, metrics=False),
+                  lambda P, S: dict(trace=True, queue_depth=0)),
+    }[next(iter(knob))]
+    for cfg_cls, P, S in ((ServeConfig, FaultPlan, FaultSpec),
+                          (JServeConfig, JFaultPlan, JFaultSpec)):
+        cfg_cls(**good(P, S)).validate()
+        with pytest.raises(ValueError):
+            cfg_cls(**bad(P, S)).validate()
 
 
 @pytest.mark.parametrize("knob", [
