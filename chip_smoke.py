@@ -7,11 +7,16 @@ swap, cancel), sampled and in static mode, run the pruning launcher's
 default path — the pipelined engine, Algorithm 1 with MM 2:4 — on it at
 full width and depth, train, prune and serve the tiny LM with the port's
 own trainer, serve Jamba-1.5-Large's blocks without the experts at full
-width, run the paper's Table 3 on the tiny Mamba LM, and serve the
-pruned Qwen1.5-0.5B over HTTP/SSE through the front end (two replicas,
-the supervisor, injected faults, the CLI's server).
+width, run the paper's Table 3 on the tiny Mamba LM, serve the pruned
+Qwen1.5-0.5B over HTTP/SSE through the front end (two replicas, the
+supervisor, injected faults, the CLI's server), and serve and prune
+gemma-2b, Qwen3-14B and Gemma3-12B at full width (head dim 256, qk-norm,
+sliding-window layers).
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
+    python3 chip_smoke.py --phases 1,12   # phase 1's hd-256 / window /
+                                          # new-width rows and phase 12 only
+                                          # (or a part of it: 12a ... 12d)
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
@@ -34,7 +39,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
      version's, vector route); flash_attn in f32 and bf16,
      causal and not, T in {128, 129, 200, 257, 2048}, G in {1, 2}, then
      at (8, 2048, 16, 64) and (128, 2048, 16, 64) bf16; nm_spmm also at
-     ragged M = 257, (200, 132, 200) and with padding-slot groups.  Every
+     ragged M = 257, (200, 132, 200) and with padding-slot groups; then
+     flash_attn at head dim 256 (f32 and bf16, causal and not, T in {128,
+     129, 257, 2048}, G in {1, 2, 8}) and over a sliding window (1024 at
+     T 2048 and 2100, 64 at T 257), timed at gemma-2b's and Gemma3-12B's
+     stacked captures beside SDPA, and nm_spmm_decode (M 8) / nm_spmm
+     (M 256) at Qwen3-14B's seven linears and gemma-2b's mlp.wo (K
+     16384) and attn.wk (N 256) beside torch.matmul.  Every
      nm_spmm, nm_spmm_decode and hessian_accum row asserts its route
      (``last_kernel``: tensor cores for bf16, f32 FMA for f32 and for
      rows off 16 bytes) and the same bits from a second call; hessian_accum
@@ -48,7 +59,9 @@ Phases (any failure exits non-zero; no exception is swallowed):
      per-step logits must agree within LOGIT_TOL and the greedy streams
      must be equal, except at a step whose plain top-two logit gap is
      below LOGIT_TOL (a near tie, printed);
-  3. the serving main path: Qwen1.5-0.5B, 24 layers, bf16, random init
+  3. the serving main path: Qwen1.5-0.5B at full width, QWEN_SERVE_LAYERS
+     of its 24 layers (cut to keep the run inside its time limit), bf16,
+     random init
      from a seeded torch.Generator, magnitude 2:4 on the seven linears of
      every layer, packed by the engine — 8 greedy requests (64-token
      prompts, 32 new tokens), one 512-token prompt at prefill_chunk 256
@@ -96,7 +109,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
      per layer) on Qwen1.5-0.5B at full width and depth (PRUNE_LAYERS),
      bf16, random init; the paper's calibration protocol (128 random
      sequences x 2048 tokens); MM 2:4 at blocksize 128 — the counters
-     are zeroed just before and read just after, and flash_attn,
+     are zeroed just before and read just after (PRUNE_LAYERS of the 24
+     layers since phase 12 came), and flash_attn,
      hessian_accum and nm_select must each be > 0, hessian_accum 7 a
      layer and nm_select 70; wall, seconds per layer, HBM held and the
      host syncs PyTorch reports
@@ -182,10 +196,29 @@ Phases (any failure exits non-zero; no exception is swallowed):
      one engine's ``generate``.  11d: ``python -m
      repro_torch.launch.serve --server --port 0 --replicas 2`` answers a
      streamed completion and exits 0 on SIGTERM after "draining...".
+  12. the dense decoders' attention variants at full width, bf16 unless
+     named: 12a each model's kernels against the plain override end to
+     end in f32 (2 layers; Gemma3-12B one period of 6 with a 1100-token
+     prompt past its window), phase 2's LOGIT_TOL and tie rule; 12b
+     gemma-2b, Qwen3-14B and Gemma3-12B at full depth, magnitude 2:4
+     packed by the engine — the 8 requests continuous (the reference's
+     serve defaults), with int8 pages and as one static bucket (static
+     equal to continuous up to near ties), Gemma3-12B also one 2048-token
+     prompt at chunk 256 whose stream must part from a window=None copy's;
+     every serving kernel launched, the pools' invariants, tok/s, HBM and
+     a profiled run's idle share; 12c each pruned MS 2:4 through the
+     launcher's default (pipelined) engine on 128 x 2048 random tokens at
+     DENSE_PRUNE_LAYERS (gemma-2b whole, Qwen3-14B 4, Gemma3-12B one
+     period, its calibration in DENSE_CALIB_SHARDS = 4 shards, which HBM
+     forces): hessian_accum 7 and flash_attn 2 launches a layer and
+     shard, nm_select 7 a layer, at most 1 host sync, finite perplexity,
+     every linear 2:4, the result served packed; 12d MM 2:4 on gemma-2b's
+     layer 0 (mlp.wo
+     skipped) through the serial engine, seconds by stage and linear.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
-shapes, and its launches over phases 3-11), the nvidia-smi
+shapes, and its launches over phases 3-12), the nvidia-smi
 line, and last the ``{"ok": true, "device": {...}}`` line.  Longer tables go to
 ``chiprun_out/chip_smoke.txt``.
 """
@@ -224,7 +257,10 @@ LAYER_TIE_REL = 1e-4                 # phases 5b, 6: the two runs' Hessians diff
                                      # by ~1e-6, amplified by Hinv's condition
 LAYER_W_TOL = 1e-3                   # phase 6: |Δw| / max|w0| on agreeing rows
 LAYER_ERR_REL = 1e-3                 # phases 5b, 6: reconstruction error, relative
-PRUNE_LAYERS = 24                    # phase 5 depth: the full model (≈ 4 s a layer)
+PRUNE_LAYERS = 8                     # phase 5 depth: 8 of the 24 (≈ 2.7 s a layer;
+                                     # cut with phase 12's arrival, as
+QWEN_SERVE_LAYERS = 8                # phases 3-4 and 11a-c: 8 of the 24 layers,
+                                     # to keep chip_smoke inside its time limit)
 PRUNE_CMP_LAYERS = 4                 # serial vs pipelined, and resume
 PRUNE_ROW_CHUNK = 128                # rows per MRP solve: ≤ 1 GB (rows, k, k)
 SERVE_KERNELS = ("nm_spmm", "nm_spmm_decode", "paged_attn")
@@ -241,6 +277,28 @@ QWEN_LINEARS = (                     # (name, K, N, bias, activation)
     ("mlp.wg", 1024, 2816, False, "silu"),
     ("mlp.wo", 2816, 1024, False, None),
 )
+QWEN3_LINEARS = (                    # Qwen3-14B: d_model 5120, 40 heads,
+    ("qwen3 attn.wq", 5120, 5120, False, None),      # 8 kv heads, hd 128
+    ("qwen3 attn.wk", 5120, 1024, False, None),
+    ("qwen3 attn.wv", 5120, 1024, False, None),
+    ("qwen3 attn.wo", 5120, 5120, False, None),
+    ("qwen3 mlp.wi", 5120, 17408, False, None),
+    ("qwen3 mlp.wg", 5120, 17408, False, "silu"),
+    ("qwen3 mlp.wo", 17408, 5120, False, None),
+)
+GEMMA_LINEARS = (                    # gemma-2b: the widest K, the narrowest N
+    ("gemma-2b mlp.wo", 16384, 2048, False, None),
+    ("gemma-2b attn.wk", 2048, 256, False, None),
+)
+DENSE_ARCHS = ("gemma_2b", "qwen3_14b", "gemma3_12b")
+DENSE_PRUNE_LAYERS = {"gemma_2b": 18,  # phase 12c: gemma-2b whole; the
+                      "qwen3_14b": 4,  # others cut, Gemma3-12B to one
+                      "gemma3_12b": 6}  # period (5 local + 1 global)
+DENSE_CALIB_SHARDS = {"gemma3_12b": 4}  # phase 12c: Gemma3-12B's segment is
+                                     # its 6-layer period, whose stacked
+                                     # capture of all 128 x 2048 tokens would
+                                     # hold ≈ 84 GB of linear inputs: the same
+                                     # tokens in 4 shards (calib_shard)
 LOG = []
 
 
@@ -905,6 +963,152 @@ def check_flash(gen, rows):
     return timed
 
 
+def _band_pairs(t, window):
+    """(query, key) pairs a causal attention over T tokens computes: every
+    key at or before its query, or only the last ``window`` of them."""
+    if window is None or window >= t:
+        return t * (t + 1) / 2
+    return window * (window + 1) / 2 + (t - window) * window
+
+
+def check_flash_256(gen, rows):
+    """flash_attn at gemma's head dim 256 and with a sliding window,
+    against flash_attn_plain: f32 and bf16, causal and not, T in {128,
+    129, 257, 2048}, G in {1, 2, 8} (H 8); windows 1024 at T 2048 and
+    2100 and 64 at T 257 (the band across key tiles, ragged), causal,
+    both dtypes.  Each row asserts its route (tensor cores for bf16, f32
+    FMA for f32) and the same bits from a second call.  Then timed in
+    bf16 at the prune path's stacked captures: gemma-2b's (128, 2048, 8,
+    1, 256) causal and Gemma3-12B's (128, 2048, 16, 8, 256) over its
+    window of 1024, beside scaled_dot_product_attention (an explicit
+    mask for the window; k / v expanded to H heads) and the bound
+    (operations over the band's pairs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
+
+    cases = [(t, g, causal, None) for t in (128, 129, 257, 2048)
+             for g in (1, 2, 8) for causal in (True, False)]
+    cases += [(2048, 2, True, 1024), (2100, 2, True, 1024),
+              (257, 8, True, 64)]
+    n0 = len(rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        want_route = "f32 FMA" if dtype == torch.float32 else "tensor cores"
+        tol_rel = (KERNEL_TOL_REL if dtype == torch.float32
+                   else BF16_KERNEL_TOL_REL)
+        for t, g, causal, window in cases:
+            q, k, v = _flash_inputs(gen, 1, t, 8, 8 // g, 256, dtype)
+            got = flash_attn(q, k, v, causal, window)
+            route = flash_attn.last_kernel
+            same = bool(torch.equal(got, flash_attn(q, k, v, causal,
+                                                    window)))
+            want = flash_attn_plain(q, k, v, causal, window)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = tol_rel * max(1.0, want.abs().max().item())
+            row = dict(kernel="flash_attn",
+                       shape=f"B=1 T={t} H=8 G={g} hd=256 {dname} "
+                             f"{'causal' if causal else 'full'}"
+                             + (f" window={window}" if window else ""),
+                       max_abs_err=err, tol=tol,
+                       ok=err <= tol and route == want_route and same,
+                       route=route, deterministic=same)
+            rows.append(row)
+            LOG.append(f"  flash_attn      {row['shape']:46s} err "
+                       f"{err:.3e} tol {tol:.3e} ({route}) same bits "
+                       f"{same} {'ok' if row['ok'] else 'FAIL'}")
+            del q, k, v, got, want
+    new = rows[n0:]
+    say(f"  flash_attn      {len(new)} cases at hd 256 (f32/bf16, causal/"
+        f"full, T 128/129/257/2048, G 1/2/8; windows 1024 at T 2048/2100, "
+        f"64 at T 257): {sum(r['ok'] for r in new)} ok, worst err/tol "
+        f"{max(r['max_abs_err'] / r['tol'] for r in new):.3e}")
+
+    timed = []
+    for b, t, h, kv, window, label in (
+            (128, 2048, 8, 1, None, "gemma-2b stacked capture"),
+            (128, 2048, 16, 8, 1024, "Gemma3-12B stacked capture, local "
+                                     "layer")):
+        q, k, v = _flash_inputs(gen, b, t, h, kv, 256, torch.bfloat16)
+        got = flash_attn(q, k, v, True, window)
+        route = flash_attn.last_kernel
+        chunk = 8
+        want = torch.cat([flash_attn_plain(q[i:i + chunk], k[i:i + chunk],
+                                           v[i:i + chunk], True, window)
+                          for i in range(0, b, chunk)])
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = BF16_KERNEL_TOL_REL * max(1.0, want.abs().max().item())
+        del got, want
+
+        def plain_chunked(q, k, v, causal, window):
+            for i in range(0, q.shape[0], chunk):
+                flash_attn_plain(q[i:i + chunk], k[i:i + chunk],
+                                 v[i:i + chunk], causal, window)
+
+        args = [(q, k, v, True, window)]
+        ms = device_ms(flash_attn, args, n=3, reps=3)
+        plain_ms = device_ms(plain_chunked, args, n=1, reps=3)
+        g = h // kv
+        sdpa = [(q.transpose(1, 2),
+                 k.repeat_interleave(g, dim=2).transpose(1, 2),
+                 v.repeat_interleave(g, dim=2).transpose(1, 2))]
+        if window is None:
+            lib_ms = device_ms(lambda a, b_, c: F.scaled_dot_product_attention(
+                a, b_, c, is_causal=True), sdpa, n=3, reps=3)
+        else:
+            # a masked call on the memory-efficient backend (the math
+            # fallback would hold the (B, H, T, T) scores)
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+
+            pos = torch.arange(t, device="cuda")
+            band = (pos[None, :] <= pos[:, None]) & (
+                pos[None, :] > pos[:, None] - window)
+
+            def masked(a, b_, c):
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(a, b_, c,
+                                                          attn_mask=band)
+
+            lib_ms = device_ms(masked, sdpa, n=3, reps=3)
+        pairs = _band_pairs(t, window)
+        n_bytes = (b * t * h * 256 + 2 * b * t * kv * 256) * 2 \
+            + b * t * h * 256 * 4
+        b_ms, b_by = bound(n_bytes, 4.0 * b * h * 256 * pairs, "bfloat16")
+        row = dict(kernel="flash_attn",
+                   shape=f"B={b} T={t} H={h} KV={kv} hd=256 bf16 causal"
+                         + (f" window={window}" if window else "")
+                         + f" ({label})",
+                   max_abs_err=err, tol=tol,
+                   ok=err <= tol and route == "tensor cores", ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, route=route)
+        rows.append(row)
+        timed.append(row)
+        say(f"  flash_attn      {row['shape']:70s} ({route}) err {err:.3e} "
+            f"tol {tol:.3e} {'ok' if row['ok'] else 'FAIL'}  ms {ms:.5f} "
+            f"plain {plain_ms:.5f} lib {lib_ms:.5f} bound {b_ms:.5f} "
+            f"({b_by})")
+        del q, k, v, sdpa, args
+        torch.cuda.empty_cache()
+    return timed
+
+
+def check_dense_widths(gen, rows):
+    """nm_spmm_decode (M 8) and nm_spmm (M 256) at the new models'
+    widths: Qwen3-14B's seven linears, gemma-2b's mlp.wo (K 16384) and
+    attn.wk (N 256), beside torch.matmul and the bound."""
+    out = {"nm_spmm_decode": [], "nm_spmm": []}
+    for m in (8, 256):
+        for lin in (*QWEN3_LINEARS, *GEMMA_LINEARS):
+            row = nm_row(gen, m, *lin)
+            rows.append(row)
+            out[row["kernel"]].append(row)
+    return out
+
+
 def _near_tie_gap(w, hinv):
     """Relative gap between the two smallest Eq. (12) pair losses of every
     group, from the plain losses: (R, G)."""
@@ -983,11 +1187,13 @@ def check_nm_select(gen, rows):
 # phase 2: end to end, f32, reduced depth
 # ----------------------------------------------------------------------
 class Recorder:
-    """Passes through to the LM and keeps every call's logits."""
+    """Passes through to the LM and keeps every call's logits, and in
+    ``steps`` which method made them ("decode" or "prefill")."""
 
     def __init__(self, model):
         self.model = model
         self.calls = []
+        self.steps = []
 
     def __getattr__(self, name):
         return getattr(self.model, name)
@@ -995,15 +1201,20 @@ class Recorder:
     def decode_step(self, *a, **kw):
         out = self.model.decode_step(*a, **kw)
         self.calls.append(out.cpu())
+        self.steps.append("decode")
         return out
 
     def prefill_chunk(self, *a, **kw):
         out = self.model.prefill_chunk(*a, **kw)
         self.calls.append(out.cpu())
+        self.steps.append("prefill")
         return out
 
 
-def e2e_f32():
+def e2e_f32(arch="qwen1.5-0.5b", layers=2, long_prompt=0, tag="e2e"):
+    """The same requests served with the kernels and with the plain
+    override, f32, ``arch`` at full width and ``layers`` deep; request 0's
+    prompt ``long_prompt`` tokens long when given (past a window)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1012,22 +1223,23 @@ def e2e_f32():
     from repro_torch.models.transformer import LM
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
                               dtype="float32")
     model = LM(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     params = prune_linears(model.init(gen), "2:4")
     rng = np.random.default_rng(1)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               size=(40, 23, 70, 9)[i % 4],
-                                               dtype=np.int32),
-                    max_new_tokens=12) for i in range(8)]
+    reqs = [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, size=(long_prompt if i == 0 and long_prompt
+                                 else (40, 23, 70, 9)[i % 4]),
+        dtype=np.int32), max_new_tokens=12) for i in range(8)]
     runs = {}
     for label in ("kernels", "plain"):
         rec = Recorder(model)
-        eng = ServeEngine(rec, params, max_batch=8, max_len=96,
-                          page_size=16, prefill_chunk=32)
+        eng = ServeEngine(rec, params, max_batch=8,
+                          max_len=max(96, long_prompt + 16), page_size=16,
+                          prefill_chunk=32)
         say(f"  {label}: {arena_line(eng)}")
         if label == "plain":
             with ops.override_dispatch(plain=True):
@@ -1037,7 +1249,8 @@ def e2e_f32():
         runs[label] = (res, rec.calls)
     (rk, ck), (rp, cp) = runs["kernels"], runs["plain"]
     if len(ck) != len(cp):
-        fail("e2e: kernel and plain runs made different numbers of steps")
+        fail(f"{tag}: kernel and plain runs made different numbers of "
+             "steps")
     max_diff, n_cmp = 0.0, 0
     for a, b in zip(ck, cp):
         max_diff = max(max_diff, (a - b).abs().max().item())
@@ -1047,7 +1260,7 @@ def e2e_f32():
     say(f"  per-step logits: max |kernel - plain| {max_diff:.3e} over "
         f"{n_cmp} steps (tol {LOGIT_TOL:g})")
     if max_diff > LOGIT_TOL:
-        fail(f"e2e logits differ by {max_diff:.3e} > {LOGIT_TOL:g}")
+        fail(f"{tag} logits differ by {max_diff:.3e} > {LOGIT_TOL:g}")
     n_tok = 0
     for a, b in zip(rk, rp):
         n_tok += len(b.tokens)
@@ -1063,10 +1276,11 @@ def e2e_f32():
         say(f"  request {a.uid}: streams part at token {j}; plain top-two "
             f"gap there {gap:.3e}")
         if gap >= LOGIT_TOL:
-            fail(f"e2e stream of request {a.uid} differs at token {j} with "
-                 f"a top-two gap {gap:.3e} >= {LOGIT_TOL:g}")
+            fail(f"{tag} stream of request {a.uid} differs at token {j} "
+                 f"with a top-two gap {gap:.3e} >= {LOGIT_TOL:g}")
     say(f"  greedy streams: {n_tok} tokens, kernels == plain except near "
         "ties printed above")
+    return dict(max_logit_diff=max_diff, steps=n_cmp, tokens=n_tok)
 
 
 # ----------------------------------------------------------------------
@@ -1081,7 +1295,8 @@ def main_path():
     from repro_torch.models.transformer import LM
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              num_layers=QWEN_SERVE_LAYERS)
     model = LM(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1108,7 +1323,7 @@ def main_path():
     packed = engines[0].n_sparse_leaves
     for (label, _, _), eng in zip(runs, engines):
         say(f"  {label}: {arena_line(eng)}")
-    say(f"  packed {packed} linears (24 layers x 7)")
+    say(f"  packed {packed} linears ({cfg.num_layers} layers x 7)")
     if packed != cfg.num_layers * 7:
         fail(f"expected {cfg.num_layers * 7} packed linears, got {packed}")
     torch.cuda.synchronize()
@@ -3148,7 +3363,8 @@ def frontend_on_card(smi, cli=FRONT_CLI):
     from repro_torch.serve.frontend import (CompletionRequest, Router,
                                             Supervisor, sse_decode)
 
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              num_layers=QWEN_SERVE_LAYERS)
     model = LM(cfg, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -3476,12 +3692,406 @@ def _cli_server(proc, lines, ready, up, smi):
 
 
 # ----------------------------------------------------------------------
+# phase 12: the dense decoders' attention variants at full width
+# ----------------------------------------------------------------------
+def _dense(arch, layers=None):
+    """``arch``'s published config, cut to ``layers`` where given, and its
+    model on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg, LM(cfg, device="cuda")
+
+
+def dense_e2e():
+    """12a: each model at full width, f32, 2 layers (Gemma3-12B: its
+    whole period of 6, request 0's prompt 1100 tokens past the window of
+    1024), served with the kernels and with the plain override."""
+    import torch
+
+    out = {}
+    for arch in DENSE_ARCHS:
+        gemma3 = arch == "gemma3_12b"
+        say(f"  {arch}: f32, {6 if gemma3 else 2} layers")
+        out[arch] = e2e_f32(arch, 6 if gemma3 else 2,
+                            long_prompt=1100 if gemma3 else 0,
+                            tag=f"phase 12a {arch}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def dense_serve(arch, gen_seed=0):
+    """12b: ``arch`` at full width and depth, bf16, random init from a
+    seeded torch.Generator, magnitude 2:4 on every linear, packed by the
+    engine.  Phase 3's 8 greedy requests continuous (page 16, chunk 32;
+    the reference's serve defaults), the same with int8 pages, and as one
+    static bucket; for Gemma3-12B one 2048-token prompt at chunk 256,
+    served again by a copy of the model without the window (the streams
+    must part).  Every serving kernel launched, the pools' invariants,
+    static equal to continuous up to near ties; tok/s, HBM held and the
+    idle share of one profiled generate."""
+    import torch
+
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model = _dense(arch)
+    t0 = time.monotonic()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(gen_seed)
+    params = prune_linears(model.init(g), "2:4")
+    kw = dict(max_batch=8, max_len=128, page_size=16, prefill_chunk=32)
+    eng = ServeEngine(model, params, **kw)
+    del params                                      # the engine packed them
+    params = eng.params
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    say(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"hd {cfg.hd}; init + magnitude 2:4 + packing in "
+        f"{time.monotonic() - t0:.1f} s; params {n_bytes / 2**30:.3f} GiB "
+        f"packed; HBM peak so far {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if eng.n_sparse_leaves != 7 * cfg.num_layers:
+        fail(f"phase 12b {arch}: packed {eng.n_sparse_leaves} linears, "
+             f"expected {7 * cfg.num_layers}")
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=64,
+                                               dtype=np.int32),
+                    max_new_tokens=32) for i in range(8)]
+    int8 = ServeEngine(model, params, **kw, kv_dtype="int8")
+    static = ServeEngine(model, params, max_batch=8, max_len=128,
+                         mode="static")
+    runs = [("8 requests, continuous", eng, reqs),
+            ("8 requests, int8 pages", int8, reqs),
+            ("8 requests, static", static, reqs)]
+    long_req = None
+    if cfg.window is not None:
+        # one token repeated over the first 1024 positions, random ids
+        # after them: the window leaves the repeated block out of the
+        # local layers' attention, which a random init (whose residual
+        # the embedding dominates) shows only where the block's values
+        # add up coherently
+        long_req = [Request(uid=100, prompt=np.concatenate(
+            [np.full(1024, 7, np.int32), rng.integers(
+                0, cfg.vocab_size, size=1024, dtype=np.int32)]),
+            max_new_tokens=32)]
+        long_kw = dict(max_batch=1, max_len=2080, page_size=16,
+                       prefill_chunk=256)
+        runs.append(("2048-token prompt, chunk 256",
+                     ServeEngine(model, params, **long_kw), long_req))
+    say(f"  engine: {arena_line(eng)}")
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                       # the path starts
+    streams = {}
+    for label, e, rq in runs:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res = e.generate(rq)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        _check_streams(f"phase 12b {arch} {label}", rq, res, cfg.vocab_size)
+        toks = sum(len(r.tokens) for r in res)
+        st = dict(e.stats)
+        say(f"  {label}: {toks} tokens in {dt:.3f} s = {toks / dt:.2f} "
+            f"tok/s; host syncs/token {st['host_syncs'] / toks:.3f}; "
+            f"prefill chunks {st['prefill_chunks']}")
+        out[label] = dict(tok_s=toks / dt, wall_s=dt, stats=st)
+        streams[label] = _streams(res)
+        if e.pool is not None:
+            e.pool.check_invariants()
+    counts = ops.launch_counts()                    # ... and ends
+    hbm = torch.cuda.max_memory_allocated()
+    say(f"  launches over the serving runs {counts}; HBM held "
+        f"{hbm / 2**30:.3f} GiB")
+    for k in (*SERVE_KERNELS, "flash_attn"):
+        if counts[k] <= 0:
+            fail(f"phase 12b {arch}: kernel {k} was not launched")
+    parted = _first_divergence(model, params, reqs,
+                               streams["8 requests, static"],
+                               streams["8 requests, continuous"], STATIC_TIE,
+                               f"phase 12b {arch} static vs continuous",
+                               ulps=STATIC_TIE_ULPS)
+    say(f"  static vs continuous: {len(reqs) - parted}/{len(reqs)} streams "
+        "equal (the rest part at near ties)")
+    out.update(parted=parted, hbm_gib=hbm / 2**30, launches=counts,
+               params_gib=n_bytes / 2**30)
+    if long_req is not None:
+        # the window's proof: the same prompt served again, by a copy of
+        # the model without the window (the same params), each step's
+        # logits recorded on both sides.  The streams may still agree: a
+        # random init's tied head follows the last token's own embedding
+        glob = LM(dataclasses.replace(cfg, window=None), device="cuda")
+        recs = [Recorder(model), Recorder(glob)]
+        band, full = (_streams(ServeEngine(rec, params, **long_kw).generate(
+            long_req))[100] for rec in recs)
+        if recs[0].steps != recs[1].steps:
+            fail(f"phase 12b {arch}: the runs with and without the window "
+                 "made different steps")
+        pre = [i for i, k in enumerate(recs[0].steps) if k == "prefill"]
+        shift_all = [(a - b).abs().max().item()
+                     for a, b in zip(recs[0].calls, recs[1].calls)]
+        # the chunks, then the decode steps after the last one (the
+        # idle-slot decode steps between chunks compute nothing served)
+        shift = ([shift_all[i] for i in pre]
+                 + shift_all[pre[-1] + 1:])
+        n_pre = len(pre)
+        if n_pre != long_req[0].prompt.size // long_kw["prefill_chunk"]:
+            fail(f"phase 12b {arch}: {n_pre} prefill chunks recorded")
+        if not np.array_equal(band, streams["2048-token prompt, chunk 256"][
+                100]):
+            fail(f"phase 12b {arch}: the recorded run's stream differs "
+                 "from the timed run's")
+        diff = np.nonzero(full != band)[0]
+        say(f"  without the window (window=None, the same params): the "
+            f"logits of prefill chunks 0-3 move by {max(shift[:4]):.3e} "
+            f"(positions < 1024: the band is whole), of the last chunk by "
+            f"{shift[n_pre - 1]:.3e}, of the {len(shift) - n_pre} decode "
+            f"steps by {min(shift[n_pre:]):.3e} to "
+            f"{max(shift[n_pre:]):.3e}; the stream "
+            + (f"parts at token {int(diff[0])} ({len(diff)}/32 tokens "
+               "differ)" if len(diff) else "is the same (the tied head's "
+               "argmax)"))
+        if max(shift[:4]) != 0.0:
+            fail(f"phase 12b {arch}: the window moved the logits of a "
+                 "chunk that lies inside every band")
+        if min(shift[n_pre - 1], max(shift[n_pre:])) < STATIC_TIE:
+            fail(f"phase 12b {arch}: without the window the first token's "
+                 f"logits or the decode steps' moved by less than "
+                 f"{STATIC_TIE}")
+        out["window"] = dict(shift_first_chunks=max(shift[:4]),
+                             shift_last_chunk=shift[n_pre - 1],
+                             shift_decode_max=max(shift[n_pre:]),
+                             shift_decode_min=min(shift[n_pre:]),
+                             stream_parts_at=(int(diff[0]) if len(diff)
+                                              else None))
+        del glob, recs
+    say("  the profiled run: the 8 requests, continuous")
+    out["profile"] = profile_main(eng, reqs)
+    del runs, eng, int8, static, params, model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def dense_prune(arch):
+    """12c: ``launch.prune.prune`` with the launcher's default engine
+    (pipelined), MS 2:4 at blocksize 128 (the paper's 𝔐 mask over whole
+    matrices with the 𝔖 compensation) on ``arch`` at full width and
+    DENSE_PRUNE_LAYERS deep, 128 x 2048 random calibration tokens in
+    DENSE_CALIB_SHARDS shards (default 1); launches a layer (hessian_accum
+    7 and flash_attn 2 a shard, nm_select 7), host
+    syncs, perplexity before and after, every pruned linear 2:4; then the
+    pruned model served packed."""
+    import torch
+
+    from repro_torch.core.pruner import LINEARS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prune as launch_prune
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.sparse import is_24_sparse
+
+    layers = DENSE_PRUNE_LAYERS[arch]
+    shards = DENSE_CALIB_SHARDS.get(arch, 1)
+    cfg, model = _dense(arch, layers)
+    params = launch_prune.load_params(model, None, seed=0)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    ev = [{"tokens": t, "labels": t} for t in torch.randint(
+        0, cfg.vocab_size, (2, 4, 512), generator=gen, device="cuda")]
+    dense_ppl = launch_prune.eval_ppl(model, params, ev)
+    pipeline = launch_prune.build_parser().get_default("pipeline")
+    syncs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                       # the prune path starts
+    t0 = time.monotonic()
+    with count_syncs(syncs):
+        pruned, reports = launch_prune.prune(
+            model, params, calib, "2:4", "MS", blocksize=128,
+            row_chunk=PRUNE_ROW_CHUNK, pipeline=pipeline,
+            calib_shard=shards)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()                    # ... and ends
+    hbm = torch.cuda.max_memory_allocated()
+    say(f"  {cfg.name}, {layers} layers, MS 2:4 ({pipeline}, {shards} "
+        f"calibration shard(s)): {wall:.2f} s "
+        f"({wall / layers:.3f} s a layer); HBM held {hbm / 2**30:.3f} GiB; "
+        f"host syncs {syncs['n']} from {syncs['where']}; launches {counts}")
+    want = {"hessian_accum": 7 * layers * shards,
+            "flash_attn": 2 * layers * shards, "nm_select": 7 * layers}
+    for k, n in want.items():
+        if counts[k] != n:
+            fail(f"phase 12c {arch}: {counts[k]} {k} launches, expected "
+                 f"{n} ({n // layers} a layer)")
+    if syncs["n"] > 1:
+        fail(f"phase 12c {arch}: {syncs['n']} host syncs in the pipelined "
+             "run (expected the final readback only)")
+    bad = [f"{i}.{sub}.{key}" for i, lp in enumerate(pruned["layers"])
+           for sub, key in LINEARS if not is_24_sparse(lp[sub][key])]
+    if bad or len(reports) != 7 * layers:
+        fail(f"phase 12c {arch}: not 2:4 after MS: {bad[:4]}; "
+             f"{len(reports)} reports")
+    off = [r.name for r in reports if abs(r.sparsity - 0.5) > 1e-6]
+    if off:
+        fail(f"phase 12c {arch}: sparsity other than 0.5 for {off[:4]}")
+    pruned_ppl = launch_prune.eval_ppl(model, pruned, ev)
+    say(f"  perplexity on 2 x 4 x 512 random tokens: dense {dense_ppl:.2f}, "
+        f"MS 2:4 {pruned_ppl:.2f} (random weights: no gate)")
+    if not (math.isfinite(dense_ppl) and math.isfinite(pruned_ppl)):
+        fail(f"phase 12c {arch}: non-finite perplexity")
+    del params
+    rng = np.random.default_rng(3)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=32,
+                                               dtype=np.int32),
+                    max_new_tokens=16) for i in range(8)]
+    eng = ServeEngine(model, pruned, max_batch=8, max_len=64, page_size=16,
+                      prefill_chunk=32)
+    if eng.n_sparse_leaves != 7 * layers:
+        fail(f"phase 12c {arch}: packed {eng.n_sparse_leaves} linears")
+    res = eng.generate(reqs)
+    _check_streams(f"phase 12c {arch} pruned", reqs, res, cfg.vocab_size)
+    say(f"  the pruned model, packed ({eng.n_sparse_leaves} linears), "
+        f"served {len(res)} requests x 16 tokens")
+    out = dict(layers=layers, shards=shards, wall_s=wall,
+               s_per_layer=wall / layers,
+               hbm_gib=hbm / 2**30, syncs=syncs["n"], launches=counts,
+               dense_ppl=dense_ppl, pruned_ppl=pruned_ppl)
+    del eng, pruned, model, calib
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def dense_mrp_timed():
+    """12d: the paper's MRP compensation (MM 2:4) on gemma-2b's layer 0 at
+    full width, the serial engine with its StageClock, mlp.wo skipped
+    (Eq. 13 there: m 16384, 128 blocks each re-solved against the whole
+    mask, ≈ 1.2·10¹⁶ flops).  Prints the seconds by stage and by
+    linear."""
+    import torch
+
+    from repro_torch.core.clock import StageClock
+    from repro_torch.launch import prune as launch_prune
+
+    cfg, model = _dense("gemma_2b", 1)
+    params = launch_prune.load_params(model, None, seed=0)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0)
+    clock = StageClock("cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    _, reports = launch_prune.prune(
+        model, params, calib, "2:4", "MM", blocksize=128,
+        row_chunk=PRUNE_ROW_CHUNK, clock=clock, pipeline="off",
+        skip=("mlp.wo",))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    names = [r.name for r in reports]
+    if len(reports) != 6 or any("mlp.wo" in n for n in names):
+        fail(f"phase 12d: pruned {names}, expected the six linears but "
+             "mlp.wo")
+    stages = dict(sorted(clock.seconds.items(), key=lambda kv: -kv[1]))
+    say(f"  gemma-2b layer 0, MM 2:4, serial, mlp.wo skipped: {wall:.2f} s;"
+        " by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    say("  by linear: " + ", ".join(f"{r.name} {r.seconds:.2f} s"
+                                    for r in reports))
+    del model, params, calib
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, stages_s=stages,
+                linears_s={r.name: r.seconds for r in reports})
+
+
+def dense_variants(parts="abcd"):
+    """Phase 12: 12a-12d (those of ``parts``); returns the launches of the
+    serving and pruning runs and the phase's numbers."""
+    import torch
+
+    out = {}
+    serve_counts = {k: 0 for k in (*SERVE_KERNELS, "flash_attn")}
+    prune_counts = {k: 0 for k in PRUNE_KERNELS}
+    t = time.monotonic()
+    if "a" in parts:
+        say("  12a: kernels against plain end to end, f32")
+        out["e2e"] = dense_e2e()
+        say(f"  12a took {time.monotonic() - t:.1f} s")
+    for arch in DENSE_ARCHS if "b" in parts else ():
+        t = time.monotonic()
+        say(f"  12b: {arch} served at full width and depth, bf16, 2:4")
+        c, out[f"serve {arch}"] = dense_serve(arch)
+        for k in serve_counts:
+            serve_counts[k] += c[k]
+        say(f"  12b {arch} took {time.monotonic() - t:.1f} s")
+        torch.cuda.empty_cache()
+    for arch in DENSE_ARCHS if "c" in parts else ():
+        t = time.monotonic()
+        say(f"  12c: {arch} pruned MS 2:4 through the pipelined engine")
+        c, out[f"prune {arch}"] = dense_prune(arch)
+        for k in prune_counts:
+            prune_counts[k] += c[k]
+        say(f"  12c {arch} took {time.monotonic() - t:.1f} s")
+    if "d" in parts:
+        t = time.monotonic()
+        say("  12d: MRP compensation at gemma-2b's width, timed")
+        out["mrp"] = dense_mrp_timed()
+        say(f"  12d took {time.monotonic() - t:.1f} s")
+    return serve_counts, prune_counts, out
+
+
+def partial_run(only, gen, rows, t_start) -> int:
+    """``--phases``: phase 1's new rows (hd 256, the window, the new
+    widths) and/or phase 12, then a summary line; no result lines."""
+    import torch
+
+    out = {}
+    if "1" in only:
+        say("phase 1 (partial): flash_attn at hd 256 and windowed; nm_spmm "
+            "at the new widths")
+        out["flash_attn_hd256"] = check_flash_256(gen, rows)
+        out["dense_widths"] = check_dense_widths(gen, rows)
+        torch.cuda.empty_cache()
+    parts = "abcd" if "12" in only else "".join(
+        p[2] for p in sorted(only) if p.startswith("12"))
+    if parts:
+        say(f"phase 12 (partial: {parts})")
+        out["serve"], out["prune"], out["dense"] = dense_variants(parts)
+    bad = [r for r in rows if not r["ok"]]
+    os.makedirs(ROOT / "chiprun_out", exist_ok=True)
+    with open(ROOT / "chiprun_out" / "chip_smoke_partial.txt", "w") as f:
+        f.write("\n".join(LOG) + "\n")
+        f.write(json.dumps({"rows": rows, **out}, default=str) + "\n")
+    if bad:
+        fail(f"{len(bad)} kernel checks out of tolerance: "
+             f"{[(r['kernel'], r['shape']) for r in bad]}")
+    say(f"partial run (phases {sorted(only)}) passed in "
+        f"{time.monotonic() - t_start:.1f} s")
+    return 0
+
+
+# ----------------------------------------------------------------------
 def main(argv) -> int:
     """``argv`` empty runs every phase; ``--train-mamba OUT [STOP_AT]`` is
-    phase 10's trainer process."""
+    phase 10's trainer process; ``--phases 1,12`` runs only phases 0, 1
+    and 12 (a partial run: no result lines, exit 0 when they pass)."""
     if argv[:1] == ["--train-mamba"]:
         return train_mamba(argv[1], int(argv[2]) if len(argv) > 2 else None)
-    if argv:
+    only = None
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        only = set(argv[1].split(","))
+        if not only <= {"1", "12", "12a", "12b", "12c", "12d"}:
+            print("chip_smoke: --phases takes 1, 12 and 12a-12d",
+                  file=sys.stderr)
+            return 2
+    elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
@@ -3498,6 +4108,10 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
+
+    def head(msg):
+        say(f"[{time.monotonic() - t_start:.0f} s] {msg}")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3508,61 +4122,66 @@ def main(argv) -> int:
 
     t0 = time.monotonic()
     build.library()
-    say(f"phase 0: kernels built and loaded in {time.monotonic() - t0:.1f} s"
-        f" (nvcc ran: {build.build_seconds is not None})")
+    head(f"phase 0: kernels built and loaded in {time.monotonic() - t0:.1f} s"
+         f" (nvcc ran: {build.build_seconds is not None})")
     for line in build.ptxas_report().splitlines():
         LOG.append("  " + line)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
-    say("phase 1: kernels against their plain versions")
+    if only is not None:
+        return partial_run(only, gen, rows, t_start)
+    head("phase 1: kernels against their plain versions")
     per_kernel = check_nm_spmm(gen, rows)
     paged_main, paged_long, paged_shared = check_paged(gen, rows)
     check_hessian(gen, rows)
     hess_rows = check_hessian_stacked(gen, rows)
     select_rows = check_nm_select(gen, rows)
     flash_rows = check_flash(gen, rows)
+    flash_256 = check_flash_256(gen, rows)
+    dense_rows = check_dense_widths(gen, rows)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
              f"{[(r['kernel'], r['shape']) for r in bad]}")
 
-    say("phase 2: end to end, f32, Qwen width, 2 layers")
+    head("phase 2: end to end, f32, Qwen width, 2 layers")
     e2e_f32()
 
-    say("phase 3: main path, Qwen1.5-0.5B, 24 layers, bf16, 2:4-packed")
+    head(f"phase 3: main path, Qwen1.5-0.5B, {QWEN_SERVE_LAYERS} of 24 "
+         "layers, bf16, 2:4-packed")
     counts, outs, hbm, engines, run_reqs = main_path()
 
-    say("phase 3b: the reference's default serve features — prefix cache "
-        "with copy-on-write attach, host swap, cancel — Qwen1.5-0.5B, 24 "
-        "layers, bf16, 2:4-packed")
+    head("phase 3b: the reference's default serve features — prefix cache "
+         f"with copy-on-write attach, host swap, cancel — Qwen1.5-0.5B, "
+         f"{QWEN_SERVE_LAYERS} layers, bf16, 2:4-packed")
     counts_3b, features = default_serve_features(
         engines[0].model, engines[0].params, run_reqs[0])
     greedy = _streams(outs["8 requests, bf16 KV"][0])
 
-    say("phase 3c: sampled decoding — temperature 0.8 with top-k 40, with "
-        "top-p 0.9, plain temperature 1.0 — Qwen1.5-0.5B, 24 layers, bf16, "
-        "2:4-packed")
+    head("phase 3c: sampled decoding — temperature 0.8 with top-k 40, with "
+         f"top-p 0.9, plain temperature 1.0 — Qwen1.5-0.5B, "
+         f"{QWEN_SERVE_LAYERS} layers, bf16, 2:4-packed")
     counts_3c, sampled = sampled_decoding(engines[0].model,
                                           engines[0].params, run_reqs[0],
                                           greedy)
 
-    say("phase 3d: static mode — one dense-cache bucket of the 8 requests, "
-        "greedy and sampled (fori and while variants)")
+    head("phase 3d: static mode — one dense-cache bucket of the 8 requests, "
+         "greedy and sampled (fori and while variants)")
     counts_3d, static = static_mode(engines[0].model, engines[0].params,
                                     run_reqs[0], greedy)
 
-    say("phase 4: profile of main-path runs: 8 requests; the 512-token "
-        "prompt at chunk 256 (the tiled nm_spmm)")
+    head("phase 4: profile of main-path runs: 8 requests; the 512-token "
+         "prompt at chunk 256 (the tiled nm_spmm)")
     prof = {"8 requests": profile_main(engines[0], run_reqs[0]),
             "512-token prompt": profile_main(engines[1], run_reqs[1])}
     del engines
     torch.cuda.empty_cache()
 
-    say(f"phase 5: the launcher's default (pipelined) prune path, "
-        f"Qwen1.5-0.5B, {PRUNE_LAYERS} layers, bf16, MM 2:4, 128 x 2048 "
-        "calibration tokens")
+    head(f"phase 5: the launcher's default (pipelined) prune path, "
+         f"Qwen1.5-0.5B, {PRUNE_LAYERS} layers, bf16, MM 2:4, 128 x 2048 "
+         "calibration tokens")
     prune_counts, prune_run = prune_path()
     counts = {**{k: counts[k] + counts_3b[k] + counts_3c[k] + counts_3d[k]
                  for k in SERVE_KERNELS},
@@ -3570,45 +4189,56 @@ def main(argv) -> int:
     counts["flash_attn"] += counts_3d["flash_attn"]
     torch.cuda.empty_cache()
 
-    say(f"phase 5b: serial and pipelined engines at {PRUNE_CMP_LAYERS} "
-        "layers, the same calibration; resume")
+    head(f"phase 5b: serial and pipelined engines at {PRUNE_CMP_LAYERS} "
+         "layers, the same calibration; resume")
     cmp_run = serial_vs_pipelined(hess_rows)
     torch.cuda.empty_cache()
 
-    say("phase 6: one f32 layer at Qwen width, kernels against plain")
+    head("phase 6: one f32 layer at Qwen width, kernels against plain")
     prune_layer_f32()
     torch.cuda.empty_cache()
 
-    say("phase 8: train paper_tiny_lm (the reference's defaults), stop at "
-        "150 and resume, prune the checkpoint (MM 2:4, SM 0.5), serve it "
-        "sampled")
+    head("phase 8: train paper_tiny_lm (the reference's defaults), stop at "
+         "150 and resume, prune the checkpoint (MM 2:4, SM 0.5), serve it "
+         "sampled")
     counts_8, trained = train_prune_serve()
     counts = {k: counts[k] + counts_8[k] for k in counts}
     torch.cuda.empty_cache()
 
-    say("phase 9: Jamba-1.5-Large's blocks without the experts at full "
-        "width — 7 Mamba + 1 attention, d_model 8192, bf16, 2:4-packed "
-        "mlp and attn linears; continuous, static, a starved pool, a "
-        "shared stem")
+    head("phase 9: Jamba-1.5-Large's blocks without the experts at full "
+         "width — 7 Mamba + 1 attention, d_model 8192, bf16, 2:4-packed "
+         "mlp and attn linears; continuous, static, a starved pool, a "
+         "shared stem")
     counts_9, hybrid = hybrid_full_width(gen, rows)
     torch.cuda.empty_cache()
 
-    say("phase 10: the paper's Table 3 — paper-tiny-mamba trained on the "
-        "card (stop at 150, resume), pruned by magnitude, wanda, SS, SM at "
-        "0.5 and MM 2:4, served continuous against static")
+    head("phase 10: the paper's Table 3 — paper-tiny-mamba trained on the "
+         "card (stop at 150, resume), pruned by magnitude, wanda, SS, SM at "
+         "0.5 and MM 2:4, served continuous against static")
     counts_10, table3 = mamba_table3()
     counts = {k: counts[k] + counts_9[k] + counts_10[k] for k in counts}
     torch.cuda.empty_cache()
 
-    say(f"phase 11: the serving front end — Qwen1.5-0.5B, 24 layers, bf16, "
-        f"2:4-packed, two replicas on one registry behind the HTTP/SSE "
-        f"server and the supervisor; chaos, sampled, the CLI ({smi})")
+    head(f"phase 11: the serving front end — Qwen1.5-0.5B, "
+         f"{QWEN_SERVE_LAYERS} layers (the CLI's server: 24), bf16, "
+         f"2:4-packed, two replicas on one registry behind the HTTP/SSE "
+         f"server and the supervisor; chaos, sampled, the CLI ({smi})")
     t11 = time.monotonic()
     counts_11, frontend = frontend_on_card(smi)
     say(f"  phase 11 took {time.monotonic() - t11:.1f} s; serving kernels' "
         f"launches over 11a-11c: {counts_11}")
     for k in SERVE_KERNELS:
         counts[k] += counts_11[k]
+
+    head("phase 12: the dense decoders' attention variants — gemma-2b (hd "
+         "256), Qwen3-14B (qk-norm), Gemma3-12B (qk-norm, 5 sliding-window "
+         "layers to 1 global) — served and pruned at full width")
+    t12 = time.monotonic()
+    serve_12, prune_12, dense = dense_variants()
+    for k in counts:
+        counts[k] += serve_12.get(k, 0) + prune_12.get(k, 0)
+    say(f"  phase 12 took {time.monotonic() - t12:.1f} s; launches: serving "
+        f"{serve_12}, pruning {prune_12}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -3667,7 +4297,10 @@ def main(argv) -> int:
                             "serial_vs_pipelined": cmp_run,
                             "train_prune_serve": trained,
                             "hybrid_full_width": hybrid,
-                            "table3": table3, "frontend": frontend},
+                            "table3": table3, "frontend": frontend,
+                            "flash_attn_hd256": flash_256,
+                            "dense_widths": dense_rows,
+                            "dense_variants": dense},
                            default=str) + "\n")
     say(f"all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,20 +1,27 @@
 """Ported architectures: ``get_config(id)`` / ``get_smoke(id)``.
 
-The dense decoders, the tiny Mamba twin (``paper_tiny_lm.MAMBA``) and
-Jamba's hybrid, whose ``moe`` the model refuses until MoE is ported
-(ROADMAP.md lists the other families).  Ids and aliases as the
-reference's registry.
+The dense decoders — Qwen1.5-0.5B, gemma-2b (head dim 256), Qwen3-14B
+(qk-norm) and Gemma3-12B (qk-norm, five sliding-window layers to one
+global) — the tiny Mamba twin (``paper_tiny_lm.MAMBA``) and Jamba's
+hybrid, whose ``moe`` the model refuses until MoE is ported (ROADMAP.md
+lists the other families).  Ids and aliases as the reference's registry.
 """
 
 import importlib
 
 from repro_torch.models.base import ArchConfig
 
-ARCH_IDS = ("qwen1_5_0_5b", "jamba_1_5_large_398b", "paper_tiny_lm")
+ARCH_IDS = ("qwen3_14b", "gemma3_12b", "qwen1_5_0_5b", "gemma_2b",
+            "jamba_1_5_large_398b", "paper_tiny_lm")
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}
-_ALIAS["qwen1.5-0.5b"] = "qwen1_5_0_5b"
-_ALIAS["jamba-1.5-large-398b"] = "jamba_1_5_large_398b"
+_ALIAS.update({
+    "qwen3-14b": "qwen3_14b",
+    "gemma3-12b": "gemma3_12b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "gemma-2b": "gemma_2b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+})
 
 
 def canonical(arch_id: str) -> str:

@@ -55,7 +55,7 @@ SIGNATURES = {
     "hessian_accum_launch": (_P, _I, _I, _I, _P, _P, _I, _I, _F, _F, _P),
     "nm_select_launch": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P),
     "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _PI64, _I, _I,
-                          ctypes.POINTER(_I), _P),
+                          _I, ctypes.POINTER(_I), _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

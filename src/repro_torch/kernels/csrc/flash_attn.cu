@@ -2,8 +2,11 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attn.py::flash_attn
 // (_flash_kernel): causal or non-causal softmax attention with an f32
-// output, never materialising the (T, T) score matrix.  Here it reads the
-// model's own layouts through strides: q (B, T, H, hd) and k, v
+// output, never materialising the (T, T) score matrix, optionally over a
+// sliding window (causal only: query t sees keys s with t - window < s <=
+// t, the reference's causal_mask, which its model computes in jnp for
+// attn_local layers).  Here it reads the model's own layouts through
+// strides: q (B, T, H, hd) and k, v
 // (B, T, KV, hd) with head h reading kv head h / (H / KV) (grouped-query
 // attention), the last dimension contiguous; the (BH, T, D) signature of
 // the TPU kernel is the case H = KV = 1.  The output is (B, T, H, hd) f32,
@@ -23,10 +26,15 @@
 // exponential is one exp2f.  A causal block's loop ends at its diagonal
 // tile, and the first query tiles scheduled are the longest ones.  A row
 // whose keys are all masked keeps m = -inf and produces zeros, never NaN
-// (the guard of the reference's _sdpa_online).  The ragged last query
-// and kv tiles are masked, never padded.  No atomics: the same inputs
-// give the same bits.  Offsets are 64-bit: a stacked calibration q holds
-// 268 M elements.
+// (the guard of the reference's _sdpa_online).  A window starts a
+// block's kv loop at the tile holding its first row's oldest key, skips
+// (per warp) the tiles wholly before its rows' bands, and masks the
+// band's lower edge as the causal mask does its upper edge; a row always
+// sees its own key, and a tile wholly masked for a row leaves its m, l
+// and O as they were (exp2 of -inf is 0, and -inf - -inf never arises).
+// The ragged last query and kv tiles are masked, never padded.  No
+// atomics: the same inputs give the same bits.  Offsets are 64-bit: a
+// stacked calibration q holds 268 M elements.
 //
 // Three kernels, chosen per call on the host:
 //
@@ -47,16 +55,19 @@
 //   softmax keeps them (not the 8 of a bf16 rounding).  Only a tile that
 //   holds a key past T or past one of the warpgroup's rows pays for the
 //   mask; a warpgroup whose rows all precede the tile skips it.
-// * flash_attn_mma_kernel — bf16 with hd 32 or 128: the same block of 128
-//   rows (8 warps of 16) and the same ring, on mma.sync m16n8k16, K's B
-//   fragments from ldmatrix (two k-steps a load) and V's from
-//   ldmatrix.trans, shared rows padded by 16 bytes.
+// * flash_attn_mma_kernel — bf16 with hd 32, 128 or 256: the same block
+//   of 128 rows (8 warps of 16) and the same ring, on mma.sync m16n8k16,
+//   K's B fragments from ldmatrix (two k-steps a load) and V's from
+//   ldmatrix.trans, shared rows padded by 16 bytes.  At hd 256 (gemma) a
+//   thread's O accumulator is 128 registers, so Q's A fragments are read
+//   from a shared Q tile by ldmatrix a k-step at a time and the key tile
+//   is 32 wide (MmaTile): a kernel that is right first, not yet a fast one.
 // * flash_attn_kernel — everything else (f32, other head dims or
-//   alignments), on the f32 FMA pipe with 64-row query tiles: each query
-//   row is held by TPR = HDP / 32 neighbouring threads, each owning 32 of
-//   the head's dimensions in interleaved float4 chunks (no bank
-//   conflicts), a partial dot product per key summed over the row's
-//   lanes by shuffles.
+//   alignments, hd up to 256), on the f32 FMA pipe with 64-row query
+//   tiles: each query row is held by TPR = HDP / 32 neighbouring threads,
+//   each owning 32 of the head's dimensions in interleaved float4 chunks
+//   (no bank conflicts), a partial dot product per key summed over the
+//   row's lanes by shuffles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,8 +84,9 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// HDP: the head dimension rounded up to 32, 64 or 128; BK: kv rows per
-// shared-memory tile (K and V tiles together stay within 32 KB).
+// HDP: the head dimension rounded up to 32, 64, 128 or 256; BK: kv rows
+// per shared-memory tile (K and V tiles together stay within 32 KB of
+// static shared memory: BK 16 at HDP 256).
 template <typename T, int HDP, int BK>
 __global__ void __launch_bounds__(BQ * (HDP / DPT))
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -83,7 +95,7 @@ __global__ void __launch_bounds__(BQ * (HDP / DPT))
                       int64_t q_sb, int64_t q_st, int64_t q_sh,
                       int64_t k_sb, int64_t k_st, int64_t k_sh,
                       int64_t v_sb, int64_t v_st, int64_t v_sh,
-                      int causal, float qscale) {
+                      int causal, int window, float qscale) {
   constexpr int TPR = HDP / DPT;       // threads per query row
   constexpr int NT = BQ * TPR;
   constexpr int NC = DPT / 4;          // float4 chunks per thread
@@ -112,7 +124,9 @@ __global__ void __launch_bounds__(BQ * (HDP / DPT))
   const T* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
   const T* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
   const int k_end = causal ? min(n_tok, q0 + BQ) : n_tok;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  // a window's band: the block's first row sees keys from q0 - window + 1
+  const int k_beg = window ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = k_beg; k0 < k_end; k0 += BK) {
     // stage the tile as f32; neighbouring threads read neighbouring dims
     for (int i = threadIdx.x; i < BK * HDP; i += NT) {
       const int j = i / HDP, d = i % HDP, key = k0 + j;
@@ -140,7 +154,8 @@ __global__ void __launch_bounds__(BQ * (HDP / DPT))
       for (int off = 1; off < TPR; off <<= 1)
         a += __shfl_xor_sync(0xffffffffu, a, off);
       const int key = k0 + j;
-      const bool live = key < n_tok && (!causal || key <= qi);
+      const bool live = key < n_tok && (!causal || key <= qi) &&
+                        (!window || key > qi - window);
       s[j] = live ? a : -CUDART_INF_F;
       tile_max = fmaxf(tile_max, s[j]);
     }
@@ -236,18 +251,25 @@ constexpr int MMA_BQ = 128;     // query rows per block: 8 warps of 16
 constexpr int MMA_NT = 256;
 constexpr int MMA_BK = 64;      // keys per tile
 
-// the K / V ring: 3 stages (2 at hd 128, whose block holds one SM alone)
+// The K / V ring: 3 stages (2 at hd 128, whose block holds one SM alone).
+// hd 256: a warp's f32 O accumulator alone takes 128 registers a thread,
+// so Q stays in shared memory (one ldmatrix.x4 a k-step instead of 64
+// fragment registers) and the key tile is 32 wide (16 score registers):
+// 3 stages of K and V (99 KB) beside the 128-row Q tile (66 KB).
 template <int HD>
 struct MmaTile {
   static constexpr int LD = HD + 8;             // padded row (+16 bytes)
+  static constexpr int BK = HD == 256 ? 32 : MMA_BK;
   static constexpr int STAGES = HD == 128 ? 2 : 3;
-  static constexpr int TILE = MMA_BK * LD;      // elements of one K tile
-  static constexpr int SMEM = STAGES * 2 * TILE * 2;
+  static constexpr bool Q_SMEM = HD == 256;
+  static constexpr int TILE = BK * LD;          // elements of one K tile
+  static constexpr int Q_OFF = STAGES * 2 * TILE;
+  static constexpr int SMEM = (Q_OFF + (Q_SMEM ? MMA_BQ * LD : 0)) * 2;
 };
 
 // hd 32: registers capped at 128 so that two blocks share an SM
 template <int HD>
-__global__ void __launch_bounds__(MMA_NT, HD == 128 ? 1 : 2)
+__global__ void __launch_bounds__(MMA_NT, HD >= 128 ? 1 : 2)
     flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
@@ -255,12 +277,14 @@ __global__ void __launch_bounds__(MMA_NT, HD == 128 ? 1 : 2)
                           int group, int64_t q_sb, int64_t q_st, int64_t q_sh,
                           int64_t k_sb, int64_t k_st, int64_t k_sh,
                           int64_t v_sb, int64_t v_st, int64_t v_sh,
-                          int causal, float sscale) {
+                          int causal, int window, float sscale) {
   using Tile = MmaTile<HD>;
-  constexpr int BK = MMA_BK, LD = Tile::LD, STAGES = Tile::STAGES;
+  constexpr int BK = Tile::BK, LD = Tile::LD, STAGES = Tile::STAGES;
   constexpr int KS = HD / 16;     // k-steps of QK^T
   constexpr int ND = HD / 8;      // 8-wide output column tiles
   constexpr int CH = HD / 8;      // 16-byte chunks per row
+  constexpr int NKT = BK / 8;     // 8-key score tiles
+  constexpr int NPV = BK / 16;    // 16-key steps of PV
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* const smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   // slot st: K tile at smem + 2 st TILE, V tile right after it
@@ -277,6 +301,8 @@ __global__ void __launch_bounds__(MMA_NT, HD == 128 ? 1 : 2)
   const __nv_bfloat16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
   const int k_end = causal ? min(n_tok, q0 + MMA_BQ) : n_tok;
   const int n_tiles = (k_end + BK - 1) / BK;
+  // a window's band: the block's first row sees keys from q0 - window + 1
+  const int j_beg = window ? max(0, q0 - window + 1) / BK : 0;
 
   // tile j -> ring slot: 16-byte copies, keys past T zero-filled
   auto load = [&](int j, int slot) {
@@ -292,27 +318,45 @@ __global__ void __launch_bounds__(MMA_NT, HD == 128 ? 1 : 2)
            ok ? 16 : 0);
     }
   };
+  const __nv_bfloat16* qb = q + (int64_t)b * q_sb + (int64_t)h * q_sh;
+  if constexpr (Tile::Q_SMEM) {
+    // the Q tile joins the first tile's copies; rows past T zero-filled
+    __nv_bfloat16* qs = smem + Tile::Q_OFF;
+#pragma unroll
+    for (int i = threadIdx.x; i < MMA_BQ * CH; i += MMA_NT) {
+      const int r = i / CH, c = (i % CH) * 8, row = q0 + r;
+      const bool ok = row < n_tok;
+      cp16(qs + r * LD + c, ok ? qb + (int64_t)row * q_st + c : qb,
+           ok ? 16 : 0);
+    }
+  }
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_tiles) load(st, st);
+    if (j_beg + st < n_tiles) load(j_beg + st, st);
     cp_commit();
   }
 
   // Q as A fragments (loaded while the first tiles are in flight): reg 0
   // (row g, cols 2t..), 1 (row g+8), 2 (row g, cols 8+2t..), 3 (row g+8,
-  // cols 8+2t..) of each 16-column k-step
-  const __nv_bfloat16* qb = q + (int64_t)b * q_sb + (int64_t)h * q_sh;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  uint32_t qa[KS][4];
+  // cols 8+2t..) of each 16-column k-step; at hd 256 ldmatrix reads them
+  // from shared memory a k-step at a time
+  uint32_t qa[Tile::Q_SMEM ? 1 : KS][4];
+  if constexpr (!Tile::Q_SMEM) {
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = (r & 1) ? r1 : r0;
-      const int col = kk * 16 + (r >> 1) * 8 + tig * 2;
-      const __nv_bfloat16* p = qb + (int64_t)row * q_st + col;
-      qa[kk][r] = row < n_tok ? pack2(p[0], p[1]) : pack2(zero, zero);
-    }
+      for (int r = 0; r < 4; ++r) {
+        const int row = (r & 1) ? r1 : r0;
+        const int col = kk * 16 + (r >> 1) * 8 + tig * 2;
+        const __nv_bfloat16* p = qb + (int64_t)row * q_st + col;
+        qa[kk][r] = row < n_tok ? pack2(p[0], p[1]) : pack2(zero, zero);
+      }
+  }
+  // lane l addresses row (l & 15), column block (l >> 4) of a k-step's
+  // 16 x 16 A tile: the four 8 x 8 matrices land as regs 0..3 above
+  const uint32_t qs_lane = static_cast<uint32_t>(__cvta_generic_to_shared(
+      smem + Tile::Q_OFF + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8));
 
   float o[ND][4];
 #pragma unroll
@@ -321,54 +365,95 @@ __global__ void __launch_bounds__(MMA_NT, HD == 128 ? 1 : 2)
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j_beg; j < n_tiles; ++j) {
+    const int it = j - j_beg;         // the ring turns from the band's start
     cp_wait<STAGES - 2>();            // tile j has landed
     __syncthreads();                  // ... and every warp is past j-1
     if (j + STAGES - 1 < n_tiles)
-      load(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+      load(j + STAGES - 1, (it + STAGES - 1) % STAGES);
     cp_commit();
     const int k0 = j * BK;
-    // a warp whose rows all lie past T, or all precede the tile's keys
-    if (w0 >= n_tok || (causal && k0 > w0 + 15)) continue;
-    const __nv_bfloat16* ks = smem + 2 * (j % STAGES) * Tile::TILE;
+    // a warp whose rows all lie past T, all precede the tile's keys, or
+    // all see the window end before the tile starts
+    if (w0 >= n_tok || (causal && k0 > w0 + 15) ||
+        (window && k0 + BK - 1 <= w0 - window))
+      continue;
+    const __nv_bfloat16* ks = smem + 2 * (it % STAGES) * Tile::TILE;
     const __nv_bfloat16* vs = ks + Tile::TILE;
 
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys; one
+    // S = Q K^T for this warp's 16 rows and the tile's keys; one
     // ldmatrix.x4 gives the B fragments of two k-steps of one key tile
-    float s[8][4];
+    float s[NKT][4];
+    if constexpr (Tile::Q_SMEM) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int nt = 0; nt < NKT; ++nt)
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KS; kk += 2) {
-        const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(
-            ks + (nt * 8 + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8));
-        uint32_t b4[4];
+        uint32_t a0[4], a1[4];
         asm volatile(
             "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b4[0]), "=r"(b4[1]), "=r"(b4[2]), "=r"(b4[3])
-            : "r"(addr));
-        mma16816(s[nt], qa[kk], b4[0], b4[1]);
-        mma16816(s[nt], qa[kk + 1], b4[2], b4[3]);
+            : "=r"(a0[0]), "=r"(a0[1]), "=r"(a0[2]), "=r"(a0[3])
+            : "r"(qs_lane + (uint32_t)(kk * 32)));
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+            : "=r"(a1[0]), "=r"(a1[1]), "=r"(a1[2]), "=r"(a1[3])
+            : "r"(qs_lane + (uint32_t)(kk * 32 + 32)));
+#pragma unroll
+        for (int nt = 0; nt < NKT; ++nt) {
+          const uint32_t addr = static_cast<uint32_t>(
+              __cvta_generic_to_shared(ks + (nt * 8 + (lane & 7)) * LD +
+                                       kk * 16 + (lane >> 3) * 8));
+          uint32_t b4[4];
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
+              "[%4];\n"
+              : "=r"(b4[0]), "=r"(b4[1]), "=r"(b4[2]), "=r"(b4[3])
+              : "r"(addr));
+          mma16816(s[nt], a0, b4[0], b4[1]);
+          mma16816(s[nt], a1, b4[2], b4[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NKT; ++nt) {
+        s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KS; kk += 2) {
+          const uint32_t addr = static_cast<uint32_t>(
+              __cvta_generic_to_shared(ks + (nt * 8 + (lane & 7)) * LD +
+                                       kk * 16 + (lane >> 3) * 8));
+          uint32_t b4[4];
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
+              "[%4];\n"
+              : "=r"(b4[0]), "=r"(b4[1]), "=r"(b4[2]), "=r"(b4[3])
+              : "r"(addr));
+          mma16816(s[nt], qa[kk], b4[0], b4[1]);
+          mma16816(s[nt], qa[kk + 1], b4[2], b4[3]);
+        }
       }
     }
     // raw scores here; the scale joins the exponent below (one fma).  The
-    // mask only where some key of the tile is past T or past one of the
-    // warp's rows
-    if (k0 + BK > n_tok || (causal && k0 + BK - 1 > w0)) {
+    // mask only where some key of the tile is past T, past one of the
+    // warp's rows, or before one of their windows
+    if (k0 + BK > n_tok || (causal && k0 + BK - 1 > w0) ||
+        (window && k0 <= w0 + 15 - window)) {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < NKT; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + nt * 8 + tig * 2 + e;
           const bool in = key < n_tok;
-          if (!in || (causal && key > r0)) s[nt][e] = -CUDART_INF_F;
-          if (!in || (causal && key > r1)) s[nt][2 + e] = -CUDART_INF_F;
+          if (!in || (causal && key > r0) || (window && key <= r0 - window))
+            s[nt][e] = -CUDART_INF_F;
+          if (!in || (causal && key > r1) || (window && key <= r1 - window))
+            s[nt][2 + e] = -CUDART_INF_F;
         }
     }
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < NKT; ++nt) {
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
     }
@@ -399,7 +484,7 @@ __global__ void __launch_bounds__(MMA_NT, HD == 128 ? 1 : 2)
     const uint32_t vs_base = static_cast<uint32_t>(__cvta_generic_to_shared(
         vs + (lane & 15) * LD + (lane >> 4) * 8));
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < NPV; ++jj) {
       float p[8];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -456,7 +541,8 @@ __global__ void __launch_bounds__(MMA_NT, HD == 128 ? 1 : 2)
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        float* out, int n_b, int n_tok, int n_head, int n_kv,
-                       const int64_t* st, int causal, cudaStream_t s) {
+                       const int64_t* st, int causal, int window,
+                       cudaStream_t s) {
   constexpr int smem = MmaTile<HD>::SMEM;
   // the shared-memory limit, raised once per device (setting it on every
   // launch would stall the stream)
@@ -479,7 +565,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), out, n_tok, n_head,
       n_head / n_kv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], causal, sscale);
+      st[8], causal, window, sscale);
   return cudaGetLastError();
 }
 
@@ -569,7 +655,8 @@ __global__ void __launch_bounds__(MMA_NT, 2)
                             int group, int64_t q_sb, int64_t q_st,
                             int64_t q_sh, int64_t k_sb, int64_t k_st,
                             int64_t k_sh, int64_t v_sb, int64_t v_st,
-                            int64_t v_sh, int causal, float sscale) {
+                            int64_t v_sh, int causal, int window,
+                            float sscale) {
   constexpr int HD = 64, BK = MMA_BK, STAGES = WG_STAGES;
   extern __shared__ __align__(128) unsigned char wg_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(wg_raw));
@@ -590,6 +677,7 @@ __global__ void __launch_bounds__(MMA_NT, 2)
   const __nv_bfloat16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
   const int k_end = causal ? min(n_tok, q0 + MMA_BQ) : n_tok;
   const int n_tiles = (k_end + BK - 1) / BK;
+  const int j_beg = window ? max(0, q0 - window + 1) / BK : 0;
 
   auto load = [&](int j, int slot) {
     unsigned char* ks = smem + 2 * slot * WG_TILE;
@@ -614,7 +702,7 @@ __global__ void __launch_bounds__(MMA_NT, 2)
   }
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < n_tiles) load(st, st);
+    if (j_beg + st < n_tiles) load(j_beg + st, st);
     cp_commit();
   }
   const uint32_t qs = sbase + WG_Q + (warp / 4) * WG_TILE;  // this group's
@@ -624,17 +712,21 @@ __global__ void __launch_bounds__(MMA_NT, 2)
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
 
-  for (int j = 0; j < n_tiles; ++j) {
+  for (int j = j_beg; j < n_tiles; ++j) {
+    const int it = j - j_beg;         // the ring turns from the band's start
     cp_wait<STAGES - 2>();            // tile j has landed
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();                  // ... and every warp is past j-1
     if (j + STAGES - 1 < n_tiles)
-      load(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+      load(j + STAGES - 1, (it + STAGES - 1) % STAGES);
     cp_commit();
     const int k0 = j * BK;
-    // a warpgroup whose rows all lie past T, or all precede the keys
-    if (wg0 >= n_tok || (causal && k0 > wg0 + 63)) continue;
-    const uint32_t ks = sbase + 2 * (j % STAGES) * WG_TILE;
+    // a warpgroup whose rows all lie past T, all precede the keys, or all
+    // see the window end before the tile starts
+    if (wg0 >= n_tok || (causal && k0 > wg0 + 63) ||
+        (window && k0 + BK - 1 <= wg0 - window))
+      continue;
+    const uint32_t ks = sbase + 2 * (it % STAGES) * WG_TILE;
     const uint32_t vs = ks + WG_TILE;
 
     float s[32];        // S = Q K^T: (row g | g+8) x key chunk nt: s[4 nt + e]
@@ -645,15 +737,18 @@ __global__ void __launch_bounds__(MMA_NT, 2)
     wg_commit_wait();
     wg_fence_operand(s, 32);
 
-    if (k0 + BK > n_tok || (causal && k0 + BK - 1 > wg0)) {
+    if (k0 + BK > n_tok || (causal && k0 + BK - 1 > wg0) ||
+        (window && k0 <= wg0 + 63 - window)) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + nt * 8 + tig * 2 + e;
           const bool in = key < n_tok;
-          if (!in || (causal && key > r0)) s[4 * nt + e] = -CUDART_INF_F;
-          if (!in || (causal && key > r1)) s[4 * nt + 2 + e] = -CUDART_INF_F;
+          if (!in || (causal && key > r0) || (window && key <= r0 - window))
+            s[4 * nt + e] = -CUDART_INF_F;
+          if (!in || (causal && key > r1) || (window && key <= r1 - window))
+            s[4 * nt + 2 + e] = -CUDART_INF_F;
         }
     }
     float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
@@ -737,7 +832,8 @@ __global__ void __launch_bounds__(MMA_NT, 2)
 
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          float* out, int n_b, int n_tok, int n_head, int n_kv,
-                         const int64_t* st, int causal, cudaStream_t s) {
+                         const int64_t* st, int causal, int window,
+                         cudaStream_t s) {
   static bool raised[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -757,23 +853,25 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), out, n_tok, n_head,
       n_head / n_kv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], causal, sscale);
+      st[8], causal, window, sscale);
   return cudaGetLastError();
 }
 
-// The tensor-core kernels take bf16 rows of hd 32, 64 or 128 whose K and
-// V rows start on 16 bytes (their 16-byte cp.async copies) and whose q
-// rows start on 4 bytes (the mma.sync kernel's 32-bit fragment loads;
-// the wgmma kernel copies q as K, so hd 64 also needs q on 16 bytes).
+// The tensor-core kernels take bf16 rows of hd 32, 64, 128 or 256 whose K
+// and V rows start on 16 bytes (their 16-byte cp.async copies) and whose
+// q rows start on 4 bytes (the mma.sync kernel's 32-bit fragment loads;
+// the wgmma kernel at hd 64 and the mma.sync kernel at hd 256 copy q as
+// K, so they also need q on 16 bytes).
 bool mma_ok(const void* q, const void* k, const void* v, int hd,
             const int64_t* st) {
-  if (hd != 32 && hd != 64 && hd != 128) return false;
+  if (hd != 32 && hd != 64 && hd != 128 && hd != 256) return false;
+  const bool q16 = hd == 64 || hd == 256;
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
       16 || reinterpret_cast<uintptr_t>(q) % 4)
     return false;
   for (int i = 0; i < 3; ++i)
-    if (st[i] % (hd == 64 ? 8 : 2)) return false;
-  if (hd == 64 && reinterpret_cast<uintptr_t>(q) % 16) return false;
+    if (st[i] % (q16 ? 8 : 2)) return false;
+  if (q16 && reinterpret_cast<uintptr_t>(q) % 16) return false;
   for (int i = 3; i < 9; ++i)
     if (st[i] % 8) return false;
   return true;
@@ -782,7 +880,8 @@ bool mma_ok(const void* q, const void* k, const void* v, int hd,
 template <typename T, int HDP, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, float* out,
                    int n_b, int n_tok, int n_head, int n_kv, int hd,
-                   const int64_t* st, int causal, cudaStream_t s) {
+                   const int64_t* st, int causal, int window,
+                   cudaStream_t s) {
   const dim3 grid(n_b * n_head, (n_tok + BQ - 1) / BQ);
   // log2(e) / sqrt(hd): scores in base 2, one exp2f each
   const float qscale = 1.4426950408889634f / sqrtf((float)hd);
@@ -790,51 +889,71 @@ cudaError_t launch(const void* q, const void* k, const void* v, float* out,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), out, n_tok, n_head, n_head / n_kv, hd,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      qscale);
+      window, qscale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, float* out,
                      int n_b, int n_tok, int n_head, int n_kv, int hd,
-                     const int64_t* st, int causal, cudaStream_t s) {
+                     const int64_t* st, int causal, int window,
+                     cudaStream_t s) {
   if (hd <= 32)
     return launch<T, 32, 64>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd, st,
-                             causal, s);
+                             causal, window, s);
   if (hd <= 64)
     return launch<T, 64, 64>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd, st,
-                             causal, s);
-  return launch<T, 128, 32>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd, st,
-                            causal, s);
+                             causal, window, s);
+  if (hd <= 128)
+    return launch<T, 128, 32>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd,
+                              st, causal, window, s);
+  return launch<T, 256, 16>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd, st,
+                            causal, window, s);
 }
 
 }  // namespace
 
 // strides: q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh (elements).
-// Returns a CUDA error code; *used_mma says which kernel ran.
+// window: 0 for none, else (causal only) query t sees keys s with
+// t - window < s <= t.  Returns a CUDA error code; *used_mma says which
+// kernel ran.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  float* out, int n_b, int n_tok, int n_head,
                                  int n_kv, int hd, const int64_t* strides,
-                                 int causal, int bf16, int* used_mma,
-                                 void* stream) {
+                                 int causal, int window, int bf16,
+                                 int* used_mma, void* stream) {
   *used_mma = 0;
   if (n_b == 0 || n_tok == 0) return 0;
+  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // a window that covers every key masks nothing: the unwindowed loop
+  if (!causal || window >= n_tok) window = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16 && mma_ok(q, k, v, hd, strides)) {
     *used_mma = 1;
-    err = hd == 32    ? launch_mma<32>(q, k, v, out, n_b, n_tok, n_head, n_kv,
-                                       strides, causal, s)
-          : hd == 64  ? launch_wgmma(q, k, v, out, n_b, n_tok, n_head,
-                                     n_kv, strides, causal, s)
-                      : launch_mma<128>(q, k, v, out, n_b, n_tok, n_head,
-                                        n_kv, strides, causal, s);
+    switch (hd) {
+      case 32:
+        err = launch_mma<32>(q, k, v, out, n_b, n_tok, n_head, n_kv, strides,
+                             causal, window, s);
+        break;
+      case 64:
+        err = launch_wgmma(q, k, v, out, n_b, n_tok, n_head, n_kv, strides,
+                           causal, window, s);
+        break;
+      case 128:
+        err = launch_mma<128>(q, k, v, out, n_b, n_tok, n_head, n_kv,
+                              strides, causal, window, s);
+        break;
+      default:
+        err = launch_mma<256>(q, k, v, out, n_b, n_tok, n_head, n_kv,
+                              strides, causal, window, s);
+    }
   } else if (bf16) {
     err = dispatch<__nv_bfloat16>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd,
-                                  strides, causal, s);
+                                  strides, causal, window, s);
   } else {
     err = dispatch<float>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd,
-                          strides, causal, s);
+                          strides, causal, window, s);
   }
   return static_cast<int>(err);
 }

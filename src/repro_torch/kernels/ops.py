@@ -133,17 +133,21 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True,
+              window: Optional[int] = None) -> torch.Tensor:
     """Softmax attention, f32 out, in either layout:
 
     * the reference's (BH, T, D) q, k, v → (BH, T, D);
     * the model's (B, T, H, hd) q with (B, T, KV, hd) k / v, H a
-      multiple of KV → (B, T, H, hd), read in place through strides."""
+      multiple of KV → (B, T, H, hd), read in place through strides.
+
+    A causal ``window`` lets query t see keys s with t - window < s ≤ t
+    (an ``attn_local`` layer's band)."""
     fn = flash_attn_plain if _plain() else flash_attn
     if q.dim() == 3:
         return fn(q[:, :, None], k[:, :, None], v[:, :, None],
-                  causal)[:, :, 0]
-    return fn(q, k, v, causal)
+                  causal, window)[:, :, 0]
+    return fn(q, k, v, causal, window)
 
 
 def hessian_update(x_tokens: torch.Tensor, h: torch.Tensor, alpha: float,

@@ -189,13 +189,19 @@ def paged_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
 # full-sequence attention
 # ----------------------------------------------------------------------
 def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool = True) -> torch.Tensor:
-    """q, k, v: (BH, T, D).  Plain softmax attention, f32 output."""
+                   causal: bool = True,
+                   window: Optional[int] = None) -> torch.Tensor:
+    """q, k, v: (BH, T, D).  Plain softmax attention, f32 output.  A
+    causal ``window`` lets query t see keys s with t - window < s ≤ t
+    (the reference's ``causal_mask``); it is ignored without ``causal``,
+    as the reference ignores it."""
     bh, t, d = q.shape
     s = torch.einsum("btd,bsd->bts", q.float(), k.float()) / math.sqrt(d)
     if causal:
         mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                      device=q.device))
+        if window is not None:
+            mask = mask & ~torch.tril(mask, diagonal=-window)
         s = s.masked_fill(~mask[None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bts,bsd->btd", p, v.float())

@@ -1,6 +1,7 @@
 """Layer library for the dense decoder: linear, rmsnorm, rope, GQA
-attention (full-sequence, dense-cache prefill and decode, chunked paged
-prefill, paged decode), gated MLPs, embeddings.
+attention with optional qk-norm and sliding window (full-sequence,
+dense-cache prefill and decode, chunked paged prefill, paged decode),
+gated MLPs, embeddings.
 
 Conventions follow ``repro.models.layers``: params are plain dicts,
 linear weights are stored (in, out), hidden states are (B, T, D).  A
@@ -113,7 +114,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ----------------------------------------------------------------------
-# Attention block (GQA, optional QKV bias)
+# Attention block (GQA, optional QKV bias / qk-norm / sliding window)
 # ----------------------------------------------------------------------
 def attn_init(rng, cfg: ArchConfig, dtype) -> Params:
     hd, h, kv, d = cfg.hd, cfg.num_heads, cfg.num_kv_heads, cfg.d_model
@@ -131,6 +132,9 @@ def attn_init(rng, cfg: ArchConfig, dtype) -> Params:
         p["bq"] = torch.zeros((h * hd,), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((kv * hd,), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((kv * hd,), dtype=dtype, device=dev)
+    if cfg.qk_norm:               # no draw: the key order stays the same
+        p["q_norm"] = rmsnorm_init(hd, dtype, dev)
+        p["k_norm"] = rmsnorm_init(hd, dtype, dev)
     return p
 
 
@@ -144,6 +148,9 @@ def _qkv(p, h_in: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
                name=f"{prefix}wk").reshape(b, t, kv, hd)
     v = linear(h_in, p["wv"], p.get("bv"), caps=caps,
                name=f"{prefix}wv").reshape(b, t, kv, hd)
+    if cfg.qk_norm:               # over hd, before rope (as the reference)
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -179,11 +186,24 @@ ONLINE_ATTN_THRESHOLD = 8192
 ONLINE_ATTN_CHUNK = 1024
 
 
-def _sdpa_online(q, k, v, nh: int, kv: int,
+def causal_mask(t: int, s: int, window: Optional[int],
+                device) -> torch.Tensor:
+    """(T, S) bool, True where query i sees key j: j ≤ i, and i - window
+    < j with a window (the reference's ``causal_mask``)."""
+    qpos = torch.arange(t, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    ok = kpos <= qpos
+    if window is not None:
+        ok = ok & (kpos > qpos - window)
+    return ok
+
+
+def _sdpa_online(q, k, v, nh: int, kv: int, window: Optional[int] = None,
                  chunk: int = ONLINE_ATTN_CHUNK) -> torch.Tensor:
     """Causal grouped attention by online softmax over KV chunks (the
     reference's ``_sdpa_online``): the same function as :func:`_sdpa`
-    with a causal mask, O(T·chunk) memory, P kept in f32."""
+    with a causal (and windowed) mask, O(T·chunk) memory, P kept in
+    f32."""
     b, t, _, hd = q.shape
     g = nh // kv
     s = k.shape[1]
@@ -199,6 +219,8 @@ def _sdpa_online(q, k, v, nh: int, kv: int,
         vc = v[:, ci * chunk:(ci + 1) * chunk].float()
         kpos = ci * chunk + torch.arange(chunk, device=q.device)
         ok = kpos[None, :] <= qpos[:, None]                    # (t, chunk)
+        if window is not None:
+            ok = ok & (kpos[None, :] > qpos[:, None] - window)
         sc = torch.einsum("btkgd,bckd->bkgtc", qg, kc)
         sc = torch.where(ok, sc, torch.full_like(sc, float("-inf")))
         m_new = torch.maximum(m, sc.amax(dim=-1))
@@ -287,17 +309,21 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
                page_size: Optional[int] = None,
                caps: Optional[Dict[str, torch.Tensor]] = None,
                prefix: str = "attn.",
-               differentiable: bool = False) -> torch.Tensor:
+               differentiable: bool = False,
+               window: Optional[int] = None) -> torch.Tensor:
     """Pre-norm attention with residual.  Returns the new hidden state;
     cache modes update ``cache`` in place.
 
-    Modes (global causal attention; sliding-window layers are not ported):
+    Causal attention, global or — an ``attn_local`` layer, ``window``
+    given — over a sliding window: query t sees keys s with
+    t - window < s ≤ t (the reference's ``causal_mask``), in every mode:
       full-sequence (cache None): causal over T through
           ``ops.attention`` (the ``flash_attn`` kernel on the card, which
-          reads q/k/v in place; the counterpart of the reference's
-          ``_sdpa`` and ``_sdpa_online``, with the probabilities kept in
-          f32 as ``_sdpa_online`` keeps them); ``caps`` records the
-          linears' inputs under ``{prefix}wq`` … ``{prefix}wo``.  With
+          reads q/k/v in place and applies the window itself; the
+          counterpart of the reference's ``_sdpa`` and ``_sdpa_online``,
+          with the probabilities kept in f32 as ``_sdpa_online`` keeps
+          them); ``caps`` records the linears' inputs under
+          ``{prefix}wq`` … ``{prefix}wo``.  With
           ``differentiable`` (the trainer's route) the attention is the
           reference's training math in torch ops instead — :func:`_sdpa`,
           or :func:`_sdpa_online` past ONLINE_ATTN_THRESHOLD positions —
@@ -307,13 +333,15 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
           ``cache[:, :T]``;
       dense-cache decode (T = 1, ``pos`` a host int): this token's K/V
           written at ``pos``, attention over the cache's positions
-          ≤ ``pos`` in torch ops (jnp in the reference);
+          ≤ ``pos`` (and inside the window) in torch ops (jnp in the
+          reference);
       chunked paged prefill (``paged["start"]`` given, B = 1): the chunk's
           K/V go into the pages first, then attention runs over the
           gathered slot context — earlier chunks' keys read back from
           the pool;
       paged decode (T = 1, ``pos`` (B,) with -1 marking idle slots):
-          block-table attention through ``ops.paged_attention``.
+          block-table attention through ``ops.paged_attention``, whose
+          kernel takes the window.
 
     int8 pages and the full-sequence branch give f32 attention output,
     which is cast back to the hidden dtype before ``wo`` so that the residual stream keeps the
@@ -329,13 +357,13 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
         positions = torch.arange(t, device=dev)[None, :]
         q, k, v = _qkv(p, h_in, cfg, positions, caps, prefix)
         if not differentiable:
-            out = ops.attention(q, k, v, causal=True)       # (B, T, H, hd)
+            out = ops.attention(q, k, v, causal=True,
+                                window=window)              # (B, T, H, hd)
             out = out.reshape(b, t, nh * hd)
         elif t > ONLINE_ATTN_THRESHOLD:
-            out = _sdpa_online(q, k, v, nh, kv, ONLINE_ATTN_CHUNK)
+            out = _sdpa_online(q, k, v, nh, kv, window, ONLINE_ATTN_CHUNK)
         else:
-            ok = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
-            out = _sdpa(q, k, v, ok, nh, kv)
+            out = _sdpa(q, k, v, causal_mask(t, t, window, dev), nh, kv)
         if cache is not None:                               # dense prefill
             cache["k"][:, :t] = k.to(cache["k"].dtype)
             cache["v"][:, :t] = v.to(cache["v"].dtype)
@@ -350,7 +378,10 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
         cache["k"][:, pos] = k1[:, 0].to(cache["k"].dtype)
         cache["v"][:, pos] = v1[:, 0].to(cache["v"].dtype)
         kpos = torch.arange(cache["k"].shape[1], device=dev)
-        out = _sdpa(q, cache["k"], cache["v"], kpos <= pos, nh, kv)
+        ok = kpos <= pos
+        if window is not None:
+            ok = ok & (kpos > pos - window)
+        out = _sdpa(q, cache["k"], cache["v"], ok, nh, kv)
         return h + linear(out.to(h.dtype), p["wo"])
 
     bt = paged["block_tables"]                               # (B, P_max)
@@ -377,6 +408,8 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
                 b, s_len, kv)[..., None]
         kpos = torch.arange(s_len, device=dev, dtype=torch.int32)
         ok = kpos[None, None, :] <= positions[:, :, None]    # (B, T, S)
+        if window is not None:
+            ok = ok & (kpos[None, None, :] > positions[:, :, None] - window)
         out = _sdpa(q, kc, vc, ok[:, None, None], nh, kv).to(h.dtype)
         return h + linear(out, p["wo"])
 
@@ -391,7 +424,7 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     lengths = torch.clamp(pos + 1, min=0).to(torch.int32)       # idle → 0
     qg = q[:, 0].reshape(b, kv, nh // kv, hd)
     out = ops.paged_attention(qg, cache["k"], cache["v"], bt, lengths,
-                              k_scale=cache.get("k_scale"),
+                              window=window, k_scale=cache.get("k_scale"),
                               v_scale=cache.get("v_scale"))
     out = out.reshape(b, 1, nh * hd).to(h.dtype)
     return h + linear(out, p["wo"])
@@ -441,8 +474,11 @@ def embed_init(rng, cfg: ArchConfig, dtype) -> Params:
 def embed_apply(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = p["tok"][tokens.long()]
     if cfg.embed_scale:
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
-                             device=h.device)
+        # √d_model rounded to the embedding's dtype, as the reference's
+        # ``jnp.asarray(√d, h.dtype)``; a host float (exact in f32), so no
+        # tensor is copied to the card
+        scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype))
+        h = h * scale
     return h
 
 

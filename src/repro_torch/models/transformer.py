@@ -5,11 +5,14 @@ methods of static mode (``init_cache`` / ``prefill`` / ``decode_step``)
 and the paged ones of continuous mode (``init_paged_cache`` /
 ``prefill_chunk`` / ``decode_step`` with block tables).
 
-Ported block kinds: global attention and Mamba (``period`` ⊂ {"attn",
-"mamba"}), each with its dense MLP where ``cfg.block_has_mlp`` says so —
-the dense decoders, the Mamba LM and the Mamba/attention hybrid.  No
-prefix, MoE, sliding window, xLSTM, qk-norm, frontend or encoder;
-ROADMAP.md lists them.  Where the reference stacks the layers (L, ...)
+Ported block kinds: global attention, sliding-window attention and Mamba
+(``period`` ⊂ {"attn", "attn_local", "mamba"}), each with its dense MLP
+where ``cfg.block_has_mlp`` says so — the dense decoders (qk-norm
+included: Qwen3, Gemma3's 5:1 local:global period), the Mamba LM and the
+Mamba/attention hybrid.  An ``attn_local`` block is an ``attn`` block
+(the same params under ``"attn"``, the same linears, KV pages and dense
+cache) whose attention sees the last ``cfg.window`` positions.  No
+prefix, MoE, xLSTM, frontend or encoder; ROADMAP.md lists them.  Where the reference stacks the layers (L, ...)
 under ``layers/s{j}`` for ``lax.scan``, the port keeps a per-layer list
 of param dicts and loops: layer ``i`` is slot ``i % len(period)`` of
 period ``i // len(period)``, ``params["layers"][i] = {"attn" | "mamba":
@@ -39,7 +42,8 @@ from repro_torch.models.layers import (Params, attn_apply, attn_cache_init,
 from repro_torch.models.ssm import mamba_apply, mamba_cache_init, mamba_init
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-PORTED_KINDS = ("attn", "mamba")
+ATTN_KINDS = ("attn", "attn_local")
+PORTED_KINDS = (*ATTN_KINDS, "mamba")
 # the prunable linears of a block kind, in the reference's capture-name
 # order (``_BLOCK_LINEARS``)
 _BLOCK_LINEARS = {
@@ -47,6 +51,7 @@ _BLOCK_LINEARS = {
     "mamba": (("mamba", "in_proj"), ("mamba", "x_proj"),
               ("mamba", "dt_proj"), ("mamba", "out_proj")),
 }
+_BLOCK_LINEARS["attn_local"] = _BLOCK_LINEARS["attn"]
 _MLP_LINEARS = {"swiglu": ("wi", "wg", "wo"), "geglu": ("wi", "wg", "wo"),
                 "gelu": ("wi", "wo"), "none": ()}
 
@@ -57,16 +62,18 @@ class LM:
 
     # block kinds whose paged serve cache is slot-pooled recurrent state
     # (serve.kvpool.StatePool resets their rows; the reference also lists
-    # mlstm and slstm, which the port refuses)
+    # mlstm and slstm, which the port refuses), and those whose cache is
+    # KV pages (serve.kvpool.PagedKVPool pools, shares and swaps them)
     STATE_KINDS = ("mamba",)
+    ATTN_KINDS = ATTN_KINDS
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         if (cfg.prefix or cfg.moe is not None or cfg.encdec
-                or cfg.frontend is not None or cfg.qk_norm
+                or cfg.frontend is not None
                 or any(k not in PORTED_KINDS for k in cfg.period)):
             raise ValueError(
                 f"{cfg.name}: only attention and Mamba blocks with dense "
-                "MLPs are ported (ROADMAP.md, Queue 1 item 7: the other "
+                "MLPs are ported (ROADMAP.md, Queue 1: the other "
                 "families)")
         self.cfg = cfg
         self.device = torch.device(device)
@@ -99,7 +106,8 @@ class LM:
         params["layers"] = []
         for kind, lk in zip(self.kinds, layer_keys):
             k_mix, k_ffn, _ = sub_keys(lk, 3)
-            block = ({"attn": attn_init(k_mix, cfg, dt)} if kind == "attn"
+            block = ({"attn": attn_init(k_mix, cfg, dt)}
+                     if kind in ATTN_KINDS
                      else {"mamba": mamba_init(k_mix, cfg, dt)})
             if cfg.block_has_mlp(kind):
                 block["mlp"] = mlp_init(k_ffn, cfg, dt)
@@ -151,11 +159,13 @@ class LM:
                page_size=None, differentiable: bool = False) -> torch.Tensor:
         """One block (mixer, then its MLP if it has one); the cache modes
         are the mixer's (``attn_apply`` / ``ssm.mamba_apply``)."""
-        if kind == "attn":
+        if kind in ATTN_KINDS:
             h = attn_apply(p["attn"], h, self.cfg, caps=caps,
                            prefix=f"{name_prefix}attn.", cache=cache,
                            pos=pos, paged=paged, page_size=page_size,
-                           differentiable=differentiable)
+                           differentiable=differentiable,
+                           window=(self.cfg.window if kind == "attn_local"
+                                   else None))
         else:
             h = mamba_apply(p["mamba"], h, self.cfg, caps=caps,
                             prefix=f"{name_prefix}mamba.", cache=cache,
@@ -261,7 +271,7 @@ class LM:
         Mamba layer."""
         dt = dtype or self.dtype
         return [attn_cache_init(self.cfg, batch, max_len, dt, self.device)
-                if kind == "attn"
+                if kind in ATTN_KINDS
                 else mamba_cache_init(self.cfg, batch, dt, self.device)
                 for kind in self.kinds]
 
@@ -297,7 +307,7 @@ class LM:
                 "the slot-pooled state (serve.kvpool.StatePool)")
         return [attn_paged_cache_init(self.cfg, num_pages, page_size, dt,
                                       self.device)
-                if kind == "attn"
+                if kind in ATTN_KINDS
                 else mamba_cache_init(self.cfg, max_slots, state_dt,
                                       self.device)
                 for kind in self.kinds]

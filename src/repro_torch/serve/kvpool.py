@@ -102,7 +102,7 @@ class PagedKVPool:
         kinds = model.cfg.period
         # pure recurrent-state models have no KV pages: prompts cost 0
         # pages and decode never extends a block table
-        self.has_kv_pages = "attn" in kinds
+        self.has_kv_pages = any(k in model.ATTN_KINDS for k in kinds)
         self.has_state = any(k in model.STATE_KINDS for k in kinds)
         self.quantized = dtype == torch.int8
         self.kv = model.init_paged_cache(num_pages, page_size, dtype,
@@ -111,7 +111,7 @@ class PagedKVPool:
         # swap arena move); state rows are not pages
         self.page_layers = [layer for layer, kind in zip(self.kv,
                                                          model.kinds)
-                            if kind == "attn"]
+                            if kind in model.ATTN_KINDS]
         self.block_tables = np.zeros((max_slots, self.pages_per_slot),
                                      np.int32)
         self._n_pages = np.zeros((max_slots,), np.int32)

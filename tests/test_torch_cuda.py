@@ -391,7 +391,8 @@ BF16_TOL_REL = 1e-4     # bf16 inputs, |kernel - plain| / max(1, |plain|):
 
 @pytest.mark.parametrize("b,t,h,kv,hd", [
     (2, 128, 2, 2, 32), (1, 200, 4, 2, 64), (2, 2048, 4, 2, 64),
-    (3, 100, 2, 1, 128), (1, 1, 1, 1, 64), (2, 65, 3, 3, 16)])
+    (3, 100, 2, 1, 128), (1, 1, 1, 1, 64), (2, 65, 3, 3, 16),
+    (1, 100, 2, 1, 200)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attn_matches_plain(gen, b, t, h, kv, hd, causal, dtype):
@@ -399,7 +400,7 @@ def test_flash_attn_matches_plain(gen, b, t, h, kv, hd, causal, dtype):
     k, v = (torch.randn(b, t, kv, hd, generator=gen, device="cuda").to(dtype)
             for _ in range(2))
     got = flash_attn(q, k, v, causal)
-    tensor_cores = dtype == torch.bfloat16 and hd in (32, 64, 128)
+    tensor_cores = dtype == torch.bfloat16 and hd in (32, 64, 128, 256)
     assert flash_attn.last_kernel == ("tensor cores" if tensor_cores
                                       else "f32 FMA")
     want = flash_attn_plain(q, k, v, causal)
@@ -453,6 +454,73 @@ def test_flash_attn_tensor_cores_keep_probabilities_near_f32(gen, causal):
     got = flash_attn(q, k, v, causal)
     assert flash_attn.last_kernel == "tensor cores"
     assert (got - flash_attn_plain(q, k, v, causal)).abs().max().item() < 1e-4
+
+
+def _flash_case(gen, b, t, h, kv, hd, dtype):
+    q = torch.randn(b, t, h, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(b, t, kv, hd, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def _flash_close(got, want, dtype):
+    err = (got - want).abs().max().item()
+    tol = (REL_TOL if dtype == torch.float32 else BF16_TOL_REL) * max(
+        1.0, want.abs().max().item())
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("b,t,h,kv", [(2, 128, 2, 2), (1, 129, 4, 2),
+                                      (1, 257, 8, 1), (1, 2048, 8, 1),
+                                      (2, 65, 16, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_hd256_matches_plain(gen, b, t, h, kv, causal, dtype):
+    """gemma's head dim: bf16 on the tensor cores (Q read from shared
+    memory, 32-key tiles), f32 on the FMA kernel (16-key tiles); G 1, 2
+    and 8; ragged query tiles."""
+    q, k, v = _flash_case(gen, b, t, h, kv, 256, dtype)
+    got = flash_attn(q, k, v, causal)
+    assert flash_attn.last_kernel == ("tensor cores"
+                                      if dtype == torch.bfloat16
+                                      else "f32 FMA")
+    assert got.shape == (b, t, h, 256)
+    _flash_close(got, flash_attn_plain(q, k, v, causal), dtype)
+    assert torch.equal(got, flash_attn(q, k, v, causal))   # deterministic
+
+
+@pytest.mark.parametrize("t,window,hd", [
+    (t, w, hd) for t, w in ((257, 64), (300, 1), (129, 100), (200, 200),
+                            (130, 500))
+    for hd in (16, 32, 64, 128, 256)] + [(2100, 1024, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_window_matches_plain(gen, t, window, hd, dtype):
+    """A causal sliding window on every route: bands narrower than a key
+    tile (window 1, 64), ragged T, a window ≥ T (no key masked), and
+    gemma3's band (hd 256, window 1024) past T 2048; a non-causal call
+    ignores the window."""
+    q, k, v = _flash_case(gen, 1, t, 4, 2, hd, dtype)
+    got = flash_attn(q, k, v, True, window)
+    tensor_cores = dtype == torch.bfloat16 and hd != 16
+    assert flash_attn.last_kernel == ("tensor cores" if tensor_cores
+                                      else "f32 FMA")
+    _flash_close(got, flash_attn_plain(q, k, v, True, window), dtype)
+    assert torch.equal(got, flash_attn(q, k, v, True, window))
+    if window >= t:
+        assert torch.equal(got, flash_attn(q, k, v, True))
+    assert torch.equal(flash_attn(q, k, v, False, window),
+                       flash_attn(q, k, v, False))
+
+
+def test_flash_attn_hd256_unaligned_bf16_takes_the_fma_kernel(gen):
+    flat = torch.randn(1 * 70 * 2 * 256 + 1, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    q = flat[1:].view(1, 70, 2, 256)             # rows 2 bytes off 16
+    k, v = (torch.randn(1, 70, 1, 256, generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    got = flash_attn(q, k, v, True, 9)
+    assert flash_attn.last_kernel == "f32 FMA"
+    _flash_close(got, flash_attn_plain(q, k, v, True, 9), torch.bfloat16)
 
 
 def test_flash_attn_unaligned_bf16_takes_the_fma_kernel(gen):

@@ -122,6 +122,70 @@ def test_cpu_flash_attn_is_the_plain_version_and_launches_nothing():
 
 
 # ----------------------------------------------------------------------
+# the sliding window (attn_local)
+# ----------------------------------------------------------------------
+def _grouped(seed, t, hd, h=4, kv=2):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, t, h, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((2, t, kv, hd)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("t,window", [(37, 8), (37, 1), (37, 37),
+                                      (37, 100), (129, 64), (200, 17)])
+@pytest.mark.parametrize("hd", [16, 64, 256])
+def test_windowed_attention_matches_reference_sdpa(t, window, hd):
+    """``flash_attn_plain(window=)`` (what a CPU tensor takes) against the
+    reference's ``_sdpa`` under ``causal_mask(t, t, window)``: ragged T,
+    window 1 (each row sees itself), window ≥ T (no key masked)."""
+    q, k, v = _grouped(t * hd + window, t, hd)
+    got = flash_attn_plain(*map(torch.from_numpy, (q, k, v)), True, window)
+    want = jlayers._sdpa(*map(jnp.asarray, (q, k, v)),
+                         jlayers.causal_mask(t, t, window), 4, 2)
+    np.testing.assert_allclose(got.reshape(2, t, 4 * hd).numpy(),
+                               np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+    if window >= t:
+        assert torch.equal(got, flash_attn_plain(
+            *map(torch.from_numpy, (q, k, v)), True))
+    if window == 1:                                 # each row its own v
+        np.testing.assert_allclose(
+            got.numpy(), np.repeat(v, 2, axis=2), rtol=0, atol=1e-6)
+    # the window is causal only, as the reference's mask
+    assert torch.equal(
+        flash_attn_plain(*map(torch.from_numpy, (q, k, v)), False, window),
+        flash_attn_plain(*map(torch.from_numpy, (q, k, v)), False))
+
+
+@pytest.mark.parametrize("t,window,chunk", [(64, 8, 16), (96, 20, 32),
+                                            (64, 40, 16)])
+@pytest.mark.parametrize("hd", [16, 256])
+def test_windowed_attention_matches_reference_banded(t, window, chunk, hd):
+    """Against the reference's ``_sdpa_banded`` (its flagged route past
+    8192 positions: the diagonal band only), at T a multiple of its
+    chunk, bands narrower and wider than a chunk."""
+    q, k, v = _grouped(t + window + hd, t, hd)
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=True,
+                        window=window)
+    want = jlayers._sdpa_banded(*map(jnp.asarray, (q, k, v)), 4, 2, window,
+                                chunk=chunk)
+    np.testing.assert_allclose(got.reshape(2, t, 4 * hd).numpy(),
+                               np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_online_softmax_takes_the_window():
+    """The trainer's route past ONLINE_ATTN_THRESHOLD (``_sdpa_online``
+    with a window) against the reference's, at a small chunk."""
+    q, k, v = _grouped(5, 64, 16)
+    got = layers._sdpa_online(*map(torch.from_numpy, (q, k, v)), 4, 2,
+                              window=12, chunk=16)
+    want = jlayers._sdpa_online(*map(jnp.asarray, (q, k, v)), 4, 2,
+                                window=12, chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+# ----------------------------------------------------------------------
 # the model's full-sequence attention at f32
 # ----------------------------------------------------------------------
 def _tiny(kv):

@@ -48,7 +48,7 @@ def test_arch_config_matches_reference(arch):
         assert port.hd == ref.hd and port.n_periods == ref.n_periods
     assert configs.canonical("qwen1.5-0.5b") == "qwen1_5_0_5b"
     with pytest.raises(KeyError):
-        configs.canonical("gemma-2b")
+        configs.canonical("kimi-k2-1t-a32b")
 
 
 def test_sparsity_spec_matches_reference():
