@@ -11,12 +11,18 @@ width, run the paper's Table 3 on the tiny Mamba LM, serve the pruned
 Qwen1.5-0.5B over HTTP/SSE through the front end (two replicas, the
 supervisor, injected faults, the CLI's server), and serve and prune
 gemma-2b, Qwen3-14B and Gemma3-12B at full width (head dim 256, qk-norm,
-sliding-window layers).
+sliding-window layers), and the Mixture-of-Experts models — phi3.5-moe,
+kimi-k2 and Jamba with its experts — served static at full width, phi3.5
+pruned.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
     python3 chip_smoke.py --phases 1,12   # phase 1's hd-256 / window /
-                                          # new-width rows and phase 12 only
-                                          # (or a part of it: 12a ... 12d)
+                                          # new-width / weighted rows and
+                                          # phase 12 only (or a part of it:
+                                          # 12a ... 12d)
+    python3 chip_smoke.py --phases 1w,13  # the weighted hessian_accum rows
+                                          # and phase 13 (or 13a ... 13c);
+                                          # 1m: the MoE widths' rows
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
@@ -45,7 +51,14 @@ Phases (any failure exits non-zero; no exception is swallowed):
      T 2048 and 2100, 64 at T 257), timed at gemma-2b's and Gemma3-12B's
      stacked captures beside SDPA, and nm_spmm_decode (M 8) / nm_spmm
      (M 256) at Qwen3-14B's seven linears and gemma-2b's mlp.wo (K
-     16384) and attn.wk (N 256) beside torch.matmul.  Every
+     16384) and attn.wk (N 256) beside torch.matmul, the same at phase
+     13b's packed linears (phi3.5's and kimi-k2's attention, kimi-k2's
+     shared expert: K 7168 <-> 2048) and flash_attn at their 32 / 8 and
+     64 / 8 heads, hd 128 (f32 and bf16, T 64 / 129 / 2048); hessian_accum's
+     weighted form at phi3.5's expert shapes (T 40960, m 4096 / 6400;
+     bool weights on the tensor cores, float weights on the f32 FMA,
+     beside torch.addmm on the weighted f32 copy; the count on the card
+     with no host sync), an all-zero w, f32 and ragged rows.  Every
      nm_spmm, nm_spmm_decode and hessian_accum row asserts its route
      (``last_kernel``: tensor cores for bf16, f32 FMA for f32 and for
      rows off 16 bytes) and the same bits from a second call; hessian_accum
@@ -214,11 +227,28 @@ Phases (any failure exits non-zero; no exception is swallowed):
      shard, nm_select 7 a layer, at most 1 host sync, finite perplexity,
      every linear 2:4, the result served packed; 12d MM 2:4 on gemma-2b's
      layer 0 (mlp.wo
-     skipped) through the serial engine, seconds by stage and linear.
+     skipped) through the serial engine, seconds by stage and linear;
+ 13. Mixture-of-Experts: 13a phi3.5-moe at full width in f32, one layer,
+     4 x 512 tokens — every linear's Hessian (the 48 experts' weighted)
+     accumulated by the kernels and by the plain override from the same
+     captures, within KERNEL_TOL_REL, and the experts' 𝔐 2:4 masks
+     bit-equal; its SMOKE pruned MM 2:4 and served static (continuous
+     asked) with the kernels and under the plain override (which launches
+     nothing): masks as phase 5b's, streams equal; 13b phi3.5-moe (8
+     layers), kimi-k2 (1 layer: 384 experts, top-8, the shared expert)
+     and Jamba's first 4 layers with their experts at full width, bf16,
+     attention and dense / shared MLPs 2:4-packed, the routed experts
+     dense: phase 3's 8 requests asked continuous, served static
+     (``mode``), tok/s, HBM held, idle share, nm_spmm_decode's device ms;
+     13c phi3.5-moe pruned MS 2:4 through the launcher's default
+     (pipelined) engine, 2 layers, 128 x 2048 random tokens: seconds a
+     layer, HBM held, host syncs (≤ 1), launches a layer (hessian_accum
+     53, flash_attn 2, nm_select 52), every linear 2:4.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
-shapes, and its launches over phases 3-12), the nvidia-smi
+shapes — hessian_accum's weighted rows under ``weighted`` — and its
+launches over phases 3-13), the nvidia-smi
 line, and last the ``{"ok": true, "device": {...}}`` line.  Longer tables go to
 ``chiprun_out/chip_smoke.txt``.
 """
@@ -291,6 +321,9 @@ GEMMA_LINEARS = (                    # gemma-2b: the widest K, the narrowest N
     ("gemma-2b attn.wk", 2048, 256, False, None),
 )
 DENSE_ARCHS = ("gemma_2b", "qwen3_14b", "gemma3_12b")
+DENSE_SERVE_LAYERS = {"qwen3_14b": 20}  # phase 12b: Qwen3-14B cut from 40
+                                     # layers to 20 to make room for phase
+                                     # 13 inside the time limit
 DENSE_PRUNE_LAYERS = {"gemma_2b": 18,  # phase 12c: gemma-2b whole; the
                       "qwen3_14b": 4,  # others cut, Gemma3-12B to one
                       "gemma3_12b": 6}  # period (5 local + 1 global)
@@ -3743,7 +3776,7 @@ def dense_serve(arch, gen_seed=0):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cfg, model = _dense(arch)
+    cfg, model = _dense(arch, DENSE_SERVE_LAYERS.get(arch))
     t0 = time.monotonic()
     g = torch.Generator(device="cuda")
     g.manual_seed(gen_seed)
@@ -4047,9 +4080,548 @@ def dense_variants(parts="abcd"):
     return serve_counts, prune_counts, out
 
 
+# ----------------------------------------------------------------------
+# phase 13: Mixture-of-Experts — phi3.5-moe, kimi-k2, Jamba with experts
+# ----------------------------------------------------------------------
+MOE_T = 40960                        # phi3.5's capacity at 128 x 2048
+                                     # tokens: 262144 · 2 / 16 · 1.25
+MOE_SERVE_LAYERS = {"phi3_5_moe_42b_a6_6b": 8,   # 13b: ≈ 19.7 GiB
+                    "kimi_k2_1t_a32b": 1,        # ≈ 36 GiB (384 experts)
+                    "jamba_1_5_large_398b": 4}   # slots 0-3: ≈ 42 GiB
+MOE_PRUNE_LAYERS = 2                 # 13c: phi3.5, MS 2:4, pipelined
+MOE_LINEARS = (                      # 13b's packed linears, held against
+    ("phi3.5 attn.wq", 4096, 4096, False, None),     # the plain version in
+    ("phi3.5 attn.wk", 4096, 1024, False, None),     # phase 1 (phi3.5 has
+    ("phi3.5 attn.wv", 4096, 1024, False, None),     # no shared expert)
+    ("phi3.5 attn.wo", 4096, 4096, False, None),
+    ("kimi attn.wq", 7168, 8192, False, None),
+    ("kimi attn.wk", 7168, 1024, False, None),
+    ("kimi attn.wv", 7168, 1024, False, None),
+    ("kimi attn.wo", 8192, 7168, False, None),
+    ("kimi moe.shared.wi", 7168, 2048, False, None),
+    ("kimi moe.shared.wg", 7168, 2048, False, "silu"),
+    ("kimi moe.shared.wo", 2048, 7168, False, None),
+)
+MOE_FLASH_HEADS = ((32, 8), (64, 8))  # phi3.5's and kimi's (H, KV), hd 128
+MOE_CALIB_SHARDS = 1                 # 13c: the stacked capture (≈ 50 GB at
+                                     # its peak) fits in one shard
+
+
+def check_moe_widths(gen, rows):
+    """The kernels 13b serves with at the MoE models' widths, each against
+    its plain version: nm_spmm_decode (M 8) and nm_spmm (M 256) at
+    MOE_LINEARS (timed, as check_dense_widths), and flash_attn at phi3.5's
+    32 / 8 and kimi's 64 / 8 heads, hd 128, f32 and bf16, causal, B 2 and
+    T in {64, 129, 2048} (64: 13b's prompts; 2048: 13c's captures), each
+    on its dtype's route with the same bits from a second call."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
+
+    out = {"nm_spmm_decode": [], "nm_spmm": []}
+    for m in (8, 256):
+        for lin in MOE_LINEARS:
+            row = nm_row(gen, m, *lin)
+            rows.append(row)
+            out[row["kernel"]].append(row)
+    n0 = len(rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        want_route = "f32 FMA" if dtype == torch.float32 else "tensor cores"
+        tol_rel = (KERNEL_TOL_REL if dtype == torch.float32
+                   else BF16_KERNEL_TOL_REL)
+        for h, kv in MOE_FLASH_HEADS:
+            for t in (64, 129, 2048):
+                q, k, v = _flash_inputs(gen, 2, t, h, kv, 128, dtype)
+                got = flash_attn(q, k, v, True)
+                route = flash_attn.last_kernel
+                same = bool(torch.equal(got, flash_attn(q, k, v, True)))
+                want = flash_attn_plain(q, k, v, True)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                tol = tol_rel * max(1.0, want.abs().max().item())
+                row = dict(kernel="flash_attn",
+                           shape=f"B=2 T={t} H={h} KV={kv} hd=128 {dname} "
+                                 "causal",
+                           max_abs_err=err, tol=tol,
+                           ok=err <= tol and route == want_route and same,
+                           route=route, deterministic=same)
+                rows.append(row)
+                LOG.append(f"  flash_attn      {row['shape']:40s} err "
+                           f"{err:.3e} tol {tol:.3e} ({route}) same bits "
+                           f"{same} {'ok' if row['ok'] else 'FAIL'}")
+                del q, k, v, got, want
+    new = rows[n0:]
+    say(f"  flash_attn      {len(new)} cases at the MoE models' heads (H/KV "
+        f"32/8 and 64/8, hd 128, f32/bf16, causal, T 64/129/2048): "
+        f"{sum(r['ok'] for r in new)} ok, worst err/tol "
+        f"{max(r['max_abs_err'] / r['tol'] for r in new):.3e}")
+    out["flash_attn"] = new
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_hessian_weighted(gen, rows):
+    """The weighted hessian_accum (a MoE expert's routed tokens) at
+    phi3.5's expert shapes, T = MOE_T, m = 4096 (wi / wg) and 6400 (wo),
+    bf16 captures, count c = T/2 on the device and H_old random: bool
+    weights (routing validity, 80 % kept) on the tensor cores and float
+    weights (gates) on the f32 FMA, each against the plain version; the
+    count must come back c + Σw with no host sync.  Then small edges: an
+    all-zero w (H and c unchanged), f32 captures with bool weights, a
+    ragged m = 130.  Each row asserts its route, exact symmetry and the
+    same bits from a second call."""
+    import torch
+
+    from repro_torch.kernels.hessian_accum import (
+        hessian_accum, hessian_accum_weighted, hessian_accum_weighted_plain)
+
+    cases = [(MOE_T, 4096, torch.bfloat16, "bool", True),
+             (MOE_T, 6400, torch.bfloat16, "bool", True),
+             (MOE_T, 4096, torch.bfloat16, "float", True),
+             (MOE_T, 6400, torch.bfloat16, "float", True),
+             (4097, 256, torch.bfloat16, "zero", False),
+             (4097, 512, torch.float32, "bool", False),
+             (4097, 130, torch.bfloat16, "bool", False)]
+    per = []
+    for t, m, dtype, kind, timed in cases:
+        x = torch.randn(t, m, generator=gen, device="cuda").to(dtype)
+        if kind == "float":
+            w = torch.rand(t, generator=gen, device="cuda")
+        else:
+            w = torch.rand(t, generator=gen, device="cuda") < (
+                0.0 if kind == "zero" else 0.8)
+        h0 = torch.randn(m, m, generator=gen, device="cuda")
+        h0 = h0 + h0.T
+        c0 = torch.full((), t / 2, device="cuda")
+        want_route = ("tensor cores" if dtype == torch.bfloat16
+                      and kind != "float" and m % 8 == 0 else "f32 FMA")
+        syncs = {}
+        h1, c1 = h0.clone(), c0.clone()
+        torch.cuda.synchronize()
+        with count_syncs(syncs):
+            got = hessian_accum_weighted(x, w, h1, c1)
+        route = hessian_accum.last_kernel
+        h2, c2 = h0.clone(), c0.clone()
+        same = bool(torch.equal(got, hessian_accum_weighted(x, w, h2, c2)))
+        hp, cp = h0.clone(), c0.clone()
+        want = hessian_accum_weighted_plain(x, w, hp, cp)
+        torch.cuda.synchronize()
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        tol = KERNEL_TOL_REL * math.sqrt(max(1.0, t / 16384)) * scale
+        sym = bool(torch.equal(got, got.T))
+        count_ok = abs(c1.item() - cp.item()) <= 1e-6 * cp.item()
+        if kind == "zero":
+            count_ok = count_ok and c1.item() == c0.item()
+            sym = sym and bool(torch.equal(got, h0))
+        ok = (err <= tol and sym and same and route == want_route
+              and count_ok and syncs["n"] == 0)
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        row = dict(kernel="hessian_accum",
+                   shape=f"T={t} m={m} {dname} {kind} weights (weighted)",
+                   max_abs_err=err, tol=tol, ok=ok, route=route,
+                   deterministic=same, syncs=syncs["n"],
+                   count=(c1.item(), cp.item()))
+        if timed:
+            x32 = x.float()
+            xw = x32 * w.float()[:, None]
+            h = h0.clone()
+            cnt = [c0.clone() for _ in range(8)]
+            args = [(x, w, h, c) for c in cnt]
+            row["ms"] = device_ms(hessian_accum_weighted, args, n=3, reps=3)
+            row["plain_ms"] = device_ms(hessian_accum_weighted_plain, args,
+                                        n=3, reps=3)
+            beta = 0.5
+            row["library_ms"] = device_ms(
+                lambda a, b: torch.addmm(h, a.T, b, beta=beta,
+                                         alpha=2.0 / t), [(xw, x32)],
+                n=3, reps=3)
+            # the work this run's weights need: the kept tokens (bool) or
+            # all of them (float, multiplied in f32)
+            n_used = int(w.sum().item()) if kind == "bool" else t
+            row["bound_ms"], row["bound_by"] = bound(
+                t * m * 2 + t * w.element_size() + 2 * m * m * 4,
+                float(m) * (m + 1) * n_used,
+                "bfloat16" if kind == "bool" else "float32")
+            per.append(row)
+            del x32, xw, h, cnt, args
+        rows.append(row)
+        say(f"  hessian_accum   {row['shape']:44s} err {err:.3e} tol "
+            f"{tol:.3e} symmetric {sym} ({route}) same bits {same} count "
+            f"{c1.item():.1f} (plain {cp.item():.1f}) syncs {syncs['n']} "
+            f"{'ok' if ok else 'FAIL'}"
+            + (f"  ms {row['ms']:.5f} plain {row['plain_ms']:.5f} lib "
+               f"{row['library_ms']:.5f} bound {row['bound_ms']:.5f} "
+               f"({row['bound_by']})" if "ms" in row else ""))
+        del x, w, h0, h1, h2, hp, got, want
+        torch.cuda.empty_cache()
+    return per
+
+
+def _moe_model(arch, layers, dtype=None):
+    """``arch`` at full width, ``layers`` deep; a Jamba cut below its
+    8-layer period keeps its first ``layers`` slots as the period (4:
+    mamba, mamba + experts, mamba, attention + experts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+
+    cfg = get_config(arch)
+    if layers < len(cfg.period):
+        cfg = dataclasses.replace(
+            cfg, period=cfg.period[:layers],
+            moe_slots=tuple(j for j in cfg.moe_slots if j < layers))
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg, LM(cfg, device="cuda")
+
+
+def moe_expert_hessians_f32():
+    """13a (i): phi3.5-moe at full width in f32, one MoE layer, 4 x 512
+    random ids (C = 320 tokens an expert): one capture (kernels), then
+    every linear's Hessian accumulated by the kernels and by the plain
+    override from the same captures — the 48 expert linears' weighted,
+    the router's and attention's plain — and each expert linear's 𝔐 2:4
+    mask from the kernel's Hinv, nm_select against the plain version
+    (bit-equal, as phase 1's)."""
+    import torch
+
+    from repro_torch.core.calibration import CalibrationSet
+    from repro_torch.core.hessian import dampened_inverse
+    from repro_torch.kernels import ops
+
+    cfg, model = _moe_model("phi3_5_moe_42b_a6_6b", 1, "float32")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    params = model.init(g)
+    toks = torch.randint(0, cfg.vocab_size, (4, 512), generator=g,
+                         device="cuda")
+    seg = model.prunable_segments()[0]
+    sp = seg.get_params(params)
+    with torch.no_grad():
+        _, caps = seg.apply(sp, model.calib_init(params, {"tokens": toks}),
+                            capture=True)
+        kern = CalibrationSet.from_captures(caps)
+        with ops.override_dispatch(plain=True):
+            plain = CalibrationSet.from_captures(caps)
+    worst, n_weighted, counts = 0.0, 0, []
+    for name in sorted(kern.names()):
+        a, b = kern.hessian(name), plain.hessian(name)
+        err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        worst = max(worst, err)
+        if kern.accs[name].weighted:
+            n_weighted += 1
+            counts.append(kern.accs[name].count.item())
+            if kern.accs[name].count.item() != plain.accs[name].count.item():
+                fail(f"phase 13a: {name}'s count differs, kernel against "
+                     "plain")
+    say(f"  13a: {len(list(kern.names()))} Hessians ({n_weighted} weighted, "
+        f"routed tokens an expert {min(counts):.0f}-{max(counts):.0f} of "
+        f"C = {caps['s0.moe.wi.0'][0].shape[0]}), worst |kernel - plain| / "
+        f"max(1, |plain|) {worst:.3e} (tol {KERNEL_TOL_REL:g})")
+    if worst > KERNEL_TOL_REL or n_weighted != 48:
+        fail(f"phase 13a: weighted Hessians off by {worst:.3e}, "
+             f"{n_weighted} weighted")
+    diff_groups = groups = 0
+    for lin in seg.linears:
+        if ".moe." not in lin.name:
+            continue
+        hinv = dampened_inverse(kern.hessian(lin.name))
+        w = lin.get(sp).contiguous()                 # (out, in)
+        got = ops.nm_select_mask(w, hinv)
+        with ops.override_dispatch(plain=True):
+            want = ops.nm_select_mask(w, hinv)
+        diff_groups += int((got != want).reshape(w.shape[0], -1, 4).any(
+            -1).sum())
+        groups += w.numel() // 4
+        del hinv, got, want
+    say(f"  13a: 𝔐 2:4 masks of the 48 expert linears, nm_select against "
+        f"plain: {groups - diff_groups}/{groups} groups equal")
+    if diff_groups:
+        fail(f"phase 13a: {diff_groups} mask groups differ")
+    del caps, kern, plain, params, sp
+    torch.cuda.empty_cache()
+    return dict(worst_rel_err=worst, weighted=n_weighted,
+                routed_min=min(counts), routed_max=max(counts),
+                mask_groups=groups)
+
+
+def moe_smoke_plain():
+    """13a (ii): phi3.5-moe's SMOKE in f32 on the card: MM 2:4 through the
+    pipelined engine and a static greedy serve of the result (4 requests
+    in one bucket, continuous asked), each with the kernels and under the
+    plain override — the override launching nothing.  Masks and weights,
+    and the streams, must be equal."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.engine import PruningEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_smoke("phi3_5_moe_42b_a6_6b")
+    model = LM(cfg, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    params = model.init(g)
+    params["embed"]["tok"] = params["embed"]["tok"] * 8.0   # sharp logits
+    calib = [{"tokens": t, "labels": t} for t in torch.randint(
+        0, cfg.vocab_size, (2, 4, 32), generator=g, device="cuda")]
+    rng = np.random.default_rng(13)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=16,
+                                               dtype=np.int32),
+                    max_new_tokens=12) for i in range(4)]
+    runs = {}
+    for label in ("kernels", "plain"):
+        ctx = (ops.override_dispatch(plain=True) if label == "plain"
+               else contextlib.nullcontext())
+        ops.reset_launch_counts()
+        with ctx, torch.no_grad():
+            pruned, reports = PruningEngine(
+                model, "2:4", method="MM", blocksize=32).run(params, calib)
+            eng = ServeEngine(model, pruned, max_batch=4, max_len=32,
+                              page_size=8, mode="continuous")
+            res = eng.generate(reqs)
+        n = ops.launch_counts()
+        if eng.mode != "static":
+            fail(f"phase 13a: a MoE engine reports mode {eng.mode!r}")
+        if (label == "plain") == any(n.values()):
+            fail(f"phase 13a {label}: launches {n}")
+        runs[label] = (pruned, reports, _streams(res), n)
+    (pk, rk, sk, nk), (pp, rp, spl, _) = runs["kernels"], runs["plain"]
+    flat_k, flat_p = model.params_to_flat(pk), model.params_to_flat(pp)
+    mask_diff = sum(int(((flat_k[k] == 0) != (flat_p[k] == 0)).sum())
+                    for k in flat_k)
+    w_err = max(float(np.abs(flat_k[k].astype(np.float32)
+                             - flat_p[k].astype(np.float32)).max())
+                for k in flat_k)
+    total = sum(flat_k[k].size for k in flat_k
+                if re.search(r"/(attn|moe)/w", k))
+    agree = 1 - mask_diff / total
+    err_k = sum(r.recon_error for r in rk)
+    err_p = sum(r.recon_error for r in rp)
+    err_rel = abs(err_k - err_p) / max(abs(err_p), 1e-12)
+    say(f"  13a: SMOKE MM 2:4 ({len(rk)} linears), kernels against plain: "
+        f"{mask_diff} of {total} mask entries differ (agree {agree:.5f}), "
+        f"max |Δw| {w_err:.3e}, total recon error {err_k:.6g} against "
+        f"{err_p:.6g} ({err_rel:.3e}); static greedy streams equal "
+        f"{_same(sk, spl)}; kernel launches {nk}")
+    # the f32 captures differ by ~1e-6 (flash_attn against its plain
+    # version), so a near tie may flip, as in phase 5b
+    if agree < MASK_AGREE_MIN or err_rel > PIPE_TOTAL_ERR_REL:
+        fail("phase 13a: the SMOKE prune differs, kernels against plain")
+    if not _same(sk, spl):
+        fail(f"phase 13a: static streams differ: {sk} against {spl}")
+    for k in ("hessian_accum", "nm_select", "flash_attn", "nm_spmm_decode"):
+        if nk[k] <= 0:
+            fail(f"phase 13a: kernel {k} not launched")
+    return dict(linears=len(rk), mask_diff=mask_diff, agree=agree,
+                w_err=w_err, recon_rel=err_rel, launches=nk)
+
+
+def moe_serve(arch, smi):
+    """13b: ``arch`` at full width, MOE_SERVE_LAYERS deep, bf16, random
+    weights from a seeded torch.Generator, magnitude 2:4 on attention and
+    the dense and shared MLPs (packed), the routed experts dense.  Phase
+    3's 8 requests of 64 + 32 tokens asked continuous, served static (the
+    engine's effective mode); tok/s, HBM held, and one profiled generate's
+    idle share and nm_spmm_decode device time."""
+    import torch
+
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.kernels import ops
+    from repro_torch.optim import tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    layers = MOE_SERVE_LAYERS[arch]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    cfg, model = _moe_model(arch, layers)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    with torch.no_grad():
+        params = prune_linears(model.init(g), "2:4")
+    eng = ServeEngine(model, params, max_batch=8, max_len=128, page_size=16,
+                      prefill_chunk=32, mode="continuous")
+    del params
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(eng.params))
+    expert_bytes = sum(lp["moe"][k].numel() * lp["moe"][k].element_size()
+                       for lp in eng.params["layers"] if "moe" in lp
+                       for k in ("wi", "wg", "wo"))
+    torch.cuda.synchronize()
+    mc = cfg.moe
+    say(f"  {cfg.name}: {layers} layers ({model.kinds}, MoE slots "
+        f"{[j for j, m in enumerate(model.moe_slots) if m]}), d_model "
+        f"{cfg.d_model}, {mc.num_experts} experts top-{mc.top_k} d_ff "
+        f"{mc.d_ff_expert}, shared {mc.num_shared}; init + 2:4 + packing "
+        f"{time.monotonic() - t0:.1f} s; params {n_bytes / 2**30:.3f} GiB "
+        f"({expert_bytes / 2**30:.3f} GiB routed experts, dense), "
+        f"{eng.n_sparse_leaves} packed; mode asked continuous, served "
+        f"{eng.mode}; HBM peak so far "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({smi})")
+    if eng.mode != "static":
+        fail(f"phase 13b {arch}: mode {eng.mode!r}, expected static")
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=64,
+                                               dtype=np.int32),
+                    max_new_tokens=32) for i in range(8)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                       # the path starts
+    t0 = time.monotonic()
+    res = eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    counts = ops.launch_counts()                    # ... and ends
+    hbm = torch.cuda.max_memory_allocated()
+    _check_streams(f"phase 13b {arch}", reqs, res, cfg.vocab_size)
+    toks = sum(len(r.tokens) for r in res)
+    say(f"  mode {eng.mode}: {toks} tokens in {dt:.3f} s = {toks / dt:.2f} "
+        f"tok/s; host syncs {eng.stats['host_syncs']}; HBM held "
+        f"{hbm / 2**30:.3f} GiB; launches {counts}")
+    for k in ("nm_spmm", "nm_spmm_decode", "flash_attn"):
+        if counts[k] <= 0:
+            fail(f"phase 13b {arch}: kernel {k} was not launched")
+    prof = profile_main(eng, reqs)
+    dec = sum(v for k, v in prof["by_kernel_s"].items()
+              if k.startswith("nm_spmm_decode"))
+    say(f"  nm_spmm_decode device time in the profiled generate: "
+        f"{dec * 1e3:.3f} ms; idle share {1 - prof['busy_s'] / prof['wall_s']:.3f}")
+    out = dict(layers=layers, mode=eng.mode, tok_s=toks / dt, wall_s=dt,
+               hbm_gib=hbm / 2**30, params_gib=n_bytes / 2**30,
+               expert_gib=expert_bytes / 2**30, packed=eng.n_sparse_leaves,
+               launches=counts, profile=prof,
+               idle=1 - prof["busy_s"] / prof["wall_s"],
+               nm_spmm_decode_ms=dec * 1e3)
+    del eng, res, model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def moe_prune(smi):
+    """13c: ``launch.prune.prune`` with the launcher's default (pipelined)
+    engine, MS 2:4 at blocksize 128, on phi3.5-moe at full width,
+    MOE_PRUNE_LAYERS deep, 128 x 2048 random ids (C = 40960 tokens an
+    expert): seconds a layer, HBM held, host syncs (≤ 1: the weighted
+    Hessians' counts stay on the card), launches a layer (hessian_accum
+    53: 4 attention, the router, 48 experts; flash_attn 2; nm_select
+    52), every pruned linear 2:4, finite perplexity."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prune as launch_prune
+
+    layers = MOE_PRUNE_LAYERS
+    cfg, model = _moe_model("phi3_5_moe_42b_a6_6b", layers)
+    params = launch_prune.load_params(model, None, seed=0)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    ev = [{"tokens": t, "labels": t} for t in torch.randint(
+        0, cfg.vocab_size, (2, 4, 512), generator=gen, device="cuda")]
+    dense_ppl = launch_prune.eval_ppl(model, params, ev)
+    pipeline = launch_prune.build_parser().get_default("pipeline")
+    syncs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                       # the prune path starts
+    t0 = time.monotonic()
+    with count_syncs(syncs):
+        pruned, reports = launch_prune.prune(
+            model, params, calib, "2:4", "MS", blocksize=128,
+            row_chunk=PRUNE_ROW_CHUNK, pipeline=pipeline,
+            calib_shard=MOE_CALIB_SHARDS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()                    # ... and ends
+    hbm = torch.cuda.max_memory_allocated()
+    e = cfg.moe.num_experts
+    per_layer = 4 + 3 * e
+    say(f"  {cfg.name}, {layers} layers, MS 2:4 ({pipeline}, "
+        f"{MOE_CALIB_SHARDS} shard(s)): {wall:.2f} s ({wall / layers:.3f} s "
+        f"a layer); HBM held {hbm / 2**30:.3f} GiB; host syncs {syncs['n']} "
+        f"from {syncs['where']}; launches {counts} ({smi})")
+    want = {"hessian_accum": (per_layer + 1) * layers * MOE_CALIB_SHARDS,
+            "flash_attn": 2 * layers * MOE_CALIB_SHARDS,
+            "nm_select": per_layer * layers}
+    for k, n in want.items():
+        if counts[k] != n:
+            fail(f"phase 13c: {counts[k]} {k} launches, expected {n}")
+    if syncs["n"] > 1:
+        fail(f"phase 13c: {syncs['n']} host syncs in the pipelined run")
+    if len(reports) != per_layer * layers or any(
+            abs(r.sparsity - 0.5) > 1e-6 for r in reports):
+        fail(f"phase 13c: {len(reports)} reports, or a sparsity other than "
+             "0.5")
+    bad = []
+    for i, lp in enumerate(pruned["layers"]):
+        for key in ("wq", "wk", "wv", "wo"):
+            g4 = lp["attn"][key].T.reshape(-1, 4)
+            if not bool(((g4 != 0).sum(-1) <= 2).all()):
+                bad.append(f"{i}.attn.{key}")
+        for key in ("wi", "wg", "wo"):
+            st = lp["moe"][key].transpose(1, 2).reshape(-1, 4)
+            if not bool(((st != 0).sum(-1) <= 2).all()):
+                bad.append(f"{i}.moe.{key}")
+    if bad:
+        fail(f"phase 13c: not 2:4 after MS: {bad}")
+    pruned_ppl = launch_prune.eval_ppl(model, pruned, ev)
+    say(f"  perplexity on 2 x 4 x 512 random tokens: dense {dense_ppl:.2f}, "
+        f"MS 2:4 {pruned_ppl:.2f} (random weights: no gate)")
+    if not (math.isfinite(dense_ppl) and math.isfinite(pruned_ppl)):
+        fail("phase 13c: non-finite perplexity")
+    out = dict(layers=layers, wall_s=wall, s_per_layer=wall / layers,
+               hbm_gib=hbm / 2**30, syncs=syncs["n"], launches=counts,
+               dense_ppl=dense_ppl, pruned_ppl=pruned_ppl)
+    del pruned, params, model, calib
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def moe_phase(smi, parts="abc"):
+    """Phase 13 (those of ``parts``): returns the launches of the serving
+    and pruning runs and the phase's numbers."""
+    import torch
+
+    out = {}
+    serve_counts = {k: 0 for k in (*SERVE_KERNELS, "flash_attn")}
+    prune_counts = {k: 0 for k in PRUNE_KERNELS}
+    t = time.monotonic()
+    if "a" in parts:
+        say("  13a: the weighted Hessians and 𝔐 masks of phi3.5's 48 expert "
+            "linears at full width, f32; the SMOKE prune and static serve, "
+            "kernels against plain")
+        out["hessians"] = moe_expert_hessians_f32()
+        out["smoke"] = moe_smoke_plain()
+        say(f"  13a took {time.monotonic() - t:.1f} s")
+    for arch in MOE_SERVE_LAYERS if "b" in parts else ():
+        t = time.monotonic()
+        say(f"  13b: {arch} served at full width, {MOE_SERVE_LAYERS[arch]} "
+            "layers, bf16")
+        c, out[f"serve {arch}"] = moe_serve(arch, smi)
+        for k in serve_counts:
+            serve_counts[k] += c[k]
+        say(f"  13b {arch} took {time.monotonic() - t:.1f} s")
+        torch.cuda.empty_cache()
+    if "c" in parts:
+        t = time.monotonic()
+        say("  13c: phi3.5-moe pruned MS 2:4 through the pipelined engine")
+        prune_counts, out["prune"] = moe_prune(smi)
+        say(f"  13c took {time.monotonic() - t:.1f} s")
+    return serve_counts, prune_counts, out
+
+
 def partial_run(only, gen, rows, t_start) -> int:
-    """``--phases``: phase 1's new rows (hd 256, the window, the new
-    widths) and/or phase 12, then a summary line; no result lines."""
+    """``--phases``: phase 1's rows of PR 21 (hd 256, the window, the new
+    widths) with the MoE widths' and the weighted hessian_accum's ("1"),
+    those alone ("1m", "1w"),
+    phase 12 and/or phase 13 (or parts of them), then a summary line; no
+    result lines."""
     import torch
 
     out = {}
@@ -4059,11 +4631,27 @@ def partial_run(only, gen, rows, t_start) -> int:
         out["flash_attn_hd256"] = check_flash_256(gen, rows)
         out["dense_widths"] = check_dense_widths(gen, rows)
         torch.cuda.empty_cache()
+    if "1" in only or "1m" in only:
+        say("phase 1 (partial): the kernels at the MoE models' widths")
+        out["moe_widths"] = check_moe_widths(gen, rows)
+    if "1" in only or "1w" in only:
+        say("phase 1 (partial): the weighted hessian_accum")
+        out["hessian_weighted"] = check_hessian_weighted(gen, rows)
+        torch.cuda.empty_cache()
     parts = "abcd" if "12" in only else "".join(
-        p[2] for p in sorted(only) if p.startswith("12"))
+        p[2] for p in sorted(only) if p.startswith("12") and len(p) == 3)
     if parts:
         say(f"phase 12 (partial: {parts})")
         out["serve"], out["prune"], out["dense"] = dense_variants(parts)
+    parts = "abc" if "13" in only else "".join(
+        p[2] for p in sorted(only) if p.startswith("13") and len(p) == 3)
+    if parts:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+        say(f"phase 13 (partial: {parts})")
+        out["serve_13"], out["prune_13"], out["moe"] = moe_phase(smi, parts)
     bad = [r for r in rows if not r["ok"]]
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke_partial.txt", "w") as f:
@@ -4087,9 +4675,10 @@ def main(argv) -> int:
     only = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         only = set(argv[1].split(","))
-        if not only <= {"1", "12", "12a", "12b", "12c", "12d"}:
-            print("chip_smoke: --phases takes 1, 12 and 12a-12d",
-                  file=sys.stderr)
+        if not only <= {"1", "1m", "1w", "12", "12a", "12b", "12c", "12d", "13",
+                        "13a", "13b", "13c"}:
+            print("chip_smoke: --phases takes 1, 1m, 1w, 12, 12a-12d, 13 and "
+                  "13a-13c", file=sys.stderr)
             return 2
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -4137,10 +4726,12 @@ def main(argv) -> int:
     paged_main, paged_long, paged_shared = check_paged(gen, rows)
     check_hessian(gen, rows)
     hess_rows = check_hessian_stacked(gen, rows)
+    hess_w_rows = check_hessian_weighted(gen, rows)
     select_rows = check_nm_select(gen, rows)
     flash_rows = check_flash(gen, rows)
     flash_256 = check_flash_256(gen, rows)
     dense_rows = check_dense_widths(gen, rows)
+    moe_rows = check_moe_widths(gen, rows)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -4239,6 +4830,18 @@ def main(argv) -> int:
         counts[k] += serve_12.get(k, 0) + prune_12.get(k, 0)
     say(f"  phase 12 took {time.monotonic() - t12:.1f} s; launches: serving "
         f"{serve_12}, pruning {prune_12}")
+    torch.cuda.empty_cache()
+
+    head("phase 13: Mixture-of-Experts — phi3.5-moe (16 experts, top-2), "
+         "kimi-k2 (384, top-8, a shared expert) and Jamba with its experts: "
+         "kernels against plain, served static at full width, phi3.5 "
+         f"pruned MS 2:4 ({smi})")
+    t13 = time.monotonic()
+    serve_13, prune_13, moe_out = moe_phase(smi)
+    for k in counts:
+        counts[k] += serve_13.get(k, 0) + prune_13.get(k, 0)
+    say(f"  phase 13 took {time.monotonic() - t13:.1f} s; launches: serving "
+        f"{serve_13}, pruning {prune_13}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -4251,10 +4854,10 @@ def main(argv) -> int:
                "nm_select": ("nm_select.cu", "nm_select.py:65"),
                "flash_attn": ("flash_attn.cu", "flash_attn.py:76")}
 
-    def agg(name, rs, at):
+    def agg(name, rs, at, **extra):
         cu, tpu = sources[name]
         lib = [r["library_ms"] for r in rs]
-        return {"name": name, "route": "cuda", "check": "pass",
+        return {**extra, "name": name, "route": "cuda", "check": "pass",
                 "source": f"src/repro_torch/kernels/csrc/{cu}",
                 "replaces": f"src/repro/kernels/{tpu}",
                 "launches": counts[name],
@@ -4281,7 +4884,10 @@ def main(argv) -> int:
             f"ms, SDPA {paged_long['library_ms']:.5f}"),
         agg("hessian_accum", hess_rows,
             "sum of m=1024 and m=2816, T=262144 bf16 tokens (the stacked "
-            "capture), α=1/T β=0"),
+            "capture), α=1/T β=0; the weighted route under 'weighted'",
+            weighted={r["shape"]: {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "route")} for r in hess_w_rows}),
         agg("nm_select", select_rows,
             "sum over one 128-column block of each of the 7 linears, bf16 w"),
         agg("flash_attn", flash_rows[1:],
@@ -4300,7 +4906,9 @@ def main(argv) -> int:
                             "table3": table3, "frontend": frontend,
                             "flash_attn_hd256": flash_256,
                             "dense_widths": dense_rows,
-                            "dense_variants": dense},
+                            "moe_widths": moe_rows,
+                            "dense_variants": dense,
+                            "hessian_weighted": hess_w_rows, "moe": moe_out},
                            default=str) + "\n")
     say(f"all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,11 @@
 
 The dense decoders — Qwen1.5-0.5B, gemma-2b (head dim 256), Qwen3-14B
 (qk-norm) and Gemma3-12B (qk-norm, five sliding-window layers to one
-global) — the tiny Mamba twin (``paper_tiny_lm.MAMBA``) and Jamba's
-hybrid, whose ``moe`` the model refuses until MoE is ported (ROADMAP.md
-lists the other families).  Ids and aliases as the reference's registry.
+global) — the MoE decoders phi3.5-moe (16 experts, top-2) and kimi-k2
+(384 experts, top-8, one shared expert), the tiny Mamba twin
+(``paper_tiny_lm.MAMBA``) and Jamba's hybrid with its 16 experts
+(ROADMAP.md lists the other families).  Ids and aliases as the
+reference's registry.
 """
 
 import importlib
@@ -12,6 +14,7 @@ import importlib
 from repro_torch.models.base import ArchConfig
 
 ARCH_IDS = ("qwen3_14b", "gemma3_12b", "qwen1_5_0_5b", "gemma_2b",
+            "kimi_k2_1t_a32b", "phi3_5_moe_42b_a6_6b",
             "jamba_1_5_large_398b", "paper_tiny_lm")
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}
@@ -20,6 +23,8 @@ _ALIAS.update({
     "gemma3-12b": "gemma3_12b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "gemma-2b": "gemma_2b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 })
 

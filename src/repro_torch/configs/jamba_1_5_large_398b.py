@@ -4,9 +4,8 @@ MoE every other layer. [arXiv:2403.19887; hf]
 (a copy of ``repro.configs.jamba_1_5_large_398b``).
 
 Jamba period = 8 layers: slot 3 is attention, the rest Mamba; every block
-carries an FFN (``ssm_mlp``), alternating dense MLP / 16-expert MoE.  The
-port's ``LM`` refuses both configs while ``moe`` is set (MoE is not
-ported); its blocks without the experts are
+carries an FFN (``ssm_mlp``), alternating dense MLP / 16-expert MoE
+(``models.moe``).  Its blocks without the experts are
 ``dataclasses.replace(CONFIG, moe=None, moe_slots=())``, every slot then
 carrying its dense SwiGLU FFN.
 """

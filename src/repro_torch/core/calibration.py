@@ -7,19 +7,37 @@ linear's name.  Each capture is flattened token-major, (tokens, d_in),
 and feeds that linear's streaming Hessian accumulator directly — the
 ``hessian_accum`` kernel reads that layout, so nothing is transposed.
 
-Per-shard sets (the pipelined scheduler's ``calib_shard``) combine with
-:meth:`CalibrationSet.merge_all`.  The reference's weighted captures
-``(x, weights)`` (MoE routed tokens) wait for the port that needs them
-(ROADMAP.md).
+A capture is ``x`` (..., T, d_in), or ``(x, weights)`` with weights
+(..., T) — a MoE expert's routed tokens and their validity — whose
+0-weight tokens stay out of the Hessian (``update_weighted``; the
+accumulator's count then stays on the device).  Leading dims are
+flattened.  Per-shard sets (the pipelined scheduler's ``calib_shard``)
+combine with :meth:`CalibrationSet.merge_all`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping, Sequence
+from typing import Dict, Iterable, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core.hessian import HessianAccumulator
+
+Capture = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _flatten_capture(cap: Capture
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A capture → (x (T, d), weights (T,) or None)."""
+    if isinstance(cap, tuple):
+        x, w = cap
+        x2 = x.reshape(-1, x.shape[-1])
+        w2 = w.reshape(-1)
+        if w2.shape[0] != x2.shape[0]:
+            raise ValueError(f"capture weights {tuple(w.shape)} "
+                             f"incompatible with x {tuple(x.shape)}")
+        return x2, w2
+    return cap.reshape(-1, cap.shape[-1]), None
 
 
 class CalibrationSet:
@@ -28,21 +46,21 @@ class CalibrationSet:
     def __init__(self):
         self.accs: Dict[str, HessianAccumulator] = {}
 
-    def update(self, captures: Mapping[str, torch.Tensor]) -> None:
+    def update(self, captures: Mapping[str, Capture]) -> None:
         for name, cap in captures.items():
-            if isinstance(cap, tuple):
-                raise NotImplementedError(
-                    f"capture {name!r}: weighted (MoE) captures are not "
-                    "ported (ROADMAP.md)")
-            x2 = cap.reshape(-1, cap.shape[-1])
+            x2, w2 = _flatten_capture(cap)
             acc = self.accs.get(name)
             if acc is None:
-                acc = HessianAccumulator(x2.shape[1], device=x2.device)
+                acc = HessianAccumulator(x2.shape[1], device=x2.device,
+                                         weighted=w2 is not None)
                 self.accs[name] = acc
-            acc.update_tokens(x2)
+            if w2 is None:
+                acc.update_tokens(x2)
+            else:
+                acc.update_weighted_tokens(x2, w2)
 
     @classmethod
-    def from_captures(cls, captures: Mapping[str, torch.Tensor]
+    def from_captures(cls, captures: Mapping[str, Capture]
                       ) -> "CalibrationSet":
         """One-shot construction from a single (batched) capture dict."""
         out = cls()

@@ -196,14 +196,18 @@ def prune_matrix(w: torch.Tensor, h: torch.Tensor,
 # ----------------------------------------------------------------------
 def prune_linears(params, spec: Union[str, SparsitySpec] = "2:4"):
     """Magnitude-prune the seven linears of every layer in place to an N:M
-    spec.  The weights are stored (in, out), so each is pruned as ``wᵀ``:
-    the groups of M then run along the input dim, the axis compress_24
+    spec — a MoE layer's attention and shared expert, its routed experts
+    staying dense (they are served dense, as the reference serves them).
+    The weights are stored (in, out), so each is pruned as ``wᵀ``: the
+    groups of M then run along the input dim, the axis compress_24
     packs."""
     if isinstance(spec, str):
         spec = SparsitySpec.parse(spec)
     if not spec.is_semi_structured:
         raise ValueError(f"prune_linears packs N:M specs, got {spec}")
     for layer in params["layers"]:
+        if "shared" in layer.get("moe", {}):
+            layer = {**layer, "mlp": layer["moe"]["shared"]}
         for sub, name in LINEARS:
             if sub in layer and name in layer[sub]:
                 w = layer[sub][name].T

@@ -53,6 +53,8 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _P),
     "hessian_accum_launch": (_P, _I, _I, _I, _P, _P, _I, _I, _F, _F, _P),
+    "hessian_accum_weighted_launch": (_P, _I, _I, _I, _P, _P, _I, _I, _P,
+                                      _I, _P, _P),
     "nm_select_launch": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P),
     "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _PI64, _I, _I,
                           _I, ctypes.POINTER(_I), _P),

@@ -61,6 +61,23 @@
 // symmetric; on a diagonal tile only i >= j is computed and mirrored.  No
 // atomics: the same inputs give the same bits.  Ragged m and T are masked
 // in the loads (zero-filled) and the stores: the caller never pads.
+//
+// The weighted form (a MoE expert's Hessian over its routed tokens):
+//
+//     H <- H c / max(c + sum w, 1e-12) + 2 X^T diag(w) X / max(c + sum w, 1e-12)
+//     c <- c + sum w
+//
+// with the count c a device scalar, so that no calibration batch reads
+// anything back to the host.  A first one-block pass sums w in a fixed
+// order, writes 2 / denom and c / denom into two floats behind the
+// partials and the new count over the old; the finishing pass reads its
+// alpha and beta from there.  Bool weights (routing validity, one byte a
+// token) keep the tensor-core route: each lane ANDs the bf16 pairs of its
+// B fragments with a per-token 0 / 0xFFFF mask (a fragment register holds
+// tokens 2 t4 + {0, 1} of its 8-token half), which zeroes the dropped
+// tokens' rows of one operand exactly.  Float weights (gate
+// probabilities) take the FMA route, which scales the row operand by w_t
+// in f32 as it stages it — the reference's x32 * w32.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -107,25 +124,37 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// xs[r][c] = X[t0 + r, c0 + c] as f32, zero past the ragged edges.
-template <typename T>
+// the weight of token t: 0/1 for bool (w_kind 1), the f32 value for
+// float (w_kind 2)
+__device__ __forceinline__ float weight(const void* w, int w_kind, int t) {
+  if (w_kind == 1) return static_cast<const uint8_t*>(w)[t] ? 1.f : 0.f;
+  return static_cast<const float*>(w)[t];
+}
+
+// xs[r][c] = X[t0 + r, c0 + c] as f32 (times w[t0 + r] when W_KIND is 1
+// or 2), zero past the ragged edges.
+template <int W_KIND, typename T>
 __device__ __forceinline__ void load_chunk(float (*xs)[TILE],
                                            const T* __restrict__ x, int t0,
-                                           int t_end, int c0, int m) {
+                                           int t_end, int c0, int m,
+                                           const void* w) {
   const int c = threadIdx.x % TILE;
   const int col = c0 + c;
 #pragma unroll
   for (int r = threadIdx.x / TILE; r < BT; r += NT / TILE) {
     const int t = t0 + r;
-    xs[r][c] = (t < t_end && col < m) ? to_f(x[(size_t)t * m + col]) : 0.f;
+    float v = (t < t_end && col < m) ? to_f(x[(size_t)t * m + col]) : 0.f;
+    if (W_KIND != 0 && t < t_end) v *= weight(w, W_KIND, t);
+    xs[r][c] = v;
   }
 }
 
-// partial tile (TILE x TILE f32) of tokens in this block's range
-template <typename T>
+// partial tile (TILE x TILE f32) of tokens in this block's range; the row
+// operand scaled by the token weights when W_KIND is 1 (bool) or 2 (f32)
+template <typename T, int W_KIND>
 __global__ void __launch_bounds__(NT, 2)
     hessian_fma_kernel(const T* __restrict__ x, float* __restrict__ part,
-                       int n_tok, int m) {
+                       int n_tok, int m, const void* w) {
   int bi, bj, c0, n_ch;
   tile_of(blockIdx.x, &bi, &bj);
   chunks_of(n_tok, &c0, &n_ch);
@@ -143,8 +172,8 @@ __global__ void __launch_bounds__(NT, 2)
     for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
 
   for (int t0 = c0 * BT; t0 < t_end; t0 += BT) {
-    load_chunk(xi, x, t0, t_end, i0, m);
-    load_chunk(xj, x, t0, t_end, j0, m);
+    load_chunk<W_KIND>(xi, x, t0, t_end, i0, m, w);
+    load_chunk<0>(xj, x, t0, t_end, j0, m, nullptr);
     __syncthreads();
     float p[4][4];
 #pragma unroll
@@ -184,6 +213,14 @@ __global__ void __launch_bounds__(NT, 2)
 // --------------------------------------------------------------------
 namespace tc {
 
+// 0xFFFF in the half of a bf16 pair whose token (t, t + 1) has weight
+__device__ __forceinline__ uint32_t token_mask(const uint8_t* w, int t,
+                                               int n_tok) {
+  const uint32_t lo = (t < n_tok && w[t]) ? 0x0000FFFFu : 0u;
+  const uint32_t hi = (t + 1 < n_tok && w[t + 1]) ? 0xFFFF0000u : 0u;
+  return lo | hi;
+}
+
 constexpr int TILE = 128;                    // output tile edge
 constexpr int STAGES = 4;                    // ring depth
 constexpr int NW = NT / 32;                  // 8 warps: 2 (rows) x 4 (cols)
@@ -194,9 +231,12 @@ constexpr int BAR_OFF = STAGES * STAGE_BYTES;
 constexpr int SMEM = 1024 + BAR_OFF + 2 * 8 * STAGES;
 static_assert(BOX % 1024 == 0, "swizzle atoms");
 
+// WEIGHTED: w holds one byte a token (bool weights)
+template <bool WEIGHTED>
 __global__ void __launch_bounds__(NT, 2)
     hessian_tc_kernel(const __grid_constant__ CUtensorMap map_x,
-                      float* __restrict__ part, int n_tok) {
+                      float* __restrict__ part, int n_tok,
+                      const uint8_t* __restrict__ w) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -271,6 +311,16 @@ __global__ void __launch_bounds__(NT, 2)
         b[2 * np + 1][0] = r[2];
         b[2 * np + 1][1] = r[3];
       }
+      if (WEIGHTED) {          // bool weights: drop the 0-weight tokens
+        const int t = (c0 + c) * BT + kk * 16 + 2 * (lane & 3);
+        const uint32_t lo = token_mask(w, t, n_tok);
+        const uint32_t hi = token_mask(w, t + 8, n_tok);
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          b[ni][0] &= lo;
+          b[ni][1] &= hi;
+        }
+      }
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -320,8 +370,12 @@ template <int TS>
 __global__ void __launch_bounds__(NT)
     hessian_finish_kernel(const float* __restrict__ part, int split,
                           float* __restrict__ h, int m, float alpha2,
-                          float beta) {
+                          float beta, const float* __restrict__ coef) {
   constexpr int SUBS = TS / 32;
+  if (coef != nullptr) {     // the weighted form: formed on the device
+    alpha2 = coef[0];
+    beta = coef[1];
+  }
   const int tile = blockIdx.x, tiles = gridDim.x;
   int bi, bj;
   tile_of(tile, &bi, &bj);
@@ -350,6 +404,94 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// one block: s = sum w in a fixed order; denom = max(c + s, 1e-12);
+// coef = (2 / denom, c / denom); c += s
+__global__ void __launch_bounds__(NT)
+    hessian_weights_kernel(const void* __restrict__ w, int w_kind, int n_tok,
+                           float* __restrict__ count,
+                           float* __restrict__ coef) {
+  __shared__ float red[NT / 32];
+  float s = 0.f;
+  for (int t = threadIdx.x; t < n_tok; t += NT)
+    s += fma_route::weight(w, w_kind, t);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float tot = 0.f;
+    for (int i = 0; i < NT / 32; ++i) tot += red[i];
+    const float c = *count, total = c + tot;
+    const float denom = fmaxf(total, 1e-12f);
+    coef[0] = 2.f / denom;
+    coef[1] = c / denom;
+    *count = total;
+  }
+}
+
+// the FMA kernel's instance for the weights' kind
+template <typename T>
+void launch_fma(dim3 grid, cudaStream_t s, const T* x, float* scratch,
+                int n_tok, int m, const void* w, int w_kind) {
+  if (w_kind == 1)
+    fma_route::hessian_fma_kernel<T, 1><<<grid, NT, 0, s>>>(x, scratch, n_tok,
+                                                           m, w);
+  else if (w_kind == 2)
+    fma_route::hessian_fma_kernel<T, 2><<<grid, NT, 0, s>>>(x, scratch, n_tok,
+                                                           m, w);
+  else
+    fma_route::hessian_fma_kernel<T, 0><<<grid, NT, 0, s>>>(x, scratch, n_tok,
+                                                           m, nullptr);
+}
+
+int launch(const void* x, int x_bf16, int tc, int split, float* scratch,
+           float* h, int n_tok, int m, float alpha, float beta,
+           const void* w, int w_kind, const float* coef, cudaStream_t s) {
+  const int ts = tc ? tc::TILE : fma_route::TILE;
+  const int nb = (m + ts - 1) / ts;
+  const dim3 grid(nb * (nb + 1) / 2, split);
+  if (tc) {
+    if (!x_bf16 || n_tok <= 0 || w_kind == 2)
+      return (int)cudaErrorInvalidValue;
+    static int smem_set[2][MAX_DEV] = {};
+    cudaError_t err =
+        w_kind ? allow_smem(tc::hessian_tc_kernel<true>, tc::SMEM,
+                            smem_set[1], MAX_DEV)
+               : allow_smem(tc::hessian_tc_kernel<false>, tc::SMEM,
+                            smem_set[0], MAX_DEV);
+    if (err != cudaSuccess) return (int)err;
+    CUtensorMap map;
+    memset(&map, 0, sizeof(map));
+    if (!encode(&map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n_tok, m, BT,
+                64, CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+    const uint8_t* wb = static_cast<const uint8_t*>(w);
+    if (w_kind)
+      tc::hessian_tc_kernel<true><<<grid, NT, tc::SMEM, s>>>(map, scratch,
+                                                            n_tok, wb);
+    else
+      tc::hessian_tc_kernel<false><<<grid, NT, tc::SMEM, s>>>(map, scratch,
+                                                             n_tok, nullptr);
+  } else if (x_bf16) {
+    launch_fma<__nv_bfloat16>(grid, s,
+                              static_cast<const __nv_bfloat16*>(x), scratch,
+                              n_tok, m, w, w_kind);
+  } else {
+    launch_fma<float>(grid, s, static_cast<const float*>(x), scratch, n_tok,
+                      m, w, w_kind);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 fgrid(grid.x, (ts / 32) * (ts / 32));
+  if (tc)
+    hessian_finish_kernel<tc::TILE><<<fgrid, NT, 0, s>>>(
+        scratch, split, h, m, 2.f * alpha, beta, coef);
+  else
+    hessian_finish_kernel<fma_route::TILE><<<fgrid, NT, 0, s>>>(
+        scratch, split, h, m, 2.f * alpha, beta, coef);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (n_tok, m) bf16 (x_bf16) or f32; tc selects the tensor-core route (bf16
@@ -359,37 +501,27 @@ extern "C" int hessian_accum_launch(const void* x, int x_bf16, int tc,
                                     int split, float* scratch, float* h,
                                     int n_tok, int m, float alpha,
                                     float beta, void* stream) {
+  return launch(x, x_bf16, tc, split, scratch, h, n_tok, m, alpha, beta,
+                nullptr, 0, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// The weighted form: w (n_tok) one byte a token (w_kind 1, bool) or f32
+// (w_kind 2, the FMA route only); count a device float; scratch holds the
+// partials and two floats behind them for the coefficients.
+extern "C" int hessian_accum_weighted_launch(const void* x, int x_bf16,
+                                             int tc, int split,
+                                             float* scratch, float* h,
+                                             int n_tok, int m, const void* w,
+                                             int w_kind, float* count,
+                                             void* stream) {
+  if (w_kind != 1 && w_kind != 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ts = tc ? tc::TILE : fma_route::TILE;
   const int nb = (m + ts - 1) / ts;
-  const dim3 grid(nb * (nb + 1) / 2, split);
-  if (tc) {
-    if (!x_bf16 || n_tok <= 0) return (int)cudaErrorInvalidValue;
-    static int smem_set[MAX_DEV] = {};
-    cudaError_t err =
-        allow_smem(tc::hessian_tc_kernel, tc::SMEM, smem_set, MAX_DEV);
-    if (err != cudaSuccess) return (int)err;
-    CUtensorMap map;
-    memset(&map, 0, sizeof(map));
-    if (!encode(&map, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n_tok, m, BT,
-                64, CU_TENSOR_MAP_SWIZZLE_128B))
-      return (int)cudaErrorInvalidValue;
-    tc::hessian_tc_kernel<<<grid, NT, tc::SMEM, s>>>(map, scratch, n_tok);
-  } else if (x_bf16) {
-    fma_route::hessian_fma_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), scratch, n_tok, m);
-  } else {
-    fma_route::hessian_fma_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), scratch, n_tok, m);
-  }
+  float* coef = scratch + (size_t)split * (nb * (nb + 1) / 2) * ts * ts;
+  hessian_weights_kernel<<<1, NT, 0, s>>>(w, w_kind, n_tok, count, coef);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 fgrid(grid.x, (ts / 32) * (ts / 32));
-  if (tc)
-    hessian_finish_kernel<tc::TILE><<<fgrid, NT, 0, s>>>(scratch, split, h, m,
-                                                        2.f * alpha, beta);
-  else
-    hessian_finish_kernel<fma_route::TILE><<<fgrid, NT, 0, s>>>(scratch, split, h,
-                                                         m, 2.f * alpha, beta);
-  return (int)cudaGetLastError();
+  return launch(x, x_bf16, tc, split, scratch, h, n_tok, m, 1.f, 0.f, w,
+                w_kind, coef, s);
 }

@@ -28,7 +28,9 @@ import torch
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
 from repro_torch.kernels.hessian_accum import (hessian_accum,
-                                               hessian_accum_plain)
+                                               hessian_accum_plain,
+                                               hessian_accum_weighted,
+                                               hessian_accum_weighted_plain)
 from repro_torch.kernels.nm_select import nm_select, nm_select_plain
 from repro_torch.kernels.nm_spmm import (DECODE_MAX_M, nm_spmm,
                                          nm_spmm_decode, nm_spmm_decode_plain,
@@ -156,6 +158,16 @@ def hessian_update(x_tokens: torch.Tensor, h: torch.Tensor, alpha: float,
     Hessian's one launch (``core.hessian``)."""
     fn = hessian_accum_plain if _plain() else hessian_accum
     return fn(x_tokens, h, alpha, beta)
+
+
+def hessian_update_weighted(x_tokens: torch.Tensor, w: torch.Tensor,
+                            h: torch.Tensor,
+                            count: torch.Tensor) -> torch.Tensor:
+    """The weighted streaming Hessian's one call (a MoE expert's routed
+    tokens): H ← H·c/max(c+Σw, 1e-12) + 2·Xᵀdiag(w)X/max(c+Σw, 1e-12),
+    c ← c + Σw, with the 0-dim count ``count`` on the tensors' device."""
+    fn = hessian_accum_weighted_plain if _plain() else hessian_accum_weighted
+    return fn(x_tokens, w, h, count)
 
 
 def hessian_xxt(x: torch.Tensor) -> torch.Tensor:

@@ -97,6 +97,14 @@ def hessian_accum_ref(x: torch.Tensor) -> torch.Tensor:
     return 2.0 * (x32 @ x32.T)
 
 
+def hessian_accum_weighted_ref(x: torch.Tensor,
+                               w: torch.Tensor) -> torch.Tensor:
+    """H = 2 · x·diag(w)·xᵀ for x (m, T), w (T,) — f32, the weights
+    applied to the left operand as the reference's ``x32 * w32``."""
+    x32 = x.float()
+    return 2.0 * ((x32 * w.float()[None, :]) @ x32.T)
+
+
 def nm_select_losses(w: torch.Tensor, hinv: torch.Tensor) -> torch.Tensor:
     """Eq. (12) loss ½·w·A⁻¹·wᵀ of each of the 6 pruning pairs of every
     2:4 group, with A the pair's 2×2 block of Hinv inverted in closed

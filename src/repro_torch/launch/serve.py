@@ -50,7 +50,7 @@ from repro_torch.models.transformer import LM
 from repro_torch.obs import Obs
 from repro_torch.obs.metrics import merge_histograms
 from repro_torch.serve.config import ServeConfig
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.engine import ServeEngine, effective_mode
 from repro_torch.serve.frontend import (CompletionRequest,
                                         CompletionResponse, Replica, Router,
                                         Supervisor, run_server,
@@ -210,7 +210,8 @@ def _random_requests(cfg, args):
 def run_batch(cfg, model, params, args, config: ServeConfig,
               obs: Obs) -> None:
     creqs = _random_requests(cfg, args)
-    if config.mode == "continuous":
+    mode = effective_mode(model.cfg, config.mode)
+    if mode == "continuous":
         router = make_router(model, params, config, obs=obs)
         engines = [r.engine for r in router.replicas]
         _print_packed(args, engines[0])
@@ -227,6 +228,9 @@ def run_batch(cfg, model, params, args, config: ServeConfig,
         return
     # static buckets have no sessions: the same wire objects, lowered
     # onto generate()
+    if mode != config.mode:
+        print(f"note: {config.mode} unsupported for {cfg.name} — "
+              f"fell back to {mode}")
     eng = make_engine(model, params, config, obs=obs.labelled("r0"))
     _print_packed(args, eng)
     t0 = time.monotonic()
@@ -322,6 +326,9 @@ def run_frontend(cfg, model, params, args, config: ServeConfig,
     if config.mode != "continuous":
         raise SystemExit("--server needs the continuous runtime "
                          "(streaming sessions); drop --serve-mode static")
+    if effective_mode(model.cfg, config.mode) != "continuous":
+        raise SystemExit(f"--server unsupported for {cfg.name}: the arch "
+                         "falls back to the static bucketed engine")
     router = make_router(model, params, config, obs=obs)
     _print_packed(args, router.replicas[0].engine)
     # supervision: restart crashed or stalled workers and fail their

@@ -57,7 +57,9 @@ def _normal(rng, shape, scale: float, dtype) -> torch.Tensor:
                         dtype=torch.float32)
     else:
         t = rnd.normal(rng, shape)
-    return (t * scale).to(dtype)
+    # scaled in place: a MoE's stacked experts (kimi-k2's 384 x 7168 x
+    # 2048) are 22.5 GB in f32, and a second f32 copy would not fit
+    return t.mul_(scale).to(dtype)
 
 
 def _dense_init(rng, d_in, d_out, dtype, scale=None):
@@ -431,10 +433,11 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
 
 
 # ----------------------------------------------------------------------
-# Dense MLP (swiglu / geglu / gelu)
+# Dense MLP (swiglu / geglu / gelu; a MoE's shared expert at its own d_ff)
 # ----------------------------------------------------------------------
-def mlp_init(rng, cfg: ArchConfig, dtype) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(rng, cfg: ArchConfig, dtype, d_ff: Optional[int] = None
+             ) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     ks = sub_keys(rng, 3)
     p = {
         "ln": rmsnorm_init(d, dtype, rng.device),

@@ -1,0 +1,164 @@
+"""Mixture-of-Experts FFN on one device (a port of ``repro.models.moe``,
+its single-device path: no expert parallelism, no ``shard_map``).
+
+Each token's router picks ``top_k`` experts; every expert then takes its
+top-C tokens by gate (C = the capacity), runs its SwiGLU on them and the
+gated outputs are added back at their tokens.  Tokens past an expert's
+capacity are dropped by that expert, so a token's output depends on the
+other tokens of the call: serving a MoE model is static-only, as in the
+reference (``serve.engine``).
+
+Capture mode records, per expert, the routed tokens and their validity —
+``(x, valid)`` under ``moe.wi.{e}`` / ``moe.wg.{e}`` and ``(hid, valid)``
+under ``moe.wo.{e}`` — so each expert's Hessian is accumulated over its
+routed tokens only (``core.hessian.HessianAccumulator.update_weighted``),
+and the router's input under ``moe.router``.
+
+The expert products are batched ``torch.einsum`` s (the reference leaves
+them to XLA outside any kernel).  Two orders follow the reference's so
+that the same inputs give the same bits:
+
+* top-k ties: ``jax.lax.top_k`` puts the lower index first; here a
+  stable descending sort does, so the same tokens fill an expert's slots
+  when many gates tie (at 0 in the per-expert selection);
+* the combine: the reference's scatter-add sums a token's expert outputs
+  in expert order; here each token's (at most ``top_k``) contributions are
+  gathered in expert order and added one after another — no atomics, so
+  the card gives the same bits run after run.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.base import ArchConfig
+from repro_torch.models.layers import (Params, _dense_init, _normal,
+                                       mlp_apply, mlp_init, rmsnorm,
+                                       rmsnorm_init, sub_keys)
+
+
+def moe_init(rng, cfg: ArchConfig, dtype) -> Params:
+    """The reference's ``moe_init``: ``split(key, 5)``; the router is f32
+    whatever the model dtype."""
+    mc = cfg.moe
+    d, e, f = cfg.d_model, mc.num_experts, mc.d_ff_expert
+    ks = sub_keys(rng, 5)
+    scale_in = 1.0 / math.sqrt(d)
+    scale_out = 1.0 / math.sqrt(f * 2 * cfg.num_layers)
+    p = {
+        "ln": rmsnorm_init(d, dtype, rng.device),
+        "router": _dense_init(ks[0], d, e, torch.float32),
+        "wi": _normal(ks[1], (e, d, f), scale_in, dtype),
+        "wg": _normal(ks[2], (e, d, f), scale_in, dtype),
+        "wo": _normal(ks[3], (e, f, d), scale_out, dtype),
+    }
+    if mc.num_shared:
+        p["shared"] = mlp_init(ks[4], cfg, dtype, d_ff=mc.num_shared * f)
+    return p
+
+
+def _top(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` along the last axis: descending, the lower index
+    first among equal values."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def route(x2: torch.Tensor, router_w: torch.Tensor, top_k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2 (N, D) → the dense renormalised gates (N, E) f32 and the GShard
+    load-balance loss E·Σ_e mean(probs_e)·frac_tokens_e."""
+    logits = x2.float() @ router_w
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = _top(probs, top_k)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    gates = torch.zeros_like(probs).scatter(1, topi, topv)
+    e = probs.shape[-1]
+    frac = torch.mean((gates > 0).float(), dim=0)
+    aux = e * torch.sum(torch.mean(probs, dim=0) * frac)
+    return gates, aux
+
+
+def expert_ffn(xg: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
+               wo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xg (E, C, D) routed tokens → (expert outputs (E, C, D), SwiGLU
+    hidden (E, C, F))."""
+    up = torch.einsum("ecd,edf->ecf", xg, wi.to(xg.dtype))
+    gate = torch.einsum("ecd,edf->ecf", xg, wg.to(xg.dtype))
+    hid = torch.nn.functional.silu(gate) * up
+    return torch.einsum("ecf,efd->ecd", hid, wo.to(xg.dtype)), hid
+
+
+def capacity(n: int, cfg: ArchConfig) -> int:
+    """Tokens an expert takes from a call of ``n`` tokens (the float
+    expression in the reference's order)."""
+    mc = cfg.moe
+    return max(1, int(math.ceil(n * mc.top_k / mc.num_experts
+                                * mc.capacity_factor)))
+
+
+def dispatch(x2: torch.Tensor, gates: torch.Tensor, wi, wg, wo, cap: int,
+             top_k: int, caps: Optional[Dict] = None,
+             prefix: str = "moe.") -> torch.Tensor:
+    """Top-C tokens per expert, the expert FFNs, and the gated combine
+    (the reference's ``_gather_compute_scatter``).  Returns (N, D) in the
+    experts' output dtype."""
+    n, d = x2.shape
+    e = gates.shape[1]
+    c = min(cap, n)
+    gv, gi = _top(gates.T, c)                        # (E, C)
+    valid = gv > 0.0
+    xg = x2[gi]                                      # (E, C, D)
+    yo, hid = expert_ffn(xg, wi, wg, wo)
+    if caps is not None:
+        for k in range(e):
+            caps[f"{prefix}wi.{k}"] = (xg[k], valid[k])
+            caps[f"{prefix}wg.{k}"] = (xg[k], valid[k])
+            caps[f"{prefix}wo.{k}"] = (hid[k], valid[k])
+    yo = yo * torch.where(valid, gv, torch.zeros_like(gv))[..., None].to(
+        yo.dtype)
+    # combine in expert order: token t's kept slots, expert by expert
+    dev = x2.device
+    slot = torch.zeros((e, n), dtype=torch.long, device=dev)
+    slot.scatter_(1, gi, torch.arange(c, device=dev).expand(e, c))
+    kept = torch.zeros((e, n), dtype=torch.bool, device=dev)
+    kept.scatter_(1, gi, valid)
+    # a token has at most top_k positive gates, so at most top_k kept
+    # slots; the stable sort lists them first, in expert order
+    kk = min(top_k, e)
+    order = torch.sort(kept.T.to(torch.uint8), dim=1, descending=True,
+                       stable=True).indices[:, :kk]            # (N, kk)
+    flat = order * c + torch.gather(slot.T, 1, order)
+    flat = torch.where(torch.gather(kept.T, 1, order), flat,
+                       torch.full_like(flat, e * c))           # the zero row
+    rows = torch.cat([yo.reshape(e * c, d),
+                      torch.zeros((1, d), dtype=yo.dtype, device=dev)])
+    out = torch.zeros((n, d), dtype=yo.dtype, device=dev)
+    for j in range(kk):
+        out = out + rows[flat[:, j]]
+    return out
+
+
+def moe_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
+              caps: Optional[Dict] = None, prefix: str = "moe."
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm MoE FFN with residual: (h + moe_out, aux loss).  The
+    capacity follows the call's token count n = B·T."""
+    mc = cfg.moe
+    b, t, d = h.shape
+    h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
+    if caps is not None:
+        caps[f"{prefix}router"] = h_in
+    x2 = h_in.reshape(-1, d)
+    gates, aux = route(x2, p["router"], mc.top_k)
+    out2 = dispatch(x2, gates, p["wi"], p["wg"], p["wo"],
+                    capacity(x2.shape[0], cfg), mc.top_k, caps, prefix)
+    y = out2.reshape(b, t, d).to(h.dtype)
+    if mc.num_shared:
+        # the reference's arithmetic: the shared MLP's residual taken off
+        y = y + (mlp_apply(p["shared"], h, cfg, caps=caps,
+                           prefix=f"{prefix}shared.") - h)
+    return h + y, aux

@@ -6,21 +6,25 @@ and the paged ones of continuous mode (``init_paged_cache`` /
 ``prefill_chunk`` / ``decode_step`` with block tables).
 
 Ported block kinds: global attention, sliding-window attention and Mamba
-(``period`` ⊂ {"attn", "attn_local", "mamba"}), each with its dense MLP
-where ``cfg.block_has_mlp`` says so — the dense decoders (qk-norm
-included: Qwen3, Gemma3's 5:1 local:global period), the Mamba LM and the
-Mamba/attention hybrid.  An ``attn_local`` block is an ``attn`` block
-(the same params under ``"attn"``, the same linears, KV pages and dense
-cache) whose attention sees the last ``cfg.window`` positions.  No
-prefix, MoE, xLSTM, frontend or encoder; ROADMAP.md lists them.  Where the reference stacks the layers (L, ...)
-under ``layers/s{j}`` for ``lax.scan``, the port keeps a per-layer list
-of param dicts and loops: layer ``i`` is slot ``i % len(period)`` of
-period ``i // len(period)``, ``params["layers"][i] = {"attn" | "mamba":
-{...}, "mlp": {...}}``.  The caches are per-layer lists too: an
-attention layer's paged ``{"k", "v"[, "k_scale", "v_scale"]}`` page
-tensors or dense (B, max_len, KV, hd) ``{"k", "v"}``, a Mamba layer's
-``{"conv", "ssm"}`` state rows (one per serve slot when paged); all are
-updated in place.
+(``period`` ⊂ {"attn", "attn_local", "mamba"}), each with its FFN where
+``cfg.block_has_mlp`` says so: a dense MLP, or in the slots that
+``cfg.slot_is_moe`` names a Mixture-of-Experts (``models.moe``) — the
+dense decoders (qk-norm included: Qwen3, Gemma3's 5:1 local:global
+period), the MoE decoders (phi3.5-moe, kimi-k2 with its shared expert),
+the Mamba LM and the Mamba/attention hybrid with its experts (Jamba).  An
+``attn_local`` block is an ``attn`` block (the same params under
+``"attn"``, the same linears, KV pages and dense cache) whose attention
+sees the last ``cfg.window`` positions.  No prefix, xLSTM, frontend or
+encoder; ROADMAP.md lists them.  Where the reference stacks the layers
+(L, ...) under ``layers/s{j}`` for ``lax.scan``, the port keeps a
+per-layer list of param dicts and loops: layer ``i`` is slot ``i %
+len(period)`` of period ``i // len(period)``, ``params["layers"][i] =
+{"attn" | "mamba": {...}, "mlp" | "moe": {...}}``, a MoE's experts
+stacked (E, ...) as the reference stacks them.  The caches are per-layer
+lists too: an attention layer's paged ``{"k", "v"[, "k_scale",
+"v_scale"]}`` page tensors or dense (B, max_len, KV, hd) ``{"k", "v"}``,
+a Mamba layer's ``{"conv", "ssm"}`` state rows (one per serve slot when
+paged); all are updated in place.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from repro_torch.models.layers import (Params, attn_apply, attn_cache_init,
                                        embed_apply, embed_init, mlp_apply,
                                        mlp_init, sub_keys, unembed_apply,
                                        unembed_init)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import mamba_apply, mamba_cache_init, mamba_init
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -68,23 +73,25 @@ class LM:
     ATTN_KINDS = ATTN_KINDS
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if (cfg.prefix or cfg.moe is not None or cfg.encdec
-                or cfg.frontend is not None
+        if (cfg.prefix or cfg.encdec or cfg.frontend is not None
                 or any(k not in PORTED_KINDS for k in cfg.period)):
             raise ValueError(
                 f"{cfg.name}: only attention and Mamba blocks with dense "
-                "MLPs are ported (ROADMAP.md, Queue 1: the other "
+                "or MoE FFNs are ported (ROADMAP.md, Queue 1: the other "
                 "families)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.dtype]
         period = cfg.period
         self.kinds = [period[i % len(period)] for i in range(cfg.num_layers)]
+        self.moe_slots = [cfg.slot_is_moe(j, False)
+                          for j in range(len(period))]
 
     # ------------------------------------------------------------- init
     def init(self, rng) -> Params:
         """Random params at the reference's scales (``_dense_init``,
-        ``embed_init``, ``mamba_init``) on the device of ``rng``: a
+        ``embed_init``, ``mamba_init``, ``moe_init``) on the device of
+        ``rng``: a
         ``torch.Generator`` (sequential draws), or a threefry key
         (``random.key(seed)``), which reproduces the reference's
         ``LM.init(jax.random.key(seed))`` — its key splits (``split(key,
@@ -104,20 +111,24 @@ class LM:
         params: Params = {"embed": embed_init(keys[0], cfg, dt),
                           "unembed": unembed_init(keys[1], cfg, dt)}
         params["layers"] = []
-        for kind, lk in zip(self.kinds, layer_keys):
+        for i, (kind, lk) in enumerate(zip(self.kinds, layer_keys)):
             k_mix, k_ffn, _ = sub_keys(lk, 3)
             block = ({"attn": attn_init(k_mix, cfg, dt)}
                      if kind in ATTN_KINDS
                      else {"mamba": mamba_init(k_mix, cfg, dt)})
             if cfg.block_has_mlp(kind):
-                block["mlp"] = mlp_init(k_ffn, cfg, dt)
+                if self.moe_slots[i % n_slots]:
+                    block["moe"] = moe_init(k_ffn, cfg, dt)
+                else:
+                    block["mlp"] = mlp_init(k_ffn, cfg, dt)
             params["layers"].append(block)
         return params
 
     def params_from_jax(self, flat: Dict[str, np.ndarray]) -> Params:
         """The reference's path-keyed leaves (``ckpt/store.py::_flatten``
         names: ``layers/s0/attn/wq``, ``embed/tok``, ...) → port params.
-        The stacked layer axis is unstacked; packed ``{"vals","idx"}``
+        The stacked layer axis is unstacked (a MoE's expert axis stays
+        stacked, and its f32 router stays f32); packed ``{"vals","idx"}``
         leaves stay packed."""
         period = len(self.cfg.period)
         params: Params = {"layers": [{} for _ in range(self.cfg.num_layers)]}
@@ -156,9 +167,11 @@ class LM:
     # ---------------------------------------------------------- forward
     def _block(self, p: Params, h: torch.Tensor, kind: str, caps=None,
                name_prefix: str = "", cache=None, pos=None, paged=None,
-               page_size=None, differentiable: bool = False) -> torch.Tensor:
-        """One block (mixer, then its MLP if it has one); the cache modes
-        are the mixer's (``attn_apply`` / ``ssm.mamba_apply``)."""
+               page_size=None, differentiable: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One block (mixer, then its FFN if it has one): (h, the MoE's aux
+        loss or None).  The cache modes are the mixer's (``attn_apply`` /
+        ``ssm.mamba_apply``); a MoE FFN routes the call's B·T tokens."""
         if kind in ATTN_KINDS:
             h = attn_apply(p["attn"], h, self.cfg, caps=caps,
                            prefix=f"{name_prefix}attn.", cache=cache,
@@ -170,10 +183,13 @@ class LM:
             h = mamba_apply(p["mamba"], h, self.cfg, caps=caps,
                             prefix=f"{name_prefix}mamba.", cache=cache,
                             pos=pos, paged=paged)
+        if "moe" in p:
+            return moe_apply(p["moe"], h, self.cfg, caps=caps,
+                             prefix=f"{name_prefix}moe.")
         if "mlp" in p:
             h = mlp_apply(p["mlp"], h, self.cfg, caps=caps,
                           prefix=f"{name_prefix}mlp.")
-        return h
+        return h, None
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 differentiable: bool = False) -> torch.Tensor:
@@ -182,20 +198,32 @@ class LM:
         torch ops (the reference's ``_sdpa``), which autograd can
         differentiate — the kernels have no backward and refuse inputs
         that require grad."""
+        return self._forward(params, tokens, differentiable)[0]
+
+    def _forward(self, params: Params, tokens: torch.Tensor,
+                 differentiable: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits, the MoE layers' aux losses summed in layer order — 0
+        for a model without experts), as the reference's ``forward``."""
         h = embed_apply(params["embed"], tokens, self.cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for kind, p in zip(self.kinds, params["layers"]):
-            h = self._block(p, h, kind, differentiable=differentiable)
-        return unembed_apply(params["unembed"], params["embed"], h,
-                             self.cfg).float()
+            h, a = self._block(p, h, kind, differentiable=differentiable)
+            if a is not None:
+                aux = aux + a
+        logits = unembed_apply(params["unembed"], params["embed"], h,
+                               self.cfg).float()
+        return logits, aux
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor],
                 differentiable: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Next-token CE + z-loss, returned as the reference returns them:
-        (loss, {"ce", "zloss", "aux", "tokens"}); labels < 0 are ignored.
-        The trainer passes ``differentiable=True`` (see :meth:`forward`);
-        evaluation keeps the kernel route."""
-        logits = self.forward(params, batch["tokens"], differentiable)
+        """Next-token CE + z-loss + ``router_aux_coef`` × the MoE aux loss,
+        returned as the reference returns them: (loss, {"ce", "zloss",
+        "aux", "tokens"}); labels < 0 are ignored.  The trainer passes
+        ``differentiable=True`` (see :meth:`forward`); evaluation keeps the
+        kernel route."""
+        logits, aux = self._forward(params, batch["tokens"], differentiable)
         targets = batch["labels"].long()
         lg = logits[:, logits.shape[1] - targets.shape[1]:][:, :-1]
         tg = targets[:, 1:]
@@ -206,9 +234,9 @@ class LM:
         denom = torch.clamp(weights.sum(), min=1.0)
         ce = (nll * weights).sum() / denom
         zloss = 1e-4 * ((lse ** 2) * weights).sum() / denom
-        aux = torch.zeros((), dtype=torch.float32, device=logits.device)
-        return ce + zloss, {"ce": ce, "zloss": zloss, "aux": aux,
-                            "tokens": denom}
+        coef = self.cfg.moe.router_aux_coef if self.cfg.moe else 0.0
+        return ce + zloss + coef * aux, {"ce": ce, "zloss": zloss,
+                                         "aux": aux, "tokens": denom}
 
     # ------------------------------------------------- pruning contract
     def first_hidden(self, params: Params,
@@ -226,22 +254,35 @@ class LM:
         names them; a segment's params are ``{"s{j}": params of its slot
         j}`` and its linears, slot by slot, ``s{j}.attn.wq`` …
         ``s{j}.attn.wo`` or ``s{j}.mamba.in_proj`` … ``s{j}.mamba.out_proj``,
-        then ``s{j}.mlp.*`` where the slot has an MLP."""
+        then ``s{j}.mlp.*`` where the slot has an MLP, or where it has
+        experts ``s{j}.moe.wi.0`` … ``wi.{E-1}``, ``wg.*``, ``wo.*`` and
+        then the shared expert's ``s{j}.moe.shared.*`` (the reference's
+        order).  The router's input is captured too (``s{j}.moe.router``)
+        but pruned by no linear, as in the reference."""
         cfg = self.cfg
         slots = [f"s{j}" for j in range(len(cfg.period))]
         linears = []
-        for sk, kind in zip(slots, cfg.period):
-            names = list(_BLOCK_LINEARS[kind])
-            if cfg.block_has_mlp(kind):
-                names += [("mlp", key) for key in _MLP_LINEARS[cfg.mlp_kind]]
+        for sk, kind, is_moe in zip(slots, cfg.period, self.moe_slots):
+            subs = [(sub, key) for sub, key in _BLOCK_LINEARS[kind]]
+            if cfg.block_has_mlp(kind) and not is_moe:
+                subs += [("mlp", key) for key in _MLP_LINEARS[cfg.mlp_kind]]
             linears += [_linear_spec((sk, sub, key), f"{sk}.{sub}.{key}",
-                                     self.dtype) for sub, key in names]
+                                     self.dtype) for sub, key in subs]
+            if not (cfg.block_has_mlp(kind) and is_moe):
+                continue
+            linears += [_expert_spec(sk, key, e, self.dtype)
+                        for key in ("wi", "wg", "wo")
+                        for e in range(cfg.moe.num_experts)]
+            if cfg.moe.num_shared:
+                linears += [_linear_spec((sk, "moe", "shared", key),
+                                         f"{sk}.moe.shared.{key}", self.dtype)
+                            for key in _MLP_LINEARS[cfg.mlp_kind]]
 
         def apply(seg_params, h, capture=False):
             caps = {} if capture else None
             for sk, kind in zip(slots, cfg.period):
-                h = self._block(seg_params[sk], h, kind, caps=caps,
-                                name_prefix=f"{sk}.")
+                h, _ = self._block(seg_params[sk], h, kind, caps=caps,
+                                   name_prefix=f"{sk}.")
             return h, caps or {}
 
         def layer_ids(i):
@@ -282,7 +323,7 @@ class LM:
         attention is the full-sequence one (``flash_attn`` on the card)."""
         h = embed_apply(params["embed"], tokens, self.cfg)
         for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
-            h = self._block(p, h, kind, cache=cache[i])
+            h, _ = self._block(p, h, kind, cache=cache[i])
         logits = unembed_apply(params["unembed"], params["embed"],
                                h[:, -1:], self.cfg)
         return logits[:, 0, :].float()
@@ -331,8 +372,8 @@ class LM:
         paged = {"block_tables": block_tables, "lengths": lengths,
                  "start": start, "length": length, "slot": slot}
         for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
-            h = self._block(p, h, kind, cache=cache[i], paged=paged,
-                            page_size=page_size)
+            h, _ = self._block(p, h, kind, cache=cache[i], paged=paged,
+                               page_size=page_size)
         idx = min(max(length - 1 - start, 0), t - 1)
         logits = unembed_apply(params["unembed"], params["embed"],
                                h[:, idx:idx + 1], self.cfg)
@@ -351,8 +392,8 @@ class LM:
         paged = None if block_tables is None else {
             "block_tables": block_tables}
         for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
-            h = self._block(p, h, kind, cache=cache[i], pos=pos, paged=paged,
-                            page_size=page_size)
+            h, _ = self._block(p, h, kind, cache=cache[i], pos=pos,
+                               paged=paged, page_size=page_size)
         logits = unembed_apply(params["unembed"], params["embed"], h,
                                self.cfg)
         return logits[:, 0, :].float()
@@ -377,6 +418,25 @@ def _linear_spec(path: Tuple[str, ...], name: str, dtype) -> LinearSpec:
         return sp
 
     return LinearSpec(name=name, get=get, set=set_)
+
+
+def _expert_spec(slot: str, key: str, e: int, dtype) -> LinearSpec:
+    """Expert ``e`` of a slot's stacked ``moe/{key}`` (E, in, out): get
+    returns its (out, in) view; set writes the transpose into a copy of
+    the stack (the reference's ``.at[e].set``), so the params it was
+    handed stay as they were."""
+
+    def get(sp):
+        return sp[slot]["moe"][key][e].T
+
+    def set_(sp, w):
+        moe = dict(sp[slot]["moe"])
+        stack = moe[key].clone()
+        stack[e] = w.T.to(dtype)
+        moe[key] = stack
+        return {**sp, slot: {**sp[slot], "moe": moe}}
+
+    return LinearSpec(name=f"{slot}.moe.{key}.{e}", get=get, set=set_)
 
 
 def _get_path(tree, parts):

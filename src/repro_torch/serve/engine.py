@@ -26,7 +26,12 @@ recompute replays the same tokens.
 Static mode (``mode="static"``) buckets requests by prompt length; a
 bucket is one batched prefill into a dense cache and one device loop
 (serve.fused.static_burst) over its decode steps, read back once.  Each
-bucket's key is the next ``split`` of ``key(seed)``.
+bucket's key is the next ``split`` of ``key(seed)``.  A MoE model serves
+static whatever mode is asked, as in the reference: expert capacity
+drops tokens by the batch's routing, so a row's logits depend on the
+other rows, which continuous batching's guarantees (a stream independent
+of the batch, bit-exact recompute) cannot carry.  ``engine.mode`` is the
+effective mode; ``config.mode`` stays as asked.
 
 Counters, latency histograms and request spans go to the engine's
 :class:`~repro_torch.obs.Obs` bundle (``obs=``; the serve launcher
@@ -107,6 +112,12 @@ class StreamEvent:
     finish_reason: Optional[str] = None
 
 
+def effective_mode(cfg, mode: str) -> str:
+    """The mode an engine serves ``cfg`` in when ``mode`` is asked: a MoE
+    model serves static (see the module docstring)."""
+    return mode if cfg.moe is None else "static"
+
+
 class ServeEngine:
     def __init__(self, model, params, config: Optional[ServeConfig] = None,
                  *, obs: Optional[Obs] = None, **knobs):
@@ -128,7 +139,7 @@ class ServeEngine:
             params = compressed_param_tree(params)
         self.n_sparse_leaves = count_packed(params)
         self.params = params
-        self.mode = config.mode
+        self.mode = effective_mode(model.cfg, config.mode)
         self.eos = -1 if config.eos_id is None else int(config.eos_id)
         self.sampling = dict(temperature=config.temperature,
                              top_k=config.top_k, top_p=config.top_p)

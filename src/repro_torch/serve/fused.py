@@ -1,6 +1,8 @@
 """The decode burst: K decode steps with the scheduler state kept on the
 device, the prefill-chunk burst that runs one prompt chunk in front of
-them, the sampling they share, and static mode's bucket loop.
+them, the sampling they share, and static mode's bucket loop (the only one a
+MoE model takes: every decode step routes the bucket's B tokens at once,
+so expert capacity follows the bucket, as in the reference).
 
 The reference runs the bursts as jitted ``lax.while_loop`` /
 ``fori_loop`` bodies; here they are plain Python loops over

@@ -15,7 +15,10 @@
 The forward is the model's differentiable route
 (``loss_fn(..., differentiable=True)``): the reference's training math
 in torch ops, differentiated by autograd — the kernels have no backward
-and refuse inputs that require grad.  The reference's int8
+and refuse inputs that require grad.  A MoE model's loss carries
+``router_aux_coef`` × its load-balance loss, logged as ``aux``; the
+routing and the expert products are torch ops, so the gradient reaches
+the router and every expert.  The reference's int8
 error-feedback gradient compression and its mesh are not ported
 (ROADMAP.md, Queue 1: distribution); both are refused.
 """

@@ -19,7 +19,9 @@ from repro_torch.core.pruner import prune_linears, prune_matrix
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
 from repro_torch.kernels.hessian_accum import (hessian_accum,
-                                               hessian_accum_plain)
+                                               hessian_accum_plain,
+                                               hessian_accum_weighted,
+                                               hessian_accum_weighted_plain)
 from repro_torch.kernels.nm_select import nm_select, nm_select_plain
 from repro_torch.kernels.nm_spmm import (nm_spmm, nm_spmm_decode,
                                          nm_spmm_decode_plain, nm_spmm_plain)
@@ -329,6 +331,113 @@ def test_hessian_accum_unaligned_bf16_takes_the_fma_kernel(gen):
     assert hessian_accum.last_kernel == "f32 FMA"
     _close(got, hessian_accum_plain(x, torch.empty(64, 64, device="cuda")))
     assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("t,m", [(40960, 4096), (4097, 130), (200, 64),
+                                 (1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["bool", "float", "zero"])
+def test_hessian_accum_weighted_matches_plain(gen, t, m, dtype, kind):
+    """The weighted form (a MoE expert's routed tokens) on both routes —
+    bool weights keep the tensor cores for bf16 rows on 16 bytes, float
+    weights take the f32 FMA — against the plain version, from a count c
+    on the device: H within tolerance, exactly symmetric, the same bits
+    twice, c + Σw written back with no host sync; an all-zero w leaves H
+    and c as they were."""
+    x = torch.randn(t, m, generator=gen, device="cuda").to(dtype)
+    if kind == "float":
+        w = torch.rand(t, generator=gen, device="cuda")
+    else:
+        w = torch.rand(t, generator=gen, device="cuda") < (
+            0.0 if kind == "zero" else 0.8)
+    h0 = torch.randn(m, m, generator=gen, device="cuda")
+    h0 = h0 + h0.T
+    c0 = torch.full((), 0.5 * t, device="cuda")
+    hp, cp = h0.clone(), c0.clone()
+    want = hessian_accum_weighted_plain(x, w, hp, cp)
+    got, c = h0.clone(), c0.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hessian_accum_weighted(x, w, got, c)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tc = dtype == torch.bfloat16 and m % 8 == 0 and kind != "float"
+    assert hessian_accum.last_kernel == ("tensor cores" if tc else "f32 FMA")
+    err = (got - want).abs().max().item()
+    tol = REL_TOL * max(1.0, math.sqrt(t / 16384))
+    assert err <= tol * max(1.0, want.abs().max().item()), err
+    assert torch.equal(got, got.T)
+    assert c.item() == pytest.approx(cp.item(), rel=1e-6)
+    again, c2 = h0.clone(), c0.clone()
+    assert torch.equal(got, hessian_accum_weighted(x, w, again, c2))
+    if kind == "zero":
+        assert torch.equal(got, h0) and c.item() == c0.item()
+
+
+def test_weighted_calibration_from_zero_count_on_card(gen):
+    """An expert whose tokens all weigh 0 keeps H = 0 and count 0 (the
+    1e-8 dampening floor then stands alone), through CalibrationSet."""
+    from repro_torch.core.calibration import CalibrationSet
+
+    x = torch.randn(5, 40, 64, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    valid = torch.zeros(5, 40, dtype=torch.bool, device="cuda")
+    valid[1:] = torch.rand(4, 40, generator=gen, device="cuda") < 0.7
+    cs = CalibrationSet()
+    for e in range(5):
+        cs.update({f"moe.wi.{e}": (x[e], valid[e])})
+    assert not cs.hessian("moe.wi.0").any()
+    assert cs.accs["moe.wi.0"].count.item() == 0.0
+    with ops.override_dispatch(plain=True):
+        plain = CalibrationSet()
+        for e in range(5):
+            plain.update({f"moe.wi.{e}": (x[e], valid[e])})
+    for e in range(1, 5):
+        _close(cs.hessian(f"moe.wi.{e}"), plain.hessian(f"moe.wi.{e}"))
+
+
+def test_moe_block_on_card_matches_plain(gen):
+    """phi3.5-moe's SMOKE (f32) on the card: the forward, a capture's
+    weighted Hessians and a static greedy serve, with the kernels against
+    the plain override; the serve is static with continuous asked."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.calibration import CalibrationSet
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_smoke("phi3_5_moe_42b_a6_6b")
+    model = LM(cfg, device="cuda")
+    params = prune_linears(model.init(gen), "2:4")
+    params["embed"]["tok"] = params["embed"]["tok"] * 8.0
+    toks = torch.randint(0, 256, (3, 37), generator=gen, device="cuda")
+    seg = model.prunable_segments()[0]
+    sp = seg.get_params(params)
+    h0 = model.calib_init(params, {"tokens": toks})
+    _, caps = seg.apply(sp, h0, capture=True)
+    ops.reset_launch_counts()
+    got = model.forward(params, toks)
+    kern = CalibrationSet.from_captures(caps)
+    counts = ops.launch_counts()
+    with ops.override_dispatch(plain=True):
+        want = model.forward(params, toks)
+        plain = CalibrationSet.from_captures(caps)
+    _close(got, want)
+    assert counts["flash_attn"] == cfg.num_layers
+    assert counts["hessian_accum"] == 4 + 1 + 3 * cfg.moe.num_experts
+    for name in kern.names():
+        _close(kern.hessian(name), plain.hessian(name))
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, 256, size=12,
+                                               dtype=np.int32),
+                    max_new_tokens=8) for i in range(4)]
+    eng = ServeEngine(model, params, max_batch=4, max_len=32,
+                      mode="continuous")
+    assert eng.mode == "static"
+    a = eng.generate(reqs)
+    with ops.override_dispatch(plain=True):
+        b = eng.generate(reqs)
+    assert [r.tokens.tolist() for r in a] == [r.tokens.tolist() for r in b]
 
 
 @pytest.mark.parametrize("r,c", [(1024, 128), (2816, 1024), (33, 20),

@@ -400,13 +400,19 @@ def test_bf16_leaves_round_trip_with_their_dtypes():
 
 
 def test_configs_match_reference_and_moe_is_refused():
+    """The name is historical: Jamba's experts are ported now, and both
+    configs are accepted with them (tests/test_torch_moe.py holds the
+    MoE against the reference)."""
     assert dataclasses.asdict(MAMBA) == dataclasses.asdict(J_MAMBA)
     for arch in ("jamba_1_5_large_398b", "jamba-1.5-large-398b"):
         for port, ref in ((configs.get_config(arch), j_get_config(arch)),
                           (configs.get_smoke(arch), j_get_smoke(arch))):
             assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-            with pytest.raises(ValueError, match="ROADMAP"):
-                LM(port, device="cpu")
+            tm = LM(port, device="meta")
+            assert tm.moe_slots == [j in port.moe_slots for j in range(8)]
+            seg = tm.prunable_segments()[0]
+            assert len(seg.linears) == (
+                7 * 4 + 4 + 4 * 3 + 4 * 3 * port.moe.num_experts)
     # Jamba's blocks without the experts: one period, every slot with its
     # dense SwiGLU FFN (no allocation at this width)
     cfg = dataclasses.replace(configs.get_config("jamba_1_5_large_398b"),

@@ -48,7 +48,7 @@ def test_arch_config_matches_reference(arch):
         assert port.hd == ref.hd and port.n_periods == ref.n_periods
     assert configs.canonical("qwen1.5-0.5b") == "qwen1_5_0_5b"
     with pytest.raises(KeyError):
-        configs.canonical("kimi-k2-1t-a32b")
+        configs.canonical("xlstm-350m")
 
 
 def test_sparsity_spec_matches_reference():
