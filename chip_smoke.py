@@ -13,7 +13,8 @@ supervisor, injected faults, the CLI's server), and serve and prune
 gemma-2b, Qwen3-14B and Gemma3-12B at full width (head dim 256, qk-norm,
 sliding-window layers), and the Mixture-of-Experts models — phi3.5-moe,
 kimi-k2 and Jamba with its experts — served static at full width, phi3.5
-pruned.
+pruned — and the xLSTM: xlstm-350m served 2:4-packed, pruned and trained
+at full width.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
     python3 chip_smoke.py --phases 1,12   # phase 1's hd-256 / window /
@@ -23,6 +24,8 @@ pruned.
     python3 chip_smoke.py --phases 1w,13  # the weighted hessian_accum rows
                                           # and phase 13 (or 13a ... 13c);
                                           # 1m: the MoE widths' rows
+    python3 chip_smoke.py --phases 1x,14  # the xLSTM widths' rows and
+                                          # phase 14 (or 14a ... 14d)
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
@@ -58,7 +61,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
      weighted form at phi3.5's expert shapes (T 40960, m 4096 / 6400;
      bool weights on the tensor cores, float weights on the f32 FMA,
      beside torch.addmm on the weighted f32 copy; the count on the card
-     with no host sync), an all-zero w, f32 and ragged rows.  Every
+     with no host sync), an all-zero w, f32 and ragged rows; and
+     nm_spmm_decode (M 8) / nm_spmm (M 256) at xlstm-350m's packed
+     widths (K 1024 -> N 2048, 2048 -> 1024, 1024 -> 1024) beside
+     torch.matmul, hessian_accum at m 2048.  Every
      nm_spmm, nm_spmm_decode and hessian_accum row asserts its route
      (``last_kernel``: tensor cores for bf16, f32 FMA for f32 and for
      rows off 16 bytes) and the same bits from a second call; hessian_accum
@@ -213,7 +219,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
      named: 12a each model's kernels against the plain override end to
      end in f32 (2 layers; Gemma3-12B one period of 6 with a 1100-token
      prompt past its window), phase 2's LOGIT_TOL and tie rule; 12b
-     gemma-2b, Qwen3-14B and Gemma3-12B at full depth, magnitude 2:4
+     gemma-2b and Gemma3-12B at full depth, Qwen3-14B at
+     DENSE_SERVE_LAYERS (10 of its 40), magnitude 2:4
      packed by the engine — the 8 requests continuous (the reference's
      serve defaults), with int8 pages and as one static bucket (static
      equal to continuous up to near ties), Gemma3-12B also one 2048-token
@@ -221,7 +228,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
      every serving kernel launched, the pools' invariants, tok/s, HBM and
      a profiled run's idle share; 12c each pruned MS 2:4 through the
      launcher's default (pipelined) engine on 128 x 2048 random tokens at
-     DENSE_PRUNE_LAYERS (gemma-2b whole, Qwen3-14B 4, Gemma3-12B one
+     DENSE_PRUNE_LAYERS (gemma-2b 6 layers, Qwen3-14B 2, Gemma3-12B one
      period, its calibration in DENSE_CALIB_SHARDS = 4 shards, which HBM
      forces): hessian_accum 7 and flash_attn 2 launches a layer and
      shard, nm_select 7 a layer, at most 1 host sync, finite perplexity,
@@ -241,14 +248,37 @@ Phases (any failure exits non-zero; no exception is swallowed):
      dense: phase 3's 8 requests asked continuous, served static
      (``mode``), tok/s, HBM held, idle share, nm_spmm_decode's device ms;
      13c phi3.5-moe pruned MS 2:4 through the launcher's default
-     (pipelined) engine, 2 layers, 128 x 2048 random tokens: seconds a
+     (pipelined) engine, 1 layer, 128 x 2048 random tokens: seconds a
      layer, HBM held, host syncs (≤ 1), launches a layer (hessian_accum
      53, flash_attn 2, nm_select 52), every linear 2:4.
+ 14. the xLSTM (xlstm-350m: 24 layers, 21 mLSTM and 3 sLSTM, d_model
+     1024, 4 heads, mLSTM head dim 512): 14a one f32 period at full width
+     (3 mLSTM + the sLSTM) 2:4-packed, phase 3's 8 requests continuous and
+     static with the kernels and under the plain override — streams
+     equal; its SMOKE pruned MS 2:4, kernels against plain (masks as
+     13a's rule, bit-equality printed); 14b the whole model, bf16,
+     magnitude 2:4 on the 99 block linears packed with their patterns
+     (the defaults pack none): the 8 requests continuous (page 16, chunk
+     32), as one static bucket (the f32 twin's streams equal up to near
+     ties at LOGIT_TOL; bf16's partings printed beside the bf16 forward's
+     error) and continuous with forced recompute preemptions (a pure recurrent
+     pool has no pages to starve; streams equal the continuous run's);
+     tok/s, host syncs a token, HBM, idle share, nm_spmm_decode and
+     nm_spmm launched, the cells' device time alone; 14c one mLSTM layer
+     at T 16384, chunkwise against quadratic (each against the quadratic
+     form in f64: the chunkwise error within XLSTM_F64_RATIO times the
+     quadratic's), and
+     the static prefill of one 9216-token prompt (the chunkwise path) + 32
+     tokens, with one sLSTM layer's 9216-step loop timed alone; 14d MS 2:4
+     through the launcher's default (pipelined) engine at full depth on
+     128 x 2048 random ids in XLSTM_CALIB_SHARDS shards (hessian_accum 99 a
+     shard, nm_select 99, ≤ 1 host sync, every linear 2:4), then three
+     trainer steps at 4 x 256 through ``repro_torch.launch.train``.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
 shapes — hessian_accum's weighted rows under ``weighted`` — and its
-launches over phases 3-13), the nvidia-smi
+launches over phases 3-14), the nvidia-smi
 line, and last the ``{"ok": true, "device": {...}}`` line.  Longer tables go to
 ``chiprun_out/chip_smoke.txt``.
 """
@@ -321,12 +351,14 @@ GEMMA_LINEARS = (                    # gemma-2b: the widest K, the narrowest N
     ("gemma-2b attn.wk", 2048, 256, False, None),
 )
 DENSE_ARCHS = ("gemma_2b", "qwen3_14b", "gemma3_12b")
-DENSE_SERVE_LAYERS = {"qwen3_14b": 20}  # phase 12b: Qwen3-14B cut from 40
+DENSE_SERVE_LAYERS = {"qwen3_14b": 10}  # phase 12b: Qwen3-14B cut from 40
                                      # layers to 20 to make room for phase
-                                     # 13 inside the time limit
-DENSE_PRUNE_LAYERS = {"gemma_2b": 18,  # phase 12c: gemma-2b whole; the
-                      "qwen3_14b": 4,  # others cut, Gemma3-12B to one
-                      "gemma3_12b": 6}  # period (5 local + 1 global)
+                                     # 13 inside the time limit, and to 10
+                                     # for phase 14
+DENSE_PRUNE_LAYERS = {"gemma_2b": 6,   # phase 12c: gemma-2b 6 of 18 (18
+                      "qwen3_14b": 2,  # until phase 14 came), Qwen3-14B 2
+                      "gemma3_12b": 6}  # of 40 (4 before), Gemma3-12B one
+                                     # period (5 local + 1 global)
 DENSE_CALIB_SHARDS = {"gemma3_12b": 4}  # phase 12c: Gemma3-12B's segment is
                                      # its 6-layer period, whose stacked
                                      # capture of all 128 x 2048 tokens would
@@ -757,12 +789,13 @@ def paged_rows(gen, rows, cases):
     return main
 
 
-def check_hessian(gen, rows):
-    """hessian_accum at the prune path's shapes: T = 16384 tokens (one
-    calibration batch, 8 x 2048) of the m = 1024 and m = 2816 captures,
-    and a ragged bf16 m = 130 (rows off 16 bytes: the f32-FMA route) on
-    T = 4097.  Each row asserts its route, exact symmetry and the same
-    bits from a second call."""
+def check_hessian(gen, rows,
+                  shapes=((16384, 1024), (16384, 2816), (4097, 130))):
+    """hessian_accum at the prune path's shapes (T, m): by default T =
+    16384 tokens (one calibration batch, 8 x 2048) of the m = 1024 and m =
+    2816 captures, and a ragged bf16 m = 130 (rows off 16 bytes: the
+    f32-FMA route) on T = 4097.  Each row asserts its route, exact
+    symmetry and the same bits from a second call."""
     import torch
 
     from repro_torch.kernels import ref
@@ -770,7 +803,7 @@ def check_hessian(gen, rows):
                                                    hessian_accum_plain)
 
     per_m = []
-    for t, m in ((16384, 1024), (16384, 2816), (4097, 130)):
+    for t, m in shapes:
         # the streaming mean of the second batch: n_prev = t, n = 2t
         ab = [("α=1 β=0", 1.0, 0.0), ("α=1/n β=n'/n", 1.0 / (2 * t), 0.5)]
         for dtype in (torch.float32, torch.bfloat16):
@@ -2194,7 +2227,7 @@ def _launch(mod, argv):
     return ret, text
 
 
-def _train(argv):
+def _train(argv, label="phase 8"):
     """``python -m repro_torch.launch.train`` in a process of its own: it
     runs under deterministic algorithms, which cuBLAS allows only when
     CUBLAS_WORKSPACE_CONFIG is set before the process's first product
@@ -2207,7 +2240,7 @@ def _train(argv):
     for line in proc.stdout.strip().splitlines():
         say(f"    | {line}")
     if proc.returncode != 0:
-        fail(f"phase 8: the trainer exited {proc.returncode}: "
+        fail(f"{label}: the trainer exited {proc.returncode}: "
              f"{proc.stderr[-2000:]}")
     return proc.stdout
 
@@ -4088,7 +4121,8 @@ MOE_T = 40960                        # phi3.5's capacity at 128 x 2048
 MOE_SERVE_LAYERS = {"phi3_5_moe_42b_a6_6b": 8,   # 13b: ≈ 19.7 GiB
                     "kimi_k2_1t_a32b": 1,        # ≈ 36 GiB (384 experts)
                     "jamba_1_5_large_398b": 4}   # slots 0-3: ≈ 42 GiB
-MOE_PRUNE_LAYERS = 2                 # 13c: phi3.5, MS 2:4, pipelined
+MOE_PRUNE_LAYERS = 1                 # 13c: phi3.5, MS 2:4, pipelined (2
+                                     # layers until phase 14 came)
 MOE_LINEARS = (                      # 13b's packed linears, held against
     ("phi3.5 attn.wq", 4096, 4096, False, None),     # the plain version in
     ("phi3.5 attn.wk", 4096, 1024, False, None),     # phase 1 (phi3.5 has
@@ -4616,12 +4650,629 @@ def moe_phase(smi, parts="abc"):
     return serve_counts, prune_counts, out
 
 
+# ----------------------------------------------------------------------
+# phase 14: the xLSTM — xlstm-350m served, pruned and trained
+# ----------------------------------------------------------------------
+XLSTM_LINEARS = (                    # xlstm-350m's packed (K, N) pairs,
+    ("mlstm.wq|wk|wv", 1024, 2048, False, None),   # held against the plain
+    ("mlstm.wo", 2048, 1024, False, None),         # version in phase 1
+    ("slstm.wz|wi|wf|wo_gate|wo", 1024, 1024, False, None),
+)
+XLSTM_PACKED = 21 * 4 + 3 * 5        # 14b: the packed leaves of 24 layers
+XLSTM_QUAD_T = 16384                 # 14c: one mLSTM layer, chunkwise
+                                     # against quadratic: a (1, 4, T, T)
+                                     # f32 tensor is 4.3 GB, ≈ 3 live
+XLSTM_LONG = 9216                    # 14c: the smallest prompt > 8192 that
+                                     # is a multiple of 1024 (chunkwise)
+XLSTM_CALIB_SHARDS = 2               # 14d: a (64, 4, 2048, 2048) f32 tensor
+                                     # is 4.3 GB, ≈ 3 live in the quadratic
+                                     # form, beside a segment's captures
+                                     # (≈ 6 GB a shard)
+XLSTM_F64_RATIO = 4.0                # 14c: the chunkwise form's error
+                                     # against the quadratic form in f64, at
+                                     # most this many times the f32
+                                     # quadratic form's own
+
+
+def check_xlstm_widths(gen, rows):
+    """nm_spmm_decode (M 8) and nm_spmm (M 256) at xlstm-350m's three
+    packed (K, N) pairs beside torch.matmul and the bound, and
+    hessian_accum at m 2048 (the mLSTM's ``wo`` input)."""
+    out = {"nm_spmm_decode": [], "nm_spmm": []}
+    for m in (8, 256):
+        for lin in XLSTM_LINEARS:
+            row = nm_row(gen, m, *lin)
+            rows.append(row)
+            out[row["kernel"]].append(row)
+    out["hessian_accum"] = check_hessian(gen, rows, ((16384, 2048),))
+    return out
+
+
+def _xlstm(layers, dtype=None):
+    """xlstm-350m at full width, ``layers`` deep (below its period of 8,
+    the period's first ``layers`` slots: 4 → three mLSTM and the
+    sLSTM)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+
+    cfg = get_config("xlstm_350m")
+    if layers < len(cfg.period):
+        cfg = dataclasses.replace(cfg, period=cfg.period[:layers])
+    cfg = dataclasses.replace(cfg, num_layers=layers,
+                              dtype=dtype or cfg.dtype)
+    return cfg, LM(cfg, device="cuda")
+
+
+def _xlstm_packed(model, seed=0, sharpen=False):
+    """Random weights from a seeded torch.Generator, magnitude 2:4 on the
+    block linears (``LM.block_linears``), packed with their patterns —
+    the reference's ``compressed_param_tree(params, patterns)``; the
+    defaults would pack none of them."""
+    import torch
+
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.serve.sparse import compressed_param_tree, linear_patterns
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    pairs = model.block_linears()
+    with torch.no_grad():
+        params = prune_linears(model.init(g), "2:4", linears=pairs)
+        if sharpen:
+            params["embed"]["tok"] = params["embed"]["tok"] * 8.0
+        return compressed_param_tree(params, linear_patterns(pairs))
+
+
+def _xlstm_requests(cfg, n=8, prompt=64, new=32, seed=0):
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               size=prompt, dtype=np.int32),
+                    max_new_tokens=new) for i in range(n)]
+
+
+def _forced_recompute(eng, reqs, every=3, limit=4):
+    """A continuous session whose youngest decoding request is preempted
+    by recompute every ``every`` steps, ``limit`` times: a pure recurrent
+    model has no pages, so no pool starves it.  Returns (streams, the
+    preemptions forced)."""
+    session = eng.session()
+    for r in reqs:
+        session.submit(r)
+    got, steps, forced = {}, 0, 0
+    while session.has_work():
+        for ev in session.step():
+            if ev.finished:
+                got[ev.uid] = ev.result.tokens
+        steps += 1
+        live = [s for s in session.sched.running if len(s.tokens) > 1]
+        if live and steps % every == 0 and forced < limit:
+            session.sched.preempt(live[-1])
+            forced += 1
+    return got, forced
+
+
+def xlstm_f32_plain():
+    """14a: (i) one f32 period at full width — three mLSTM and the sLSTM,
+    d_model 1024 — 2:4-packed, the embedding sharpened: phase 3's 8
+    requests continuous (page 16, chunk 32) and as one static bucket, with
+    the kernels and under the plain override (which launches nothing):
+    streams equal.  (ii) The SMOKE model (one period) pruned MS 2:4 by the
+    pipelined engine, kernels against plain: masks compared entry by entry
+    (the f32 Hessians differ by rounding, so a near tie may flip: phase
+    13a's rule), weights and reconstruction errors."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.engine import PruningEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, model = _xlstm(4, "float32")
+    packed = _xlstm_packed(model, seed=3, sharpen=True)
+    reqs = _xlstm_requests(cfg)
+    streams = {}
+    for label in ("kernels", "plain"):
+        ctx = (ops.override_dispatch(plain=True) if label == "plain"
+               else contextlib.nullcontext())
+        ops.reset_launch_counts()
+        with ctx, torch.no_grad():
+            cont = ServeEngine(model, packed, max_batch=8, max_len=128,
+                               page_size=16, prefill_chunk=32).generate(reqs)
+            stat = ServeEngine(model, packed, max_batch=8, max_len=128,
+                               mode="static").generate(reqs)
+        n = ops.launch_counts()
+        if (label == "plain") == any(n.values()):
+            fail(f"phase 14a {label}: launches {n}")
+        _check_streams(f"phase 14a {label}", reqs, cont, cfg.vocab_size)
+        streams[label] = (_streams(cont), _streams(stat), n)
+    (ck, sk, nk), (cp, sp, _) = streams["kernels"], streams["plain"]
+    say(f"  14a: {cfg.name} 4 layers f32 ({model.kinds}), 2:4-packed: "
+        f"streams kernels vs plain equal — continuous {_same(ck, cp)}, "
+        f"static {_same(sk, sp)}; kernel launches {nk}")
+    if not (_same(ck, cp) and _same(sk, sp)):
+        fail("phase 14a: the packed f32 period's streams differ, kernels "
+             "against plain")
+    for k in ("nm_spmm", "nm_spmm_decode"):
+        if nk[k] <= 0:
+            fail(f"phase 14a: kernel {k} not launched")
+
+    scfg = get_smoke("xlstm_350m")
+    smodel = LM(scfg, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    params = smodel.init(g)
+    calib = [{"tokens": t, "labels": t} for t in torch.randint(
+        0, scfg.vocab_size, (2, 4, 32), generator=g, device="cuda")]
+    runs = {}
+    for label in ("kernels", "plain"):
+        ctx = (ops.override_dispatch(plain=True) if label == "plain"
+               else contextlib.nullcontext())
+        ops.reset_launch_counts()
+        with ctx, torch.no_grad():
+            pruned, reports = PruningEngine(
+                smodel, "2:4", method="MS", blocksize=32).run(params, calib)
+        n = ops.launch_counts()
+        if (label == "plain") == any(n.values()):
+            fail(f"phase 14a {label}: prune launches {n}")
+        runs[label] = (smodel.params_to_flat(pruned), reports, n)
+    (fk, rk, nk), (fp, rp, _) = runs["kernels"], runs["plain"]
+    keys = [k for k in fk if re.search(r"/(mlstm|slstm)/w", k)
+            and not re.search(r"mlstm/w[if]$", k)]
+    mask_diff = sum(int(((fk[k] == 0) != (fp[k] == 0)).sum()) for k in keys)
+    total = sum(fk[k].size for k in keys)
+    w_err = max(float(np.abs(fk[k] - fp[k]).max()) for k in keys)
+    err_k = sum(r.recon_error for r in rk)
+    err_p = sum(r.recon_error for r in rp)
+    err_rel = abs(err_k - err_p) / max(abs(err_p), 1e-12)
+    say(f"  14a: SMOKE MS 2:4 ({len(rk)} linears), kernels against plain: "
+        f"masks bit-equal {mask_diff == 0} ({mask_diff} of {total} entries "
+        f"differ), max |Δw| {w_err:.3e}, total recon error {err_k:.6g} "
+        f"against {err_p:.6g} ({err_rel:.3e}); launches {nk}")
+    if 1 - mask_diff / total < MASK_AGREE_MIN or err_rel > PIPE_TOTAL_ERR_REL:
+        fail("phase 14a: the SMOKE prune differs, kernels against plain")
+    for k in ("hessian_accum", "nm_select"):
+        if nk[k] <= 0:
+            fail(f"phase 14a: kernel {k} not launched")
+    return dict(streams_equal=True, mask_diff=mask_diff, masks=total,
+                w_err=w_err, recon_rel=err_rel, linears=len(rk))
+
+
+def _xlstm_parts_ms(cfg):
+    """Device time of the xLSTM's cells alone at 14b's decode shapes (B =
+    8, f32 state): the mLSTM recurrence of one step over the 21 mLSTM
+    layers, and the sLSTM cell over the 3 sLSTM layers."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    nh, d = cfg.num_heads, cfg.d_model
+    hd = cfg.mlstm_proj * d // nh
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    mstep = [(rand(8, nh, hd, hd), rand(8, nh, hd), rand(8, nh) - 5,
+              rand(8, nh, hd) / math.sqrt(hd), rand(8, nh, hd),
+              rand(8, nh, hd), rand(8, nh) * 0.1, rand(8, nh) * 0.1 - 3)
+             for _ in range(3)]
+    rec = rand(nh, d // nh, 4 * d // nh) / math.sqrt(d // nh)
+    bf = torch.full((d,), 3.0, device="cuda")
+    sstep = [(rec, bf, rand(8, d), rand(8, d), rand(8, d), rand(8, d),
+              (rand(8, d), rand(8, d).abs() + 1, rand(8, d), rand(8, d)),
+              nh, d // nh)]
+    return {"mLSTM decode step, 21 layers, B=8":
+            21 * device_ms(ssm._mlstm_step, mstep),
+            "sLSTM cell, 3 layers, B=8":
+            3 * device_ms(ssm._slstm_cell, sstep)}
+
+
+def _upcast(tree):
+    """A param tree in f32: packed ``{"vals", "idx"}`` leaves keep their
+    indices."""
+    if isinstance(tree, dict):
+        return {k: (v if k == "idx" else _upcast(v)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_upcast(v) for v in tree]
+    return tree.float()
+
+
+def _bf16_partings(model, params, model32, params32, reqs, got, want,
+                   label):
+    """Where two bf16 greedy streams part, beside the f32 twin (the same
+    weights upcast): the two tokens' gap there and the bf16 forward's
+    errors against it, ``|e16(a)| + |e16(b)|`` — how far bf16 rounding
+    alone moves the two logits.  Reported, not gated: the f32 twin's
+    streams are the gate.  Returns (streams that part, partings whose f32
+    gap is within the bf16 errors)."""
+    import torch
+
+    parted = explained = 0
+    for r in reqs:
+        a, b = want[r.uid], got[r.uid]
+        diff = np.nonzero(a != b)[0]
+        if len(diff) == 0:
+            continue
+        parted += 1
+        j = int(diff[0])
+        ctx = torch.from_numpy(np.concatenate([r.prompt, a[:j]]))[None].cuda()
+        with torch.no_grad():
+            lg = model.forward(params, ctx)[0, -1]
+            lf = model32.forward(params32, ctx)[0, -1]
+        ta, tb = int(a[j]), int(b[j])
+        gap32 = abs(lf[ta] - lf[tb]).item()
+        err = (abs(lg[ta] - lf[ta]) + abs(lg[tb] - lf[tb])).item()
+        explained += gap32 <= err
+        say(f"  {label}: request {r.uid} parts at token {j}: bf16 logits "
+            f"{lg[ta].item():.4g} / {lg[tb].item():.4g}, f32 twin "
+            f"{lf[ta].item():.4g} / {lf[tb].item():.4g} (gap {gap32:.3e}, "
+            f"bf16 errors {err:.3e}; bf16 against f32 over the vocabulary "
+            f"{(lg - lf).abs().max().item():.3e} at logits of "
+            f"{lf.abs().max().item():.3g})")
+    return parted, explained
+
+
+def xlstm_serve(smi):
+    """14b: xlstm-350m at full width and depth (24 layers: 21 mLSTM, 3
+    sLSTM), bf16, magnitude 2:4 on the 99 block linears, packed.  Phase 3's
+    8 requests (64 + 32 tokens) continuous (page 16, chunk 32), as one
+    static bucket, and continuous again with forced recompute preemptions;
+    tok/s, host syncs a token, HBM held, a profiled generate's idle share,
+    and the cells' device time alone.  Continuous against static: the
+    same weights in f32 must give equal streams up to near ties at
+    LOGIT_TOL; in bf16 the two round apart (other kernels for the linears
+    — M 32 chunks against the 512-row prefill — and the chunkwise form
+    against the quadratic one), and the partings are reported beside the
+    bf16 forward's error (``_bf16_partings``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.optim import tree_leaves
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sparse import count_packed
+
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    cfg, model = _xlstm(24)
+    packed = _xlstm_packed(model, seed=0)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(packed))
+    n_packed = count_packed(packed)
+    say(f"  {cfg.name}: 24 layers ({model.kinds.count('mlstm')} mLSTM, "
+        f"{model.kinds.count('slstm')} sLSTM), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads (mLSTM head dim "
+        f"{cfg.mlstm_proj * cfg.d_model // cfg.num_heads}); init + 2:4 + "
+        f"packing {time.monotonic() - t0:.1f} s; params {n_bytes / 2**30:.3f}"
+        f" GiB, {n_packed} packed leaves ({smi})")
+    if n_packed != XLSTM_PACKED:
+        fail(f"phase 14b: {n_packed} packed leaves, expected {XLSTM_PACKED}")
+    reqs = _xlstm_requests(cfg)
+    kw = dict(max_batch=8, max_len=128, page_size=16, prefill_chunk=32)
+    eng = ServeEngine(model, packed, **kw)
+    static = ServeEngine(model, packed, max_batch=8, max_len=128,
+                         mode="static")
+    forced_eng = ServeEngine(model, packed, **kw)
+    for e in (eng, forced_eng):
+        if (e.pool.has_kv_pages or e.state_pool is None or e._swap_ok
+                or e.pool.prefix is not None):
+            fail("phase 14b: the xLSTM's pool has pages, a prefix index or "
+                 "swap, or no state rows")
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                       # the path starts
+
+    def run(label, e, fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        streams, extra = fn()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        toks = sum(len(v) for v in streams.values())
+        st = dict(e.stats)
+        say(f"  {label}: {toks} tokens in {dt:.3f} s = {toks / dt:.2f} tok/s;"
+            f" host syncs/token {st['host_syncs'] / toks:.3f}; prefill "
+            f"chunks {st['prefill_chunks']}; preemptions recompute "
+            f"{st['preempt_recompute']} swap {st['preempt_swap']}{extra}")
+        out[label] = dict(tok_s=toks / dt, wall_s=dt,
+                          syncs_per_token=st["host_syncs"] / toks, stats=st)
+        return streams
+
+    def gen(e):
+        def fn():
+            res = e.generate(reqs)
+            _check_streams("phase 14b", reqs, res, cfg.vocab_size)
+            return _streams(res), ""
+        return fn
+
+    def forced():
+        got, n = _forced_recompute(forced_eng, reqs)
+        return got, f" ({n} forced)"
+
+    cont = run("8 requests, continuous", eng, gen(eng))
+    stat = run("8 requests, static", static, gen(static))
+    pre = run("8 requests, continuous, forced recompute preemptions",
+              forced_eng, forced)
+    counts = ops.launch_counts()                    # ... and ends
+    hbm = torch.cuda.max_memory_allocated()
+    say(f"  launches over the phase's serving runs {counts}; HBM held "
+        f"{hbm / 2**30:.3f} GiB ({smi})")
+    if forced_eng.stats["preempt_recompute"] < 2 or not _same(pre, cont):
+        fail("phase 14b: the forced recompute run preempted fewer than 2 "
+             "times, or its streams differ from the continuous run's")
+    for k in ("nm_spmm", "nm_spmm_decode"):
+        if counts[k] <= 0:
+            fail(f"phase 14b: kernel {k} was not launched")
+    cfg32, model32 = _xlstm(24, "float32")
+    packed32 = _upcast(packed)
+    cont32 = _streams(ServeEngine(model32, packed32, **kw).generate(reqs))
+    stat32 = _streams(ServeEngine(model32, packed32, max_batch=8,
+                                  max_len=128, mode="static").generate(reqs))
+    parted32 = _first_divergence(model32, packed32, reqs, stat32, cont32,
+                                 LOGIT_TOL, "phase 14b f32 continuous vs "
+                                 "static")
+    parted, explained = _bf16_partings(
+        model, packed, model32, packed32, reqs, cont, stat,
+        "phase 14b bf16 continuous vs static")
+    del packed32, model32
+    torch.cuda.empty_cache()
+    say(f"  continuous vs static: f32 {len(reqs) - parted32}/{len(reqs)} "
+        f"streams equal (the rest part at near ties); bf16 "
+        f"{len(reqs) - parted}/{len(reqs)}, {explained} of the {parted} "
+        "partings within the bf16 forward's own error; forced recompute: "
+        "streams equal to the continuous run's")
+    say("  the profiled run: the 8 requests, continuous")
+    out["profile"] = profile_main(eng, reqs)
+    prof = out["profile"]
+    out["idle"] = 1 - prof["busy_s"] / prof["wall_s"]
+    parts = _xlstm_parts_ms(cfg)
+    for k, v in parts.items():
+        say(f"  {k}: {v:.4f} ms device time")
+    out.update(parted=parted, explained=explained, parted_f32=parted32,
+               hbm_gib=hbm / 2**30,
+               launches=counts,
+               params_gib=n_bytes / 2**30, packed=n_packed, parts_ms=parts)
+    del eng, static, forced_eng
+    torch.cuda.empty_cache()
+    return counts, model, packed, out
+
+
+def xlstm_long(model, packed, smi):
+    """14c: (i) one mLSTM layer of the 14b model, B 1, T XLSTM_QUAD_T: the
+    chunkwise form (chunk 1024) and the quadratic one on the same
+    projections, each timed with the HBM it holds, and both against the
+    quadratic form in f64 — the normaliser divides sums of 16384 terms
+    that nearly cancel, so f32 rounding alone parts the two forms by far
+    more than at short lengths: the chunkwise error must stay within
+    XLSTM_F64_RATIO times the quadratic's; (ii) the
+    whole model's static prefill of one XLSTM_LONG-token prompt (the
+    chunkwise path) and 32 decode tokens, and one sLSTM layer's prefill
+    over the same length alone (its per-token loop: host time)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = model.cfg
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    out = {}
+    p = packed["layers"][0]["mlstm"]
+    with torch.no_grad():
+        h = torch.randn(1, XLSTM_QUAD_T, cfg.d_model, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        xs = ssm.mlstm_projections(p, h, cfg)
+        del h
+        times = {}
+        for label, fn in (("chunkwise", lambda: ssm._mlstm_chunkwise(
+                *xs, ssm.MLSTM_CHUNK)[0]),
+                ("quadratic", lambda: ssm._mlstm_parallel(*xs)[0])):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.monotonic()
+            y = fn()
+            torch.cuda.synchronize()
+            times[label] = (time.monotonic() - t0,
+                            (torch.cuda.max_memory_allocated() - base) / 2**30)
+            out[label] = y
+        err = (out["chunkwise"] - out["quadratic"]).abs().max().item()
+        ref = ssm._mlstm_parallel(*(x.double() for x in xs))[0]
+        e64 = {k: (out[k].double() - ref).abs().max().item()
+               for k in ("chunkwise", "quadratic")}
+        scale = ref.abs().max().item()
+        del out["chunkwise"], out["quadratic"], xs, ref
+    say(f"  14c: one mLSTM layer, B 1, T {XLSTM_QUAD_T}: chunkwise "
+        f"{times['chunkwise'][0]:.3f} s ({times['chunkwise'][1]:.2f} GiB "
+        f"above its inputs), quadratic {times['quadratic'][0]:.3f} s "
+        f"({times['quadratic'][1]:.2f} GiB); max |Δ| {err:.3e} between "
+        f"them; against the quadratic form in f64 (scale {scale:.3g}): "
+        f"chunkwise {e64['chunkwise']:.3e}, quadratic "
+        f"{e64['quadratic']:.3e} ({smi})")
+    if not e64["chunkwise"] <= XLSTM_F64_RATIO * e64["quadratic"]:
+        fail(f"phase 14c: the chunkwise form's error {e64['chunkwise']:.3e} "
+             f"is more than {XLSTM_F64_RATIO} times the quadratic's")
+    out["quad_vs_chunk"] = dict(err=err, err_f64=e64, scale=scale,
+                                times=times)
+
+    rng = np.random.default_rng(3)
+    from repro_torch.serve.engine import Request
+    req = [Request(uid=0, prompt=rng.integers(0, cfg.vocab_size,
+                                              size=XLSTM_LONG,
+                                              dtype=np.int32),
+                   max_new_tokens=32)]
+    eng = ServeEngine(model, packed, max_batch=1,
+                      max_len=XLSTM_LONG + 32, mode="static")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    res = eng.generate(req)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    _check_streams("phase 14c", req, res, cfg.vocab_size)
+    hbm = torch.cuda.max_memory_allocated()
+    sp = packed["layers"][3]["slstm"]
+    with torch.no_grad():
+        h = torch.randn(1, XLSTM_LONG, cfg.d_model, generator=g,
+                        device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ssm.slstm_apply(sp, h, cfg)
+        torch.cuda.synchronize()
+        s_wall = time.monotonic() - t0
+    say(f"  14c: static prefill of a {XLSTM_LONG}-token prompt + 32 decode "
+        f"tokens: {wall:.3f} s; HBM held {hbm / 2**30:.3f} GiB; launches "
+        f"{counts}; one sLSTM layer's {XLSTM_LONG}-step loop alone "
+        f"{s_wall:.3f} s ({s_wall / XLSTM_LONG * 1e6:.1f} µs a step; 3 "
+        f"layers ≈ {3 * s_wall:.3f} s of the prefill) ({smi})")
+    if counts["nm_spmm"] <= 0:
+        fail("phase 14c: the long prefill did not launch the tiled nm_spmm")
+    out.update(long_wall_s=wall, long_hbm_gib=hbm / 2**30, launches=counts,
+               slstm_layer_s=s_wall)
+    return counts, out
+
+
+def xlstm_prune(smi):
+    """14d: ``launch.prune.prune`` with the launcher's default (pipelined)
+    engine, MS 2:4 at blocksize 128, on xlstm-350m at full width and
+    depth, bf16, 128 x 2048 random ids in XLSTM_CALIB_SHARDS shards:
+    seconds a layer, HBM held, host syncs (≤ 1), launches (hessian_accum
+    one a linear and shard, nm_select one a linear), every linear 2:4,
+    finite perplexity.  Then three trainer steps of xlstm-350m at batch
+    4 x 256 through ``repro_torch.launch.train`` (a process of its own,
+    as phase 8's): loss finite, seconds a step."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prune as launch_prune
+
+    cfg, model = _xlstm(24)
+    params = launch_prune.load_params(model, None, seed=0)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    ev = [{"tokens": t, "labels": t} for t in torch.randint(
+        0, cfg.vocab_size, (2, 4, 512), generator=gen, device="cuda")]
+    dense_ppl = launch_prune.eval_ppl(model, params, ev)
+    pipeline = launch_prune.build_parser().get_default("pipeline")
+    syncs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                       # the prune path starts
+    t0 = time.monotonic()
+    with count_syncs(syncs):
+        pruned, reports = launch_prune.prune(
+            model, params, calib, "2:4", "MS", blocksize=128,
+            row_chunk=PRUNE_ROW_CHUNK, pipeline=pipeline,
+            calib_shard=XLSTM_CALIB_SHARDS)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()                    # ... and ends
+    hbm = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    say(f"  {cfg.name}, {layers} layers, MS 2:4 ({pipeline}, "
+        f"{XLSTM_CALIB_SHARDS} shards): {wall:.2f} s ({wall / layers:.3f} s "
+        f"a layer); HBM held {hbm / 2**30:.3f} GiB; host syncs {syncs['n']} "
+        f"from {syncs['where']}; launches {counts} ({smi})")
+    want = {"hessian_accum": XLSTM_PACKED * XLSTM_CALIB_SHARDS,
+            "flash_attn": 0, "nm_select": XLSTM_PACKED}
+    for k, n in want.items():
+        if counts[k] != n:
+            fail(f"phase 14d: {counts[k]} {k} launches, expected {n}")
+    if syncs["n"] > 1:
+        fail(f"phase 14d: {syncs['n']} host syncs in the pipelined run")
+    if len(reports) != XLSTM_PACKED or any(
+            abs(r.sparsity - 0.5) > 1e-6 for r in reports):
+        fail(f"phase 14d: {len(reports)} reports, or a sparsity other than "
+             "0.5")
+    bad = [f"{i}.{sub}.{key}" for i, lp in enumerate(pruned["layers"])
+           for sub, key in model.block_linears() if sub in lp
+           if not bool(((lp[sub][key].T.reshape(-1, 4) != 0).sum(-1)
+                        <= 2).all())]
+    if bad:
+        fail(f"phase 14d: not 2:4 after MS: {bad}")
+    pruned_ppl = launch_prune.eval_ppl(model, pruned, ev)
+    say(f"  perplexity on 2 x 4 x 512 random tokens: dense {dense_ppl:.2f}, "
+        f"MS 2:4 {pruned_ppl:.2f} (random weights: no gate)")
+    if not (math.isfinite(dense_ppl) and math.isfinite(pruned_ppl)):
+        fail("phase 14d: non-finite perplexity")
+    out = dict(wall_s=wall, s_per_layer=wall / layers, hbm_gib=hbm / 2**30,
+               syncs=syncs["n"], launches=counts, dense_ppl=dense_ppl,
+               pruned_ppl=pruned_ppl)
+    del pruned, params, model, calib
+    torch.cuda.empty_cache()
+    work = ROOT / "build" / "phase14"
+    if work.exists():
+        import shutil
+        shutil.rmtree(work)
+    text = _train(["--arch", "xlstm-350m", "--steps", "3", "--batch", "4",
+                   "--seq", "256", "--ckpt-every", "3", "--out",
+                   str(work / "train")], label="phase 14d")
+    m = re.search(r"loss (\S+) -> (\S+); ([\d.]+) ms a step", text)
+    if not m or not all(math.isfinite(float(x)) for x in m.groups()[:2]):
+        fail(f"phase 14d: no finite training summary in {text!r}")
+    out["train"] = dict(first_loss=float(m.group(1)),
+                        last_loss=float(m.group(2)),
+                        ms_per_step=float(m.group(3)))
+    say(f"  trainer, 3 steps at 4 x 256: loss {m.group(1)} -> {m.group(2)}, "
+        f"{m.group(3)} ms a step (median) ({smi})")
+    return counts, out
+
+
+def xlstm_phase(smi, parts="abcd"):
+    """Phase 14 (those of ``parts``): returns the launches of the serving
+    and pruning runs and the phase's numbers."""
+    import torch
+
+    out = {}
+    serve_counts = {k: 0 for k in SERVE_KERNELS}
+    prune_counts = {k: 0 for k in PRUNE_KERNELS}
+    t = time.monotonic()
+    if "a" in parts:
+        say("  14a: one f32 period at full width served, and the SMOKE "
+            "pruned MS 2:4, kernels against plain")
+        out["f32"] = xlstm_f32_plain()
+        say(f"  14a took {time.monotonic() - t:.1f} s")
+        torch.cuda.empty_cache()
+    if "b" in parts or "c" in parts:
+        t = time.monotonic()
+        say("  14b: xlstm-350m served at full width and depth, bf16, "
+            "2:4-packed")
+        c, model, packed, out["serve"] = xlstm_serve(smi)
+        for k in serve_counts:
+            serve_counts[k] += c[k]
+        say(f"  14b took {time.monotonic() - t:.1f} s")
+        if "c" in parts:
+            t = time.monotonic()
+            c, out["long"] = xlstm_long(model, packed, smi)
+            for k in serve_counts:
+                serve_counts[k] += c[k]
+            say(f"  14c took {time.monotonic() - t:.1f} s")
+        del model, packed
+        torch.cuda.empty_cache()
+    if "d" in parts:
+        t = time.monotonic()
+        say("  14d: xlstm-350m pruned MS 2:4 through the pipelined engine; "
+            "three trainer steps")
+        prune_counts, out["prune"] = xlstm_prune(smi)
+        say(f"  14d took {time.monotonic() - t:.1f} s")
+    return serve_counts, prune_counts, out
+
+
 def partial_run(only, gen, rows, t_start) -> int:
     """``--phases``: phase 1's rows of PR 21 (hd 256, the window, the new
     widths) with the MoE widths' and the weighted hessian_accum's ("1"),
-    those alone ("1m", "1w"),
-    phase 12 and/or phase 13 (or parts of them), then a summary line; no
-    result lines."""
+    those alone ("1m", "1w"), the xLSTM widths' rows ("1x"), phases 12,
+    13 and/or 14 (or parts of them), then a summary line; no result
+    lines."""
     import torch
 
     out = {}
@@ -4643,15 +5294,24 @@ def partial_run(only, gen, rows, t_start) -> int:
     if parts:
         say(f"phase 12 (partial: {parts})")
         out["serve"], out["prune"], out["dense"] = dense_variants(parts)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
     parts = "abc" if "13" in only else "".join(
         p[2] for p in sorted(only) if p.startswith("13") and len(p) == 3)
     if parts:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()[0]
         say(f"phase 13 (partial: {parts})")
         out["serve_13"], out["prune_13"], out["moe"] = moe_phase(smi, parts)
+    if "1x" in only:
+        say(f"phase 1 (partial): the kernels at xlstm-350m's widths ({smi})")
+        out["xlstm_widths"] = check_xlstm_widths(gen, rows)
+    parts = "abcd" if "14" in only else "".join(
+        p[2] for p in sorted(only) if p.startswith("14") and len(p) == 3)
+    if parts:
+        say(f"phase 14 (partial: {parts}; {smi})")
+        out["serve_14"], out["prune_14"], out["xlstm"] = xlstm_phase(
+            smi, parts)
     bad = [r for r in rows if not r["ok"]]
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke_partial.txt", "w") as f:
@@ -4675,10 +5335,11 @@ def main(argv) -> int:
     only = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         only = set(argv[1].split(","))
-        if not only <= {"1", "1m", "1w", "12", "12a", "12b", "12c", "12d", "13",
-                        "13a", "13b", "13c"}:
-            print("chip_smoke: --phases takes 1, 1m, 1w, 12, 12a-12d, 13 and "
-                  "13a-13c", file=sys.stderr)
+        if not only <= {"1", "1m", "1w", "1x", "12", "12a", "12b", "12c",
+                        "12d", "13", "13a", "13b", "13c", "14", "14a", "14b",
+                        "14c", "14d"}:
+            print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 12, 12a-12d, "
+                  "13, 13a-13c, 14 and 14a-14d", file=sys.stderr)
             return 2
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -4732,6 +5393,7 @@ def main(argv) -> int:
     flash_256 = check_flash_256(gen, rows)
     dense_rows = check_dense_widths(gen, rows)
     moe_rows = check_moe_widths(gen, rows)
+    xlstm_rows = check_xlstm_widths(gen, rows)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -4842,6 +5504,19 @@ def main(argv) -> int:
         counts[k] += serve_13.get(k, 0) + prune_13.get(k, 0)
     say(f"  phase 13 took {time.monotonic() - t13:.1f} s; launches: serving "
         f"{serve_13}, pruning {prune_13}")
+    torch.cuda.empty_cache()
+
+    head("phase 14: the xLSTM — xlstm-350m (21 mLSTM, 3 sLSTM, d_model "
+         "1024) served 2:4-packed at full width and depth, continuous, "
+         "static and under forced recompute; the chunkwise form at 16384 "
+         "and a 9216-token prefill; pruned MS 2:4 and trained 3 steps "
+         f"({smi})")
+    t14 = time.monotonic()
+    serve_14, prune_14, xlstm_out = xlstm_phase(smi)
+    for k in counts:
+        counts[k] += serve_14.get(k, 0) + prune_14.get(k, 0)
+    say(f"  phase 14 took {time.monotonic() - t14:.1f} s; launches: serving "
+        f"{serve_14}, pruning {prune_14}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -4907,6 +5582,7 @@ def main(argv) -> int:
                             "flash_attn_hd256": flash_256,
                             "dense_widths": dense_rows,
                             "moe_widths": moe_rows,
+                            "xlstm_widths": xlstm_rows, "xlstm": xlstm_out,
                             "dense_variants": dense,
                             "hessian_weighted": hess_w_rows, "moe": moe_out},
                            default=str) + "\n")

@@ -4,9 +4,9 @@ The dense decoders — Qwen1.5-0.5B, gemma-2b (head dim 256), Qwen3-14B
 (qk-norm) and Gemma3-12B (qk-norm, five sliding-window layers to one
 global) — the MoE decoders phi3.5-moe (16 experts, top-2) and kimi-k2
 (384 experts, top-8, one shared expert), the tiny Mamba twin
-(``paper_tiny_lm.MAMBA``) and Jamba's hybrid with its 16 experts
-(ROADMAP.md lists the other families).  Ids and aliases as the
-reference's registry.
+(``paper_tiny_lm.MAMBA``), Jamba's hybrid with its 16 experts and the
+xLSTM (xlstm-350m: seven mLSTM blocks to one sLSTM) — ROADMAP.md lists
+the other families.  Ids and aliases as the reference's registry.
 """
 
 import importlib
@@ -15,7 +15,7 @@ from repro_torch.models.base import ArchConfig
 
 ARCH_IDS = ("qwen3_14b", "gemma3_12b", "qwen1_5_0_5b", "gemma_2b",
             "kimi_k2_1t_a32b", "phi3_5_moe_42b_a6_6b",
-            "jamba_1_5_large_398b", "paper_tiny_lm")
+            "jamba_1_5_large_398b", "xlstm_350m", "paper_tiny_lm")
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIAS.update({

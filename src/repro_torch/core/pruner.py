@@ -194,13 +194,15 @@ def prune_matrix(w: torch.Tensor, h: torch.Tensor,
 
 
 # ----------------------------------------------------------------------
-def prune_linears(params, spec: Union[str, SparsitySpec] = "2:4"):
-    """Magnitude-prune the seven linears of every layer in place to an N:M
-    spec — a MoE layer's attention and shared expert, its routed experts
-    staying dense (they are served dense, as the reference serves them).
-    The weights are stored (in, out), so each is pruned as ``wᵀ``: the
-    groups of M then run along the input dim, the axis compress_24
-    packs."""
+def prune_linears(params, spec: Union[str, SparsitySpec] = "2:4",
+                  linears=LINEARS):
+    """Magnitude-prune ``linears`` — (sub, key) pairs, by default the seven
+    of a dense block — of every layer in place to an N:M spec: a MoE
+    layer's attention and shared expert, its routed experts staying dense
+    (they are served dense, as the reference serves them); a recurrent
+    model passes its own (``LM.block_linears``).  The weights are stored
+    (in, out), so each is pruned as ``wᵀ``: the groups of M then run along
+    the input dim, the axis compress_24 packs."""
     if isinstance(spec, str):
         spec = SparsitySpec.parse(spec)
     if not spec.is_semi_structured:
@@ -208,7 +210,7 @@ def prune_linears(params, spec: Union[str, SparsitySpec] = "2:4"):
     for layer in params["layers"]:
         if "shared" in layer.get("moe", {}):
             layer = {**layer, "mlp": layer["moe"]["shared"]}
-        for sub, name in LINEARS:
+        for sub, name in linears:
             if sub in layer and name in layer[sub]:
                 w = layer[sub][name].T
                 mask = masks_lib.nm_mask_from_scores(

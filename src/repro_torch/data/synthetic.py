@@ -13,7 +13,9 @@ a near tie — and a flip then runs on along its sequence
 (tests/test_torch_train.py measures how many sequences it touches).
 
 The transition table is (V, V) f32: 1 MiB at the tiny LM's V = 512,
-92 GB at Qwen's 151,936 — the reference cannot build it there either.
+10.1 GB at xlstm-350m's 50,304 (built in place, its noise in row blocks,
+so that the threefry temporaries stay small), 92 GB at Qwen's 151,936 —
+the reference cannot build that one either.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch import random as rnd
+
+# elements of the transition table's noise drawn at once: the threefry
+# hash holds a few int64 temporaries of this size (≈ 0.5 GB each)
+NOISE_BLOCK = 1 << 26
 
 STREAM_TRAIN = 0
 STREAM_CALIB = 1
@@ -42,17 +48,24 @@ class MarkovCorpus:
         self.seed = seed
         self.device = torch.device(device)
         k1, k2 = rnd.split(rnd.key(seed, self.device)).unbind(0)
-        base = zipf_logits(vocab, alpha, self.device)[None, :]   # (1, V)
+        base = zipf_logits(vocab, alpha, self.device)            # (V,)
         # each token gets a few strongly preferred successors (a repeated
-        # successor adds its peak twice, as the reference's .at[].add)
+        # successor adds its peak twice, as the reference's .at[].add):
+        # base + boost, then + noise, in the reference's order, built in
+        # place — no (V, V) boost or noise beside the table
         succ = rnd.randint(k1, (vocab, 3), 0, vocab).long()
         rows = torch.arange(vocab, device=self.device)[:, None].expand(-1, 3)
-        boost = torch.zeros((vocab, vocab), device=self.device)
-        boost.index_put_((rows, succ), torch.full((vocab, 3), peak,
-                                                  device=self.device),
-                         accumulate=True)
-        noise = 0.5 * rnd.normal(k2, (vocab, vocab))
-        self.trans_logits = base + boost + noise                 # (V, V)
+        times = (succ[:, :, None] == succ[:, None, :]).sum(-1)   # (V, 3)
+        table = base.expand(vocab, vocab).clone()
+        table[rows, succ] = base[succ] + peak * times
+        # the noise row block by row block: each draw's bits depend on its
+        # flat index only, so the pieces are the whole (V, V) draw's
+        step = max(1, NOISE_BLOCK // vocab)
+        for r in range(0, vocab, step):
+            n = min(step, vocab - r)
+            table[r:r + n] += 0.5 * rnd.normal(k2, (n, vocab),
+                                               offset=r * vocab)
+        self.trans_logits = table                                # (V, V)
 
     def sample(self, key: torch.Tensor, batch: int,
                length: int) -> torch.Tensor:

@@ -5,26 +5,28 @@ methods of static mode (``init_cache`` / ``prefill`` / ``decode_step``)
 and the paged ones of continuous mode (``init_paged_cache`` /
 ``prefill_chunk`` / ``decode_step`` with block tables).
 
-Ported block kinds: global attention, sliding-window attention and Mamba
-(``period`` ⊂ {"attn", "attn_local", "mamba"}), each with its FFN where
+Ported block kinds: global attention, sliding-window attention, Mamba
+and the xLSTM's mLSTM and sLSTM (``period`` ⊂ {"attn", "attn_local",
+"mamba", "mlstm", "slstm"}), each with its FFN where
 ``cfg.block_has_mlp`` says so: a dense MLP, or in the slots that
 ``cfg.slot_is_moe`` names a Mixture-of-Experts (``models.moe``) — the
 dense decoders (qk-norm included: Qwen3, Gemma3's 5:1 local:global
 period), the MoE decoders (phi3.5-moe, kimi-k2 with its shared expert),
-the Mamba LM and the Mamba/attention hybrid with its experts (Jamba).  An
-``attn_local`` block is an ``attn`` block (the same params under
-``"attn"``, the same linears, KV pages and dense cache) whose attention
-sees the last ``cfg.window`` positions.  No prefix, xLSTM, frontend or
-encoder; ROADMAP.md lists them.  Where the reference stacks the layers
-(L, ...) under ``layers/s{j}`` for ``lax.scan``, the port keeps a
-per-layer list of param dicts and loops: layer ``i`` is slot ``i %
-len(period)`` of period ``i // len(period)``, ``params["layers"][i] =
-{"attn" | "mamba": {...}, "mlp" | "moe": {...}}``, a MoE's experts
-stacked (E, ...) as the reference stacks them.  The caches are per-layer
-lists too: an attention layer's paged ``{"k", "v"[, "k_scale",
-"v_scale"]}`` page tensors or dense (B, max_len, KV, hd) ``{"k", "v"}``,
-a Mamba layer's ``{"conv", "ssm"}`` state rows (one per serve slot when
-paged); all are updated in place.
+the Mamba LM, the Mamba/attention hybrid with its experts (Jamba) and
+the xLSTM (7 mLSTM : 1 sLSTM).  An ``attn_local`` block is an ``attn``
+block (the same params under ``"attn"``, the same linears, KV pages and
+dense cache) whose attention sees the last ``cfg.window`` positions.  No
+prefix, encoder-decoder or frontend; ROADMAP.md lists them.  Where the
+reference stacks the layers (L, ...) under ``layers/s{j}`` for
+``lax.scan``, the port keeps a per-layer list of param dicts and loops:
+layer ``i`` is slot ``i % len(period)`` of period ``i // len(period)``,
+``params["layers"][i] = {"attn" | "mamba" | "mlstm" | "slstm": {...},
+"mlp" | "moe": {...}}``, a MoE's experts stacked (E, ...) as the
+reference stacks them.  The caches are per-layer lists too: an attention
+layer's paged ``{"k", "v"[, "k_scale", "v_scale"]}`` page tensors or
+dense (B, max_len, KV, hd) ``{"k", "v"}``, a recurrent layer's state rows
+(``models.ssm``; one per serve slot when paged); all are updated in
+place.
 """
 
 from __future__ import annotations
@@ -44,17 +46,27 @@ from repro_torch.models.layers import (Params, attn_apply, attn_cache_init,
                                        mlp_init, sub_keys, unembed_apply,
                                        unembed_init)
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.ssm import mamba_apply, mamba_cache_init, mamba_init
+from repro_torch.models import ssm
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ATTN_KINDS = ("attn", "attn_local")
-PORTED_KINDS = (*ATTN_KINDS, "mamba")
+# the recurrent mixers: (init, apply, cache init) of each
+STATE_BLOCKS = {
+    "mamba": (ssm.mamba_init, ssm.mamba_apply, ssm.mamba_cache_init),
+    "mlstm": (ssm.mlstm_init, ssm.mlstm_apply, ssm.mlstm_cache_init),
+    "slstm": (ssm.slstm_init, ssm.slstm_apply, ssm.slstm_cache_init),
+}
+PORTED_KINDS = (*ATTN_KINDS, *STATE_BLOCKS)
 # the prunable linears of a block kind, in the reference's capture-name
 # order (``_BLOCK_LINEARS``)
 _BLOCK_LINEARS = {
     "attn": (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo")),
     "mamba": (("mamba", "in_proj"), ("mamba", "x_proj"),
               ("mamba", "dt_proj"), ("mamba", "out_proj")),
+    "mlstm": (("mlstm", "wq"), ("mlstm", "wk"), ("mlstm", "wv"),
+              ("mlstm", "wo")),
+    "slstm": (("slstm", "wz"), ("slstm", "wi"), ("slstm", "wf"),
+              ("slstm", "wo_gate"), ("slstm", "wo")),
 }
 _BLOCK_LINEARS["attn_local"] = _BLOCK_LINEARS["attn"]
 _MLP_LINEARS = {"swiglu": ("wi", "wg", "wo"), "geglu": ("wi", "wg", "wo"),
@@ -62,23 +74,21 @@ _MLP_LINEARS = {"swiglu": ("wi", "wg", "wo"), "geglu": ("wi", "wg", "wo"),
 
 
 class LM:
-    """A decoder of attention and Mamba blocks from one ArchConfig, on one
-    device."""
+    """A decoder of attention and recurrent blocks from one ArchConfig, on
+    one device."""
 
     # block kinds whose paged serve cache is slot-pooled recurrent state
-    # (serve.kvpool.StatePool resets their rows; the reference also lists
-    # mlstm and slstm, which the port refuses), and those whose cache is
+    # (serve.kvpool.StatePool resets their rows), and those whose cache is
     # KV pages (serve.kvpool.PagedKVPool pools, shares and swaps them)
-    STATE_KINDS = ("mamba",)
+    STATE_KINDS = tuple(STATE_BLOCKS)
     ATTN_KINDS = ATTN_KINDS
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         if (cfg.prefix or cfg.encdec or cfg.frontend is not None
                 or any(k not in PORTED_KINDS for k in cfg.period)):
             raise ValueError(
-                f"{cfg.name}: only attention and Mamba blocks with dense "
-                "or MoE FFNs are ported (ROADMAP.md, Queue 1: the other "
-                "families)")
+                f"{cfg.name}: prefix, encoder-decoder and frontend models "
+                "are not ported (ROADMAP.md, Queue 1: the other families)")
         self.cfg = cfg
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.dtype]
@@ -90,7 +100,7 @@ class LM:
     # ------------------------------------------------------------- init
     def init(self, rng) -> Params:
         """Random params at the reference's scales (``_dense_init``,
-        ``embed_init``, ``mamba_init``, ``moe_init``) on the device of
+        ``embed_init``, ``ssm``'s inits, ``moe_init``) on the device of
         ``rng``: a
         ``torch.Generator`` (sequential draws), or a threefry key
         (``random.key(seed)``), which reproduces the reference's
@@ -115,7 +125,7 @@ class LM:
             k_mix, k_ffn, _ = sub_keys(lk, 3)
             block = ({"attn": attn_init(k_mix, cfg, dt)}
                      if kind in ATTN_KINDS
-                     else {"mamba": mamba_init(k_mix, cfg, dt)})
+                     else {kind: STATE_BLOCKS[kind][0](k_mix, cfg, dt)})
             if cfg.block_has_mlp(kind):
                 if self.moe_slots[i % n_slots]:
                     block["moe"] = moe_init(k_ffn, cfg, dt)
@@ -171,7 +181,8 @@ class LM:
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One block (mixer, then its FFN if it has one): (h, the MoE's aux
         loss or None).  The cache modes are the mixer's (``attn_apply`` /
-        ``ssm.mamba_apply``); a MoE FFN routes the call's B·T tokens."""
+        ``ssm.mamba_apply`` / ``mlstm_apply`` / ``slstm_apply``); a MoE FFN
+        routes the call's B·T tokens."""
         if kind in ATTN_KINDS:
             h = attn_apply(p["attn"], h, self.cfg, caps=caps,
                            prefix=f"{name_prefix}attn.", cache=cache,
@@ -180,9 +191,9 @@ class LM:
                            window=(self.cfg.window if kind == "attn_local"
                                    else None))
         else:
-            h = mamba_apply(p["mamba"], h, self.cfg, caps=caps,
-                            prefix=f"{name_prefix}mamba.", cache=cache,
-                            pos=pos, paged=paged)
+            h = STATE_BLOCKS[kind][1](p[kind], h, self.cfg, caps=caps,
+                                      prefix=f"{name_prefix}{kind}.",
+                                      cache=cache, pos=pos, paged=paged)
         if "moe" in p:
             return moe_apply(p["moe"], h, self.cfg, caps=caps,
                              prefix=f"{name_prefix}moe.")
@@ -239,6 +250,13 @@ class LM:
                                          "aux": aux, "tokens": denom}
 
     # ------------------------------------------------- pruning contract
+    def block_linears(self) -> Tuple[Tuple[str, str], ...]:
+        """The (sub, key) prunable linears of the model's mixers, each once
+        in the reference's order (``_BLOCK_LINEARS`` over the period)."""
+        pairs = [pair for kind in self.cfg.period
+                 for pair in _BLOCK_LINEARS[kind]]
+        return tuple(dict.fromkeys(pairs))
+
     def first_hidden(self, params: Params,
                      batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The embedding output entering block 0."""
@@ -253,8 +271,10 @@ class LM:
         """One segment per period, named ``period{i}`` as the reference
         names them; a segment's params are ``{"s{j}": params of its slot
         j}`` and its linears, slot by slot, ``s{j}.attn.wq`` …
-        ``s{j}.attn.wo`` or ``s{j}.mamba.in_proj`` … ``s{j}.mamba.out_proj``,
-        then ``s{j}.mlp.*`` where the slot has an MLP, or where it has
+        ``s{j}.attn.wo``, ``s{j}.mamba.in_proj`` … ``s{j}.mamba.out_proj``,
+        ``s{j}.mlstm.wq`` … ``wo`` (not the f32 gates ``wi`` / ``wf``) or
+        ``s{j}.slstm.wz`` … ``wo``, then ``s{j}.mlp.*`` where the slot has
+        an MLP, or where it has
         experts ``s{j}.moe.wi.0`` … ``wi.{E-1}``, ``wg.*``, ``wo.*`` and
         then the shared expert's ``s{j}.moe.shared.*`` (the reference's
         order).  The router's input is captured too (``s{j}.moe.router``)
@@ -308,13 +328,19 @@ class LM:
                    dtype: Optional[torch.dtype] = None
                    ) -> List[Dict[str, torch.Tensor]]:
         """The dense decode cache of static mode: one (B, max_len, KV, hd)
-        K and V per attention layer, the (B, ...) conv and SSM state per
-        Mamba layer."""
+        K and V per attention layer, the (B, ...) init state per recurrent
+        layer."""
         dt = dtype or self.dtype
         return [attn_cache_init(self.cfg, batch, max_len, dt, self.device)
                 if kind in ATTN_KINDS
-                else mamba_cache_init(self.cfg, batch, dt, self.device)
+                else self.state_init(kind, batch, dt)
                 for kind in self.kinds]
+
+    def state_init(self, kind: str, batch: int,
+                   dtype) -> Dict[str, torch.Tensor]:
+        """The init state of ``batch`` rows of a recurrent block ``kind``
+        (the reference's ``block_cache_init``)."""
+        return STATE_BLOCKS[kind][2](self.cfg, batch, dtype, self.device)
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 cache: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
@@ -335,7 +361,7 @@ class LM:
                          ) -> List[Dict[str, torch.Tensor]]:
         """One (num_pages, page_size, KV, hd) K and V pool per attention
         layer (page 0 is the scrap page; serve.kvpool owns the allocator),
-        ``dtype`` int8 adding the per-row f32 scale leaves; per Mamba
+        ``dtype`` int8 adding the per-row f32 scale leaves; per recurrent
         layer the state rows of ``max_slots`` serve slots, at the model
         dtype when the pages are int8 (serve.kvpool.StatePool resets a
         row at admission)."""
@@ -349,8 +375,7 @@ class LM:
         return [attn_paged_cache_init(self.cfg, num_pages, page_size, dt,
                                       self.device)
                 if kind in ATTN_KINDS
-                else mamba_cache_init(self.cfg, max_slots, state_dt,
-                                      self.device)
+                else self.state_init(kind, max_slots, state_dt)
                 for kind in self.kinds]
 
     def prefill_chunk(self, params: Params, tokens: torch.Tensor,

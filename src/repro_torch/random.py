@@ -89,16 +89,17 @@ def _split_key(k: torch.Tensor, extra_dims: int):
     return k1.reshape(view), k2.reshape(view)
 
 
-def _iota_2x32(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor,
-                                                         torch.Tensor]:
-    """(hi, lo) 32-bit halves of a 64-bit iota reshaped to ``shape``."""
+def _iota_2x32(shape: Tuple[int, ...], device, offset: int = 0
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of a 64-bit iota from ``offset``, reshaped
+    to ``shape``."""
     n = math.prod(shape)
-    flat = torch.arange(n, dtype=torch.int64, device=device)
+    flat = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return (flat >> 32).reshape(shape), (flat & MASK).reshape(shape)
 
 
-def _hash_iota(k: torch.Tensor, shape: Tuple[int, ...]):
-    hi, lo = _iota_2x32(shape, k.device)
+def _hash_iota(k: torch.Tensor, shape: Tuple[int, ...], offset: int = 0):
+    hi, lo = _iota_2x32(shape, k.device, offset)
     k1, k2 = _split_key(k, len(shape))
     return threefry2x32(k1, k2, hi, lo)
 
@@ -119,18 +120,23 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
-def random_bits(k: torch.Tensor, shape: Shape) -> torch.Tensor:
+def random_bits(k: torch.Tensor, shape: Shape,
+                offset: int = 0) -> torch.Tensor:
     """32-bit random bits (K..., *shape) as int64 in [0, 2³²):
-    ``bits1 ^ bits2`` of the hash of a 64-bit iota over ``shape``."""
-    b1, b2 = _hash_iota(k, _shape(shape))
+    ``bits1 ^ bits2`` of the hash of a 64-bit iota over ``shape``.  Each
+    element's bits depend on the key and its flat index alone, so
+    ``offset`` draws the elements ``offset ..`` of a larger draw: a big
+    array comes out bit for bit in pieces."""
+    b1, b2 = _hash_iota(k, _shape(shape), offset)
     return b1 ^ b2
 
 
 def uniform(k: torch.Tensor, shape: Shape = (), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
+            maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
     """f32 uniforms in [minval, maxval): the 23 high bits under the
-    exponent of 1.0, minus 1, scaled — ``jax.random.uniform``."""
-    bits = random_bits(k, shape)
+    exponent of 1.0, minus 1, scaled — ``jax.random.uniform``
+    (``offset``: as :func:`random_bits`)."""
+    bits = random_bits(k, shape, offset)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
@@ -180,11 +186,12 @@ def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * big, p * x)
 
 
-def normal(k: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+def normal(k: torch.Tensor, shape: Shape = (),
+           offset: int = 0) -> torch.Tensor:
     """f32 standard normals: √2·erf⁻¹(u), u uniform in (-1, 1) —
-    ``jax.random.normal``."""
+    ``jax.random.normal`` (``offset``: as :func:`random_bits`)."""
     lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(k, shape, lo, 1.0)
+    u = uniform(k, shape, lo, 1.0, offset)
     return torch.tensor(math.sqrt(2), dtype=torch.float32) * _erf_inv_f32(u)
 
 

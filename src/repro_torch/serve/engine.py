@@ -9,8 +9,8 @@ of ``steps_per_sync`` steps with the state on the device (serve.fused) —
 one host readback per burst.  When the pool runs dry the youngest
 request is preempted: swapped to the host arena when it has room
 (tokens kept, resume mid-stream), recomputed otherwise — always
-recomputed for a model with recurrent state (Mamba), whose state rows
-the arena does not tier; admission resets a slot's state rows
+recomputed for a model with recurrent state (Mamba, the xLSTM), whose
+state rows the arena does not tier; admission resets a slot's state rows
 (kvpool.StatePool).  Admission consults the pool's prefix index: cached
 prompt pages attach shared, without prefill, with copy-on-write on
 divergence (serve.kvpool; no index for recurrent state).  A

@@ -30,7 +30,7 @@ pool is on the card) and stream them back on resume instead of
 recomputing; shared pages stay on the device, pinned by the victim's
 :class:`SwapRecord`.
 
-Recurrent mixers (Mamba) carry O(1) state a request instead of
+Recurrent mixers (Mamba, the xLSTM) carry O(1) state a request instead of
 per-token KV: their leaves in the same per-layer cache list are rows
 indexed by serve slot, and :class:`StatePool` resets a slot's rows at
 admission.  A model without attention layers has no pages at all
@@ -654,22 +654,29 @@ class StatePool:
     """Slot-recycled fixed-state rows for recurrent mixers (the
     reference's ``StatePool``).
 
-    A Mamba layer's continuous-batching cache is its dense decode cache
-    with batch = ``max_slots``: slot index == row, and ``decode_step``
-    advances every live row as dense decode does.  What pages get from
-    masking by length, state rows need explicitly: a retired request's
-    rows would leak into the next occupant of the slot, so
-    :meth:`reset_slot` overwrites them with the block's init state at
+    A recurrent layer's continuous-batching cache is its dense decode
+    cache with batch = ``max_slots``: slot index == row, and
+    ``decode_step`` advances every live row as dense decode does.  What
+    pages get from masking by length, state rows need explicitly: a
+    retired request's rows would leak into the next occupant of the slot,
+    so :meth:`reset_slot` overwrites them with the block's init state at
     admission — recompute preemption re-admits through the same reset,
     which is what makes the replayed prefix reproduce the stream.
 
     The rows live in the pool's per-layer cache list; this class knows
-    which layers hold state (``model.STATE_KINDS``).  A Mamba block's init
-    state is zeros (``ssm.mamba_cache_init``)."""
+    which layers hold state (``model.STATE_KINDS``) and keeps one init row
+    of each, the block's own (``LM.state_init``, the reference's
+    ``block_cache_init(cfg, kind, 1, 0, dt)``): zeros for Mamba, and for
+    the xLSTM zeros but the stabiliser ``m`` at -1e30 — a zeroed ``m``
+    would move the first step's ``max(logf + m, logi)`` and with it the
+    stream."""
 
     def __init__(self, model, kv: List[Dict[str, torch.Tensor]]):
         self.entries = [layer for layer, kind in zip(kv, model.kinds)
                         if kind in model.STATE_KINDS]
+        self.init_rows = [model.state_init(kind, 1, model.dtype)
+                          for kind in model.kinds
+                          if kind in model.STATE_KINDS]
 
     @property
     def has_state(self) -> bool:
@@ -678,6 +685,6 @@ class StatePool:
     def reset_slot(self, slot: int) -> None:
         """Overwrite slot ``slot``'s state rows with the init state, in
         place (the engine's cache tensors stay the same objects)."""
-        for layer in self.entries:
-            for t in layer.values():
-                t[slot].zero_()
+        for layer, rows in zip(self.entries, self.init_rows):
+            for key, t in layer.items():
+                t[slot].copy_(rows[key][0])

@@ -10,7 +10,7 @@ same model code serves dense or sparse weights.
 from __future__ import annotations
 
 import re
-from typing import Any, Sequence
+from typing import Any, Sequence, Tuple
 
 import torch
 
@@ -21,6 +21,13 @@ DEFAULT_SPARSE_PATTERNS = (
     r"(mlp|moe/shared)/(wi|wg|wo)$",
     r"attn/(wq|wk|wv|wo)$",
 )
+
+
+def linear_patterns(linears: Sequence[Tuple[str, str]]) -> Tuple[str, ...]:
+    """Packing patterns for (sub, key) linears, such as a recurrent
+    model's ``LM.block_linears()``, which the defaults leave dense (as the
+    reference's do): ``("mlstm", "wq")`` → ``mlstm/wq$``."""
+    return tuple(rf"{sub}/{key}$" for sub, key in linears)
 
 
 def is_24_sparse(w: torch.Tensor) -> bool:

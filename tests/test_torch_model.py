@@ -48,7 +48,7 @@ def test_arch_config_matches_reference(arch):
         assert port.hd == ref.hd and port.n_periods == ref.n_periods
     assert configs.canonical("qwen1.5-0.5b") == "qwen1_5_0_5b"
     with pytest.raises(KeyError):
-        configs.canonical("xlstm-350m")
+        configs.canonical("paligemma-3b")
 
 
 def test_sparsity_spec_matches_reference():
@@ -226,7 +226,7 @@ def test_load_pytree_reads_reference_checkpoint(tmp_path, dtype):
 def test_lm_refuses_unported_families():
     with pytest.raises(ValueError, match="ROADMAP"):
         LM(configs.get_smoke("qwen1_5_0_5b").__class__(
-            name="xlstm", family="ssm", num_layers=2, d_model=32,
-            num_heads=2, num_kv_heads=2, d_ff=0, vocab_size=64,
-            period=("mlstm",)),
+            name="encdec", family="audio", num_layers=2, d_model=32,
+            num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64,
+            period=("dec_attn",), encdec=True, enc_layers=2),
            device="cpu")
