@@ -13,8 +13,10 @@ supervisor, injected faults, the CLI's server), and serve and prune
 gemma-2b, Qwen3-14B and Gemma3-12B at full width (head dim 256, qk-norm,
 sliding-window layers), and the Mixture-of-Experts models — phi3.5-moe,
 kimi-k2 and Jamba with its experts — served static at full width, phi3.5
-pruned — and the xLSTM: xlstm-350m served 2:4-packed, pruned and trained
-at full width.
+pruned — the xLSTM: xlstm-350m served 2:4-packed, pruned and trained
+at full width — and the prefix-LM and the encoder-decoder: paligemma-3b
+and seamless-m4t-large-v2 served static 2:4-packed and pruned at full
+width.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
     python3 chip_smoke.py --phases 1,12   # phase 1's hd-256 / window /
@@ -26,6 +28,10 @@ at full width.
                                           # 1m: the MoE widths' rows
     python3 chip_smoke.py --phases 1x,14  # the xLSTM widths' rows and
                                           # phase 14 (or 14a ... 14d)
+    python3 chip_smoke.py --phases 1e,15  # flash_attn with a prefix and
+                                          # S != T, the frontend models'
+                                          # widths, and phase 15 (or 15a
+                                          # ... 15d)
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
@@ -64,7 +70,15 @@ Phases (any failure exits non-zero; no exception is swallowed):
      with no host sync), an all-zero w, f32 and ragged rows; and
      nm_spmm_decode (M 8) / nm_spmm (M 256) at xlstm-350m's packed
      widths (K 1024 -> N 2048, 2048 -> 1024, 1024 -> 1024) beside
-     torch.matmul, hessian_accum at m 2048.  Every
+     torch.matmul, hessian_accum at m 2048; flash_attn with the
+     prefix-LM's bidirectional prefix (prefix_len 1, 63, 64, 65, 256 and
+     320 at PaliGemma's (8, 320, 8, 1, 256), and at hd 64 with G 1 and 2)
+     and non-causal with S != T ((T, S) = (1, 1024), (64, 1024), (200,
+     129), (1024, 1024) at seamless's 16 / 16 heads, hd 64), f32 and bf16,
+     the bf16 rows at the two models' shapes timed beside masked SDPA;
+     nm_spmm_decode / nm_spmm at PaliGemma's mlp.wo (K 16384; M 8 and
+     the 8 x 320 prefill) and seamless's mlp.wi and xattn.wk (M 8 and the
+     8 x 1024 frames) beside torch.matmul.  Every
      nm_spmm, nm_spmm_decode and hessian_accum row asserts its route
      (``last_kernel``: tensor cores for bf16, f32 FMA for f32 and for
      rows off 16 bytes) and the same bits from a second call; hessian_accum
@@ -228,7 +242,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
      every serving kernel launched, the pools' invariants, tok/s, HBM and
      a profiled run's idle share; 12c each pruned MS 2:4 through the
      launcher's default (pipelined) engine on 128 x 2048 random tokens at
-     DENSE_PRUNE_LAYERS (gemma-2b 6 layers, Qwen3-14B 2, Gemma3-12B one
+     DENSE_PRUNE_LAYERS (gemma-2b 2 layers, Qwen3-14B 2, Gemma3-12B one
      period, its calibration in DENSE_CALIB_SHARDS = 4 shards, which HBM
      forces): hessian_accum 7 and flash_attn 2 launches a layer and
      shard, nm_select 7 a layer, at most 1 host sync, finite perplexity,
@@ -274,11 +288,33 @@ Phases (any failure exits non-zero; no exception is swallowed):
      128 x 2048 random ids in XLSTM_CALIB_SHARDS shards (hessian_accum 99 a
      shard, nm_select 99, ≤ 1 host sync, every linear 2:4), then three
      trainer steps at 4 x 256 through ``repro_torch.launch.train``.
+ 15. the prefix-LM and the encoder-decoder at full width, bf16, random
+     init, magnitude 2:4 on every attention (self and cross, the
+     encoder's) and MLP linear, packed by the engine, served static
+     (continuous asked: ``effective_mode``) with (8, F, fd) stub features
+     from a seeded torch.Generator through ``extra_batch``: 15a
+     paligemma-3b (18 layers; 256 image positions in front of 64-id
+     prompts), 15b seamless-m4t-large-v2 (24 + 24 layers over 1024
+     frames) — phase 3's 8 greedy requests with the kernels and under the
+     plain override, and with other features: the f32 twin's first-step
+     logits within LOGIT_TOL and its streams equal up to near ties (the
+     bf16 partings reported beside it), other features move the logits,
+     the cross K / V written at the prefill alone; tok/s, HBM held, the
+     idle share and kernels a step of a profiled run, flash_attn's
+     launches.  15c PaliGemma (2 of 18 layers) and 15d seamless (2 + 2 of
+     24 + 24: the enc → enc/ln → dec calibration flow, the xattn.wk / wv
+     Hessians over the encoder's output) pruned MS 2:4 through the
+     launcher's default (pipelined) engine on 128 x 2048 random ids and
+     their features, then the serial engine on the same: launches a
+     segment, ≤ 1 host sync, every linear 2:4, the first segment's masks
+     and errors as phase 5b's rule, seconds a layer, perplexity before
+     and after.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
 shapes — hessian_accum's weighted rows under ``weighted`` — and its
-launches over phases 3-14), the nvidia-smi
+launches over phases 3-15; flash_attn's rows at phase 1e's shapes under
+``frontend``), the nvidia-smi
 line, and last the ``{"ok": true, "device": {...}}`` line.  Longer tables go to
 ``chiprun_out/chip_smoke.txt``.
 """
@@ -355,8 +391,10 @@ DENSE_SERVE_LAYERS = {"qwen3_14b": 10}  # phase 12b: Qwen3-14B cut from 40
                                      # layers to 20 to make room for phase
                                      # 13 inside the time limit, and to 10
                                      # for phase 14
-DENSE_PRUNE_LAYERS = {"gemma_2b": 6,   # phase 12c: gemma-2b 6 of 18 (18
-                      "qwen3_14b": 2,  # until phase 14 came), Qwen3-14B 2
+DENSE_PRUNE_LAYERS = {"gemma_2b": 2,   # phase 12c: gemma-2b 2 of 18 (18
+                      "qwen3_14b": 2,  # until phase 14 came, 6 until phase
+                                     # 15's PaliGemma pruned 2 layers of its
+                                     # backbone's widths), Qwen3-14B 2
                       "gemma3_12b": 6}  # of 40 (4 before), Gemma3-12B one
                                      # period (5 local + 1 global)
 DENSE_CALIB_SHARDS = {"gemma3_12b": 4}  # phase 12c: Gemma3-12B's segment is
@@ -1276,6 +1314,21 @@ class Recorder:
         self.steps.append("prefill")
         return out
 
+    def prefill(self, params, tokens, cache, **kw):
+        """A static bucket's prefill; keeps the bucket's cache, a copy of
+        its cross K / V and the tiled nm_spmm launches so far (phase 15b:
+        the cross K / V are written here and nowhere after)."""
+        from repro_torch.kernels import ops
+
+        out = self.model.prefill(params, tokens, cache, **kw)
+        self.calls.append(out.cpu())
+        self.steps.append("prefill")
+        self.cache = cache
+        self.cross = [(c["xk"].clone(), c["xv"].clone()) for c in cache
+                      if "xk" in c]
+        self.tiled_at_prefill = ops.launch_counts()["nm_spmm"]
+        return out
+
 
 def e2e_f32(arch="qwen1.5-0.5b", layers=2, long_prompt=0, tag="e2e"):
     """The same requests served with the kernels and with the plain
@@ -1482,7 +1535,7 @@ def profile_main(eng, reqs):
         say(f"    {k:60s} {v * 1e3:9.3f} ms  ({v / wall:.3f} of wall)")
     top = sorted(by.items(), key=lambda kv: -kv[1])[:10]
     return dict(wall_s=wall, busy_s=busy, tokens=toks, by_kernel_s=dict(top),
-                paged_attn_launches=len(paged),
+                kernels=len(evs), paged_attn_launches=len(paged),
                 paged_attn_ms=sum(paged) / 1e3)
 
 
@@ -2075,17 +2128,18 @@ def _bf16_ulps(x: float, n: int) -> float:
 
 
 def _first_divergence(model, params, reqs, got, want, tol, label,
-                      ulps=None):
+                      ulps=None, feats=None):
     """Where two greedy streams part: the two tokens' logit gap from a
     full-sequence forward of the shared context; a gap of ``tol`` or
     more fails (not a near tie).  ``ulps``: the tolerance is that many
     bf16 ulps at the two logits' magnitude instead (STATIC_TIE is four
-    at phase 3d's logits, which lie in [2, 4)).  Returns the number of
+    at phase 3d's logits, which lie in [2, 4)).  ``feats``: a frontend
+    model's features, row i for request i.  Returns the number of
     streams that part."""
     import torch
 
     parted = 0
-    for r in reqs:
+    for i, r in enumerate(reqs):
         a, b = want[r.uid], got[r.uid]
         diff = np.nonzero(a != b)[0]
         if len(diff) == 0:
@@ -2094,7 +2148,9 @@ def _first_divergence(model, params, reqs, got, want, tol, label,
         j = int(diff[0])
         ctx = np.concatenate([r.prompt, a[:j]])
         with torch.no_grad():
-            lg = model.forward(params, torch.from_numpy(ctx)[None].cuda())
+            lg = model.forward(params, torch.from_numpy(ctx)[None].cuda(),
+                               frontend_feats=(None if feats is None
+                                               else feats[i:i + 1]))
         la, lb = lg[0, -1, int(a[j])].item(), lg[0, -1, int(b[j])].item()
         gap = abs(la - lb)
         if ulps is not None:
@@ -4882,17 +4938,18 @@ def _upcast(tree):
 
 
 def _bf16_partings(model, params, model32, params32, reqs, got, want,
-                   label):
+                   label, feats=None):
     """Where two bf16 greedy streams part, beside the f32 twin (the same
     weights upcast): the two tokens' gap there and the bf16 forward's
     errors against it, ``|e16(a)| + |e16(b)|`` — how far bf16 rounding
     alone moves the two logits.  Reported, not gated: the f32 twin's
     streams are the gate.  Returns (streams that part, partings whose f32
-    gap is within the bf16 errors)."""
+    gap is within the bf16 errors).  ``feats``: a frontend model's
+    features, row i for request i."""
     import torch
 
     parted = explained = 0
-    for r in reqs:
+    for i, r in enumerate(reqs):
         a, b = want[r.uid], got[r.uid]
         diff = np.nonzero(a != b)[0]
         if len(diff) == 0:
@@ -4900,9 +4957,10 @@ def _bf16_partings(model, params, model32, params32, reqs, got, want,
         parted += 1
         j = int(diff[0])
         ctx = torch.from_numpy(np.concatenate([r.prompt, a[:j]]))[None].cuda()
+        f = None if feats is None else feats[i:i + 1]
         with torch.no_grad():
-            lg = model.forward(params, ctx)[0, -1]
-            lf = model32.forward(params32, ctx)[0, -1]
+            lg = model.forward(params, ctx, frontend_feats=f)[0, -1]
+            lf = model32.forward(params32, ctx, frontend_feats=f)[0, -1]
         ta, tb = int(a[j]), int(b[j])
         gap32 = abs(lf[ta] - lf[tb]).item()
         err = (abs(lg[ta] - lf[ta]) + abs(lg[tb] - lf[tb])).item()
@@ -5267,12 +5325,500 @@ def xlstm_phase(smi, parts="abcd"):
     return serve_counts, prune_counts, out
 
 
+# ----------------------------------------------------------------------
+# phase 15: the prefix-LM and the encoder-decoder — paligemma-3b and
+# seamless-m4t-large-v2
+# ----------------------------------------------------------------------
+FRONTEND_ARCHS = ("paligemma_3b", "seamless_m4t_large_v2")
+PALI_PREFIXES = (1, 63, 64, 65, 256, 320)  # 1e: prefix_len at T 320 (256
+                                     # image + 64 text positions): inside
+                                     # a key tile, on its edges, the image,
+                                     # the whole sequence
+CROSS_SHAPES = ((1, 1024), (64, 1024), (200, 129), (1024, 1024))
+                                     # 1e: non-causal (T, S) at seamless's
+                                     # 16 / 16 heads, hd 64: one decoder
+                                     # token, the 64-token prefill's cross-
+                                     # attention, ragged tiles, the encoder
+FRONTEND_LINEARS = (                 # 1e: (name, M, K, N) at the new widths
+    ("paligemma mlp.wo", 8, 16384, 2048),
+    ("paligemma mlp.wo", 8 * 320, 16384, 2048),
+    ("seamless mlp.wi", 8, 1024, 8192),
+    ("seamless mlp.wi", 8 * 1024, 1024, 8192),
+    ("seamless xattn.wk", 8 * 1024, 1024, 1024),
+)
+FRONTEND_PRUNE = {"paligemma_3b": dict(num_layers=2),  # 15c: 2 of 18
+                  "seamless_m4t_large_v2": dict(num_layers=2,
+                                                enc_layers=2)}
+                                     # 15d: 2 + 2 of 24 + 24
+FRONTEND_FEATS_SEED = 15
+
+
+def _prefix_pairs(t, prefix):
+    """(query, key) pairs a causal attention with a bidirectional prefix
+    computes: query t sees max(t + 1, prefix) keys."""
+    return sum(max(i + 1, prefix) for i in range(t))
+
+
+def check_flash_frontend(gen, rows):
+    """1e: flash_attn with the prefix-LM's bidirectional prefix and with
+    S ≠ T (cross-attention), against flash_attn_plain in f32 and bf16:
+    PALI_PREFIXES at PaliGemma's (8, 320, 8, 1, 256) and at hd 64 with
+    G 1 and 2 (B 2, H 4); CROSS_SHAPES at seamless's 16 / 16 heads, hd
+    64, B 8.  Each row asserts its route and the same bits from a second
+    call; the bf16 rows at PaliGemma's and seamless's shapes are timed
+    beside masked SDPA (the prefix's mask on the efficient backend; k / v
+    expanded to H heads) and the bound over the pairs the mask leaves."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
+
+    cases = [(8, 320, 8, 1, 256, p, None) for p in PALI_PREFIXES]
+    cases += [(2, 320, 4, kv, 64, p, None) for kv in (4, 2)
+              for p in PALI_PREFIXES]
+    cases += [(8, t, 16, 16, 64, None, s) for t, s in CROSS_SHAPES]
+    timed, n0 = [], len(rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        want_route = "f32 FMA" if dtype == torch.float32 else "tensor cores"
+        tol_rel = (KERNEL_TOL_REL if dtype == torch.float32
+                   else BF16_KERNEL_TOL_REL)
+        for b, t, h, kv, hd, prefix, s in cases:
+            q = torch.randn(b, t, h, hd, generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn(b, s or t, kv, hd, generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            causal = s is None
+            args = (q, k, v, causal, None, prefix)
+            got = flash_attn(*args)
+            route = flash_attn.last_kernel
+            same = bool(torch.equal(got, flash_attn(*args)))
+            want = flash_attn_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = tol_rel * max(1.0, want.abs().max().item())
+            shape = (f"B={b} T={t} H={h} KV={kv} hd={hd} {dname} "
+                     + (f"prefix={prefix}" if causal else f"S={s} full"))
+            row = dict(kernel="flash_attn", shape=shape, max_abs_err=err,
+                       tol=tol, ok=err <= tol and route == want_route
+                       and same, route=route, deterministic=same)
+            rows.append(row)
+            del got, want
+            if dtype == torch.bfloat16 and (hd == 256 or not causal):
+                ms = device_ms(flash_attn, [args])
+                plain_ms = device_ms(flash_attn_plain, [args], n=5, reps=3)
+                g = h // kv
+                sdpa = [(q.transpose(1, 2),
+                         k.repeat_interleave(g, dim=2).transpose(1, 2),
+                         v.repeat_interleave(g, dim=2).transpose(1, 2))]
+                if causal:
+                    pos = torch.arange(t, device="cuda")
+                    mask = ((pos[None, :] <= pos[:, None])
+                            | (pos[None, :] < prefix))
+
+                    def lib(a, b_, c, mask=mask):
+                        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                            return F.scaled_dot_product_attention(
+                                a, b_, c, attn_mask=mask)
+                    pairs = _prefix_pairs(t, min(prefix, t))
+                else:
+                    def lib(a, b_, c):
+                        return F.scaled_dot_product_attention(a, b_, c)
+                    pairs = t * s
+                lib_ms = device_ms(lib, sdpa)
+                n_bytes = ((b * t * h * hd + 2 * b * (s or t) * kv * hd) * 2
+                           + b * t * h * hd * 4)
+                b_ms, b_by = bound(n_bytes, 4.0 * b * h * hd * pairs,
+                                   "bfloat16")
+                row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by, pairs=pairs)
+                timed.append(row)
+                say(f"  flash_attn      {shape:46s} ({route}) err {err:.3e} "
+                    f"tol {tol:.3e} {'ok' if row['ok'] else 'FAIL'}  ms "
+                    f"{ms:.5f} plain {plain_ms:.5f} lib {lib_ms:.5f} bound "
+                    f"{b_ms:.5f} ({b_by}, {pairs} pairs a head)")
+                del sdpa
+            else:
+                LOG.append(f"  flash_attn      {shape:46s} err {err:.3e} tol "
+                           f"{tol:.3e} ({route}) same bits {same} "
+                           f"{'ok' if row['ok'] else 'FAIL'}")
+            del q, k, v
+    new = rows[n0:]
+    say(f"  flash_attn      {len(new)} cases with a prefix (1/63/64/65/256/"
+        f"320 at T 320: hd 256 G 8, hd 64 G 1/2) or S != T (non-causal "
+        f"(T, S) {list(CROSS_SHAPES)}), f32 and bf16: "
+        f"{sum(r['ok'] for r in new)} ok, worst err/tol "
+        f"{max(r['max_abs_err'] / r['tol'] for r in new):.3e}")
+    torch.cuda.empty_cache()
+    return timed
+
+
+def check_frontend_widths(gen, rows):
+    """1e: nm_spmm_decode / nm_spmm at FRONTEND_LINEARS (PaliGemma's
+    mlp.wo, K 16384, at decode and the 8 x 320 prefill; seamless's mlp.wi
+    and xattn.wk at decode and over the 8 x 1024 frames) beside
+    torch.matmul."""
+    out = {"nm_spmm_decode": [], "nm_spmm": []}
+    for name, m, k, n in FRONTEND_LINEARS:
+        row = nm_row(gen, m, name, k, n, False, None)
+        rows.append(row)
+        out[row["kernel"]].append(row)
+    return out
+
+
+def _frontend(arch, dtype=None, **cut):
+    """``arch``'s published config (cut where ``cut`` says, in ``dtype``
+    where given) and its model on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+
+    cfg = dataclasses.replace(get_config(arch), **cut,
+                              **({"dtype": dtype} if dtype else {}))
+    return cfg, LM(cfg, device="cuda")
+
+
+def _frontend_feats(cfg, b, seed):
+    """(b, frontend_len, frontend_dim) stub features from a seeded
+    torch.Generator on the card: 0.25 × normals, in bf16, as the
+    reference's pipeline draws them."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return (0.25 * torch.randn(b, cfg.frontend_len, cfg.frontend_dim,
+                               generator=g, device="cuda")
+            ).to(torch.bfloat16)
+
+
+def frontend_serve(arch, smi):
+    """15a / 15b: ``arch`` at full width and depth, bf16, random init from
+    a seeded torch.Generator, magnitude 2:4 on its attention (self and
+    cross, the encoder's too) and MLP linears, packed by the engine,
+    served static (continuous asked): phase 3's 8 greedy requests (64-id
+    prompts, 32 new) with (8, F, fd) features through ``extra_batch`` —
+    with the kernels (timed, then profiled) and under the plain override,
+    and with other features.  Gates: the engine serves static; the f32
+    twin (the same weights upcast) with the kernels against plain —
+    first-step logits within LOGIT_TOL, streams equal except at near
+    ties (LOGIT_TOL); the bf16 partings are reported beside the f32
+    twin (``_bf16_partings``); other features move the first-step logits
+    by more than LOGIT_TOL; flash_attn, nm_spmm and nm_spmm_decode
+    launched; the encoder-decoder's cross K / V written at the prefill
+    and left as they were by the 32 decode steps (no tiled nm_spmm after
+    the prefill)."""
+    import torch
+
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.kernels import ops
+    from repro_torch.optim import tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.sparse import count_packed
+
+    tag = "phase 15a" if arch == "paligemma_3b" else "phase 15b"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    cfg, model = _frontend(arch)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    params = model.init(g)
+    layers = list(params["layers"]) + list(
+        params.get("enc", {}).get("layers", []))
+    prune_linears({"layers": layers}, "2:4",
+                  linears=(("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                           ("attn", "wo"), ("xattn", "wq"), ("xattn", "wk"),
+                           ("xattn", "wv"), ("xattn", "wo"), ("mlp", "wi"),
+                           ("mlp", "wg"), ("mlp", "wo")))
+    del layers
+    feats = _frontend_feats(cfg, 8, FRONTEND_FEATS_SEED)
+    other = _frontend_feats(cfg, 8, FRONTEND_FEATS_SEED + 1)
+    off = model.prefix_len or 0
+    kw = dict(max_batch=8, max_len=off + 64 + 32)
+    eng = ServeEngine(model, params, **kw,
+                      extra_batch={"frontend_feats": feats})
+    del params
+    params = eng.params
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    n_packed = count_packed(params)
+    per_dec = 10 if cfg.encdec else 7
+    want_packed = per_dec * cfg.num_layers + 6 * cfg.enc_layers
+    say(f"  {cfg.name}: {cfg.num_layers} layers"
+        + (f" + {cfg.enc_layers} encoder layers" if cfg.encdec else "")
+        + f", d_model {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} "
+        f"heads, hd {cfg.hd}, frontend {cfg.frontend} ({cfg.frontend_len} x "
+        f"{cfg.frontend_dim}); init + 2:4 + packing "
+        f"{time.monotonic() - t0:.1f} s; params {n_bytes / 2**30:.3f} GiB, "
+        f"{n_packed} packed leaves ({smi})")
+    if n_packed != want_packed:
+        fail(f"{tag}: {n_packed} packed leaves, expected {want_packed}")
+    if eng.mode != "static" or eng.config.mode != "continuous":
+        fail(f"{tag}: served {eng.mode!r} (asked {eng.config.mode!r})")
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=64,
+                                               dtype=np.int32),
+                    max_new_tokens=32) for i in range(8)]
+    out = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()                       # the path starts
+    t1 = time.monotonic()
+    res = eng.generate(reqs)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t1
+    counts = ops.launch_counts()                    # ... and ends
+    _check_streams(tag, reqs, res, cfg.vocab_size)
+    toks = sum(len(r.tokens) for r in res)
+    hbm = torch.cuda.max_memory_allocated()
+    st = dict(eng.stats)
+    bf16 = _streams(res)
+    say(f"  8 requests, static: {toks} tokens in {dt:.3f} s = "
+        f"{toks / dt:.2f} tok/s; host syncs {st['host_syncs']}; launches "
+        f"{counts}; HBM held {hbm / 2**30:.3f} GiB")
+    # the prefill's: every encoder layer, and a decoder block's self- and
+    # cross-attention; the prefix-LM's layers once
+    want_flash = (cfg.enc_layers + 2 * cfg.num_layers if cfg.encdec
+                  else cfg.num_layers)
+    if counts["flash_attn"] != want_flash:
+        fail(f"{tag}: {counts['flash_attn']} flash_attn launches, expected "
+             f"{want_flash} (the prefill's)")
+    for k in ("nm_spmm", "nm_spmm_decode"):
+        if counts[k] <= 0:
+            fail(f"{tag}: kernel {k} was not launched")
+    # the same run again, each step's logits recorded (a host copy a step:
+    # untimed), the bucket's cache kept
+    rec = Recorder(model)
+    recorded = _streams(ServeEngine(rec, params, **kw, extra_batch={
+        "frontend_feats": feats}).generate(reqs))
+    if not _same(recorded, bf16):
+        fail(f"{tag}: the recorded run's streams differ from the timed run's")
+    first = rec.calls[0]
+    if cfg.encdec:
+        kept = all(torch.equal(c["xk"], xk) and torch.equal(c["xv"], xv)
+                   for c, (xk, xv) in zip(
+                       [c for c in rec.cache if "xk" in c], rec.cross))
+        filled = all(xk.abs().amax().item() > 0 for xk, _ in rec.cross)
+        tiled = ops.launch_counts()["nm_spmm"]
+        if not (kept and filled) or tiled != rec.tiled_at_prefill:
+            fail(f"{tag}: the cross K / V were not filled at the prefill "
+                 "alone (changed in decode, left zero, or recomputed)")
+        say(f"  cross K / V: {len(rec.cross)} layers x 2 x "
+            f"{tuple(rec.cross[0][0].shape)} written at the prefill, equal "
+            "after the 32 decode steps; no tiled nm_spmm after the prefill")
+        rec.cache = rec.cross = None
+    # other features move the served logits
+    o_rec = Recorder(model)
+    ServeEngine(o_rec, params, **kw, extra_batch={
+        "frontend_feats": other}).generate(reqs)
+    moved = (o_rec.calls[0] - first).abs().max().item()
+    say(f"  other {cfg.frontend} features: the first-step logits move by "
+        f"{moved:.3e}")
+    if moved <= LOGIT_TOL:
+        fail(f"{tag}: other frontend features moved the logits by "
+             f"{moved:.3e} <= {LOGIT_TOL:g}")
+    # the plain route, bf16
+    p_rec = Recorder(model)
+    with ops.override_dispatch(plain=True):
+        plain = _streams(ServeEngine(p_rec, params, **kw, extra_batch={
+            "frontend_feats": feats}).generate(reqs))
+    bf16_gap = (p_rec.calls[0] - first).abs().max().item()
+    # the f32 twin, kernels against plain: the gate
+    cfg32, model32 = _frontend(arch, "float32")
+    params32 = _upcast(params)
+    twin = {}
+    for label in ("kernels", "plain"):
+        r32 = Recorder(model32)
+        e32 = ServeEngine(r32, params32, **kw, extra_batch={
+            "frontend_feats": feats})
+        with ops.override_dispatch(plain=label == "plain"):
+            twin[label] = (_streams(e32.generate(reqs)), r32.calls[0])
+    gap32 = (twin["kernels"][1] - twin["plain"][1]).abs().max().item()
+    say(f"  first-step logits, kernels against plain: f32 twin {gap32:.3e} "
+        f"(tol {LOGIT_TOL:g}), bf16 {bf16_gap:.3e} (reported) at logits of "
+        f"{first.abs().max().item():.3g}")
+    if gap32 > LOGIT_TOL:
+        fail(f"{tag}: f32 first-step logits differ by {gap32:.3e}")
+    parted32 = _first_divergence(model32, params32, reqs, twin["plain"][0],
+                                 twin["kernels"][0], LOGIT_TOL,
+                                 f"{tag} f32 kernels vs plain", feats=feats)
+    parted, explained = _bf16_partings(
+        model, params, model32, params32, reqs, plain, bf16,
+        f"{tag} bf16 kernels vs plain", feats=feats)
+    say(f"  kernels vs plain: f32 {len(reqs) - parted32}/{len(reqs)} streams "
+        f"equal (the rest part at near ties); bf16 {len(reqs) - parted}/"
+        f"{len(reqs)}, {explained} of the {parted} partings within the bf16 "
+        "forward's own error")
+    del params32, model32, twin
+    torch.cuda.empty_cache()
+    say("  the profiled run: the 8 requests, static")
+    prof = profile_main(eng, reqs)
+    out.update(tok_s=toks / dt, wall_s=dt, stats=st, hbm_gib=hbm / 2**30,
+               params_gib=n_bytes / 2**30, packed=n_packed, launches=counts,
+               flash_launches=counts["flash_attn"], moved=moved,
+               first_gap_f32=gap32, first_gap_bf16=bf16_gap,
+               parted_f32=parted32, parted_bf16=parted, explained=explained,
+               profile=prof, idle=1 - prof["busy_s"] / prof["wall_s"],
+               kernels_a_step=prof["kernels"] / max(1, st["device_steps"]))
+    del eng, rec, o_rec, p_rec, params, model
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def frontend_prune(arch, smi):
+    """15c / 15d: ``launch.prune.prune`` with the launcher's default
+    engine (pipelined), MS 2:4 at blocksize 128, on ``arch`` at full width
+    cut to FRONTEND_PRUNE's depth, 128 x 2048 random ids and their
+    frontend features from ``load_tokens``'s generator (PaliGemma's text
+    1792 ids after its 256 image positions; seamless's 2048 ids over 1024
+    frames); then the serial engine on the same calibration.  Gates: the
+    pipelined run's launches a segment (hessian_accum one a linear,
+    nm_select one a linear, flash_attn 2 an encoder or prefix-LM layer and
+    4 a decoder layer: capture and propagate), at most 1 host sync, every
+    linear 2:4 at sparsity 0.5; against the serial run: the first
+    segment's masks MASK_AGREE_MIN equal and every linear's
+    reconstruction error within LAYER_ERR_REL, the total within
+    PIPE_TOTAL_ERR_REL.  Seconds a layer, HBM, perplexity before and
+    after on 4 x 512 random ids (a prefix-LM's 256 image positions
+    among them)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prune as launch_prune
+    from repro_torch.serve.sparse import is_24_sparse
+
+    tag = "phase 15c" if arch == "paligemma_3b" else "phase 15d"
+    cut = FRONTEND_PRUNE[arch]
+    cfg, model = _frontend(arch, **cut)
+    params = launch_prune.load_params(model, None, seed=0)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0, cfg=cfg)
+    ev, _ = launch_prune.load_tokens(None, cfg.vocab_size, 4, 512, "cuda",
+                                     seed=2, cfg=cfg)
+    dense_ppl = launch_prune.eval_ppl(model, params, ev)
+    pipeline = launch_prune.build_parser().get_default("pipeline")
+    segs = model.prunable_segments()
+    n_lin = sum(len(s.linears) for s in segs)
+    syncs = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()                       # the prune path starts
+    t0 = time.monotonic()
+    with count_syncs(syncs):
+        pruned, reports = launch_prune.prune(
+            model, params, calib, "2:4", "MS", blocksize=128,
+            row_chunk=PRUNE_ROW_CHUNK, pipeline=pipeline)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()                    # ... and ends
+    hbm = torch.cuda.max_memory_allocated()
+    n_seg = len(segs)
+    say(f"  {cfg.name}, {n_seg} segments ({[s.name for s in segs]}), MS 2:4 "
+        f"({pipeline}): {wall:.2f} s ({wall / n_seg:.3f} s a layer); HBM "
+        f"held {hbm / 2**30:.3f} GiB; host syncs {syncs['n']} from "
+        f"{syncs['where']}; launches {counts} ({smi})")
+    n_dec = cfg.num_layers if cfg.encdec else 0
+    want = {"hessian_accum": n_lin, "nm_select": n_lin,
+            "flash_attn": 2 * n_seg + 2 * n_dec}
+    for k, n in want.items():
+        if counts[k] != n:
+            fail(f"{tag}: {counts[k]} {k} launches, expected {n}")
+    if syncs["n"] > 1:
+        fail(f"{tag}: {syncs['n']} host syncs in the pipelined run "
+             "(expected the final readback only)")
+    off = [r.name for r in reports if abs(r.sparsity - 0.5) > 1e-6]
+    if len(reports) != n_lin or off:
+        fail(f"{tag}: {len(reports)} reports of {n_lin}; sparsity other "
+             f"than 0.5 for {off[:4]}")
+    specs = [(f"{s.name}.{lin.name}", s, lin) for s in segs
+             for lin in s.linears]
+    bad = [n for n, s, lin in specs
+           if not is_24_sparse(lin.get(s.get_params(pruned)).T)]
+    if bad:
+        fail(f"{tag}: not 2:4 after MS: {bad[:4]}")
+    pruned_ppl = launch_prune.eval_ppl(model, pruned, ev)
+    t1 = time.monotonic()
+    serial, s_reports = launch_prune.prune(
+        model, params, calib, "2:4", "MS", blocksize=128,
+        row_chunk=PRUNE_ROW_CHUNK, pipeline="off")
+    torch.cuda.synchronize()
+    s_wall = time.monotonic() - t1
+    first = segs[0].name
+    agree, worst_first = {}, 0.0
+    for (name, s, lin), rp, rs in zip(specs, reports, s_reports):
+        a = lin.get(s.get_params(pruned)) == 0
+        b = lin.get(s.get_params(serial)) == 0
+        agree[name] = (a == b).float().mean().item()
+        rel = abs(rp.recon_error - rs.recon_error) / max(rs.recon_error,
+                                                         1e-30)
+        if name.startswith(first + "."):
+            worst_first = max(worst_first, rel)
+            if agree[name] < MASK_AGREE_MIN or rel > LAYER_ERR_REL:
+                fail(f"{tag}: {name}: masks {agree[name]:.5f} equal, "
+                     f"reconstruction error {rel:.3e} apart (pipelined "
+                     "against serial)")
+    tot_p = sum(r.recon_error for r in reports)
+    tot_s = sum(r.recon_error for r in s_reports)
+    tot_rel = abs(tot_p - tot_s) / max(tot_s, 1e-30)
+    say(f"  serial engine: {s_wall:.2f} s ({s_wall / n_seg:.3f} s a layer); "
+        f"pipelined against serial: {first}'s masks "
+        f"{min(v for k, v in agree.items() if k.startswith(first + '.')):.5f}"
+        f"+ equal, errors within {worst_first:.3e}; all masks "
+        f"{min(agree.values()):.5f}+; total reconstruction error "
+        f"{tot_p:.6g} against {tot_s:.6g} ({tot_rel:.3e} apart)")
+    if tot_rel > PIPE_TOTAL_ERR_REL:
+        fail(f"{tag}: total reconstruction errors {tot_rel:.3e} apart")
+    say(f"  perplexity on 4 x 512 random ids: dense {dense_ppl:.2f}, MS "
+        f"2:4 {pruned_ppl:.2f} (random weights: no gate)")
+    if not (math.isfinite(dense_ppl) and math.isfinite(pruned_ppl)):
+        fail(f"{tag}: non-finite perplexity")
+    out = dict(segments=n_seg, wall_s=wall, s_per_layer=wall / n_seg,
+               serial_wall_s=s_wall, hbm_gib=hbm / 2**30, syncs=syncs["n"],
+               launches=counts, dense_ppl=dense_ppl, pruned_ppl=pruned_ppl,
+               mask_agree_min=min(agree.values()), total_recon_rel=tot_rel)
+    del pruned, serial, params, model, calib
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def frontend_phase(smi, parts="abcd"):
+    """Phase 15 (those of ``parts``): returns the launches of the serving
+    and pruning runs and the phase's numbers."""
+    import torch
+
+    out = {}
+    serve_counts = {k: 0 for k in (*SERVE_KERNELS, "flash_attn")}
+    prune_counts = {k: 0 for k in PRUNE_KERNELS}
+    for part, arch in zip("ab", FRONTEND_ARCHS):
+        if part not in parts:
+            continue
+        t = time.monotonic()
+        say(f"  15{part}: {arch} served static at full width and depth, "
+            "bf16, 2:4-packed")
+        c, out[f"serve {arch}"] = frontend_serve(arch, smi)
+        for k in serve_counts:
+            serve_counts[k] += c[k]
+        say(f"  15{part} took {time.monotonic() - t:.1f} s")
+        torch.cuda.empty_cache()
+    for part, arch in zip("cd", FRONTEND_ARCHS):
+        if part not in parts:
+            continue
+        t = time.monotonic()
+        say(f"  15{part}: {arch} pruned MS 2:4, pipelined against serial")
+        c, out[f"prune {arch}"] = frontend_prune(arch, smi)
+        for k in prune_counts:
+            prune_counts[k] += c[k]
+        say(f"  15{part} took {time.monotonic() - t:.1f} s")
+        torch.cuda.empty_cache()
+    return serve_counts, prune_counts, out
+
+
 def partial_run(only, gen, rows, t_start) -> int:
     """``--phases``: phase 1's rows of PR 21 (hd 256, the window, the new
     widths) with the MoE widths' and the weighted hessian_accum's ("1"),
-    those alone ("1m", "1w"), the xLSTM widths' rows ("1x"), phases 12,
-    13 and/or 14 (or parts of them), then a summary line; no result
-    lines."""
+    those alone ("1m", "1w"), the xLSTM widths' rows ("1x"), the
+    frontend models' rows ("1e": flash_attn with a prefix and S != T, the
+    new widths), phases 12, 13, 14 and/or 15 (or parts of them), then a
+    summary line; no result lines."""
     import torch
 
     out = {}
@@ -5312,6 +5858,18 @@ def partial_run(only, gen, rows, t_start) -> int:
         say(f"phase 14 (partial: {parts}; {smi})")
         out["serve_14"], out["prune_14"], out["xlstm"] = xlstm_phase(
             smi, parts)
+    if "1e" in only:
+        say(f"phase 1 (partial): flash_attn with a prefix and with S != T; "
+            f"nm_spmm at the frontend models' widths ({smi})")
+        out["flash_frontend"] = check_flash_frontend(gen, rows)
+        out["frontend_widths"] = check_frontend_widths(gen, rows)
+        torch.cuda.empty_cache()
+    parts = "abcd" if "15" in only else "".join(
+        p[2] for p in sorted(only) if p.startswith("15") and len(p) == 3)
+    if parts:
+        say(f"phase 15 (partial: {parts}; {smi})")
+        out["serve_15"], out["prune_15"], out["frontend"] = frontend_phase(
+            smi, parts)
     bad = [r for r in rows if not r["ok"]]
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke_partial.txt", "w") as f:
@@ -5335,11 +5893,13 @@ def main(argv) -> int:
     only = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         only = set(argv[1].split(","))
-        if not only <= {"1", "1m", "1w", "1x", "12", "12a", "12b", "12c",
-                        "12d", "13", "13a", "13b", "13c", "14", "14a", "14b",
-                        "14c", "14d"}:
-            print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 12, 12a-12d, "
-                  "13, 13a-13c, 14 and 14a-14d", file=sys.stderr)
+        if not only <= {"1", "1m", "1w", "1x", "1e", "12", "12a", "12b",
+                        "12c", "12d", "13", "13a", "13b", "13c", "14", "14a",
+                        "14b", "14c", "14d", "15", "15a", "15b", "15c",
+                        "15d"}:
+            print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 1e, 12, "
+                  "12a-12d, 13, 13a-13c, 14, 14a-14d, 15 and 15a-15d",
+                  file=sys.stderr)
             return 2
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -5394,6 +5954,8 @@ def main(argv) -> int:
     dense_rows = check_dense_widths(gen, rows)
     moe_rows = check_moe_widths(gen, rows)
     xlstm_rows = check_xlstm_widths(gen, rows)
+    flash_frontend = check_flash_frontend(gen, rows)
+    frontend_rows = check_frontend_widths(gen, rows)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -5517,6 +6079,19 @@ def main(argv) -> int:
         counts[k] += serve_14.get(k, 0) + prune_14.get(k, 0)
     say(f"  phase 14 took {time.monotonic() - t14:.1f} s; launches: serving "
         f"{serve_14}, pruning {prune_14}")
+    torch.cuda.empty_cache()
+
+    head("phase 15: the prefix-LM and the encoder-decoder — paligemma-3b "
+         "(18 layers, 256 image positions as a bidirectional prefix) and "
+         "seamless-m4t-large-v2 (24 encoder + 24 decoder layers over 1024 "
+         "frames) served static 2:4-packed at full width and depth, kernels "
+         f"against plain; pruned MS 2:4, pipelined against serial ({smi})")
+    t15 = time.monotonic()
+    serve_15, prune_15, frontend_out = frontend_phase(smi)
+    for k in counts:
+        counts[k] += serve_15.get(k, 0) + prune_15.get(k, 0)
+    say(f"  phase 15 took {time.monotonic() - t15:.1f} s; launches: serving "
+        f"{serve_15}, pruning {prune_15}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -5567,7 +6142,11 @@ def main(argv) -> int:
             "sum over one 128-column block of each of the 7 linears, bf16 w"),
         agg("flash_attn", flash_rows[1:],
             "B=128 T=2048 H=16 KV=16 hd=64 bf16 causal (the stacked "
-            "capture); plain over 16 slices of B=8"),
+            "capture); plain over 16 slices of B=8; the prefix-LM's and "
+            "the cross-attention's shapes under 'frontend'",
+            frontend={r["shape"]: {k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "route")} for r in flash_frontend}),
     ]
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.txt", "w") as f:
@@ -5583,6 +6162,9 @@ def main(argv) -> int:
                             "dense_widths": dense_rows,
                             "moe_widths": moe_rows,
                             "xlstm_widths": xlstm_rows, "xlstm": xlstm_out,
+                            "flash_frontend": flash_frontend,
+                            "frontend_widths": frontend_rows,
+                            "frontend": frontend_out,
                             "dense_variants": dense,
                             "hessian_weighted": hess_w_rows, "moe": moe_out},
                            default=str) + "\n")

@@ -1,12 +1,15 @@
 """Ported architectures: ``get_config(id)`` / ``get_smoke(id)``.
 
-The dense decoders — Qwen1.5-0.5B, gemma-2b (head dim 256), Qwen3-14B
-(qk-norm) and Gemma3-12B (qk-norm, five sliding-window layers to one
-global) — the MoE decoders phi3.5-moe (16 experts, top-2) and kimi-k2
-(384 experts, top-8, one shared expert), the tiny Mamba twin
-(``paper_tiny_lm.MAMBA``), Jamba's hybrid with its 16 experts and the
-xLSTM (xlstm-350m: seven mLSTM blocks to one sLSTM) — ROADMAP.md lists
-the other families.  Ids and aliases as the reference's registry.
+Every architecture of the reference's registry: the dense decoders —
+Qwen1.5-0.5B, gemma-2b (head dim 256), Qwen3-14B (qk-norm) and
+Gemma3-12B (qk-norm, five sliding-window layers to one global) — the
+prefix-LM paligemma-3b (gemma-2b's backbone behind a stubbed SigLIP
+patch frontend), the MoE decoders phi3.5-moe (16 experts, top-2) and
+kimi-k2 (384 experts, top-8, one shared expert), Jamba's hybrid with its
+16 experts, the xLSTM (xlstm-350m: seven mLSTM blocks to one sLSTM), the
+encoder-decoder seamless-m4t-large-v2 (a stubbed speech frontend) and
+the paper's tiny LM (with its Mamba twin ``paper_tiny_lm.MAMBA``).  Ids
+and aliases as the reference's registry.
 """
 
 import importlib
@@ -14,8 +17,9 @@ import importlib
 from repro_torch.models.base import ArchConfig
 
 ARCH_IDS = ("qwen3_14b", "gemma3_12b", "qwen1_5_0_5b", "gemma_2b",
-            "kimi_k2_1t_a32b", "phi3_5_moe_42b_a6_6b",
-            "jamba_1_5_large_398b", "xlstm_350m", "paper_tiny_lm")
+            "paligemma_3b", "kimi_k2_1t_a32b", "phi3_5_moe_42b_a6_6b",
+            "jamba_1_5_large_398b", "xlstm_350m", "seamless_m4t_large_v2",
+            "paper_tiny_lm")
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIAS.update({
@@ -23,9 +27,12 @@ _ALIAS.update({
     "gemma3-12b": "gemma3_12b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "gemma-2b": "gemma_2b",
+    "paligemma-3b": "paligemma_3b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b_a6_6b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "xlstm-350m": "xlstm_350m",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 })
 
 
@@ -35,7 +42,7 @@ def canonical(arch_id: str) -> str:
         return key
     if key in _ALIAS:
         return _ALIAS[key]
-    raise KeyError(f"unknown or unported arch {arch_id!r}; ported: "
+    raise KeyError(f"unknown arch {arch_id!r}; known: "
                    f"{sorted(_ALIAS)}")
 
 

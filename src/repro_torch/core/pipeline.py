@@ -43,12 +43,23 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterator, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
 from repro_torch.core.calibration import CalibrationSet
 from repro_torch.obs import Obs
+
+# a calibration state: the hidden, or the encoder-decoder's {"h", "enc"}
+State = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def _stack(states: Sequence[State]) -> State:
+    if isinstance(states[0], dict):
+        return {k: torch.cat([st[k] for st in states]) for k in states[0]}
+    return torch.cat(list(states))
+
 
 @dataclasses.dataclass
 class PipelineStats:
@@ -118,18 +129,20 @@ class SegmentScheduler:
             self._stage_s.labels(stage=stage).inc(t1 - t0)
             self.obs.tracer.complete(f"prune_{stage}", t0, t1, track="prune")
 
-    def shard_states(self, per_batch_states: Sequence[torch.Tensor]
-                     ) -> List[torch.Tensor]:
+    def shard_states(self, per_batch_states: Sequence[State]
+                     ) -> List[State]:
         """Stack per-batch calibration states into per-shard batched
-        states, round-robin (batch i goes to shard i mod n)."""
+        states, round-robin (batch i goes to shard i mod n).  A state is
+        a tensor or a dict of them (the encoder-decoder's ``{"h",
+        "enc"}``), stacked leaf by leaf along the batch dim."""
         states = list(per_batch_states)
         self.stats.batches = len(states)
         n = _resolve_shards(self.calib_shard, len(states))
         self.stats.calib_shards = n
         groups = [states[i::n] for i in range(n)]
-        return [torch.cat(g) if len(g) > 1 else g[0] for g in groups]
+        return [_stack(g) if len(g) > 1 else g[0] for g in groups]
 
-    def capture(self, seg, seg_params, shard_states: List[torch.Tensor]
+    def capture(self, seg, seg_params, shard_states: List[State]
                 ) -> CalibrationSet:
         """Run the calibration through ``seg`` in capture mode, one
         batched apply per shard, and merge the per-shard Hessians."""
@@ -141,13 +154,13 @@ class SegmentScheduler:
                 del caps
             return CalibrationSet.merge_all(sets)
 
-    def propagate(self, seg, seg_params, shard_states: List[torch.Tensor]
-                  ) -> List[torch.Tensor]:
+    def propagate(self, seg, seg_params, shard_states: List[State]
+                  ) -> List[State]:
         """Re-run ``seg`` (pruned weights) over every shard; returns the
         next segment's inputs.  Consumes ``shard_states``: the list is
         emptied as it goes, so each input is freed once its output
         exists."""
-        out: List[torch.Tensor] = []
+        out: List[State] = []
         with self.timed("propagate"):
             while shard_states:
                 st = shard_states.pop(0)

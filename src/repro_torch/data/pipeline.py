@@ -4,7 +4,13 @@ reference's ``repro.data.pipeline``).
 ``DataPipeline.batch_at(step)`` is a pure function of the step index:
 the trainer resumes by continuing its step counter, with no iterator
 state to checkpoint.  One device only — the reference's ``mesh`` is
-refused, as are modality-frontend configs (their archs are not ported).
+refused.
+
+A modality-frontend config's batches carry ``frontend_feats`` (B,
+frontend_len, frontend_dim) bf16, drawn as the reference draws them:
+``0.25 · normal(fold_in(batch_key(stream, step), 987))`` in f32, then
+cast; the prefix-LM's text is ``seq_len − frontend_len`` tokens, so
+that a sequence is ``seq_len`` positions.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch import random as rnd
 from repro_torch.data.synthetic import (STREAM_CALIB, STREAM_EVAL,
                                         STREAM_TRAIN, MarkovCorpus)
 from repro_torch.models.base import ArchConfig
@@ -26,18 +33,24 @@ class DataPipeline:
         if mesh is not None:
             raise ValueError("DataPipeline: a mesh is not ported yet "
                              "(ROADMAP.md, Queue 1: distribution)")
-        if getattr(cfg, "frontend", None) is not None:
-            raise ValueError(f"{cfg.name}: frontend configs are not ported "
-                             "yet (ROADMAP.md, Queue 1: other families)")
         self.cfg = cfg
         self.global_batch = global_batch
         self.seq_len = seq_len
         self.corpus = MarkovCorpus(cfg.vocab_size, seed=seed, device=device)
 
     def _make(self, stream: int, step: int) -> Batch:
-        toks = self.corpus.batch_at(stream, step, self.global_batch,
-                                    self.seq_len)
-        return {"tokens": toks, "labels": toks}
+        cfg = self.cfg
+        t_text = self.seq_len
+        if cfg.frontend is not None and not cfg.encdec:
+            t_text = self.seq_len - cfg.frontend_len
+        toks = self.corpus.batch_at(stream, step, self.global_batch, t_text)
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.frontend is not None:
+            fkey = rnd.fold_in(self.corpus.batch_key(stream, step), 987)
+            batch["frontend_feats"] = (0.25 * rnd.normal(
+                fkey, (self.global_batch, cfg.frontend_len,
+                       cfg.frontend_dim))).to(torch.bfloat16)
+        return batch
 
     def batch_at(self, step: int) -> Batch:
         return self._make(STREAM_TRAIN, step)

@@ -56,8 +56,8 @@ SIGNATURES = {
     "hessian_accum_weighted_launch": (_P, _I, _I, _I, _P, _P, _I, _I, _P,
                                       _I, _P, _P),
     "nm_select_launch": (_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P),
-    "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _PI64, _I, _I,
-                          _I, ctypes.POINTER(_I), _P),
+    "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _PI64, _I,
+                          _I, _I, _I, ctypes.POINTER(_I), _P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

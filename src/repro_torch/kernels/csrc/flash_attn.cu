@@ -5,11 +5,15 @@
 // output, never materialising the (T, T) score matrix, optionally over a
 // sliding window (causal only: query t sees keys s with t - window < s <=
 // t, the reference's causal_mask, which its model computes in jnp for
-// attn_local layers).  Here it reads the model's own layouts through
-// strides: q (B, T, H, hd) and k, v
-// (B, T, KV, hd) with head h reading kv head h / (H / KV) (grouped-query
-// attention), the last dimension contiguous; the (BH, T, D) signature of
-// the TPU kernel is the case H = KV = 1.  The output is (B, T, H, hd) f32,
+// attn_local layers), or with a bidirectional prefix (causal only: every
+// query also sees the keys s < prefix, the reference's causal_mask(
+// prefix_len=) of the prefix-LM, whose image positions see each other).
+// Here it reads the model's own layouts through strides: q (B, T, H, hd)
+// and k, v (B, S, KV, hd) with head h reading kv head h / (H / KV)
+// (grouped-query attention), the last dimension contiguous; S = T when
+// causal, any S otherwise (an encoder-decoder's cross-attention: T decoder
+// queries over S encoder keys).  The (BH, T, D) signature of the TPU
+// kernel is the case H = KV = 1, S = T.  The output is (B, T, H, hd) f32,
 // contiguous, so the caller's reshape to (B, T, H * hd) is free.
 //
 // What bounds it on this card: a causal call does 2 B H T^2 hd flops
@@ -32,7 +36,12 @@
 // band's lower edge as the causal mask does its upper edge; a row always
 // sees its own key, and a tile wholly masked for a row leaves its m, l
 // and O as they were (exp2 of -inf is 0, and -inf - -inf never arises).
-// The ragged last query and kv tiles are masked, never padded.  No
+// A prefix extends a causal block's loop to the prefix's last key when
+// that lies past its diagonal, starts a windowed loop at key 0, and keeps
+// the prefix's keys live in every skip and mask test (a tile wholly inside
+// the prefix needs no mask); no row is ever fully masked then.  The query
+// and key lengths are separate throughout, so a non-causal call takes any
+// S.  The ragged last query and kv tiles are masked, never padded.  No
 // atomics: the same inputs give the same bits.  Offsets are 64-bit: a
 // stacked calibration q holds 268 M elements.
 //
@@ -91,11 +100,11 @@ template <typename T, int HDP, int BK>
 __global__ void __launch_bounds__(BQ * (HDP / DPT))
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, float* __restrict__ out,
-                      int n_tok, int n_head, int group, int hd,
+                      int n_tok, int n_key, int n_head, int group, int hd,
                       int64_t q_sb, int64_t q_st, int64_t q_sh,
                       int64_t k_sb, int64_t k_st, int64_t k_sh,
                       int64_t v_sb, int64_t v_st, int64_t v_sh,
-                      int causal, int window, float qscale) {
+                      int causal, int window, int prefix, float qscale) {
   constexpr int TPR = HDP / DPT;       // threads per query row
   constexpr int NT = BQ * TPR;
   constexpr int NC = DPT / 4;          // float4 chunks per thread
@@ -123,14 +132,17 @@ __global__ void __launch_bounds__(BQ * (HDP / DPT))
 
   const T* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
   const T* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
-  const int k_end = causal ? min(n_tok, q0 + BQ) : n_tok;
+  // a causal block ends at its last row's key, or past the prefix
+  const int k_end = causal ? min(n_key, max(q0 + BQ, prefix)) : n_key;
   // a window's band: the block's first row sees keys from q0 - window + 1
-  const int k_beg = window ? max(0, q0 - window + 1) / BK * BK : 0;
+  // (and every row the prefix's keys from 0)
+  const int k_beg =
+      window && !prefix ? max(0, q0 - window + 1) / BK * BK : 0;
   for (int k0 = k_beg; k0 < k_end; k0 += BK) {
     // stage the tile as f32; neighbouring threads read neighbouring dims
     for (int i = threadIdx.x; i < BK * HDP; i += NT) {
       const int j = i / HDP, d = i % HDP, key = k0 + j;
-      const bool ok = key < n_tok && d < hd;
+      const bool ok = key < n_key && d < hd;
       ks[j][d] = ok ? to_f(kb[(int64_t)key * k_st + d]) : 0.f;
       vs[j][d] = ok ? to_f(vb[(int64_t)key * v_st + d]) : 0.f;
     }
@@ -154,8 +166,9 @@ __global__ void __launch_bounds__(BQ * (HDP / DPT))
       for (int off = 1; off < TPR; off <<= 1)
         a += __shfl_xor_sync(0xffffffffu, a, off);
       const int key = k0 + j;
-      const bool live = key < n_tok && (!causal || key <= qi) &&
-                        (!window || key > qi - window);
+      const bool live =
+          key < n_key && (key < prefix || ((!causal || key <= qi) &&
+                                           (!window || key > qi - window)));
       s[j] = live ? a : -CUDART_INF_F;
       tile_max = fmaxf(tile_max, s[j]);
     }
@@ -273,11 +286,12 @@ __global__ void __launch_bounds__(MMA_NT, HD >= 128 ? 1 : 2)
     flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          float* __restrict__ out, int n_tok, int n_head,
-                          int group, int64_t q_sb, int64_t q_st, int64_t q_sh,
+                          float* __restrict__ out, int n_tok, int n_key,
+                          int n_head, int group, int64_t q_sb, int64_t q_st,
+                          int64_t q_sh,
                           int64_t k_sb, int64_t k_st, int64_t k_sh,
                           int64_t v_sb, int64_t v_st, int64_t v_sh,
-                          int causal, int window, float sscale) {
+                          int causal, int window, int prefix, float sscale) {
   using Tile = MmaTile<HD>;
   constexpr int BK = Tile::BK, LD = Tile::LD, STAGES = Tile::STAGES;
   constexpr int KS = HD / 16;     // k-steps of QK^T
@@ -299,10 +313,10 @@ __global__ void __launch_bounds__(MMA_NT, HD >= 128 ? 1 : 2)
 
   const __nv_bfloat16* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
   const __nv_bfloat16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
-  const int k_end = causal ? min(n_tok, q0 + MMA_BQ) : n_tok;
+  const int k_end = causal ? min(n_key, max(q0 + MMA_BQ, prefix)) : n_key;
   const int n_tiles = (k_end + BK - 1) / BK;
   // a window's band: the block's first row sees keys from q0 - window + 1
-  const int j_beg = window ? max(0, q0 - window + 1) / BK : 0;
+  const int j_beg = window && !prefix ? max(0, q0 - window + 1) / BK : 0;
 
   // tile j -> ring slot: 16-byte copies, keys past T zero-filled
   auto load = [&](int j, int slot) {
@@ -311,7 +325,7 @@ __global__ void __launch_bounds__(MMA_NT, HD >= 128 ? 1 : 2)
 #pragma unroll
     for (int i = threadIdx.x; i < BK * CH; i += MMA_NT) {
       const int r = i / CH, c = (i % CH) * 8, key = j * BK + r;
-      const bool ok = key < n_tok;
+      const bool ok = key < n_key;
       cp16(ks + r * LD + c, ok ? kb + (int64_t)key * k_st + c : kb,
            ok ? 16 : 0);
       cp16(vs + r * LD + c, ok ? vb + (int64_t)key * v_st + c : vb,
@@ -374,9 +388,10 @@ __global__ void __launch_bounds__(MMA_NT, HD >= 128 ? 1 : 2)
     cp_commit();
     const int k0 = j * BK;
     // a warp whose rows all lie past T, all precede the tile's keys, or
-    // all see the window end before the tile starts
-    if (w0 >= n_tok || (causal && k0 > w0 + 15) ||
-        (window && k0 + BK - 1 <= w0 - window))
+    // all see the window end before the tile starts (no prefix key in it)
+    if (w0 >= n_tok ||
+        (k0 >= prefix && ((causal && k0 > w0 + 15) ||
+                          (window && k0 + BK - 1 <= w0 - window))))
       continue;
     const __nv_bfloat16* ks = smem + 2 * (it % STAGES) * Tile::TILE;
     const __nv_bfloat16* vs = ks + Tile::TILE;
@@ -435,19 +450,22 @@ __global__ void __launch_bounds__(MMA_NT, HD >= 128 ? 1 : 2)
       }
     }
     // raw scores here; the scale joins the exponent below (one fma).  The
-    // mask only where some key of the tile is past T, past one of the
-    // warp's rows, or before one of their windows
-    if (k0 + BK > n_tok || (causal && k0 + BK - 1 > w0) ||
-        (window && k0 <= w0 + 15 - window)) {
+    // mask only where some key of the tile is past S, or lies past the
+    // prefix and past one of the warp's rows or before their windows
+    if (k0 + BK > n_key ||
+        (k0 + BK > prefix && ((causal && k0 + BK - 1 > w0) ||
+                              (window && k0 <= w0 + 15 - window)))) {
 #pragma unroll
       for (int nt = 0; nt < NKT; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + nt * 8 + tig * 2 + e;
-          const bool in = key < n_tok;
-          if (!in || (causal && key > r0) || (window && key <= r0 - window))
+          const bool in = key < n_key, pre = key < prefix;
+          if (!in || (!pre && ((causal && key > r0) ||
+                               (window && key <= r0 - window))))
             s[nt][e] = -CUDART_INF_F;
-          if (!in || (causal && key > r1) || (window && key <= r1 - window))
+          if (!in || (!pre && ((causal && key > r1) ||
+                               (window && key <= r1 - window))))
             s[nt][2 + e] = -CUDART_INF_F;
         }
     }
@@ -540,9 +558,9 @@ __global__ void __launch_bounds__(MMA_NT, HD >= 128 ? 1 : 2)
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       float* out, int n_b, int n_tok, int n_head, int n_kv,
-                       const int64_t* st, int causal, int window,
-                       cudaStream_t s) {
+                       float* out, int n_b, int n_tok, int n_key, int n_head,
+                       int n_kv, const int64_t* st, int causal, int window,
+                       int prefix, cudaStream_t s) {
   constexpr int smem = MmaTile<HD>::SMEM;
   // the shared-memory limit, raised once per device (setting it on every
   // launch would stall the stream)
@@ -563,9 +581,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   flash_attn_mma_kernel<HD><<<grid, MMA_NT, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), out, n_tok, n_head,
+      static_cast<const __nv_bfloat16*>(v), out, n_tok, n_key, n_head,
       n_head / n_kv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], causal, window, sscale);
+      st[8], causal, window, prefix, sscale);
   return cudaGetLastError();
 }
 
@@ -651,11 +669,11 @@ __global__ void __launch_bounds__(MMA_NT, 2)
     flash_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            float* __restrict__ out, int n_tok, int n_head,
-                            int group, int64_t q_sb, int64_t q_st,
+                            float* __restrict__ out, int n_tok, int n_key,
+                            int n_head, int group, int64_t q_sb, int64_t q_st,
                             int64_t q_sh, int64_t k_sb, int64_t k_st,
                             int64_t k_sh, int64_t v_sb, int64_t v_st,
-                            int64_t v_sh, int causal, int window,
+                            int64_t v_sh, int causal, int window, int prefix,
                             float sscale) {
   constexpr int HD = 64, BK = MMA_BK, STAGES = WG_STAGES;
   extern __shared__ __align__(128) unsigned char wg_raw[];
@@ -675,9 +693,9 @@ __global__ void __launch_bounds__(MMA_NT, 2)
 
   const __nv_bfloat16* kb = k + (int64_t)b * k_sb + (int64_t)kvh * k_sh;
   const __nv_bfloat16* vb = v + (int64_t)b * v_sb + (int64_t)kvh * v_sh;
-  const int k_end = causal ? min(n_tok, q0 + MMA_BQ) : n_tok;
+  const int k_end = causal ? min(n_key, max(q0 + MMA_BQ, prefix)) : n_key;
   const int n_tiles = (k_end + BK - 1) / BK;
-  const int j_beg = window ? max(0, q0 - window + 1) / BK : 0;
+  const int j_beg = window && !prefix ? max(0, q0 - window + 1) / BK : 0;
 
   auto load = [&](int j, int slot) {
     unsigned char* ks = smem + 2 * slot * WG_TILE;
@@ -685,7 +703,7 @@ __global__ void __launch_bounds__(MMA_NT, 2)
 #pragma unroll
     for (int i = threadIdx.x; i < BK * 8; i += MMA_NT) {
       const int r = i / 8, c = i % 8, key = j * BK + r;
-      const bool ok = key < n_tok;
+      const bool ok = key < n_key;
       const int off = r * 128 + ((c ^ (r & 7)) << 4);
       cp16(ks + off, ok ? kb + (int64_t)key * k_st + c * 8 : kb, ok ? 16 : 0);
       cp16(vs + off, ok ? vb + (int64_t)key * v_st + c * 8 : vb, ok ? 16 : 0);
@@ -722,9 +740,10 @@ __global__ void __launch_bounds__(MMA_NT, 2)
     cp_commit();
     const int k0 = j * BK;
     // a warpgroup whose rows all lie past T, all precede the keys, or all
-    // see the window end before the tile starts
-    if (wg0 >= n_tok || (causal && k0 > wg0 + 63) ||
-        (window && k0 + BK - 1 <= wg0 - window))
+    // see the window end before the tile starts (no prefix key in it)
+    if (wg0 >= n_tok ||
+        (k0 >= prefix && ((causal && k0 > wg0 + 63) ||
+                          (window && k0 + BK - 1 <= wg0 - window))))
       continue;
     const uint32_t ks = sbase + 2 * (it % STAGES) * WG_TILE;
     const uint32_t vs = ks + WG_TILE;
@@ -737,17 +756,20 @@ __global__ void __launch_bounds__(MMA_NT, 2)
     wg_commit_wait();
     wg_fence_operand(s, 32);
 
-    if (k0 + BK > n_tok || (causal && k0 + BK - 1 > wg0) ||
-        (window && k0 <= wg0 + 63 - window)) {
+    if (k0 + BK > n_key ||
+        (k0 + BK > prefix && ((causal && k0 + BK - 1 > wg0) ||
+                              (window && k0 <= wg0 + 63 - window)))) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = k0 + nt * 8 + tig * 2 + e;
-          const bool in = key < n_tok;
-          if (!in || (causal && key > r0) || (window && key <= r0 - window))
+          const bool in = key < n_key, pre = key < prefix;
+          if (!in || (!pre && ((causal && key > r0) ||
+                               (window && key <= r0 - window))))
             s[4 * nt + e] = -CUDART_INF_F;
-          if (!in || (causal && key > r1) || (window && key <= r1 - window))
+          if (!in || (!pre && ((causal && key > r1) ||
+                               (window && key <= r1 - window))))
             s[4 * nt + 2 + e] = -CUDART_INF_F;
         }
     }
@@ -831,9 +853,9 @@ __global__ void __launch_bounds__(MMA_NT, 2)
 }
 
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         float* out, int n_b, int n_tok, int n_head, int n_kv,
-                         const int64_t* st, int causal, int window,
-                         cudaStream_t s) {
+                         float* out, int n_b, int n_tok, int n_key,
+                         int n_head, int n_kv, const int64_t* st, int causal,
+                         int window, int prefix, cudaStream_t s) {
   static bool raised[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -851,9 +873,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   flash_attn_wgmma_kernel<<<grid, MMA_NT, WG_SMEM, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), out, n_tok, n_head,
+      static_cast<const __nv_bfloat16*>(v), out, n_tok, n_key, n_head,
       n_head / n_kv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], causal, window, sscale);
+      st[8], causal, window, prefix, sscale);
   return cudaGetLastError();
 }
 
@@ -879,81 +901,90 @@ bool mma_ok(const void* q, const void* k, const void* v, int hd,
 
 template <typename T, int HDP, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, float* out,
-                   int n_b, int n_tok, int n_head, int n_kv, int hd,
-                   const int64_t* st, int causal, int window,
-                   cudaStream_t s) {
+                   int n_b, int n_tok, int n_key, int n_head, int n_kv,
+                   int hd, const int64_t* st, int causal, int window,
+                   int prefix, cudaStream_t s) {
   const dim3 grid(n_b * n_head, (n_tok + BQ - 1) / BQ);
   // log2(e) / sqrt(hd): scores in base 2, one exp2f each
   const float qscale = 1.4426950408889634f / sqrtf((float)hd);
   flash_attn_kernel<T, HDP, BK><<<grid, BQ * (HDP / DPT), 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), out, n_tok, n_head, n_head / n_kv, hd,
+      static_cast<const T*>(v), out, n_tok, n_key, n_head, n_head / n_kv, hd,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal,
-      window, qscale);
+      window, prefix, qscale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, float* out,
-                     int n_b, int n_tok, int n_head, int n_kv, int hd,
-                     const int64_t* st, int causal, int window,
-                     cudaStream_t s) {
+                     int n_b, int n_tok, int n_key, int n_head, int n_kv,
+                     int hd, const int64_t* st, int causal, int window,
+                     int prefix, cudaStream_t s) {
   if (hd <= 32)
-    return launch<T, 32, 64>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd, st,
-                             causal, window, s);
+    return launch<T, 32, 64>(q, k, v, out, n_b, n_tok, n_key, n_head,
+                             n_kv, hd, st, causal, window, prefix, s);
   if (hd <= 64)
-    return launch<T, 64, 64>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd, st,
-                             causal, window, s);
+    return launch<T, 64, 64>(q, k, v, out, n_b, n_tok, n_key, n_head,
+                             n_kv, hd, st, causal, window, prefix, s);
   if (hd <= 128)
-    return launch<T, 128, 32>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd,
-                              st, causal, window, s);
-  return launch<T, 256, 16>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd, st,
-                            causal, window, s);
+    return launch<T, 128, 32>(q, k, v, out, n_b, n_tok, n_key, n_head,
+                              n_kv, hd, st, causal, window, prefix, s);
+  return launch<T, 256, 16>(q, k, v, out, n_b, n_tok, n_key, n_head, n_kv,
+                            hd, st, causal, window, prefix, s);
 }
 
 }  // namespace
 
 // strides: q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh (elements).
-// window: 0 for none, else (causal only) query t sees keys s with
-// t - window < s <= t.  Returns a CUDA error code; *used_mma says which
-// kernel ran.
+// n_tok query rows against n_key keys (equal when causal).  window: 0 for
+// none, else (causal only) query t sees keys s with t - window < s <= t.
+// prefix: 0 for none, else (causal only) every query also sees the keys
+// s < prefix (the prefix-LM's bidirectional prefix).  Returns a CUDA error
+// code; *used_mma says which kernel ran.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 float* out, int n_b, int n_tok, int n_head,
-                                 int n_kv, int hd, const int64_t* strides,
-                                 int causal, int window, int bf16,
+                                 float* out, int n_b, int n_tok, int n_key,
+                                 int n_head, int n_kv, int hd,
+                                 const int64_t* strides, int causal,
+                                 int window, int prefix, int bf16,
                                  int* used_mma, void* stream) {
   *used_mma = 0;
   if (n_b == 0 || n_tok == 0) return 0;
-  if (window < 0) return static_cast<int>(cudaErrorInvalidValue);
-  // a window that covers every key masks nothing: the unwindowed loop
-  if (!causal || window >= n_tok) window = 0;
+  if (window < 0 || prefix < 0 || n_key < 0 || (causal && n_key != n_tok))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a prefix that covers every key masks nothing: the non-causal loop
+  if (causal && prefix >= n_tok) causal = 0;
+  // without a causal mask the window and the prefix mask nothing; a window
+  // that covers every key masks nothing either: the unwindowed loop
+  if (!causal) window = prefix = 0;
+  if (window >= n_tok) window = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bf16 && mma_ok(q, k, v, hd, strides)) {
     *used_mma = 1;
     switch (hd) {
       case 32:
-        err = launch_mma<32>(q, k, v, out, n_b, n_tok, n_head, n_kv, strides,
-                             causal, window, s);
+        err = launch_mma<32>(q, k, v, out, n_b, n_tok, n_key, n_head, n_kv,
+                             strides, causal, window, prefix, s);
         break;
       case 64:
-        err = launch_wgmma(q, k, v, out, n_b, n_tok, n_head, n_kv, strides,
-                           causal, window, s);
+        err = launch_wgmma(q, k, v, out, n_b, n_tok, n_key, n_head, n_kv,
+                           strides, causal, window, prefix, s);
         break;
       case 128:
-        err = launch_mma<128>(q, k, v, out, n_b, n_tok, n_head, n_kv,
-                              strides, causal, window, s);
+        err = launch_mma<128>(q, k, v, out, n_b, n_tok, n_key, n_head, n_kv,
+                              strides, causal, window, prefix, s);
         break;
       default:
-        err = launch_mma<256>(q, k, v, out, n_b, n_tok, n_head, n_kv,
-                              strides, causal, window, s);
+        err = launch_mma<256>(q, k, v, out, n_b, n_tok, n_key, n_head, n_kv,
+                              strides, causal, window, prefix, s);
     }
   } else if (bf16) {
-    err = dispatch<__nv_bfloat16>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd,
-                                  strides, causal, window, s);
+    err = dispatch<__nv_bfloat16>(q, k, v, out, n_b, n_tok, n_key, n_head,
+                                  n_kv, hd, strides, causal, window, prefix,
+                                  s);
   } else {
-    err = dispatch<float>(q, k, v, out, n_b, n_tok, n_head, n_kv, hd,
-                          strides, causal, window, s);
+    err = dispatch<float>(q, k, v, out, n_b, n_tok, n_key, n_head, n_kv, hd,
+                          strides, causal, window, prefix, s);
   }
   return static_cast<int>(err);
 }

@@ -135,21 +135,23 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool = True,
-              window: Optional[int] = None) -> torch.Tensor:
+              causal: bool = True, window: Optional[int] = None,
+              prefix_len: Optional[int] = None) -> torch.Tensor:
     """Softmax attention, f32 out, in either layout:
 
-    * the reference's (BH, T, D) q, k, v → (BH, T, D);
-    * the model's (B, T, H, hd) q with (B, T, KV, hd) k / v, H a
+    * the reference's (BH, T, D) q with (BH, S, D) k, v → (BH, T, D);
+    * the model's (B, T, H, hd) q with (B, S, KV, hd) k / v, H a
       multiple of KV → (B, T, H, hd), read in place through strides.
 
-    A causal ``window`` lets query t see keys s with t - window < s ≤ t
-    (an ``attn_local`` layer's band)."""
+    S = T when ``causal``; any S otherwise (cross-attention).  A causal
+    ``window`` lets query t see keys s with t - window < s ≤ t (an
+    ``attn_local`` layer's band), a causal ``prefix_len`` every key
+    s < prefix_len besides (the prefix-LM's bidirectional prefix)."""
     fn = flash_attn_plain if _plain() else flash_attn
     if q.dim() == 3:
         return fn(q[:, :, None], k[:, :, None], v[:, :, None],
-                  causal, window)[:, :, 0]
-    return fn(q, k, v, causal, window)
+                  causal, window, prefix_len)[:, :, 0]
+    return fn(q, k, v, causal, window, prefix_len)
 
 
 def hessian_update(x_tokens: torch.Tensor, h: torch.Tensor, alpha: float,

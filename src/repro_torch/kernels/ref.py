@@ -197,19 +197,22 @@ def paged_attn_ref(q: torch.Tensor, k_pages: torch.Tensor,
 # full-sequence attention
 # ----------------------------------------------------------------------
 def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   causal: bool = True,
-                   window: Optional[int] = None) -> torch.Tensor:
-    """q, k, v: (BH, T, D).  Plain softmax attention, f32 output.  A
-    causal ``window`` lets query t see keys s with t - window < s ≤ t
-    (the reference's ``causal_mask``); it is ignored without ``causal``,
-    as the reference ignores it."""
-    bh, t, d = q.shape
+                   causal: bool = True, window: Optional[int] = None,
+                   prefix_len: Optional[int] = None) -> torch.Tensor:
+    """q: (BH, T, D), k, v: (BH, S, D), S = T when causal.  Plain softmax
+    attention, f32 output.  A causal ``window`` lets query t see keys s
+    with t - window < s ≤ t, and a causal ``prefix_len`` adds the keys
+    s < prefix_len for every query (the reference's ``causal_mask``);
+    both are ignored without ``causal``, as the reference ignores them."""
+    t, d = q.shape[1], q.shape[2]
     s = torch.einsum("btd,bsd->bts", q.float(), k.float()) / math.sqrt(d)
     if causal:
         mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                      device=q.device))
         if window is not None:
             mask = mask & ~torch.tril(mask, diagonal=-window)
+        if prefix_len:
+            mask[:, :prefix_len] = True
         s = s.masked_fill(~mask[None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bts,bsd->btd", p, v.float())

@@ -31,6 +31,13 @@ init seeded by ``--seed``.  Calibration and evaluation tokens:
     vocabulary the corpus's (V, V) table cannot be built (92 GB at
     Qwen1.5-0.5B's).
 
+A modality-frontend model (paligemma-3b, seamless-m4t-large-v2) gets
+its stubbed frontend's ``frontend_feats`` beside the tokens: from the
+corpus's ``DataPipeline`` with the corpus, else normals from the same
+generator scaled by 0.25 and cast to bf16, as the reference draws them;
+the prefix-LM's text is ``--calib-seq`` minus its frontend_len positions
+on both routes (an ``.npz`` gives its own).
+
 The launcher prints dense and pruned perplexity and the engine's
 summary, and writes ``<out>/pruned_params`` in the reference's layout,
 which ``repro_torch.launch.serve --params`` serves.
@@ -177,8 +184,13 @@ def run_fingerprint(args, calib: List[Batch]) -> dict:
                 calib_shard=args.calib_shard, device=args.device)
 
 
-def _batches(tokens: torch.Tensor, size: int) -> List[Batch]:
-    return [{"tokens": t, "labels": t} for t in torch.split(tokens, size)]
+def _batches(tokens: torch.Tensor, size: int,
+             feats: Optional[torch.Tensor] = None) -> List[Batch]:
+    out = [{"tokens": t, "labels": t} for t in torch.split(tokens, size)]
+    if feats is not None:
+        for b, f in zip(out, torch.split(feats, size)):
+            b["frontend_feats"] = f
+    return out
 
 
 def corpus_tokens(cfg, calib_samples: int, seq: int, device
@@ -193,23 +205,34 @@ def corpus_tokens(cfg, calib_samples: int, seq: int, device
 
 
 def load_tokens(path: Optional[str], vocab: int, calib_samples: int,
-                seq: int, device, seed: int = 0
+                seq: int, device, seed: int = 0, cfg=None
                 ) -> Tuple[List[Batch], List[Batch]]:
     """(calibration batches of 8, evaluation batches of 16) on ``device``
-    from an ``.npz``, or random ids from ``seed``."""
+    from an ``.npz``, or random ids from ``seed``.  A frontend ``cfg``'s
+    batches also take ``frontend_feats``: 0.25 × normals from the
+    generator (after the ids), cast to bf16; a prefix-LM's random text is
+    ``seq`` minus its frontend_len positions."""
+    frontend = cfg is not None and cfg.frontend is not None
+    if frontend and not cfg.encdec:
+        seq -= cfg.frontend_len
+    gen = torch.Generator()
+    gen.manual_seed(seed + 1)
     if path is not None:
         with np.load(path) as z:
             calib = torch.from_numpy(np.asarray(z["calib"], np.int32))
             ev = torch.from_numpy(np.asarray(z["eval"], np.int32))
     else:
-        gen = torch.Generator()
-        gen.manual_seed(seed + 1)
         calib = torch.randint(0, vocab, (calib_samples, seq), generator=gen,
                               dtype=torch.int32)
         ev = torch.randint(0, vocab, (EVAL_BATCHES * EVAL_BATCH, seq),
                            generator=gen, dtype=torch.int32)
-    return (_batches(calib.to(device), CALIB_BATCH),
-            _batches(ev.to(device), EVAL_BATCH))
+    feats = [None, None]
+    if frontend:
+        feats = [(0.25 * torch.randn((len(t), cfg.frontend_len,
+                                      cfg.frontend_dim), generator=gen)
+                  ).to(torch.bfloat16).to(device) for t in (calib, ev)]
+    return (_batches(calib.to(device), CALIB_BATCH, feats[0]),
+            _batches(ev.to(device), EVAL_BATCH, feats[1]))
 
 
 @torch.no_grad()
@@ -280,7 +303,7 @@ def _run(args, cfg, device, obs: Obs) -> None:
     else:
         calib, ev = load_tokens(args.tokens, cfg.vocab_size,
                                 args.calib_samples, args.calib_seq, device,
-                                args.seed)
+                                args.seed, cfg=cfg)
     print("calibration/eval tokens: "
           + ("--tokens" if args.tokens else "synthetic corpus" if corpus
              else f"random ids from --seed {args.seed}"))

@@ -1,7 +1,9 @@
-"""Layer library for the dense decoder: linear, rmsnorm, rope, GQA
-attention with optional qk-norm and sliding window (full-sequence,
-dense-cache prefill and decode, chunked paged prefill, paged decode),
-gated MLPs, embeddings.
+"""Layer library of the port's models: linear, rmsnorm, rope, GQA
+attention with optional qk-norm, sliding window or bidirectional prefix
+(full-sequence, dense-cache prefill and decode, chunked paged prefill,
+paged decode), non-causal (an encoder's) and cross-attention (a
+decoder's over the encoder's output), gated MLPs, embeddings and the
+stubbed modality frontend's projection.
 
 Conventions follow ``repro.models.layers``: params are plain dicts,
 linear weights are stored (in, out), hidden states are (B, T, D).  A
@@ -188,23 +190,27 @@ ONLINE_ATTN_THRESHOLD = 8192
 ONLINE_ATTN_CHUNK = 1024
 
 
-def causal_mask(t: int, s: int, window: Optional[int],
-                device) -> torch.Tensor:
+def causal_mask(t: int, s: int, window: Optional[int], device,
+                prefix_len: Optional[int] = None) -> torch.Tensor:
     """(T, S) bool, True where query i sees key j: j ≤ i, and i - window
-    < j with a window (the reference's ``causal_mask``)."""
+    < j with a window; or j < prefix_len with a prefix (the prefix-LM's
+    bidirectional prefix) — the reference's ``causal_mask``."""
     qpos = torch.arange(t, device=device)[:, None]
     kpos = torch.arange(s, device=device)[None, :]
     ok = kpos <= qpos
     if window is not None:
         ok = ok & (kpos > qpos - window)
+    if prefix_len is not None:
+        ok = ok | (kpos < prefix_len)
     return ok
 
 
 def _sdpa_online(q, k, v, nh: int, kv: int, window: Optional[int] = None,
-                 chunk: int = ONLINE_ATTN_CHUNK) -> torch.Tensor:
+                 chunk: int = ONLINE_ATTN_CHUNK,
+                 prefix_len: Optional[int] = None) -> torch.Tensor:
     """Causal grouped attention by online softmax over KV chunks (the
     reference's ``_sdpa_online``): the same function as :func:`_sdpa`
-    with a causal (and windowed) mask, O(T·chunk) memory, P kept in
+    with a causal (windowed, prefixed) mask, O(T·chunk) memory, P kept in
     f32."""
     b, t, _, hd = q.shape
     g = nh // kv
@@ -223,6 +229,8 @@ def _sdpa_online(q, k, v, nh: int, kv: int, window: Optional[int] = None,
         ok = kpos[None, :] <= qpos[:, None]                    # (t, chunk)
         if window is not None:
             ok = ok & (kpos[None, :] > qpos[:, None] - window)
+        if prefix_len is not None:
+            ok = ok | (kpos[None, :] < prefix_len)
         sc = torch.einsum("btkgd,bckd->bkgtc", qg, kc)
         sc = torch.where(ok, sc, torch.full_like(sc, float("-inf")))
         m_new = torch.maximum(m, sc.amax(dim=-1))
@@ -312,13 +320,19 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
                caps: Optional[Dict[str, torch.Tensor]] = None,
                prefix: str = "attn.",
                differentiable: bool = False,
-               window: Optional[int] = None) -> torch.Tensor:
+               window: Optional[int] = None,
+               causal: bool = True,
+               prefix_len: Optional[int] = None,
+               cross_kv: Optional[tuple] = None) -> torch.Tensor:
     """Pre-norm attention with residual.  Returns the new hidden state;
     cache modes update ``cache`` in place.
 
     Causal attention, global or — an ``attn_local`` layer, ``window``
     given — over a sliding window: query t sees keys s with
-    t - window < s ≤ t (the reference's ``causal_mask``), in every mode:
+    t - window < s ≤ t; with ``prefix_len`` (the prefix-LM) every query
+    also sees the keys s < prefix_len (the reference's ``causal_mask``);
+    ``causal=False`` (an encoder's self-attention) sees every key.  In
+    every mode:
       full-sequence (cache None): causal over T through
           ``ops.attention`` (the ``flash_attn`` kernel on the card, which
           reads q/k/v in place and applies the window itself; the
@@ -343,7 +357,14 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
           the pool;
       paged decode (T = 1, ``pos`` (B,) with -1 marking idle slots):
           block-table attention through ``ops.paged_attention``, whose
-          kernel takes the window.
+          kernel takes the window;
+      cross-attention (``cross_kv`` = the encoder's (B, S, KV, hd) K and
+          V, computed or cached by the caller): no rope, no cache
+          update, every key visible — ``ops.attention(causal=False)``
+          over S ≠ T keys, or with ``differentiable`` or in decode
+          (``pos`` given) :func:`_sdpa` under an all-true mask, as the
+          reference's cross branch computes it; ``caps`` records
+          ``{prefix}wq`` and ``{prefix}wo``.
 
     int8 pages and the full-sequence branch give f32 attention output,
     which is cast back to the hidden dtype before ``wo`` so that the residual stream keeps the
@@ -355,17 +376,34 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     dev = h.device
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
 
+    if cross_kv is not None:
+        q = linear(h_in, p["wq"], p.get("bq"), caps=caps,
+                   name=f"{prefix}wq").reshape(b, t, nh, hd)
+        k, v = cross_kv
+        if differentiable or pos is not None:
+            seen = torch.ones((t, k.shape[1]), dtype=torch.bool, device=dev)
+            out = _sdpa(q, k, v, seen, nh, kv)
+        else:
+            out = ops.attention(q, k, v, causal=False).reshape(b, t, nh * hd)
+        return h + linear(out.to(h.dtype), p["wo"], caps=caps,
+                          name=f"{prefix}wo")
+
     if paged is None and (cache is None or pos is None):
         positions = torch.arange(t, device=dev)[None, :]
         q, k, v = _qkv(p, h_in, cfg, positions, caps, prefix)
         if not differentiable:
-            out = ops.attention(q, k, v, causal=True,
-                                window=window)              # (B, T, H, hd)
+            out = ops.attention(q, k, v, causal=causal, window=window,
+                                prefix_len=prefix_len)      # (B, T, H, hd)
             out = out.reshape(b, t, nh * hd)
+        elif not causal:
+            seen = torch.ones((t, t), dtype=torch.bool, device=dev)
+            out = _sdpa(q, k, v, seen, nh, kv)
         elif t > ONLINE_ATTN_THRESHOLD:
-            out = _sdpa_online(q, k, v, nh, kv, window, ONLINE_ATTN_CHUNK)
+            out = _sdpa_online(q, k, v, nh, kv, window, ONLINE_ATTN_CHUNK,
+                               prefix_len)
         else:
-            out = _sdpa(q, k, v, causal_mask(t, t, window, dev), nh, kv)
+            out = _sdpa(q, k, v, causal_mask(t, t, window, dev, prefix_len),
+                        nh, kv)
         if cache is not None:                               # dense prefill
             cache["k"][:, :t] = k.to(cache["k"].dtype)
             cache["v"][:, :t] = v.to(cache["v"].dtype)
@@ -383,6 +421,8 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
         ok = kpos <= pos
         if window is not None:
             ok = ok & (kpos > pos - window)
+        if prefix_len is not None:
+            ok = ok | (kpos < prefix_len)
         out = _sdpa(q, cache["k"], cache["v"], ok, nh, kv)
         return h + linear(out.to(h.dtype), p["wo"])
 
@@ -471,18 +511,34 @@ def mlp_apply(p, h: torch.Tensor, cfg: ArchConfig, *,
 # Embedding / unembedding
 # ----------------------------------------------------------------------
 def embed_init(rng, cfg: ArchConfig, dtype) -> Params:
-    return {"tok": _normal(rng, (cfg.vocab_size, cfg.d_model), 0.02, dtype)}
+    p = {"tok": _normal(rng, (cfg.vocab_size, cfg.d_model), 0.02, dtype)}
+    if cfg.frontend is not None:
+        k2 = rng if isinstance(rng, torch.Generator) else rnd.fold_in(rng, 1)
+        p["frontend_proj"] = _dense_init(k2, cfg.frontend_dim, cfg.d_model,
+                                         dtype)
+    return p
+
+
+def embed_scale(cfg: ArchConfig, dtype) -> float:
+    """√d_model rounded to ``dtype``, as the reference's ``jnp.asarray(√d,
+    dtype)``; a host float (exact in f32), so no tensor is copied to the
+    card."""
+    return float(torch.tensor(math.sqrt(cfg.d_model), dtype=dtype))
 
 
 def embed_apply(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = p["tok"][tokens.long()]
     if cfg.embed_scale:
-        # √d_model rounded to the embedding's dtype, as the reference's
-        # ``jnp.asarray(√d, h.dtype)``; a host float (exact in f32), so no
-        # tensor is copied to the card
-        scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype))
-        h = h * scale
+        h = h * embed_scale(cfg, h.dtype)
     return h
+
+
+def frontend_apply(p, feats: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The stubbed modality frontend: precomputed patch / frame features
+    (B, F, frontend_dim) projected to d_model, in the projection's dtype.
+    A plain product (no kernel stands behind it in the reference
+    either)."""
+    return feats.to(p["frontend_proj"].dtype) @ p["frontend_proj"]
 
 
 def unembed_init(rng, cfg: ArchConfig, dtype) -> Params:

@@ -5,28 +5,46 @@ methods of static mode (``init_cache`` / ``prefill`` / ``decode_step``)
 and the paged ones of continuous mode (``init_paged_cache`` /
 ``prefill_chunk`` / ``decode_step`` with block tables).
 
-Ported block kinds: global attention, sliding-window attention, Mamba
-and the xLSTM's mLSTM and sLSTM (``period`` ⊂ {"attn", "attn_local",
-"mamba", "mlstm", "slstm"}), each with its FFN where
-``cfg.block_has_mlp`` says so: a dense MLP, or in the slots that
-``cfg.slot_is_moe`` names a Mixture-of-Experts (``models.moe``) — the
-dense decoders (qk-norm included: Qwen3, Gemma3's 5:1 local:global
-period), the MoE decoders (phi3.5-moe, kimi-k2 with its shared expert),
-the Mamba LM, the Mamba/attention hybrid with its experts (Jamba) and
-the xLSTM (7 mLSTM : 1 sLSTM).  An ``attn_local`` block is an ``attn``
-block (the same params under ``"attn"``, the same linears, KV pages and
-dense cache) whose attention sees the last ``cfg.window`` positions.  No
-prefix, encoder-decoder or frontend; ROADMAP.md lists them.  Where the
-reference stacks the layers (L, ...) under ``layers/s{j}`` for
-``lax.scan``, the port keeps a per-layer list of param dicts and loops:
-layer ``i`` is slot ``i % len(period)`` of period ``i // len(period)``,
-``params["layers"][i] = {"attn" | "mamba" | "mlstm" | "slstm": {...},
-"mlp" | "moe": {...}}``, a MoE's experts stacked (E, ...) as the
-reference stacks them.  The caches are per-layer lists too: an attention
-layer's paged ``{"k", "v"[, "k_scale", "v_scale"]}`` page tensors or
-dense (B, max_len, KV, hd) ``{"k", "v"}``, a recurrent layer's state rows
-(``models.ssm``; one per serve slot when paged); all are updated in
-place.
+Ported block kinds: global attention, sliding-window attention, the
+encoder-decoder's decoder block, Mamba and the xLSTM's mLSTM and sLSTM
+(``period`` ⊂ {"attn", "attn_local", "dec_attn", "mamba", "mlstm",
+"slstm"}), each with its FFN where ``cfg.block_has_mlp`` says so: a
+dense MLP, or in the slots that ``cfg.slot_is_moe`` names a
+Mixture-of-Experts (``models.moe``) — the dense decoders (qk-norm
+included: Qwen3, Gemma3's 5:1 local:global period), the MoE decoders
+(phi3.5-moe, kimi-k2 with its shared expert), the Mamba LM, the
+Mamba/attention hybrid with its experts (Jamba), the xLSTM (7 mLSTM : 1
+sLSTM), the prefix-LM (PaliGemma) and the encoder-decoder (SeamlessM4T).
+An ``attn_local`` block is an ``attn`` block (the same params under
+``"attn"``, the same linears, KV pages and dense cache) whose attention
+sees the last ``cfg.window`` positions.
+
+A modality frontend is a stub, as in the reference: the batch carries
+precomputed features ``frontend_feats`` (B, frontend_len, frontend_dim),
+which ``embed/frontend_proj`` projects to d_model.  The prefix-LM
+(``cfg.frontend`` without ``cfg.encdec``) prepends them, scaled by √d, to
+the text's embeddings as a bidirectional prefix: its attention layers
+let every position see the frontend_len prefix positions
+(``attn_apply(prefix_len=)``), and its serve positions start past them.
+The encoder-decoder runs them through ``params["enc"]`` — a per-layer
+list of non-causal ``enc_attn`` blocks, then ``enc/ln`` — and each
+``dec_attn`` block follows its causal self-attention with
+cross-attention (``"xattn"``) over that output.  The leading
+``cfg.prefix`` blocks are not ported (no config uses them; ROADMAP.md).
+
+Where the reference stacks the layers (L, ...) under ``layers/s{j}``
+(and ``enc/layers``) for ``lax.scan``, the port keeps a per-layer list of
+param dicts and loops: layer ``i`` is slot ``i % len(period)`` of period
+``i // len(period)``, ``params["layers"][i] = {"attn" | "mamba" |
+"mlstm" | "slstm": {...}[, "xattn": {...}], "mlp" | "moe": {...}}``, a
+MoE's experts stacked (E, ...) as the reference stacks them.  The caches
+are per-layer lists too: an attention layer's paged ``{"k", "v"[,
+"k_scale", "v_scale"]}`` page tensors or dense (B, max_len, KV, hd)
+``{"k", "v"}`` (a decoder block's with the encoder's cross K / V
+``{"xk", "xv"}`` (B, frontend_len, KV, hd), filled once at prefill), a
+recurrent layer's state rows (``models.ssm``; one per serve slot when
+paged); all are updated in place.  The encoder-decoder and the prefix-LM
+serve from the dense cache only (static mode), as in the reference.
 """
 
 from __future__ import annotations
@@ -42,9 +60,10 @@ from repro_torch.core.engine import LinearSpec, SegmentSpec
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, attn_apply, attn_cache_init,
                                        attn_init, attn_paged_cache_init,
-                                       embed_apply, embed_init, mlp_apply,
-                                       mlp_init, sub_keys, unembed_apply,
-                                       unembed_init)
+                                       embed_apply, embed_init, embed_scale,
+                                       frontend_apply, linear, mlp_apply,
+                                       mlp_init, rmsnorm, rmsnorm_init,
+                                       sub_keys, unembed_apply, unembed_init)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models import ssm
 
@@ -56,7 +75,7 @@ STATE_BLOCKS = {
     "mlstm": (ssm.mlstm_init, ssm.mlstm_apply, ssm.mlstm_cache_init),
     "slstm": (ssm.slstm_init, ssm.slstm_apply, ssm.slstm_cache_init),
 }
-PORTED_KINDS = (*ATTN_KINDS, *STATE_BLOCKS)
+PORTED_KINDS = (*ATTN_KINDS, "dec_attn", *STATE_BLOCKS)
 # the prunable linears of a block kind, in the reference's capture-name
 # order (``_BLOCK_LINEARS``)
 _BLOCK_LINEARS = {
@@ -69,13 +88,16 @@ _BLOCK_LINEARS = {
               ("slstm", "wo_gate"), ("slstm", "wo")),
 }
 _BLOCK_LINEARS["attn_local"] = _BLOCK_LINEARS["attn"]
+_BLOCK_LINEARS["enc_attn"] = _BLOCK_LINEARS["attn"]
+_BLOCK_LINEARS["dec_attn"] = _BLOCK_LINEARS["attn"] + (
+    ("xattn", "wq"), ("xattn", "wk"), ("xattn", "wv"), ("xattn", "wo"))
 _MLP_LINEARS = {"swiglu": ("wi", "wg", "wo"), "geglu": ("wi", "wg", "wo"),
                 "gelu": ("wi", "wo"), "none": ()}
 
 
 class LM:
-    """A decoder of attention and recurrent blocks from one ArchConfig, on
-    one device."""
+    """A model of attention and recurrent blocks from one ArchConfig — a
+    decoder, a prefix-LM or an encoder-decoder — on one device."""
 
     # block kinds whose paged serve cache is slot-pooled recurrent state
     # (serve.kvpool.StatePool resets their rows), and those whose cache is
@@ -84,12 +106,15 @@ class LM:
     ATTN_KINDS = ATTN_KINDS
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if (cfg.prefix or cfg.encdec or cfg.frontend is not None
-                or any(k not in PORTED_KINDS for k in cfg.period)):
+        if cfg.prefix or any(k not in PORTED_KINDS for k in cfg.period):
             raise ValueError(
-                f"{cfg.name}: prefix, encoder-decoder and frontend models "
-                "are not ported (ROADMAP.md, Queue 1: the other families)")
+                f"{cfg.name}: leading prefix blocks and period kinds "
+                f"{cfg.period} outside {PORTED_KINDS} are not ported "
+                "(ROADMAP.md, Queue 1: the other families)")
         self.cfg = cfg
+        # the prefix-LM's bidirectional prefix: the frontend's positions
+        self.prefix_len = (cfg.frontend_len if cfg.frontend is not None
+                           and not cfg.encdec else None)
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.dtype]
         period = cfg.period
@@ -120,28 +145,48 @@ class LM:
                           for i in range(cfg.num_layers)]
         params: Params = {"embed": embed_init(keys[0], cfg, dt),
                           "unembed": unembed_init(keys[1], cfg, dt)}
-        params["layers"] = []
-        for i, (kind, lk) in enumerate(zip(self.kinds, layer_keys)):
-            k_mix, k_ffn, _ = sub_keys(lk, 3)
-            block = ({"attn": attn_init(k_mix, cfg, dt)}
-                     if kind in ATTN_KINDS
-                     else {kind: STATE_BLOCKS[kind][0](k_mix, cfg, dt)})
-            if cfg.block_has_mlp(kind):
-                if self.moe_slots[i % n_slots]:
-                    block["moe"] = moe_init(k_ffn, cfg, dt)
-                else:
-                    block["mlp"] = mlp_init(k_ffn, cfg, dt)
-            params["layers"].append(block)
+        params["layers"] = [
+            self._block_init(lk, kind, self.moe_slots[i % n_slots])
+            for i, (kind, lk) in enumerate(zip(self.kinds, layer_keys))]
+        if cfg.encdec:
+            enc_keys = ([rng] * cfg.enc_layers
+                        if isinstance(rng, torch.Generator)
+                        else list(rnd.split(keys[4], cfg.enc_layers)))
+            params["enc"] = {
+                "layers": [self._block_init(k, "enc_attn", False)
+                           for k in enc_keys],
+                "ln": rmsnorm_init(cfg.d_model, dt, keys[4].device)}
         return params
+
+    def _block_init(self, rng, kind: str, is_moe: bool) -> Params:
+        """One block's params from ``rng`` split three ways (mixer, FFN,
+        cross-attention), as the reference's ``_block_init``."""
+        cfg, dt = self.cfg, self.dtype
+        k_mix, k_ffn, k_x = sub_keys(rng, 3)
+        if kind in STATE_BLOCKS:
+            block = {kind: STATE_BLOCKS[kind][0](k_mix, cfg, dt)}
+        else:
+            block = {"attn": attn_init(k_mix, cfg, dt)}
+            if kind == "dec_attn":
+                block["xattn"] = attn_init(k_x, cfg, dt)
+        if cfg.block_has_mlp(kind):
+            if is_moe:
+                block["moe"] = moe_init(k_ffn, cfg, dt)
+            else:
+                block["mlp"] = mlp_init(k_ffn, cfg, dt)
+        return block
 
     def params_from_jax(self, flat: Dict[str, np.ndarray]) -> Params:
         """The reference's path-keyed leaves (``ckpt/store.py::_flatten``
         names: ``layers/s0/attn/wq``, ``embed/tok``, ...) → port params.
-        The stacked layer axis is unstacked (a MoE's expert axis stays
-        stacked, and its f32 router stays f32); packed ``{"vals","idx"}``
-        leaves stay packed."""
-        period = len(self.cfg.period)
-        params: Params = {"layers": [{} for _ in range(self.cfg.num_layers)]}
+        The stacked layer axes (``layers/s{j}``, ``enc/layers``) are
+        unstacked (a MoE's expert axis stays stacked, and its f32 router
+        stays f32); packed ``{"vals","idx"}`` leaves stay packed."""
+        cfg = self.cfg
+        period = len(cfg.period)
+        params: Params = {"layers": [{} for _ in range(cfg.num_layers)]}
+        if cfg.encdec:
+            params["enc"] = {"layers": [{} for _ in range(cfg.enc_layers)]}
         for path, arr in flat.items():
             parts = path.split("/")
             if parts[0] == "layers":
@@ -149,7 +194,12 @@ class LM:
                 for i in range(arr.shape[0]):
                     _set_path(params["layers"][i * period + j], parts[2:],
                               _to_torch(arr[i], self.device))
-            elif parts[0] in ("embed", "unembed"):
+            elif parts[:2] == ["enc", "layers"] and cfg.encdec:
+                for i in range(arr.shape[0]):
+                    _set_path(params["enc"]["layers"][i], parts[2:],
+                              _to_torch(arr[i], self.device))
+            elif parts[0] in ("embed", "unembed") or (
+                    parts[0] == "enc" and cfg.encdec):
                 _set_path(params, parts, _to_torch(arr, self.device))
             else:
                 raise ValueError(f"leaf {path!r}: not a param of a ported "
@@ -159,37 +209,54 @@ class LM:
     def params_to_flat(self, params: Params) -> Dict[str, np.ndarray]:
         """The inverse of :meth:`params_from_jax`: port params → the
         reference's path-keyed numpy leaves, layers stacked (L, ...) under
-        ``layers/s{j}``.  bf16 leaves come out as the 2-byte void arrays
-        that the reference's checkpoints hold."""
+        ``layers/s{j}`` (and ``enc/layers``).  bf16 leaves come out as the
+        2-byte void arrays that the reference's checkpoints hold."""
         period = len(self.cfg.period)
+        stacks = {f"layers/s{j}": params["layers"][j::period]
+                  for j in range(period)}
+        if self.cfg.encdec:
+            stacks["enc/layers"] = params["enc"]["layers"]
         flat: Dict[str, np.ndarray] = {}
-        for j in range(period):
-            stack = params["layers"][j::period]
+        for name, stack in stacks.items():
             for path, _ in _leaves(stack[0]):
-                flat[f"layers/s{j}/{path}"] = np.stack(
+                flat[f"{name}/{path}"] = np.stack(
                     [_to_numpy(_get_path(lp, path.split("/")))
                      for lp in stack])
         for key in ("embed", "unembed"):
             for path, t in _leaves(params[key]):
                 flat[f"{key}/{path}"] = _to_numpy(t)
+        if self.cfg.encdec:
+            for path, t in _leaves(params["enc"]["ln"]):
+                flat[f"enc/ln/{path}"] = _to_numpy(t)
         return flat
 
     # ---------------------------------------------------------- forward
     def _block(self, p: Params, h: torch.Tensor, kind: str, caps=None,
                name_prefix: str = "", cache=None, pos=None, paged=None,
-               page_size=None, differentiable: bool = False
+               page_size=None, differentiable: bool = False,
+               enc_out: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One block (mixer, then its FFN if it has one): (h, the MoE's aux
         loss or None).  The cache modes are the mixer's (``attn_apply`` /
         ``ssm.mamba_apply`` / ``mlstm_apply`` / ``slstm_apply``); a MoE FFN
-        routes the call's B·T tokens."""
-        if kind in ATTN_KINDS:
+        routes the call's B·T tokens.  An ``enc_attn`` block attends
+        without the causal mask; a ``dec_attn`` block adds cross-attention
+        over ``enc_out`` (or, in decode, over the cache's cross K / V)."""
+        if kind in ATTN_KINDS or kind == "enc_attn":
             h = attn_apply(p["attn"], h, self.cfg, caps=caps,
                            prefix=f"{name_prefix}attn.", cache=cache,
                            pos=pos, paged=paged, page_size=page_size,
                            differentiable=differentiable,
                            window=(self.cfg.window if kind == "attn_local"
-                                   else None))
+                                   else None),
+                           causal=kind != "enc_attn",
+                           prefix_len=self.prefix_len)
+        elif kind == "dec_attn":
+            h = attn_apply(p["attn"], h, self.cfg, caps=caps,
+                           prefix=f"{name_prefix}attn.", cache=cache,
+                           pos=pos, differentiable=differentiable)
+            h = self._cross(p, h, caps, name_prefix, cache, pos,
+                            differentiable, enc_out)
         else:
             h = STATE_BLOCKS[kind][1](p[kind], h, self.cfg, caps=caps,
                                       prefix=f"{name_prefix}{kind}.",
@@ -202,24 +269,57 @@ class LM:
                           prefix=f"{name_prefix}mlp.")
         return h, None
 
+    def _cross(self, p: Params, h: torch.Tensor, caps, name_prefix: str,
+               cache, pos, differentiable: bool,
+               enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+        """A decoder block's cross-attention: K / V from ``enc_out``
+        through ``xattn.wk`` / ``wv`` (captured under those names), stored
+        into the dense cache at prefill; in decode (no ``enc_out``) read
+        back from it."""
+        cfg = self.cfg
+        if enc_out is None:
+            xk, xv = cache["xk"], cache["xv"]
+        else:
+            b, s, _ = enc_out.shape
+            shape = (b, s, cfg.num_kv_heads, cfg.hd)
+            xk = linear(enc_out, p["xattn"]["wk"], caps=caps,
+                        name=f"{name_prefix}xattn.wk").reshape(shape)
+            xv = linear(enc_out, p["xattn"]["wv"], caps=caps,
+                        name=f"{name_prefix}xattn.wv").reshape(shape)
+            if cache is not None:                   # prefill: stored once
+                cache["xk"].copy_(xk)
+                cache["xv"].copy_(xv)
+        return attn_apply(p["xattn"], h, cfg, caps=caps,
+                          prefix=f"{name_prefix}xattn.", pos=pos,
+                          differentiable=differentiable, cross_kv=(xk, xv))
+
     def forward(self, params: Params, tokens: torch.Tensor,
-                differentiable: bool = False) -> torch.Tensor:
-        """Full-sequence causal forward: tokens (B, T) → logits (B, T, V)
-        f32.  ``differentiable`` takes the training route: attention in
-        torch ops (the reference's ``_sdpa``), which autograd can
-        differentiate — the kernels have no backward and refuse inputs
-        that require grad."""
-        return self._forward(params, tokens, differentiable)[0]
+                differentiable: bool = False,
+                frontend_feats: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Full-sequence forward: tokens (B, T) → logits (B, T', V) f32,
+        T' = T plus the prefix-LM's frontend_len positions (a frontend
+        model takes ``frontend_feats``).  ``differentiable`` takes the
+        training route: attention in torch ops (the reference's
+        ``_sdpa``), which autograd can differentiate — the kernels have no
+        backward and refuse inputs that require grad."""
+        return self._forward(params, tokens, differentiable,
+                             frontend_feats)[0]
 
     def _forward(self, params: Params, tokens: torch.Tensor,
-                 differentiable: bool = False
+                 differentiable: bool = False,
+                 frontend_feats: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits, the MoE layers' aux losses summed in layer order — 0
         for a model without experts), as the reference's ``forward``."""
-        h = embed_apply(params["embed"], tokens, self.cfg)
+        batch = _batch(tokens, frontend_feats)
+        enc_out = (self.encode(params, batch, differentiable=differentiable)
+                   if self.cfg.encdec else None)
+        h = self.first_hidden(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for kind, p in zip(self.kinds, params["layers"]):
-            h, a = self._block(p, h, kind, differentiable=differentiable)
+            h, a = self._block(p, h, kind, differentiable=differentiable,
+                               enc_out=enc_out)
             if a is not None:
                 aux = aux + a
         logits = unembed_apply(params["unembed"], params["embed"], h,
@@ -234,8 +334,9 @@ class LM:
         "aux", "tokens"}); labels < 0 are ignored.  The trainer passes
         ``differentiable=True`` (see :meth:`forward`); evaluation keeps the
         kernel route."""
-        logits, aux = self._forward(params, batch["tokens"], differentiable)
-        targets = batch["labels"].long()
+        logits, aux = self._forward(params, batch["tokens"], differentiable,
+                                    batch.get("frontend_feats"))
+        targets = batch["labels"].long()    # text only: past the frontend
         lg = logits[:, logits.shape[1] - targets.shape[1]:][:, :-1]
         tg = targets[:, 1:]
         lse = torch.logsumexp(lg, dim=-1)
@@ -259,26 +360,69 @@ class LM:
 
     def first_hidden(self, params: Params,
                      batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The embedding output entering block 0."""
-        return embed_apply(params["embed"], batch["tokens"], self.cfg)
+        """The embedding output entering block 0; the prefix-LM's projected
+        frontend features, scaled by √d in their dtype, go in front of the
+        text's."""
+        cfg = self.cfg
+        h = embed_apply(params["embed"], batch["tokens"], cfg)
+        if self.prefix_len is None:
+            return h
+        fh = frontend_apply(params["embed"], self._feats(batch), cfg)
+        if cfg.embed_scale:
+            fh = fh * embed_scale(cfg, fh.dtype)
+        return torch.cat([fh.to(h.dtype), h], dim=1)
 
-    def calib_init(self, params: Params,
-                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The calibration state entering segment 0 (the hidden)."""
-        return self.first_hidden(params, batch)
+    def _feats(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        feats = batch.get("frontend_feats")
+        if feats is None:
+            cfg = self.cfg
+            raise ValueError(
+                f"{cfg.name}: the batch needs frontend_feats (B, "
+                f"{cfg.frontend_len}, {cfg.frontend_dim}) for its "
+                f"{cfg.frontend} frontend stub")
+        return feats
+
+    def encode(self, params: Params, batch: Dict[str, torch.Tensor],
+               differentiable: bool = False) -> torch.Tensor:
+        """The encoder stack over the projected frontend features, then
+        ``enc/ln`` (the encoder-decoder's)."""
+        cfg = self.cfg
+        h = frontend_apply(params["embed"], self._feats(batch),
+                           cfg).to(self.dtype)
+        for p in params["enc"]["layers"]:
+            h, _ = self._block(p, h, "enc_attn",
+                               differentiable=differentiable)
+        return rmsnorm(params["enc"]["ln"], h, cfg.norm_eps)
+
+    def calib_init(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """The calibration state entering segment 0: the hidden, or for
+        the encoder-decoder ``{"h": the decoder's embedding, "enc": the
+        projected frontend features}`` — encoder segments advance "enc",
+        decoder segments "h", reading the normed final "enc" (the
+        reference's)."""
+        if not self.cfg.encdec:
+            return self.first_hidden(params, batch)
+        return {"h": self.first_hidden(params, batch),
+                "enc": frontend_apply(params["embed"], self._feats(batch),
+                                      self.cfg).to(self.dtype)}
 
     def prunable_segments(self) -> List[SegmentSpec]:
-        """One segment per period, named ``period{i}`` as the reference
+        """The encoder-decoder's encoder layers first, one segment each,
+        ``enc{li}`` with linears ``attn.wq`` … ``attn.wo``, ``mlp.*``;
+        then one segment per period, named ``period{i}`` as the reference
         names them; a segment's params are ``{"s{j}": params of its slot
-        j}`` and its linears, slot by slot, ``s{j}.attn.wq`` …
-        ``s{j}.attn.wo``, ``s{j}.mamba.in_proj`` … ``s{j}.mamba.out_proj``,
-        ``s{j}.mlstm.wq`` … ``wo`` (not the f32 gates ``wi`` / ``wf``) or
-        ``s{j}.slstm.wz`` … ``wo``, then ``s{j}.mlp.*`` where the slot has
-        an MLP, or where it has
-        experts ``s{j}.moe.wi.0`` … ``wi.{E-1}``, ``wg.*``, ``wo.*`` and
-        then the shared expert's ``s{j}.moe.shared.*`` (the reference's
-        order).  The router's input is captured too (``s{j}.moe.router``)
-        but pruned by no linear, as in the reference."""
+        j}`` (and the encoder-decoder's ``"_encln"``, the encoder's final
+        norm, which its decoder blocks apply to the state's "enc") and its
+        linears, slot by slot, ``s{j}.attn.wq`` … ``s{j}.attn.wo`` (a
+        decoder block's ``s{j}.xattn.wq`` … ``wo`` after them),
+        ``s{j}.mamba.in_proj`` … ``s{j}.mamba.out_proj``, ``s{j}.mlstm.wq``
+        … ``wo`` (not the f32 gates ``wi`` / ``wf``) or ``s{j}.slstm.wz`` …
+        ``wo``, then ``s{j}.mlp.*`` where the slot has an MLP, or where it
+        has experts ``s{j}.moe.wi.0`` … ``wi.{E-1}``, ``wg.*``, ``wo.*``
+        and then the shared expert's ``s{j}.moe.shared.*`` (the
+        reference's order).  The router's input is captured too
+        (``s{j}.moe.router``) but pruned by no linear, as in the
+        reference."""
         cfg = self.cfg
         slots = [f"s{j}" for j in range(len(cfg.period))]
         linears = []
@@ -298,19 +442,27 @@ class LM:
                                          f"{sk}.moe.shared.{key}", self.dtype)
                             for key in _MLP_LINEARS[cfg.mlp_kind]]
 
-        def apply(seg_params, h, capture=False):
+        def apply(seg_params, state, capture=False):
             caps = {} if capture else None
+            h, enc_out = state, None
+            if cfg.encdec:
+                h = state["h"]
+                enc_out = rmsnorm(seg_params["_encln"], state["enc"],
+                                  cfg.norm_eps)
             for sk, kind in zip(slots, cfg.period):
                 h, _ = self._block(seg_params[sk], h, kind, caps=caps,
-                                   name_prefix=f"{sk}.")
-            return h, caps or {}
+                                   name_prefix=f"{sk}.", enc_out=enc_out)
+            return ({**state, "h": h} if cfg.encdec else h), caps or {}
 
         def layer_ids(i):
             return range(i * len(slots), (i + 1) * len(slots))
 
         def get_params(i, params):
-            return {sk: params["layers"][li]
-                    for sk, li in zip(slots, layer_ids(i))}
+            sp = {sk: params["layers"][li]
+                  for sk, li in zip(slots, layer_ids(i))}
+            if cfg.encdec:
+                sp["_encln"] = params["enc"]["ln"]
+            return sp
 
         def set_params(i, params, seg_params):
             layers = list(params["layers"])
@@ -318,23 +470,67 @@ class LM:
                 layers[li] = seg_params[sk]
             return {**params, "layers": layers}
 
-        return [SegmentSpec(name=f"period{i}", apply=apply, linears=linears,
-                            get_params=functools.partial(get_params, i),
-                            set_params=functools.partial(set_params, i))
-                for i in range(cfg.n_periods)]
+        periods = [SegmentSpec(name=f"period{i}", apply=apply,
+                               linears=linears,
+                               get_params=functools.partial(get_params, i),
+                               set_params=functools.partial(set_params, i))
+                   for i in range(cfg.n_periods)]
+        return self._encoder_segments() + periods
+
+    def _encoder_segments(self) -> List[SegmentSpec]:
+        """The encoder-decoder's ``enc{li}`` segments (none otherwise):
+        the layer's params as they are, its linears ``attn.*`` and
+        ``mlp.*``; the segment advances the state's "enc"."""
+        cfg = self.cfg
+        if not cfg.encdec:
+            return []
+        subs = [*_BLOCK_LINEARS["enc_attn"],
+                *(("mlp", key) for key in _MLP_LINEARS[cfg.mlp_kind])]
+        linears = [_linear_spec((sub, key), f"{sub}.{key}", self.dtype)
+                   for sub, key in subs]
+
+        def apply(seg_params, state, capture=False):
+            caps = {} if capture else None
+            enc, _ = self._block(seg_params, state["enc"], "enc_attn",
+                                 caps=caps)
+            return {**state, "enc": enc}, caps or {}
+
+        def get_params(li, params):
+            return params["enc"]["layers"][li]
+
+        def set_params(li, params, seg_params):
+            layers = list(params["enc"]["layers"])
+            layers[li] = seg_params
+            return {**params, "enc": {**params["enc"], "layers": layers}}
+
+        return [SegmentSpec(name=f"enc{li}", apply=apply, linears=linears,
+                            get_params=functools.partial(get_params, li),
+                            set_params=functools.partial(set_params, li))
+                for li in range(cfg.enc_layers)]
 
     # ----------------------------------------------------- dense cache
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None
                    ) -> List[Dict[str, torch.Tensor]]:
         """The dense decode cache of static mode: one (B, max_len, KV, hd)
-        K and V per attention layer, the (B, ...) init state per recurrent
-        layer."""
+        K and V per attention layer (a decoder block's with its (B,
+        frontend_len, KV, hd) cross K / V ``xk`` / ``xv``), the (B, ...)
+        init state per recurrent layer.  A prefix-LM's ``max_len`` counts
+        its frontend positions."""
         dt = dtype or self.dtype
-        return [attn_cache_init(self.cfg, batch, max_len, dt, self.device)
-                if kind in ATTN_KINDS
-                else self.state_init(kind, batch, dt)
-                for kind in self.kinds]
+        cfg = self.cfg
+        cache = []
+        for kind in self.kinds:
+            if kind in STATE_BLOCKS:
+                cache.append(self.state_init(kind, batch, dt))
+                continue
+            c = attn_cache_init(cfg, batch, max_len, dt, self.device)
+            if kind == "dec_attn":
+                shape = (batch, cfg.frontend_len, cfg.num_kv_heads, cfg.hd)
+                c["xk"] = torch.zeros(shape, dtype=dt, device=self.device)
+                c["xv"] = torch.zeros(shape, dtype=dt, device=self.device)
+            cache.append(c)
+        return cache
 
     def state_init(self, kind: str, batch: int,
                    dtype) -> Dict[str, torch.Tensor]:
@@ -343,13 +539,20 @@ class LM:
         return STATE_BLOCKS[kind][2](self.cfg, batch, dtype, self.device)
 
     def prefill(self, params: Params, tokens: torch.Tensor,
-                cache: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
+                cache: List[Dict[str, torch.Tensor]],
+                frontend_feats: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         """The prompts (B, T) through the model, filling ``cache[:, :T]``
-        in place; returns the last position's logits (B, V) f32.  The
-        attention is the full-sequence one (``flash_attn`` on the card)."""
-        h = embed_apply(params["embed"], tokens, self.cfg)
+        in place (a prefix-LM's T counts its frontend positions first; an
+        encoder-decoder's cross K / V fill ``xk`` / ``xv``); returns the
+        last position's logits (B, V) f32.  The attention is the
+        full-sequence one (``flash_attn`` on the card).  A frontend model
+        takes ``frontend_feats``."""
+        batch = _batch(tokens, frontend_feats)
+        enc_out = self.encode(params, batch) if self.cfg.encdec else None
+        h = self.first_hidden(params, batch)
         for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
-            h, _ = self._block(p, h, kind, cache=cache[i])
+            h, _ = self._block(p, h, kind, cache=cache[i], enc_out=enc_out)
         logits = unembed_apply(params["unembed"], params["embed"],
                                h[:, -1:], self.cfg)
         return logits[:, 0, :].float()
@@ -365,6 +568,7 @@ class LM:
         layer the state rows of ``max_slots`` serve slots, at the model
         dtype when the pages are int8 (serve.kvpool.StatePool resets a
         row at admission)."""
+        self._refuse_paged()
         dt = dtype or self.dtype
         state_dt = self.dtype if dt == torch.int8 else dt
         if max_slots is None and any(k in self.STATE_KINDS
@@ -378,6 +582,16 @@ class LM:
                 else self.state_init(kind, max_slots, state_dt)
                 for kind in self.kinds]
 
+    def _refuse_paged(self) -> None:
+        """The paged serve cache holds decoder-only models: the prefix-LM's
+        bidirectional prefix and the encoder-decoder's cross K / V have no
+        place in it (the reference's ``init_paged_cache`` refuses them
+        too); they serve static."""
+        cfg = self.cfg
+        if cfg.encdec or cfg.frontend is not None:
+            raise ValueError(f"{cfg.name}: paged decode supports plain "
+                             "decoder archs only (got encdec/frontend)")
+
     def prefill_chunk(self, params: Params, tokens: torch.Tensor,
                       cache: List[Dict[str, torch.Tensor]], start: int,
                       length: int, block_tables: torch.Tensor, *,
@@ -390,6 +604,7 @@ class LM:
         ``slot``'s recurrent state forward, and returns the logits at
         position ``min(length, start+C) - 1`` (the sampling logits when
         this is the final chunk), (1, V) f32."""
+        self._refuse_paged()
         h = embed_apply(params["embed"], tokens, self.cfg)
         t = h.shape[1]
         lengths = torch.full((1,), length, dtype=torch.int32,
@@ -411,8 +626,10 @@ class LM:
         """One decode token per row: token (B,).  Paged (``block_tables``
         (B, P_max) given): ``pos`` (B,) write positions with -1 marking
         idle slots, whose state rows stay as they are.  Dense cache
-        (static mode): ``pos`` the host int position every row writes.
-        Returns logits (B, V) f32; the cache is updated in place."""
+        (static mode): ``pos`` the host int position every row writes (a
+        prefix-LM's counts its frontend positions; an encoder-decoder's
+        cross-attention reads the cached ``xk`` / ``xv``).  Returns logits
+        (B, V) f32; the cache is updated in place."""
         h = embed_apply(params["embed"], token[:, None], self.cfg)
         paged = None if block_tables is None else {
             "block_tables": block_tables}
@@ -425,6 +642,14 @@ class LM:
 
 
 # ----------------------------------------------------------------------
+def _batch(tokens: torch.Tensor,
+           frontend_feats: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    batch = {"tokens": tokens}
+    if frontend_feats is not None:
+        batch["frontend_feats"] = frontend_feats
+    return batch
+
+
 def _linear_spec(path: Tuple[str, ...], name: str, dtype) -> LinearSpec:
     """Weights are stored (in, out); the paper works in (out, in): get
     returns the transposed view, set stores the transpose back (a fresh

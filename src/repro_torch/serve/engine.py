@@ -30,8 +30,14 @@ bucket's key is the next ``split`` of ``key(seed)``.  A MoE model serves
 static whatever mode is asked, as in the reference: expert capacity
 drops tokens by the batch's routing, so a row's logits depend on the
 other rows, which continuous batching's guarantees (a stream independent
-of the batch, bit-exact recompute) cannot carry.  ``engine.mode`` is the
-effective mode; ``config.mode`` stays as asked.
+of the batch, bit-exact recompute) cannot carry.  So does a model with a
+modality frontend — the prefix-LM and the encoder-decoder — and any
+engine given ``extra_batch`` (the frontend's ``frontend_feats`` (B, F,
+fd), a row per request of the bucket, or one row for all): the paged
+cache holds neither a bidirectional prefix nor cross K / V, as in the
+reference.  A prefix-LM's decode positions start past its frontend_len
+prefix positions.  ``engine.mode`` is the effective mode;
+``config.mode`` stays as asked.
 
 Counters, latency histograms and request spans go to the engine's
 :class:`~repro_torch.obs.Obs` bundle (``obs=``; the serve launcher
@@ -112,18 +118,25 @@ class StreamEvent:
     finish_reason: Optional[str] = None
 
 
-def effective_mode(cfg, mode: str) -> str:
+def effective_mode(cfg, mode: str, extra_batch=None) -> str:
     """The mode an engine serves ``cfg`` in when ``mode`` is asked: a MoE
-    model serves static (see the module docstring)."""
-    return mode if cfg.moe is None else "static"
+    model, a modality-frontend model (prefix-LM, encoder-decoder) and an
+    engine with ``extra_batch`` serve static (see the module
+    docstring)."""
+    paged_ok = (cfg.moe is None and not cfg.encdec and cfg.frontend is None
+                and not extra_batch)
+    return mode if paged_ok else "static"
 
 
 class ServeEngine:
     def __init__(self, model, params, config: Optional[ServeConfig] = None,
-                 *, obs: Optional[Obs] = None, **knobs):
+                 *, extra_batch: Optional[Dict[str, torch.Tensor]] = None,
+                 obs: Optional[Obs] = None, **knobs):
         """``config`` carries every knob; bare keywords build one (or
         override fields of the given one).  Validation happens once, in
-        ``ServeConfig.validate``.  ``obs`` is the metrics / trace bundle
+        ``ServeConfig.validate``.  ``extra_batch``: batch entries beside
+        the tokens that every bucket's prefill takes (a frontend model's
+        ``frontend_feats``).  ``obs`` is the metrics / trace bundle
         (default: a private one from ``config.metrics`` / ``trace``)."""
         if config is None:
             config = ServeConfig(**knobs)
@@ -139,7 +152,8 @@ class ServeEngine:
             params = compressed_param_tree(params)
         self.n_sparse_leaves = count_packed(params)
         self.params = params
-        self.mode = effective_mode(model.cfg, config.mode)
+        self.extra_batch = extra_batch or {}
+        self.mode = effective_mode(model.cfg, config.mode, self.extra_batch)
         self.eos = -1 if config.eos_id is None else int(config.eos_id)
         self.sampling = dict(temperature=config.temperature,
                              top_k=config.top_k, top_p=config.top_p)
@@ -239,14 +253,17 @@ class ServeEngine:
         loop on the device and ONE host readback."""
         b = len(reqs)
         plen = len(reqs[0].prompt)
+        off = self.model.prefix_len or 0     # the prefix-LM's frontend rows
         max_new = max(r.max_new_tokens for r in reqs)
-        if plen + max_new > self.max_len:
+        if off + plen + max_new > self.max_len:
             raise ValueError("bucket exceeds max_len")
         dev = self.model.device
         toks = torch.from_numpy(np.stack([np.asarray(r.prompt, np.int32)
                                           for r in reqs])).to(dev)
+        extra = {k: v[:b] if v.shape[0] >= b else v[:1].expand(
+            b, *v.shape[1:]) for k, v in self.extra_batch.items()}
         cache = self.model.init_cache(b, self.max_len)
-        logits = self.model.prefill(self.params, toks, cache)
+        logits = self.model.prefill(self.params, toks, cache, **extra)
         max_new_arr = np.asarray([r.max_new_tokens for r in reqs], np.int32)
         # EOS off and one max_new_tokens: the done scan could never fire
         # early, so the fori variant drops that bookkeeping
@@ -254,8 +271,9 @@ class ServeEngine:
                           and len(set(max_new_arr.tolist())) == 1)
         t0 = time.monotonic()
         out, n_emitted, steps_run = fused.static_burst(
-            self.model, self.params, cache, logits, key, max_new_arr, plen,
-            max_new, early_exit=early_exit, eos=self.eos, **self.sampling)
+            self.model, self.params, cache, logits, key, max_new_arr,
+            off + plen, max_new, early_exit=early_exit, eos=self.eos,
+            **self.sampling)
         blob = torch.cat([out.reshape(-1), n_emitted,
                           steps_run.reshape(1)]).cpu().numpy()
         out = blob[:b * max_new].reshape(b, max_new)   # ONE sync a bucket

@@ -621,6 +621,56 @@ def test_flash_attn_window_matches_plain(gen, t, window, hd, dtype):
                        flash_attn(q, k, v, False))
 
 
+@pytest.mark.parametrize("prefix", [1, 63, 64, 65, 256, 320])
+@pytest.mark.parametrize("hd,h,kv", [(256, 8, 1), (64, 4, 4), (64, 4, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_prefix_matches_plain(gen, prefix, hd, h, kv, dtype):
+    """The prefix-LM's bidirectional prefix at PaliGemma's T 320 (256
+    image + 64 text positions): prefixes inside a key tile, on its edges,
+    the whole image and the whole sequence (= non-causal), on every
+    route — PaliGemma's hd 256 / MQA and hd 64 at G 1 and 2; the prefix
+    moves the result, and a non-causal call ignores it."""
+    q, k, v = _flash_case(gen, 2, 320, h, kv, hd, dtype)
+    got = flash_attn(q, k, v, True, None, prefix)
+    assert flash_attn.last_kernel == ("tensor cores"
+                                      if dtype == torch.bfloat16
+                                      else "f32 FMA")
+    _flash_close(got, flash_attn_plain(q, k, v, True, None, prefix), dtype)
+    assert torch.equal(got, flash_attn(q, k, v, True, None, prefix))
+    if prefix >= 320:
+        assert torch.equal(got, flash_attn(q, k, v, False))
+    elif prefix == 1:            # key 0: every causal row sees it already
+        assert torch.equal(got, flash_attn(q, k, v, True))
+    else:
+        assert not torch.equal(got, flash_attn(q, k, v, True))
+    assert torch.equal(flash_attn(q, k, v, False, None, prefix),
+                       flash_attn(q, k, v, False))
+
+
+@pytest.mark.parametrize("t,s", [(1, 1024), (64, 1024), (200, 129),
+                                 (1024, 1024), (130, 1)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_cross_matches_plain(gen, t, s, hd, dtype):
+    """Non-causal attention of T queries over S ≠ T keys (the decoder's
+    cross-attention over the encoder's frames) at seamless's 16 / 16
+    heads: ragged query and key tiles on every route; a causal call
+    with S ≠ T raises."""
+    q = torch.randn(2, t, 16, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(2, s, 16, hd, generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    got = flash_attn(q, k, v, False)
+    assert flash_attn.last_kernel == ("tensor cores"
+                                      if dtype == torch.bfloat16
+                                      else "f32 FMA")
+    assert got.shape == (2, t, 16, hd)
+    _flash_close(got, flash_attn_plain(q, k, v, False), dtype)
+    assert torch.equal(got, flash_attn(q, k, v, False))
+    if s != t:
+        with pytest.raises(ValueError, match="as many keys"):
+            flash_attn(q, k, v, True)
+
+
 def test_flash_attn_hd256_unaligned_bf16_takes_the_fma_kernel(gen):
     flat = torch.randn(1 * 70 * 2 * 256 + 1, generator=gen,
                        device="cuda").to(torch.bfloat16)

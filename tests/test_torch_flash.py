@@ -9,7 +9,9 @@ run the same softmax in f32 and differ only in summation order, and
 ``tests/test_torch_model.py``.
 
 One case pins a fault of the reference: its ``ops.attention`` pads T to
-a tile multiple with zero keys, which join a non-causal softmax.
+a tile multiple with zero keys, which join a non-causal softmax.  The
+prefix-LM's bidirectional prefix and non-causal S ≠ T (cross-attention)
+are held against the reference's ``_sdpa`` under its masks.
 """
 
 import dataclasses
@@ -181,6 +183,77 @@ def test_online_softmax_takes_the_window():
                               window=12, chunk=16)
     want = jlayers._sdpa_online(*map(jnp.asarray, (q, k, v)), 4, 2,
                                 window=12, chunk=16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+# ----------------------------------------------------------------------
+# the prefix-LM's bidirectional prefix, and S ≠ T (cross-attention)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("t,prefix", [(37, 1), (37, 8), (37, 37), (37, 60),
+                                      (200, 65)])
+@pytest.mark.parametrize("hd", [16, 256])
+def test_prefix_attention_matches_reference_sdpa(t, prefix, hd):
+    """``flash_attn_plain(prefix_len=)`` and ``ops.attention`` against the
+    reference's ``_sdpa`` under ``causal_mask(t, t, prefix_len=)``: a
+    prefix inside the sequence, of all of it, and past it (every key
+    seen: the non-causal result); a non-causal call ignores it."""
+    q, k, v = map(torch.from_numpy, _grouped(t + prefix + hd, t, hd))
+    got = flash_attn_plain(q, k, v, True, None, prefix)
+    want = jlayers._sdpa(*map(jnp.asarray, (q.numpy(), k.numpy(),
+                                            v.numpy())),
+                         jlayers.causal_mask(t, t, prefix_len=prefix), 4, 2)
+    np.testing.assert_allclose(got.reshape(2, t, 4 * hd).numpy(),
+                               np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+    assert torch.equal(ops.attention(q, k, v, prefix_len=prefix), got)
+    if prefix >= t:
+        np.testing.assert_allclose(got.numpy(),
+                                   flash_attn_plain(q, k, v, False).numpy(),
+                                   rtol=0, atol=1e-6)
+    assert torch.equal(flash_attn_plain(q, k, v, False, None, prefix),
+                       flash_attn_plain(q, k, v, False))
+
+
+@pytest.mark.parametrize("t,s", [(1, 40), (7, 40), (40, 40), (33, 9)])
+@pytest.mark.parametrize("kv", [4, 2])
+def test_cross_attention_matches_reference_sdpa(t, s, kv):
+    """Non-causal attention of T queries over S keys (the decoder's
+    cross-attention) in both layouts, against the reference's ``_sdpa``
+    under an all-true mask, as its cross branch computes it."""
+    rng = np.random.default_rng(t * s + kv)
+    q = rng.standard_normal((2, t, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, s, kv, 16)).astype(np.float32)
+            for _ in range(2))
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=False)
+    assert got.shape == (2, t, 4, 16)
+    want = jlayers._sdpa(*map(jnp.asarray, (q, k, v)),
+                         jnp.ones((1, 1, 1, t, s), bool), 4, kv)
+    np.testing.assert_allclose(got.reshape(2, t, 64).numpy(),
+                               np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+    q3, k3, v3 = (np.ascontiguousarray(x[:, :, 0]) for x in (q, k, v))
+    flat = ops.attention(*map(torch.from_numpy, (q3, k3, v3)), causal=False)
+    want3 = jlayers._sdpa(*(jnp.asarray(x[:, :, None]) for x in (q3, k3, v3)),
+                          jnp.ones((1, 1, 1, t, s), bool), 1, 1)
+    np.testing.assert_allclose(flat.numpy(), np.asarray(want3),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_causal_attention_needs_as_many_keys_as_queries():
+    q, k, v = map(torch.from_numpy, _qkv(3, (1, 12, 2, 16)))
+    with pytest.raises(ValueError, match="as many keys"):
+        flash_attn(q, k[:, :7], v[:, :7], True)
+    with pytest.raises(ValueError, match="as many keys"):
+        ops.attention(q, k[:, :7], v[:, :7], causal=True, prefix_len=3)
+
+
+def test_online_softmax_takes_the_prefix():
+    """The trainer's route past ONLINE_ATTN_THRESHOLD (``_sdpa_online``
+    with a prefix) against the reference's, at a small chunk."""
+    q, k, v = _grouped(6, 64, 16)
+    got = layers._sdpa_online(*map(torch.from_numpy, (q, k, v)), 4, 2,
+                              chunk=16, prefix_len=20)
+    want = jlayers._sdpa_online(*map(jnp.asarray, (q, k, v)), 4, 2,
+                                prefix_len=20, chunk=16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
                                atol=F32_TOL)
 

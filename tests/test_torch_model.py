@@ -38,7 +38,8 @@ ARCHS = ("paper_tiny_lm", "qwen1_5_0_5b")
 LINEARS = (("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("wi", "wg", "wo")))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", (*ARCHS, "paligemma_3b",
+                                  "seamless_m4t_large_v2"))
 def test_arch_config_matches_reference(arch):
     assert ([f.name for f in dataclasses.fields(ArchConfig)]
             == [f.name for f in dataclasses.fields(JArchConfig)])
@@ -47,8 +48,9 @@ def test_arch_config_matches_reference(arch):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert port.hd == ref.hd and port.n_periods == ref.n_periods
     assert configs.canonical("qwen1.5-0.5b") == "qwen1_5_0_5b"
+    assert configs.canonical("paligemma-3b") == "paligemma_3b"
     with pytest.raises(KeyError):
-        configs.canonical("paligemma-3b")
+        configs.canonical("paligemma-4b")
 
 
 def test_sparsity_spec_matches_reference():
@@ -224,9 +226,11 @@ def test_load_pytree_reads_reference_checkpoint(tmp_path, dtype):
 
 
 def test_lm_refuses_unported_families():
+    """The one layout still refused: leading ``cfg.prefix`` blocks (no
+    config uses them)."""
     with pytest.raises(ValueError, match="ROADMAP"):
         LM(configs.get_smoke("qwen1_5_0_5b").__class__(
-            name="encdec", family="audio", num_layers=2, d_model=32,
+            name="prefixed", family="dense", num_layers=2, d_model=32,
             num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64,
-            period=("dec_attn",), encdec=True, enc_layers=2),
+            prefix=("attn",), period=("attn",)),
            device="cpu")

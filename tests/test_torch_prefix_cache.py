@@ -4,10 +4,11 @@ n-1 cap and partial-tail longest common prefix, register with dedup and
 the collision stop, LRU eviction feeding ``alloc``, the recency bump) on
 pools of both packages with equal page ids and return tuples; the arena
 holding the bytes; and the reference's single-device engine cases
-(prefix parity and savings, swap against recompute, the seeded refcount
-walk, the random walk with prefix sharing, copy-on-write, swap
-preemption and cancel interleaved), with the port's token streams and
-counters equal to the JAX engine's on the same requests.
+(prefix parity and savings, greedy and sampled, swap against recompute,
+the seeded refcount walk, the random walk with prefix sharing,
+copy-on-write, swap preemption and cancel interleaved), with the port's
+token streams and counters equal to the JAX engine's on the same
+requests.
 """
 
 import time
@@ -572,13 +573,19 @@ def test_prefill_after_cow_attach_mid_page(pair, dtype):
     assert torch.equal(out[True].argmax(-1), out[False].argmax(-1))
 
 
-# ======================================================================
-# the reference's cases that need what the port has not ported
-# ======================================================================
-@pytest.mark.skip(reason="sampled decoding is not ported (ROADMAP.md "
-                  "Queue 1 item 2: JAX's RNG in torch, then sampling)")
-def test_engine_prefix_parity_sampled():
-    pass
+def test_engine_prefix_parity_sampled(pair):
+    """Sampled streams (temperature 1.0, top-k 5, seed 3) are the same
+    with the prefix cache on and off: every draw is keyed per (uid,
+    step), so attaching cached pages changes work, never tokens."""
+    _, _, tm, tp = pair
+    kw = dict(max_batch=4, max_len=64, page_size=8, num_pages=17,
+              temperature=1.0, top_k=5, host_swap_pages=0)
+    base = ServeEngine(tm, tp, prefix_cache=False, **kw).generate(
+        _prefix_requests(Request), seed=3)
+    on = ServeEngine(tm, tp, prefix_cache=True, **kw)
+    got = on.generate(_prefix_requests(Request), seed=3)
+    _same_results(base, got)
+    assert on.stats["prefix_hit_tokens"] > 0
 
 
 def test_swap_disabled_for_recurrent_state():
