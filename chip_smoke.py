@@ -15,8 +15,9 @@ sliding-window layers), and the Mixture-of-Experts models — phi3.5-moe,
 kimi-k2 and Jamba with its experts — served static at full width, phi3.5
 pruned — the xLSTM: xlstm-350m served 2:4-packed, pruned and trained
 at full width — and the prefix-LM and the encoder-decoder: paligemma-3b
-and seamless-m4t-large-v2 served static 2:4-packed and pruned at full
-width.
+and seamless-m4t-large-v2 served static 2:4-packed, pruned and trained
+at full width — and distribution: a 1-rank NCCL group and two ranks
+sharing the card, pruning and training over a DeviceMesh.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
     python3 chip_smoke.py --phases 1,12   # phase 1's hd-256 / window /
@@ -31,7 +32,9 @@ width.
     python3 chip_smoke.py --phases 1e,15  # flash_attn with a prefix and
                                           # S != T, the frontend models'
                                           # widths, and phase 15 (or 15a
-                                          # ... 15d)
+                                          # ... 15e)
+    python3 chip_smoke.py --phases 15e,16 # the frontend models trained,
+                                          # and distribution (16a, 16b)
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
@@ -233,8 +236,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
      named: 12a each model's kernels against the plain override end to
      end in f32 (2 layers; Gemma3-12B one period of 6 with a 1100-token
      prompt past its window), phase 2's LOGIT_TOL and tie rule; 12b
-     gemma-2b and Gemma3-12B at full depth, Qwen3-14B at
-     DENSE_SERVE_LAYERS (10 of its 40), magnitude 2:4
+     gemma-2b at full depth, Qwen3-14B and Gemma3-12B at
+     DENSE_SERVE_LAYERS (10 of 40, 12 of 48), magnitude 2:4
      packed by the engine — the 8 requests continuous (the reference's
      serve defaults), with int8 pages and as one static bucket (static
      equal to continuous up to near ties), Gemma3-12B also one 2048-token
@@ -284,9 +287,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
      quadratic's), and
      the static prefill of one 9216-token prompt (the chunkwise path) + 32
      tokens, with one sLSTM layer's 9216-step loop timed alone; 14d MS 2:4
-     through the launcher's default (pipelined) engine at full depth on
-     128 x 2048 random ids in XLSTM_CALIB_SHARDS shards (hessian_accum 99 a
-     shard, nm_select 99, ≤ 1 host sync, every linear 2:4), then three
+     through the launcher's default (pipelined) engine at
+     XLSTM_PRUNE_LAYERS (one period) on 128 x 2048 random ids in
+     XLSTM_CALIB_SHARDS shards (hessian_accum 33 a shard, nm_select 33,
+     ≤ 1 host sync, every linear 2:4), then three
      trainer steps at 4 x 256 through ``repro_torch.launch.train``.
  15. the prefix-LM and the encoder-decoder at full width, bf16, random
      init, magnitude 2:4 on every attention (self and cross, the
@@ -308,13 +312,33 @@ Phases (any failure exits non-zero; no exception is swallowed):
      their features, then the serial engine on the same: launches a
      segment, ≤ 1 host sync, every linear 2:4, the first segment's masks
      and errors as phase 5b's rule, seconds a layer, perplexity before
-     and after.
+     and after.  15e trains each 3 steps (the Trainer: autograd on the
+     differentiable route, AdamW with f32 moments) at full width, 4 x 256
+     text tokens with their features, at FRONTEND_TRAIN's depth: each
+     loss finite, seconds a step, HBM held;
+ 16. distribution.  16a, a 1-rank NCCL group (``--mesh host``): the
+     prune launcher's engine on Qwen1.5-0.5B at full width, DIST_LAYERS
+     layers, MM 2:4 pipelined, with and without the mesh — masks equal,
+     weights within DIST_W_TOL, every prune kernel launched on the mesh
+     run; hessian_allreduce (timed), prune_matrix_sharded and
+     compressed_psum over the group at mlp.wo's shape; three
+     paper_tiny_lm trainer steps with grad_compression, on the mesh and
+     without (losses within DIST_LOSS_ABS).  16b, two ranks sharing the
+     card (``--dist-rank`` processes, RANK / WORLD_SIZE / MASTER_PORT as
+     torchrun sets them; gloo on CUDA tensors, since NCCL refuses two
+     ranks on one device): the same prune on 1x2 (row-parallel solves)
+     and 2x1 (calibration sharded over data), masks equal to 16a's (1x2:
+     its one-device run; 2x1: its run in two calibration shards, whose
+     GEMMs have the ranks' shapes) and weights within DIST_W_TOL, each
+     rank's hessian_accum and nm_select launches printed and > 0; three
+     data-parallel trainer steps equal to 16a's one-rank steps (losses
+     within DIST_LOSS_ABS, params within DIST_TRAIN_REL by norm).
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
 shapes — hessian_accum's weighted rows under ``weighted`` — and its
-launches over phases 3-15; flash_attn's rows at phase 1e's shapes under
-``frontend``), the nvidia-smi
+launches over phases 3-16, 16b's two ranks' included; flash_attn's
+rows at phase 1e's shapes under ``frontend``), the nvidia-smi
 line, and last the ``{"ok": true, "device": {...}}`` line.  Longer tables go to
 ``chiprun_out/chip_smoke.txt``.
 """
@@ -355,9 +379,11 @@ LAYER_W_TOL = 1e-3                   # phase 6: |Δw| / max|w0| on agreeing rows
 LAYER_ERR_REL = 1e-3                 # phases 5b, 6: reconstruction error, relative
 PRUNE_LAYERS = 8                     # phase 5 depth: 8 of the 24 (≈ 2.7 s a layer;
                                      # cut with phase 12's arrival, as
-QWEN_SERVE_LAYERS = 8                # phases 3-4 and 11a-c: 8 of the 24 layers,
+QWEN_SERVE_LAYERS = 4                # phases 3-4 and 11a-c: 4 of the 24 layers
+                                     # (8 until phases 15e and 16 came),
                                      # to keep chip_smoke inside its time limit)
-PRUNE_CMP_LAYERS = 4                 # serial vs pipelined, and resume
+PRUNE_CMP_LAYERS = 3                 # serial vs pipelined, and resume (4
+                                     # until phases 15e and 16 came)
 PRUNE_ROW_CHUNK = 128                # rows per MRP solve: ≤ 1 GB (rows, k, k)
 SERVE_KERNELS = ("nm_spmm", "nm_spmm_decode", "paged_attn")
 PRUNE_KERNELS = ("hessian_accum", "nm_select", "flash_attn")
@@ -387,10 +413,12 @@ GEMMA_LINEARS = (                    # gemma-2b: the widest K, the narrowest N
     ("gemma-2b attn.wk", 2048, 256, False, None),
 )
 DENSE_ARCHS = ("gemma_2b", "qwen3_14b", "gemma3_12b")
-DENSE_SERVE_LAYERS = {"qwen3_14b": 10}  # phase 12b: Qwen3-14B cut from 40
-                                     # layers to 20 to make room for phase
-                                     # 13 inside the time limit, and to 10
-                                     # for phase 14
+DENSE_SERVE_LAYERS = {"qwen3_14b": 10,  # phase 12b: Qwen3-14B cut from 40
+                      "gemma3_12b": 12}  # layers to 20 to make room for
+                                     # phase 13 inside the time limit, and
+                                     # to 10 for phase 14; Gemma3-12B from
+                                     # 48 to 12 (two 5 local : 1 global
+                                     # periods) for phases 15e and 16
 DENSE_PRUNE_LAYERS = {"gemma_2b": 2,   # phase 12c: gemma-2b 2 of 18 (18
                       "qwen3_14b": 2,  # until phase 14 came, 6 until phase
                                      # 15's PaliGemma pruned 2 layers of its
@@ -4720,6 +4748,9 @@ XLSTM_QUAD_T = 16384                 # 14c: one mLSTM layer, chunkwise
                                      # f32 tensor is 4.3 GB, ≈ 3 live
 XLSTM_LONG = 9216                    # 14c: the smallest prompt > 8192 that
                                      # is a multiple of 1024 (chunkwise)
+XLSTM_PRUNE_LAYERS = 8               # 14d: one period (7 mLSTM + the sLSTM)
+XLSTM_PRUNE_PACKED = 7 * 4 + 5       # of the 24, its 33 linears (all 24
+                                     # layers until phases 15e and 16 came)
 XLSTM_CALIB_SHARDS = 2               # 14d: a (64, 4, 2048, 2048) f32 tensor
                                      # is 4.3 GB, ≈ 3 live in the quadratic
                                      # form, beside a segment's captures
@@ -5199,8 +5230,8 @@ def xlstm_long(model, packed, smi):
 
 def xlstm_prune(smi):
     """14d: ``launch.prune.prune`` with the launcher's default (pipelined)
-    engine, MS 2:4 at blocksize 128, on xlstm-350m at full width and
-    depth, bf16, 128 x 2048 random ids in XLSTM_CALIB_SHARDS shards:
+    engine, MS 2:4 at blocksize 128, on xlstm-350m at full width,
+    XLSTM_PRUNE_LAYERS deep, bf16, 128 x 2048 random ids in XLSTM_CALIB_SHARDS shards:
     seconds a layer, HBM held, host syncs (≤ 1), launches (hessian_accum
     one a linear and shard, nm_select one a linear), every linear 2:4,
     finite perplexity.  Then three trainer steps of xlstm-350m at batch
@@ -5211,7 +5242,7 @@ def xlstm_prune(smi):
     from repro_torch.kernels import ops
     from repro_torch.launch import prune as launch_prune
 
-    cfg, model = _xlstm(24)
+    cfg, model = _xlstm(XLSTM_PRUNE_LAYERS)
     params = launch_prune.load_params(model, None, seed=0)
     calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
                                         "cuda", seed=0)
@@ -5240,14 +5271,14 @@ def xlstm_prune(smi):
         f"{XLSTM_CALIB_SHARDS} shards): {wall:.2f} s ({wall / layers:.3f} s "
         f"a layer); HBM held {hbm / 2**30:.3f} GiB; host syncs {syncs['n']} "
         f"from {syncs['where']}; launches {counts} ({smi})")
-    want = {"hessian_accum": XLSTM_PACKED * XLSTM_CALIB_SHARDS,
-            "flash_attn": 0, "nm_select": XLSTM_PACKED}
+    want = {"hessian_accum": XLSTM_PRUNE_PACKED * XLSTM_CALIB_SHARDS,
+            "flash_attn": 0, "nm_select": XLSTM_PRUNE_PACKED}
     for k, n in want.items():
         if counts[k] != n:
             fail(f"phase 14d: {counts[k]} {k} launches, expected {n}")
     if syncs["n"] > 1:
         fail(f"phase 14d: {syncs['n']} host syncs in the pipelined run")
-    if len(reports) != XLSTM_PACKED or any(
+    if len(reports) != XLSTM_PRUNE_PACKED or any(
             abs(r.sparsity - 0.5) > 1e-6 for r in reports):
         fail(f"phase 14d: {len(reports)} reports, or a sparsity other than "
              "0.5")
@@ -5780,9 +5811,10 @@ def frontend_prune(arch, smi):
     return counts, out
 
 
-def frontend_phase(smi, parts="abcd"):
+def frontend_phase(smi, parts="abcde"):
     """Phase 15 (those of ``parts``): returns the launches of the serving
-    and pruning runs and the phase's numbers."""
+    and pruning runs and the phase's numbers (15e trains, launching no
+    kernel: the trainer takes the differentiable route)."""
     import torch
 
     out = {}
@@ -5809,7 +5841,474 @@ def frontend_phase(smi, parts="abcd"):
             prune_counts[k] += c[k]
         say(f"  15{part} took {time.monotonic() - t:.1f} s")
         torch.cuda.empty_cache()
+    if "e" in parts:
+        t = time.monotonic()
+        say(f"  15e: {' and '.join(FRONTEND_ARCHS)} trained 3 steps at full "
+            f"width, {FRONTEND_TRAIN_BATCH[0]} x {FRONTEND_TRAIN_BATCH[1]}")
+        for arch in FRONTEND_ARCHS:
+            out[f"train {arch}"] = frontend_train(arch, smi)
+            torch.cuda.empty_cache()
+        say(f"  15e took {time.monotonic() - t:.1f} s")
     return serve_counts, prune_counts, out
+
+
+# ----------------------------------------------------------------------
+# phase 15e: the two frontend archs trained on the card
+# ----------------------------------------------------------------------
+FRONTEND_TRAIN = {"paligemma_3b": dict(num_layers=16),  # 15e: 16 of 18
+                  "seamless_m4t_large_v2": {}}  # (18 ran out of the card's
+                                     # 80 GB: params, grads and AdamW's f32
+                                     # moments with the update's copies);
+                                     # seamless at full depth
+FRONTEND_TRAIN_BATCH = (4, 256)      # 15e: 4 sequences of 256 text tokens
+
+
+class _RandomBatches:
+    """15e's training batches: token ids and stub features from a seeded
+    torch.Generator on the card (both vocabularies make the synthetic
+    corpus's (V, V) table 66 G entries), the features 0.25 × normals in
+    bf16 as the reference's pipeline draws them."""
+
+    def __init__(self, cfg, batch, seq, seed=0):
+        self.cfg, self.batch, self.seq, self.seed = cfg, batch, seq, seed
+
+    def batch_at(self, step):
+        import torch
+
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1000 * self.seed + step)
+        toks = torch.randint(0, self.cfg.vocab_size, (self.batch, self.seq),
+                             generator=g, device="cuda", dtype=torch.int32)
+        feats = (0.25 * torch.randn(self.batch, self.cfg.frontend_len,
+                                    self.cfg.frontend_dim, generator=g,
+                                    device="cuda")).to(torch.bfloat16)
+        return {"tokens": toks, "labels": toks, "frontend_feats": feats}
+
+
+def frontend_train(arch, smi):
+    """15e: three trainer steps of ``arch`` at full width (the depth in
+    FRONTEND_TRAIN: what AdamW's f32 moments leave room for on one card),
+    4 × 256 text tokens with the stub's features, bf16 params from a seeded
+    torch.Generator.  The Trainer's own step (the differentiable route,
+    autograd, AdamW); its end-of-run checkpoint is skipped (the state is
+    tens of GB).  Every loss finite."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.optim import AdamW, tree_leaves
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg, model = _frontend(arch, **FRONTEND_TRAIN[arch])
+    b, t = FRONTEND_TRAIN_BATCH
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = model.init(gen)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt = AdamW(lr=warmup_cosine(1e-4, 1, 3))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        trainer = Trainer(model, opt, _RandomBatches(cfg, b, t),
+                          TrainConfig(total_steps=3, global_batch=b,
+                                      seq_len=t, ckpt_every=3, out_dir=out,
+                                      log_every=1))
+        trainer.init_state = lambda seed=0: (
+            params, opt.init(params),
+            torch.zeros((), dtype=torch.float32, device="cuda"))
+        trainer._save = lambda *a: None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, info = trainer.run()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+    hbm = torch.cuda.max_memory_allocated() / 2**30
+    secs = info["step_seconds"]
+    say(f"  {arch}: {cfg.num_layers} of {get_config(arch).num_layers} layers"
+        f"{' (+ ' + str(cfg.enc_layers) + ' encoder)' if cfg.encdec else ''}"
+        f", {n_params / 1e9:.3f} B params, AdamW f32 moments; 3 steps at "
+        f"{b} x {t}: losses {losses}; {[round(s, 3) for s in secs]} s a "
+        f"step; HBM held {hbm:.2f} GiB ({smi})")
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        fail(f"15e {arch}: losses {losses}")
+    if info["skipped_steps"]:
+        fail(f"15e {arch}: {info['skipped_steps']} steps skipped")
+    return dict(layers=cfg.num_layers, params_b=n_params / 1e9,
+                losses=losses, step_s=secs, hbm_gib=hbm)
+
+
+# ----------------------------------------------------------------------
+# phase 16: distribution — a 1-rank NCCL group, two ranks on one card
+# ----------------------------------------------------------------------
+DIST_LAYERS = 2                      # 16a / 16b: Qwen1.5-0.5B, 2 layers
+DIST_W_TOL = 1e-3                    # |Δw| / max|w| of the mesh runs
+DIST_LOSS_ABS = 1e-4                 # trainer losses, f32
+DIST_TRAIN_REL = 1e-3                # 16b's trained params against one
+DIST_TRAIN_ENTRY_ABS = 1e-5          # rank's: by norm, and at most
+DIST_TRAIN_OUTLIERS = 1e-3           # DIST_TRAIN_OUTLIERS of the entries
+                                     # past DIST_TRAIN_ENTRY_ABS — the mean
+                                     # of two half-batch gradients rounds
+                                     # apart from the whole batch's, and
+                                     # AdamW's first steps move an entry
+                                     # whose gradient is ≈ 0 by ≈ lr
+DIST_TRAIN = dict(steps=3, batch=16, seq=64)
+
+
+def _dist_prune(model, params, calib, mesh=None, calib_shard="auto"):
+    """MM 2:4 through the prune launcher's engine (pipelined, as
+    ``launch.prune.prune``), on ``mesh`` or the active context's; returns
+    (pruned params, reports, wall seconds, launch counts)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import prune as launch_prune
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    pruned, reports = launch_prune.prune(
+        model, params, calib, "2:4", "MM", blocksize=128,
+        row_chunk=PRUNE_ROW_CHUNK, mesh=mesh, calib_shard=calib_shard)
+    torch.cuda.synchronize()
+    return pruned, reports, time.monotonic() - t0, ops.launch_counts()
+
+
+def _dist_flat(model, params):
+    """The pruned linears' weights (paper orientation) by name, on the
+    host."""
+    from repro_torch.core.pruner import LINEARS
+
+    return {f"period{i}.{sub}.{key}": lp[sub][key].T.float().cpu()
+            for i, lp in enumerate(params["layers"]) for sub, key in LINEARS}
+
+
+def _dist_same(label, got, want, reports=None, want_reports=None):
+    """Masks equal and weights within DIST_W_TOL of their scale."""
+    import torch
+
+    for name, w in want.items():
+        g = got[name]
+        if not torch.equal(g == 0, w == 0):
+            fail(f"{label}: {name}'s mask differs from the mesh-less run's")
+        err = float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+        if err > DIST_W_TOL:
+            fail(f"{label}: {name}'s weights {err:.3e} apart")
+    if reports is not None:
+        for r, q in zip(reports, want_reports):
+            if abs(r.recon_error - q.recon_error) > 1e-3 * max(
+                    abs(q.recon_error), 1e-12):
+                fail(f"{label}: {r.name}'s error {r.recon_error} against "
+                     f"{q.recon_error}")
+
+
+def _dist_train(mesh=None, out=None, grad_compression=True):
+    """DIST_TRAIN's steps of paper_tiny_lm (f32), on ``mesh``
+    (data-parallel) or one device: (losses, final params flat, info)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_config("paper_tiny_lm")
+    model = LM(cfg, device="cuda")
+    n, b, t = DIST_TRAIN["steps"], DIST_TRAIN["batch"], DIST_TRAIN["seq"]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        trainer = Trainer(model, AdamW(lr=warmup_cosine(1e-3, 1, n)),
+                          DataPipeline(cfg, b, t, seed=0, mesh=mesh,
+                                       device="cuda"),
+                          TrainConfig(total_steps=n, global_batch=b,
+                                      seq_len=t, ckpt_every=n,
+                                      out_dir=out or tmp, log_every=1,
+                                      grad_compression=grad_compression),
+                          mesh=mesh)
+        params, _, info = trainer.run()
+        losses = None
+        if os.path.exists(os.path.join(out or tmp, "metrics.jsonl")):
+            with open(os.path.join(out or tmp, "metrics.jsonl")) as f:
+                losses = [json.loads(line)["loss"] for line in f]
+    flat = {k: torch.from_numpy(v.astype("float32"))
+            for k, v in model.params_to_flat(params).items()}
+    return losses, flat, info
+
+
+def dist_one_rank(smi):
+    """16a: a 1-rank NCCL group on the card (``--mesh host``).  The prune
+    launcher's engine on Qwen1.5-0.5B at full width, DIST_LAYERS layers,
+    MM 2:4 pipelined, with and without the mesh (masks equal, weights
+    within DIST_W_TOL, each linear's error within 1e-3), and without it
+    in two calibration shards (16b's 2x1 reference); hessian_allreduce,
+    prune_matrix_sharded and compressed_psum called over the group at
+    ``mlp.wo``'s shape (1024 x 2816, H 2816²), the all-reduce timed; three
+    paper_tiny_lm trainer steps with grad_compression on the mesh against
+    without, and without compression on one rank for 16b.  Returns (the
+    mesh run's launches, numbers, the mesh-less prunes' weights, the
+    one-rank trainer's params and losses, for 16b)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import (hessian_allreduce,
+                                              prune_matrix_sharded)
+    from repro_torch.core.pruner import prune_matrix
+    from repro_torch.dist import comm, mesh_context
+    from repro_torch.launch import prune as launch_prune
+    from repro_torch.optim.compression import compressed_psum
+
+    out = {}
+    cfg, model, params = _qwen(DIST_LAYERS)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0)
+    with torch.no_grad():
+        plain, plain_rep, plain_s, _ = _dist_prune(model, params, calib)
+        want = _dist_flat(model, plain)
+        # the same calibration in two shards, merged on the one device:
+        # 16b's 2x1 run computes exactly this across its two ranks
+        two, _, _, _ = _dist_prune(model, params, calib, calib_shard=2)
+        want_two = _dist_flat(model, two)
+        del two
+        with mesh_context("host", "cuda") as ctx:
+            backend = dist.get_backend()
+            meshed, rep, mesh_s, counts = _dist_prune(model, params, calib)
+            say(f"  host mesh {tuple(ctx.mesh.shape)} {ctx.mesh.mesh_dim_names}"
+                f" over a {dist.get_world_size()}-rank {backend} group: "
+                f"{mesh_s / DIST_LAYERS:.3f} s a layer against "
+                f"{plain_s / DIST_LAYERS:.3f} without a mesh ({smi}); "
+                f"launches {counts}")
+            if backend != "nccl":
+                fail(f"16a: the card's group is {backend}, not nccl")
+            for name in PRUNE_KERNELS:
+                if counts[name] <= 0:
+                    fail(f"16a: {name} was not launched on the mesh's prune")
+            _dist_same("16a", _dist_flat(model, meshed), want, rep,
+                       plain_rep)
+            say(f"  16a: {len(want)} masks equal to the mesh-less run's, "
+                f"weights within {DIST_W_TOL:g}")
+            # the collectives at mlp.wo's shape
+            g = torch.Generator(device="cuda")
+            g.manual_seed(16)
+            w = torch.randn(1024, 2816, generator=g, device="cuda")
+            x = torch.randn(8192, 2816, generator=g, device="cuda")
+            h = 2.0 * (x.T @ x) / x.shape[0]
+            group = comm.group_of(ctx.mesh, "data")
+            merged = hessian_allreduce(ctx.mesh, h, 8192.0, "data")
+            herr = float((merged - h).abs().max() / h.abs().max())
+            if herr > 1e-6:
+                fail(f"16a: hessian_allreduce over one rank {herr:.3e} off")
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            reps = 20
+            start.record()
+            for _ in range(reps):
+                hessian_allreduce(ctx.mesh, h, 8192.0, "data")
+            stop.record()
+            torch.cuda.synchronize()
+            ar_ms = start.elapsed_time(stop) / reps
+            w_sh, m_sh = prune_matrix_sharded(w, h, "2:4", ctx.mesh,
+                                              method="MM", blocksize=128,
+                                              row_chunk=PRUNE_ROW_CHUNK)
+            ref = prune_matrix(w, h, "2:4", method="MM", blocksize=128,
+                               row_chunk=PRUNE_ROW_CHUNK, row_balanced=True)
+            if not torch.equal(m_sh, ref.mask):
+                fail("16a: prune_matrix_sharded's mask differs from "
+                     "prune_matrix(row_balanced=True)'s")
+            werr = float((w_sh - ref.w).abs().max() / ref.w.abs().max())
+            flat = w.reshape(-1)
+            cp = compressed_psum(flat, group)
+            step = float(flat.abs().max()) / 127.0
+            cerr = float((cp - flat).abs().max())
+            if cerr > step:
+                fail(f"16a: compressed_psum {cerr:.3e} off, step {step:.3e}")
+            say(f"  16a collectives at mlp.wo (1024 x 2816): "
+                f"hessian_allreduce (H 2816², f32) {ar_ms:.4f} ms a call, "
+                f"{herr:.2e} from H; prune_matrix_sharded masks equal, "
+                f"weights {werr:.2e} apart; compressed_psum within "
+                f"{cerr:.3e} (one int8 step {step:.3e}) ({smi})")
+            losses_mesh, _, _ = _dist_train(ctx.mesh)
+        dist.destroy_process_group()
+        losses, _, _ = _dist_train()
+        # 16b's data-parallel steps are held against these
+        losses_one, flat_one, _ = _dist_train(grad_compression=False)
+    for a, b in zip(losses_mesh, losses):
+        if abs(a - b) > DIST_LOSS_ABS:
+            fail(f"16a: trainer losses {losses_mesh} against {losses}")
+    say(f"  16a trainer, paper_tiny_lm, {DIST_TRAIN['steps']} steps with "
+        f"grad_compression: losses {losses_mesh} on the mesh, {losses} "
+        "without")
+    out.update(s_per_layer=mesh_s / DIST_LAYERS,
+               plain_s_per_layer=plain_s / DIST_LAYERS,
+               allreduce_ms_m2816=ar_ms, losses=losses_mesh,
+               plain_losses=losses)
+    return counts, out, (want, want_two), flat_one, losses_one
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_rank_main(work) -> int:
+    """One of 16b's two ranks (``chip_smoke.py --dist-rank WORK``, RANK /
+    WORLD_SIZE / MASTER_ADDR / MASTER_PORT in the environment, as torchrun
+    sets them): a gloo group on CUDA tensors, both ranks on the one card.
+    The Qwen prune on 1x2 (row-parallel solves) and on 2x1 (calibration
+    sharded over data), then the trainer on 2x1; each result saved under
+    ``WORK``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist import comm, mesh_from_spec, use_mesh
+    from repro_torch.kernels import build
+    from repro_torch.launch import prune as launch_prune
+
+    build.library()
+    rank = int(os.environ["RANK"])
+    tp = mesh_from_spec("1x2", "cuda", backend="gloo")
+    dp = mesh_from_spec("2x1", "cuda", backend="gloo")
+    res = {"rank": rank}
+    cfg, model, params = _qwen(DIST_LAYERS)
+    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                        "cuda", seed=0)
+    for spec, mesh in (("1x2", tp), ("2x1", dp)):
+        with torch.no_grad(), use_mesh(mesh):
+            pruned, reports, wall, counts = _dist_prune(model, params, calib)
+        res[spec] = dict(wall_s=wall, counts=counts,
+                         errors=[r.recon_error for r in reports])
+        torch.save(_dist_flat(model, pruned),
+                   os.path.join(work, f"prune_{spec}_{rank}.pt"))
+        del pruned
+        torch.cuda.empty_cache()
+    comm.barrier()
+    t0 = time.monotonic()
+    losses, flat, _ = _dist_train(dp, out=os.path.join(work, "train"),
+                                  grad_compression=False)
+    res["train"] = dict(losses=losses, wall_s=time.monotonic() - t0)
+    torch.save(flat, os.path.join(work, f"train_{rank}.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    comm.barrier()
+    return 0
+
+
+def dist_two_ranks(smi, wants, flat_one, losses_one):
+    """16b: two ranks that share the card, each a process of its own
+    (``--dist-rank``), a gloo group on CUDA tensors (NCCL refuses two
+    ranks on one device).  Their Qwen prunes must give 16a's masks and
+    weights (within DIST_W_TOL): 1x2 those of 16a's one-device run, 2x1
+    — whose ranks capture half the batches each, GEMMs of another shape
+    — those of 16a's run in two calibration shards, and its agreement
+    with the one-shard run is printed; each rank must launch hessian_accum and
+    nm_select itself; the data-parallel trainer's steps must equal the
+    one-rank run's.  Returns (the ranks' launches, summed, and numbers)."""
+    import tempfile
+
+    import torch
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+                   WORLD_SIZE="2")
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+             work], cwd=ROOT, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        wall = time.monotonic() - t0
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"16b: rank {r} exited {p.returncode}: {text[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            for spec, want in zip(("1x2", "2x1"), wants):
+                got = torch.load(os.path.join(work, f"prune_{spec}_{r}.pt"))
+                _dist_same(f"16b rank {r} {spec}", got, want)
+                if spec == "2x1":
+                    agree = [float(((got[k] == 0) == (w == 0)).float().mean())
+                             for k, w in wants[0].items()]
+                    out[f"2x1 mask agreement with one shard, rank {r}"] = \
+                        min(agree)
+            got = torch.load(os.path.join(work, f"train_{r}.pt"))
+            for k, v in flat_one.items():
+                err = float((got[k] - v).norm() / v.norm().clamp(min=1e-30))
+                far = int(((got[k] - v).abs() > DIST_TRAIN_ENTRY_ABS).sum())
+                out.setdefault("train_rel", []).append(err)
+                out.setdefault("train_far", []).append(far)
+                if err > DIST_TRAIN_REL or far > (DIST_TRAIN_OUTLIERS
+                                                  * v.numel()):
+                    fail(f"16b rank {r}: trained {k} {err:.3e} from one "
+                         f"rank's by norm, {far} entries past "
+                         f"{DIST_TRAIN_ENTRY_ABS:g}")
+    counts = {k: 0 for k in PRUNE_KERNELS}
+    for r in ranks:
+        for spec in ("1x2", "2x1"):
+            c = r[spec]["counts"]
+            say(f"  16b rank {r['rank']} on {spec}: prune {r[spec]['wall_s']:.2f} "
+                f"s; launches hessian_accum {c['hessian_accum']}, nm_select "
+                f"{c['nm_select']}, flash_attn {c['flash_attn']}")
+            for k in ("hessian_accum", "nm_select"):
+                if c[k] <= 0:
+                    fail(f"16b rank {r['rank']} {spec}: {k} never launched")
+            for k in counts:
+                counts[k] += c[k]
+    losses = ranks[0]["train"]["losses"]
+    for a, b in zip(losses, losses_one):
+        if abs(a - b) > DIST_LOSS_ABS:
+            fail(f"16b: data-parallel losses {losses} against one rank's "
+                 f"{losses_one}")
+    say(f"  16b: both ranks' masks equal 16a's on 1x2 (one shard) and 2x1 "
+        f"(two shards; least agreement of a linear with the one-shard run "
+        f"{min(v for k, v in out.items() if 'agreement' in k):.6f}); the "
+        f"data-parallel trainer's losses {losses} (one rank: {losses_one}),"
+        f" params {max(out['train_rel']):.2e} apart by norm at most, "
+        f"{max(out['train_far'])} entries past {DIST_TRAIN_ENTRY_ABS:g} in "
+        f"a leaf at most; wall {wall:.1f} s for the two processes ({smi})")
+    out.update(wall_s=wall, ranks=ranks)
+    return counts, out
+
+
+def dist_phase(smi, parts="ab"):
+    """Phase 16 (those of ``parts``): (the mesh runs' prune launches,
+    numbers)."""
+    import torch
+
+    out = {}
+    counts = {k: 0 for k in PRUNE_KERNELS}
+    t = time.monotonic()
+    say("  16a: a 1-rank NCCL group (--mesh host)")
+    c, out["16a"], wants, flat_one, losses_one = dist_one_rank(smi)
+    for k in counts:
+        counts[k] += c[k]
+    say(f"  16a took {time.monotonic() - t:.1f} s")
+    torch.cuda.empty_cache()
+    if "b" in parts:
+        t = time.monotonic()
+        say("  16b: two ranks on the one card (gloo), 1x2 and 2x1")
+        c, out["16b"] = dist_two_ranks(smi, wants, flat_one, losses_one)
+        for k in counts:
+            counts[k] += c[k]
+        say(f"  16b took {time.monotonic() - t:.1f} s")
+    return counts, out
 
 
 def partial_run(only, gen, rows, t_start) -> int:
@@ -5864,12 +6363,17 @@ def partial_run(only, gen, rows, t_start) -> int:
         out["flash_frontend"] = check_flash_frontend(gen, rows)
         out["frontend_widths"] = check_frontend_widths(gen, rows)
         torch.cuda.empty_cache()
-    parts = "abcd" if "15" in only else "".join(
+    parts = "abcde" if "15" in only else "".join(
         p[2] for p in sorted(only) if p.startswith("15") and len(p) == 3)
     if parts:
         say(f"phase 15 (partial: {parts}; {smi})")
         out["serve_15"], out["prune_15"], out["frontend"] = frontend_phase(
             smi, parts)
+    parts = "ab" if "16" in only else "".join(
+        p[2] for p in sorted(only) if p.startswith("16") and len(p) == 3)
+    if parts:
+        say(f"phase 16 (partial: {parts}; {smi})")
+        out["prune_16"], out["dist"] = dist_phase(smi, parts)
     bad = [r for r in rows if not r["ok"]]
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke_partial.txt", "w") as f:
@@ -5890,16 +6394,18 @@ def main(argv) -> int:
     and 12 (a partial run: no result lines, exit 0 when they pass)."""
     if argv[:1] == ["--train-mamba"]:
         return train_mamba(argv[1], int(argv[2]) if len(argv) > 2 else None)
+    if argv[:1] == ["--dist-rank"] and len(argv) == 2:
+        return dist_rank_main(argv[1])
     only = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         only = set(argv[1].split(","))
         if not only <= {"1", "1m", "1w", "1x", "1e", "12", "12a", "12b",
                         "12c", "12d", "13", "13a", "13b", "13c", "14", "14a",
                         "14b", "14c", "14d", "15", "15a", "15b", "15c",
-                        "15d"}:
+                        "15d", "15e", "16", "16a", "16b"}:
             print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 1e, 12, "
-                  "12a-12d, 13, 13a-13c, 14, 14a-14d, 15 and 15a-15d",
-                  file=sys.stderr)
+                  "12a-12d, 13, 13a-13c, 14, 14a-14d, 15, 15a-15e, 16 and "
+                  "16a-16b", file=sys.stderr)
             return 2
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -6092,6 +6598,20 @@ def main(argv) -> int:
         counts[k] += serve_15.get(k, 0) + prune_15.get(k, 0)
     say(f"  phase 15 took {time.monotonic() - t15:.1f} s; launches: serving "
         f"{serve_15}, pruning {prune_15}")
+    torch.cuda.empty_cache()
+
+    head("phase 16: distribution — a 1-rank NCCL group (--mesh host): the "
+         f"prune launcher's engine on Qwen1.5-0.5B ({DIST_LAYERS} layers, MM "
+         "2:4), hessian_allreduce, prune_matrix_sharded, compressed_psum, "
+         "the trainer with grad_compression; two ranks on the one card "
+         f"(gloo): 1x2 row-parallel solves, 2x1 sharded calibration and "
+         f"data-parallel training ({smi})")
+    t16 = time.monotonic()
+    prune_16, dist_out = dist_phase(smi)
+    for k in prune_16:
+        counts[k] += prune_16[k]
+    say(f"  phase 16 took {time.monotonic() - t16:.1f} s; prune launches "
+        f"(16a's mesh run and 16b's two ranks): {prune_16}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -6166,7 +6686,8 @@ def main(argv) -> int:
                             "frontend_widths": frontend_rows,
                             "frontend": frontend_out,
                             "dense_variants": dense,
-                            "hessian_weighted": hess_w_rows, "moe": moe_out},
+                            "hessian_weighted": hess_w_rows, "moe": moe_out,
+                            "dist": dist_out},
                            default=str) + "\n")
     say(f"all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -30,7 +30,16 @@ the engine checkpoints (next segment, params) after every segment, and
 leaves every linear whose ``segment.linear`` name contains one of its
 patterns unpruned.
 
-The reference's mesh-sharded solves are not ported (ROADMAP.md).
+Distribution: pass ``mesh=`` (a DeviceMesh) or construct the engine
+inside ``repro_torch.dist.use_mesh(mesh)``.  Every process is one rank:
+the pipelined scheduler shards the calibration batches over the data
+(+pod) axes and all-reduces each linear's Hessian
+(``core.distributed.allreduce_calibration``), and every layer solve
+whose rows divide runs row-parallel over the ``model`` axis
+(``prune_matrix_sharded``, Remark 4.2).  Every rank walks the same
+segments and linears in the same order, so their collectives pair up.
+Only rank 0 writes the progress store; the others wait for it at a
+barrier, and read it back on resume.
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ from repro_torch.core.calibration import CalibrationSet
 from repro_torch.core.clock import no_clock
 from repro_torch.core.pruner import PruneResult, prune_matrix
 from repro_torch.core.sparsity import SparsitySpec
+from repro_torch.dist import comm
+from repro_torch.dist.api import axis_size, current_ctx
 from repro_torch.obs import Obs
 
 log = logging.getLogger("repro_torch.engine")
@@ -100,8 +111,9 @@ class PruningEngine:
                  score: Optional[str] = None,
                  row_chunk: Optional[int] = None,
                  row_balanced: bool = False, skip: Sequence[str] = (),
-                 progress_store=None, pipeline="auto", calib_shard="auto",
-                 obs: Optional[Obs] = None, clock=no_clock):
+                 progress_store=None, mesh=None, pipeline="auto",
+                 calib_shard="auto", obs: Optional[Obs] = None,
+                 clock=no_clock):
         self.model = model
         self.spec = SparsitySpec.parse(spec) if isinstance(spec, str) else spec
         self.method = method
@@ -120,15 +132,42 @@ class PruningEngine:
         self.obs = obs if obs is not None else Obs.disabled()
         self.clock = clock
         self.last_pipeline_stats = None
+        if mesh is None:
+            ctx = current_ctx()
+            mesh = ctx.mesh if ctx is not None else None
+        self.mesh = mesh
 
     # ------------------------------------------------------------------
     def _should_skip(self, name: str) -> bool:
         return any(pat in name for pat in self.skip)
 
+    def _model_parallel(self) -> int:
+        """Ranks available for the row-parallel layer solve."""
+        if self.mesh is None or "model" not in self.mesh.mesh_dim_names:
+            return 1
+        return axis_size(self.mesh, "model")
+
     def _prune_one(self, w: torch.Tensor, hmat: torch.Tensor,
                    sync: bool = True, clock=no_clock) -> PruneResult:
-        """One layer solve; ``sync=False`` leaves the loss on the device
-        (the reference's ``_prune_one(sync=False)``)."""
+        """One layer solve — row-parallel over the mesh's ``model`` axis
+        when it has more than one rank, the rows divide, and the spec
+        selects per row (N:M, or ``row_balanced``: a global top-k must
+        not change its selection under a mesh), else local.
+        ``sync=False`` leaves the loss on the device (the reference's
+        ``_prune_one(sync=False)``)."""
+        tp = self._model_parallel()
+        traceable = self.spec.is_semi_structured or self.row_balanced
+        if tp > 1 and w.dim() == 2 and w.shape[0] % tp == 0 and traceable:
+            from repro_torch.core.distributed import prune_matrix_sharded
+            from repro_torch.core.pruner import reconstruction_error_traced
+
+            w_new, mask = prune_matrix_sharded(
+                w, hmat, self.spec, self.mesh, method=self.method,
+                blocksize=self.blocksize, gamma=self.gamma,
+                score=self.score, row_chunk=self.row_chunk)
+            loss = reconstruction_error_traced(w, w_new, hmat)
+            return PruneResult(w_new, mask, float(loss) if sync else loss,
+                               self.method, self.spec)
         return prune_matrix(
             w, hmat, self.spec, method=self.method,
             blocksize=self.blocksize, gamma=self.gamma, score=self.score,
@@ -148,13 +187,23 @@ class PruningEngine:
         return start_seg, self.model.params_from_jax(flat)
 
     def _checkpoint(self, next_segment: int, params: Any) -> None:
-        if self.progress_store is not None:
+        if self.progress_store is None:
+            return
+        if comm.is_main_rank():
             self.progress_store.save(next_segment,
                                      self.model.params_to_flat(params))
+        self._barrier()
 
     def _finish(self) -> None:
-        if self.progress_store is not None:
+        if self.progress_store is None:
+            return
+        self._barrier()            # every rank is past its last read
+        if comm.is_main_rank():
             self.progress_store.finalize()
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            comm.barrier()
 
     def run(self, params: Any, calib_batches: Sequence[Any]
             ) -> Tuple[Any, List[LinearReport]]:

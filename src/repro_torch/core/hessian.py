@@ -129,10 +129,13 @@ class HessianAccumulator:
         total = float(np.float32(sum(np.float32(a.count) for a in accs)))
         if total <= 0:
             return HessianAccumulator(dim, h=accs[0].h, count=0.0)
-        # the counts stay host scalars: no copy to the device, no sync
+        # the counts stay host scalars: no copy to the device, no sync.
+        # Each H·n is rounded before the sum (no fused multiply-add), the
+        # arithmetic of core.distributed.psum_hessian's all-reduce: two
+        # shards merged here or across two ranks give the same bits
         h = accs[0].h * accs[0].count
         for a in accs[1:]:
-            h.add_(a.h, alpha=a.count)
+            h += a.h * a.count
         return HessianAccumulator(dim, h=h / max(total, 1.0), count=total)
 
     @staticmethod

@@ -25,14 +25,24 @@ as it goes.  The scheduler here instead
     ends;
   - frees each shard's input state as soon as its propagated output
     exists (the reference donates the buffers to ``jit``), so peak
-    activation memory stays about one segment.
+    activation memory stays about one segment;
+  - under a mesh with data (+pod) axes, shards the calibration batches
+    over them (``calib_shard``): each rank embeds, captures and
+    propagates only its own shard — batch i goes to the rank of index
+    i mod dp, the reference's round robin — and each linear's Hessian
+    merges across the ranks in one ``all_reduce``
+    (``core.distributed.allreduce_calibration``).  When the shards do
+    not map one to a rank, every rank accumulates all of them and
+    merges them locally (``CalibrationSet.merge_all``), as the reference
+    falls back.
 
 What the reference has and this port does not: ``jit`` (PyTorch runs
 eagerly, so there is no compile count and no
-``prune_compiles_total``), and the mesh — shards are accumulated on the
-one device and merged with ``CalibrationSet.merge_all``.  On one card
-the stages cannot overlap on separate streams: capture(i+1) consumes
-propagate(i), which needs every solve of segment i.
+``prune_compiles_total``), and ``strict_collective_sync``, which works
+around XLA CPU deadlocks between concurrent collective programs: a rank
+here issues its collectives in program order.  On one card the stages
+cannot overlap on separate streams: capture(i+1) consumes propagate(i),
+which needs every solve of segment i.
 
 ``progress_store`` checkpoints land on segment boundaries, the only
 host syncs of the run besides those inside the solves.
@@ -49,6 +59,9 @@ from typing import (Any, Dict, Iterator, List, Optional, Sequence, Tuple,
 import torch
 
 from repro_torch.core.calibration import CalibrationSet
+from repro_torch.dist.api import axis_size
+from repro_torch.dist.mesh import dp_axes_of
+from repro_torch.dist.sharding import batch_sharding
 from repro_torch.obs import Obs
 
 # a calibration state: the hidden, or the encoder-decoder's {"h", "enc"}
@@ -80,26 +93,43 @@ class PipelineStats:
     instrumented: bool = False
 
 
-def _resolve_shards(calib_shard, n_batches: int) -> int:
-    """How many calibration shards to accumulate separately: one for
-    ``"auto"`` (with no mesh the reference's auto is one shard too), or
-    an int, at most one per batch.  The reference's ``"on"``/``"off"``
-    choose mesh sharding, which the port does not have; ``1`` is its
-    ``"off"``."""
-    if calib_shard == "auto":
+def _resolve_shards(calib_shard, mesh, dp_axes, n_batches: int) -> int:
+    """How many calibration shards to accumulate separately (the
+    reference's rule): ``"auto"`` takes one shard per data (+pod) rank
+    when the batch count allows it; ``"off"``/None/1 one shard; ``"on"``
+    one per data rank, at most one per batch; an int forces a count."""
+    if isinstance(calib_shard, bool):        # before int tests: True == 1
+        calib_shard = "on" if calib_shard else "off"
+    if calib_shard in ("off", None, 1):
         return 1
-    if isinstance(calib_shard, int) and not isinstance(calib_shard, bool):
+    dp = 1
+    if mesh is not None:
+        for a in dp_axes:
+            if a in mesh.mesh_dim_names:
+                dp *= axis_size(mesh, a)
+    if isinstance(calib_shard, int):
         return max(1, min(calib_shard, n_batches))
-    raise ValueError(f"calib_shard={calib_shard!r} is neither 'auto' nor "
-                     "an int")
+    if calib_shard == "auto":
+        return dp if (dp > 1 and n_batches >= dp) else 1
+    if calib_shard == "on":
+        if dp <= 1:
+            return 1
+        return min(dp, n_batches)
+    raise ValueError(f"calib_shard={calib_shard!r} not in "
+                     "('auto', 'on', 'off') or int")
 
 
 class SegmentScheduler:
     """Batched, optionally sharded capture/propagate over segments."""
 
     def __init__(self, calib_shard="auto", instrument: bool = False,
-                 obs: Optional[Obs] = None, device="cpu"):
+                 obs: Optional[Obs] = None, device="cpu", mesh=None):
         self.calib_shard = calib_shard
+        self.mesh = mesh
+        self.dp_axes = dp_axes_of(mesh) if mesh is not None else ()
+        # set by shard_batches: whether each rank holds one shard of the
+        # data (+pod) ranks' (then capture all-reduces the Hessians)
+        self.rank_sharded = False
         self.device = torch.device(device)
         self.stats = PipelineStats(instrumented=instrument)
         self._instrument = instrument
@@ -129,29 +159,53 @@ class SegmentScheduler:
             self._stage_s.labels(stage=stage).inc(t1 - t0)
             self.obs.tracer.complete(f"prune_{stage}", t0, t1, track="prune")
 
+    def shard_batches(self, batches: Sequence[Any]) -> List[List[Any]]:
+        """The calibration batches grouped into this rank's shards,
+        round-robin (batch i goes to shard i mod n): every shard without
+        a mesh, or when the shards do not map one to a data (+pod) rank;
+        else the one shard of this rank's index."""
+        batches = list(batches)
+        self.stats.batches = len(batches)
+        n = _resolve_shards(self.calib_shard, self.mesh, self.dp_axes,
+                            len(batches))
+        self.stats.calib_shards = n
+        groups = [batches[i::n] for i in range(n)]
+        shard = (batch_sharding(self.mesh, self.dp_axes)
+                 if self.mesh is not None else None)
+        self.rank_sharded = shard is not None and n > 1 and n == shard.count
+        return [groups[shard.index]] if self.rank_sharded else groups
+
+    @staticmethod
+    def stack_states(groups: Sequence[Sequence[State]]) -> List[State]:
+        """Per-shard lists of per-batch states → one batched state per
+        shard.  A state is a tensor or a dict of them (the
+        encoder-decoder's ``{"h", "enc"}``), stacked leaf by leaf along
+        the batch dim."""
+        return [_stack(g) if len(g) > 1 else g[0] for g in groups]
+
     def shard_states(self, per_batch_states: Sequence[State]
                      ) -> List[State]:
-        """Stack per-batch calibration states into per-shard batched
-        states, round-robin (batch i goes to shard i mod n).  A state is
-        a tensor or a dict of them (the encoder-decoder's ``{"h",
-        "enc"}``), stacked leaf by leaf along the batch dim."""
-        states = list(per_batch_states)
-        self.stats.batches = len(states)
-        n = _resolve_shards(self.calib_shard, len(states))
-        self.stats.calib_shards = n
-        groups = [states[i::n] for i in range(n)]
-        return [_stack(g) if len(g) > 1 else g[0] for g in groups]
+        """:meth:`shard_batches` then :meth:`stack_states` of states
+        already computed."""
+        return self.stack_states(self.shard_batches(per_batch_states))
 
     def capture(self, seg, seg_params, shard_states: List[State]
                 ) -> CalibrationSet:
         """Run the calibration through ``seg`` in capture mode, one
-        batched apply per shard, and merge the per-shard Hessians."""
+        batched apply per shard, and merge the per-shard Hessians: across
+        the data (+pod) ranks when each holds one shard, else locally."""
         with self.timed("capture"):
             sets = []
             for st in shard_states:
                 _, caps = seg.apply(seg_params, st, capture=True)
                 sets.append(CalibrationSet.from_captures(caps))
                 del caps
+            if self.rank_sharded:
+                from repro_torch.core.distributed import (
+                    allreduce_calibration)
+
+                return allreduce_calibration(sets[0], self.mesh,
+                                             self.dp_axes)
             return CalibrationSet.merge_all(sets)
 
     def propagate(self, seg, seg_params, shard_states: List[State]
@@ -185,10 +239,12 @@ def run_pipelined(engine, params: Any, calib_batches: Sequence[Any],
 
     sched = SegmentScheduler(calib_shard=engine.calib_shard,
                              instrument=instrument, obs=engine.obs,
-                             device=getattr(model, "device", "cpu"))
+                             device=getattr(model, "device", "cpu"),
+                             mesh=engine.mesh)
     t_wall = time.monotonic()
-    states = sched.shard_states([model.calib_init(params, b)
-                                 for b in calib_batches])
+    # a rank embeds only the batches of its own shards
+    states = sched.stack_states([[model.calib_init(params, b) for b in g]
+                                 for g in sched.shard_batches(calib_batches)])
     # fast-forward through already-pruned segments (resume): the same
     # propagate recomputes their pruned outputs bit for bit
     for seg in segments[:start_seg]:

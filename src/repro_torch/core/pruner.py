@@ -207,7 +207,7 @@ def prune_linears(params, spec: Union[str, SparsitySpec] = "2:4",
         spec = SparsitySpec.parse(spec)
     if not spec.is_semi_structured:
         raise ValueError(f"prune_linears packs N:M specs, got {spec}")
-    for layer in params["layers"]:
+    for layer in [*params.get("prefix", []), *params["layers"]]:
         if "shared" in layer.get("moe", {}):
             layer = {**layer, "mlp": layer["moe"]["shared"]}
         for sub, name in linears:

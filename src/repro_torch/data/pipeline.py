@@ -3,8 +3,16 @@ reference's ``repro.data.pipeline``).
 
 ``DataPipeline.batch_at(step)`` is a pure function of the step index:
 the trainer resumes by continuing its step counter, with no iterator
-state to checkpoint.  One device only — the reference's ``mesh`` is
-refused.
+state to checkpoint.
+
+With a mesh — passed, or resolved from the active ``dist.use_mesh``
+context at construction — every rank draws the same global batch from
+the seed and keeps its own rows over the data (+pod) axes
+(``dist.sharding.batch_sharding``, the reference's batch layout) of a
+training batch, so a run's data does not depend on its rank count.
+Calibration and evaluation batches stay whole on every rank: the
+pruning engine shards the calibration by batch (``core.pipeline``), and
+every rank evaluates the whole set.
 
 A modality-frontend config's batches carry ``frontend_feats`` (B,
 frontend_len, frontend_dim) bf16, drawn as the reference draws them:
@@ -15,11 +23,13 @@ that a sequence is ``seq_len`` positions.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
 from repro_torch import random as rnd
+from repro_torch.dist.api import current_ctx
+from repro_torch.dist.sharding import batch_sharding
 from repro_torch.data.synthetic import (STREAM_CALIB, STREAM_EVAL,
                                         STREAM_TRAIN, MarkovCorpus)
 from repro_torch.models.base import ArchConfig
@@ -29,14 +39,29 @@ Batch = Dict[str, torch.Tensor]
 
 class DataPipeline:
     def __init__(self, cfg: ArchConfig, global_batch: int, seq_len: int,
-                 seed: int = 0, mesh=None, device="cpu"):
-        if mesh is not None:
-            raise ValueError("DataPipeline: a mesh is not ported yet "
-                             "(ROADMAP.md, Queue 1: distribution)")
+                 seed: int = 0, mesh=None,
+                 dp_axes: Optional[Sequence[str]] = None, device="cpu"):
         self.cfg = cfg
         self.global_batch = global_batch
         self.seq_len = seq_len
         self.corpus = MarkovCorpus(cfg.vocab_size, seed=seed, device=device)
+        if mesh is None:
+            ctx = current_ctx()
+            if ctx is not None:
+                mesh = ctx.mesh
+                if dp_axes is None:
+                    dp_axes = ctx.dp_axes
+        self.mesh = mesh
+        self.dp_axes = tuple(dp_axes) if dp_axes is not None else ("data",)
+        self.shard = (batch_sharding(mesh, self.dp_axes)
+                      if mesh is not None else None)
+
+    def _finish(self, batch: Batch) -> Batch:
+        """This rank's rows of the global batch (all of it without a
+        mesh)."""
+        if self.shard is None:
+            return batch
+        return {k: self.shard.take(v) for k, v in batch.items()}
 
     def _make(self, stream: int, step: int) -> Batch:
         cfg = self.cfg
@@ -53,7 +78,7 @@ class DataPipeline:
         return batch
 
     def batch_at(self, step: int) -> Batch:
-        return self._make(STREAM_TRAIN, step)
+        return self._finish(self._make(STREAM_TRAIN, step))
 
     def eval_batch(self, step: int) -> Batch:
         return self._make(STREAM_EVAL, step)

@@ -1,5 +1,5 @@
 """Pruning launcher: the paper's Algorithm 1 over a whole model, on one
-device (the port of ``repro.launch.prune``).
+device or over a mesh of ranks (the port of ``repro.launch.prune``).
 
   # a checkpoint the trainer wrote (this package's or the reference's),
   # calibrated and evaluated on the synthetic corpus it was trained on
@@ -51,7 +51,18 @@ the interrupted block (a rerun with other weights, tokens or pruning
 settings refuses that progress: ``run_fingerprint``).  SIGTERM lands on the same path as Ctrl-C: the
 checkpointed progress survives, and the stage trace (``--trace-out``,
 Chrome-trace JSON of the capture/solve/propagate spans) is still
-written on the way out.  The reference's mesh flags are not ported.
+written on the way out.
+
+``--mesh`` (``none`` | ``host`` | ``AxB`` | ...; ``dist.mesh``) runs the
+engine over a DeviceMesh, one process a rank, started by ``torchrun``:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.prune --device cpu \
+      --mesh 1x2 --arch paper-tiny-lm --smoke --out runs/tp2
+
+The calibration shards over the ``data`` axis (``--calib-shard auto``)
+with one Hessian all-reduce per linear, and the layer solves run
+row-parallel over ``model`` (Remark 4.2).  Only rank 0 prints and
+writes ``pruned_params`` and the progress.
 """
 
 from __future__ import annotations
@@ -72,6 +83,8 @@ from repro_torch.ckpt import (CheckpointStore, PruneProgressStore,
 from repro_torch.core.clock import no_clock
 from repro_torch.core.engine import PruningEngine, summarize
 from repro_torch.data import DataPipeline, calibration_batches
+from repro_torch.dist import add_mesh_argument, mesh_context, rank_device
+from repro_torch.dist.comm import is_main_rank
 from repro_torch.models.transformer import LM
 from repro_torch.obs import Obs
 
@@ -110,7 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="batched calibration/solve scheduler "
                          "(core.pipeline); 'off' = the paper's serial loop")
     ap.add_argument("--calib-shard", default="auto", type=_calib_shard,
-                    help="auto (one shard: no mesh) or an int: "
+                    help="auto (one shard per data rank of --mesh, when "
+                         "the batches allow), on, off, or an int: "
                          "accumulate that many calibration shards and "
                          "merge their Hessians")
     ap.add_argument("--out", required=True,
@@ -124,17 +138,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write Chrome-trace JSON of the pipelined "
                          "capture/solve/propagate stage spans here")
     ap.add_argument("--device", default="cuda")
+    add_mesh_argument(ap)
     return ap
 
 
 def _calib_shard(value: str):
-    if value == "auto":
+    if value in ("auto", "on", "off"):
         return value
     try:
         return int(value)
     except ValueError:
         raise argparse.ArgumentTypeError(
-            f"--calib-shard {value!r}: auto or an int") from None
+            f"--calib-shard {value!r}: auto, on, off or an int") from None
 
 
 def resolve_device(name: str) -> torch.device:
@@ -181,7 +196,8 @@ def run_fingerprint(args, calib: List[Batch]) -> dict:
                 calib_sha256=tokens.hexdigest(), sparsity=args.sparsity,
                 method=args.method, blocksize=args.blocksize,
                 gamma=args.gamma, pipelined=args.pipeline != "off",
-                calib_shard=args.calib_shard, device=args.device)
+                calib_shard=args.calib_shard, device=args.device,
+                mesh=args.mesh)
 
 
 def _batches(tokens: torch.Tensor, size: int,
@@ -284,13 +300,20 @@ def main(argv=None) -> None:
     obs = Obs.create(metrics=args.metrics, trace=args.trace_out is not None)
     previous = install_sigterm_handler()
     try:
-        _run(args, cfg, device, obs)
+        with mesh_context(args.mesh, device) as ctx:
+            _run(args, cfg, device if ctx is None else rank_device(device),
+                 obs)
     finally:
         if args.trace_out:
             n = obs.tracer.export(args.trace_out)
             print(f"wrote {n} trace events -> {args.trace_out}")
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
+
+
+def _say(*a) -> None:
+    if is_main_rank():
+        print(*a)
 
 
 def _run(args, cfg, device, obs: Obs) -> None:
@@ -304,10 +327,10 @@ def _run(args, cfg, device, obs: Obs) -> None:
         calib, ev = load_tokens(args.tokens, cfg.vocab_size,
                                 args.calib_samples, args.calib_seq, device,
                                 args.seed, cfg=cfg)
-    print("calibration/eval tokens: "
+    _say("calibration/eval tokens: "
           + ("--tokens" if args.tokens else "synthetic corpus" if corpus
              else f"random ids from --seed {args.seed}"))
-    print(f"dense ppl: {eval_ppl(model, params, ev):.4f}")
+    _say(f"dense ppl: {eval_ppl(model, params, ev):.4f}")
     engine = PruningEngine(model, args.sparsity, method=args.method,
                            blocksize=args.blocksize, gamma=args.gamma,
                            pipeline=args.pipeline,
@@ -318,23 +341,24 @@ def _run(args, cfg, device, obs: Obs) -> None:
     with torch.no_grad():
         pruned, reports = engine.run(params, calib)
     s = summarize(reports)
-    print(f"pruned {s['linears']} linears, mean sparsity "
+    _say(f"pruned {s['linears']} linears, mean sparsity "
           f"{s['mean_sparsity']:.3f}, total recon error "
           f"{s['total_recon_error']:.4f}")
     ps = engine.last_pipeline_stats
     if ps is not None:
-        print(f"pipeline: {ps.segments} segments, {ps.batches} batches in "
+        _say(f"pipeline: {ps.segments} segments, {ps.batches} batches in "
               f"{ps.calib_shards} calib shard(s), wall {ps.wall_s:.2f}s")
     stage_s = obs.metrics.get("prune_stage_seconds_total")
     if stage_s is not None:
-        print("prune_stage_seconds_total: " + ", ".join(
+        _say("prune_stage_seconds_total: " + ", ".join(
             f"{stage} {c.value:.3f}" for (stage,), c in stage_s.children()))
-    print(f"{args.method} {args.sparsity} ppl: "
-          f"{eval_ppl(model, pruned, ev):.4f}")
+    _say(f"{args.method} {args.sparsity} ppl: "
+         f"{eval_ppl(model, pruned, ev):.4f}")
     out = os.path.join(args.out, "pruned_params")
-    save_pytree(out, model.params_to_flat(pruned),
-                extra={"method": args.method, "sparsity": args.sparsity})
-    print(f"saved to {out}")
+    if is_main_rank():
+        save_pytree(out, model.params_to_flat(pruned),
+                    extra={"method": args.method, "sparsity": args.sparsity})
+    _say(f"saved to {out}")
 
 
 if __name__ == "__main__":

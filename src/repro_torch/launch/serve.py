@@ -31,6 +31,10 @@ The batch takes it as the KeyboardInterrupt of
 ``install_sigterm_handler``, the server in its event loop
 (``_serve_until_sigterm``); a static-mode batch has nothing to drain and
 stops where it is.
+
+``--mesh`` takes ``none`` or ``host`` (a 1×1 mesh over this process,
+which serves as one device does); a larger mesh raises: serving's
+tensor parallelism is not ported (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 from repro_torch import configs as cfglib
 from repro_torch.ckpt import load_pytree
 from repro_torch.core.pruner import prune_linears
+from repro_torch.dist import add_mesh_argument, mesh_context
 from repro_torch.models.transformer import LM
 from repro_torch.obs import Obs
 from repro_torch.obs.metrics import merge_histograms
@@ -121,6 +126,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "pool-sized; 0 disables → recompute-only)")
     ap.add_argument("--kv-dtype", default="fp32", choices=("fp32", "int8"))
     ap.add_argument("--device", default="cuda")
+    add_mesh_argument(ap)
     # ------------------------------------------------- server front end
     ap.add_argument("--server", action="store_true",
                     help="run the streaming HTTP front end instead of a "
@@ -345,20 +351,29 @@ def run_frontend(cfg, model, params, args, config: ServeConfig,
         sup.stop()
 
 
+SERVE_MESHES = ("none", "host")
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.mesh not in SERVE_MESHES:
+        raise ValueError(
+            f"--mesh {args.mesh!r}: serving takes {' or '.join(SERVE_MESHES)}"
+            " — its tensor parallelism (param_specs / shard_params, the "
+            "paged cache specs) is not ported (ROADMAP.md, Queue 1)")
     # the server takes SIGTERM in its event loop (_serve_until_sigterm)
     previous = None if args.server else install_sigterm_handler()
     config = ServeConfig.from_args(args)       # the one knob intake point
     # one obs bundle for the process: every replica labels its series
     # into this registry and tracer
     obs = Obs.create(metrics=config.metrics, trace=config.trace)
-    cfg, model, params = load_model(args)
     try:
-        if args.server:
-            run_frontend(cfg, model, params, args, config, obs)
-        else:
-            run_batch(cfg, model, params, args, config, obs)
+        with mesh_context(args.mesh, args.device):
+            cfg, model, params = load_model(args)
+            if args.server:
+                run_frontend(cfg, model, params, args, config, obs)
+            else:
+                run_batch(cfg, model, params, args, config, obs)
     finally:
         _export_trace(obs, args.trace_out)
         if previous is not None:       # a caller's own handler comes back

@@ -19,8 +19,15 @@ prune launchers read them.
 
 The run is under ``torch.use_deterministic_algorithms`` (with
 ``CUBLAS_WORKSPACE_CONFIG`` set, as cuBLAS requires), so that a resumed
-run is bit-identical to an uninterrupted one on the card.  The reference's mesh flags and int8
-gradient compression are not ported.
+run is bit-identical to an uninterrupted one on the card.
+
+``--mesh Dx1`` trains data-parallel over D ranks, one process each,
+started by ``torchrun`` (each rank takes its rows of the global batch;
+the gradients' mean is one f32 all-reduce); ``--grad-compression``
+applies int8 error feedback to the reduced gradients:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --mesh 2x1 --smoke --steps 20 --out runs/dp2
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import torch
 
 from repro_torch import configs as cfglib
 from repro_torch.data import DataPipeline
+from repro_torch.dist import add_mesh_argument, mesh_context, rank_device
+from repro_torch.dist.comm import is_main_rank
 from repro_torch.launch.prune import resolve_device
 from repro_torch.models.transformer import LM
 from repro_torch.optim import AdamW
@@ -52,8 +61,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compression", action="store_true",
-                    help="int8 error-feedback compression: not ported "
-                         "(refused)")
+                    help="int8 error-feedback compression of the reduced "
+                         "gradients")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--out", default="runs/train")
     ap.add_argument("--seed", type=int, default=0,
@@ -62,12 +71,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stop-at", type=int, default=None,
                     help="end this run after that step (resume later)")
     ap.add_argument("--device", default="cuda")
+    add_mesh_argument(ap)
     return ap
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    with mesh_context(args.mesh, device) as ctx:
+        return _run(args, device if ctx is None else rank_device(device))
+
+
+def _run(args, device) -> dict:
     cfg = (cfglib.get_smoke(args.arch) if args.smoke
            else cfglib.get_config(args.arch))
     model = LM(cfg, device=device)
@@ -94,6 +109,8 @@ def main(argv=None) -> dict:
     finally:
         torch.use_deterministic_algorithms(was)
     secs = info["step_seconds"]
+    if not is_main_rank():
+        return info
     print(f"trained {info['steps']} steps "
           f"(stragglers: {info['straggler_events']}, skipped: "
           f"{info['skipped_steps']}); checkpoints in {args.out}")

@@ -29,13 +29,19 @@ let every position see the frontend_len prefix positions
 The encoder-decoder runs them through ``params["enc"]`` — a per-layer
 list of non-causal ``enc_attn`` blocks, then ``enc/ln`` — and each
 ``dec_attn`` block follows its causal self-attention with
-cross-attention (``"xattn"``) over that output.  The leading
-``cfg.prefix`` blocks are not ported (no config uses them; ROADMAP.md).
+cross-attention (``"xattn"``) over that output.
+
+The leading ``cfg.prefix`` blocks (unrolled in the reference, under
+``params["prefix"]["0"]``, ...) are ``params["prefix"]``, a list of block
+dicts; every block loop walks them before the period layers
+(``self.kinds`` and the caches list them first), and the pruning
+contract prunes each as its own segment ``prefix{i}``, with linears
+named as in the reference (``attn.wq``, ``mlp.wi``, ``moe.wi.0``, ...).
 
 Where the reference stacks the layers (L, ...) under ``layers/s{j}``
 (and ``enc/layers``) for ``lax.scan``, the port keeps a per-layer list of
-param dicts and loops: layer ``i`` is slot ``i % len(period)`` of period
-``i // len(period)``, ``params["layers"][i] = {"attn" | "mamba" |
+param dicts and loops: period layer ``i`` is slot ``i % len(period)``
+of period ``i // len(period)``, ``params["layers"][i] = {"attn" | "mamba" |
 "mlstm" | "slstm": {...}[, "xattn": {...}], "mlp" | "moe": {...}}``, a
 MoE's experts stacked (E, ...) as the reference stacks them.  The caches
 are per-layer lists too: an attention layer's paged ``{"k", "v"[,
@@ -106,11 +112,10 @@ class LM:
     ATTN_KINDS = ATTN_KINDS
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.prefix or any(k not in PORTED_KINDS for k in cfg.period):
+        if any(k not in PORTED_KINDS for k in (*cfg.prefix, *cfg.period)):
             raise ValueError(
-                f"{cfg.name}: leading prefix blocks and period kinds "
-                f"{cfg.period} outside {PORTED_KINDS} are not ported "
-                "(ROADMAP.md, Queue 1: the other families)")
+                f"{cfg.name}: block kinds {(*cfg.prefix, *cfg.period)} "
+                f"outside {PORTED_KINDS} are not ported")
         self.cfg = cfg
         # the prefix-LM's bidirectional prefix: the frontend's positions
         self.prefix_len = (cfg.frontend_len if cfg.frontend is not None
@@ -118,9 +123,15 @@ class LM:
         self.device = torch.device(device)
         self.dtype = DTYPES[cfg.dtype]
         period = cfg.period
-        self.kinds = [period[i % len(period)] for i in range(cfg.num_layers)]
+        n_period_layers = cfg.n_periods * len(period)
+        # every block in forward order: the leading prefix blocks, then
+        # the period layers (the caches are lists in this order too)
+        self.kinds = list(cfg.prefix) + [period[i % len(period)]
+                                         for i in range(n_period_layers)]
         self.moe_slots = [cfg.slot_is_moe(j, False)
                           for j in range(len(period))]
+        self.prefix_moe = [cfg.slot_is_moe(i, True)
+                           for i in range(len(cfg.prefix))]
 
     # ------------------------------------------------------------- init
     def init(self, rng) -> Params:
@@ -131,23 +142,33 @@ class LM:
         (``random.key(seed)``), which reproduces the reference's
         ``LM.init(jax.random.key(seed))`` — its key splits (``split(key,
         8)``; slot ``j`` of period ``p`` from ``split(fold_in(keys[3], j),
-        n_periods)[p]``, then ``split(·, 3)`` into mixer and MLP) and its
-        normals up to the last ulp."""
+        n_periods)[p]``, then ``split(·, 3)`` into mixer and MLP; prefix
+        block ``i`` from ``fold_in(keys[2], i)``) and its normals up to the
+        last ulp."""
         cfg, dt = self.cfg, self.dtype
         keys = sub_keys(rng, 8)
         n_slots = len(cfg.period)
+        n_layers = cfg.n_periods * n_slots
         if isinstance(rng, torch.Generator):
-            layer_keys = [rng] * cfg.num_layers
+            layer_keys = [rng] * n_layers
+            prefix_keys = [rng] * len(cfg.prefix)
         else:
             slot_keys = [rnd.split(rnd.fold_in(keys[3], j), cfg.n_periods)
                          for j in range(n_slots)]
             layer_keys = [slot_keys[i % n_slots][i // n_slots]
-                          for i in range(cfg.num_layers)]
+                          for i in range(n_layers)]
+            prefix_keys = [rnd.fold_in(keys[2], i)
+                           for i in range(len(cfg.prefix))]
         params: Params = {"embed": embed_init(keys[0], cfg, dt),
                           "unembed": unembed_init(keys[1], cfg, dt)}
+        if cfg.prefix:
+            params["prefix"] = [
+                self._block_init(pk, kind, is_moe) for kind, pk, is_moe
+                in zip(cfg.prefix, prefix_keys, self.prefix_moe)]
         params["layers"] = [
             self._block_init(lk, kind, self.moe_slots[i % n_slots])
-            for i, (kind, lk) in enumerate(zip(self.kinds, layer_keys))]
+            for i, (kind, lk) in enumerate(
+                zip(self.kinds[len(cfg.prefix):], layer_keys))]
         if cfg.encdec:
             enc_keys = ([rng] * cfg.enc_layers
                         if isinstance(rng, torch.Generator)
@@ -184,7 +205,10 @@ class LM:
         stays f32); packed ``{"vals","idx"}`` leaves stay packed."""
         cfg = self.cfg
         period = len(cfg.period)
-        params: Params = {"layers": [{} for _ in range(cfg.num_layers)]}
+        params: Params = {"layers": [{} for _ in range(cfg.n_periods
+                                                        * period)]}
+        if cfg.prefix:
+            params["prefix"] = [{} for _ in cfg.prefix]
         if cfg.encdec:
             params["enc"] = {"layers": [{} for _ in range(cfg.enc_layers)]}
         for path, arr in flat.items():
@@ -194,6 +218,9 @@ class LM:
                 for i in range(arr.shape[0]):
                     _set_path(params["layers"][i * period + j], parts[2:],
                               _to_torch(arr[i], self.device))
+            elif parts[0] == "prefix" and cfg.prefix:    # "prefix/{i}"
+                _set_path(params["prefix"][int(parts[1])], parts[2:],
+                          _to_torch(arr, self.device))
             elif parts[:2] == ["enc", "layers"] and cfg.encdec:
                 for i in range(arr.shape[0]):
                     _set_path(params["enc"]["layers"][i], parts[2:],
@@ -209,8 +236,9 @@ class LM:
     def params_to_flat(self, params: Params) -> Dict[str, np.ndarray]:
         """The inverse of :meth:`params_from_jax`: port params → the
         reference's path-keyed numpy leaves, layers stacked (L, ...) under
-        ``layers/s{j}`` (and ``enc/layers``).  bf16 leaves come out as the
-        2-byte void arrays that the reference's checkpoints hold."""
+        ``layers/s{j}`` (and ``enc/layers``), prefix blocks unstacked under
+        ``prefix/{i}``.  bf16 leaves come out as the 2-byte void arrays
+        that the reference's checkpoints hold."""
         period = len(self.cfg.period)
         stacks = {f"layers/s{j}": params["layers"][j::period]
                   for j in range(period)}
@@ -225,6 +253,9 @@ class LM:
         for key in ("embed", "unembed"):
             for path, t in _leaves(params[key]):
                 flat[f"{key}/{path}"] = _to_numpy(t)
+        for i, block in enumerate(params.get("prefix", [])):
+            for path, t in _leaves(block):
+                flat[f"prefix/{i}/{path}"] = _to_numpy(t)
         if self.cfg.encdec:
             for path, t in _leaves(params["enc"]["ln"]):
                 flat[f"enc/ln/{path}"] = _to_numpy(t)
@@ -317,7 +348,7 @@ class LM:
                    if self.cfg.encdec else None)
         h = self.first_hidden(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for kind, p in zip(self.kinds, params["layers"]):
+        for kind, p in zip(self.kinds, self.blocks(params)):
             h, a = self._block(p, h, kind, differentiable=differentiable,
                                enc_out=enc_out)
             if a is not None:
@@ -350,11 +381,17 @@ class LM:
         return ce + zloss + coef * aux, {"ce": ce, "zloss": zloss,
                                          "aux": aux, "tokens": denom}
 
+    def blocks(self, params: Params) -> List[Params]:
+        """Every block's params in forward order (``self.kinds``'s): the
+        prefix blocks, then the period layers."""
+        return [*params.get("prefix", []), *params["layers"]]
+
     # ------------------------------------------------- pruning contract
     def block_linears(self) -> Tuple[Tuple[str, str], ...]:
         """The (sub, key) prunable linears of the model's mixers, each once
-        in the reference's order (``_BLOCK_LINEARS`` over the period)."""
-        pairs = [pair for kind in self.cfg.period
+        in the reference's order (``_BLOCK_LINEARS`` over the prefix and
+        the period)."""
+        pairs = [pair for kind in (*self.cfg.prefix, *self.cfg.period)
                  for pair in _BLOCK_LINEARS[kind]]
         return tuple(dict.fromkeys(pairs))
 
@@ -409,7 +446,9 @@ class LM:
     def prunable_segments(self) -> List[SegmentSpec]:
         """The encoder-decoder's encoder layers first, one segment each,
         ``enc{li}`` with linears ``attn.wq`` … ``attn.wo``, ``mlp.*``;
-        then one segment per period, named ``period{i}`` as the reference
+        then one segment per leading prefix block, ``prefix{i}``, its
+        params the block's own (its linears as a slot's below, without
+        the ``s{j}.``); then one segment per period, named ``period{i}`` as the reference
         names them; a segment's params are ``{"s{j}": params of its slot
         j}`` (and the encoder-decoder's ``"_encln"``, the encoder's final
         norm, which its decoder blocks apply to the state's "enc") and its
@@ -425,22 +464,9 @@ class LM:
         reference."""
         cfg = self.cfg
         slots = [f"s{j}" for j in range(len(cfg.period))]
-        linears = []
-        for sk, kind, is_moe in zip(slots, cfg.period, self.moe_slots):
-            subs = [(sub, key) for sub, key in _BLOCK_LINEARS[kind]]
-            if cfg.block_has_mlp(kind) and not is_moe:
-                subs += [("mlp", key) for key in _MLP_LINEARS[cfg.mlp_kind]]
-            linears += [_linear_spec((sk, sub, key), f"{sk}.{sub}.{key}",
-                                     self.dtype) for sub, key in subs]
-            if not (cfg.block_has_mlp(kind) and is_moe):
-                continue
-            linears += [_expert_spec(sk, key, e, self.dtype)
-                        for key in ("wi", "wg", "wo")
-                        for e in range(cfg.moe.num_experts)]
-            if cfg.moe.num_shared:
-                linears += [_linear_spec((sk, "moe", "shared", key),
-                                         f"{sk}.moe.shared.{key}", self.dtype)
-                            for key in _MLP_LINEARS[cfg.mlp_kind]]
+        linears = [lin for sk, kind, is_moe
+                   in zip(slots, cfg.period, self.moe_slots)
+                   for lin in self._slot_linears((sk,), kind, is_moe)]
 
         def apply(seg_params, state, capture=False):
             caps = {} if capture else None
@@ -475,7 +501,67 @@ class LM:
                                get_params=functools.partial(get_params, i),
                                set_params=functools.partial(set_params, i))
                    for i in range(cfg.n_periods)]
-        return self._encoder_segments() + periods
+        return self._encoder_segments() + self._prefix_segments() + periods
+
+    def _slot_linears(self, base: Tuple[str, ...], kind: str,
+                      is_moe: bool) -> List[LinearSpec]:
+        """The linear specs of one block inside a segment's params at
+        path ``base`` (``("s0",)`` in a period, ``()`` for a prefix
+        block), named ``{base}.{sub}.{key}`` in the reference's order."""
+        cfg = self.cfg
+        npfx = "".join(f"{k}." for k in base)
+        subs = list(_BLOCK_LINEARS[kind])
+        if cfg.block_has_mlp(kind) and not is_moe:
+            subs += [("mlp", key) for key in _MLP_LINEARS[cfg.mlp_kind]]
+        linears = [_linear_spec((*base, sub, key), f"{npfx}{sub}.{key}",
+                                self.dtype) for sub, key in subs]
+        if not (cfg.block_has_mlp(kind) and is_moe):
+            return linears
+        linears += [_expert_spec(base, key, e, self.dtype)
+                    for key in ("wi", "wg", "wo")
+                    for e in range(cfg.moe.num_experts)]
+        if cfg.moe.num_shared:
+            linears += [_linear_spec((*base, "moe", "shared", key),
+                                     f"{npfx}moe.shared.{key}", self.dtype)
+                        for key in _MLP_LINEARS[cfg.mlp_kind]]
+        return linears
+
+    def _prefix_segments(self) -> List[SegmentSpec]:
+        """One ``prefix{i}`` segment per leading prefix block: its params
+        the block's dict (with the encoder-decoder's ``"_encln"``), its
+        linears unprefixed, as the reference's."""
+        cfg = self.cfg
+
+        def apply(kind, seg_params, state, capture=False):
+            caps = {} if capture else None
+            h, enc_out = state, None
+            if cfg.encdec:
+                h = state["h"]
+                enc_out = rmsnorm(seg_params["_encln"], state["enc"],
+                                  cfg.norm_eps)
+            h, _ = self._block(seg_params, h, kind, caps=caps,
+                               enc_out=enc_out)
+            return ({**state, "h": h} if cfg.encdec else h), caps or {}
+
+        def get_params(i, params):
+            sp = dict(params["prefix"][i])
+            if cfg.encdec:
+                sp["_encln"] = params["enc"]["ln"]
+            return sp
+
+        def set_params(i, params, seg_params):
+            prefix = list(params["prefix"])
+            prefix[i] = {k: v for k, v in seg_params.items()
+                         if k != "_encln"}
+            return {**params, "prefix": prefix}
+
+        return [SegmentSpec(name=f"prefix{i}",
+                            apply=functools.partial(apply, kind),
+                            linears=self._slot_linears((), kind, is_moe),
+                            get_params=functools.partial(get_params, i),
+                            set_params=functools.partial(set_params, i))
+                for i, (kind, is_moe)
+                in enumerate(zip(cfg.prefix, self.prefix_moe))]
 
     def _encoder_segments(self) -> List[SegmentSpec]:
         """The encoder-decoder's ``enc{li}`` segments (none otherwise):
@@ -551,7 +637,7 @@ class LM:
         batch = _batch(tokens, frontend_feats)
         enc_out = self.encode(params, batch) if self.cfg.encdec else None
         h = self.first_hidden(params, batch)
-        for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
+        for i, (kind, p) in enumerate(zip(self.kinds, self.blocks(params))):
             h, _ = self._block(p, h, kind, cache=cache[i], enc_out=enc_out)
         logits = unembed_apply(params["unembed"], params["embed"],
                                h[:, -1:], self.cfg)
@@ -611,7 +697,7 @@ class LM:
                              device=h.device)
         paged = {"block_tables": block_tables, "lengths": lengths,
                  "start": start, "length": length, "slot": slot}
-        for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
+        for i, (kind, p) in enumerate(zip(self.kinds, self.blocks(params))):
             h, _ = self._block(p, h, kind, cache=cache[i], paged=paged,
                                page_size=page_size)
         idx = min(max(length - 1 - start, 0), t - 1)
@@ -633,7 +719,7 @@ class LM:
         h = embed_apply(params["embed"], token[:, None], self.cfg)
         paged = None if block_tables is None else {
             "block_tables": block_tables}
-        for i, (kind, p) in enumerate(zip(self.kinds, params["layers"])):
+        for i, (kind, p) in enumerate(zip(self.kinds, self.blocks(params))):
             h, _ = self._block(p, h, kind, cache=cache[i], pos=pos,
                                paged=paged, page_size=page_size)
         logits = unembed_apply(params["unembed"], params["embed"], h,
@@ -670,23 +756,28 @@ def _linear_spec(path: Tuple[str, ...], name: str, dtype) -> LinearSpec:
     return LinearSpec(name=name, get=get, set=set_)
 
 
-def _expert_spec(slot: str, key: str, e: int, dtype) -> LinearSpec:
-    """Expert ``e`` of a slot's stacked ``moe/{key}`` (E, in, out): get
-    returns its (out, in) view; set writes the transpose into a copy of
-    the stack (the reference's ``.at[e].set``), so the params it was
-    handed stay as they were."""
+def _expert_spec(base: Tuple[str, ...], key: str, e: int,
+                 dtype) -> LinearSpec:
+    """Expert ``e`` of the stacked ``moe/{key}`` (E, in, out) of the
+    block at path ``base`` (a slot ``("s0",)``, or ``()`` for a prefix
+    block's own params): get returns its (out, in) view; set writes the
+    transpose into a copy of the stack (the reference's ``.at[e].set``),
+    so the params it was handed stay as they were."""
 
     def get(sp):
-        return sp[slot]["moe"][key][e].T
+        return _get_path(sp, base)["moe"][key][e].T
 
     def set_(sp, w):
-        moe = dict(sp[slot]["moe"])
+        block = dict(_get_path(sp, base))
+        moe = dict(block["moe"])
         stack = moe[key].clone()
         stack[e] = w.T.to(dtype)
         moe[key] = stack
-        return {**sp, slot: {**sp[slot], "moe": moe}}
+        block["moe"] = moe
+        return {**sp, base[0]: block} if base else block
 
-    return LinearSpec(name=f"{slot}.moe.{key}.{e}", get=get, set=set_)
+    npfx = "".join(f"{k}." for k in base)
+    return LinearSpec(name=f"{npfx}moe.{key}.{e}", get=get, set=set_)
 
 
 def _get_path(tree, parts):

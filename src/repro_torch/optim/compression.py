@@ -1,0 +1,134 @@
+"""Int8 gradient compression with error feedback (a port of
+``repro.optim.compression``).
+
+int8 cuts the bytes of a gradient all-reduce 4× against f32.  Plain
+quantization biases the update; error feedback (Seide et al. 2014;
+Karimireddy et al. 2019) keeps the quantization residual locally and
+adds it back the next step.
+
+Two layers, as in the reference:
+  - ``ef_quantize``: a pure transform of a gradient tree (the residual
+    carried in state) — what the trainer applies to its reduced
+    gradients when ``grad_compression`` is on;
+  - ``compressed_psum``: the collective — the int8 chunks and their
+    per-chunk scales go out by ``all_to_all``, each rank dequantizes and
+    averages its chunk, requantizes it and ``all_gather``s the int8
+    result.  Wire bytes ≈ 2·N·1B against 2·N·4B.
+
+``torch.round`` rounds half to even, as ``jnp.round`` does, so both
+frameworks quantize alike.  A scale is per leaf, and the reference's
+leaves stack the layers: ``layers/s{j}`` holds slot j of every period,
+``enc/layers`` every encoder layer.  The port keeps per-layer lists, so
+``ef_quantize(..., period=len(cfg.period))`` quantizes each such stack
+with one scale, as the reference does.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.dist import comm
+from repro_torch.optim.adamw import tree_map
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8: (q int8, scale f32 0-dim)."""
+    amax = torch.max(torch.abs(x))
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def ef_init(params: Any) -> Any:
+    """Zero error-feedback residuals shaped like ``params`` (f32)."""
+    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                          device=p.device), params)
+
+
+def _stacks(tree: Any, period: int) -> Any:
+    """The reference's leaves of a port tree: the per-layer list
+    ``tree["layers"]`` as ``{"s{j}": slot j's leaves stacked over the
+    periods}``, ``tree["enc"]["layers"]`` stacked whole."""
+    def stack(layers):
+        return tree_map(lambda *xs: torch.stack(xs), *layers)
+
+    out = dict(tree)
+    out["layers"] = {f"s{j}": stack(tree["layers"][j::period])
+                     for j in range(period)}
+    if "enc" in tree:
+        out["enc"] = {**tree["enc"], "layers": stack(tree["enc"]["layers"])}
+    return out
+
+
+def _unstacks(stacked: Any, like: Any, period: int) -> Any:
+    """The inverse of :func:`_stacks` (``like`` gives the layer counts)."""
+    def unstack(st, n):
+        return [tree_map(lambda x: x[i], st) for i in range(n)]
+
+    out = dict(stacked)
+    n = len(like["layers"])
+    slots = [unstack(stacked["layers"][f"s{j}"], len(range(j, n, period)))
+             for j in range(period)]
+    out["layers"] = [slots[i % period][i // period] for i in range(n)]
+    if "enc" in like:
+        out["enc"] = {**stacked["enc"], "layers": unstack(
+            stacked["enc"]["layers"], len(like["enc"]["layers"]))}
+    return out
+
+
+def ef_quantize(grads: Any, residual: Any,
+                period: int = 0) -> Tuple[Any, Any]:
+    """Quantize (grads + residual) to int8 and back: (dequantized grads,
+    new residual).  ``period`` > 0 names a model's trees (per-layer
+    lists under ``"layers"``): each of the reference's stacked leaves is
+    quantized whole, with one scale."""
+    if period:
+        deq, res = ef_quantize(_stacks(grads, period),
+                               _stacks(residual, period))
+        return (_unstacks(deq, grads, period),
+                _unstacks(res, residual, period))
+
+    def one(g, r):
+        x = g.to(torch.float32) + r
+        deq = dequantize_int8(*quantize_int8(x))
+        return deq, x - deq
+
+    pairs = tree_map(one, grads, residual)
+    first = tree_map(lambda g, p: p[0], grads, pairs)
+    second = tree_map(lambda g, p: p[1], grads, pairs)
+    return first, second
+
+
+def compressed_psum(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce-**mean** of the 1-D ``x`` over ``group``, int8 on the
+    wire (the reference's scheme, a reduce-scatter then an all-gather):
+
+      1. split x into n chunks, quantize each (per-chunk scale);
+      2. all_to_all: rank i receives chunk i from every peer (int8);
+      3. dequantize and mean locally; requantize;
+      4. all_gather the int8 result chunks and their scales.
+
+    ``x``'s length must divide by the group's size."""
+    n = comm.size(group)
+    if x.dim() != 1 or x.shape[0] % n:
+        raise ValueError(f"compressed_psum: a 1-D tensor whose length "
+                         f"divides by {n}, got {tuple(x.shape)}")
+    chunks = x.to(torch.float32).reshape(n, -1)
+    amax = torch.amax(torch.abs(chunks), dim=1)
+    scales = torch.clamp(amax, min=1e-12) / 127.0               # (n,)
+    q = torch.clamp(torch.round(chunks / scales[:, None]),
+                    -127, 127).to(torch.int8)
+    recv = comm.all_to_all_rows(q, group)                       # (n, N/n)
+    peer_scales = comm.all_to_all_rows(scales.reshape(n, 1), group)
+    local = torch.sum(recv.to(torch.float32) * peer_scales, dim=0) / n
+    q2, s2 = quantize_int8(local)
+    out = comm.all_gather_rows(q2, group)                       # (N,) int8
+    out_scales = comm.all_gather_rows(s2.reshape(1), group)     # (n,)
+    return (out.reshape(n, -1).to(torch.float32)
+            * out_scales[:, None]).reshape(-1)

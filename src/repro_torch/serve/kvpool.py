@@ -99,7 +99,7 @@ class PagedKVPool:
         self.num_pages = num_pages
         self.pages_per_slot = -(-max_len // page_size)
         self.device = torch.device(model.device)
-        kinds = model.cfg.period
+        kinds = model.kinds
         # pure recurrent-state models have no KV pages: prompts cost 0
         # pages and decode never extends a block table
         self.has_kv_pages = any(k in model.ATTN_KINDS for k in kinds)

@@ -1,5 +1,5 @@
-"""Fault-tolerant training loop on one device (the reference's
-``repro.train.loop``).
+"""Fault-tolerant training loop, on one device or data-parallel over a
+mesh (the reference's ``repro.train.loop``).
 
   - step-indexed deterministic data (resume = continue the counter);
   - atomic checkpoints every ``ckpt_every`` steps in the reference's
@@ -8,7 +8,9 @@
   - straggler watchdog: each step's wall clock against the running
     median; slow steps are logged and counted, and after
     ``straggler_abort`` in a row the loop checkpoints and raises;
-  - microbatch gradient accumulation;
+  - microbatch gradient accumulation, with optional int8 error-feedback
+    compression (``optim.compression.ef_quantize``) of the accumulated
+    gradients, where the reference applies it;
   - NaN guard: a step with a non-finite loss leaves params and optimizer
     state untouched and is counted (``metrics["skipped"]``).
 
@@ -18,9 +20,22 @@ in torch ops, differentiated by autograd — the kernels have no backward
 and refuse inputs that require grad.  A MoE model's loss carries
 ``router_aux_coef`` × its load-balance loss, logged as ``aux``; the
 routing and the expert products are torch ops, so the gradient reaches
-the router and every expert.  The reference's int8
-error-feedback gradient compression and its mesh are not ported
-(ROADMAP.md, Queue 1: distribution); both are refused.
+the router and every expert.
+
+Under a mesh (``mesh=``, or the active ``dist.use_mesh`` context) the
+trainer is data-parallel over the mesh's data (+pod) axes, one process a
+rank: the pipeline (``DataPipeline`` under the same mesh) hands each
+rank its rows of the global batch, each rank takes the gradients of its
+rows, and an f32 ``all_reduce`` (in buckets of 2**24 elements) takes
+their mean — the global batch's
+gradient when every rank's rows weigh the same tokens (the MoE aux
+loss, a statistic of a rank's tokens, is the exception).  The loss and
+metrics are reduced the same way, so every rank's NaN guard decides
+alike, and the straggler watchdog reads the slowest rank's step time.
+Parameters stay replicated: the reference's FSDP sharding and a
+``model`` axis > 1 (tensor parallelism) are not ported (ROADMAP.md),
+and the latter is refused.  Only rank 0 writes checkpoints and
+``metrics.jsonl``; every rank reads them back on resume.
 """
 
 from __future__ import annotations
@@ -38,14 +53,14 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.ckpt import CheckpointStore
+from repro_torch.dist import comm
+from repro_torch.dist.api import axis_size, current_ctx
 from repro_torch.optim import AdamW, OptState, tree_leaves, tree_map
+from repro_torch.optim.compression import ef_init, ef_quantize
 
 log = logging.getLogger("repro_torch.train")
 
-
-def _unported(knob: str, item: str) -> ValueError:
-    return ValueError(f"{knob} is not ported yet (ROADMAP.md, Queue 1: "
-                      f"{item})")
+BUCKET = 1 << 24        # f32 elements a gradient all_reduce moves at once
 
 
 @dataclasses.dataclass
@@ -57,18 +72,43 @@ class TrainConfig:
     keep_ckpts: int = 3
     out_dir: str = "runs/train"
     microbatches: int = 1            # grad-accumulation chunks
-    grad_compression: bool = False   # int8 EF: not ported
+    grad_compression: bool = False   # int8 EF on accumulated grads
     straggler_factor: float = 5.0    # step > factor × median ⇒ straggler
     straggler_abort: int = 3         # consecutive stragglers ⇒ abort
     log_every: int = 10
 
 
+def allreduce_mean(tensors, group):
+    """The mean of each tensor over ``group`` (f32, in buckets of
+    BUCKET elements), cast back to its dtype."""
+    n = comm.size(group)
+    out, bucket = [], []
+
+    def flush():
+        flat = torch.cat([t.reshape(-1).to(torch.float32) for t in bucket])
+        comm.all_reduce_(flat, group)
+        flat /= n
+        for t, part in zip(bucket, flat.split([t.numel() for t in bucket])):
+            out.append(part.view(t.shape).to(t.dtype))
+        bucket.clear()
+
+    for t in tensors:
+        if bucket and sum(b.numel() for b in bucket) + t.numel() > BUCKET:
+            flush()
+        bucket.append(t)
+    if bucket:
+        flush()
+    return out
+
+
 def make_train_step(model, opt: AdamW, microbatches: int = 1,
-                    grad_compression: bool = False) -> Callable:
+                    grad_compression: bool = False,
+                    group=None) -> Callable:
     """(params, opt_state, ef_state, batch) → (params, opt_state,
-    ef_state, metrics), with no host sync inside."""
-    if grad_compression:
-        raise _unported("grad_compression", "distribution")
+    ef_state, metrics), with no host sync inside.  With a process
+    ``group`` the batch is this rank's rows: the gradients, the loss and
+    the metrics are averaged over the group before the update (the
+    ``tokens`` metric summed)."""
 
     def grads_of(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -91,6 +131,19 @@ def make_train_step(model, opt: AdamW, microbatches: int = 1,
             loss = lsum / microbatches
         else:
             loss, metrics, grads = grads_of(params, batch)
+        if group is not None:
+            leaves = tree_leaves(grads)
+            keys = sorted(metrics)
+            reduced = allreduce_mean(
+                [*leaves, loss, *(metrics[k] for k in keys)], group)
+            it = iter(reduced[:len(leaves)])
+            grads = tree_map(lambda _: next(it), grads)
+            loss = reduced[len(leaves)]
+            metrics = dict(zip(keys, reduced[len(leaves) + 1:]))
+            metrics["tokens"] = metrics["tokens"] * comm.size(group)
+        if grad_compression:
+            grads, ef_state = ef_quantize(grads, ef_state,
+                                          period=len(model.cfg.period))
         # NaN guard: a non-finite loss leaves everything as it was
         ok = torch.isfinite(loss)
         new_params, new_opt, stats = opt.update(grads, opt_state, params)
@@ -112,26 +165,44 @@ class StragglerError(RuntimeError):
 
 class Trainer:
     def __init__(self, model, opt: AdamW, pipeline, cfg: TrainConfig,
-                 mesh=None):
-        if mesh is not None:
-            raise _unported("a training mesh", "distribution")
+                 mesh=None, dp_axes=None):
+        if mesh is None:
+            ctx = current_ctx()
+            if ctx is not None:
+                mesh = ctx.mesh
+                if dp_axes is None:
+                    dp_axes = ctx.dp_axes
         self.model = model
         self.opt = opt
         self.pipeline = pipeline
         self.cfg = cfg
+        self.mesh = mesh
+        self.group = None
+        if mesh is not None:
+            if ("model" in mesh.mesh_dim_names
+                    and axis_size(mesh, "model") > 1):
+                raise ValueError(
+                    "Trainer: a model axis > 1 (tensor parallelism) is not "
+                    "ported (ROADMAP.md); train on a data-parallel mesh "
+                    "(Dx1)")
+            if dp_axes is None:
+                from repro_torch.dist.mesh import dp_axes_of
+                dp_axes = dp_axes_of(mesh)
+            self.group = comm.group_of(mesh, tuple(dp_axes))
         self.store = CheckpointStore(cfg.out_dir, keep=cfg.keep_ckpts)
         self.metrics_path = os.path.join(cfg.out_dir, "metrics.jsonl")
         self.straggler_events = 0
         self.skipped_steps = 0
         self._step_fn = make_train_step(model, opt, cfg.microbatches,
-                                        cfg.grad_compression)
+                                        cfg.grad_compression, self.group)
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0):
         """(params, opt_state, ef_state) from the reference's keyed init:
         ``LM.init(key(seed))``."""
         params = self.model.init(rnd.key(seed, self.model.device))
-        ef = torch.zeros((), dtype=torch.float32, device=self.model.device)
+        ef = (ef_init(params) if self.cfg.grad_compression else
+              torch.zeros((), dtype=torch.float32, device=self.model.device))
         return params, self.opt.init(params), ef
 
     def to_flat(self, params, opt_state: OptState,
@@ -143,7 +214,11 @@ class Trainer:
         for name, tree in (("mu", opt_state.mu), ("nu", opt_state.nu)):
             flat.update({f"opt/.{name}/{k}": v for k, v in
                          self.model.params_to_flat(tree).items()})
-        flat["ef"] = ef_state.cpu().numpy()
+        if isinstance(ef_state, torch.Tensor):
+            flat["ef"] = ef_state.cpu().numpy()
+        else:                      # the error-feedback residuals' tree
+            flat.update({f"ef/{k}": v for k, v in
+                         self.model.params_to_flat(ef_state).items()})
         return flat
 
     def from_flat(self, flat: Dict[str, np.ndarray]):
@@ -160,7 +235,11 @@ class Trainer:
             step=torch.as_tensor(np.asarray(flat["opt/.step"], np.int32),
                                  device=dev),
             mu=sub("opt/.mu/"), nu=sub("opt/.nu/"))
-        ef = torch.as_tensor(np.asarray(flat["ef"], np.float32), device=dev)
+        if "ef" in flat:
+            ef = torch.as_tensor(np.asarray(flat["ef"], np.float32),
+                                 device=dev)
+        else:
+            ef = sub("ef/")
         return params, opt, ef
 
     def restore_or_init(self):
@@ -173,14 +252,30 @@ class Trainer:
         return step, params, opt_state, ef_state
 
     def _save(self, step, params, opt_state, ef_state) -> None:
-        self.store.save(step, self.to_flat(params, opt_state, ef_state))
+        if comm.is_main_rank():
+            self.store.save(step, self.to_flat(params, opt_state, ef_state))
+        if self.group is not None:
+            comm.barrier()        # the checkpoint is whole before going on
 
     def _log_metrics(self, step: int, metrics: Dict[str, Any],
                      seconds: float) -> None:
+        if not comm.is_main_rank():
+            return
         rec = {"step": step, "seconds": seconds}
         rec.update({k: float(v) for k, v in metrics.items()})
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+
+    def _slowest(self, dt: float) -> float:
+        """The slowest rank's step seconds, so that every rank's
+        straggler watchdog decides alike (the step time alone without a
+        mesh)."""
+        if self.group is None:
+            return dt
+        t = torch.tensor([dt], dtype=torch.float64,
+                         device=self.model.device)
+        comm.all_reduce_(t, None, op=comm.MAX)
+        return float(t)
 
     # ------------------------------------------------------------------
     def run(self, max_steps: Optional[int] = None):
@@ -205,7 +300,7 @@ class Trainer:
             loss = float(metrics["loss"])          # the step's one sync
             if cuda:
                 torch.cuda.synchronize()
-            dt = time.monotonic() - t0
+            dt = self._slowest(time.monotonic() - t0)
             losses.append(loss)
             self.skipped_steps += int(metrics["skipped"])
 

@@ -940,3 +940,34 @@ def test_replica_threads_serve_on_card_under_no_grad(gen):
     assert counts["paged_attn"] == layers * steps
     for k in ("nm_spmm", "hessian_accum", "nm_select", "flash_attn"):
         assert counts[k] == 0
+
+
+def test_collectives_on_a_one_rank_nccl_group(gen):
+    """Distribution on the card: a host mesh is a 1-rank NCCL group; the
+    Hessian all-reduce returns H, the row-parallel solve (nm_select on
+    the card) gives the one-device row-balanced mask, compressed_psum is
+    within one int8 step, every tensor staying on the card."""
+    from repro_torch.core.distributed import (hessian_allreduce,
+                                              prune_matrix_sharded)
+    from repro_torch.dist import comm, mesh_from_spec
+    from repro_torch.optim.compression import compressed_psum
+
+    mesh = mesh_from_spec("host", "cuda")
+    assert torch.distributed.get_backend() == "nccl"
+    w = torch.randn(256, 512, generator=gen, device="cuda")
+    x = torch.randn(2048, 512, generator=gen, device="cuda")
+    h = 2.0 * (x.T @ x) / x.shape[0]
+    merged = hessian_allreduce(mesh, h, 2048.0, "data")
+    assert merged.is_cuda and torch.allclose(merged, h, rtol=1e-6, atol=0)
+    ops.reset_launch_counts()
+    w_sh, m_sh = prune_matrix_sharded(w, h, "2:4", mesh, method="MM",
+                                      blocksize=128)
+    assert ops.launch_counts()["nm_select"] > 0
+    ref = prune_matrix(w, h, "2:4", method="MM", blocksize=128,
+                       row_balanced=True)
+    assert torch.equal(m_sh, ref.mask)
+    _close(w_sh, ref.w)
+    flat = w.reshape(-1)
+    out = compressed_psum(flat, comm.group_of(mesh, "data"))
+    assert out.is_cuda
+    assert (out - flat).abs().max().item() <= flat.abs().max().item() / 127

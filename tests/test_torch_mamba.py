@@ -76,6 +76,17 @@ CFGS = {"mamba": MAMBA_SMOKE, "hybrid": HYBRID}
 _JITS = {}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on the machine's
+    cores, and torch's default pool of a thread a core in each of them
+    oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def j_mamba_apply(p, h, cfg, **kw):
     """The reference's block, jitted per config (its eager op-by-op
     dispatch is slow; the config holds a dict, so it is closed over

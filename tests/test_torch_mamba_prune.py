@@ -15,6 +15,12 @@ The model is the Mamba LM at smoke size with its keyed init carried
 across; the calibration and evaluation tokens are the synthetic
 corpus's.  The Mamba linears stay dense under 2:4 serving: the packing
 patterns name ``mlp`` and ``attn`` only, as the reference's do.
+
+A model with leading ``cfg.prefix`` blocks (tests/test_torch_mamba_serve's
+``PREFIX_TWIN`` with a MoE in its Mamba prefix block) prunes its
+``prefix{i}`` segments, then its periods: MS 2:4 through the port's
+pipelined engine against the reference's pipelined one, with the same
+bounds.
 """
 
 import dataclasses
@@ -48,6 +54,17 @@ METHODS = [("magnitude", "0.5"), ("wanda", "0.5"), ("SS", "0.5"),
            ("SM", "0.5"), ("MM", "2:4")]
 BLOCK = 32
 LINEARS = ("in_proj", "x_proj", "dt_proj", "out_proj")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on the machine's
+    cores, and torch's default pool of a thread a core in each of them
+    oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -130,6 +147,42 @@ def test_engine_matches_reference_on_mamba(setup, method, spec):
     pj = _ppl(jax.jit(jm.loss_fn), jpr, evals)
     pt = _ppl(tm.loss_fn, tpr, [_tb(b) for b in evals])
     assert np.isfinite(pt) and pt == pytest.approx(pj, rel=1e-3)
+
+
+def test_prefix_blocks_prune_matches_reference():
+    from repro.models.base import MoEConfig as JMoEConfig
+    from repro_torch.models.base import MoEConfig
+    from test_torch_mamba_serve import PREFIX_MOE, PREFIX_TWIN
+
+    fields = dict(PREFIX_TWIN, moe_prefix_slots=(1,))
+    with jax.threefry_partitionable(True):
+        jm = JLM(JArchConfig(**fields, moe=JMoEConfig(**PREFIX_MOE)))
+        jp = jax.jit(jm.init)(jax.random.key(0))
+    tm = LM(ArchConfig(**fields, moe=MoEConfig(**PREFIX_MOE)), device="cpu")
+    tp = tm.params_from_jax(_flatten(jp))
+    calib = calibration_batches(jm.cfg, n_samples=8, seq_len=32, batch=4)
+    jpr, jrep = JEngine(jm, "2:4", method="MS", blocksize=BLOCK).run(
+        jp, calib)
+    tpr, trep = PruningEngine(tm, "2:4", method="MS", blocksize=BLOCK).run(
+        tp, [_tb(b) for b in calib])
+    assert [s.name for s in tm.prunable_segments()] == [
+        "prefix0", "prefix1", "period0", "period1"]
+    assert [r.name for r in trep] == [r.name for r in jrep]
+    assert trep[0].name == "prefix0.attn.wq"
+    assert "prefix1.moe.wi.3" in [r.name for r in trep]
+    for tr, jr in zip(trep, jrep):
+        assert tr.shape == jr.shape
+        assert tr.sparsity == pytest.approx(jr.sparsity, abs=1e-6)
+        assert tr.recon_error == pytest.approx(jr.recon_error, rel=1e-2,
+                                               abs=1e-9)
+    jl = _flatten(jpr)
+    tl = tm.params_to_flat(tpr)
+    for k in ("prefix/0/attn/wq", "prefix/0/mlp/wo", "prefix/1/mamba/in_proj",
+              "layers/s0/attn/wo"):
+        a, b = np.asarray(jl[k]) == 0, tl[k] == 0
+        if k.startswith("prefix/0"):                  # layer 0: equal
+            assert (a == b).all(), k
+        assert (a == b).mean() >= 0.98, k
 
 
 def test_serving_prune_leaves_mamba_dense():

@@ -1,5 +1,7 @@
-"""The port's serve stack on Mamba and the Mamba/attention hybrid, on the
-CPU against the JAX ServeEngine: greedy streams in static mode, in
+"""The port's serve stack on Mamba, the Mamba/attention hybrid and a
+model with leading ``cfg.prefix`` blocks (an attention and a Mamba block
+before the periods, ``PREFIX_TWIN``), on the CPU against the JAX
+ServeEngine: greedy streams in static mode, in
 continuous mode (multi-chunk prompts) and under a starved pool that
 preempts (the reference's tests/test_serve_paged.py cases), each equal
 to the JAX engine's static streams — which that file holds equal to the
@@ -7,7 +9,10 @@ JAX engine's continuous and starved ones; the state
 rows' reset at admission and their in-place update; the pure-recurrent
 pool without pages; and the prefix cache, which the port does not build
 over recurrent state — the reference does, and its cached stream leaves
-the static one (ROADMAP.md, "One fault of the reference").
+the static one (ROADMAP.md, "One fault of the reference").  The prefix
+twin with a MoE prefix slot also holds its keyed init and forward
+logits to the reference's (within LOGITS_TOL; a MoE model serves static,
+so its streams are the twin's without experts).
 
 Tolerance: none — greedy streams are compared token for token; the
 head is sharpened (×8, as the reference's serve tests do) so that CPU
@@ -30,19 +35,35 @@ from repro_torch.models.transformer import LM
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.kvpool import PagedKVPool, StatePool
 
+LOGITS_TOL = 1e-4
 HYBRID = dict(name="hybrid-serve-test", family="hybrid", num_layers=4,
               d_model=64, num_heads=4, num_kv_heads=2, head_dim=16, d_ff=128,
               vocab_size=256, period=("mamba", "attn"), mlp_kind="swiglu",
               ssm_mlp=True, ssm_state=4, ssm_conv=4, dtype="float32")
+# leading prefix blocks: an attention and a Mamba block, then the periods
+PREFIX_TWIN = dict(HYBRID, name="prefix-twin", prefix=("attn", "mamba"),
+                   period=("attn",))
+PREFIX_MOE = dict(num_experts=4, top_k=2, d_ff_expert=32, num_shared=1)
 ARCHS = {"mamba": {f: getattr(J_MAMBA, f)
                    for f in J_MAMBA.__dataclass_fields__},
-         "hybrid": HYBRID}
+         "hybrid": HYBRID, "prefix": PREFIX_TWIN}
 # the reference's engine shapes (tests/test_serve_paged.py)
 MODES = {"static": dict(mode="static"),
          "continuous": dict(mode="continuous", page_size=8,
                             prefill_chunk=8),
          "starved": dict(mode="continuous", page_size=8, prefill_chunk=8,
                          num_pages=6)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on the machine's
+    cores, and torch's default pool of a thread a core in each of them
+    oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _requests(cls, vocab, n=8):
@@ -85,12 +106,42 @@ def test_streams_match_jax_engine(served, arch, mode):
     assert eng.state_pool is not None and not eng._swap_ok
     assert eng.pool.prefix is None
     assert eng.stats["preempt_swap"] == 0
-    if mode == "starved" and arch == "hybrid":
+    if mode == "starved" and arch in ("hybrid", "prefix"):
         assert eng.stats["preempt_recompute"] > 0
         assert sum(r.preemptions for r in res) > 0
     if arch == "mamba":            # no attention: nothing pages, nothing
         assert eng.stats["preemptions"] == 0        # to preempt for
     eng.pool.check_invariants()
+
+
+def test_prefix_blocks_init_and_logits_match_reference():
+    """The prefix twin with its Mamba prefix block's FFN a MoE (shared
+    expert included): keyed init leaf for leaf (``prefix/{i}/...``) and
+    forward logits."""
+    from repro.models.base import MoEConfig as JMoEConfig
+    from repro_torch import random as rnd
+    from repro_torch.models.base import MoEConfig
+
+    fields = dict(PREFIX_TWIN, moe_prefix_slots=(1,))
+    with jax.threefry_partitionable(True):
+        jm = JLM(JArchConfig(**fields, moe=JMoEConfig(**PREFIX_MOE)))
+        jp = jax.jit(jm.init)(jax.random.key(0))
+        tm = LM(ArchConfig(**fields, moe=MoEConfig(**PREFIX_MOE)),
+                device="cpu")
+        got = tm.params_to_flat(tm.init(rnd.key(0, torch.device("cpu"))))
+    want = _flatten(jp)
+    assert sorted(got) == sorted(want)
+    assert "prefix/1/moe/shared/wi" in got and "prefix/0/attn/wq" in got
+    for path in want:
+        np.testing.assert_allclose(got[path], np.asarray(want[path]),
+                                   rtol=0, atol=2e-6, err_msg=path)
+    assert tm.kinds == ["attn", "mamba", "attn", "attn"]
+    toks = np.random.default_rng(0).integers(0, 256, (2, 12)).astype(
+        np.int32)
+    jl, _ = jax.jit(jm.forward)(jp, {"tokens": toks})
+    tl = tm.forward(tm.params_from_jax(want), torch.from_numpy(toks))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=LOGITS_TOL,
+                               atol=LOGITS_TOL)
 
 
 def _stem_pair(cls):

@@ -38,6 +38,17 @@ ARCHS = ("paper_tiny_lm", "qwen1_5_0_5b")
 LINEARS = (("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("wi", "wg", "wo")))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on the machine's
+    cores, and torch's default pool of a thread a core in each of them
+    oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("arch", (*ARCHS, "paligemma_3b",
                                   "seamless_m4t_large_v2"))
 def test_arch_config_matches_reference(arch):
@@ -226,11 +237,15 @@ def test_load_pytree_reads_reference_checkpoint(tmp_path, dtype):
 
 
 def test_lm_refuses_unported_families():
-    """The one layout still refused: leading ``cfg.prefix`` blocks (no
-    config uses them)."""
-    with pytest.raises(ValueError, match="ROADMAP"):
-        LM(configs.get_smoke("qwen1_5_0_5b").__class__(
-            name="prefixed", family="dense", num_layers=2, d_model=32,
-            num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64,
-            prefix=("attn",), period=("attn",)),
-           device="cpu")
+    """Block kinds outside ``PORTED_KINDS`` are refused, in the prefix
+    and in the period; leading ``cfg.prefix`` blocks of ported kinds
+    build (their parity: tests/test_torch_mamba_serve.py)."""
+    cls = configs.get_smoke("qwen1_5_0_5b").__class__
+    base = dict(name="prefixed", family="dense", num_layers=2, d_model=32,
+                num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64)
+    for layout in (dict(prefix=("conv",), period=("attn",)),
+                   dict(prefix=(), period=("conv",))):
+        with pytest.raises(ValueError, match="not ported"):
+            LM(cls(**{**base, **layout}), device="cpu")
+    model = LM(cls(**base, prefix=("attn",), period=("attn",)), device="cpu")
+    assert model.kinds == ["attn", "attn"]

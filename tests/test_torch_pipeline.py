@@ -41,6 +41,17 @@ from repro_torch.obs import Obs
 BLOCK = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on the machine's
+    cores, and torch's default pool of a thread a core in each of them
+    oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _torch_batch(b):
     return {k: torch.from_numpy(np.array(b[k])) for k in ("tokens", "labels")}
 
@@ -178,11 +189,15 @@ def test_resume_on_segment_boundary(setup, tmp_path, pipeline):
 
 def test_resolve_shards_and_calibration_shards(setup):
     model, params, jcalib, tm, tp, calib, evals = setup
-    assert _resolve_shards("auto", 8) == 1 and _resolve_shards(1, 8) == 1
-    assert _resolve_shards(3, 8) == 3 and _resolve_shards(5, 2) == 2
-    for mode in ("definitely", "on", "off", True, None):
-        with pytest.raises(ValueError):
-            _resolve_shards(mode, 8)
+    assert (_resolve_shards("auto", None, (), 8) == 1
+            and _resolve_shards(1, None, (), 8) == 1)
+    assert (_resolve_shards(3, None, (), 8) == 3
+            and _resolve_shards(5, None, (), 2) == 2)
+    # the reference's "on" / "off" / bools / None: one shard without a mesh
+    for mode in ("on", "off", True, False, None):
+        assert _resolve_shards(mode, None, (), 8) == 1
+    with pytest.raises(ValueError):
+        _resolve_shards("definitely", None, (), 8)
     for mode in ("sideways", True, False, None):
         with pytest.raises(ValueError):
             PruningEngine(tm, "2:4", pipeline=mode)

@@ -36,6 +36,17 @@ COUNTERS = ("host_syncs", "prefix_hit_tokens", "prefill_tok", "cow_copies",
             "swap_in_pages", "prefix_evictions")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on the machine's
+    cores, and torch's default pool of a thread a core in each of them
+    oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pair():
     """The smoke tiny LM in both packages with the same weights, the head
@@ -613,7 +624,7 @@ def test_swap_disabled_for_recurrent_state():
     assert eng.stats["preempt_swap"] == 0
 
 
-@pytest.mark.skip(reason="meshes are not ported (ROADMAP.md Queue 1 item "
-                  "8: distribution)")
+@pytest.mark.skip(reason="serving over a mesh (tensor parallelism) is not "
+                  "ported (ROADMAP.md Queue 1 item 7)")
 def test_shared_prefix_2x4_mesh_parity():
     pass

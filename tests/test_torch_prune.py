@@ -25,6 +25,17 @@ from repro_torch.core.sparsity import SparsitySpec
 W_TOL = 2e-6          # |Δw| / max|w| at a fixed (w, H): f32 rounding only
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on the machine's
+    cores, and torch's default pool of a thread a core in each of them
+    oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _psd(rng, m, scale=1.0):
     x = rng.standard_normal((m, 4 * m)).astype(np.float32)
     return (scale * (2.0 * (x @ x.T) / (4 * m))

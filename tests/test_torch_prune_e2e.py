@@ -38,6 +38,17 @@ LINEAR_KEYS = ("wq", "wk", "wv", "wo", "wi", "wg")
 CALIB_SAMPLES, SEQ, BLOCK = 16, 64, 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on the machine's
+    cores, and torch's default pool of a thread a core in each of them
+    oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _torch_batch(b):
     return {k: torch.from_numpy(np.array(b[k])) for k in ("tokens", "labels")}
 

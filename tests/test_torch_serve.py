@@ -36,6 +36,17 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 PORT = os.path.join(ROOT, "src", "repro_torch")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: the suite runs several workers on the machine's
+    cores, and torch's default pool of a thread a core in each of them
+    oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pruned_pair(arch):
     """JAX params with a sharpened head (greedy gaps wide enough that
     CPU BLAS reduction order cannot flip an argmax, as the reference's
