@@ -34,7 +34,12 @@ sharing the card, pruning and training over a DeviceMesh.
                                           # widths, and phase 15 (or 15a
                                           # ... 15e)
     python3 chip_smoke.py --phases 15e,16 # the frontend models trained,
-                                          # and distribution (16a, 16b)
+                                          # and distribution (16a, 16b,
+                                          # 16c)
+    python3 chip_smoke.py --phases 1t,16c # 16c's rank-local kernel shapes;
+                                          # tensor-parallel serving alone:
+                                          # its one-device runs and the
+                                          # two ranks' (no 16a / 16b)
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
@@ -81,7 +86,13 @@ Phases (any failure exits non-zero; no exception is swallowed):
      the bf16 rows at the two models' shapes timed beside masked SDPA;
      nm_spmm_decode / nm_spmm at PaliGemma's mlp.wo (K 16384; M 8 and
      the 8 x 320 prefill) and seamless's mlp.wi and xattn.wk (M 8 and the
-     8 x 1024 frames) beside torch.matmul.  Every
+     8 x 1024 frames) beside torch.matmul; and 16c's rank-local shapes
+     on a 1x2 mesh (``check_tp_widths``): nm_spmm_decode (M 8) / nm_spmm
+     (M 256) at Qwen1.5-0.5B's and Qwen3-14B's column- and row-parallel
+     halves (K 1408 / 512 / 8704 / 2560, N 1408 / 512 / 2560 / 8704),
+     paged_attn at their local 8 KV heads (hd 64) and 4 KV heads of G 5
+     (hd 128), and flash_attn at their half heads (8 / 8, hd 64; 20 / 4,
+     hd 128), each in f32 and bf16 with its route asserted.  Every
      nm_spmm, nm_spmm_decode and hessian_accum row asserts its route
      (``last_kernel``: tensor cores for bf16, f32 FMA for f32 and for
      rows off 16 bytes) and the same bits from a second call; hessian_accum
@@ -332,7 +343,18 @@ Phases (any failure exits non-zero; no exception is swallowed):
      GEMMs have the ranks' shapes) and weights within DIST_W_TOL, each
      rank's hessian_accum and nm_select launches printed and > 0; three
      data-parallel trainer steps equal to 16a's one-rank steps (losses
-     within DIST_LOSS_ABS, params within DIST_TRAIN_REL by norm).
+     within DIST_LOSS_ABS, params within DIST_TRAIN_REL by norm), and
+     phi3.5-moe SMOKE's three (the global batch routed across the ranks:
+     loss and aux within DIST_LOSS_ABS of one rank's).  16c, in the same
+     two processes on a 1x2 mesh: tensor-parallel serving (TP_CASES) —
+     Qwen1.5-0.5B at full width and DIST_LAYERS layers, magnitude 2:4,
+     phase 3's 8 requests continuous and static in bf16 and in an f32
+     twin, and Qwen3-14B (TP_QWEN3_LAYERS of 40 layers) bf16 continuous —
+     against the same runs on one device: the f32 twin's streams equal,
+     8 of 8 in each mode, both ranks' streams bit-equal, each rank's
+     nm_spmm_decode and paged_attn (static: flash_attn and nm_spmm)
+     launched, the rank-local packed shapes printed with their route;
+     bf16 agreement, tok/s and the HBM a rank holds against one device.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
@@ -6146,6 +6168,237 @@ def dist_one_rank(smi):
     return counts, out, (want, want_two), flat_one, losses_one
 
 
+# 16c: tensor-parallel serving on 16b's two ranks (a 1x2 mesh, gloo)
+TP_LINEARS = (                       # 16c's rank-local packed linears at tp 2
+    ("tp2 qwen1.5 attn.wq", 1024, 512, True, None),   # wk, wv: the same
+    ("tp2 qwen1.5 attn.wo", 512, 1024, False, None),  # row-parallel
+    ("tp2 qwen1.5 mlp.wi", 1024, 1408, False, None),
+    ("tp2 qwen1.5 mlp.wg", 1024, 1408, False, "silu"),
+    ("tp2 qwen1.5 mlp.wo", 1408, 1024, False, None),  # row-parallel
+    ("tp2 qwen3 attn.wq", 5120, 2560, False, None),
+    ("tp2 qwen3 attn.wk", 5120, 512, False, None),    # wv: the same
+    ("tp2 qwen3 attn.wo", 2560, 5120, False, None),   # row-parallel
+    ("tp2 qwen3 mlp.wi", 5120, 8704, False, None),
+    ("tp2 qwen3 mlp.wg", 5120, 8704, False, "silu"),
+    ("tp2 qwen3 mlp.wo", 8704, 5120, False, None),    # row-parallel
+)
+TP_PAGED = (                         # (label, B, KV, G, hd): 16c's decode
+    ("tp2 qwen1.5 B=8 KV=8 G=1 hd=64", 8, 8, 1, 64),  # steps on a rank's
+    ("tp2 qwen3 B=8 KV=4 G=5 hd=128", 8, 4, 5, 128),  # pool (page 16,
+)                                    # 8 pages a row: 64 + 32 tokens)
+TP_FLASH = (("qwen1.5", 8, 8, 64), ("qwen3", 20, 4, 128))
+                                     # (model, H, KV, hd) a rank's heads of
+                                     # a static prefill, B 8, T 64
+TP_QWEN3_LAYERS = 2                  # 16c: Qwen3-14B, 2 of its 40 layers
+TP_SERVE = dict(max_batch=8, max_len=128, page_size=16, prefill_chunk=32)
+TP_CASES = (                         # (label, arch, layers, dtype, modes)
+    ("qwen1.5-0.5b bf16", "qwen1.5-0.5b", DIST_LAYERS, "bfloat16",
+     ("continuous", "static")),
+    ("qwen1.5-0.5b f32", "qwen1.5-0.5b", DIST_LAYERS, "float32",
+     ("continuous", "static")),
+    ("qwen3-14b bf16", "qwen3-14b", TP_QWEN3_LAYERS, "bfloat16",
+     ("continuous",)),
+)
+MOE_TRAIN_ARCH = "phi3.5-moe-42b-a6.6b"   # 16b: its SMOKE config, 3 steps
+
+
+def check_tp_widths(gen, rows):
+    """16c's rank-local shapes, each against its plain version in f32 and
+    bf16 at KERNEL_TOL_REL (flash_attn's bf16 at BF16_KERNEL_TOL_REL, as
+    in every flash_attn row) with its route asserted: nm_spmm_decode (M 8,
+    a decode step; bias and silu where the path fuses them) and nm_spmm
+    (M 256) at TP_LINEARS, timed; paged_attn at TP_PAGED (bf16 pages,
+    ragged lengths over 8 pages of 16, the 16-byte-copy route); flash_attn
+    at TP_FLASH, causal (the tensor cores for bf16, the f32 FMA kernel
+    for f32), the same bits from a second call."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
+
+    out = {"nm_spmm_decode": [], "nm_spmm": []}
+    for m in (8, 256):
+        for lin in TP_LINEARS:
+            row = nm_row(gen, m, *lin)
+            rows.append(row)
+            out[row["kernel"]].append(row)
+    lengths = [96, 70, 65, 81, 64, 90, 77, 88]
+    paged = paged_rows(gen, rows, [(label, b, kvh, g, hd, 16, 8, lengths,
+                                    None, False, 0)
+                                   for label, b, kvh, g, hd in TP_PAGED])
+    for row in paged.values():
+        if row["route"] != "16-byte copies":
+            row["ok"] = False
+            say(f"  paged_attn      {row['shape']}: route {row['route']}, "
+                "not 16-byte copies FAIL")
+    out["paged_attn"] = list(paged.values())
+    out["flash_attn"] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        want_route = _route_of(dtype)
+        tol_rel = (KERNEL_TOL_REL if dtype == torch.float32
+                   else BF16_KERNEL_TOL_REL)
+        for model, h, kv, hd in TP_FLASH:
+            q, k, v = _flash_inputs(gen, 8, 64, h, kv, hd, dtype)
+            got = flash_attn(q, k, v, True)
+            route = flash_attn.last_kernel
+            same = bool(torch.equal(got, flash_attn(q, k, v, True)))
+            want = flash_attn_plain(q, k, v, True)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = tol_rel * max(1.0, want.abs().max().item())
+            row = dict(kernel="flash_attn",
+                       shape=f"tp2 {model} B=8 T=64 H={h} KV={kv} hd={hd} "
+                             f"{dname} causal",
+                       max_abs_err=err, tol=tol,
+                       ok=err <= tol and route == want_route and same,
+                       route=route, deterministic=same)
+            rows.append(row)
+            out["flash_attn"].append(row)
+            say(f"  flash_attn      {row['shape']:40s} err {err:.3e} tol "
+                f"{tol:.3e} ({route}) same bits {same} "
+                f"{'ok' if row['ok'] else 'FAIL'}")
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nested dict / list."""
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _packed_routes(params):
+    """The 2:4-packed linears of a param tree: "K x N" → the decode
+    kernel's route for their shape and pointers (``decode_plan``'s rule:
+    bf16 with N % 8 == 0 and aligned vals / idx take the tensor cores)."""
+    import torch
+
+    routes = {}
+
+    def walk(node):
+        if isinstance(node, dict) and set(node) == {"vals", "idx"}:
+            v, i = node["vals"], node["idx"]
+            tc = (v.dtype == torch.bfloat16 and v.shape[1] % 8 == 0
+                  and v.data_ptr() % 16 == 0 and i.data_ptr() % 8 == 0)
+            routes[f"{2 * v.shape[0]} x {v.shape[1]}"] = (
+                "tensor cores" if tc else "f32 FMA")
+        elif isinstance(node, dict):
+            for x in node.values():
+                walk(x)
+        elif isinstance(node, list):
+            for x in node:
+                walk(x)
+
+    walk(params)
+    return routes
+
+
+def tp_serve(mesh=None):
+    """16c's serving, on one device (``mesh`` None) or as one rank of a
+    1x2 mesh: each of TP_CASES at full width, from a seeded
+    torch.Generator, magnitude 2:4 on every linear, packed — and under
+    the mesh sharded — by the engine; phase 3's 8 requests (64-token
+    prompts, 32 new) in each mode.  Per case: per mode the streams, tok/s
+    and the launches of the run (the counts set to 0 just before it), the
+    HBM held once the engines are built and the peak of the runs, and the
+    packed linears' shapes with their decode route; ``memory_allocated``
+    once the first engine is built, beside the census of its tensors."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    out = {}
+    for label, arch, layers, dtype, modes in TP_CASES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype=dtype)
+        torch.cuda.empty_cache()
+        model = LM(cfg, device="cuda")
+        gen = torch.Generator(device="cuda")
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, size=64, dtype=np.int32), max_new_tokens=32)
+            for i in range(8)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        engines = {}
+        for mode in modes:
+            # each engine from its own copy of the same seeded weights, so
+            # that the first one's allocation is what an engine holds
+            gen.manual_seed(0)
+            params = prune_linears(model.init(gen), "2:4")
+            engines[mode] = ServeEngine(model, params, mesh=mesh, mode=mode,
+                                        **TP_SERVE)
+            del params
+            if len(engines) == 1:
+                torch.cuda.synchronize()
+                allocated = torch.cuda.memory_allocated() - base
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        first = engines[modes[0]]
+        # what one engine holds on the card: the allocator's count once it
+        # is built, and the census of its (packed, sharded) params and KV
+        # pool tensors
+        res = {"modes": {}, "param_bytes": _tensor_bytes(first.params),
+               "pool_bytes": _tensor_bytes(first.pool.kv)
+               if first.pool is not None else 0,
+               "allocated_bytes": allocated,
+               "routes": _packed_routes(first.params)}
+        for mode, eng in engines.items():
+            ops.reset_launch_counts()            # the run starts
+            t0 = time.monotonic()
+            got = eng.generate(reqs)
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            counts = ops.launch_counts()         # ... and ends
+            _check_streams(f"16c {label} {mode}", reqs, got, cfg.vocab_size)
+            toks = sum(len(r.tokens) for r in got)
+            res["modes"][mode] = dict(
+                streams=[r.tokens.tolist() for r in got], tok_s=toks / dt,
+                counts=counts, flash_route=(flash_attn.last_kernel
+                                            if mode == "static" else None))
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        res["held_bytes"] = res["param_bytes"] + res["pool_bytes"]
+        out[label] = res
+        del engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train(mesh=None, out=None):
+    """phi3.5-moe SMOKE (f32) on the card, 3 steps of a global batch of
+    8 x 32, data-parallel over ``mesh`` or on one device: each step's
+    logged (loss, aux)."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = get_smoke(MOE_TRAIN_ARCH)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = out or tmp
+        Trainer(LM(cfg, device="cuda"), AdamW(lr=warmup_cosine(1e-3, 2, 3)),
+                DataPipeline(cfg, 8, 32, seed=0, mesh=mesh, device="cuda"),
+                TrainConfig(total_steps=3, global_batch=8, seq_len=32,
+                            ckpt_every=3, out_dir=out, log_every=1),
+                mesh=mesh).run()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            return [(r["loss"], r["aux"]) for r in map(json.loads, f)]
+
+
 def _free_port() -> int:
     import socket
 
@@ -6154,13 +6407,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dist_rank_main(work) -> int:
-    """One of 16b's two ranks (``chip_smoke.py --dist-rank WORK``, RANK /
-    WORLD_SIZE / MASTER_ADDR / MASTER_PORT in the environment, as torchrun
-    sets them): a gloo group on CUDA tensors, both ranks on the one card.
-    The Qwen prune on 1x2 (row-parallel solves) and on 2x1 (calibration
-    sharded over data), then the trainer on 2x1; each result saved under
-    ``WORK``."""
+def dist_rank_main(work, parts="bc") -> int:
+    """One of 16b's two ranks (``chip_smoke.py --dist-rank WORK [PARTS]``,
+    RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT in the environment, as
+    torchrun sets them): a gloo group on CUDA tensors, both ranks on the
+    one card.  16b (``b`` in PARTS): the Qwen prune on 1x2 (row-parallel
+    solves) and on 2x1 (calibration sharded over data), then the trainers
+    on 2x1 (paper_tiny_lm, and phi3.5-moe SMOKE routing the global
+    batch); 16c (``c``): tensor-parallel serving on 1x2 (``tp_serve``).
+    Each result saved under ``WORK``."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -6175,40 +6430,122 @@ def dist_rank_main(work) -> int:
     tp = mesh_from_spec("1x2", "cuda", backend="gloo")
     dp = mesh_from_spec("2x1", "cuda", backend="gloo")
     res = {"rank": rank}
-    cfg, model, params = _qwen(DIST_LAYERS)
-    calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
-                                        "cuda", seed=0)
-    for spec, mesh in (("1x2", tp), ("2x1", dp)):
-        with torch.no_grad(), use_mesh(mesh):
-            pruned, reports, wall, counts = _dist_prune(model, params, calib)
-        res[spec] = dict(wall_s=wall, counts=counts,
-                         errors=[r.recon_error for r in reports])
-        torch.save(_dist_flat(model, pruned),
-                   os.path.join(work, f"prune_{spec}_{rank}.pt"))
-        del pruned
+    if "b" in parts:
+        cfg, model, params = _qwen(DIST_LAYERS)
+        calib, _ = launch_prune.load_tokens(None, cfg.vocab_size, 128, 2048,
+                                            "cuda", seed=0)
+        for spec, mesh in (("1x2", tp), ("2x1", dp)):
+            with torch.no_grad(), use_mesh(mesh):
+                pruned, reports, wall, counts = _dist_prune(model, params,
+                                                            calib)
+            res[spec] = dict(wall_s=wall, counts=counts,
+                             errors=[r.recon_error for r in reports])
+            torch.save(_dist_flat(model, pruned),
+                       os.path.join(work, f"prune_{spec}_{rank}.pt"))
+            del pruned
+            torch.cuda.empty_cache()
+        del model, params, calib
+        comm.barrier()
+        t0 = time.monotonic()
+        losses, flat, _ = _dist_train(dp, out=os.path.join(work, "train"),
+                                      grad_compression=False)
+        res["train"] = dict(losses=losses, wall_s=time.monotonic() - t0)
+        torch.save(flat, os.path.join(work, f"train_{rank}.pt"))
+        res["moe_train"] = moe_train(dp, out=os.path.join(work, "moe"))
         torch.cuda.empty_cache()
-    comm.barrier()
-    t0 = time.monotonic()
-    losses, flat, _ = _dist_train(dp, out=os.path.join(work, "train"),
-                                  grad_compression=False)
-    res["train"] = dict(losses=losses, wall_s=time.monotonic() - t0)
-    torch.save(flat, os.path.join(work, f"train_{rank}.pt"))
+    if "c" in parts:
+        comm.barrier()
+        t0 = time.monotonic()
+        with torch.no_grad():
+            res["16c"] = tp_serve(tp)
+        res["16c_wall_s"] = time.monotonic() - t0
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     comm.barrier()
     return 0
 
 
-def dist_two_ranks(smi, wants, flat_one, losses_one):
-    """16b: two ranks that share the card, each a process of its own
-    (``--dist-rank``), a gloo group on CUDA tensors (NCCL refuses two
-    ranks on one device).  Their Qwen prunes must give 16a's masks and
-    weights (within DIST_W_TOL): 1x2 those of 16a's one-device run, 2x1
-    — whose ranks capture half the batches each, GEMMs of another shape
-    — those of 16a's run in two calibration shards, and its agreement
-    with the one-shard run is printed; each rank must launch hessian_accum and
-    nm_select itself; the data-parallel trainer's steps must equal the
-    one-rank run's.  Returns (the ranks' launches, summed, and numbers)."""
+def _tp_check(ranks, one, smi):
+    """16c's gates on the two ranks' ``tp_serve`` results against the
+    one-device run ``one``: the f32 twin's streams equal, 8 of 8 in each
+    mode; both ranks' streams bit-equal in every case; each rank launched
+    nm_spmm_decode and paged_attn (continuous) and flash_attn and nm_spmm
+    (static) itself.  Prints the bf16 agreement, tok/s and HBM against
+    one device, and every rank-local shape off the tensor-core route.
+    Returns the ranks' launches, summed."""
+    counts = {k: 0 for k in (*SERVE_KERNELS, "flash_attn")}
+    need = {"continuous": ("nm_spmm_decode", "paged_attn"),
+            "static": ("nm_spmm_decode", "flash_attn", "nm_spmm")}
+    for label, arch, layers, dtype, modes in TP_CASES:
+        o = one[label]
+        rs = [r["16c"][label] for r in ranks]
+        for mode in modes:
+            a, b = (r["modes"][mode]["streams"] for r in rs)
+            if a != b:
+                fail(f"16c {label} {mode}: the ranks' streams differ")
+            want = o["modes"][mode]["streams"]
+            same = sum(x == y for x, y in zip(a, want))
+            toks = sum(len(x) for x in want)
+            pos = sum(int(np.sum(np.asarray(x) == np.asarray(y)))
+                      for x, y in zip(a, want))
+            if dtype == "float32" and same != len(want):
+                fail(f"16c {label} {mode}: {same} of {len(want)} streams "
+                     "equal the one-device run's")
+            for r in rs:
+                c = r["modes"][mode]["counts"]
+                for k in need[mode]:
+                    if c[k] <= 0:
+                        fail(f"16c {label} {mode}: a rank never launched "
+                             f"{k}")
+                for k in counts:
+                    counts[k] += c[k]
+            flash = rs[0]["modes"][mode]["flash_route"]
+            say(f"  16c {label} ({layers} layers) {mode} on 1x2: {same}/"
+                f"{len(want)} streams and {pos}/{toks} tokens equal to one "
+                f"device's; the ranks' streams bit-equal; tok/s "
+                f"{rs[0]['modes'][mode]['tok_s']:.1f} against "
+                f"{o['modes'][mode]['tok_s']:.1f} on one device; rank 0's "
+                f"launches {rs[0]['modes'][mode]['counts']}"
+                + (f"; flash_attn route {flash}" if flash else "")
+                + f" ({smi})")
+        off = ({k: v for k, v in rs[0]["routes"].items()
+                if v != "tensor cores"} if dtype == "bfloat16"
+               else "f32 takes the FMA kernels by its dtype")
+        say(f"  16c {label}: a {modes[0]} engine's memory_allocated "
+            + ", ".join(f"{r['allocated_bytes'] / 2**30:.4f}" for r in rs)
+            + f" GiB a rank against {o['allocated_bytes'] / 2**30:.4f} GiB "
+            f"on one device: "
+            f"{rs[0]['allocated_bytes'] / o['allocated_bytes']:.3f}x; the "
+            f"census of its tensors "
+            + ", ".join(f"{r['held_bytes'] / 2**30:.4f}" for r in rs)
+            + f" GiB a rank (params "
+            f"{rs[0]['param_bytes'] / 2**30:.4f}, KV pool "
+            f"{rs[0]['pool_bytes'] / 2**30:.4f}) against "
+            f"{o['held_bytes'] / 2**30:.4f} GiB (params "
+            f"{o['param_bytes'] / 2**30:.4f}, KV pool "
+            f"{o['pool_bytes'] / 2**30:.4f}) on one device: "
+            f"{rs[0]['held_bytes'] / o['held_bytes']:.3f}x; the process's "
+            f"peak over its {len(modes)} engines' runs "
+            f"{max(r['peak_bytes'] for r in rs) / 2**30:.3f} GiB a rank, "
+            f"{o['peak_bytes'] / 2**30:.3f} on one device; rank-local "
+            f"packed shapes {sorted(rs[0]['routes'])}; off the tensor "
+            f"cores: {off if off else 'none'}")
+    return counts
+
+
+def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
+                   losses_one=None, moe_one=None, tp_one=None):
+    """16b and 16c: two ranks that share the card, each a process of its
+    own (``--dist-rank``), a gloo group on CUDA tensors (NCCL refuses two
+    ranks on one device).  16b: their Qwen prunes must give 16a's masks
+    and weights (within DIST_W_TOL): 1x2 those of 16a's one-device run,
+    2x1 — whose ranks capture half the batches each, GEMMs of another
+    shape — those of 16a's run in two calibration shards, and its
+    agreement with the one-shard run is printed; each rank must launch
+    hessian_accum and nm_select itself; the data-parallel trainers' steps
+    must equal the one-rank runs' (paper_tiny_lm, and phi3.5-moe SMOKE:
+    loss and aux).  16c: ``_tp_check``.  Returns (the ranks' launches,
+    summed, and numbers)."""
     import tempfile
 
     import torch
@@ -6221,13 +6558,14 @@ def dist_two_ranks(smi, wants, flat_one, losses_one):
         t0 = time.monotonic()
         procs = [subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
-             work], cwd=ROOT, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+             work, parts], cwd=ROOT,
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(2)]
         logs = []
         try:
             for p in procs:
-                logs.append(p.communicate(timeout=600)[0])
+                logs.append(p.communicate(timeout=900)[0])
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -6240,6 +6578,8 @@ def dist_two_ranks(smi, wants, flat_one, losses_one):
         for r in range(2):
             with open(os.path.join(work, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
+            if "b" not in parts:
+                continue
             for spec, want in zip(("1x2", "2x1"), wants):
                 got = torch.load(os.path.join(work, f"prune_{spec}_{r}.pt"))
                 _dist_same(f"16b rank {r} {spec}", got, want)
@@ -6260,6 +6600,15 @@ def dist_two_ranks(smi, wants, flat_one, losses_one):
                          f"rank's by norm, {far} entries past "
                          f"{DIST_TRAIN_ENTRY_ABS:g}")
     counts = {k: 0 for k in PRUNE_KERNELS}
+    if "c" in parts:
+        for k, v in _tp_check(ranks, tp_one, smi).items():
+            counts[k] = counts.get(k, 0) + v
+        out["16c"] = {r["rank"]: r["16c"] for r in ranks}
+        say(f"  16c: the ranks' serving took "
+            f"{max(r['16c_wall_s'] for r in ranks):.1f} s")
+    if "b" not in parts:
+        out.update(wall_s=wall)
+        return counts, out
     for r in ranks:
         for spec in ("1x2", "2x1"):
             c = r[spec]["counts"]
@@ -6276,6 +6625,16 @@ def dist_two_ranks(smi, wants, flat_one, losses_one):
         if abs(a - b) > DIST_LOSS_ABS:
             fail(f"16b: data-parallel losses {losses} against one rank's "
                  f"{losses_one}")
+    for r in ranks:
+        for (loss, aux), (loss1, aux1) in zip(r["moe_train"], moe_one):
+            if abs(loss - loss1) > DIST_LOSS_ABS or abs(
+                    aux - aux1) > DIST_LOSS_ABS:
+                fail(f"16b rank {r['rank']}: phi3.5-moe's data-parallel "
+                     f"(loss, aux) {r['moe_train']} against one rank's "
+                     f"{moe_one}")
+    say(f"  16b: phi3.5-moe SMOKE, 3 steps of 8 x 32 on 2x1 (the global "
+        f"batch routed across the ranks): (loss, aux) "
+        f"{ranks[0]['moe_train']} against {moe_one} on one rank")
     say(f"  16b: both ranks' masks equal 16a's on 1x2 (one shard) and 2x1 "
         f"(two shards; least agreement of a linear with the one-shard run "
         f"{min(v for k, v in out.items() if 'agreement' in k):.6f}); the "
@@ -6287,27 +6646,44 @@ def dist_two_ranks(smi, wants, flat_one, losses_one):
     return counts, out
 
 
-def dist_phase(smi, parts="ab"):
-    """Phase 16 (those of ``parts``): (the mesh runs' prune launches,
+def dist_phase(smi, parts="abc"):
+    """Phase 16 (those of ``parts``; 16a runs for 16b too): (the mesh
+    runs' launches — prune kernels, and 16c's serving kernels — and
     numbers)."""
     import torch
 
     out = {}
     counts = {k: 0 for k in PRUNE_KERNELS}
-    t = time.monotonic()
-    say("  16a: a 1-rank NCCL group (--mesh host)")
-    c, out["16a"], wants, flat_one, losses_one = dist_one_rank(smi)
-    for k in counts:
-        counts[k] += c[k]
-    say(f"  16a took {time.monotonic() - t:.1f} s")
-    torch.cuda.empty_cache()
-    if "b" in parts:
+    wants = flat_one = losses_one = moe_one = tp_one = None
+    if "a" in parts or "b" in parts:
         t = time.monotonic()
-        say("  16b: two ranks on the one card (gloo), 1x2 and 2x1")
-        c, out["16b"] = dist_two_ranks(smi, wants, flat_one, losses_one)
+        say("  16a: a 1-rank NCCL group (--mesh host)")
+        c, out["16a"], wants, flat_one, losses_one = dist_one_rank(smi)
         for k in counts:
             counts[k] += c[k]
-        say(f"  16b took {time.monotonic() - t:.1f} s")
+        say(f"  16a took {time.monotonic() - t:.1f} s")
+        torch.cuda.empty_cache()
+    if "b" in parts:
+        moe_one = moe_train()
+    if "c" in parts:
+        t = time.monotonic()
+        with torch.no_grad():
+            tp_one = tp_serve()
+        out["16c_one_device"] = tp_one
+        say(f"  16c's one-device runs took {time.monotonic() - t:.1f} s")
+        torch.cuda.empty_cache()
+    ranks = "".join(p for p in "bc" if p in parts)
+    if ranks:
+        t = time.monotonic()
+        say(f"  16{'/16'.join(ranks)}: two ranks on the one card (gloo)"
+            + (", 1x2 and 2x1" if "b" in ranks else "")
+            + (", 16c tensor-parallel serving on 1x2" if "c" in ranks
+               else ""))
+        c, out["16bc"] = dist_two_ranks(smi, ranks, wants, flat_one,
+                                        losses_one, moe_one, tp_one)
+        for k in c:
+            counts[k] = counts.get(k, 0) + c[k]
+        say(f"  the two ranks took {time.monotonic() - t:.1f} s")
     return counts, out
 
 
@@ -6316,7 +6692,8 @@ def partial_run(only, gen, rows, t_start) -> int:
     widths) with the MoE widths' and the weighted hessian_accum's ("1"),
     those alone ("1m", "1w"), the xLSTM widths' rows ("1x"), the
     frontend models' rows ("1e": flash_attn with a prefix and S != T, the
-    new widths), phases 12, 13, 14 and/or 15 (or parts of them), then a
+    new widths), 16c's rank-local shapes ("1t"), phases 12, 13, 14, 15
+    and/or 16 (or parts of them), then a
     summary line; no result lines."""
     import torch
 
@@ -6369,7 +6746,11 @@ def partial_run(only, gen, rows, t_start) -> int:
         say(f"phase 15 (partial: {parts}; {smi})")
         out["serve_15"], out["prune_15"], out["frontend"] = frontend_phase(
             smi, parts)
-    parts = "ab" if "16" in only else "".join(
+    if "1t" in only:
+        say(f"phase 1 (partial): the kernels at 16c's rank-local shapes "
+            f"({smi})")
+        out["tp_widths"] = check_tp_widths(gen, rows)
+    parts = "abc" if "16" in only else "".join(
         p[2] for p in sorted(only) if p.startswith("16") and len(p) == 3)
     if parts:
         say(f"phase 16 (partial: {parts}; {smi})")
@@ -6394,18 +6775,18 @@ def main(argv) -> int:
     and 12 (a partial run: no result lines, exit 0 when they pass)."""
     if argv[:1] == ["--train-mamba"]:
         return train_mamba(argv[1], int(argv[2]) if len(argv) > 2 else None)
-    if argv[:1] == ["--dist-rank"] and len(argv) == 2:
-        return dist_rank_main(argv[1])
+    if argv[:1] == ["--dist-rank"] and len(argv) in (2, 3):
+        return dist_rank_main(*argv[1:])
     only = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         only = set(argv[1].split(","))
-        if not only <= {"1", "1m", "1w", "1x", "1e", "12", "12a", "12b",
-                        "12c", "12d", "13", "13a", "13b", "13c", "14", "14a",
-                        "14b", "14c", "14d", "15", "15a", "15b", "15c",
-                        "15d", "15e", "16", "16a", "16b"}:
-            print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 1e, 12, "
+        if not only <= {"1", "1m", "1w", "1x", "1e", "1t", "12", "12a",
+                        "12b", "12c", "12d", "13", "13a", "13b", "13c", "14",
+                        "14a", "14b", "14c", "14d", "15", "15a", "15b",
+                        "15c", "15d", "15e", "16", "16a", "16b", "16c"}:
+            print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 1e, 1t, 12, "
                   "12a-12d, 13, 13a-13c, 14, 14a-14d, 15, 15a-15e, 16 and "
-                  "16a-16b", file=sys.stderr)
+                  "16a-16c", file=sys.stderr)
             return 2
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -6462,6 +6843,7 @@ def main(argv) -> int:
     xlstm_rows = check_xlstm_widths(gen, rows)
     flash_frontend = check_flash_frontend(gen, rows)
     frontend_rows = check_frontend_widths(gen, rows)
+    tp_rows = check_tp_widths(gen, rows)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -6605,13 +6987,15 @@ def main(argv) -> int:
          "2:4), hessian_allreduce, prune_matrix_sharded, compressed_psum, "
          "the trainer with grad_compression; two ranks on the one card "
          f"(gloo): 1x2 row-parallel solves, 2x1 sharded calibration and "
-         f"data-parallel training ({smi})")
+         f"data-parallel training (paper_tiny_lm, phi3.5-moe SMOKE); 16c "
+         f"tensor-parallel serving on 1x2 (Qwen1.5-0.5B {DIST_LAYERS} "
+         f"layers bf16 and f32, Qwen3-14B {TP_QWEN3_LAYERS} layers) ({smi})")
     t16 = time.monotonic()
     prune_16, dist_out = dist_phase(smi)
     for k in prune_16:
         counts[k] += prune_16[k]
-    say(f"  phase 16 took {time.monotonic() - t16:.1f} s; prune launches "
-        f"(16a's mesh run and 16b's two ranks): {prune_16}")
+    say(f"  phase 16 took {time.monotonic() - t16:.1f} s; launches (16a's "
+        f"mesh run, 16b's and 16c's two ranks): {prune_16}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -6684,6 +7068,7 @@ def main(argv) -> int:
                             "xlstm_widths": xlstm_rows, "xlstm": xlstm_out,
                             "flash_frontend": flash_frontend,
                             "frontend_widths": frontend_rows,
+                            "tp_widths": tp_rows,
                             "frontend": frontend_out,
                             "dense_variants": dense,
                             "hessian_weighted": hess_w_rows, "moe": moe_out,

@@ -55,11 +55,18 @@ class DistContext:
     mesh, ``("data",)`` otherwise); ``tp_axis`` is the row-parallel axis
     of the layer solves (``None`` when the mesh has no ``model`` axis).
     ``dp`` / ``tp`` are the corresponding total shard counts.
+    ``split_rows``: each rank holds its own rows of one batch split over
+    ``dp_axes`` — where the reference runs one program over the global
+    batch (the trainer's step, a static bucket split over data), so that
+    a MoE layer routes the global batch (``models.moe``).  Replicated
+    work (every rank the same rows) and the calibration shards (each
+    shard its own program in the reference) leave it off.
     """
 
     mesh: object                 # torch.distributed DeviceMesh
     dp_axes: Tuple[str, ...]
     tp_axis: Optional[str]
+    split_rows: bool = False
 
     @property
     def dp(self) -> int:
@@ -85,19 +92,21 @@ def current_ctx() -> Optional[DistContext]:
 
 @contextlib.contextmanager
 def use_mesh(mesh, dp_axes: Optional[Sequence[str]] = None,
-             tp_axis: Optional[str] = "model") -> Iterator[DistContext]:
+             tp_axis: Optional[str] = "model",
+             split_rows: bool = False) -> Iterator[DistContext]:
     """Activate ``mesh`` as the ambient device context.
 
     ``dp_axes`` defaults to the batch axes present in the mesh
     (``pod``/``data``); ``tp_axis`` degrades to ``None`` when the mesh has
-    no such axis, so a mesh like ``(2,) ("data",)`` works too."""
+    no such axis, so a mesh like ``(2,) ("data",)`` works too;
+    ``split_rows`` as :class:`DistContext`'s."""
     from repro_torch.dist.mesh import dp_axes_of
 
     if dp_axes is None:
         dp_axes = dp_axes_of(mesh)
     if tp_axis is not None and tp_axis not in mesh.mesh_dim_names:
         tp_axis = None
-    ctx = DistContext(mesh, tuple(dp_axes), tp_axis)
+    ctx = DistContext(mesh, tuple(dp_axes), tp_axis, split_rows)
     _stack().append(ctx)
     try:
         yield ctx

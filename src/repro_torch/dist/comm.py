@@ -1,4 +1,4 @@
-"""The collectives of the prune and train paths over a DeviceMesh's
+"""The collectives of the prune, train and serve paths over a DeviceMesh's
 process groups.
 
 Each wrapper takes the group of one or more mesh axes
@@ -68,6 +68,16 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(parts).to(t.device)
 
 
+def all_gather_last(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along the last dim, in group-rank
+    order (a vocab-parallel head's logits, a rank's heads)."""
+    n = size(group)
+    src = t.cpu() if _staged(group, t) else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=-1).to(t.device)
+
+
 def all_to_all_rows(t: torch.Tensor, group) -> torch.Tensor:
     """Split ``t``'s dim 0 into ``size(group)`` equal blocks; block ``i``
     goes to rank ``i``, and the result holds, in rank order, the block
@@ -83,6 +93,19 @@ def all_gather_object(obj: Any, group) -> List[Any]:
     out: List[Any] = [None] * size(group)
     dist.all_gather_object(out, obj, group=group)
     return out
+
+
+def broadcast_object(obj: Any, group=None, src: int = 0) -> Any:
+    """Rank ``src``'s picklable ``obj`` (a world rank) on every rank of
+    ``group``."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+def rank(group=None) -> int:
+    """This process's rank in ``group`` (the world by default)."""
+    return dist.get_rank(group)
 
 
 def barrier(group=None) -> None:

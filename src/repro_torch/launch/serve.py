@@ -32,9 +32,20 @@ The batch takes it as the KeyboardInterrupt of
 (``_serve_until_sigterm``); a static-mode batch has nothing to drain and
 stops where it is.
 
-``--mesh`` takes ``none`` or ``host`` (a 1×1 mesh over this process,
-which serves as one device does); a larger mesh raises: serving's
-tensor parallelism is not ported (ROADMAP.md, Queue 1).
+``--mesh`` takes any spec whose size is the world's, one process a
+rank started by ``torchrun`` (``none``: one device; ``host``: a 1×1 mesh
+over this process).  A model axis > 1 serves tensor-parallel — the
+dense decoders, their 2:4-packed linears split column- and row-parallel,
+the pool split by KV heads (``serve.engine``); the data axis replicates
+continuous mode and splits a static bucket's rows:
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --arch qwen1.5-0.5b --magnitude-24 --sparse --mesh 1x2
+
+Under a mesh of more than one rank the batch runs ``generate`` on one
+engine a rank (no router: its worker thread would take requests at
+times of its own on each rank) and rank 0 prints; ``--server`` and
+``--replicas`` > 1 under such a mesh raise (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -50,7 +61,8 @@ import torch
 from repro_torch import configs as cfglib
 from repro_torch.ckpt import load_pytree
 from repro_torch.core.pruner import prune_linears
-from repro_torch.dist import add_mesh_argument, mesh_context
+from repro_torch.dist import (add_mesh_argument, comm, current_ctx,
+                              mesh_context)
 from repro_torch.models.transformer import LM
 from repro_torch.obs import Obs
 from repro_torch.obs.metrics import merge_histograms
@@ -213,11 +225,18 @@ def _random_requests(cfg, args):
         max_tokens=args.max_new) for i in range(args.requests)]
 
 
+def _mesh_ranks() -> int:
+    """Ranks of the active mesh (1 without one)."""
+    ctx = current_ctx()
+    return 1 if ctx is None else ctx.mesh.mesh.numel()
+
+
 def run_batch(cfg, model, params, args, config: ServeConfig,
               obs: Obs) -> None:
     creqs = _random_requests(cfg, args)
     mode = effective_mode(model.cfg, config.mode)
-    if mode == "continuous":
+    ranks = _mesh_ranks()
+    if mode == "continuous" and ranks == 1:
         router = make_router(model, params, config, obs=obs)
         engines = [r.engine for r in router.replicas]
         _print_packed(args, engines[0])
@@ -232,17 +251,30 @@ def run_batch(cfg, model, params, args, config: ServeConfig,
         router.drain(timeout=30)
         _summary(results, engines, dt)
         return
-    # static buckets have no sessions: the same wire objects, lowered
+    # static buckets (and any mode under a mesh of several ranks, where
+    # every rank steps its engine itself): the same wire objects, lowered
     # onto generate()
     if mode != config.mode:
         print(f"note: {config.mode} unsupported for {cfg.name} — "
               f"fell back to {mode}")
+    if ranks > 1 and config.replicas > 1:
+        raise SystemExit("--replicas > 1 under a mesh of several ranks: "
+                         "the router's replicas under a mesh are not "
+                         "ported (ROADMAP.md, Queue 1)")
     eng = make_engine(model, params, config, obs=obs.labelled("r0"))
-    _print_packed(args, eng)
+    main_rank = comm.is_main_rank()
+    if main_rank:
+        _print_packed(args, eng)
     t0 = time.monotonic()
     raw = eng.generate([to_engine_request(c, c.uid) for c in creqs])
     dt = time.monotonic() - t0
-    _summary([CompletionResponse.from_result(r) for r in raw], [eng], dt)
+    if main_rank:
+        if ranks > 1:
+            mesh = current_ctx().mesh
+            shape = "x".join(str(n) for n in mesh.shape)
+            print(f"mesh {shape} {tuple(mesh.mesh_dim_names)}: {ranks} "
+                  f"ranks, model axis {eng.tp}")
+        _summary([CompletionResponse.from_result(r) for r in raw], [eng], dt)
 
 
 def _print_packed(args, eng) -> None:
@@ -329,6 +361,10 @@ async def _serve_until_sigterm(router: Router, host: str, port: int) -> None:
 
 def run_frontend(cfg, model, params, args, config: ServeConfig,
                  obs: Obs) -> None:
+    if _mesh_ranks() > 1:
+        raise SystemExit("--server under a mesh of several ranks: the "
+                         "front end's replicas and router under a mesh "
+                         "are not ported (ROADMAP.md, Queue 1)")
     if config.mode != "continuous":
         raise SystemExit("--server needs the continuous runtime "
                          "(streaming sessions); drop --serve-mode static")
@@ -351,16 +387,8 @@ def run_frontend(cfg, model, params, args, config: ServeConfig,
         sup.stop()
 
 
-SERVE_MESHES = ("none", "host")
-
-
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mesh not in SERVE_MESHES:
-        raise ValueError(
-            f"--mesh {args.mesh!r}: serving takes {' or '.join(SERVE_MESHES)}"
-            " — its tensor parallelism (param_specs / shard_params, the "
-            "paged cache specs) is not ported (ROADMAP.md, Queue 1)")
     # the server takes SIGTERM in its event loop (_serve_until_sigterm)
     previous = None if args.server else install_sigterm_handler()
     config = ServeConfig.from_args(args)       # the one knob intake point

@@ -23,16 +23,30 @@ Params are drawn either from a ``torch.Generator`` (sequential draws) or
 from a threefry key (``repro_torch.random``), which reproduces the
 reference's ``jax.random`` init: the same key splits, the same normals
 up to the last ulp of the inverse error function.
+
+Tensor-parallel serving: a rank may hold its block of a param tree
+(``dist.sharding.shard_params``) and run under a context whose model
+axis is > 1 (``dist.use_mesh``).  A layer reads from its weights' shapes
+which of them are blocks: a column-parallel linear gives the rank's
+output columns (its bias is sliced to them), a row-parallel one
+(:func:`linear_rows`) sums the rank's partial product over the model
+group and adds the bias once, after the sum; attention runs on the
+rank's query heads and KV heads; the embedding is vocab-parallel (the
+rank's rows, zeros elsewhere, summed) and the head all-gathers its
+vocab columns, so every rank holds the same logits.  Whole weights run
+as on one device, with no collective.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch import random as rnd
+from repro_torch.dist import comm
+from repro_torch.dist.api import current_ctx
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import activate
 from repro_torch.models.base import ArchConfig
@@ -69,14 +83,49 @@ def _dense_init(rng, d_in, d_out, dtype, scale=None):
     return _normal(rng, (d_in, d_out), scale, dtype)
 
 
+class ModelGroup(NamedTuple):
+    """The active context's model axis: its process group and this
+    rank's place in it."""
+
+    group: Any
+    rank: int
+
+
+def model_group() -> ModelGroup:
+    """The model axis a rank's blocks of weights belong to; raises when
+    no context with a model axis > 1 is active."""
+    ctx = current_ctx()
+    if ctx is None or ctx.tp <= 1:
+        raise ValueError("these params hold one rank's blocks "
+                         "(dist.sharding.shard_params) but no mesh with a "
+                         "model axis > 1 is active (dist.use_mesh)")
+    group = comm.group_of(ctx.mesh, ctx.tp_axis)
+    return ModelGroup(group, comm.rank(group))
+
+
+def in_dim(w) -> int:
+    """Rows of a linear weight (a packed one's K = 2 × its vals rows)."""
+    return w["vals"].shape[0] * 2 if isinstance(w, dict) else w.shape[0]
+
+
+def out_dim(w) -> int:
+    """Columns of a linear weight, dense or packed."""
+    return w["vals"].shape[1] if isinstance(w, dict) else w.shape[1]
+
+
 def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
            caps: Optional[Dict[str, torch.Tensor]] = None, name: str = "",
            activation: Optional[str] = None) -> torch.Tensor:
     """y = act(x @ w + b), recording x under ``name`` when capturing; a
     packed ``{"vals","idx"}`` w takes the 2:4 kernels with b / activation
-    fused into their epilogue."""
+    fused into their epilogue.  A column-parallel ``w`` (one rank's
+    block of the out dim) takes its block of a whole ``b``."""
     if caps is not None and name:
         caps[name] = x
+    n = out_dim(w)
+    if b is not None and b.shape[-1] != n:
+        r = model_group().rank
+        b = b[r * n:(r + 1) * n]
     if isinstance(w, dict):
         return ops.nm_matmul(x, w["vals"], w["idx"], b,
                              activation=activation, out_dtype=x.dtype)
@@ -86,6 +135,35 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     if activation is not None:
         y = activate(y, activation)
     return y
+
+
+def linear_rows(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
+                full: int, caps: Optional[Dict[str, torch.Tensor]] = None,
+                name: str = "") -> torch.Tensor:
+    """x @ w + b for a down-projection of ``full`` input features: a
+    whole ``w`` is :func:`linear` (a rank's block of x is all-gathered
+    first); a row-parallel ``w`` (this rank's rows) multiplies this
+    rank's features of x, the partial products are summed over the model
+    group (in f32 for packed weights, whose kernels give f32) and ``b``
+    is added once, after the sum — never in each rank's epilogue."""
+    k = in_dim(w)
+    if k == full:
+        if x.shape[-1] != full:
+            x = comm.all_gather_last(x, model_group().group)
+        return linear(x, w, b, caps=caps, name=name)
+    mg = model_group()
+    if x.shape[-1] == full:
+        x = x[..., mg.rank * k:(mg.rank + 1) * k]
+    if caps is not None and name:
+        caps[name] = x
+    if isinstance(w, dict):
+        y = ops.nm_matmul(x, w["vals"], w["idx"], out_dtype=torch.float32)
+    else:
+        y = x @ w.to(x.dtype)
+    comm.all_reduce_(y, mg.group)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y.to(x.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -142,10 +220,63 @@ def attn_init(rng, cfg: ArchConfig, dtype) -> Params:
     return p
 
 
+class Heads(NamedTuple):
+    """The attention heads a rank runs (all of them on one device)."""
+
+    nh: int                  # query heads of its wq
+    kv: int                  # KV heads of its wk / wv, and of its cache
+    q0: int                  # its first query head
+    whole: bool              # its attention runs on every query head
+
+
+def attn_heads(p: Params, cfg: ArchConfig) -> Heads:
+    """A rank's heads, read from its ``wq`` / ``wk`` widths: whole heads
+    on every rank (``param_split``'s head_dim guard).  KV heads that
+    divide the model axis split with their query groups; one KV head
+    stays whole and every rank's query heads read it.  Several KV heads
+    that stay whole leave a rank's query heads covering a group in part:
+    its attention then runs on every query head, gathered, over the whole
+    K / V, and the rank keeps its own heads' outputs."""
+    hd, nh, kv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    nh_l, kv_l = out_dim(p["wq"]) // hd, out_dim(p["wk"]) // hd
+    if nh_l == nh and kv_l == kv:
+        return Heads(nh, kv, 0, False)
+    mg = model_group()
+    if nh_l == nh or (kv_l < kv and nh_l * kv != nh * kv_l):
+        raise ValueError(f"attention split {nh_l}/{nh} query and {kv_l}/"
+                         f"{kv} KV heads: not a rule of "
+                         "dist.sharding.param_split")
+    return Heads(nh_l, kv_l, mg.rank * nh_l, kv_l == kv and kv > 1)
+
+
+def _gather_heads(q: torch.Tensor) -> torch.Tensor:
+    """(..., nh_l, hd) → every rank's heads (..., nh, hd), rank order."""
+    *lead, nh_l, hd = q.shape
+    full = comm.all_gather_last(q.reshape(*lead, nh_l * hd),
+                                model_group().group)
+    return full.reshape(*lead, -1, hd)
+
+
+def _operands(hp: Heads, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(q, k, v, query heads, KV heads) the attention runs on for a
+    rank's heads ``hp``: its own, or every query head."""
+    if hp.whole:
+        q = _gather_heads(q)
+    return q, k, v, q.shape[-2], hp.kv
+
+
+def _own_heads(hp: Heads, out: torch.Tensor, hd: int) -> torch.Tensor:
+    """A (..., heads·hd) attention output cut to the rank's heads."""
+    if not hp.whole:
+        return out
+    return out[..., hp.q0 * hd:(hp.q0 + hp.nh) * hd]
+
+
 def _qkv(p, h_in: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
          caps=None, prefix: str = "attn."):
     b, t, _ = h_in.shape
-    hd, nh, kv = cfg.hd, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.hd
+    nh, kv = out_dim(p["wq"]) // hd, out_dim(p["wk"]) // hd
     q = linear(h_in, p["wq"], p.get("bq"), caps=caps,
                name=f"{prefix}wq").reshape(b, t, nh, hd)
     k = linear(h_in, p["wk"], p.get("bk"), caps=caps,
@@ -289,17 +420,20 @@ def _paged_scatter(cache: Params, k: torch.Tensor, v: torch.Tensor,
 
 
 def attn_cache_init(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                    device) -> Params:
-    """The dense decode cache of one layer: (B, max_len, KV, hd) K and V."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.hd)
+                    device, num_kv_heads: Optional[int] = None) -> Params:
+    """The dense decode cache of one layer: (B, max_len, KV, hd) K and V
+    (``num_kv_heads``: a rank's KV heads, all of them by default)."""
+    shape = (batch, max_len, num_kv_heads or cfg.num_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def attn_paged_cache_init(cfg: ArchConfig, num_pages: int, page_size: int,
-                          dtype, device) -> Params:
-    """Paged pool leaves; int8 adds per-row f32 scale leaves."""
-    kv, hd = cfg.num_kv_heads, cfg.hd
+                          dtype, device, num_kv_heads: Optional[int] = None
+                          ) -> Params:
+    """Paged pool leaves (``num_kv_heads`` as :func:`attn_cache_init`);
+    int8 adds per-row f32 scale leaves."""
+    kv, hd = num_kv_heads or cfg.num_kv_heads, cfg.hd
     shape = (num_pages, page_size, kv, hd)
     cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -372,11 +506,13 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     are matched exactly).
     """
     b, t, _ = h.shape
-    nh, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    hd = cfg.hd
+    full = cfg.num_heads * hd          # wo's input features on one device
     dev = h.device
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
 
     if cross_kv is not None:
+        nh, kv = cfg.num_heads, cfg.num_kv_heads
         q = linear(h_in, p["wq"], p.get("bq"), caps=caps,
                    name=f"{prefix}wq").reshape(b, t, nh, hd)
         k, v = cross_kv
@@ -388,27 +524,30 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
         return h + linear(out.to(h.dtype), p["wo"], caps=caps,
                           name=f"{prefix}wo")
 
+    hp = attn_heads(p, cfg)
     if paged is None and (cache is None or pos is None):
         positions = torch.arange(t, device=dev)[None, :]
         q, k, v = _qkv(p, h_in, cfg, positions, caps, prefix)
+        qa, ka, va, nh, kv = _operands(hp, q, k, v)
         if not differentiable:
-            out = ops.attention(q, k, v, causal=causal, window=window,
+            out = ops.attention(qa, ka, va, causal=causal, window=window,
                                 prefix_len=prefix_len)      # (B, T, H, hd)
             out = out.reshape(b, t, nh * hd)
         elif not causal:
             seen = torch.ones((t, t), dtype=torch.bool, device=dev)
-            out = _sdpa(q, k, v, seen, nh, kv)
+            out = _sdpa(qa, ka, va, seen, nh, kv)
         elif t > ONLINE_ATTN_THRESHOLD:
-            out = _sdpa_online(q, k, v, nh, kv, window, ONLINE_ATTN_CHUNK,
+            out = _sdpa_online(qa, ka, va, nh, kv, window, ONLINE_ATTN_CHUNK,
                                prefix_len)
         else:
-            out = _sdpa(q, k, v, causal_mask(t, t, window, dev, prefix_len),
-                        nh, kv)
+            out = _sdpa(qa, ka, va,
+                        causal_mask(t, t, window, dev, prefix_len), nh, kv)
         if cache is not None:                               # dense prefill
             cache["k"][:, :t] = k.to(cache["k"].dtype)
             cache["v"][:, :t] = v.to(cache["v"].dtype)
-        out = out.to(h.dtype)
-        return h + linear(out, p["wo"], caps=caps, name=f"{prefix}wo")
+        out = _own_heads(hp, out, hd).to(h.dtype)
+        return h + linear_rows(out, p["wo"], full=full, caps=caps,
+                               name=f"{prefix}wo")
 
     if paged is None:                                       # dense decode
         if t != 1:
@@ -423,8 +562,9 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
             ok = ok & (kpos > pos - window)
         if prefix_len is not None:
             ok = ok | (kpos < prefix_len)
-        out = _sdpa(q, cache["k"], cache["v"], ok, nh, kv)
-        return h + linear(out.to(h.dtype), p["wo"])
+        qa, ka, va, nh, kv = _operands(hp, q, cache["k"], cache["v"])
+        out = _own_heads(hp, _sdpa(qa, ka, va, ok, nh, kv), hd)
+        return h + linear_rows(out.to(h.dtype), p["wo"], full=full)
 
     bt = paged["block_tables"]                               # (B, P_max)
     p_max = bt.shape[1]
@@ -441,19 +581,21 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
         _paged_scatter(cache, k, v, flat.long())
         s_len = p_max * page_size
         btl = bt.long()
-        kc = cache["k"][btl].reshape(b, s_len, kv, hd)
-        vc = cache["v"][btl].reshape(b, s_len, kv, hd)
+        kc = cache["k"][btl].reshape(b, s_len, hp.kv, hd)
+        vc = cache["v"][btl].reshape(b, s_len, hp.kv, hd)
         if "k_scale" in cache:
             kc = kc.float() * cache["k_scale"][btl].reshape(
-                b, s_len, kv)[..., None]
+                b, s_len, hp.kv)[..., None]
             vc = vc.float() * cache["v_scale"][btl].reshape(
-                b, s_len, kv)[..., None]
+                b, s_len, hp.kv)[..., None]
         kpos = torch.arange(s_len, device=dev, dtype=torch.int32)
         ok = kpos[None, None, :] <= positions[:, :, None]    # (B, T, S)
         if window is not None:
             ok = ok & (kpos[None, None, :] > positions[:, :, None] - window)
-        out = _sdpa(q, kc, vc, ok[:, None, None], nh, kv).to(h.dtype)
-        return h + linear(out, p["wo"])
+        qa, ka, va, nh, kv = _operands(hp, q, kc, vc)
+        out = _sdpa(qa, ka, va, ok[:, None, None], nh, kv)
+        out = _own_heads(hp, out, hd).to(h.dtype)
+        return h + linear_rows(out, p["wo"], full=full)
 
     if t != 1:
         raise ValueError("paged attention: T > 1 needs a chunk start")
@@ -464,12 +606,13 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     flat = torch.where(pos >= 0, flat, torch.zeros_like(flat))  # idle → scrap
     _paged_scatter(cache, k1[:, 0], v1[:, 0], flat.long())
     lengths = torch.clamp(pos + 1, min=0).to(torch.int32)       # idle → 0
-    qg = q[:, 0].reshape(b, kv, nh // kv, hd)
+    q1, _, _, nh, kv = _operands(hp, q[:, 0], None, None)    # (B, nh, hd)
+    qg = q1.reshape(b, kv, nh // kv, hd)
     out = ops.paged_attention(qg, cache["k"], cache["v"], bt, lengths,
                               window=window, k_scale=cache.get("k_scale"),
                               v_scale=cache.get("v_scale"))
-    out = out.reshape(b, 1, nh * hd).to(h.dtype)
-    return h + linear(out, p["wo"])
+    out = _own_heads(hp, out.reshape(b, 1, -1), hd).to(h.dtype)
+    return h + linear_rows(out, p["wo"], full=full)
 
 
 # ----------------------------------------------------------------------
@@ -492,7 +635,11 @@ def mlp_init(rng, cfg: ArchConfig, dtype, d_ff: Optional[int] = None
 
 def mlp_apply(p, h: torch.Tensor, cfg: ArchConfig, *,
               caps: Optional[Dict[str, torch.Tensor]] = None,
-              prefix: str = "mlp.") -> torch.Tensor:
+              prefix: str = "mlp.", d_ff: Optional[int] = None
+              ) -> torch.Tensor:
+    """Pre-norm MLP with residual; ``d_ff`` (default ``cfg.d_ff``) is the
+    hidden width on one device — ``wi`` / ``wg`` column-parallel and
+    ``wo`` row-parallel where a rank holds their blocks."""
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
     # glu gates fuse their activation into the projection epilogue (a true
     # in-kernel epilogue for 2:4-packed weights)
@@ -504,7 +651,8 @@ def mlp_apply(p, h: torch.Tensor, cfg: ArchConfig, *,
     else:
         act = linear(h_in, p["wi"], caps=caps, name=f"{prefix}wi",
                      activation="gelu")
-    return h + linear(act, p["wo"], caps=caps, name=f"{prefix}wo")
+    return h + linear_rows(act, p["wo"], full=d_ff or cfg.d_ff, caps=caps,
+                           name=f"{prefix}wo")
 
 
 # ----------------------------------------------------------------------
@@ -527,7 +675,21 @@ def embed_scale(cfg: ArchConfig, dtype) -> float:
 
 
 def embed_apply(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = p["tok"][tokens.long()]
+    """Token embeddings (× √d where the config scales them).  A rank's
+    vocab rows of ``tok`` (vocab-parallel) give its tokens' rows and
+    zeros elsewhere, summed over the model group: exact, one nonzero a
+    position."""
+    tok = p["tok"]
+    n = tok.shape[0]
+    if n == cfg.vocab_size:
+        h = tok[tokens.long()]
+    else:
+        mg = model_group()
+        ids = tokens.long() - mg.rank * n
+        mine = (ids >= 0) & (ids < n)
+        h = tok[torch.clamp(ids, 0, n - 1)]
+        h = torch.where(mine[..., None], h, torch.zeros_like(h))
+        comm.all_reduce_(h, mg.group)
     if cfg.embed_scale:
         h = h * embed_scale(cfg, h.dtype)
     return h
@@ -551,8 +713,14 @@ def unembed_init(rng, cfg: ArchConfig, dtype) -> Params:
 def unembed_apply(p, embed_p, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Logits in the model dtype (bf16 for a bf16 config, as the
     reference).  The tied head is a dense product left to torch.matmul,
-    as the reference leaves it to XLA."""
+    as the reference leaves it to XLA.  A rank's vocab block of the head
+    (tied or not) gives its logit columns, all-gathered in rank order:
+    every rank holds the same logits."""
     h = rmsnorm(p["ln"], h, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return h @ embed_p["tok"].T.to(h.dtype)
-    return h @ p["head"].to(h.dtype)
+        logits = h @ embed_p["tok"].T.to(h.dtype)
+    else:
+        logits = h @ p["head"].to(h.dtype)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits = comm.all_gather_last(logits, model_group().group)
+    return logits

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN on one device (a port of ``repro.models.moe``,
-its single-device path: no expert parallelism, no ``shard_map``).
+"""Mixture-of-Experts FFN (a port of ``repro.models.moe`` without its
+expert parallelism: no ``shard_map``, every rank holds every expert).
 
 Each token's router picks ``top_k`` experts; every expert then takes its
 top-C tokens by gate (C = the capacity), runs its SwiGLU on them and the
@@ -25,6 +25,26 @@ that the same inputs give the same bits:
   in expert order; here each token's (at most ``top_k``) contributions are
   gathered in expert order and added one after another — no atomics, so
   the card gives the same bits run after run.
+
+Data-parallel (a context whose data group has more than one rank, whose
+model axis is 1 and whose ``split_rows`` says that each rank holds its
+rows of one global batch — the trainer's step, a static serving bucket
+split over data): the reference runs one program over the global batch
+(GSPMD) and routes it whole, and so does :func:`moe_apply` here.  The capacity
+follows the global token count; the detached gates are all-gathered in
+rank order (pod outer, as ``batch_sharding`` lays rows out, so a global
+token index is the rank's offset + its local index) and every expert
+takes its top-C of the global tokens; a rank keeps the picks among its
+own rows, whose gate values multiply from its local gates — the
+router's gradient is the reference's, split by rows.  The per-expert
+counts are all-reduced, so the load-balance ``frac`` is global and a
+rank's aux loss is E·Σ frac·mean_local(probs): their mean over ranks is
+the reference's aux (exactly so when the ranks hold equal token
+counts).  Under a model axis > 1 the reference dispatches per rank
+(``shard_map``) and so does the port, per rank.  Everywhere else a call
+routes its own tokens: replicated work (every rank the same rows) and
+the pruning pipeline's calibration shards, which the reference runs as
+one program a shard, each routed on its own.
 """
 
 from __future__ import annotations
@@ -34,6 +54,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.dist import comm
+from repro_torch.dist.api import current_ctx
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, _dense_init, _normal,
                                        mlp_apply, mlp_init, rmsnorm,
@@ -67,17 +89,26 @@ def _top(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return v[..., :k], i[..., :k]
 
 
-def route(x2: torch.Tensor, router_w: torch.Tensor, top_k: int
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
+def route(x2: torch.Tensor, router_w: torch.Tensor, top_k: int,
+          group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x2 (N, D) → the dense renormalised gates (N, E) f32 and the GShard
-    load-balance loss E·Σ_e mean(probs_e)·frac_tokens_e."""
+    load-balance loss E·Σ_e mean(probs_e)·frac_tokens_e.  With a data
+    ``group`` the token fractions are those of the global batch (the
+    counts summed over it) and mean(probs) is the rank's own."""
     logits = x2.float() @ router_w
     probs = torch.softmax(logits, dim=-1)
     topv, topi = _top(probs, top_k)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     gates = torch.zeros_like(probs).scatter(1, topi, topv)
     e = probs.shape[-1]
-    frac = torch.mean((gates > 0).float(), dim=0)
+    if group is None:
+        frac = torch.mean((gates > 0).float(), dim=0)
+    else:
+        counts = torch.cat([(gates > 0).float().sum(dim=0),
+                            torch.full((1,), float(x2.shape[0]),
+                                       device=x2.device)])
+        comm.all_reduce_(counts, group)
+        frac = counts[:e] / counts[e]
     aux = e * torch.sum(torch.mean(probs, dim=0) * frac)
     return gates, aux
 
@@ -100,18 +131,38 @@ def capacity(n: int, cfg: ArchConfig) -> int:
                                 * mc.capacity_factor)))
 
 
+def _picks(gates: torch.Tensor, cap: int, group=None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each expert's top-C tokens: (gate values (E, C), local token
+    indices (E, C), valid (E, C)).  With a data ``group`` the top-C is
+    taken over the global tokens (every rank's detached gates, in rank
+    order) and a rank keeps the picks among its rows; the others are
+    invalid, pointing at row n (past the rank's rows)."""
+    n = gates.shape[0]
+    if group is None:
+        gv, gi = _top(gates.T, min(cap, n))
+        return gv, gi, gv > 0.0
+    every = comm.all_gather_rows(gates.detach(), group)       # (N, E)
+    gv_all, gi_all = _top(every.T, min(cap, every.shape[0]))
+    off = comm.rank(group) * n
+    mine = (gi_all >= off) & (gi_all < off + n) & (gv_all > 0.0)
+    gi = torch.where(mine, gi_all - off, torch.full_like(gi_all, n))
+    gv = torch.gather(gates.T, 1, torch.clamp(gi, max=n - 1))
+    return torch.where(mine, gv, torch.zeros_like(gv)), gi, mine
+
+
 def dispatch(x2: torch.Tensor, gates: torch.Tensor, wi, wg, wo, cap: int,
              top_k: int, caps: Optional[Dict] = None,
-             prefix: str = "moe.") -> torch.Tensor:
+             prefix: str = "moe.", group=None) -> torch.Tensor:
     """Top-C tokens per expert, the expert FFNs, and the gated combine
-    (the reference's ``_gather_compute_scatter``).  Returns (N, D) in the
+    (the reference's ``_gather_compute_scatter``; with a data ``group``
+    over the global batch, see :func:`_picks`).  Returns (N, D) in the
     experts' output dtype."""
     n, d = x2.shape
     e = gates.shape[1]
-    c = min(cap, n)
-    gv, gi = _top(gates.T, c)                        # (E, C)
-    valid = gv > 0.0
-    xg = x2[gi]                                      # (E, C, D)
+    gv, gi, valid = _picks(gates, cap, group)                # (E, C)
+    c = gi.shape[1]
+    xg = x2[torch.clamp(gi, max=n - 1)]                      # (E, C, D)
     yo, hid = expert_ffn(xg, wi, wg, wo)
     if caps is not None:
         for k in range(e):
@@ -121,11 +172,13 @@ def dispatch(x2: torch.Tensor, gates: torch.Tensor, wi, wg, wo, cap: int,
     yo = yo * torch.where(valid, gv, torch.zeros_like(gv))[..., None].to(
         yo.dtype)
     # combine in expert order: token t's kept slots, expert by expert
+    # (an invalid pick of another rank's token lands in column n, cut off)
     dev = x2.device
-    slot = torch.zeros((e, n), dtype=torch.long, device=dev)
+    slot = torch.zeros((e, n + 1), dtype=torch.long, device=dev)
     slot.scatter_(1, gi, torch.arange(c, device=dev).expand(e, c))
-    kept = torch.zeros((e, n), dtype=torch.bool, device=dev)
+    kept = torch.zeros((e, n + 1), dtype=torch.bool, device=dev)
     kept.scatter_(1, gi, valid)
+    slot, kept = slot[:, :n], kept[:, :n]
     # a token has at most top_k positive gates, so at most top_k kept
     # slots; the stable sort lists them first, in expert order
     kk = min(top_k, e)
@@ -146,19 +199,26 @@ def moe_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
               caps: Optional[Dict] = None, prefix: str = "moe."
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm MoE FFN with residual: (h + moe_out, aux loss).  The
-    capacity follows the call's token count n = B·T."""
+    capacity follows the call's token count n = B·T — the global batch's
+    under a context of rows split over data (the module docstring)."""
     mc = cfg.moe
     b, t, d = h.shape
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
     if caps is not None:
         caps[f"{prefix}router"] = h_in
     x2 = h_in.reshape(-1, d)
-    gates, aux = route(x2, p["router"], mc.top_k)
+    ctx = current_ctx()
+    group = (comm.group_of(ctx.mesh, ctx.dp_axes)
+             if ctx is not None and ctx.split_rows and ctx.tp == 1
+             and ctx.dp > 1 else None)
+    n_all = x2.shape[0] * (1 if group is None else comm.size(group))
+    gates, aux = route(x2, p["router"], mc.top_k, group)
     out2 = dispatch(x2, gates, p["wi"], p["wg"], p["wo"],
-                    capacity(x2.shape[0], cfg), mc.top_k, caps, prefix)
+                    capacity(n_all, cfg), mc.top_k, caps, prefix, group)
     y = out2.reshape(b, t, d).to(h.dtype)
     if mc.num_shared:
         # the reference's arithmetic: the shared MLP's residual taken off
         y = y + (mlp_apply(p["shared"], h, cfg, caps=caps,
-                           prefix=f"{prefix}shared.") - h)
+                           prefix=f"{prefix}shared.",
+                           d_ff=mc.num_shared * mc.d_ff_expert) - h)
     return h + y, aux

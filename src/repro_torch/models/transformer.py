@@ -51,6 +51,15 @@ are per-layer lists too: an attention layer's paged ``{"k", "v"[,
 recurrent layer's state rows (``models.ssm``; one per serve slot when
 paged); all are updated in place.  The encoder-decoder and the prefix-LM
 serve from the dense cache only (static mode), as in the reference.
+
+Under a context whose model axis is > 1 (tensor-parallel serving) the
+serve methods run a rank's blocks of the params
+(``dist.sharding.shard_params``): the caches hold the rank's KV heads
+(``LM.cache_kv_heads``) and the layers make the collectives
+(``models.layers``).  It covers the dense decoders — ``attn`` /
+``attn_local`` blocks with a dense MLP; a model with recurrent blocks,
+experts, leading prefix blocks, a modality frontend or an encoder
+raises (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -63,6 +72,8 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.core.engine import LinearSpec, SegmentSpec
+from repro_torch.dist.api import current_ctx
+from repro_torch.dist.sharding import kv_head_split
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, attn_apply, attn_cache_init,
                                        attn_init, attn_paged_cache_init,
@@ -594,6 +605,40 @@ class LM:
                             set_params=functools.partial(set_params, li))
                 for li in range(cfg.enc_layers)]
 
+    # ------------------------------------------ tensor-parallel serving
+    def serve_tp(self) -> int:
+        """The active context's model axis (1 without a context); raises
+        for a model whose tensor-parallel serving is not ported."""
+        ctx = current_ctx()
+        tp = 1 if ctx is None else ctx.tp
+        if tp == 1:
+            return 1
+        cfg = self.cfg
+        missing = [f"{k} blocks" for k in dict.fromkeys(self.kinds)
+                   if k not in ATTN_KINDS]
+        if cfg.moe is not None:
+            missing.append("experts (moe_dispatch_specs)")
+        if cfg.prefix:
+            missing.append("leading prefix blocks")
+        if cfg.frontend is not None:
+            missing.append("a modality frontend")
+        if cfg.encdec:
+            missing.append("an encoder")
+        if missing:
+            raise ValueError(
+                f"{cfg.name}: tensor-parallel serving (model axis {tp}) "
+                "covers the dense decoders — attn / attn_local blocks with "
+                f"a dense MLP; {', '.join(missing)} wait for their port "
+                "(ROADMAP.md, Queue 1)")
+        return tp
+
+    def cache_kv_heads(self) -> int:
+        """KV heads this rank's paged pool or dense cache holds: its block
+        where the rule splits them (``dist.sharding.kv_head_split``), all
+        of them otherwise."""
+        kv, tp = self.cfg.num_kv_heads, self.serve_tp()
+        return kv if kv_head_split(kv, tp) is None else kv // tp
+
     # ----------------------------------------------------- dense cache
     def init_cache(self, batch: int, max_len: int,
                    dtype: Optional[torch.dtype] = None
@@ -605,12 +650,13 @@ class LM:
         its frontend positions."""
         dt = dtype or self.dtype
         cfg = self.cfg
+        kvh = self.cache_kv_heads()
         cache = []
         for kind in self.kinds:
             if kind in STATE_BLOCKS:
                 cache.append(self.state_init(kind, batch, dt))
                 continue
-            c = attn_cache_init(cfg, batch, max_len, dt, self.device)
+            c = attn_cache_init(cfg, batch, max_len, dt, self.device, kvh)
             if kind == "dec_attn":
                 shape = (batch, cfg.frontend_len, cfg.num_kv_heads, cfg.hd)
                 c["xk"] = torch.zeros(shape, dtype=dt, device=self.device)
@@ -634,6 +680,7 @@ class LM:
         last position's logits (B, V) f32.  The attention is the
         full-sequence one (``flash_attn`` on the card).  A frontend model
         takes ``frontend_feats``."""
+        self.serve_tp()
         batch = _batch(tokens, frontend_feats)
         enc_out = self.encode(params, batch) if self.cfg.encdec else None
         h = self.first_hidden(params, batch)
@@ -662,8 +709,9 @@ class LM:
             raise ValueError(
                 f"{self.cfg.name}: recurrent-state mixers need max_slots for "
                 "the slot-pooled state (serve.kvpool.StatePool)")
+        kvh = self.cache_kv_heads()
         return [attn_paged_cache_init(self.cfg, num_pages, page_size, dt,
-                                      self.device)
+                                      self.device, kvh)
                 if kind in ATTN_KINDS
                 else self.state_init(kind, max_slots, state_dt)
                 for kind in self.kinds]
@@ -691,6 +739,7 @@ class LM:
         position ``min(length, start+C) - 1`` (the sampling logits when
         this is the final chunk), (1, V) f32."""
         self._refuse_paged()
+        self.serve_tp()
         h = embed_apply(params["embed"], tokens, self.cfg)
         t = h.shape[1]
         lengths = torch.full((1,), length, dtype=torch.int32,
@@ -716,6 +765,7 @@ class LM:
         prefix-LM's counts its frontend positions; an encoder-decoder's
         cross-attention reads the cached ``xk`` / ``xv``).  Returns logits
         (B, V) f32; the cache is updated in place."""
+        self.serve_tp()
         h = embed_apply(params["embed"], token[:, None], self.cfg)
         paged = None if block_tables is None else {
             "block_tables": block_tables}

@@ -39,6 +39,26 @@ reference.  A prefix-LM's decode positions start past its frontend_len
 prefix positions.  ``engine.mode`` is the effective mode;
 ``config.mode`` stays as asked.
 
+Under a mesh (``mesh=``, or the active ``dist.use_mesh`` context; the
+reference's ``ServeEngine``) every process is one rank and runs this
+same engine on the same requests.  A model axis > 1 is tensor-parallel
+serving: the params are packed first and then sharded
+(``dist.sharding.shard_params`` with whole heads), each rank's pool
+holds its KV heads, and the layers make one all-reduce a block and
+all-gather the logits, so every rank samples the same tokens (the dense
+decoders only: ``LM.serve_tp`` refuses the rest).  The ranks' schedules
+are the same because the scheduler is deterministic and reads only what
+every rank holds alike; the one wall-clock decision, the hard-deadline
+sweep, is rank 0's, broadcast.  Before each burst the ranks compare a
+digest of its plan (burst length, chunk, slots, positions, block tables)
+and raise if they differ, instead of parting in a collective.  The data
+axis replicates continuous mode's schedule, pool and burst state (the
+reference replicates them over ``data``); in static mode a bucket whose
+rows divide over the data axes splits them (the reference's
+``_place_batch``), each data rank decodes its rows — drawing the whole
+bucket's noise when sampling — and the tokens are all-gathered.  Every
+rank returns the same results; the launcher prints rank 0's.
+
 Counters, latency histograms and request spans go to the engine's
 :class:`~repro_torch.obs.Obs` bundle (``obs=``; the serve launcher
 shares one among its replicas, each under its own label) through
@@ -51,7 +71,9 @@ each burst dispatch, before anything of the burst is launched.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -59,6 +81,11 @@ import numpy as np
 import torch
 
 from repro_torch import random as rnd
+from repro_torch.dist import comm
+from repro_torch.dist.api import current_ctx, use_mesh
+from repro_torch.dist.mesh import dp_axes_of
+from repro_torch.dist.sharding import (batch_sharding, model_shard,
+                                       shard_params)
 from repro_torch.obs import Obs
 from repro_torch.serve import fused
 from repro_torch.serve.config import ServeConfig
@@ -131,13 +158,15 @@ def effective_mode(cfg, mode: str, extra_batch=None) -> str:
 class ServeEngine:
     def __init__(self, model, params, config: Optional[ServeConfig] = None,
                  *, extra_batch: Optional[Dict[str, torch.Tensor]] = None,
-                 obs: Optional[Obs] = None, **knobs):
+                 obs: Optional[Obs] = None, mesh=None, **knobs):
         """``config`` carries every knob; bare keywords build one (or
         override fields of the given one).  Validation happens once, in
         ``ServeConfig.validate``.  ``extra_batch``: batch entries beside
         the tokens that every bucket's prefill takes (a frontend model's
         ``frontend_feats``).  ``obs`` is the metrics / trace bundle
-        (default: a private one from ``config.metrics`` / ``trace``)."""
+        (default: a private one from ``config.metrics`` / ``trace``).
+        ``mesh``: a DeviceMesh to serve under (default: the active
+        context's; see the module docstring)."""
         if config is None:
             config = ServeConfig(**knobs)
         elif knobs:
@@ -146,11 +175,24 @@ class ServeEngine:
         self.config = config
         self.model = model
         self.max_batch, self.max_len = config.max_batch, config.max_len
+        if mesh is None:
+            ctx = current_ctx()
+            mesh = ctx.mesh if ctx is not None else None
+        self.mesh = mesh
+        self.tp = model_shard(mesh).count
+        self.dp_axes = dp_axes_of(mesh) if mesh is not None else ()
+        self.dp = batch_sharding(mesh).count if mesh is not None else 1
+        self.ranks = mesh.mesh.numel() if mesh is not None else 1
+        with self._context():
+            model.serve_tp()        # a model not yet ported raises here
         # compressed-weight serving: leaves that verify as 2:4 are packed
-        # ONCE at load, so the device holds only (vals, idx)
+        # ONCE at load, so the device holds only (vals, idx) — and then
+        # each rank's blocks of them (whole heads a rank)
         if config.sparse_weights == "auto":
             params = compressed_param_tree(params)
         self.n_sparse_leaves = count_packed(params)
+        if self.tp > 1:
+            params = shard_params(params, mesh, head_dim=model.cfg.hd)
         self.params = params
         self.extra_batch = extra_batch or {}
         self.mode = effective_mode(model.cfg, config.mode, self.extra_batch)
@@ -171,14 +213,15 @@ class ServeEngine:
         self._swap_ok = False
         if self.mode == "static":
             return                    # a dense cache per bucket, no pool
-        self.pool = PagedKVPool(
-            model, num_pages=config.resolved_num_pages(),
-            page_size=config.page_size, max_slots=config.max_batch,
-            max_len=config.max_len,
-            dtype=torch.int8 if config.kv_dtype == "int8" else None,
-            prefix_cache=config.prefix_cache,
-            host_swap_pages=config.resolved_swap_pages(), obs=obs,
-            faults=self.faults)
+        with self._context():           # the pool holds this rank's heads
+            self.pool = PagedKVPool(
+                model, num_pages=config.resolved_num_pages(),
+                page_size=config.page_size, max_slots=config.max_batch,
+                max_len=config.max_len,
+                dtype=torch.int8 if config.kv_dtype == "int8" else None,
+                prefix_cache=config.prefix_cache,
+                host_swap_pages=config.resolved_swap_pages(), obs=obs,
+                faults=self.faults)
         state = StatePool(model, self.pool.kv)
         self.state_pool = state if state.has_state else None
         # swap preemption preserves KV pages only: recurrent-state rows
@@ -187,6 +230,29 @@ class ServeEngine:
                          and self.pool.arena is not None)
         # output ring: burst length + 1 for a prefill burst's token 0
         self._ring = self.steps_per_sync + 1
+
+    def _context(self, data: bool = False):
+        """The engine's mesh as the context of the model calls it makes
+        (in whichever thread runs them); ``data``: a bucket whose rows
+        split over the data axes, which a MoE layer routes whole —
+        replicated work routes per rank.  A null context without a
+        mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_mesh(self.mesh, self.dp_axes, split_rows=data)
+
+    def _agree(self, plan) -> None:
+        """Raise unless every rank is about to run the same ``plan`` (a
+        burst's digest), before any collective of it can part."""
+        if self.ranks == 1:
+            return
+        mine = hashlib.blake2b(repr(plan).encode(),
+                               digest_size=8).hexdigest()
+        every = comm.all_gather_object(mine, None)
+        if len(set(every)) > 1:
+            raise RuntimeError(
+                f"serve ranks parted: burst plan digests {every} differ "
+                f"(this rank's plan: {plan!r})")
 
     @property
     def stats(self) -> Dict[str, float]:
@@ -250,30 +316,44 @@ class ServeEngine:
     def _run_bucket(self, reqs: List[Request], key: torch.Tensor
                     ) -> List[Result]:
         """One batched prefill into a dense cache, then the whole decode
-        loop on the device and ONE host readback."""
+        loop on the device and ONE host readback.  Under a mesh whose
+        data axes divide the bucket, a data rank runs its rows and the
+        tokens are all-gathered."""
         b = len(reqs)
         plen = len(reqs[0].prompt)
         off = self.model.prefix_len or 0     # the prefix-LM's frontend rows
         max_new = max(r.max_new_tokens for r in reqs)
         if off + plen + max_new > self.max_len:
             raise ValueError("bucket exceeds max_len")
+        split = self.dp > 1 and b % self.dp == 0
+        rows = batch_sharding(self.mesh, self.dp_axes).rows(b) if split \
+            else slice(0, b)
+        mine = reqs[rows]
+        bl = len(mine)
         dev = self.model.device
         toks = torch.from_numpy(np.stack([np.asarray(r.prompt, np.int32)
-                                          for r in reqs])).to(dev)
-        extra = {k: v[:b] if v.shape[0] >= b else v[:1].expand(
-            b, *v.shape[1:]) for k, v in self.extra_batch.items()}
-        cache = self.model.init_cache(b, self.max_len)
-        logits = self.model.prefill(self.params, toks, cache, **extra)
-        max_new_arr = np.asarray([r.max_new_tokens for r in reqs], np.int32)
+                                          for r in mine])).to(dev)
+        extra = {k: v[rows] if v.shape[0] >= b else v[:1].expand(
+            bl, *v.shape[1:]) for k, v in self.extra_batch.items()}
         # EOS off and one max_new_tokens: the done scan could never fire
         # early, so the fori variant drops that bookkeeping
         early_exit = not (self.config.eos_id is None
-                          and len(set(max_new_arr.tolist())) == 1)
-        t0 = time.monotonic()
-        out, n_emitted, steps_run = fused.static_burst(
-            self.model, self.params, cache, logits, key, max_new_arr,
-            off + plen, max_new, early_exit=early_exit, eos=self.eos,
-            **self.sampling)
+                          and len({r.max_new_tokens for r in reqs}) == 1)
+        max_new_arr = np.asarray([r.max_new_tokens for r in mine], np.int32)
+        with self._context(data=split):
+            cache = self.model.init_cache(bl, self.max_len)
+            logits = self.model.prefill(self.params, toks, cache, **extra)
+            t0 = time.monotonic()
+            out, n_emitted, steps_run = fused.static_burst(
+                self.model, self.params, cache, logits, key, max_new_arr,
+                off + plen, max_new, early_exit=early_exit, eos=self.eos,
+                rows=(rows.start, b) if split else None, **self.sampling)
+        if split:
+            group = comm.group_of(self.mesh, self.dp_axes)
+            out = comm.all_gather_rows(out, group)
+            n_emitted = comm.all_gather_rows(n_emitted, group)
+            steps_run = comm.all_reduce_(steps_run.reshape(1).clone(),
+                                         group, op=comm.MAX)
         blob = torch.cat([out.reshape(-1), n_emitted,
                           steps_run.reshape(1)]).cpu().numpy()
         out = blob[:b * max_new].reshape(b, max_new)   # ONE sync a bucket
@@ -385,17 +465,27 @@ class ContinuousSession:
     def _expire_deadlines(self) -> List[StreamEvent]:
         """The hard-deadline sweep, once per sync interval: every request
         whose ``deadline_hard`` deadline has passed — waiting, swapped
-        out or slotted — is cancelled with ``finish_reason="timeout"``."""
+        out or slotted — is cancelled with ``finish_reason="timeout"``.
+        Under a mesh rank 0 reads its clock and broadcasts the verdict
+        (every rank holds the same hard-deadline requests, so all of them
+        join the broadcast or none does)."""
+        hard = [s for s in (*self.sched.running, *self.sched.waiting)
+                if s.req.deadline_hard and s.req.deadline is not None]
+        if not hard:
+            return []
         now = time.monotonic()
-        expired = [s.req.uid for s in (*self.sched.running,
-                                       *self.sched.waiting)
-                   if s.req.deadline_hard and s.req.deadline is not None
-                   and now >= s.req.deadline]
+        expired = [s.req.uid for s in hard if now >= s.req.deadline]
+        if self.engine.ranks > 1:    # the clock is rank 0's alone
+            expired = comm.broadcast_object(expired)
         return [ev for uid in expired
                 if (ev := self.cancel(uid, reason="timeout")) is not None]
 
     # ------------------------------------------------- one sync interval
     def step(self) -> List[StreamEvent]:
+        with self.engine._context():
+            return self._step()
+
+    def _step(self) -> List[StreamEvent]:
         eng, sched, pool = self.engine, self.sched, self.engine.pool
         m = eng.m
         # 0) hard deadlines retire before what they hold shapes admission
@@ -460,6 +550,10 @@ class ContinuousSession:
             state["n_tok"][s.slot] = len(s.tokens)
             state["max_new"][s.slot] = s.req.max_new_tokens
         state["steps_left"] = np.asarray(k, np.int32)
+        eng._agree((k, can_decode, None if pseq is None else (
+            pseq.req.uid, pseq.slot, pseq.n_prefilled),
+            [(s.slot, s.req.uid, s.n_written, len(s.tokens))
+             for s in running], pool.block_tables.tobytes()))
         st = fused.upload(state, eng.model.device)
         tables = pool.tables_device()
         t0 = time.monotonic()

@@ -26,7 +26,9 @@ the temperature-scaled logits filtered by top-k / top-p, then
 ``fold_in(fold_in(base_key, uid), step)`` (:func:`sample_rows`) — so a
 stream depends on neither the batch, nor ``steps_per_sync``, nor
 preemption; static mode draws one batch-keyed sample a step under the
-bucket key's ``split`` sequence (:func:`sample_batch`).
+bucket key's ``split`` sequence (:func:`sample_batch`) — a data rank
+holding its rows of a bucket draws the whole bucket's noise and takes
+its rows, so its tokens are those of the bucket on one device.
 """
 
 from __future__ import annotations
@@ -84,12 +86,20 @@ def sample_rows(logits: torch.Tensor, uids: torch.Tensor,
 
 def sample_batch(logits: torch.Tensor, key: torch.Tensor, *,
                  temperature: float, top_k: Optional[int],
-                 top_p: Optional[float]) -> torch.Tensor:
-    """Static-mode sampling: one batch-keyed draw per step."""
+                 top_p: Optional[float],
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Static-mode sampling: one batch-keyed draw per step.  ``rows`` =
+    (offset, bucket size): ``logits`` are those rows of the bucket, and
+    the draw is the bucket's at them (``random.categorical``'s noise over
+    the whole bucket, cut to the rows)."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    rows = filter_logits(logits / temperature, top_k, top_p)
-    return rnd.categorical(key, rows).to(torch.int32)
+    filt = filter_logits(logits / temperature, top_k, top_p)
+    if rows is None:
+        return rnd.categorical(key, filt).to(torch.int32)
+    off, total = rows
+    noise = rnd.gumbel(key, (total, filt.shape[-1]))[off:off + filt.shape[0]]
+    return torch.argmax(noise + filt, dim=-1).to(torch.int32)
 
 
 # ----------------------------------------------------------------------
@@ -218,7 +228,8 @@ def prefill_burst(model, params, kv, tables: torch.Tensor,
 # ----------------------------------------------------------------------
 def static_burst(model, params, cache, logits: torch.Tensor,
                  key: torch.Tensor, max_new: np.ndarray, pos0: int,
-                 width: int, *, early_exit: bool, eos: int, **sampling
+                 width: int, *, early_exit: bool, eos: int,
+                 rows: Optional[Tuple[int, int]] = None, **sampling
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A static bucket's whole sample / record / advance loop on the
     device (``make_static_burst``): ``(out (B, width), n_emitted (B,),
@@ -228,6 +239,8 @@ def static_burst(model, params, cache, logits: torch.Tensor,
     Each step splits the bucket key — ``key, sk = split(key)`` — draws
     the batch under ``sk`` (:func:`sample_batch`), records it and feeds it
     to the dense-cache ``decode_step`` at position ``pos0 + step``.
+    ``rows`` (offset, bucket size): the rows are a data rank's block of
+    the bucket (:func:`sample_batch`).
     ``early_exit=False`` is the reference's ``fori`` variant (EOS off and
     one ``max_new_tokens`` in the bucket: every step emits for every
     row, no done bookkeeping); otherwise the ``while`` variant's
@@ -240,7 +253,7 @@ def static_burst(model, params, cache, logits: torch.Tensor,
     if not early_exit:
         for i in range(width):
             key, sk = rnd.split(key).unbind(0)
-            tok = sample_batch(logits, sk, **sampling)
+            tok = sample_batch(logits, sk, rows=rows, **sampling)
             out[:, i] = tok
             logits = model.decode_step(params, tok, cache, pos0 + i)
         full = torch.full((b,), width, dtype=torch.int32, device=dev)
@@ -252,7 +265,7 @@ def static_burst(model, params, cache, logits: torch.Tensor,
     for step in range(width):
         steps_run += (~done.all()).to(torch.int32)
         key, sk = rnd.split(key).unbind(0)
-        tok = sample_batch(logits, sk, **sampling)
+        tok = sample_batch(logits, sk, rows=rows, **sampling)
         emit = ~done & (step < max_new_t)
         out[:, step] = torch.where(emit, tok, out[:, step])
         done = done | (emit & (tok == eos)) | (step >= max_new_t)

@@ -27,9 +27,12 @@ trainer is data-parallel over the mesh's data (+pod) axes, one process a
 rank: the pipeline (``DataPipeline`` under the same mesh) hands each
 rank its rows of the global batch, each rank takes the gradients of its
 rows, and an f32 ``all_reduce`` (in buckets of 2**24 elements) takes
-their mean — the global batch's
-gradient when every rank's rows weigh the same tokens (the MoE aux
-loss, a statistic of a rank's tokens, is the exception).  The loss and
+their mean — the global batch's gradient when every rank's rows weigh
+the same tokens.  The steps run under the mesh's context, so a MoE
+layer routes the global batch as the reference does (capacity, top-C
+and the load-balance fractions over every rank's tokens:
+``models.moe``), and the mean of the ranks' aux losses is the
+reference's aux.  The loss and
 metrics are reduced the same way, so every rank's NaN guard decides
 alike, and the straggler watchdog reads the slowest rank's step time.
 Parameters stay replicated: the reference's FSDP sharding and a
@@ -43,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import contextlib
 import os
 import statistics
 import time
@@ -54,7 +58,7 @@ import torch
 from repro_torch import random as rnd
 from repro_torch.ckpt import CheckpointStore
 from repro_torch.dist import comm
-from repro_torch.dist.api import axis_size, current_ctx
+from repro_torch.dist.api import axis_size, current_ctx, use_mesh
 from repro_torch.optim import AdamW, OptState, tree_leaves, tree_map
 from repro_torch.optim.compression import ef_init, ef_quantize
 
@@ -189,6 +193,7 @@ class Trainer:
                 from repro_torch.dist.mesh import dp_axes_of
                 dp_axes = dp_axes_of(mesh)
             self.group = comm.group_of(mesh, tuple(dp_axes))
+        self.dp_axes = dp_axes
         self.store = CheckpointStore(cfg.out_dir, keep=cfg.keep_ckpts)
         self.metrics_path = os.path.join(cfg.out_dir, "metrics.jsonl")
         self.straggler_events = 0
@@ -266,6 +271,13 @@ class Trainer:
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
+    def _context(self):
+        """The mesh's context around a step (a MoE layer routes the global
+        batch under it), whichever thread runs the loop."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_mesh(self.mesh, self.dp_axes, split_rows=True)
+
     def _slowest(self, dt: float) -> float:
         """The slowest rank's step seconds, so that every rank's
         straggler watchdog decides alike (the step time alone without a
@@ -295,8 +307,9 @@ class Trainer:
         while step < end:
             batch = self.pipeline.batch_at(step)
             t0 = time.monotonic()
-            params, opt_state, ef_state, metrics = self._step_fn(
-                params, opt_state, ef_state, batch)
+            with self._context():
+                params, opt_state, ef_state, metrics = self._step_fn(
+                    params, opt_state, ef_state, batch)
             loss = float(metrics["loss"])          # the step's one sync
             if cuda:
                 torch.cuda.synchronize()

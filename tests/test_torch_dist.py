@@ -21,7 +21,13 @@ Tolerances:
 * the data-parallel trainer against the one-rank trainer and the
   reference's single-device trainer, f32: tests/test_torch_train.py's
   (losses within LOSS_ABS; leaves within TRAIN_REL by norm, at most
-  TRAIN_OUTLIERS of the entries past TRAIN_ENTRY_ABS).
+  TRAIN_OUTLIERS of the entries past TRAIN_ENTRY_ABS);
+* data-parallel MoE training (phi3.5-moe SMOKE, the global batch routed
+  across the ranks): each step's loss and aux within MOE_ABS of the
+  reference trainer's; the pipelined pruning engine on phi3.5-moe SMOKE
+  with its calibration sharded over data (each shard routed on its own)
+  and unsharded, against the reference's pipelined engine on one device
+  with the same shards, at the sharded engine's bounds above.
 """
 
 import dataclasses
@@ -52,6 +58,7 @@ from repro.optim.schedules import warmup_cosine as j_cosine
 from repro.train import TrainConfig as JTrainConfig
 from repro.train import Trainer as JTrainer
 from repro_torch import configs
+from repro_torch.data import calibration_batches as t_calibration
 from repro_torch.data import DataPipeline
 from repro_torch.dist import DistContext, current_ctx, mesh_from_spec, use_mesh
 from repro_torch.models.transformer import LM
@@ -67,6 +74,7 @@ LOSS_ABS = 1e-4
 TRAIN_REL = 5e-5
 TRAIN_ENTRY_ABS = 1e-5
 TRAIN_OUTLIERS = 0.001
+MOE_ABS = 2e-5
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 WORLDS = (2, 4)
 
@@ -117,6 +125,10 @@ def groups(tmp_path_factory):
                                      **W.ENGINE_CFG))
         jp = jax.jit(jm.init)(jax.random.key(0))
     flat = {k: np.asarray(v) for k, v in _flatten(jp).items()}
+    with jax.threefry_partitionable(True):
+        jmoe = jax.jit(JLM(j_get_smoke("phi3_5_moe_42b_a6_6b")).init)(
+            jax.random.key(0))
+    moe_flat = {k: np.asarray(v) for k, v in _flatten(jmoe).items()}
     jcal = j_calibration(jm.cfg, n_samples=32, seq_len=32)
     calib = [{k: np.asarray(b[k]) for k in ("tokens", "labels")}
              for b in jcal]
@@ -125,7 +137,8 @@ def groups(tmp_path_factory):
 
     def spawn():
         try:
-            ranks.update(W.run_groups(WORLDS, flat, calib))
+            ranks.update(W.run_groups(WORLDS, {"tiny": flat,
+                                               "moe": moe_flat}, calib))
         except BaseException as e:          # raised below, in the fixture
             ranks["error"] = e
 
@@ -142,7 +155,7 @@ def groups(tmp_path_factory):
     _, err = psum.communicate(timeout=300)
     assert psum.returncode == 0, err
     return dict(ranks=ranks, serial=serial, psum=np.load(tmp / "psum.npy"),
-                tmp=tmp)
+                tmp=tmp, moe_flat=moe_flat)
 
 
 @functools.lru_cache(maxsize=None)
@@ -308,6 +321,103 @@ def test_data_parallel_compressed_trainer_matches_one_rank(groups):
         for path in one[0]:
             _close_by_norm(_bf16_f32(flat[path]), _bf16_f32(one[0][path]),
                            path)
+
+
+def test_data_parallel_moe_trainer_matches_reference(groups):
+    """Two ranks of a 2x1 mesh route the global batch of 8 × 32 as the
+    reference does: capacity, top-C and the load-balance fractions over
+    both ranks' tokens (per rank they part by up to 5e-3 in the loss)."""
+    import json
+
+    tmp = groups["tmp"]
+    with jax.threefry_partitionable(True):
+        jcfg = j_get_smoke("phi3_5_moe_42b_a6_6b")
+        jt = JTrainer(JLM(jcfg), JAdamW(lr=j_cosine(1e-3, 2, W.TRAIN_STEPS),
+                                        moment_dtype="bfloat16"),
+                      JPipe(jcfg, 8, 32, seed=0),
+                      JTrainConfig(total_steps=W.TRAIN_STEPS, global_batch=8,
+                                   seq_len=32, ckpt_every=W.TRAIN_STEPS,
+                                   out_dir=str(tmp / "jmoe"), log_every=1))
+        jt.run()
+    with open(tmp / "jmoe" / "metrics.jsonl") as f:
+        want = [(r["loss"], r["aux"]) for r in map(json.loads, f)]
+    assert len(want) == W.TRAIN_STEPS
+    for r in groups["ranks"][2]:
+        got = r["train_moe"]
+        assert len(got) == W.TRAIN_STEPS
+        np.testing.assert_allclose(got, want, rtol=0, atol=MOE_ABS)
+
+
+def test_moe_replicated_rows_route_per_rank(groups):
+    """Under a 2x1 context whose ranks hold the same rows (the CLI's eval,
+    replicated calibration), a MoE layer routes its own tokens: both
+    ranks give one device's output and aux, bit for bit."""
+    for r in groups["ranks"][2]:
+        (y, aux), (y1, aux1) = r["moe_replicated"]
+        np.testing.assert_array_equal(y, y1)
+        assert aux == aux1
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_moe_engine(calib_shard):
+    """The reference's pipelined engine on one device, phi3.5-moe SMOKE
+    from the keyed init, two calibration batches of 8 × 32 in
+    ``calib_shard`` shards; and the batches."""
+    with jax.threefry_partitionable(True):
+        jm = JLM(j_get_smoke("phi3_5_moe_42b_a6_6b"))
+        jp = jax.jit(jm.init)(jax.random.key(0))
+        jcal = j_calibration(jm.cfg, n_samples=16, seq_len=32, batch=8)
+        pruned, reports = JEngine(jm, "2:4", method=W.ENGINE_METHOD,
+                                  blocksize=W.BLOCK,
+                                  calib_shard=calib_shard).run(jp, jcal)
+    return ({k: np.asarray(v, np.float32)
+             for k, v in _flatten(pruned).items()},
+            [(r.name, r.sparsity, r.recon_error) for r in reports], jcal)
+
+
+def _assert_engine_close(got, want, key):
+    """The sharded engine's bounds: the same linears, sparsity within
+    1e-6, reconstruction errors within RECON_REL, layer 0's masks equal
+    and at least MASK_AGREE of every other mask."""
+    flat, reports = got
+    want_flat, want_reports = want
+    assert [x[0] for x in reports] == [x[0] for x in want_reports]
+    assert any(".moe.wi." in x[0] for x in reports)
+    for (name, sp, err), (_, jsp, jerr) in zip(reports, want_reports):
+        assert sp == pytest.approx(jsp, abs=1e-6), (key, name)
+        assert err == pytest.approx(jerr, rel=RECON_REL), (key, name)
+    for path, want_w in want_flat.items():
+        if not path.endswith(("wq", "wk", "wv", "wo", "wi", "wg")):
+            continue
+        got_w = np.asarray(flat[path], np.float32)
+        if path.startswith("layers/s0"):
+            assert ((got_w[0] == 0) == (want_w[0] == 0)).all(), (key, path)
+        agree = float(np.mean((got_w == 0) == (want_w == 0)))
+        assert agree >= MASK_AGREE, (key, path, agree)
+
+
+@pytest.mark.parametrize("key,calib_shard", [("engine_moe_dp", 2),
+                                             ("engine_moe_off", "off")])
+def test_moe_engine_sharded_calibration_matches_reference(groups, key,
+                                                          calib_shard):
+    """The pruning engine on 2x1 ranks, phi3.5-moe SMOKE: with the
+    calibration sharded over data each rank calibrates its batch, routed
+    on its own as the reference routes each shard's program — the
+    reference's engine on one device in two shards; with sharding off
+    both ranks calibrate both batches — the reference's in one shard.
+    The port's one-rank engine in the same shards agrees too."""
+    want_flat, want_reports, jcal = _reference_moe_engine(calib_shard)
+    # both sides calibrate on the same batches
+    for tb, jb in zip(t_calibration(configs.get_smoke(W.MOE_ARCH),
+                                    n_samples=16, seq_len=32, batch=8),
+                      jcal):
+        np.testing.assert_array_equal(tb["tokens"].numpy(),
+                                      np.asarray(jb["tokens"]))
+    for r in groups["ranks"][2]:
+        _assert_engine_close(r[key], (want_flat, want_reports), key)
+    _assert_engine_close(W.moe_engine_run(groups["moe_flat"],
+                                          calib_shard=calib_shard),
+                         (want_flat, want_reports), "one rank")
 
 
 # ----------------------------------------------------------------------

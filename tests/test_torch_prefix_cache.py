@@ -624,7 +624,33 @@ def test_swap_disabled_for_recurrent_state():
     assert eng.stats["preempt_swap"] == 0
 
 
-@pytest.mark.skip(reason="serving over a mesh (tensor parallelism) is not "
-                  "ported (ROADMAP.md Queue 1 item 7)")
 def test_shared_prefix_2x4_mesh_parity():
-    pass
+    """The reference's acceptance pin on a real 2x4 mesh — eight ``gloo``
+    ranks on the CPU (tests/torch_dist_worker.py), tensor-parallel over
+    4, the schedule replicated over 2: greedy and sampled streams with
+    prefix sharing and swap on equal those with both off, and equal the
+    port's and the JAX engine's one-device streams."""
+    import torch_dist_worker as W
+    from repro.configs import get_config as j_get_config
+
+    jm = JLM(j_get_config("paper_tiny_lm"))
+    jp = jm.init(jax.random.key(0))
+    jp["unembed"]["head"] = jp["unembed"]["head"] * 8.0
+    flat = {k: np.asarray(v) for k, v in _flatten(jp).items()}
+    ranks = W.run_groups((8,), flat, None, timeout=600.0,
+                         cases="prefix_2x4")[8]
+    tm = LM(configs.get_config("paper_tiny_lm"), device="cpu")
+    one = W.prefix_2x4_streams(tm, tm.params_from_jax(flat))
+    reqs = [JRequest(uid=u, prompt=p, max_new_tokens=m)
+            for u, p, m in W.prefix_2x4_requests()]
+    for sampled in (False, True):
+        kw = dict(W.PREFIX_2X4, **(dict(temperature=1.0, top_k=5)
+                                   if sampled else {}))
+        want = [np.asarray(r.tokens).tolist() for r in JServeEngine(
+            jm, jp, prefix_cache=True, **kw).generate(reqs, seed=3)]
+        assert one[sampled][1] == want and one[sampled][0] == want
+        for r in ranks:
+            off, on, hits = r["streams"][sampled]
+            assert hits > 0
+            assert off == on == want, (r["rank"], sampled)
+

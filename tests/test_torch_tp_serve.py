@@ -1,0 +1,341 @@
+"""Tensor-parallel serving in the port, on the CPU: ``gloo`` groups of 2
+ranks (mesh 1x2) and 4 ranks (2x2), spawned once for the module
+(``tests/torch_dist_worker.py``'s ``_tp_cases``), held against the JAX
+package on one device — the reference's own mesh tests fail on this jax
+(ROADMAP.md, Standing notes), and GSPMD keeps the one-device numbers.
+
+* streams: qwen3-14b SMOKE (4 query / 2 KV heads: whole KV heads a rank),
+  gemma-2b SMOKE (4 / 1: the KV head kept whole), ``paper_tiny_lm`` and
+  a 6 / 3 twin of it whose ranks' heads straddle KV groups, f32,
+  magnitude-2:4-pruned and packed, with a sharpened head (×8, as
+  ``tests/test_torch_serve.py``) — continuous with the prefix cache, on
+  a starved pool that swaps, with int8 pages, static (two rows a bucket:
+  split over the 2x2 mesh's data axis) and sampled (temperature 0.8,
+  top-k 40, top-p 0.9; continuous and static) — token for token against
+  the JAX ``ServeEngine``'s, with the same knobs and requests; every
+  rank's streams bit-equal;
+* logits of a dense prefill and decode step and of a paged chunk and
+  decode step against the JAX model's: LOGIT_TOL × max(1, max |ref|);
+  every rank's logits bit-equal, and every rank's all-reduce and
+  all-gather results;
+* the rules: ``dist.sharding.param_split`` against the reference's
+  ``param_specs`` on every leaf of four SMOKE trees, dense and packed,
+  at tp 2 and 4 (``head_dim=cfg.hd``), and the cache rule
+  (``kv_head_split``) against ``paged_kv_block_specs`` /
+  ``decode_cache_block_specs``;
+* a rank's params at tp 2 (Qwen1.5-0.5B SMOKE, packed): under
+  BYTES_RATIO of the whole tree's, every split leaf fresh and contiguous;
+* the schedule: a hard deadline is rank 0's to call, and ranks whose
+  burst plans differ raise;
+* Mamba, MoE and the encoder-decoder under 1x2 raise naming ROADMAP.md,
+  as does ``--server``; the CLI's ``--mesh 1x2`` prints one device's
+  streams.
+"""
+
+import dataclasses
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+import torch_dist_worker as W
+from repro.ckpt.store import _flatten
+from repro.configs import get_smoke as j_get_smoke
+from repro.dist.sharding import (decode_cache_block_specs,
+                                 paged_kv_block_specs, param_specs)
+from repro.models import LM as JLM
+from repro.serve import Request as JRequest
+from repro.serve import ServeEngine as JServeEngine
+from repro_torch import configs
+from repro_torch.core.pruner import prune_linears
+from repro_torch.dist.sharding import kv_head_split
+from repro_torch.dist.sharding import param_specs as t_param_specs
+from repro_torch.models.transformer import LM
+from repro_torch.serve.sparse import compressed_param_tree
+
+LOGIT_TOL = 1e-5
+BYTES_RATIO = 0.6
+WORLDS = (2, 4)
+RULE_ARCHS = ("qwen3-14b", "gemma-2b", "qwen1.5-0.5b", "paper_tiny_lm")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _magnitude_24(w):
+    """Keep the two largest |w| of every 4 consecutive inputs of stacked
+    (L, in, out) leaves."""
+    w = np.asarray(w)
+    g = np.abs(w).reshape(w.shape[0], -1, 4, w.shape[2])
+    drop = np.argsort(g, axis=2, kind="stable")[:, :, :2]
+    keep = np.ones(g.shape, bool)
+    np.put_along_axis(keep, drop, False, axis=2)
+    return jnp.asarray(w * keep.reshape(w.shape))
+
+
+def _jax_model(name):
+    arch, over = W.TP_MODELS[name]
+    jm = JLM(dataclasses.replace(j_get_smoke(arch), **over))
+    jp = jax.jit(jm.init)(jax.random.key(0))
+    jp = jax.tree.map(lambda x: x, jp)
+    jp["embed"]["tok"] = jp["embed"]["tok"] * 8.0       # sharpened head
+    for slot in jp["layers"].values():
+        for sub, names in (("attn", ("wq", "wk", "wv", "wo")),
+                           ("mlp", ("wi", "wg", "wo"))):
+            for key in names:
+                if key in slot[sub]:
+                    slot[sub][key] = _magnitude_24(slot[sub][key])
+    return jm, jp
+
+
+def _reference_logits(jm, jp):
+    toks = jnp.asarray(W.logit_prompts())
+    pre, cache = jm.prefill(jp, {"tokens": toks}, jm.init_cache(2, 32))
+    dec, _ = jm.decode_step(jp, jnp.asarray(W.DECODE_TOKENS, jnp.int32),
+                            cache, W.LOGIT_TOKENS)
+    return np.asarray(pre), np.asarray(dec)
+
+
+@pytest.fixture(scope="module")
+def tp():
+    """The JAX side (each model's reference streams and logits) computed
+    while the 2- and 4-rank groups serve the same leaves."""
+    with jax.threefry_partitionable(True):
+        models = {name: _jax_model(name) for name in W.TP_MODELS}
+        flats = {name: {k: np.asarray(v) for k, v in _flatten(jp).items()}
+                 for name, (_, jp) in models.items()}
+        ranks: dict = {}
+
+        def spawn():
+            try:
+                ranks.update(W.run_groups(WORLDS, flats, None,
+                                          timeout=900.0, cases="tp"))
+            except BaseException as e:       # raised below, in the fixture
+                ranks["error"] = e
+
+        spawned = threading.Thread(target=spawn)
+        spawned.start()
+        reqs = [JRequest(uid=u, prompt=p, max_new_tokens=m)
+                for u, p, m in W.tp_requests()]
+        streams, logits = {}, {}
+        for name, (jm, jp) in models.items():
+            refs = {W.TP_MODES[mode][1] for mode in W.tp_modes(name)}
+            for ref in sorted(refs):
+                res = JServeEngine(jm, jp, **{**W.TP_BASE, **W.TP_REFS[ref]}
+                                   ).generate(reqs, seed=7)
+                streams[name, ref] = [np.asarray(r.tokens) for r in res]
+            logits[name] = _reference_logits(jm, jp)
+        spawned.join()
+    if "error" in ranks:
+        raise ranks["error"]
+    return dict(ranks=ranks, streams=streams, logits=logits)
+
+
+_STREAM_CASES = [(name, mode) for name in W.TP_MODELS
+                 for mode in W.tp_modes(name)]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case", _STREAM_CASES, ids="-".join)
+def test_streams_match_jax_engine(tp, world, case):
+    name, mode = case
+    want = tp["streams"][name, W.TP_MODES[mode][1]]
+    for r in tp["ranks"][world]:
+        got = r["streams"][name, mode]
+        for w, g, (_, _, m) in zip(want, got, W.tp_requests()):
+            assert len(g) == m
+            np.testing.assert_array_equal(g, w)
+        stats = r["stats"][name, mode]
+        if mode == "continuous":
+            assert stats["prefix_hit_tokens"] > 0
+        if mode == "starved":
+            assert stats["preempt_swap"] > 0
+    first = tp["ranks"][world][0]["streams"][name, mode]
+    assert all(r["streams"][name, mode] == first for r in tp["ranks"][world])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", list(W.TP_MODELS))
+def test_logits_match_jax_model(tp, world, name):
+    pre, dec = tp["logits"][name]
+    want = {"prefill": pre, "decode": dec, "prefill_paged": pre[:1],
+            "decode_paged": dec[:1]}
+    ranks = tp["ranks"][world]
+    for r in ranks:
+        for key, w in want.items():
+            got = r["logits"][name][key]
+            scale = LOGIT_TOL * max(1.0, float(np.abs(w).max()))
+            assert np.abs(got - w).max() <= scale, (key, np.abs(got - w).max())
+            np.testing.assert_array_equal(got, ranks[0]["logits"][name][key])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_collectives_leave_every_rank_the_same_bits(tp, world):
+    """The model groups: ranks (0, 1) on 1x2, (0, 1) and (2, 3) on 2x2."""
+    ranks = tp["ranks"][world]
+    for key in ("torch.float32", "torch.bfloat16", "gather"):
+        for r in ranks:
+            partner = ranks[r["rank"] ^ 1]
+            np.testing.assert_array_equal(r["bits"][key],
+                                          partner["bits"][key])
+    if world == 4:                     # two groups, two sums
+        assert not np.array_equal(ranks[0]["bits"]["torch.float32"],
+                                  ranks[2]["bits"]["torch.float32"])
+
+
+def test_rank_holds_its_blocks(tp):
+    for r in tp["ranks"][2]:
+        lay = r["layout"]
+        assert lay["split"] > 0 and lay["fresh"]
+        assert lay["rank_bytes"] < BYTES_RATIO * lay["whole_bytes"]
+        cfg = configs.get_smoke("qwen1.5-0.5b")
+        assert lay["wq"] == (cfg.d_model // 2, cfg.num_heads * cfg.hd // 2)
+        assert lay["wo"] == (cfg.d_ff // 4, cfg.d_model)
+        assert lay["tok"] == (cfg.vocab_size // 2, cfg.d_model)
+
+
+def test_deadlines_are_rank_0s_and_parted_plans_raise(tp):
+    """Rank 0's clock retires request 1 on both ranks (rank 1's own clock
+    says a minute is left); ranks handed different prompts raise at the
+    first burst instead of parting in a collective."""
+    ranks = tp["ranks"][2]
+    for r in ranks:
+        sch = r["schedule"]
+        assert sch["timeouts"] == 1 and sch["deadline"][1] == []
+        assert sch["deadline"] == ranks[0]["schedule"]["deadline"]
+        assert sch["parted"] is not None and "parted" in sch["parted"]
+
+
+def test_unported_models_and_server_refuse_under_a_mesh(tp):
+    for r in tp["ranks"][2]:
+        for name, msg in r["refusals"].items():
+            assert msg is not None and "ROADMAP.md" in msg, name
+        _, exit_msg = r["cli_server"]
+        assert exit_msg is not None and "ROADMAP.md" in exit_msg
+
+
+def test_cli_mesh_1x2_prints_one_device_streams(tp):
+    def streams(text):      # one device names its router's replica
+        return [line.split("  [")[0] for line in text.splitlines()
+                if line.startswith("req ")]
+
+    one, _ = W._cli(W.CLI_ARGS)
+    assert len(streams(one)) == 3
+    out, err = tp["ranks"][2][0]["cli"]
+    assert err is None
+    assert streams(out) == streams(one)
+    assert "mesh 1x2" in out and "model axis 2" in out
+    assert tp["ranks"][2][1]["cli"][0] == ""        # rank 1 prints nothing
+
+
+# ----------------------------------------------------------------------
+# the rules against the reference's
+# ----------------------------------------------------------------------
+class _FakeMesh:
+    """What the reference's rules read of a Mesh: ``axis_names`` and
+    ``shape``."""
+
+    def __init__(self, tp):
+        self.axis_names = ("data", "model")
+        self.shape = {"data": 1, "model": tp}
+
+
+def _model_dim(spec, lead):
+    entries = tuple(spec)
+    for i, e in enumerate(entries):
+        if e == "model" or (isinstance(e, tuple) and "model" in e):
+            return i - lead
+    return None
+
+
+def _packed_shapes(tree, path=""):
+    """The reference's param tree of shapes, its attention and MLP
+    linears 2:4-packed as ``serve.sparse.pack_24`` packs them."""
+    if isinstance(tree, dict):
+        return {k: _packed_shapes(v, f"{path}/{k}") for k, v in tree.items()}
+    parts = path.split("/")
+    if (parts[-2:-1] in (["attn"], ["mlp"])
+            and parts[-1] in ("wq", "wk", "wv", "wo", "wi", "wg")):
+        lead, k, n = tree.shape
+        half = jax.ShapeDtypeStruct((lead, k // 2, n), tree.dtype)
+        return {"vals": half,
+                "idx": jax.ShapeDtypeStruct((lead, k // 2, n), jnp.int8)}
+    return tree
+
+
+def _flat_specs(specs):
+    leaves = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, P))[0]
+    return {"/".join(str(getattr(k, "key", k)) for k in path): spec
+            for path, spec in leaves}
+
+
+def _flat_port(tree, path=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_port(v, f"{path}/{k}" if path else k))
+        return out
+    if isinstance(tree, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat_port(v, f"{path}/{i}"))
+        return out
+    return {path: tree}
+
+
+@pytest.mark.parametrize("tp_size", (2, 4))
+@pytest.mark.parametrize("packed", (False, True), ids=("dense", "packed"))
+@pytest.mark.parametrize("arch", RULE_ARCHS)
+def test_param_rule_matches_reference(arch, packed, tp_size):
+    jcfg = j_get_smoke(arch)
+    shapes = jax.eval_shape(JLM(jcfg).init, jax.random.key(0))
+    if packed:
+        shapes = _packed_shapes(shapes)
+    want = _flat_specs(param_specs(shapes, _FakeMesh(tp_size),
+                                   head_dim=jcfg.hd))
+    model = LM(configs.get_smoke(arch), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    if packed:
+        params = compressed_param_tree(prune_linears(params, "2:4"))
+    got = _flat_port(t_param_specs(params, tp_size, head_dim=jcfg.hd))
+    period = len(jcfg.period)
+    checked = 0
+    for path, dim in got.items():
+        parts = path.split("/")
+        if parts[0] == "layers":
+            ref = "/".join(["layers", f"s{int(parts[1]) % period}",
+                            *parts[2:]])
+            lead = 1
+        else:
+            ref, lead = path, 0
+        assert _model_dim(want[ref], lead) == dim, (path, want[ref], dim)
+        checked += 1
+    assert checked == len(got) and any(d is not None for d in got.values())
+    if packed:
+        assert any(p.endswith("wo/vals") and d == 0 for p, d in got.items())
+
+
+@pytest.mark.parametrize("tp_size", (2, 4))
+@pytest.mark.parametrize("arch", RULE_ARCHS)
+def test_cache_rules_match_reference(arch, tp_size):
+    cfg = j_get_smoke(arch)
+    mesh = _FakeMesh(tp_size)
+    dims = {"num_kv_heads": cfg.num_kv_heads, "hd": cfg.hd}
+    paged = paged_kv_block_specs(dims, mesh, quantized=True)
+    split = kv_head_split(cfg.num_kv_heads, tp_size)
+    assert _model_dim(paged["k"], 0) == split
+    assert _model_dim(paged["k_scale"], 0) == split
+    dense = _model_dim(decode_cache_block_specs("attn", dims, mesh)["k"], 0)
+    # the reference's hd fallback (dim 3) is a whole cache in the port
+    assert split == (dense if dense == 2 else None)

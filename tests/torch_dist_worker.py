@@ -1,13 +1,20 @@
-"""The rank side of tests/test_torch_dist.py: one process of a ``gloo``
-group on the CPU, spawned with :func:`run_groups`.  It imports only
-``torch`` and the port (no jax), runs every distributed case of its
-world size and sends its results back to the test process, which holds
-them against the JAX package.
+"""The rank side of tests/test_torch_dist.py and
+tests/test_torch_tp_serve.py: one process of a ``gloo`` group on the
+CPU, spawned with :func:`run_groups`.  It imports only ``torch`` and the
+port (no jax), runs every distributed case of its world size — the
+prune / train cases (:func:`_cases`), the tensor-parallel serving ones
+(:func:`_tp_cases`) or the 2x4 shared-prefix case
+(:func:`_prefix_cases`, for tests/test_torch_prefix_cache.py) — and
+sends its results back to the test process, which holds them against
+the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
+import json
 import os
 import pickle
 import tempfile
@@ -86,7 +93,78 @@ def _trainer_run(mesh, out: str, grad_compression: bool):
         "last_loss"]
 
 
-def _cases(rank: int, world: int, flat, calib, tmp: str) -> dict:
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+
+
+def _moe_trainer_run(mesh, out: str):
+    """phi3.5-moe SMOKE, TRAIN_STEPS steps of a global batch of 8 × 32,
+    data-parallel over ``mesh`` (None: one rank): the logged (loss, aux)
+    of every step."""
+    from repro_torch import configs
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = configs.get_smoke(MOE_ARCH)
+    trainer = Trainer(
+        LM(cfg, device="cpu"),
+        AdamW(lr=warmup_cosine(1e-3, 2, TRAIN_STEPS),
+              moment_dtype="bfloat16"),
+        DataPipeline(cfg, 8, 32, seed=0, mesh=mesh),
+        TrainConfig(total_steps=TRAIN_STEPS, global_batch=8, seq_len=32,
+                    ckpt_every=TRAIN_STEPS, out_dir=out, log_every=1),
+        mesh=mesh)
+    trainer.run()
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        return [(r["loss"], r["aux"]) for r in map(json.loads, f)]
+
+
+def moe_engine_run(flat, mesh=None, calib_shard="auto"):
+    """phi3.5-moe SMOKE with the reference's params ``flat`` through the
+    pipelined pruning engine on two calibration batches of 8 × 32, under
+    ``mesh``'s context (None: one rank).  On 2x1 ``"auto"`` gives each
+    rank one batch as its shard; ``"off"`` has every rank calibrate on
+    both batches as one shard."""
+    from repro_torch import configs
+    from repro_torch.data import calibration_batches
+    from repro_torch.dist import use_mesh
+    from repro_torch.models.transformer import LM
+
+    cfg = configs.get_smoke(MOE_ARCH)
+    model = LM(cfg, device="cpu")
+    params = model.params_from_jax(flat)
+    calib = calibration_batches(cfg, n_samples=16, seq_len=32, batch=8)
+    with (use_mesh(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        return _engine_run(model, params, calib, None,
+                           calib_shard=calib_shard)
+
+
+def _moe_replicated(flat, mesh):
+    """phi3.5-moe SMOKE's first MoE layer on the same 5 tokens on every
+    rank (5 tokens: capacity 4, and 7 if the copies were routed as one
+    batch of 10), under ``mesh``'s context and under none: (y, aux) of
+    each."""
+    from repro_torch import configs
+    from repro_torch.dist import use_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import LM
+
+    cfg = configs.get_smoke(MOE_ARCH)
+    p = LM(cfg, device="cpu").params_from_jax(flat)["layers"][0]["moe"]
+    h = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 5, cfg.d_model)).astype(np.float32))
+    with use_mesh(mesh):
+        y, aux = moe.moe_apply(p, h, cfg)
+    y1, aux1 = moe.moe_apply(p, h, cfg)
+    return (y.numpy(), float(aux)), (y1.numpy(), float(aux1))
+
+
+def _cases(rank: int, world: int, flats, calib, tmp: str) -> dict:
+    """``flats``: the reference's params of the engine cases' model
+    (``"tiny"``) and of phi3.5-moe SMOKE (``"moe"``)."""
     import torch.distributed as dist
 
     from repro_torch.core.distributed import (allreduce_calibration,
@@ -150,7 +228,7 @@ def _cases(rank: int, world: int, flat, calib, tmp: str) -> dict:
     # row-parallel over model (2x2: both at once)
     model = LM(dataclasses.replace(configs.get_smoke("paper_tiny_lm"),
                                    **ENGINE_CFG), device="cpu")
-    params = model.params_from_jax(flat)
+    params = model.params_from_jax(flats["tiny"])
     tcal = [{k: torch.from_numpy(v) for k, v in b.items()} for b in calib]
     with use_mesh(dp_mesh):
         res["engine_dp"] = _engine_run(model, params, tcal, None)
@@ -162,11 +240,327 @@ def _cases(rank: int, world: int, flat, calib, tmp: str) -> dict:
                                     False)
         res["train_ef"] = _trainer_run(dp_mesh, os.path.join(tmp, "ef"),
                                        True)
+        # the trainer's MoE routes the global batch; the calibration
+        # shards route each its own
+        res["train_moe"] = _moe_trainer_run(dp_mesh,
+                                            os.path.join(tmp, "moe"))
+        res["moe_replicated"] = _moe_replicated(flats["moe"], dp_mesh)
+        res["engine_moe_dp"] = moe_engine_run(flats["moe"], dp_mesh)
+        res["engine_moe_off"] = moe_engine_run(flats["moe"], dp_mesh,
+                                               calib_shard="off")
     dist.barrier()
     return res
 
 
-def _worker(rank: int, worlds, inits, tmp: str, queue) -> None:
+# ----------------------------------------------------------------------
+# tensor-parallel serving (tests/test_torch_tp_serve.py)
+# ----------------------------------------------------------------------
+# name → (arch, config overrides): 4 query / 2 KV heads (whole KV heads a
+# rank at tp 2), 4 / 1 (the KV head kept whole), 2 / 2, and 6 / 3 — a
+# rank's 3 query heads straddle two KV groups, so its attention runs on
+# every head (models.layers.attn_heads)
+TP_MODELS = {
+    "qwen3-14b": ("qwen3-14b", {}),
+    "gemma-2b": ("gemma-2b", {}),
+    "paper_tiny_lm": ("paper_tiny_lm", {}),
+    "straddle": ("paper_tiny_lm",
+                 dict(num_heads=6, num_kv_heads=3, head_dim=16)),
+}
+TP_BASE = dict(max_batch=3, max_len=64, page_size=8)
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.9)
+# the reference's runs: its static greedy run stands for every greedy
+# mode of the port (a row's greedy stream depends on neither its batch
+# nor the cache: the reference's tests/test_serve_paged.py)
+TP_REFS = {"greedy": dict(mode="static"),
+           "greedy_int8": dict(prefill_chunk=16, kv_dtype="int8"),
+           "sampled": dict(prefill_chunk=16, **SAMPLED),
+           "sampled_static": dict(mode="static", max_batch=2, **SAMPLED)}
+TP_MODES = {          # the port's knobs, the reference run they equal
+    "continuous": (dict(prefill_chunk=8), "greedy"),     # prefix cache on
+    "starved": (dict(prefill_chunk=16, num_pages=9), "greedy"),   # swap
+    "int8": (dict(prefill_chunk=16, kv_dtype="int8"), "greedy_int8"),
+    # two rows a bucket: split over the data axis of a 2x2 mesh
+    "static": (dict(mode="static", max_batch=2), "greedy"),
+    "sampled": (dict(prefill_chunk=16, **SAMPLED), "sampled"),
+    "sampled_static": (TP_REFS["sampled_static"], "sampled_static"),
+}
+STRADDLE_MODES = ("continuous", "static")
+LOGIT_TOKENS = 12          # prompt length of the logits case
+DECODE_TOKENS = (3, 7)     # the token each row decodes next
+
+
+def tp_config(name: str):
+    from repro_torch import configs
+
+    arch, over = TP_MODELS[name]
+    return dataclasses.replace(configs.get_smoke(arch), **over)
+
+
+def tp_modes(name: str):
+    return STRADDLE_MODES if name == "straddle" else tuple(TP_MODES)
+
+
+def tp_requests():
+    """Six 29-token prompts (ragged at chunk 8 and 16); requests 0, 2, 4
+    share their first 16 tokens, two full pages, which the later ones
+    attach from the prefix index; 4–9 new tokens each."""
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, 256, size=16).astype(np.int32)
+    out = []
+    for u, m in enumerate((6, 9, 4, 7, 5, 8)):
+        p = rng.integers(0, 256, size=29).astype(np.int32)
+        if u % 2 == 0:
+            p[:16] = shared
+        out.append((u, p, m))
+    return out
+
+
+def logit_prompts():
+    return np.random.default_rng(9).integers(
+        0, 256, size=(2, LOGIT_TOKENS)).astype(np.int32)
+
+
+def _tp_logits(model, params, mesh):
+    """One dense prefill of two prompts and a decode step, and one paged
+    chunk of the first prompt and a paged decode step: (B, V) logits."""
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.serve.sparse import compressed_param_tree
+
+    sp = shard_params(compressed_param_tree(params), mesh,
+                      head_dim=model.cfg.hd)
+    toks = torch.from_numpy(logit_prompts())
+    nxt = torch.tensor(DECODE_TOKENS, dtype=torch.int32)
+    with use_mesh(mesh):
+        cache = model.init_cache(2, 32)
+        pre = model.prefill(sp, toks, cache)
+        dec = model.decode_step(sp, nxt, cache, LOGIT_TOKENS)
+        kv = model.init_paged_cache(8, 8)
+        bt = torch.tensor([[1, 2, 3]], dtype=torch.int32)
+        chunk = torch.zeros((1, 16), dtype=torch.int32)
+        chunk[0, :LOGIT_TOKENS] = toks[0]
+        pre_p = model.prefill_chunk(sp, chunk, kv, 0, LOGIT_TOKENS, bt,
+                                    page_size=8)
+        dec_p = model.decode_step(sp, nxt[:1], kv,
+                                  torch.tensor([LOGIT_TOKENS],
+                                               dtype=torch.int32), bt,
+                                  page_size=8)
+    return {k: v.numpy() for k, v in (("prefill", pre), ("decode", dec),
+                                      ("prefill_paged", pre_p),
+                                      ("decode_paged", dec_p))}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def _tp_layout(mesh):
+    """Qwen1.5-0.5B SMOKE, magnitude 2:4, packed, then sharded as the
+    engine shards it: the rank's and the whole tree's bytes, and whether
+    every split leaf is a fresh contiguous tensor."""
+    from repro_torch import configs
+    from repro_torch import random as rnd
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.sparse import compressed_param_tree
+
+    model = LM(configs.get_smoke("qwen1.5-0.5b"), device="cpu")
+    packed = compressed_param_tree(prune_linears(model.init(rnd.key(0)),
+                                                 "2:4"))
+    eng = ServeEngine(model, packed, mesh=mesh, **TP_BASE)
+    whole_storage = {t.untyped_storage().data_ptr()
+                     for t in _leaves(packed)}
+    split = [t for t, w in zip(_leaves(eng.params), _leaves(packed))
+             if t.shape != w.shape]
+    return {"rank_bytes": _tree_bytes(eng.params),
+            "whole_bytes": _tree_bytes(packed), "split": len(split),
+            "fresh": all(t.is_contiguous() and t.untyped_storage().data_ptr()
+                         not in whole_storage for t in split),
+            "wq": tuple(eng.params["layers"][0]["attn"]["wq"]["vals"].shape),
+            "wo": tuple(eng.params["layers"][0]["mlp"]["wo"]["vals"].shape),
+            "tok": tuple(eng.params["embed"]["tok"].shape)}
+
+
+def _tp_refusals(mesh):
+    """The models whose tensor parallelism is not ported: the message of
+    the error each raises under ``mesh`` (None: it did not)."""
+    from repro_torch import configs
+    from repro_torch.configs import paper_tiny_lm
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import ServeEngine
+
+    out = {}
+    for name, cfg in (("mamba", paper_tiny_lm.MAMBA),
+                      ("moe", configs.get_smoke(MOE_ARCH)),
+                      ("encdec", configs.get_smoke("seamless_m4t_large_v2"))):
+        try:
+            ServeEngine(LM(cfg, device="cpu"), {}, mesh=mesh, **TP_BASE)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def _cli(argv):
+    """``launch.serve.main(argv)``'s standard output (and the message of
+    the SystemExit it raised, if any)."""
+    from repro_torch.launch import serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            serve.main(argv)
+        except SystemExit as e:
+            return buf.getvalue(), str(e)
+    return buf.getvalue(), None
+
+
+CLI_ARGS = ["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
+            "--magnitude-24", "--sparse", "--requests", "3", "--max-new",
+            "4"]
+
+
+def _tp_bits(mesh):
+    """An all-reduce (f32 and bf16) and an all-gather over the model axis
+    of rank-dependent inputs: what each rank holds after them."""
+    from repro_torch.dist import comm
+
+    group = comm.group_of(mesh, "model")
+    g = torch.Generator().manual_seed(100 + comm.rank(None))
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        t = torch.randn(1000, generator=g).to(dt)
+        out[str(dt)] = comm.all_reduce_(t, group).float().numpy()
+    out["gather"] = comm.all_gather_last(
+        torch.randn(3, 5, generator=g), group).numpy()
+    return out
+
+
+def _tp_schedule(mesh, rank: int, model, params):
+    """The schedule under a mesh: a hard deadline already past (rank 0's
+    clock decides it for every rank) and ranks handed different prompts
+    (the burst plans' digests differ: every rank raises before the
+    burst's collectives)."""
+    import time
+
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    reqs = [Request(uid=u, prompt=p, max_new_tokens=m)
+            for u, p, m in tp_requests()]
+    reqs[1].deadline = time.monotonic() - (1.0 if rank == 0 else -60.0)
+    reqs[1].deadline_hard = True
+    eng = ServeEngine(model, params, mesh=mesh, **TP_BASE)
+    out = {"deadline": [r.tokens.tolist() for r in eng.generate(reqs)],
+           "timeouts": eng.stats["deadline_exceeded"]}
+    reqs = [Request(uid=u, prompt=p[:10 + rank], max_new_tokens=m)
+            for u, p, m in tp_requests()]
+    try:
+        eng.generate(reqs)
+        out["parted"] = None
+    except RuntimeError as e:
+        out["parted"] = str(e)
+    return out
+
+
+def _tp_cases(rank: int, world: int, flats, _, tmp: str) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch.dist import mesh_from_spec
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    mesh = mesh_from_spec("1x2" if world == 2 else "2x2", device="cpu")
+    res: dict = {"rank": rank, "streams": {}, "stats": {}, "logits": {}}
+    reqs = [Request(uid=u, prompt=p, max_new_tokens=m)
+            for u, p, m in tp_requests()]
+    for name in TP_MODELS:
+        model = LM(tp_config(name), device="cpu")
+        params = model.params_from_jax(flats[name])
+        for mode in tp_modes(name):
+            eng = ServeEngine(model, params, mesh=mesh,
+                              **{**TP_BASE, **TP_MODES[mode][0]})
+            got = eng.generate(reqs, seed=7)
+            res["streams"][name, mode] = [r.tokens.tolist() for r in got]
+            res["stats"][name, mode] = {
+                k: eng.stats[k] for k in ("prefix_hit_tokens",
+                                          "preempt_swap",
+                                          "preempt_recompute")}
+        res["logits"][name] = _tp_logits(model, params, mesh)
+    res["bits"] = _tp_bits(mesh)
+    if world == 2:
+        res["schedule"] = _tp_schedule(mesh, rank, model, params)
+        res["layout"] = _tp_layout(mesh)
+        res["refusals"] = _tp_refusals(mesh)
+        res["cli"] = _cli(CLI_ARGS + ["--mesh", "1x2"])
+        res["cli_server"] = _cli(CLI_ARGS + ["--mesh", "1x2", "--server"])
+    dist.barrier()
+    return res
+
+
+# the reference's tests/test_prefix_cache.py::test_shared_prefix_2x4_mesh_parity
+PREFIX_2X4 = dict(max_batch=4, max_len=64, page_size=8, num_pages=17,
+                  steps_per_sync=4)
+
+
+def prefix_2x4_requests():
+    """(uid, prompt, max new) of eight requests sharing 12 tokens."""
+    shared = np.arange(5, 17, dtype=np.int32)
+    return [(i, np.concatenate([shared, np.asarray([20 + i, 21 + i],
+                                                   np.int32)]), 6)
+            for i in range(8)]
+
+
+def prefix_2x4_streams(model, params, mesh=None):
+    """Eight requests sharing a 12-token prefix, greedy and sampled
+    (temperature 1, top-k 5), with the prefix cache and swap off and on:
+    {sampled: (streams off, streams on, prefix hit tokens on)}."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    reqs = [Request(uid=u, prompt=p, max_new_tokens=m)
+            for u, p, m in prefix_2x4_requests()]
+    out = {}
+    for sampled in (False, True):
+        kw = dict(PREFIX_2X4, **(dict(temperature=1.0, top_k=5)
+                                 if sampled else {}))
+        off = ServeEngine(model, params, mesh=mesh, prefix_cache=False,
+                          host_swap_pages=0, **kw).generate(reqs, seed=3)
+        on = ServeEngine(model, params, mesh=mesh, prefix_cache=True, **kw)
+        got = on.generate(reqs, seed=3)
+        out[sampled] = ([r.tokens.tolist() for r in off],
+                        [r.tokens.tolist() for r in got],
+                        on.stats["prefix_hit_tokens"])
+    return out
+
+
+def _prefix_cases(rank: int, world: int, flat, _, tmp: str) -> dict:
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.dist import mesh_from_spec
+    from repro_torch.models.transformer import LM
+
+    mesh = mesh_from_spec("2x4", device="cpu")
+    model = LM(configs.get_config("paper_tiny_lm"), device="cpu")
+    res = {"rank": rank, "streams": prefix_2x4_streams(
+        model, model.params_from_jax(flat), mesh)}
+    dist.barrier()
+    return res
+
+
+CASES = {"dist": _cases, "tp": _tp_cases, "prefix_2x4": _prefix_cases}
+
+
+def _worker(rank: int, worlds, inits, tmp: str, queue,
+            cases: str = "dist") -> None:
     """Run the cases of each world size in turn: one group of every
     spawned process first, then one of the first ranks alone, and so on
     (one spawn serves every group)."""
@@ -181,8 +575,8 @@ def _worker(rank: int, worlds, inits, tmp: str, queue) -> None:
         try:
             dist.init_process_group("gloo", init_method=init, rank=rank,
                                     world_size=world)
-            queue.put((world, _cases(rank, world, flat, calib,
-                                     os.path.join(tmp, str(world)))))
+            queue.put((world, CASES[cases](rank, world, flat, calib,
+                                           os.path.join(tmp, str(world)))))
         except BaseException:                   # the test reports it
             queue.put((world, {"rank": rank,
                                "error": traceback.format_exc()}))
@@ -192,10 +586,12 @@ def _worker(rank: int, worlds, inits, tmp: str, queue) -> None:
                 dist.destroy_process_group()
 
 
-def run_groups(worlds, flat, calib, timeout: float = 300.0):
-    """Spawn ``max(worlds)`` ranks once and run every case in a group of
-    each size of ``worlds`` (largest first; a ``file://`` rendezvous in a
-    temporary directory each); returns {world: results in rank order}."""
+def run_groups(worlds, flat, calib, timeout: float = 300.0,
+               cases: str = "dist"):
+    """Spawn ``max(worlds)`` ranks once and run every case of ``cases``
+    (a key of :data:`CASES`) in a group of each size of ``worlds``
+    (largest first; a ``file://`` rendezvous in a temporary directory
+    each); returns {world: results in rank order}."""
     worlds = sorted(worlds, reverse=True)
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
@@ -207,7 +603,7 @@ def run_groups(worlds, flat, calib, timeout: float = 300.0):
         inits = ["file://" + os.path.join(tmp, f"rendezvous{w}")
                  for w in worlds]
         procs = [ctx.Process(target=_worker,
-                             args=(r, worlds, inits, tmp, queue))
+                             args=(r, worlds, inits, tmp, queue, cases))
                  for r in range(worlds[0])]
         for p in procs:
             p.start()
