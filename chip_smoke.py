@@ -35,11 +35,14 @@ sharing the card, pruning and training over a DeviceMesh.
                                           # ... 15e)
     python3 chip_smoke.py --phases 15e,16 # the frontend models trained,
                                           # and distribution (16a, 16b,
-                                          # 16c)
-    python3 chip_smoke.py --phases 1t,16c # 16c's rank-local kernel shapes;
-                                          # tensor-parallel serving alone:
-                                          # its one-device runs and the
-                                          # two ranks' (no 16a / 16b)
+                                          # 16c, 16d)
+    python3 chip_smoke.py --phases 1t,16d # 16c's and 16d's rank-local
+                                          # kernel shapes; tensor-parallel
+                                          # serving of the recurrent and
+                                          # expert families alone (16c:
+                                          # the dense decoders'): its
+                                          # one-device runs and the two
+                                          # ranks' (no 16a / 16b)
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
@@ -86,13 +89,19 @@ Phases (any failure exits non-zero; no exception is swallowed):
      the bf16 rows at the two models' shapes timed beside masked SDPA;
      nm_spmm_decode / nm_spmm at PaliGemma's mlp.wo (K 16384; M 8 and
      the 8 x 320 prefill) and seamless's mlp.wi and xattn.wk (M 8 and the
-     8 x 1024 frames) beside torch.matmul; and 16c's rank-local shapes
+     8 x 1024 frames) beside torch.matmul; and 16c's and 16d's rank-local shapes
      on a 1x2 mesh (``check_tp_widths``): nm_spmm_decode (M 8) / nm_spmm
      (M 256) at Qwen1.5-0.5B's and Qwen3-14B's column- and row-parallel
      halves (K 1408 / 512 / 8704 / 2560, N 1408 / 512 / 2560 / 8704),
      paged_attn at their local 8 KV heads (hd 64) and 4 KV heads of G 5
      (hd 128), and flash_attn at their half heads (8 / 8, hd 64; 20 / 4,
-     hd 128), each in f32 and bf16 with its route asserted.  Every
+     hd 128) — 16d's: Jamba's Mamba halves (in_proj's x and z blocks K
+     8192 -> N 16384, x_proj row-parallel K 8192 -> 544, dt_proj 512 ->
+     8192, out_proj K 8192) and MLP halves (8192 <-> 12288), xlstm-350m's
+     mLSTM (1024 -> 1024, wo K 1024) and sLSTM (1024 -> 512, wo K 512),
+     phi3.5's attention (4096 -> 2048 / 512, wo K 2048), paged_attn at
+     Jamba's 4 KV heads of G 8 (hd 128) and flash_attn at 32 / 4 and 16 /
+     4 heads (hd 128) —, each in f32 and bf16 with its route asserted.  Every
      nm_spmm, nm_spmm_decode and hessian_accum row asserts its route
      (``last_kernel``: tensor cores for bf16, f32 FMA for f32 and for
      rows off 16 bytes) and the same bits from a second call; hessian_accum
@@ -190,7 +199,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
      ``repro_torch.launch.train`` with the reference's defaults (300
      steps, batch 16 x 64), and the same run stopped at step 150 and
      resumed — its step-300 checkpoint bit-identical (deterministic
-     algorithms), no kernel launched by training, the loss falling;
+     algorithms), no kernel launched by training, the loss falling; the
+     two runs, and phase 10's two, at once beside phase 0's kernel build
+     (``start_trainers``: the host-bound trainers launch no kernel, and
+     phase 1 waits for them);
      ``repro_torch.launch.prune --ckpt`` for MM 2:4 and SM 0.5 on the
      synthetic corpus (dense and pruned perplexity printed, flash_attn,
      hessian_accum and nm_select counted); the MM 2:4 model packed and
@@ -219,6 +231,7 @@ Phases (any failure exits non-zero; no exception is swallowed):
      reference's benchmark defaults (300 steps, batch 16 x 64, lr 1e-3
      warmup-cosine) in a process of its own (``--train-mamba``), and the
      same run stopped at 150 and resumed — bit-identical checkpoints;
+     both beside phase 0's build, as phase 8's;
      magnitude, wanda, SS and SM at 0.5 (blocksize 64, 32 x 64 corpus
      calibration tokens) and MM 2:4 through the default pipelined engine;
      dense and pruned perplexity and last-token accuracy on the 8 eval
@@ -261,8 +274,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
      forces): hessian_accum 7 and flash_attn 2 launches a layer and
      shard, nm_select 7 a layer, at most 1 host sync, finite perplexity,
      every linear 2:4, the result served packed; 12d MM 2:4 on gemma-2b's
-     layer 0 (mlp.wo
-     skipped) through the serial engine, seconds by stage and linear;
+     layer 0 (mlp.wo skipped, and mlp.wg: mlp.wi's shape) through the
+     serial engine, seconds by stage and linear;
  13. Mixture-of-Experts: 13a phi3.5-moe at full width in f32, one layer,
      4 x 512 tokens — every linear's Hessian (the 48 experts' weighted)
      accumulated by the kernels and by the plain override from the same
@@ -355,6 +368,19 @@ Phases (any failure exits non-zero; no exception is swallowed):
      nm_spmm_decode and paged_attn (static: flash_attn and nm_spmm)
      launched, the rank-local packed shapes printed with their route;
      bf16 agreement, tok/s and the HBM a rank holds against one device.
+     16d, in the same two processes on 1x2: the recurrent and expert
+     families (TP_FAMILY_CASES), each built, served and freed in turn at
+     full width with every prunable linear magnitude-2:4 packed, phase
+     3's 8 requests, bf16 and an f32 twin — Jamba-1.5-Large's first
+     TP_JAMBA_SLOTS slots without the experts (3 Mamba and the attention;
+     continuous: the paged pool and the StatePool), xlstm-350m's first
+     TP_XLSTM_LAYERS layers (one period; continuous) and phi3.5-moe's
+     first
+     TP_PHI_LAYERS (static, 8 experts a rank) — against the same runs on
+     one device: each f32 twin's streams equal, 8 of 8, both ranks'
+     streams bit-equal, each rank's TP_FAMILY_NEED launched, a rank's
+     census and memory_allocated under TP_BYTES_RATIO of one device's;
+     bf16 agreement and tok/s printed.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
@@ -369,6 +395,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -2333,22 +2360,120 @@ def _launch(mod, argv):
     return ret, text
 
 
-def _train(argv, label="phase 8"):
+def _train(argv, label="phase 8", echo=True):
     """``python -m repro_torch.launch.train`` in a process of its own: it
     runs under deterministic algorithms, which cuBLAS allows only when
     CUBLAS_WORKSPACE_CONFIG is set before the process's first product
     (the launcher sets it; here the earlier phases have run products
-    already).  Returns its standard output, echoed into the log."""
+    already).  Returns its standard output, echoed into the log unless
+    ``echo`` is off."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *argv],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    for line in proc.stdout.strip().splitlines():
-        say(f"    | {line}")
+    return _process([sys.executable, "-m", "repro_torch.launch.train",
+                     *argv], env, label, echo)
+
+
+def _process(cmd, env, label, echo=True):
+    """``cmd`` run from the checkout's root: its standard output, echoed
+    into the log unless ``echo`` is off; a non-zero exit fails ``label``."""
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if echo:
+        for line in proc.stdout.strip().splitlines():
+            say(f"    | {line}")
     if proc.returncode != 0:
         fail(f"{label}: the trainer exited {proc.returncode}: "
              f"{proc.stderr[-2000:]}")
     return proc.stdout
+
+
+TRAIN_WORK = {"8": ROOT / "build" / "phase8",
+              "10": ROOT / "build" / "phase10"}
+TRAIN_STOPS = (("uninterrupted", (None,)), ("resumed", (150, None)))
+
+
+def _train_chains():
+    """Phases 8 and 10's trainer chains, {(phase, tag): (run one process,
+    the arguments of each process in turn)}: paper_tiny_lm through
+    ``launch.train`` (phase 8) and the tiny Mamba LM through
+    ``--train-mamba`` (phase 10), each uninterrupted and stopped at 150
+    then resumed."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def mamba(args):
+        return _process([sys.executable, str(ROOT / "chip_smoke.py"),
+                         "--train-mamba", *args], env, "phase 10",
+                        echo=False)
+
+    chains = {}
+    for tag, stops in TRAIN_STOPS:
+        chains["8", tag] = (lambda a: _train(a, echo=False), [
+            ["--out", str(TRAIN_WORK["8"] / tag)]
+            + ([] if stop is None else ["--stop-at", str(stop)])
+            for stop in stops])
+        chains["10", tag] = (mamba, [
+            [str(TRAIN_WORK["10"] / tag)]
+            + ([] if stop is None else [str(stop)]) for stop in stops])
+    return chains
+
+
+def start_trainers():
+    """Phases 8 and 10's four trainer chains, all at once, in the
+    background while the kernels build (``nvcc`` on the host): a trainer
+    launches no kernel of the port, is host-bound (27–70 ms a step) and
+    deterministic in its own process, so the chains leave the same bits
+    beside the build and beside one another.  Returns a future of
+    {(phase, tag): (each process's output, the chain's wall seconds)};
+    phase 1 waits for it, so that no trainer shares the card with a
+    timed kernel."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    for work in TRAIN_WORK.values():
+        shutil.rmtree(work, ignore_errors=True)
+    chains = _train_chains()
+    pool = ThreadPoolExecutor(len(chains))
+
+    def run(run_one, args_list):
+        t0 = time.monotonic()
+        outs = [run_one(args) for args in args_list]
+        return outs, time.monotonic() - t0
+
+    futures = {key: pool.submit(run, *chain) for key, chain in chains.items()}
+    pool.shutdown(wait=False)
+    waiter = ThreadPoolExecutor(1)
+    done = waiter.submit(lambda: {k: f.result() for k, f in futures.items()})
+    waiter.shutdown(wait=False)
+    return done
+
+
+def _trained_runs(trained, phase, pattern, label):
+    """A phase's two chains from ``start_trainers``' results: their
+    outputs echoed into the log, and per chain its steps, losses, ms a
+    step, HBM and wall."""
+    runs = {}
+    for tag, _ in TRAIN_STOPS:
+        texts, wall = trained[phase, tag]
+        parts = []
+        for text in texts:
+            for line in text.strip().splitlines():
+                say(f"    | {line}")
+            m = re.search(pattern, text)
+            if m is None:
+                fail(f"{label}: no training summary in {text!r}")
+            parts.append([float(x) for x in m.groups()])
+        runs[tag] = dict(wall_s=wall, first_loss=parts[0][1],
+                         last_loss=parts[-1][2],
+                         ms_per_step=[p[3] for p in parts],
+                         hbm_mib=max(p[4] for p in parts),
+                         steps=int(sum(p[0] for p in parts)))
+        say(f"  train ({tag}): {runs[tag]['steps']} steps in "
+            f"{wall:.1f} s (processes included), loss "
+            f"{runs[tag]['first_loss']:.4f} -> {runs[tag]['last_loss']:.4f}"
+            f", {' / '.join(f'{x:.2f}' for x in runs[tag]['ms_per_step'])} "
+            f"ms a step, contended (beside the kernels' build and the other "
+            f"three chains on one host and one card: not comparable with a "
+            f"chain run alone), HBM held {runs[tag]['hbm_mib']:.1f} MiB")
+    return runs
 
 
 def _number_after(text, prefix):
@@ -2358,7 +2483,7 @@ def _number_after(text, prefix):
     fail(f"phase 8: no {prefix!r} line in the launcher's output")
 
 
-def train_prune_serve():
+def train_prune_serve(trained):
     """Phase 8: ``repro_torch.launch.train`` with the reference's defaults
     (paper_tiny_lm, 300 steps, batch 16, seq 64, lr 1e-3 warmup-cosine,
     a checkpoint every 50), an identical run stopped at step 150 and
@@ -2383,8 +2508,7 @@ def train_prune_serve():
     from repro_torch.optim import tree_leaves
     from repro_torch.serve.engine import Request, ServeEngine
 
-    work = ROOT / "build" / "phase8"
-    shutil.rmtree(work, ignore_errors=True)
+    work = TRAIN_WORK["8"]
     out = {}
     totals = {k: 0 for k in ops.KERNELS}
 
@@ -2414,33 +2538,12 @@ def train_prune_serve():
         "launched")
     del params, leaves, grads, loss
 
-    # train: uninterrupted, and stopped at 150 then resumed
-    runs = {}
-    for tag, stops in (("uninterrupted", (None,)),
-                       ("resumed", (150, None))):
-        d = str(work / tag)
-        t0 = time.monotonic()
-        parts = []
-        for stop in stops:
-            text = _train(["--out", d] + ([] if stop is None
-                                          else ["--stop-at", str(stop)]))
-            m = re.search(r"trained (\d+) steps.*\nloss ([\d.]+) -> "
-                          r"([\d.]+); ([\d.]+) ms a step \(median\) on "
-                          r"\S+; HBM held ([\d.]+) MiB", text)
-            if m is None:
-                fail(f"phase 8: no training summary in {text!r}")
-            parts.append([float(g) for g in m.groups()])
-        wall = time.monotonic() - t0
-        runs[tag] = dict(wall_s=wall, first_loss=parts[0][1],
-                         last_loss=parts[-1][2],
-                         ms_per_step=[p[3] for p in parts],
-                         hbm_mib=max(p[4] for p in parts),
-                         steps=int(sum(p[0] for p in parts)))
-        say(f"  train ({tag}): {runs[tag]['steps']} steps in {wall:.1f} s "
-            f"(processes included), loss {runs[tag]['first_loss']:.4f} -> "
-            f"{runs[tag]['last_loss']:.4f}, "
-            f"{' / '.join(f'{m:.2f}' for m in runs[tag]['ms_per_step'])} "
-            f"ms a step, HBM held {runs[tag]['hbm_mib']:.1f} MiB")
+    # trained: uninterrupted, and stopped at 150 then resumed (the chains
+    # ran beside the kernels' build: start_trainers)
+    runs = _trained_runs(trained, "8", r"trained (\d+) steps.*\nloss "
+                         r"([\d.]+) -> ([\d.]+); ([\d.]+) ms a step "
+                         r"\(median\) on \S+; HBM held ([\d.]+) MiB",
+                         "phase 8")
     full = runs["uninterrupted"]
     if not full["last_loss"] < full["first_loss"] - 1.0:
         fail(f"phase 8: the loss did not fall: {full}")
@@ -2796,7 +2899,7 @@ def last_token_acc(model, params, batches):
     return hit / tot
 
 
-def mamba_table3():
+def mamba_table3(trained):
     """Phase 10: paper-tiny-mamba trained on the card with the reference's
     benchmark defaults, uninterrupted and stopped at 150 then resumed
     (bit-identical checkpoints); pruned with magnitude, wanda, SS and SM
@@ -2818,42 +2921,12 @@ def mamba_table3():
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.sparse import is_24_sparse
 
-    work = ROOT / "build" / "phase10"
-    shutil.rmtree(work, ignore_errors=True)
+    work = TRAIN_WORK["10"]
     out = {}
     totals = {k: 0 for k in ops.KERNELS}
-    runs = {}
-    for tag, stops in (("uninterrupted", (None,)), ("resumed", (150, None))):
-        d = str(work / tag)
-        t0 = time.monotonic()
-        parts = []
-        for stop in stops:
-            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-            proc = subprocess.run(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--train-mamba",
-                 d] + ([] if stop is None else [str(stop)]), cwd=ROOT,
-                env=env, capture_output=True, text=True, timeout=600)
-            for line in proc.stdout.strip().splitlines():
-                say(f"    | {line}")
-            if proc.returncode != 0:
-                fail(f"phase 10: the trainer exited {proc.returncode}: "
-                     f"{proc.stderr[-2000:]}")
-            m = re.search(r"trained (\d+) steps\nloss ([\d.]+) -> ([\d.]+); "
-                          r"([\d.]+) ms a step \(median\); HBM held "
-                          r"([\d.]+) MiB", proc.stdout)
-            if m is None:
-                fail(f"phase 10: no training summary in {proc.stdout!r}")
-            parts.append([float(x) for x in m.groups()])
-        runs[tag] = dict(wall_s=time.monotonic() - t0,
-                         first_loss=parts[0][1], last_loss=parts[-1][2],
-                         ms_per_step=[p[3] for p in parts],
-                         hbm_mib=max(p[4] for p in parts),
-                         steps=int(sum(p[0] for p in parts)))
-        say(f"  train ({tag}): {runs[tag]['steps']} steps in "
-            f"{runs[tag]['wall_s']:.1f} s (processes included), loss "
-            f"{runs[tag]['first_loss']:.4f} -> {runs[tag]['last_loss']:.4f}"
-            f", {' / '.join(f'{x:.2f}' for x in runs[tag]['ms_per_step'])} "
-            f"ms a step, HBM held {runs[tag]['hbm_mib']:.1f} MiB")
+    runs = _trained_runs(trained, "10", r"trained (\d+) steps\nloss "
+                         r"([\d.]+) -> ([\d.]+); ([\d.]+) ms a step "
+                         r"\(median\); HBM held ([\d.]+) MiB", "phase 10")
     full = runs["uninterrupted"]
     if not full["last_loss"] < full["first_loss"] - 1.0:
         fail(f"phase 10: the loss did not fall: {full}")
@@ -4148,8 +4221,8 @@ def dense_mrp_timed():
     """12d: the paper's MRP compensation (MM 2:4) on gemma-2b's layer 0 at
     full width, the serial engine with its StageClock, mlp.wo skipped
     (Eq. 13 there: m 16384, 128 blocks each re-solved against the whole
-    mask, ≈ 1.2·10¹⁶ flops).  Prints the seconds by stage and by
-    linear."""
+    mask, ≈ 1.2·10¹⁶ flops) and mlp.wg too (mlp.wi's shape: the same
+    solve timed once).  Prints the seconds by stage and by linear."""
     import torch
 
     from repro_torch.core.clock import StageClock
@@ -4165,15 +4238,17 @@ def dense_mrp_timed():
     _, reports = launch_prune.prune(
         model, params, calib, "2:4", "MM", blocksize=128,
         row_chunk=PRUNE_ROW_CHUNK, clock=clock, pipeline="off",
-        skip=("mlp.wo",))
+        skip=("mlp.wg", "mlp.wo"))
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     names = [r.name for r in reports]
-    if len(reports) != 6 or any("mlp.wo" in n for n in names):
-        fail(f"phase 12d: pruned {names}, expected the six linears but "
-             "mlp.wo")
+    if len(reports) != 5 or any(k in n for n in names
+                                for k in ("mlp.wg", "mlp.wo")):
+        fail(f"phase 12d: pruned {names}, expected the five linears but "
+             "mlp.wg and mlp.wo")
     stages = dict(sorted(clock.seconds.items(), key=lambda kv: -kv[1]))
-    say(f"  gemma-2b layer 0, MM 2:4, serial, mlp.wo skipped: {wall:.2f} s;"
+    say(f"  gemma-2b layer 0, MM 2:4, serial, mlp.wg and mlp.wo skipped: "
+        f"{wall:.2f} s;"
         " by stage: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     say("  by linear: " + ", ".join(f"{r.name} {r.seconds:.2f} s"
                                     for r in reports))
@@ -6189,6 +6264,8 @@ TP_PAGED = (                         # (label, B, KV, G, hd): 16c's decode
 TP_FLASH = (("qwen1.5", 8, 8, 64), ("qwen3", 20, 4, 128))
                                      # (model, H, KV, hd) a rank's heads of
                                      # a static prefill, B 8, T 64
+TP_FAMILY_PAGED = (("tp2 jamba B=8 KV=4 G=8 hd=128", 8, 4, 8, 128),)
+TP_FAMILY_FLASH = (("jamba", 32, 4, 128), ("phi3.5", 16, 4, 128))
 TP_QWEN3_LAYERS = 2                  # 16c: Qwen3-14B, 2 of its 40 layers
 TP_SERVE = dict(max_batch=8, max_len=128, page_size=16, prefill_chunk=32)
 TP_CASES = (                         # (label, arch, layers, dtype, modes)
@@ -6200,6 +6277,75 @@ TP_CASES = (                         # (label, arch, layers, dtype, modes)
      ("continuous",)),
 )
 MOE_TRAIN_ARCH = "phi3.5-moe-42b-a6.6b"   # 16b: its SMOKE config, 3 steps
+TP_JAMBA_SLOTS = 4                   # 16d: Jamba's first 4 slots (3 Mamba
+TP_XLSTM_LAYERS = 8                  # and the attention); xlstm-350m's
+TP_PHI_LAYERS = 2                    # first period (7 mLSTM, the sLSTM at
+                                     # slot 3); phi3.5-moe 2 of 32 layers
+TP_FAMILY_CASES = (                  # (label, model, dtype, mode)
+    ("jamba-blocks bf16", "jamba", "bfloat16", "continuous"),
+    ("jamba-blocks f32", "jamba", "float32", "continuous"),
+    ("xlstm-350m bf16", "xlstm", "bfloat16", "continuous"),
+    ("xlstm-350m f32", "xlstm", "float32", "continuous"),
+    ("phi3.5-moe bf16", "phi", "bfloat16", "static"),
+    ("phi3.5-moe f32", "phi", "float32", "static"),
+)
+TP_FAMILY_NEED = {                   # 16d: the kernels each rank launches
+    "jamba": ("nm_spmm_decode", "paged_attn"),
+    "xlstm": ("nm_spmm_decode",),
+    "phi": ("nm_spmm_decode", "flash_attn", "nm_spmm"),
+}
+TP_BYTES_RATIO = 0.6                 # 16d: a rank's bytes / one device's
+
+
+@functools.lru_cache(maxsize=None)
+def tp_family_linears(tp=2):
+    """16d's rank-local packed linears, one row a distinct (K, N, fused
+    activation): each model of TP_FAMILY_CASES initialised on the meta
+    device from a threefry key there (shapes only: no draw, no memory —
+    a CPU generator would draw every weight), its linears packed as
+    ``_packed_every_linear`` packs them and split as
+    ``dist.sharding.param_split`` splits them for one rank of ``tp`` —
+    the rule the engine shards by, so no shape a rank runs is left out.
+    Rows as TP_LINEARS': (label, K, N, bias, activation)."""
+    from repro_torch import random as rnd
+    from repro_torch.dist.sharding import param_split
+    from repro_torch.serve.sparse import (DEFAULT_SPARSE_PATTERNS,
+                                          linear_patterns)
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}" if path else k)
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, tree
+
+    found = {}
+    for kind in dict.fromkeys(c[1] for c in TP_FAMILY_CASES):
+        cfg, model = _tp_family_model(kind, "bfloat16", device="meta")
+        pats = DEFAULT_SPARSE_PATTERNS + linear_patterns(
+            model.block_linears())
+        for path, w in leaves(model.init(rnd.key(0, device="meta"))):
+            if w.ndim != 2 or not any(re.search(p, path) for p in pats):
+                continue
+            k, n = w.shape
+            dim = param_split(f"{path}/vals", (k // 2, n), tp, cfg)
+            k, n = (k // tp, n) if dim == 0 else (k, n // tp) if dim else (
+                k, n)
+            sub, key = path.split("/")[-2:]
+            act = "silu" if (sub, key) == ("mlp", "wg") else None
+            found.setdefault((k, n, act), f"tp{tp} {kind} {sub}.{key}")
+    return tuple((label, k, n, False, act)
+                 for (k, n, act), label in found.items())
+
+
+def _unheld_shapes(routes, linears):
+    """The packed shapes ("K x N") of a rank's ``routes`` that phase 1t
+    holds against no plain kernel: none of ``linears``' (K, N)."""
+    held = {f"{lin[1]} x {lin[2]}" for lin in linears}
+    return sorted(set(routes) - held)
 
 
 def check_tp_widths(gen, rows):
@@ -6210,21 +6356,26 @@ def check_tp_widths(gen, rows):
     (M 256) at TP_LINEARS, timed; paged_attn at TP_PAGED (bf16 pages,
     ragged lengths over 8 pages of 16, the 16-byte-copy route); flash_attn
     at TP_FLASH, causal (the tensor cores for bf16, the f32 FMA kernel
-    for f32), the same bits from a second call."""
+    for f32), the same bits from a second call.  16d's shapes beside
+    them: ``tp_family_linears`` (every packed shape a rank of Jamba's
+    slots, xlstm-350m or phi3.5 runs), TP_FAMILY_PAGED (Jamba's
+    attention slot on its 4 KV heads) and TP_FAMILY_FLASH."""
     import torch
 
     from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
 
     out = {"nm_spmm_decode": [], "nm_spmm": []}
+    family = tp_family_linears()
     for m in (8, 256):
-        for lin in TP_LINEARS:
+        for lin in (*TP_LINEARS, *family):
             row = nm_row(gen, m, *lin)
             rows.append(row)
             out[row["kernel"]].append(row)
     lengths = [96, 70, 65, 81, 64, 90, 77, 88]
     paged = paged_rows(gen, rows, [(label, b, kvh, g, hd, 16, 8, lengths,
                                     None, False, 0)
-                                   for label, b, kvh, g, hd in TP_PAGED])
+                                   for label, b, kvh, g, hd
+                                   in (*TP_PAGED, *TP_FAMILY_PAGED)])
     for row in paged.values():
         if row["route"] != "16-byte copies":
             row["ok"] = False
@@ -6237,7 +6388,7 @@ def check_tp_widths(gen, rows):
         want_route = _route_of(dtype)
         tol_rel = (KERNEL_TOL_REL if dtype == torch.float32
                    else BF16_KERNEL_TOL_REL)
-        for model, h, kv, hd in TP_FLASH:
+        for model, h, kv, hd in (*TP_FLASH, *TP_FAMILY_FLASH):
             q, k, v = _flash_inputs(gen, 8, 64, h, kv, hd, dtype)
             got = flash_attn(q, k, v, True)
             route = flash_attn.last_kernel
@@ -6374,6 +6525,173 @@ def tp_serve(mesh=None):
     return out
 
 
+def _tp_family_model(kind, dtype, device="cuda"):
+    """16d's models at full width: Jamba-1.5-Large's first TP_JAMBA_SLOTS
+    slots without the experts, xlstm-350m's first TP_XLSTM_LAYERS layers,
+    phi3.5-moe's first TP_PHI_LAYERS layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+
+    if kind == "jamba":
+        cfg = get_config("jamba_1_5_large_398b")
+        cfg = dataclasses.replace(cfg, moe=None, moe_slots=(),
+                                  period=cfg.period[:TP_JAMBA_SLOTS],
+                                  num_layers=TP_JAMBA_SLOTS)
+    elif kind == "xlstm":
+        cfg = dataclasses.replace(get_config("xlstm_350m"),
+                                  num_layers=TP_XLSTM_LAYERS)
+    else:
+        cfg = dataclasses.replace(get_config("phi3_5_moe_42b_a6_6b"),
+                                  num_layers=TP_PHI_LAYERS)
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    return cfg, LM(cfg, device=device)
+
+
+def _packed_every_linear(model, seed=0):
+    """Weights from a seeded torch.Generator, magnitude 2:4 on every
+    prunable linear — the attention's, the MLP's, the shared expert's and
+    the recurrent blocks' (``LM.block_linears``) — and packed; the routed
+    experts stay dense, as they are served."""
+    import torch
+
+    from repro_torch.core.pruner import LINEARS, prune_linears
+    from repro_torch.serve.sparse import (DEFAULT_SPARSE_PATTERNS,
+                                          compressed_param_tree,
+                                          linear_patterns)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    pairs = model.block_linears()
+    params = prune_linears(model.init(g), "2:4", linears=LINEARS + pairs)
+    return compressed_param_tree(params, DEFAULT_SPARSE_PATTERNS
+                                 + linear_patterns(pairs))
+
+
+def tp_family_serve(mesh=None):
+    """16d's serving, on one device (``mesh`` None) or as one rank of a
+    1x2 mesh: each of TP_FAMILY_CASES built, served and freed in turn —
+    phase 3's 8 requests (64-token prompts, 32 new) through one engine
+    (continuous: the paged pool and the StatePool; static for the MoE).
+    Per case: the streams, tok/s and the launches of the run (the counts
+    set to 0 just before it), the census of the engine's params and pool
+    (pages and state rows), ``memory_allocated`` once the engine is
+    built, the peak of the run, and the packed linears' decode routes."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    out = {}
+    for label, kind, dtype, mode in TP_FAMILY_CASES:
+        torch.cuda.empty_cache()
+        cfg, model = _tp_family_model(kind, dtype)
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, size=64, dtype=np.int32), max_new_tokens=32)
+            for i in range(8)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        params = _packed_every_linear(model)
+        eng = ServeEngine(model, params, mesh=mesh, mode=mode, **TP_SERVE)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        allocated = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()                # the run starts
+        t0 = time.monotonic()
+        got = eng.generate(reqs)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        counts = ops.launch_counts()             # ... and ends
+        _check_streams(f"16d {label}", reqs, got, cfg.vocab_size)
+        out[label] = dict(
+            streams=[r.tokens.tolist() for r in got],
+            tok_s=sum(len(r.tokens) for r in got) / dt, counts=counts,
+            flash_route=flash_attn.last_kernel if mode == "static" else None,
+            param_bytes=_tensor_bytes(eng.params),
+            pool_bytes=(_tensor_bytes(eng.pool.kv) if eng.pool is not None
+                        else 0),
+            allocated_bytes=allocated,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            routes=_packed_routes(eng.params))
+        out[label]["held_bytes"] = (out[label]["param_bytes"]
+                                    + out[label]["pool_bytes"])
+        del eng, model, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_family_check(ranks, one, smi):
+    """16d's gates on the two ranks' ``tp_family_serve`` results against
+    the one-device run ``one``: each f32 twin's streams equal one
+    device's, 8 of 8; both ranks' streams bit-equal in every case; each
+    rank launched TP_FAMILY_NEED's kernels itself; a rank's census and
+    ``memory_allocated`` under TP_BYTES_RATIO of one device's; every
+    packed shape a rank runs is one of phase 1t's rows.  Prints
+    the bf16 agreement and tok/s (reported, not gated).  Returns the
+    ranks' launches, summed."""
+    counts = {k: 0 for k in (*SERVE_KERNELS, "flash_attn")}
+    family = tp_family_linears()
+    for label, kind, dtype, mode in TP_FAMILY_CASES:
+        o = one[label]
+        rs = [r["16d"][label] for r in ranks]
+        a, b = (r["streams"] for r in rs)
+        if a != b:
+            fail(f"16d {label}: the ranks' streams differ")
+        want = o["streams"]
+        same = sum(x == y for x, y in zip(a, want))
+        toks = sum(len(x) for x in want)
+        pos = sum(int(np.sum(np.asarray(x) == np.asarray(y)))
+                  for x, y in zip(a, want))
+        if dtype == "float32" and same != len(want):
+            fail(f"16d {label}: {same} of {len(want)} streams equal the "
+                 "one-device run's")
+        for r in rs:
+            for k in TP_FAMILY_NEED[kind]:
+                if r["counts"][k] <= 0:
+                    fail(f"16d {label}: a rank never launched {k}")
+            for k in counts:
+                counts[k] += r["counts"][k]
+        held = max(r["held_bytes"] for r in rs) / o["held_bytes"]
+        alloc = max(r["allocated_bytes"] for r in rs) / o["allocated_bytes"]
+        if held > TP_BYTES_RATIO or alloc > TP_BYTES_RATIO:
+            fail(f"16d {label}: a rank holds {held:.3f}x (census) and "
+                 f"{alloc:.3f}x (memory_allocated) of one device's bytes")
+        unheld = _unheld_shapes({k for r in rs for k in r["routes"]},
+                                family)
+        if unheld:
+            fail(f"16d {label}: a rank runs packed shapes {unheld} that "
+                 "phase 1t's tp_family_linears does not hold against the "
+                 "plain kernel")
+        off = ({k: v for k, v in rs[0]["routes"].items()
+                if v != "tensor cores"} if dtype == "bfloat16"
+               else "f32 takes the FMA kernels by its dtype")
+        say(f"  16d {label} {mode} on 1x2: {same}/{len(want)} streams and "
+            f"{pos}/{toks} tokens equal to one device's; the ranks' streams "
+            f"bit-equal; tok/s {rs[0]['tok_s']:.1f} against "
+            f"{o['tok_s']:.1f} on one device; rank 0's launches "
+            f"{rs[0]['counts']}"
+            + (f"; flash_attn route {rs[0]['flash_route']}"
+               if rs[0]["flash_route"] else "")
+            + f"; census {rs[0]['held_bytes'] / 2**30:.4f} GiB a rank "
+            f"(params {rs[0]['param_bytes'] / 2**30:.4f}, pool "
+            f"{rs[0]['pool_bytes'] / 2**30:.4f}) against "
+            f"{o['held_bytes'] / 2**30:.4f} GiB (params "
+            f"{o['param_bytes'] / 2**30:.4f}, pool "
+            f"{o['pool_bytes'] / 2**30:.4f}): {held:.3f}x; "
+            f"memory_allocated "
+            + ", ".join(f"{r['allocated_bytes'] / 2**30:.4f}" for r in rs)
+            + f" GiB a rank against {o['allocated_bytes'] / 2**30:.4f}: "
+            f"{alloc:.3f}x; peak "
+            f"{max(r['peak_bytes'] for r in rs) / 2**30:.3f} GiB a rank, "
+            f"{o['peak_bytes'] / 2**30:.3f} on one device; rank-local "
+            f"packed shapes {sorted(rs[0]['routes'])}; off the tensor "
+            f"cores: {off if off else 'none'} ({smi})")
+    return counts
+
+
 def moe_train(mesh=None, out=None):
     """phi3.5-moe SMOKE (f32) on the card, 3 steps of a global batch of
     8 x 32, data-parallel over ``mesh`` or on one device: each step's
@@ -6414,8 +6732,10 @@ def dist_rank_main(work, parts="bc") -> int:
     one card.  16b (``b`` in PARTS): the Qwen prune on 1x2 (row-parallel
     solves) and on 2x1 (calibration sharded over data), then the trainers
     on 2x1 (paper_tiny_lm, and phi3.5-moe SMOKE routing the global
-    batch); 16c (``c``): tensor-parallel serving on 1x2 (``tp_serve``).
-    Each result saved under ``WORK``."""
+    batch); 16c (``c``): tensor-parallel serving on 1x2 (``tp_serve``);
+    16d (``d``): the recurrent and expert families' tensor-parallel
+    serving on 1x2 (``tp_family_serve``).  Each result saved under
+    ``WORK``."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -6459,6 +6779,12 @@ def dist_rank_main(work, parts="bc") -> int:
         with torch.no_grad():
             res["16c"] = tp_serve(tp)
         res["16c_wall_s"] = time.monotonic() - t0
+    if "d" in parts:
+        comm.barrier()
+        t0 = time.monotonic()
+        with torch.no_grad():
+            res["16d"] = tp_family_serve(tp)
+        res["16d_wall_s"] = time.monotonic() - t0
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     comm.barrier()
@@ -6470,7 +6796,8 @@ def _tp_check(ranks, one, smi):
     one-device run ``one``: the f32 twin's streams equal, 8 of 8 in each
     mode; both ranks' streams bit-equal in every case; each rank launched
     nm_spmm_decode and paged_attn (continuous) and flash_attn and nm_spmm
-    (static) itself.  Prints the bf16 agreement, tok/s and HBM against
+    (static) itself; every packed shape a rank runs is one of TP_LINEARS
+    (phase 1t's rows).  Prints the bf16 agreement, tok/s and HBM against
     one device, and every rank-local shape off the tensor-core route.
     Returns the ranks' launches, summed."""
     counts = {k: 0 for k in (*SERVE_KERNELS, "flash_attn")}
@@ -6508,6 +6835,12 @@ def _tp_check(ranks, one, smi):
                 f"launches {rs[0]['modes'][mode]['counts']}"
                 + (f"; flash_attn route {flash}" if flash else "")
                 + f" ({smi})")
+        unheld = _unheld_shapes({k for r in rs for k in r["routes"]},
+                                TP_LINEARS)
+        if unheld:
+            fail(f"16c {label}: a rank runs packed shapes {unheld} that "
+                 "phase 1t's TP_LINEARS does not hold against the plain "
+                 "kernel")
         off = ({k: v for k, v in rs[0]["routes"].items()
                 if v != "tensor cores"} if dtype == "bfloat16"
                else "f32 takes the FMA kernels by its dtype")
@@ -6534,7 +6867,8 @@ def _tp_check(ranks, one, smi):
 
 
 def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
-                   losses_one=None, moe_one=None, tp_one=None):
+                   losses_one=None, moe_one=None, tp_one=None,
+                   family_one=None):
     """16b and 16c: two ranks that share the card, each a process of its
     own (``--dist-rank``), a gloo group on CUDA tensors (NCCL refuses two
     ranks on one device).  16b: their Qwen prunes must give 16a's masks
@@ -6544,8 +6878,8 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
     agreement with the one-shard run is printed; each rank must launch
     hessian_accum and nm_select itself; the data-parallel trainers' steps
     must equal the one-rank runs' (paper_tiny_lm, and phi3.5-moe SMOKE:
-    loss and aux).  16c: ``_tp_check``.  Returns (the ranks' launches,
-    summed, and numbers)."""
+    loss and aux).  16c: ``_tp_check``; 16d: ``_tp_family_check``.
+    Returns (the ranks' launches, summed, and numbers)."""
     import tempfile
 
     import torch
@@ -6606,6 +6940,12 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
         out["16c"] = {r["rank"]: r["16c"] for r in ranks}
         say(f"  16c: the ranks' serving took "
             f"{max(r['16c_wall_s'] for r in ranks):.1f} s")
+    if "d" in parts:
+        for k, v in _tp_family_check(ranks, family_one, smi).items():
+            counts[k] = counts.get(k, 0) + v
+        out["16d"] = {r["rank"]: r["16d"] for r in ranks}
+        say(f"  16d: the ranks' serving took "
+            f"{max(r['16d_wall_s'] for r in ranks):.1f} s")
     if "b" not in parts:
         out.update(wall_s=wall)
         return counts, out
@@ -6646,15 +6986,15 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
     return counts, out
 
 
-def dist_phase(smi, parts="abc"):
+def dist_phase(smi, parts="abcd"):
     """Phase 16 (those of ``parts``; 16a runs for 16b too): (the mesh
-    runs' launches — prune kernels, and 16c's serving kernels — and
-    numbers)."""
+    runs' launches — prune kernels, and 16c's and 16d's serving kernels
+    — and numbers)."""
     import torch
 
     out = {}
     counts = {k: 0 for k in PRUNE_KERNELS}
-    wants = flat_one = losses_one = moe_one = tp_one = None
+    wants = flat_one = losses_one = moe_one = tp_one = family_one = None
     if "a" in parts or "b" in parts:
         t = time.monotonic()
         say("  16a: a 1-rank NCCL group (--mesh host)")
@@ -6672,15 +7012,25 @@ def dist_phase(smi, parts="abc"):
         out["16c_one_device"] = tp_one
         say(f"  16c's one-device runs took {time.monotonic() - t:.1f} s")
         torch.cuda.empty_cache()
-    ranks = "".join(p for p in "bc" if p in parts)
+    if "d" in parts:
+        t = time.monotonic()
+        with torch.no_grad():
+            family_one = tp_family_serve()
+        out["16d_one_device"] = family_one
+        say(f"  16d's one-device runs took {time.monotonic() - t:.1f} s")
+        torch.cuda.empty_cache()
+    ranks = "".join(p for p in "bcd" if p in parts)
     if ranks:
         t = time.monotonic()
         say(f"  16{'/16'.join(ranks)}: two ranks on the one card (gloo)"
             + (", 1x2 and 2x1" if "b" in ranks else "")
             + (", 16c tensor-parallel serving on 1x2" if "c" in ranks
-               else ""))
+               else "")
+            + (", 16d the recurrent and expert families on 1x2"
+               if "d" in ranks else ""))
         c, out["16bc"] = dist_two_ranks(smi, ranks, wants, flat_one,
-                                        losses_one, moe_one, tp_one)
+                                        losses_one, moe_one, tp_one,
+                                        family_one)
         for k in c:
             counts[k] = counts.get(k, 0) + c[k]
         say(f"  the two ranks took {time.monotonic() - t:.1f} s")
@@ -6747,10 +7097,10 @@ def partial_run(only, gen, rows, t_start) -> int:
         out["serve_15"], out["prune_15"], out["frontend"] = frontend_phase(
             smi, parts)
     if "1t" in only:
-        say(f"phase 1 (partial): the kernels at 16c's rank-local shapes "
-            f"({smi})")
+        say(f"phase 1 (partial): the kernels at 16c's and 16d's rank-local "
+            f"shapes ({smi})")
         out["tp_widths"] = check_tp_widths(gen, rows)
-    parts = "abc" if "16" in only else "".join(
+    parts = "abcd" if "16" in only else "".join(
         p[2] for p in sorted(only) if p.startswith("16") and len(p) == 3)
     if parts:
         say(f"phase 16 (partial: {parts}; {smi})")
@@ -6783,10 +7133,11 @@ def main(argv) -> int:
         if not only <= {"1", "1m", "1w", "1x", "1e", "1t", "12", "12a",
                         "12b", "12c", "12d", "13", "13a", "13b", "13c", "14",
                         "14a", "14b", "14c", "14d", "15", "15a", "15b",
-                        "15c", "15d", "15e", "16", "16a", "16b", "16c"}:
+                        "15c", "15d", "15e", "16", "16a", "16b", "16c",
+                        "16d"}:
             print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 1e, 1t, 12, "
                   "12a-12d, 13, 13a-13c, 14, 14a-14d, 15, 15a-15e, 16 and "
-                  "16a-16c", file=sys.stderr)
+                  "16a-16d", file=sys.stderr)
             return 2
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -6817,10 +7168,15 @@ def main(argv) -> int:
 
     from repro_torch.kernels import build, ops
 
+    # phases 8 and 10's trainers launch no kernel: they run beside the
+    # build (a full run only)
+    trainers = start_trainers() if only is None else None
     t0 = time.monotonic()
     build.library()
     head(f"phase 0: kernels built and loaded in {time.monotonic() - t0:.1f} s"
-         f" (nvcc ran: {build.build_seconds is not None})")
+         f" (nvcc ran: {build.build_seconds is not None}"
+         + ("; contended: beside phases 8 and 10's four trainer chains)"
+            if trainers is not None else ")"))
     for line in build.ptxas_report().splitlines():
         LOG.append("  " + line)
 
@@ -6829,6 +7185,9 @@ def main(argv) -> int:
     rows = []
     if only is not None:
         return partial_run(only, gen, rows, t_start)
+    trained = trainers.result()
+    head("phases 8 and 10's trainer chains done beside the build (the "
+         "longest " + f"{max(w for _, w in trained.values()):.1f} s)")
     head("phase 1: kernels against their plain versions")
     per_kernel = check_nm_spmm(gen, rows)
     paged_main, paged_long, paged_shared = check_paged(gen, rows)
@@ -6904,7 +7263,7 @@ def main(argv) -> int:
     head("phase 8: train paper_tiny_lm (the reference's defaults), stop at "
          "150 and resume, prune the checkpoint (MM 2:4, SM 0.5), serve it "
          "sampled")
-    counts_8, trained = train_prune_serve()
+    counts_8, trained_8 = train_prune_serve(trained)
     counts = {k: counts[k] + counts_8[k] for k in counts}
     torch.cuda.empty_cache()
 
@@ -6918,7 +7277,7 @@ def main(argv) -> int:
     head("phase 10: the paper's Table 3 — paper-tiny-mamba trained on the "
          "card (stop at 150, resume), pruned by magnitude, wanda, SS, SM at "
          "0.5 and MM 2:4, served continuous against static")
-    counts_10, table3 = mamba_table3()
+    counts_10, table3 = mamba_table3(trained)
     counts = {k: counts[k] + counts_9[k] + counts_10[k] for k in counts}
     torch.cuda.empty_cache()
 
@@ -6989,13 +7348,17 @@ def main(argv) -> int:
          f"(gloo): 1x2 row-parallel solves, 2x1 sharded calibration and "
          f"data-parallel training (paper_tiny_lm, phi3.5-moe SMOKE); 16c "
          f"tensor-parallel serving on 1x2 (Qwen1.5-0.5B {DIST_LAYERS} "
-         f"layers bf16 and f32, Qwen3-14B {TP_QWEN3_LAYERS} layers) ({smi})")
+         f"layers bf16 and f32, Qwen3-14B {TP_QWEN3_LAYERS} layers); 16d "
+         f"the recurrent and expert families on 1x2 (Jamba's first "
+         f"{TP_JAMBA_SLOTS} slots without the experts, xlstm-350m "
+         f"{TP_XLSTM_LAYERS} layers, phi3.5-moe {TP_PHI_LAYERS} layers; bf16 "
+         f"and f32) ({smi})")
     t16 = time.monotonic()
     prune_16, dist_out = dist_phase(smi)
     for k in prune_16:
         counts[k] += prune_16[k]
     say(f"  phase 16 took {time.monotonic() - t16:.1f} s; launches (16a's "
-        f"mesh run, 16b's and 16c's two ranks): {prune_16}")
+        f"mesh run, 16b's, 16c's and 16d's two ranks): {prune_16}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -7059,7 +7422,7 @@ def main(argv) -> int:
                             "default_serve": features, "sampled": sampled,
                             "static": static, "prune": prune_run,
                             "serial_vs_pipelined": cmp_run,
-                            "train_prune_serve": trained,
+                            "train_prune_serve": trained_8,
                             "hybrid_full_width": hybrid,
                             "table3": table3, "frontend": frontend,
                             "flash_attn_hd256": flash_256,

@@ -1,5 +1,5 @@
 """Sharding rules as rank-local slicing (a port of ``repro.dist.sharding``
-without its FSDP branch and its MoE dispatch specs).
+without its FSDP branch).
 
 In the reference a rule is a ``NamedSharding`` that tells the compiler
 where each block of an array lives.  Here every process is one rank and
@@ -17,40 +17,61 @@ The prune and train paths:
 Tensor-parallel serving (the resident-weights layout, ``fsdp_axes=()``):
 
   - :func:`param_split` / :func:`param_specs` — the reference's
-    ``param_specs`` rule, leaf by leaf, for the dense decoders' leaves:
-    the dim of a leaf that splits over ``model``, or None.
-    Up-projections (``_COL_PARALLEL``) split their out dim, ``wo`` its in
-    dim (the Megatron pairing, one all-reduce a block); the embedding is
-    vocab-parallel;
-    the router and every vector stay whole; a dim that does not divide
-    stays whole; ``head_dim`` keeps whole heads on every rank for the
-    attention projections.  2:4-packed ``vals`` / ``idx`` take their
-    projection's rule; a row-parallel split of them takes rows
-    ``[r·K/(2·tp), …)`` and needs ``K/tp % 4 == 0`` besides (``idx``
-    holds positions inside a group of 4 rows), else the leaf stays whole;
+    ``param_specs`` rule, leaf by leaf: the dim of a leaf that splits
+    over ``model``, or None.  Up-projections split their out dim, the
+    down-projections (``wo``, ``out_proj``) their in dim (the Megatron
+    pairing, one all-reduce a block); the embedding is vocab-parallel;
+    the router and the attention's and MLP's vectors stay whole; a dim
+    that does not divide stays whole; the attention projections keep
+    whole heads of ``cfg.hd`` on every rank.  2:4-packed ``vals`` /
+    ``idx`` take their projection's rule; a row-parallel split of them
+    takes rows ``[r·K/(2·tp), …)`` and needs ``K/tp % 4 == 0`` besides
+    (``idx`` holds positions inside a group of 4 rows), else the leaf
+    stays whole and the layer all-gathers its input;
+  - a rank-local rule holds for a whole block: a rank that holds its
+    d_inner channels or its heads holds the weights, vectors and state
+    rows of exactly those.  So a recurrent block decides once
+    (:func:`block_splits`, the reference's state rule: Mamba when
+    d_inner divides, the mLSTM in whole heads, the sLSTM in whole heads
+    of a d_model that divides) and its leaves follow; where it does not
+    split, every rank computes it whole with no collective.  Where the
+    reference's layout is one GSPMD can run and a rank-local program
+    cannot, the port's differs (:data:`RANK_LOCAL`): Mamba's vectors,
+    conv taps and ``a_log``, the mLSTM's gate biases and the sLSTM's
+    recurrences and forget bias take the rank's channels or heads (the
+    reference keeps them whole), Mamba's ``x_proj`` is row-parallel
+    (dt, B and C come out whole and bit-equal on every rank; the
+    reference splits its out dim) and its ``in_proj`` gives a rank its
+    block of x AND of z (:func:`shard_params`);
+  - the experts (E, ·, ·) split E over ``model`` when it divides (the
+    reference's shard_map condition): a rank holds E / tp of them; the
+    router stays whole, so every rank routes the same bits;
+    :func:`token_shards` are the reference's ``moe_dispatch_specs``
+    token blocks, each routed on its own;
   - :func:`shard_params` — each rank's blocks, sliced once into fresh
     contiguous tensors (the kernels refuse views, and the tensor-core
     decode route wants 16-byte-aligned ``vals``);
   - :func:`kv_head_split` — the paged pool and the dense decode cache
     split their KV heads over ``model`` when they divide; where the
     reference's dense cache falls back to splitting ``hd``, the port
-    keeps it whole (the same numbers).  The
-    serve engine's burst state and a host-arena page blob staged for
-    swap-in stay whole on every rank (the reference's replicated
-    ``decode_state_specs`` / ``host_arena_stage_spec``): the arena takes
-    its page shapes from the rank's pool leaves.
+    keeps it whole (the same numbers); :func:`state_split` — the
+    recurrent blocks' state rows (``paged_state_block_specs``, for the
+    dense cache too: the reference's dense rule splits inside an mLSTM
+    or sLSTM head, which a rank cannot compute).  The serve engine's
+    burst state and a host-arena page blob staged for swap-in stay whole
+    on every rank (the reference's replicated ``decode_state_specs`` /
+    ``host_arena_stage_spec``): the arena takes its page shapes from the
+    rank's pool leaves.
 
-The reference's ``moe_dispatch_specs`` (expert parallelism), the FSDP
-branch of ``param_specs``, its rules for the other families' leaves
-(experts, the recurrent blocks' projections, a frontend) and its
-recurrent caches' rules come with those families' tensor parallelism
-(ROADMAP.md); until then ``LM.serve_tp`` refuses them under tp > 1.
+The FSDP branch of ``param_specs`` and the rules of a modality frontend
+and an encoder come with their tensor parallelism (ROADMAP.md); until
+then ``LM.serve_tp`` refuses them under tp > 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -128,19 +149,58 @@ def batch_sharding(mesh, dp_axes: Optional[Sequence[str]] = None) -> Shard:
 # Tensor-parallel serving: the parameter rule
 # ----------------------------------------------------------------------
 # (in, out) linears whose OUT dim splits over model (column-parallel)
-_COL_PARALLEL = frozenset({"wq", "wk", "wv", "wi", "wg", "head"})
+_COL_PARALLEL = frozenset({"wq", "wk", "wv", "wi", "wg", "wz", "wf",
+                           "wo_gate", "in_proj", "dt_proj", "x_proj",
+                           "head"})
 # (in, out) linears whose IN dim is the model-parallel contraction
-_ROW_PARALLEL = frozenset({"wo"})
+_ROW_PARALLEL = frozenset({"wo", "out_proj"})
+# the blocks whose leaves follow one decision of the block (state_split)
+STATE_KINDS = ("mamba", "mlstm", "slstm")
+# a split recurrent block's leaves whose rank-local dim differs from the
+# reference's param_specs (fsdp_axes=()), block → {leaf: dim}; its other
+# leaves take the reference's dim (up-projections 1, down-projections 0,
+# the norm whole).  The reference replicates the vectors and the 3-D
+# recurrences (GSPMD would run a whole vector against a split operand;
+# a rank cannot) and splits x_proj's out dim (GSPMD re-lays its operand
+# out; here dt, B and C must come out whole on every rank)
+RANK_LOCAL = {
+    "mamba": {"conv_w": 0, "conv_b": 0, "dt_bias": 0, "a_log": 0, "d": 0,
+              "x_proj": 0},
+    "mlstm": {"bi": 0, "bf": 0},
+    "slstm": {"r_z": 0, "r_i": 0, "r_f": 0, "r_o": 0, "bf": 0},
+}
+
+
+def block_splits(kind: str, cfg, tp: int) -> bool:
+    """Whether a recurrent block of ``kind`` splits over a model axis of
+    ``tp``: the reference's state rule (``paged_state_block_specs``),
+    which every leaf and state row of the block then follows — Mamba
+    over d_inner, the mLSTM in whole heads, the sLSTM in whole heads of
+    a d_model that divides."""
+    if tp <= 1:
+        return False
+    if kind == "mamba":
+        return cfg.d_inner % tp == 0
+    if kind == "mlstm":
+        return cfg.num_heads % tp == 0
+    if kind == "slstm":
+        return cfg.num_heads % tp == 0 and cfg.d_model % tp == 0
+    raise ValueError(kind)
 
 
 def param_split(path: str, shape: Sequence[int], tp: int,
-                head_dim: Optional[int] = None) -> Optional[int]:
+                cfg) -> Optional[int]:
     """The dim of the leaf at ``path`` (the port's, ``layers/3/attn/wq`` or
-    ``layers/3/mlp/wo/vals``) that splits over a model axis of ``tp``
-    ranks, or None: the reference's ``param_specs`` with ``fsdp_axes=()``,
-    for an unstacked leaf."""
+    ``layers/3/mlp/wo/vals``) of the model of config ``cfg`` that splits
+    over a model axis of ``tp`` ranks, or None: the reference's
+    ``param_specs`` with ``fsdp_axes=()`` and ``head_dim=cfg.hd``, for an
+    unstacked leaf, with the rank-local rules of :data:`RANK_LOCAL` for
+    the recurrent blocks.  A recurrent block's leaves follow
+    :func:`block_splits`; the experts (E, ·, ·) split E when it
+    divides."""
     if tp <= 1:
         return None
+    head_dim = cfg.hd
     parts = path.split("/")
     key = parts[-1]
     packed = (key in ("vals", "idx") and len(parts) >= 2
@@ -149,22 +209,30 @@ def param_split(path: str, shape: Sequence[int], tp: int,
         parts = parts[:-1]
         key = parts[-1]
     shape = tuple(shape)
+    block = parts[-2] if len(parts) >= 2 else ""
 
     def fits(dim: int) -> Optional[int]:
         return dim if shape[dim] % tp == 0 else None
 
+    if block in STATE_KINDS:
+        if not block_splits(block, cfg, tp):
+            return None
+        dim = RANK_LOCAL[block].get(key, 1 if key in _COL_PARALLEL else
+                                    0 if key in _ROW_PARALLEL else None)
+        if dim == 0 and packed and (shape[0] * 2 // tp) % 4:
+            return None          # a rank's rows would cut a group of 4
+        return dim
+    if block == "moe" and len(shape) == 3 and key in ("wi", "wg", "wo"):
+        return fits(0)                                 # the rank's experts
     if key == "tok" and len(shape) == 2:
         return fits(0)                                 # vocab-parallel
     if len(shape) == 2 and key in _COL_PARALLEL:
-        if (head_dim is not None and key in ("wq", "wk", "wv")
-                and (shape[1] // tp) % head_dim):
+        if key in ("wq", "wk", "wv") and (shape[1] // tp) % head_dim:
             return None                                # a head would split
         return fits(1)
     if len(shape) == 2 and key in _ROW_PARALLEL:
-        parent = parts[-2] if len(parts) >= 2 else ""
         k_full = shape[0] * (2 if packed else 1)
-        if (head_dim is not None and parent == "attn"
-                and (k_full // tp) % head_dim):
+        if block == "attn" and (k_full // tp) % head_dim:
             return None
         if packed and (k_full // tp) % 4:
             return None          # a rank's rows would cut a group of 4
@@ -182,12 +250,11 @@ def _walk(tree: Any, path: str, fn):
     return fn(path, tree)
 
 
-def param_specs(params: Any, tp: int,
-                head_dim: Optional[int] = None) -> Any:
+def param_specs(params: Any, tp: int, cfg) -> Any:
     """:func:`param_split` over a param tree: the tree of split dims
     (None: whole)."""
     return _walk(params, "", lambda path, leaf: param_split(
-        path, leaf.shape, tp, head_dim))
+        path, leaf.shape, tp, cfg))
 
 
 def model_shard(mesh, tp_axis: str = "model") -> Shard:
@@ -206,10 +273,12 @@ def take_block(t: torch.Tensor, dim: int, shard: Shard) -> torch.Tensor:
         memory_format=torch.contiguous_format)
 
 
-def shard_params(params: Any, mesh=None, *, head_dim: Optional[int] = None,
-                 tp_axis: str = "model") -> Any:
-    """This rank's params under :func:`param_split`: a split leaf becomes
-    its block, a fresh contiguous tensor; a whole leaf is kept as it is.
+def shard_params(params: Any, mesh=None, *, cfg, tp_axis: str = "model"
+                 ) -> Any:
+    """This rank's params under :func:`param_split` for the model of
+    config ``cfg``: a split leaf becomes its block, a fresh contiguous
+    tensor; a whole leaf is kept as it is.  Mamba's ``in_proj`` is x | z
+    side by side, and a rank takes its block of each half.
     ``mesh=None`` takes the active context's; without a context, or with
     a model axis of 1, the tree comes back unchanged."""
     if mesh is None:
@@ -224,8 +293,13 @@ def shard_params(params: Any, mesh=None, *, head_dim: Optional[int] = None,
         return params
 
     def place(path, leaf):
-        dim = param_split(path, leaf.shape, shard.count, head_dim)
-        return leaf if dim is None else take_block(leaf, dim, shard)
+        dim = param_split(path, leaf.shape, shard.count, cfg)
+        if dim is None:
+            return leaf
+        if "/mamba/in_proj" in f"/{path}":                   # x | z
+            return torch.cat([take_block(half, dim, shard)
+                              for half in leaf.chunk(2, dim)], dim=dim)
+        return take_block(leaf, dim, shard)
 
     return _walk(params, "", place)
 
@@ -244,3 +318,41 @@ def kv_head_split(num_kv_heads: int, tp: int) -> Optional[int]:
     the same numbers.  The page dims never split: every rank holds the
     same block tables."""
     return 2 if tp > 1 and num_kv_heads % tp == 0 else None
+
+
+def state_split(kind: str, cfg, tp: int) -> Dict[str, Optional[int]]:
+    """The split dim of each state leaf of a recurrent block over a model
+    axis of ``tp`` — the reference's ``paged_state_block_specs``, for the
+    slot-pooled rows of continuous mode and the dense decode cache alike
+    (leading dim: slots or batch, never split): Mamba's ``conv`` (·,
+    ck-1, Di) and ``ssm`` (·, Di, N) over d_inner; the mLSTM's ``c`` (·,
+    NH, hd, hd), ``n`` (·, NH, hd), ``m`` (·, NH) over whole heads; the
+    sLSTM's ``c`` / ``n`` / ``h`` / ``m`` (·, D) over d_model in whole
+    heads.  None everywhere where :func:`block_splits` keeps the block
+    whole.  The reference's dense-cache rule splits the mLSTM's head dim
+    and the sLSTM's d_model without the head condition; a rank computes
+    whole heads, so the port takes the paged rule for both caches."""
+    dims = {"mamba": {"conv": 2, "ssm": 1},
+            "mlstm": {"c": 1, "n": 1, "m": 1},
+            "slstm": {k: 1 for k in "cnhm"}}[kind]
+    split = block_splits(kind, cfg, tp)
+    return {k: (d if split else None) for k, d in dims.items()}
+
+
+# ----------------------------------------------------------------------
+# Tensor-parallel serving: the expert-parallel dispatch
+# ----------------------------------------------------------------------
+def token_shards(n: int, dp: int, split_rows: bool) -> List[slice]:
+    """The blocks of a call's ``n`` tokens that an expert-parallel
+    dispatch routes each on its own, its capacity from the block's
+    count.  The reference's shard_map route routes ``dp`` contiguous
+    blocks of the global B·T tokens (``moe_dispatch_specs``' token spec)
+    when they divide over the data axes, and the plain route routes them
+    as one: a rank whose rows are its data block (``split_rows``) holds
+    exactly one block; a rank that holds every row routes all ``dp`` of
+    them — with rows that were not split, a boundary may fall inside a
+    row — or, where ``n`` does not divide, the call's tokens as one."""
+    if split_rows or dp == 1 or n % dp:
+        return [slice(0, n)]
+    k = n // dp
+    return [slice(i * k, (i + 1) * k) for i in range(dp)]

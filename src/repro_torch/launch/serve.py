@@ -35,17 +35,22 @@ stops where it is.
 ``--mesh`` takes any spec whose size is the world's, one process a
 rank started by ``torchrun`` (``none``: one device; ``host``: a 1×1 mesh
 over this process).  A model axis > 1 serves tensor-parallel — the
-dense decoders, their 2:4-packed linears split column- and row-parallel,
-the pool split by KV heads (``serve.engine``); the data axis replicates
-continuous mode and splits a static bucket's rows:
+dense decoders, Mamba, the hybrid, the xLSTM and the MoE decoders, their
+2:4-packed linears split column- and row-parallel, the pool split by KV
+heads and the state rows by d_inner or whole heads, a MoE's experts by
+E (``serve.engine``); the data axis replicates continuous mode and
+splits a static bucket's rows:
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
       --arch qwen1.5-0.5b --magnitude-24 --sparse --mesh 1x2
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+      --arch xlstm-350m --smoke --mesh 1x2
 
 Under a mesh of more than one rank the batch runs ``generate`` on one
 engine a rank (no router: its worker thread would take requests at
 times of its own on each rank) and rank 0 prints; ``--server`` and
-``--replicas`` > 1 under such a mesh raise (ROADMAP.md, Queue 1).
+``--replicas`` > 1 under such a mesh raise, as do the prefix-LM and the
+encoder-decoder under a model axis > 1 (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Mixture-of-Experts FFN (a port of ``repro.models.moe`` without its
-expert parallelism: no ``shard_map``, every rank holds every expert).
+"""Mixture-of-Experts FFN (a port of ``repro.models.moe``).
 
 Each token's router picks ``top_k`` experts; every expert then takes its
 top-C tokens by gate (C = the capacity), runs its SwiGLU on them and the
@@ -26,10 +25,10 @@ that the same inputs give the same bits:
   gathered in expert order and added one after another — no atomics, so
   the card gives the same bits run after run.
 
-Data-parallel (a context whose data group has more than one rank, whose
-model axis is 1 and whose ``split_rows`` says that each rank holds its
-rows of one global batch — the trainer's step, a static serving bucket
-split over data): the reference runs one program over the global batch
+Data-parallel (a context whose data group has more than one rank and
+whose ``split_rows`` says that each rank holds its rows of one global
+batch — the trainer's step, a static serving bucket split over data —,
+with every expert on the rank): the reference runs one program over the global batch
 (GSPMD) and routes it whole, and so does :func:`moe_apply` here.  The capacity
 follows the global token count; the detached gates are all-gathered in
 rank order (pod outer, as ``batch_sharding`` lays rows out, so a global
@@ -40,11 +39,27 @@ router's gradient is the reference's, split by rows.  The per-expert
 counts are all-reduced, so the load-balance ``frac`` is global and a
 rank's aux loss is E·Σ frac·mean_local(probs): their mean over ranks is
 the reference's aux (exactly so when the ranks hold equal token
-counts).  Under a model axis > 1 the reference dispatches per rank
-(``shard_map``) and so does the port, per rank.  Everywhere else a call
-routes its own tokens: replicated work (every rank the same rows) and
-the pruning pipeline's calibration shards, which the reference runs as
-one program a shard, each routed on its own.
+counts).  Everywhere else a call routes its own tokens: replicated
+work (every rank the same rows) and the pruning pipeline's calibration
+shards, which the reference runs as one program a shard, each routed on
+its own.
+
+Expert-parallel (tensor-parallel serving: a rank holds its block of the
+experts, ``dist.sharding.shard_params``, under a model axis > 1): the
+reference's ``shard_map`` dispatch.  Every rank routes the same tokens
+to the same gates (the router is whole and its input came out of an
+all-reduce), takes the gate columns of its expert range, runs its
+experts and sums its contributions in expert order; one all-reduce over
+the model group adds the ranks' partial outputs.  The tokens are routed
+in the reference's blocks (``dist.sharding.token_shards``): a rank's
+rows of a bucket split over data are one block; rows every rank holds
+divide into ``dp`` contiguous blocks of B·T tokens, each routed on its
+own with the capacity of its count — a boundary may fall inside a row —
+or, where B·T does not divide, route as one (the reference's plain
+route).  The route serves only: its aux loss is that of the call's own
+tokens, with no collective for the global token fractions.  Where E
+does not divide, every rank holds every expert and computes the layer
+whole.
 """
 
 from __future__ import annotations
@@ -56,10 +71,11 @@ import torch
 
 from repro_torch.dist import comm
 from repro_torch.dist.api import current_ctx
+from repro_torch.dist.sharding import token_shards
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, _dense_init, _normal,
-                                       mlp_apply, mlp_init, rmsnorm,
-                                       rmsnorm_init, sub_keys)
+                                       mlp_apply, mlp_init, model_group,
+                                       rmsnorm, rmsnorm_init, sub_keys)
 
 
 def moe_init(rng, cfg: ArchConfig, dtype) -> Params:
@@ -195,12 +211,30 @@ def dispatch(x2: torch.Tensor, gates: torch.Tensor, wi, wg, wo, cap: int,
     return out
 
 
+def _expert_parallel(x2: torch.Tensor, gates: torch.Tensor, p: Params,
+                     cfg: ArchConfig, ctx) -> torch.Tensor:
+    """A rank's block of the experts over the call's tokens: each token
+    block of :func:`~repro_torch.dist.sharding.token_shards` dispatched
+    to the rank's experts with its own capacity, the ranks' partial
+    outputs summed over the model group (the reference's shard_map body
+    and its ``psum``)."""
+    e_loc = p["wi"].shape[0]                 # the rank's block of E
+    mg = model_group()
+    g_loc = gates[:, mg.rank * e_loc:(mg.rank + 1) * e_loc]
+    out = torch.cat([
+        dispatch(x2[blk], g_loc[blk], p["wi"], p["wg"], p["wo"],
+                 capacity(blk.stop - blk.start, cfg), cfg.moe.top_k)
+        for blk in token_shards(x2.shape[0], ctx.dp, ctx.split_rows)])
+    return comm.all_reduce_(out, mg.group)
+
+
 def moe_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
               caps: Optional[Dict] = None, prefix: str = "moe."
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pre-norm MoE FFN with residual: (h + moe_out, aux loss).  The
     capacity follows the call's token count n = B·T — the global batch's
-    under a context of rows split over data (the module docstring)."""
+    under a context of rows split over data, a token block's where a
+    rank holds its block of the experts (the module docstring)."""
     mc = cfg.moe
     b, t, d = h.shape
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
@@ -208,13 +242,19 @@ def moe_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
         caps[f"{prefix}router"] = h_in
     x2 = h_in.reshape(-1, d)
     ctx = current_ctx()
+    split_experts = p["wi"].shape[0] != mc.num_experts
+    # the expert-parallel route serves only, and serving drops the aux:
+    # it makes no data collective for the global token fractions
     group = (comm.group_of(ctx.mesh, ctx.dp_axes)
-             if ctx is not None and ctx.split_rows and ctx.tp == 1
-             and ctx.dp > 1 else None)
-    n_all = x2.shape[0] * (1 if group is None else comm.size(group))
+             if ctx is not None and ctx.split_rows and ctx.dp > 1
+             and not split_experts else None)
     gates, aux = route(x2, p["router"], mc.top_k, group)
-    out2 = dispatch(x2, gates, p["wi"], p["wg"], p["wo"],
-                    capacity(n_all, cfg), mc.top_k, caps, prefix, group)
+    if split_experts:
+        out2 = _expert_parallel(x2, gates, p, cfg, ctx)
+    else:
+        n_all = x2.shape[0] * (1 if group is None else comm.size(group))
+        out2 = dispatch(x2, gates, p["wi"], p["wg"], p["wo"],
+                        capacity(n_all, cfg), mc.top_k, caps, prefix, group)
     y = out2.reshape(b, t, d).to(h.dtype)
     if mc.num_shared:
         # the reference's arithmetic: the shared MLP's residual taken off

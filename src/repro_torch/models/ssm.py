@@ -28,6 +28,14 @@ than XLA's ``associative_scan``, so the two agree to f32 rounding
 chunkwise forms work in a (B, NH, T, S) layout — the reference's (B, T,
 S, NH) transposed, the same operations in the same order.  The sLSTM
 takes its four per-head recurrences as one batched product a step.
+
+Tensor-parallel serving (``dist.sharding``): a block reads its rank's
+width from its weights — Mamba's d_inner channels from ``in_proj`` (a
+rank's block of x beside its block of z), the mLSTM's heads from
+``wq``, the sLSTM's from ``r_z`` — and its state rows have that width;
+the down-projections (and Mamba's ``x_proj``) go through
+``layers.linear_rows``, one all-reduce each.  On one device every
+weight is whole and no collective runs.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ import torch
 from repro_torch import random as rnd
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, _dense_init, _normal, linear,
-                                       rmsnorm, rmsnorm_init, sub_keys)
+                                       linear_rows, out_dim, rmsnorm,
+                                       rmsnorm_init, sub_keys)
 
 
 def _uniform(rng, shape) -> torch.Tensor:
@@ -83,14 +92,17 @@ def mamba_init(rng, cfg: ArchConfig, dtype) -> Params:
     }
 
 
-def mamba_cache_init(cfg: ArchConfig, batch: int, dtype, device) -> Params:
+def mamba_cache_init(cfg: ArchConfig, batch: int, dtype, device,
+                     parts: int = 1) -> Params:
     """The decode state of one block: the conv window at ``dtype``, the
-    SSM state in f32."""
+    SSM state in f32; ``parts`` > 1: a rank's d_inner / parts channels
+    (tensor-parallel serving, ``dist.sharding.state_split``)."""
+    di = cfg.d_inner // parts
     return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
-                            dtype=dtype, device=device),
-        "ssm": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
-                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, di, cfg.ssm_state), dtype=torch.float32,
+                           device=device),
     }
 
 
@@ -159,8 +171,14 @@ def mamba_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
       decode (T = 1): one step of every row; with ``paged`` (continuous
           batching) ``pos`` (B,) marks live rows, and idle or prefilling
           rows (``pos`` < 0) keep their state.
+
+    Tensor-parallel (a rank's d_inner channels, ``dist.sharding``): the
+    rank's blocks of x and z, conv, dt and the scan; ``x_proj`` row-
+    parallel, so dt, B and C come out of an all-reduce whole and
+    bit-equal on every rank; ``out_proj`` row-parallel.
     """
-    di, n, r, ck = cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    n, r, ck = cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    di = out_dim(p["in_proj"]) // 2           # the rank's channels
     t = h.shape[1]
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
     xz = linear(h_in, p["in_proj"], caps=caps, name=f"{prefix}in_proj")
@@ -195,8 +213,8 @@ def mamba_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     xc = xc + p["conv_b"].float()[None, None]
     xc = torch.nn.functional.silu(xc)
 
-    dbc = linear(xc.to(h.dtype), p["x_proj"], caps=caps,
-                 name=f"{prefix}x_proj").float()
+    dbc = linear_rows(xc.to(h.dtype), p["x_proj"], full=cfg.d_inner,
+                      caps=caps, name=f"{prefix}x_proj").float()
     dt_r, b, c = torch.split(dbc, [r, n, n], dim=-1)
     dt = linear(dt_r.to(h.dtype), p["dt_proj"], caps=caps,
                 name=f"{prefix}dt_proj").float()
@@ -234,8 +252,8 @@ def mamba_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
 
     y = y + p["d"].float()[None, None] * xc
     y = y * torch.nn.functional.silu(z.float())
-    out = linear(y.to(h.dtype), p["out_proj"], caps=caps,
-                 name=f"{prefix}out_proj")
+    out = linear_rows(y.to(h.dtype), p["out_proj"], full=cfg.d_inner,
+                      caps=caps, name=f"{prefix}out_proj")
     return h + out
 
 
@@ -379,12 +397,19 @@ def mlstm_init(rng, cfg: ArchConfig, dtype) -> Params:
     }
 
 
-def mlstm_cache_init(cfg: ArchConfig, batch: int, dtype, device) -> Params:
+def mlstm_head_dim(cfg: ArchConfig) -> int:
+    """An mLSTM head's width, mlstm_proj·D / NH (not the attention's
+    ``cfg.hd``)."""
+    return cfg.mlstm_proj * cfg.d_model // cfg.num_heads
+
+
+def mlstm_cache_init(cfg: ArchConfig, batch: int, dtype, device,
+                     parts: int = 1) -> Params:
     """The decode state of one block, f32 whatever ``dtype``: the matrix
-    memory, the normaliser and the stabiliser (-1e30: no input yet)."""
-    di = cfg.mlstm_proj * cfg.d_model
-    nh = cfg.num_heads
-    hd = di // nh
+    memory, the normaliser and the stabiliser (-1e30: no input yet);
+    ``parts`` > 1: a rank's NH / parts heads."""
+    nh = cfg.num_heads // parts
+    hd = mlstm_head_dim(cfg)
     f32 = dict(dtype=torch.float32, device=device)
     return {"c": torch.zeros((batch, nh, hd, hd), **f32),
             "n": torch.zeros((batch, nh, hd), **f32),
@@ -397,9 +422,11 @@ def mlstm_projections(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     """The block's inputs to its cell: the pre-norm projections q
     (pre-scaled by 1/√hd), k, v (B, T, NH, hd) and the gates logi, logf
     (B, T, NH), all f32; the gates are f32 products with the f32 ``wi`` /
-    ``wf``, no linears."""
-    nh = cfg.num_heads
-    hd = cfg.mlstm_proj * cfg.d_model // nh
+    ``wf``, no linears.  NH is the heads of ``wq``: a rank's whole heads
+    under tensor parallelism, with its columns of ``wi`` / ``wf`` and its
+    entries of ``bi`` / ``bf``."""
+    hd = mlstm_head_dim(cfg)
+    nh = out_dim(p["wq"]) // hd
     bsz, t, _ = h.shape
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
     q, k, v = (linear(h_in, p[key], caps=caps, name=f"{prefix}{key}")
@@ -433,9 +460,12 @@ def mlstm_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
       decode (T = 1): one step of the recurrence in every row; with
           ``paged`` (continuous batching) rows with ``pos`` < 0 keep
           their state.
+
+    Tensor-parallel: a rank's whole heads (``wq`` / ``wk`` / ``wv``
+    column-parallel, its state rows), ``wo`` row-parallel.
     """
     bsz, t, _ = h.shape
-    di = cfg.mlstm_proj * cfg.d_model
+    di = out_dim(p["wq"])                                   # the rank's
     q, k, v, logi, logf = mlstm_projections(p, h, cfg, caps=caps,
                                             prefix=prefix)
 
@@ -482,7 +512,8 @@ def mlstm_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
             cache[key].copy_(val)
 
     y = y.reshape(bsz, t, di).to(h.dtype)
-    return h + linear(y, p["wo"], caps=caps, name=f"{prefix}wo")
+    return h + linear_rows(y, p["wo"], full=cfg.mlstm_proj * cfg.d_model,
+                           caps=caps, name=f"{prefix}wo")
 
 
 # ======================================================================
@@ -511,11 +542,13 @@ def slstm_init(rng, cfg: ArchConfig, dtype) -> Params:
     return p
 
 
-def slstm_cache_init(cfg: ArchConfig, batch: int, dtype, device) -> Params:
+def slstm_cache_init(cfg: ArchConfig, batch: int, dtype, device,
+                     parts: int = 1) -> Params:
     """The decode state of one block, each (B, D) f32 whatever ``dtype``;
-    the stabiliser ``m`` at -1e30."""
+    the stabiliser ``m`` at -1e30; ``parts`` > 1: a rank's D / parts
+    channels, whole heads."""
     f32 = dict(dtype=torch.float32, device=device)
-    shape = (batch, cfg.d_model)
+    shape = (batch, cfg.d_model // parts)
     return {"c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
             "h": torch.zeros(shape, **f32),
             "m": torch.full(shape, -1e30, **f32)}
@@ -568,10 +601,12 @@ def slstm_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     / ``start`` / ``length``) carrying row ``slot`` on, whose padded tail
     steps keep the state (their outputs repeat the last valid one, as the
     reference's where-select gives); decode (T = 1), where with ``paged``
-    rows with ``pos`` < 0 keep their state."""
-    d = cfg.d_model
-    nh = cfg.num_heads
-    hd = d // nh
+    rows with ``pos`` < 0 keep their state.  Tensor-parallel: a rank's
+    whole heads (the four gates column-parallel, its recurrences ``r_*``,
+    ``bf`` entries and state rows), ``wo`` row-parallel."""
+    hd = cfg.d_model // cfg.num_heads
+    nh = p["r_z"].shape[0]                    # the rank's heads
+    d = nh * hd
     bsz, t, _ = h.shape
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
     gates = [linear(h_in, p[key], caps=caps, name=f"{prefix}{key}").float()
@@ -616,4 +651,5 @@ def slstm_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
             cache[key].copy_(val)
 
     y = torch.stack(ys, dim=1)                              # (B, T, D)
-    return h + linear(y.to(h.dtype), p["wo"], caps=caps, name=f"{prefix}wo")
+    return h + linear_rows(y.to(h.dtype), p["wo"], full=cfg.d_model,
+                           caps=caps, name=f"{prefix}wo")

@@ -55,11 +55,14 @@ serve from the dense cache only (static mode), as in the reference.
 Under a context whose model axis is > 1 (tensor-parallel serving) the
 serve methods run a rank's blocks of the params
 (``dist.sharding.shard_params``): the caches hold the rank's KV heads
-(``LM.cache_kv_heads``) and the layers make the collectives
-(``models.layers``).  It covers the dense decoders — ``attn`` /
-``attn_local`` blocks with a dense MLP; a model with recurrent blocks,
-experts, leading prefix blocks, a modality frontend or an encoder
-raises (ROADMAP.md, Queue 1).
+(``LM.cache_kv_heads``) and the rank's width of each recurrent block's
+state (``LM.state_init``: Mamba's d_inner channels, whole mLSTM / sLSTM
+heads, where ``dist.sharding.state_split`` splits the block), and the
+layers make the collectives (``models.layers``, ``models.ssm``, the
+expert-parallel dispatch of ``models.moe``).  It covers the dense
+decoders, the Mamba LM and Jamba's hybrid, the xLSTM and the MoE
+decoders; a model with leading prefix blocks, a modality frontend or an
+encoder raises (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ import torch
 from repro_torch import random as rnd
 from repro_torch.core.engine import LinearSpec, SegmentSpec
 from repro_torch.dist.api import current_ctx
-from repro_torch.dist.sharding import kv_head_split
+from repro_torch.dist.sharding import kv_head_split, state_split
 from repro_torch.models.base import ArchConfig
 from repro_torch.models.layers import (Params, attn_apply, attn_cache_init,
                                        attn_init, attn_paged_cache_init,
@@ -614,10 +617,7 @@ class LM:
         if tp == 1:
             return 1
         cfg = self.cfg
-        missing = [f"{k} blocks" for k in dict.fromkeys(self.kinds)
-                   if k not in ATTN_KINDS]
-        if cfg.moe is not None:
-            missing.append("experts (moe_dispatch_specs)")
+        missing = []
         if cfg.prefix:
             missing.append("leading prefix blocks")
         if cfg.frontend is not None:
@@ -627,9 +627,10 @@ class LM:
         if missing:
             raise ValueError(
                 f"{cfg.name}: tensor-parallel serving (model axis {tp}) "
-                "covers the dense decoders — attn / attn_local blocks with "
-                f"a dense MLP; {', '.join(missing)} wait for their port "
-                "(ROADMAP.md, Queue 1)")
+                "covers decoders of attn / attn_local, mamba, mlstm and "
+                f"slstm blocks with a dense MLP or experts; "
+                f"{', '.join(missing)} wait for their port (ROADMAP.md, "
+                "Queue 1)")
         return tp
 
     def cache_kv_heads(self) -> int:
@@ -667,8 +668,14 @@ class LM:
     def state_init(self, kind: str, batch: int,
                    dtype) -> Dict[str, torch.Tensor]:
         """The init state of ``batch`` rows of a recurrent block ``kind``
-        (the reference's ``block_cache_init``)."""
-        return STATE_BLOCKS[kind][2](self.cfg, batch, dtype, self.device)
+        (the reference's ``block_cache_init``), at the rank's width under
+        a model axis that splits the block (``dist.sharding.state_split``:
+        d_inner / tp channels, NH / tp heads)."""
+        tp = self.serve_tp()
+        split = any(d is not None
+                    for d in state_split(kind, self.cfg, tp).values())
+        return STATE_BLOCKS[kind][2](self.cfg, batch, dtype, self.device,
+                                     tp if split else 1)
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 cache: List[Dict[str, torch.Tensor]],

@@ -43,10 +43,16 @@ Under a mesh (``mesh=``, or the active ``dist.use_mesh`` context; the
 reference's ``ServeEngine``) every process is one rank and runs this
 same engine on the same requests.  A model axis > 1 is tensor-parallel
 serving: the params are packed first and then sharded
-(``dist.sharding.shard_params`` with whole heads), each rank's pool
-holds its KV heads, and the layers make one all-reduce a block and
-all-gather the logits, so every rank samples the same tokens (the dense
-decoders only: ``LM.serve_tp`` refuses the rest).  The ranks' schedules
+(``dist.sharding.shard_params`` under the model's config: whole
+attention heads, Mamba's d_inner channels, whole mLSTM / sLSTM heads, a
+block of the experts), each rank's pool holds its KV heads and its
+width of the recurrent state rows (``StatePool``'s init rows too), and
+the layers make one all-reduce a block and all-gather the logits, so
+every rank samples the same tokens (``LM.serve_tp`` refuses a prefix, a
+frontend and an encoder).  A MoE's experts dispatch expert-parallel:
+the tokens of a bucket split over data route in each data rank's rows,
+those of a bucket every rank holds in the reference's token blocks
+(``models.moe``).  The ranks' schedules
 are the same because the scheduler is deterministic and reads only what
 every rank holds alike; the one wall-clock decision, the hard-deadline
 sweep, is rank 0's, broadcast.  Before each burst the ranks compare a
@@ -192,7 +198,7 @@ class ServeEngine:
             params = compressed_param_tree(params)
         self.n_sparse_leaves = count_packed(params)
         if self.tp > 1:
-            params = shard_params(params, mesh, head_dim=model.cfg.hd)
+            params = shard_params(params, mesh, cfg=model.cfg)
         self.params = params
         self.extra_batch = extra_batch or {}
         self.mode = effective_mode(model.cfg, config.mode, self.extra_batch)
@@ -222,7 +228,7 @@ class ServeEngine:
                 prefix_cache=config.prefix_cache,
                 host_swap_pages=config.resolved_swap_pages(), obs=obs,
                 faults=self.faults)
-        state = StatePool(model, self.pool.kv)
+            state = StatePool(model, self.pool.kv)   # the rank's widths
         self.state_pool = state if state.has_state else None
         # swap preemption preserves KV pages only: recurrent-state rows
         # live outside the page pool, so those models keep recompute

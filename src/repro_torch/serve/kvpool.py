@@ -669,7 +669,10 @@ class StatePool:
     ``block_cache_init(cfg, kind, 1, 0, dt)``): zeros for Mamba, and for
     the xLSTM zeros but the stabiliser ``m`` at -1e30 — a zeroed ``m``
     would move the first step's ``max(logf + m, logi)`` and with it the
-    stream."""
+    stream.  Under tensor-parallel serving the rows and the init rows
+    are the rank's width (built under the engine's context); a row of
+    another width than its layer's raises here, not in a copy that
+    could broadcast."""
 
     def __init__(self, model, kv: List[Dict[str, torch.Tensor]]):
         self.entries = [layer for layer, kind in zip(kv, model.kinds)
@@ -677,6 +680,13 @@ class StatePool:
         self.init_rows = [model.state_init(kind, 1, model.dtype)
                           for kind in model.kinds
                           if kind in model.STATE_KINDS]
+        for layer, rows in zip(self.entries, self.init_rows):
+            for key, t in layer.items():
+                if t.shape[1:] != rows[key].shape[1:]:
+                    raise ValueError(
+                        f"state rows {key}: init row of "
+                        f"{tuple(rows[key].shape[1:])} against the pool's "
+                        f"{tuple(t.shape[1:])}")
 
     @property
     def has_state(self) -> bool:

@@ -19,17 +19,28 @@ package on one device — the reference's own mesh tests fail on this jax
   every rank's logits bit-equal, and every rank's all-reduce and
   all-gather results;
 * the rules: ``dist.sharding.param_split`` against the reference's
-  ``param_specs`` on every leaf of four SMOKE trees, dense and packed,
-  at tp 2 and 4 (``head_dim=cfg.hd``), and the cache rule
-  (``kv_head_split``) against ``paged_kv_block_specs`` /
-  ``decode_cache_block_specs``;
+  ``param_specs`` on every leaf of nine SMOKE trees — the four dense
+  decoders', ``paper-tiny-mamba``, Jamba, the xLSTM, phi3.5-moe and
+  kimi-k2 — dense and packed (the recurrent blocks' linears too), at tp
+  2 and 4 (``head_dim=cfg.hd``), every leaf equal but the rank-local
+  ones (``dist.sharding.RANK_LOCAL``), each asserted at the port's dim,
+  and two twins whose recurrent blocks stay whole (every leaf of such a
+  block whole);
+  the cache rules (``kv_head_split``, ``state_split``) against
+  ``paged_kv_block_specs`` / ``decode_cache_block_specs`` /
+  ``paged_state_block_specs``, the recurrent dense cache taking the
+  paged rule (whole heads);
 * a rank's params at tp 2 (Qwen1.5-0.5B SMOKE, packed): under
   BYTES_RATIO of the whole tree's, every split leaf fresh and contiguous;
 * the schedule: a hard deadline is rank 0's to call, and ranks whose
   burst plans differ raise;
-* Mamba, MoE and the encoder-decoder under 1x2 raise naming ROADMAP.md,
-  as does ``--server``; the CLI's ``--mesh 1x2`` prints one device's
-  streams.
+* the prefix-LM and the encoder-decoder under 1x2 raise naming
+  ROADMAP.md, as do ``--server`` and ``--replicas 2``; the CLI's
+  ``--mesh 1x2`` prints one device's streams (qwen3-14b and xlstm-350m
+  SMOKE).
+
+The recurrent and expert families' serving is
+tests/test_torch_tp_serve_families.py.
 """
 
 import dataclasses
@@ -45,22 +56,38 @@ from jax.sharding import PartitionSpec as P
 import torch_dist_worker as W
 from repro.ckpt.store import _flatten
 from repro.configs import get_smoke as j_get_smoke
+from repro.configs.paper_tiny_lm import MAMBA as J_MAMBA
 from repro.dist.sharding import (decode_cache_block_specs,
-                                 paged_kv_block_specs, param_specs)
+                                 paged_kv_block_specs,
+                                 paged_state_block_specs, param_specs)
 from repro.models import LM as JLM
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch import configs
-from repro_torch.core.pruner import prune_linears
-from repro_torch.dist.sharding import kv_head_split
+from repro_torch.configs import paper_tiny_lm
+from repro_torch.core.pruner import LINEARS, prune_linears
+from repro_torch.dist.sharding import (RANK_LOCAL, block_splits,
+                                       kv_head_split, state_split)
 from repro_torch.dist.sharding import param_specs as t_param_specs
 from repro_torch.models.transformer import LM
-from repro_torch.serve.sparse import compressed_param_tree
+from repro_torch.serve.sparse import (DEFAULT_SPARSE_PATTERNS,
+                                      compressed_param_tree, linear_patterns)
 
 LOGIT_TOL = 1e-5
 BYTES_RATIO = 0.6
 WORLDS = (2, 4)
-RULE_ARCHS = ("qwen3-14b", "gemma-2b", "qwen1.5-0.5b", "paper_tiny_lm")
+RULE_ARCHS = ("qwen3-14b", "gemma-2b", "qwen1.5-0.5b", "paper_tiny_lm",
+              "paper-tiny-mamba", "jamba-1.5-large-398b", "xlstm-350m",
+              "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b")
+# twins whose recurrent blocks stay whole at tp 2 and 4 (the families'
+# test serves them): rule id → tests/torch_dist_worker.py's FAM_MODELS
+WHOLE_TWINS = {"jamba-whole": "jamba_whole", "xlstm-whole": "xlstm_whole"}
+# the linears packed in the rules' trees (the reference's names)
+PACKED = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("wi", "wg", "wo"),
+          "shared": ("wi", "wg", "wo"),
+          "mamba": ("in_proj", "x_proj", "dt_proj", "out_proj"),
+          "mlstm": ("wq", "wk", "wv", "wo"),
+          "slstm": ("wz", "wi", "wf", "wo_gate", "wo")}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -216,25 +243,30 @@ def test_deadlines_are_rank_0s_and_parted_plans_raise(tp):
 
 
 def test_unported_models_and_server_refuse_under_a_mesh(tp):
+    """The prefix-LM and the encoder-decoder refuse a model axis of 2;
+    ``--server`` and ``--replicas 2`` refuse a mesh of two ranks."""
     for r in tp["ranks"][2]:
+        assert sorted(r["refusals"]) == ["encdec", "prefix_lm"]
         for name, msg in r["refusals"].items():
             assert msg is not None and "ROADMAP.md" in msg, name
-        _, exit_msg = r["cli_server"]
-        assert exit_msg is not None and "ROADMAP.md" in exit_msg
+        for key in ("cli_server", "cli_replicas"):
+            _, exit_msg = r[key]
+            assert exit_msg is not None and "ROADMAP.md" in exit_msg, key
 
 
-def test_cli_mesh_1x2_prints_one_device_streams(tp):
+@pytest.mark.parametrize("arch", list(W.CLI_CASES))
+def test_cli_mesh_1x2_prints_one_device_streams(tp, arch):
     def streams(text):      # one device names its router's replica
         return [line.split("  [")[0] for line in text.splitlines()
                 if line.startswith("req ")]
 
-    one, _ = W._cli(W.CLI_ARGS)
+    one, _ = W._cli(W.CLI_CASES[arch])
     assert len(streams(one)) == 3
-    out, err = tp["ranks"][2][0]["cli"]
+    out, err = tp["ranks"][2][0]["cli"][arch]
     assert err is None
     assert streams(out) == streams(one)
     assert "mesh 1x2" in out and "model axis 2" in out
-    assert tp["ranks"][2][1]["cli"][0] == ""        # rank 1 prints nothing
+    assert tp["ranks"][2][1]["cli"][arch][0] == ""  # rank 1 prints nothing
 
 
 # ----------------------------------------------------------------------
@@ -258,13 +290,13 @@ def _model_dim(spec, lead):
 
 
 def _packed_shapes(tree, path=""):
-    """The reference's param tree of shapes, its attention and MLP
-    linears 2:4-packed as ``serve.sparse.pack_24`` packs them."""
+    """The reference's param tree of shapes, its attention, MLP, shared
+    expert and recurrent blocks' linears 2:4-packed as
+    ``serve.sparse.pack_24`` packs them."""
     if isinstance(tree, dict):
         return {k: _packed_shapes(v, f"{path}/{k}") for k, v in tree.items()}
     parts = path.split("/")
-    if (parts[-2:-1] in (["attn"], ["mlp"])
-            and parts[-1] in ("wq", "wk", "wv", "wo", "wi", "wg")):
+    if parts[-1] in PACKED.get(parts[-2], ()):
         lead, k, n = tree.shape
         half = jax.ShapeDtypeStruct((lead, k // 2, n), tree.dtype)
         return {"vals": half,
@@ -293,24 +325,53 @@ def _flat_port(tree, path=""):
     return {path: tree}
 
 
-@pytest.mark.parametrize("tp_size", (2, 4))
-@pytest.mark.parametrize("packed", (False, True), ids=("dense", "packed"))
-@pytest.mark.parametrize("arch", RULE_ARCHS)
+def _rule_configs(arch):
+    """(the reference's SMOKE config, the port's) of a RULE_ARCHS or
+    WHOLE_TWINS id."""
+    if arch == "paper-tiny-mamba":
+        return J_MAMBA, paper_tiny_lm.MAMBA
+    if arch in WHOLE_TWINS:
+        base, over = W.FAM_MODELS[WHOLE_TWINS[arch]]
+        return (dataclasses.replace(j_get_smoke(base), **over),
+                W.fam_config(WHOLE_TWINS[arch]))
+    return j_get_smoke(arch), configs.get_smoke(arch)
+
+
+# (arch, packed, tp): the whole Mamba twin's d_model 63 does not pack
+_RULE_CASES = [(arch, packed, tp) for arch in RULE_ARCHS + tuple(WHOLE_TWINS)
+               for packed in (False, True) for tp in (2, 4)
+               if not (packed and arch == "jamba-whole")]
+
+
+@pytest.mark.parametrize(
+    "arch,packed,tp_size", _RULE_CASES,
+    ids=[f"{a}-{'packed' if p else 'dense'}-{t}" for a, p, t in _RULE_CASES])
 def test_param_rule_matches_reference(arch, packed, tp_size):
-    jcfg = j_get_smoke(arch)
+    """Every leaf's split dim equals the reference's, but the rank-local
+    leaves (RANK_LOCAL: Mamba's vectors, conv taps, ``a_log`` and its
+    row-parallel ``x_proj``; the mLSTM's gate biases; the sLSTM's
+    recurrences and forget bias), each at the port's dim, and the leaves
+    of a recurrent block that does not split (``block_splits``), each
+    whole where the reference may split it.  Mamba's ``in_proj`` splits
+    the reference's dim, a rank's block of x and of z
+    (``shard_params``)."""
+    jcfg, tcfg = _rule_configs(arch)
     shapes = jax.eval_shape(JLM(jcfg).init, jax.random.key(0))
     if packed:
         shapes = _packed_shapes(shapes)
     want = _flat_specs(param_specs(shapes, _FakeMesh(tp_size),
                                    head_dim=jcfg.hd))
-    model = LM(configs.get_smoke(arch), device="cpu")
+    model = LM(tcfg, device="cpu")
     gen = torch.Generator().manual_seed(0)
     params = model.init(gen)
     if packed:
-        params = compressed_param_tree(prune_linears(params, "2:4"))
-    got = _flat_port(t_param_specs(params, tp_size, head_dim=jcfg.hd))
+        linears = LINEARS + model.block_linears()
+        params = compressed_param_tree(
+            prune_linears(params, "2:4", linears=linears),
+            DEFAULT_SPARSE_PATTERNS + linear_patterns(linears))
+    got = _flat_port(t_param_specs(params, tp_size, cfg=tcfg))
     period = len(jcfg.period)
-    checked = 0
+    checked = diverged = 0
     for path, dim in got.items():
         parts = path.split("/")
         if parts[0] == "layers":
@@ -319,19 +380,46 @@ def test_param_rule_matches_reference(arch, packed, tp_size):
             lead = 1
         else:
             ref, lead = path, 0
-        assert _model_dim(want[ref], lead) == dim, (path, want[ref], dim)
+        leaf = [p for p in parts if p not in ("vals", "idx")]
+        local = RANK_LOCAL.get(leaf[-2], {}).get(leaf[-1])
+        if (leaf[-2] in RANK_LOCAL
+                and not block_splits(leaf[-2], tcfg, tp_size)):
+            assert dim is None, path                  # the block is whole
+            diverged += _model_dim(want[ref], lead) is not None
+        elif local is not None:
+            assert dim == local, (path, dim)
+            assert _model_dim(want[ref], lead) != dim, path
+            diverged += 1
+        else:
+            assert _model_dim(want[ref], lead) == dim, (path, want[ref], dim)
         checked += 1
     assert checked == len(got) and any(d is not None for d in got.values())
-    if packed:
-        assert any(p.endswith("wo/vals") and d == 0 for p, d in got.items())
+    recurrent = set(tcfg.period) & set(RANK_LOCAL)
+    if any(block_splits(k, tcfg, tp_size) for k in recurrent):
+        assert diverged > 0
+    elif not recurrent:
+        assert diverged == 0
+    if packed and arch not in WHOLE_TWINS:
+        assert any(p.endswith(("wo/vals", "out_proj/vals")) and d == 0
+                   for p, d in got.items())
+    if tcfg.moe is not None:
+        assert any(p.endswith("moe/wi") and d == 0 for p, d in got.items())
 
 
 @pytest.mark.parametrize("tp_size", (2, 4))
-@pytest.mark.parametrize("arch", RULE_ARCHS)
+@pytest.mark.parametrize("arch", RULE_ARCHS + tuple(WHOLE_TWINS))
 def test_cache_rules_match_reference(arch, tp_size):
-    cfg = j_get_smoke(arch)
+    """The KV rules, and each recurrent kind's state rule against
+    ``paged_state_block_specs`` and the recurrent kinds of
+    ``decode_cache_block_specs``: the dense cache takes the paged rule,
+    whole heads, where the reference's splits inside an mLSTM head or
+    an sLSTM d_model without the head condition."""
+    cfg, tcfg = _rule_configs(arch)
     mesh = _FakeMesh(tp_size)
-    dims = {"num_kv_heads": cfg.num_kv_heads, "hd": cfg.hd}
+    dims = {"num_kv_heads": cfg.num_kv_heads, "hd": cfg.hd,
+            "d_inner": cfg.d_inner, "d_model": cfg.d_model,
+            "num_heads": cfg.num_heads,
+            "mlstm_hd": cfg.mlstm_proj * cfg.d_model // cfg.num_heads}
     paged = paged_kv_block_specs(dims, mesh, quantized=True)
     split = kv_head_split(cfg.num_kv_heads, tp_size)
     assert _model_dim(paged["k"], 0) == split
@@ -339,3 +427,18 @@ def test_cache_rules_match_reference(arch, tp_size):
     dense = _model_dim(decode_cache_block_specs("attn", dims, mesh)["k"], 0)
     # the reference's hd fallback (dim 3) is a whole cache in the port
     assert split == (dense if dense == 2 else None)
+    for kind in set(cfg.period) & {"mamba", "mlstm", "slstm"}:
+        got = state_split(kind, tcfg, tp_size)
+        want = paged_state_block_specs(kind, dims, mesh)
+        dense = decode_cache_block_specs(kind, dims, mesh)
+        assert sorted(got) == sorted(want) == sorted(dense)
+        for key, dim in got.items():
+            assert _model_dim(want[key], 0) == dim, (kind, key)
+            d = _model_dim(dense[key], 0)
+            if kind == "mlstm":       # the reference's: hd, not heads
+                assert d == (None if key == "m" or dims["mlstm_hd"]
+                             % tp_size else 2), key
+            elif kind == "slstm":     # the reference's: d_model alone
+                assert d == (None if cfg.d_model % tp_size else 1), key
+            else:
+                assert d == dim, (kind, key)

@@ -327,8 +327,7 @@ def _tp_logits(model, params, mesh):
     from repro_torch.dist.sharding import shard_params
     from repro_torch.serve.sparse import compressed_param_tree
 
-    sp = shard_params(compressed_param_tree(params), mesh,
-                      head_dim=model.cfg.hd)
+    sp = shard_params(compressed_param_tree(params), mesh, cfg=model.cfg)
     toks = torch.from_numpy(logit_prompts())
     nxt = torch.tensor(DECODE_TOKENS, dtype=torch.int32)
     with use_mesh(mesh):
@@ -391,16 +390,15 @@ def _tp_layout(mesh):
 
 
 def _tp_refusals(mesh):
-    """The models whose tensor parallelism is not ported: the message of
-    the error each raises under ``mesh`` (None: it did not)."""
+    """The models whose tensor parallelism is not ported — the prefix-LM
+    and the encoder-decoder: the message of the error each raises under
+    ``mesh`` (None: it did not)."""
     from repro_torch import configs
-    from repro_torch.configs import paper_tiny_lm
     from repro_torch.models.transformer import LM
     from repro_torch.serve.engine import ServeEngine
 
     out = {}
-    for name, cfg in (("mamba", paper_tiny_lm.MAMBA),
-                      ("moe", configs.get_smoke(MOE_ARCH)),
+    for name, cfg in (("prefix_lm", configs.get_smoke("paligemma_3b")),
                       ("encdec", configs.get_smoke("seamless_m4t_large_v2"))):
         try:
             ServeEngine(LM(cfg, device="cpu"), {}, mesh=mesh, **TP_BASE)
@@ -427,6 +425,9 @@ def _cli(argv):
 CLI_ARGS = ["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
             "--magnitude-24", "--sparse", "--requests", "3", "--max-new",
             "4"]
+CLI_CASES = {"qwen3-14b": CLI_ARGS,
+             "xlstm-350m": ["--arch", "xlstm-350m", "--smoke", "--device",
+                            "cpu", "--requests", "3", "--max-new", "4"]}
 
 
 def _tp_bits(mesh):
@@ -500,8 +501,236 @@ def _tp_cases(rank: int, world: int, flats, _, tmp: str) -> dict:
         res["schedule"] = _tp_schedule(mesh, rank, model, params)
         res["layout"] = _tp_layout(mesh)
         res["refusals"] = _tp_refusals(mesh)
-        res["cli"] = _cli(CLI_ARGS + ["--mesh", "1x2"])
+        res["cli"] = {arch: _cli(argv + ["--mesh", "1x2"])
+                      for arch, argv in CLI_CASES.items()}
         res["cli_server"] = _cli(CLI_ARGS + ["--mesh", "1x2", "--server"])
+        res["cli_replicas"] = _cli(CLI_ARGS + ["--mesh", "1x2",
+                                               "--replicas", "2"])
+    dist.barrier()
+    return res
+
+
+# ----------------------------------------------------------------------
+# tensor-parallel serving of the recurrent and expert families
+# (tests/test_torch_tp_serve_families.py)
+# ----------------------------------------------------------------------
+# name → (arch, config overrides); "mamba" is paper_tiny_lm.MAMBA, which
+# is in neither registry
+FAM_MODELS = {
+    "mamba": ("paper-tiny-mamba", {}),
+    "jamba": ("jamba-1.5-large-398b", dict(moe=None, moe_slots=())),
+    "xlstm": ("xlstm-350m", {}),
+    "phi": ("phi3.5-moe-42b-a6.6b", {}),
+    "kimi": ("kimi-k2-1t-a32b", {}),
+    "jamba_moe": ("jamba-1.5-large-398b", {}),
+    # twins whose recurrent blocks do not split over a model axis of 2:
+    # d_inner 63 (Mamba whole beside a split attention and MLP) and 3
+    # heads (the mLSTM and the sLSTM whole, though d_model divides)
+    "jamba_whole": ("jamba-1.5-large-398b",
+                    dict(moe=None, moe_slots=(), d_model=63, ssm_expand=1)),
+    "xlstm_whole": ("xlstm-350m",
+                    dict(d_model=48, num_heads=3, num_kv_heads=3)),
+}
+FAM_MOE = ("phi", "kimi", "jamba_moe")
+# served unpruned and dense: d_model 63 has no groups of 4 inputs
+FAM_DENSE = ("jamba_whole",)
+# the reference's runs: its static greedy run stands for every greedy
+# mode (a row's greedy stream depends on neither its batch nor the
+# cache); "greedy_rows", buckets of one row, is what a 2x2 mesh's data
+# ranks route when a MoE's two-row bucket splits over data (each rank's
+# rows are one token block, routed on its own)
+FAM_REFS = {"greedy": dict(mode="static", max_batch=2),
+            "greedy_rows": dict(mode="static", max_batch=1),
+            "sampled_static": dict(mode="static", max_batch=2, **SAMPLED)}
+FAM_MODES = {        # the port's knobs, the reference run they equal
+    "continuous": dict(prefill_chunk=8),
+    "starved": dict(prefill_chunk=8, num_pages=9),       # recompute
+    "static": dict(mode="static", max_batch=2),
+    "sampled_static": FAM_REFS["sampled_static"],
+}
+FAM_MOE_ROWS = ((3, 10), (3, 5))     # (B, T) every rank holds: 30 tokens
+#                                      in two blocks of 15 on 2x2 (row 1
+#                                      cut), 15 in one (odd)
+FAM_MOE_SPLIT = (4, 6)               # a batch whose rows split over data
+
+
+def fam_config(name: str):
+    from repro_torch import configs
+    from repro_torch.configs import paper_tiny_lm
+
+    arch, over = FAM_MODELS[name]
+    if name == "mamba":
+        return paper_tiny_lm.MAMBA
+    return dataclasses.replace(configs.get_smoke(arch), **over)
+
+
+def fam_modes(name: str, world: int):
+    """The modes of ``name`` on a group of ``world`` ranks: a MoE serves
+    static; sampled static on phi3.5 and 1x2 only (a 2x2 mesh's data
+    ranks route their rows alone, and no one-device run draws a two-row
+    bucket's noise over one-row routes)."""
+    if name in FAM_MOE:
+        return ("static", "sampled_static") if (
+            name == "phi" and world == 2) else ("static",)
+    return {"mamba": ("continuous", "static"),
+            "jamba": ("continuous", "starved", "static"),
+            "xlstm": ("continuous", "static"),
+            "jamba_whole": ("continuous",),
+            "xlstm_whole": ("continuous",)}[name]
+
+
+def fam_ref(name: str, mode: str, world: int) -> str:
+    """The reference run a mode's streams equal."""
+    if mode == "sampled_static":
+        return "sampled_static"
+    return "greedy_rows" if name in FAM_MOE and world == 4 else "greedy"
+
+
+def fam_pack(model, params):
+    """The 2:4-pruned linears packed: the attention's, the MLP's, the
+    shared expert's and the recurrent blocks' (the defaults leave those
+    dense)."""
+    from repro_torch.serve.sparse import (DEFAULT_SPARSE_PATTERNS,
+                                          compressed_param_tree,
+                                          linear_patterns)
+
+    return compressed_param_tree(params, DEFAULT_SPARSE_PATTERNS
+                                 + linear_patterns(model.block_linears()))
+
+
+def _fam_logits(model, params, mesh):
+    """As :func:`_tp_logits`, with the rank's state rows: a dense prefill
+    of two prompts and a decode step, and for a model that serves paged
+    one chunk of the first prompt into slot 0 and a paged decode step."""
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.serve.engine import effective_mode
+
+    sp = shard_params(params, mesh, cfg=model.cfg)
+    toks = torch.from_numpy(logit_prompts())
+    nxt = torch.tensor(DECODE_TOKENS, dtype=torch.int32)
+    out = {}
+    with use_mesh(mesh):
+        cache = model.init_cache(2, 32)
+        out["prefill"] = model.prefill(sp, toks, cache)
+        out["decode"] = model.decode_step(sp, nxt, cache, LOGIT_TOKENS)
+        if effective_mode(model.cfg, "continuous") == "continuous":
+            kv = model.init_paged_cache(8, 8, max_slots=1)
+            bt = torch.tensor([[1, 2, 3]], dtype=torch.int32)
+            chunk = torch.zeros((1, 16), dtype=torch.int32)
+            chunk[0, :LOGIT_TOKENS] = toks[0]
+            out["prefill_paged"] = model.prefill_chunk(
+                sp, chunk, kv, 0, LOGIT_TOKENS, bt, page_size=8)
+            out["decode_paged"] = model.decode_step(
+                sp, nxt[:1], kv, torch.tensor([LOGIT_TOKENS],
+                                              dtype=torch.int32), bt,
+                page_size=8)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _fam_widths(model, eng):
+    """What a rank holds: each recurrent kind's state rows (the pool's,
+    its StatePool's init rows and a dense cache's) and each MoE layer's
+    expert count."""
+    from repro_torch.dist import use_mesh
+
+    out = {"state": {}, "init_rows": {}, "dense": {}, "experts": []}
+    if eng.pool is not None:
+        for kind, layer in zip(model.kinds, eng.pool.kv):
+            if kind in model.STATE_KINDS:
+                out["state"][kind] = {k: tuple(t.shape[1:])
+                                      for k, t in layer.items()}
+        kinds = [k for k in model.kinds if k in model.STATE_KINDS]
+        for kind, rows in zip(kinds, eng.state_pool.init_rows):
+            out["init_rows"][kind] = {k: tuple(t.shape[1:])
+                                      for k, t in rows.items()}
+    with use_mesh(eng.mesh):
+        for kind, layer in zip(model.kinds, model.init_cache(1, 8)):
+            if kind in model.STATE_KINDS:
+                out["dense"][kind] = {k: tuple(t.shape[1:])
+                                      for k, t in layer.items()}
+    out["experts"] = [tuple(b["moe"]["wi"].shape) for b in eng.params[
+        "layers"] if "moe" in b]
+    return out
+
+
+def fam_moe_inputs():
+    """The MoE layer's inputs: a (B, T, D) hidden of each FAM_MOE_ROWS
+    shape and of FAM_MOE_SPLIT, phi3.5 SMOKE's width.  Every token shares
+    one large direction, so the router sends most tokens to the same
+    experts and their capacity drops tokens — where a block routed on
+    its own drops other tokens than the whole call would."""
+    rng = np.random.default_rng(11)
+    common = 3.0 * rng.standard_normal(64)
+    return [(rng.standard_normal((b, t, 64)) + common).astype(np.float32)
+            for b, t in (*FAM_MOE_ROWS, FAM_MOE_SPLIT)]
+
+
+def _fam_moe_layer(model, params, mesh):
+    """phi3.5 SMOKE's first MoE layer, the rank's experts, on rows every
+    rank holds (FAM_MOE_ROWS) and on a batch split over data (each data
+    rank its rows): the layer's output."""
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.sharding import batch_sharding, shard_params
+    from repro_torch.models import moe
+
+    p = shard_params(params, mesh, cfg=model.cfg)["layers"][0]["moe"]
+    *rows, split = [torch.from_numpy(h) for h in fam_moe_inputs()]
+    out = {}
+    with use_mesh(mesh):
+        for h in rows:
+            out[tuple(h.shape[:2])] = moe.moe_apply(p, h, model.cfg)[0]
+    mine = batch_sharding(mesh).rows(split.shape[0])
+    with use_mesh(mesh, split_rows=True):
+        out["split"] = moe.moe_apply(p, split[mine], model.cfg)[0]
+    out["split_rows"] = (mine.start, mine.stop)
+    return {k: v if isinstance(v, tuple) else v.numpy()
+            for k, v in out.items()}
+
+
+def _fam_serve(model, params, mesh, modes, reqs, res, name):
+    from repro_torch.serve.engine import ServeEngine
+
+    for mode in modes:
+        eng = ServeEngine(model, params, mesh=mesh,
+                          **{**TP_BASE, **FAM_MODES[mode]})
+        got = eng.generate(reqs, seed=7)
+        res["streams"][name, mode] = [r.tokens.tolist() for r in got]
+        res["stats"][name, mode] = {
+            k: eng.stats[k] for k in ("prefix_hit_tokens", "preempt_swap",
+                                      "preempt_recompute")}
+        if (name, "widths") not in res["stats"]:
+            res["stats"][name, "widths"] = _fam_widths(model, eng)
+    res["logits"][name] = _fam_logits(model, params, mesh)
+
+
+def _fam_cases(rank: int, world: int, flats, _, tmp: str) -> dict:
+    """Every family on 1x2 (world 2) or 2x2 (world 4); on 4 ranks the
+    xLSTM also on 1x4 (one head a rank)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import mesh_from_spec
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Request
+
+    mesh = mesh_from_spec("1x2" if world == 2 else "2x2", device="cpu")
+    res: dict = {"rank": rank, "streams": {}, "stats": {}, "logits": {}}
+    reqs = [Request(uid=u, prompt=p, max_new_tokens=m)
+            for u, p, m in tp_requests()]
+    for name in FAM_MODELS:
+        model = LM(fam_config(name), device="cpu")
+        params = model.params_from_jax(flats[name])
+        if name not in FAM_DENSE:
+            params = fam_pack(model, params)
+        _fam_serve(model, params, mesh, fam_modes(name, world), reqs, res,
+                   name)
+        if name == "phi":
+            res["moe_layer"] = _fam_moe_layer(model, params, mesh)
+    if world == 4:
+        model = LM(fam_config("xlstm"), device="cpu")
+        params = fam_pack(model, model.params_from_jax(flats["xlstm"]))
+        _fam_serve(model, params, mesh_from_spec("1x4", device="cpu"),
+                   ("continuous",), reqs, res, "xlstm_1x4")
     dist.barrier()
     return res
 
@@ -556,7 +785,8 @@ def _prefix_cases(rank: int, world: int, flat, _, tmp: str) -> dict:
     return res
 
 
-CASES = {"dist": _cases, "tp": _tp_cases, "prefix_2x4": _prefix_cases}
+CASES = {"dist": _cases, "tp": _tp_cases, "tp_families": _fam_cases,
+         "prefix_2x4": _prefix_cases}
 
 
 def _worker(rank: int, worlds, inits, tmp: str, queue,
