@@ -36,13 +36,16 @@ sharing the card, pruning and training over a DeviceMesh.
     python3 chip_smoke.py --phases 15e,16 # the frontend models trained,
                                           # and distribution (16a, 16b,
                                           # 16c, 16d)
-    python3 chip_smoke.py --phases 1t,16d # 16c's and 16d's rank-local
-                                          # kernel shapes; tensor-parallel
-                                          # serving of the recurrent and
-                                          # expert families alone (16c:
-                                          # the dense decoders'): its
-                                          # one-device runs and the two
-                                          # ranks' (no 16a / 16b)
+    python3 chip_smoke.py --phases 1t,16d # 16c's, 16d's and 16e's
+                                          # rank-local kernel shapes;
+                                          # tensor-parallel serving of the
+                                          # recurrent and expert families
+                                          # alone (16c: the dense
+                                          # decoders'; 16e: the prefix-LM
+                                          # and the encoder-decoder; 16f:
+                                          # the server under the mesh):
+                                          # its one-device runs and the
+                                          # two ranks' (no 16a / 16b)
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
@@ -380,12 +383,30 @@ Phases (any failure exits non-zero; no exception is swallowed):
      one device: each f32 twin's streams equal, 8 of 8, both ranks'
      streams bit-equal, each rank's TP_FAMILY_NEED launched, a rank's
      census and memory_allocated under TP_BYTES_RATIO of one device's;
-     bf16 agreement and tok/s printed.
+     bf16 agreement and tok/s printed.  16e, in the same two processes
+     on 1x2: the prefix-LM and the encoder-decoder (TP_FRONTEND_CASES) —
+     paligemma-3b at full width, 2 of 18 layers, and
+     seamless-m4t-large-v2, 2 + 2 of 24 + 24, every linear of decoder
+     and encoder magnitude-2:4 packed, bf16 and an f32 twin, phase 3's 8
+     requests static with 15a-b's seeded stub features — against the same
+     runs on one device: each f32 twin's streams equal, 8 of 8, the
+     ranks' bit-equal, each rank's TP_FRONTEND_NEED launched, a rank's
+     census and memory_allocated under TP_BYTES_RATIO, every rank-local
+     packed shape one of phase 1t's rows.  16f, last in the same two
+     processes: ``launch.serve.run_frontend`` under 1x2 — Qwen1.5-0.5B at
+     full width, DIST_LAYERS layers, f32, 2:4-packed, two replicas; rank
+     0 serves HTTP on port 0 (the router, the supervisor), rank 1
+     mirrors both replicas — while this process streams phase 3's 8 greedy
+     requests to it; a replica_worker death is armed on r0 once it has
+     streamed a token; then SIGTERM to both ranks: the streams equal
+     16c's one-device f32 streams, the death fired once and failed
+     requests over, each rank launched paged_attn, printed "draining..."
+     and exited 0.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
 shapes — hessian_accum's weighted rows under ``weighted`` — and its
-launches over phases 3-16, 16b's two ranks' included; flash_attn's
+launches over phases 3-16, 16b-f's two ranks' included; flash_attn's
 rows at phase 1e's shapes under ``frontend``), the nvidia-smi
 line, and last the ``{"ok": true, "device": {...}}`` line.  Longer tables go to
 ``chiprun_out/chip_smoke.txt``.
@@ -589,11 +610,12 @@ def _route_of(dtype):
     return "tensor cores" if dtype == torch.bfloat16 else "f32 FMA"
 
 
-def nm_row(gen, m, name, k, n, has_bias, act):
+def nm_row(gen, m, name, k, n, has_bias, act, timed=True):
     """One nm_spmm (M > 128) or nm_spmm_decode (M <= 128) row: the kernel
     against its plain version in f32 and in bf16 (route, same bits),
-    then timed in bf16 beside torch.matmul on the dense weight, weights
-    rotated past L2; its bound from this call's bytes and products."""
+    then (``timed``) timed in bf16 beside torch.matmul on the dense
+    weight, weights rotated past L2; its bound from this call's bytes and
+    products."""
     import torch
 
     from repro_torch.kernels import nm_spmm as K
@@ -632,14 +654,16 @@ def nm_row(gen, m, name, k, n, has_bias, act):
     err_b = (got - want).abs().max().item()
     tol_b = KERNEL_TOL_REL * max(1.0, want.abs().max().item())
     del got, want
-    sets, lib_sets = [], []
-    for _ in range(reps):
-        v2, i2 = vals.clone(), idx.clone()
-        sets.append((xb, v2, i2, *((bb, act) if extra else ())))
-        lib_sets.append((xb, w.clone()))
-    ms = device_ms(kern, sets)
-    plain_ms = device_ms(plain, sets)
-    lib_ms = device_ms(torch.matmul, lib_sets)
+    ms = plain_ms = lib_ms = None
+    if timed:
+        sets, lib_sets = [], []
+        for _ in range(reps):
+            v2, i2 = vals.clone(), idx.clone()
+            sets.append((xb, v2, i2, *((bb, act) if extra else ())))
+            lib_sets.append((xb, w.clone()))
+        ms = device_ms(kern, sets)
+        plain_ms = device_ms(plain, sets)
+        lib_ms = device_ms(torch.matmul, lib_sets)
     n_bytes = (m * k * 2 + vals.numel() * 2 + idx.numel()
                + (n * 2 if bb is not None else 0) + m * n * 4)
     b_ms, b_by = bound(n_bytes, 2.0 * m * n * (k // 2), "bfloat16")
@@ -651,8 +675,9 @@ def nm_row(gen, m, name, k, n, has_bias, act):
                route=kern.last_kernel, deterministic=same)
     say(f"  {kname:15s} {row['shape']:30s} err f32 {err:.3e} tol "
         f"{tol:.3e}, bf16 {err_b:.3e} tol {tol_b:.3e} ({row['route']}) "
-        f"same bits {same} {'ok' if ok else 'FAIL'}  ms {ms:.5f} plain "
-        f"{plain_ms:.5f} lib {lib_ms:.5f} bound {b_ms:.5f}")
+        f"same bits {same} {'ok' if ok else 'FAIL'}"
+        + (f"  ms {ms:.5f} plain {plain_ms:.5f} lib {lib_ms:.5f} bound "
+           f"{b_ms:.5f}" if timed else f"  bound {b_ms:.5f} (not timed)"))
     return row
 
 
@@ -5595,15 +5620,15 @@ def check_frontend_widths(gen, rows):
     return out
 
 
-def _frontend(arch, dtype=None, **cut):
+def _frontend(arch, dtype=None, device="cuda", **cut):
     """``arch``'s published config (cut where ``cut`` says, in ``dtype``
-    where given) and its model on the card."""
+    where given) and its model on ``device`` (the card)."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import LM
 
     cfg = dataclasses.replace(get_config(arch), **cut,
                               **({"dtype": dtype} if dtype else {}))
-    return cfg, LM(cfg, device="cuda")
+    return cfg, LM(cfg, device=device)
 
 
 def _frontend_feats(cfg, b, seed):
@@ -6359,7 +6384,13 @@ def check_tp_widths(gen, rows):
     for f32), the same bits from a second call.  16d's shapes beside
     them: ``tp_family_linears`` (every packed shape a rank of Jamba's
     slots, xlstm-350m or phi3.5 runs), TP_FAMILY_PAGED (Jamba's
-    attention slot on its 4 KV heads) and TP_FAMILY_FLASH."""
+    attention slot on its 4 KV heads) and TP_FAMILY_FLASH; 16e's:
+    ``tp_frontend_linears`` (every packed shape a rank of PaliGemma or
+    seamless runs, at the M of its prefill and its decode steps; timed
+    at ``mlp.wi``, a rank's widest linear, the others checked only) and
+    TP_FRONTEND_FLASH (PaliGemma's 4 of 8 heads on its one KV head with
+    the 256-position prefix; seamless's encoder, cross-attention and
+    decoder on 8 of 16 heads)."""
     import torch
 
     from repro_torch.kernels.flash_attn import flash_attn, flash_attn_plain
@@ -6371,6 +6402,12 @@ def check_tp_widths(gen, rows):
             row = nm_row(gen, m, *lin)
             rows.append(row)
             out[row["kernel"]].append(row)
+    for label, m, k, n, act in tp_frontend_linears():
+        # checked, and timed where a rank's widest linear runs
+        row = nm_row(gen, m, label, k, n, False, act,
+                     timed=label.endswith("mlp.wi"))
+        rows.append(row)
+        out[row["kernel"]].append(row)
     lengths = [96, 70, 65, 81, 64, 90, 77, 88]
     paged = paged_rows(gen, rows, [(label, b, kvh, g, hd, 16, 8, lengths,
                                     None, False, 0)
@@ -6408,6 +6445,47 @@ def check_tp_widths(gen, rows):
             say(f"  flash_attn      {row['shape']:40s} err {err:.3e} tol "
                 f"{tol:.3e} ({route}) same bits {same} "
                 f"{'ok' if row['ok'] else 'FAIL'}")
+            del q, k, v, got, want
+        for label, b, t, h, kv, hd, prefix, kv_len in TP_FRONTEND_FLASH:
+            q, k, v = _flash_inputs(gen, b, t, h, kv, hd, dtype)
+            if kv_len is not None:
+                k, v = (torch.randn(b, kv_len, kv, hd, generator=gen,
+                                    device="cuda").to(dtype)
+                        for _ in range(2))
+            args = (q, k, v, kv_len is None, None, prefix)
+            got = flash_attn(*args)
+            route = flash_attn.last_kernel
+            same = bool(torch.equal(got, flash_attn(*args)))
+            want = flash_attn_plain(*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = tol_rel * max(1.0, want.abs().max().item())
+            shape = (f"tp2 {label} B={b} T={t} H={h} KV={kv} hd={hd} "
+                     f"{dname} " + (f"prefix={prefix}" if prefix else
+                                    f"S={kv_len} full" if kv_len else
+                                    "causal"))
+            row = dict(kernel="flash_attn", shape=shape, max_abs_err=err,
+                       tol=tol, ok=err <= tol and route == want_route
+                       and same, route=route, deterministic=same)
+            timed = ""
+            if dtype == torch.bfloat16:          # the path's dtype: timed
+                pairs = (t * kv_len if kv_len else _prefix_pairs(
+                    t, prefix or 0))
+                n_bytes = ((b * t * h * hd + 2 * b * (kv_len or t) * kv * hd)
+                           * 2 + b * t * h * hd * 4)
+                b_ms, b_by = bound(n_bytes, 4.0 * b * h * hd * pairs,
+                                   "bfloat16")
+                row.update(ms=device_ms(flash_attn, [args]),
+                           plain_ms=device_ms(flash_attn_plain, [args], n=5,
+                                              reps=3),
+                           bound_ms=b_ms, bound_by=b_by)
+                timed = (f"  ms {row['ms']:.5f} plain {row['plain_ms']:.5f}"
+                         f" bound {b_ms:.5f} ({b_by})")
+            rows.append(row)
+            out["flash_attn"].append(row)
+            say(f"  flash_attn      {shape:52s} err {err:.3e} tol "
+                f"{tol:.3e} ({route}) same bits {same} "
+                f"{'ok' if row['ok'] else 'FAIL'}{timed}")
             del q, k, v, got, want
     torch.cuda.empty_cache()
     return out
@@ -6692,6 +6770,321 @@ def _tp_family_check(ranks, one, smi):
     return counts
 
 
+# 16e: the prefix-LM and the encoder-decoder tensor-parallel on 16b's two
+# ranks (1x2): their depth cut, widths whole
+TP_FRONTEND = {"paligemma_3b": dict(num_layers=2),      # 2 of 18 layers
+               "seamless_m4t_large_v2": dict(num_layers=2, enc_layers=2)}
+                                     # 2 + 2 of 24 + 24
+TP_FRONTEND_CASES = (                # (label, arch, dtype)
+    ("paligemma-3b bf16", "paligemma_3b", "bfloat16"),
+    ("paligemma-3b f32", "paligemma_3b", "float32"),
+    ("seamless-m4t-large-v2 bf16", "seamless_m4t_large_v2", "bfloat16"),
+    ("seamless-m4t-large-v2 f32", "seamless_m4t_large_v2", "float32"),
+)
+TP_FRONTEND_NEED = ("flash_attn", "nm_spmm", "nm_spmm_decode")
+TP_FRONTEND_FLASH = (                # (label, B, T, H, KV, hd, prefix, S):
+    ("paligemma prefix", 8, 320, 4, 1, 256, 256, None),   # 4 of 8 query
+    ("seamless encoder", 8, 1024, 8, 8, 64, None, 1024),  # heads a rank;
+    ("seamless cross", 8, 64, 8, 8, 64, None, 1024),      # S: non-causal
+    ("seamless decoder", 8, 64, 8, 8, 64, None, None),    # over S keys
+)
+# the M of each packed linear a rank runs at 16e's 8 requests: 8 at a
+# decode step; the prefill's rows — PaliGemma's 8 x (256 + 64), seamless
+# decoder's 8 x 64, its encoder's (and xattn.wk / wv over the encoder's
+# output) 8 x 1024 frames
+TP_FRONTEND_M = {"paligemma_3b": {"dec": (8, 8 * 320)},
+                 "seamless_m4t_large_v2": {"dec": (8, 8 * 64),
+                                           "enc": (8 * 1024,)}}
+TP_FRONTEND_LINEARS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+                       ("attn", "wo"), ("xattn", "wq"), ("xattn", "wk"),
+                       ("xattn", "wv"), ("xattn", "wo"), ("mlp", "wi"),
+                       ("mlp", "wg"), ("mlp", "wo"))
+
+
+@functools.lru_cache(maxsize=None)
+def tp_frontend_linears(tp=2):
+    """16e's rank-local packed linears, one row a distinct (M, K, N,
+    fused activation): each TP_FRONTEND model initialised on the meta
+    device (shapes only), every prunable linear of its decoder and
+    encoder split as ``dist.sharding.param_split`` splits it for one rank
+    of ``tp``, at the M its prefill and decode give it (TP_FRONTEND_M).
+    Rows: (label, M, K, N, activation)."""
+    from repro_torch import random as rnd
+    from repro_torch.dist.sharding import param_split
+
+    found = {}
+    for arch, cut in TP_FRONTEND.items():
+        cfg, model = _frontend(arch, "bfloat16", device="meta", **cut)
+        params = model.init(rnd.key(0, device="meta"))
+        # the linear whose epilogue fuses the MLP's gelu (models.layers)
+        gelu_at = {"geglu": ("mlp", "wg"),
+                   "gelu": ("mlp", "wi")}.get(cfg.mlp_kind)
+        stacks = [("dec", f"layers/{i}", b)
+                  for i, b in enumerate(params["layers"])]
+        stacks += [("enc", f"enc/layers/{i}", b)
+                   for i, b in enumerate(params.get("enc", {}).get(
+                       "layers", []))]
+        for part, path, block in stacks:
+            for sub, key in TP_FRONTEND_LINEARS:
+                if key not in block.get(sub, {}):
+                    continue
+                k, n = block[sub][key].shape
+                dim = param_split(f"{path}/{sub}/{key}/vals", (k // 2, n),
+                                  tp, cfg)
+                k, n = (k // tp, n) if dim == 0 else (
+                    (k, n // tp) if dim else (k, n))
+                act = "gelu" if (sub, key) == gelu_at else None
+                ms = TP_FRONTEND_M[arch][part]
+                if (sub, key) in (("xattn", "wk"), ("xattn", "wv")):
+                    ms = TP_FRONTEND_M[arch]["enc"]     # over enc_out
+                for m in ms:
+                    found.setdefault((m, k, n, act),
+                                     f"tp{tp} {arch.split('_')[0]} "
+                                     f"{part} {sub}.{key}")
+    return tuple((label, m, k, n, act)
+                 for (m, k, n, act), label in found.items())
+
+
+def tp_frontend_serve(mesh=None):
+    """16e's serving, on one device (``mesh`` None) or as one rank of a
+    1x2 mesh: each of TP_FRONTEND_CASES at full width and TP_FRONTEND's
+    depth, from a seeded torch.Generator, magnitude 2:4 on every linear
+    of its decoder and encoder, packed — and under the mesh sharded — by
+    the engine, served static: phase 3's 8 requests with 15a-b's seeded
+    stub features through ``extra_batch``.  Per case: the streams, tok/s,
+    the launches of the run (the counts set to 0 just before it), the
+    census of the engine's params, ``memory_allocated`` once it is built
+    and the packed linears' decode routes."""
+    import torch
+
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attn import flash_attn
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    out = {}
+    for label, arch, dtype in TP_FRONTEND_CASES:
+        torch.cuda.empty_cache()
+        cfg, model = _frontend(arch, dtype, **TP_FRONTEND[arch])
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, size=64, dtype=np.int32), max_new_tokens=32)
+            for i in range(8)]
+        feats = _frontend_feats(cfg, 8, FRONTEND_FEATS_SEED)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        g = torch.Generator(device="cuda")
+        g.manual_seed(0)
+        params = model.init(g)
+        layers = list(params["layers"]) + list(
+            params.get("enc", {}).get("layers", []))
+        prune_linears({"layers": layers}, "2:4",
+                      linears=TP_FRONTEND_LINEARS)
+        del layers
+        eng = ServeEngine(model, params, mesh=mesh, max_batch=8,
+                          max_len=(model.prefix_len or 0) + 64 + 32,
+                          extra_batch={"frontend_feats": feats})
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        allocated = torch.cuda.memory_allocated() - base
+        ops.reset_launch_counts()                # the run starts
+        t0 = time.monotonic()
+        got = eng.generate(reqs)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        counts = ops.launch_counts()             # ... and ends
+        _check_streams(f"16e {label}", reqs, got, cfg.vocab_size)
+        out[label] = dict(
+            streams=[r.tokens.tolist() for r in got],
+            tok_s=sum(len(r.tokens) for r in got) / dt, counts=counts,
+            flash_route=flash_attn.last_kernel, mode=eng.mode,
+            param_bytes=_tensor_bytes(eng.params),
+            allocated_bytes=allocated, routes=_packed_routes(eng.params))
+        del eng, model, got, feats
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_frontend_check(ranks, one, smi):
+    """16e's gates on the two ranks' ``tp_frontend_serve`` results against
+    the one-device run ``one``: served static; each f32 twin's streams
+    equal one device's, 8 of 8; both ranks' streams bit-equal in every
+    case; each rank launched TP_FRONTEND_NEED itself; a rank's census and
+    ``memory_allocated`` under TP_BYTES_RATIO of one device's; every
+    packed shape a rank runs is one of phase 1t's rows.  Prints the bf16
+    agreement and tok/s (reported, not gated).  Returns the ranks'
+    launches, summed."""
+    counts = {k: 0 for k in (*SERVE_KERNELS, "flash_attn")}
+    held_rows = [(label, k, n) for label, _, k, n, _ in tp_frontend_linears()]
+    for label, arch, dtype in TP_FRONTEND_CASES:
+        o = one[label]
+        rs = [r["16e"][label] for r in ranks]
+        if any(r["mode"] != "static" for r in (o, *rs)):
+            fail(f"16e {label}: served {[r['mode'] for r in rs]}, not static")
+        a, b = (r["streams"] for r in rs)
+        if a != b:
+            fail(f"16e {label}: the ranks' streams differ")
+        want = o["streams"]
+        same = sum(x == y for x, y in zip(a, want))
+        toks = sum(len(x) for x in want)
+        pos = sum(int(np.sum(np.asarray(x) == np.asarray(y)))
+                  for x, y in zip(a, want))
+        if dtype == "float32" and same != len(want):
+            fail(f"16e {label}: {same} of {len(want)} streams equal the "
+                 "one-device run's")
+        for r in rs:
+            for k in TP_FRONTEND_NEED:
+                if r["counts"][k] <= 0:
+                    fail(f"16e {label}: a rank never launched {k}")
+            for k in counts:
+                counts[k] += r["counts"][k]
+        held = max(r["param_bytes"] for r in rs) / o["param_bytes"]
+        alloc = max(r["allocated_bytes"] for r in rs) / o["allocated_bytes"]
+        if held > TP_BYTES_RATIO or alloc > TP_BYTES_RATIO:
+            fail(f"16e {label}: a rank holds {held:.3f}x (census) and "
+                 f"{alloc:.3f}x (memory_allocated) of one device's bytes")
+        unheld = _unheld_shapes({k for r in rs for k in r["routes"]},
+                                held_rows)
+        if unheld:
+            fail(f"16e {label}: a rank runs packed shapes {unheld} that "
+                 "phase 1t's tp_frontend_linears does not hold against the "
+                 "plain kernel")
+        say(f"  16e {label} static on 1x2: {same}/{len(want)} streams and "
+            f"{pos}/{toks} tokens equal to one device's; the ranks' streams "
+            f"bit-equal; tok/s {rs[0]['tok_s']:.1f} against "
+            f"{o['tok_s']:.1f} on one device; rank 0's launches "
+            f"{rs[0]['counts']}; flash_attn route {rs[0]['flash_route']}; "
+            f"params {rs[0]['param_bytes'] / 2**30:.4f} GiB a rank against "
+            f"{o['param_bytes'] / 2**30:.4f}: {held:.3f}x; memory_allocated "
+            + ", ".join(f"{r['allocated_bytes'] / 2**30:.4f}" for r in rs)
+            + f" GiB a rank against {o['allocated_bytes'] / 2**30:.4f}: "
+            f"{alloc:.3f}x; rank-local packed shapes "
+            f"{sorted(rs[0]['routes'])} ({smi})")
+    return counts
+
+
+# 16f: the serve CLI's server under the 1x2 mesh of 16b's two ranks
+TP_SERVER_ARGS = ["--device", "cuda", "--sparse", "--server", "--port", "0",
+                  "--replicas", "2", "--max-batch", "8", "--max-len", "128",
+                  "--page-size", "16", "--prefill-chunk", "32"]
+TP_SERVER_CASE = "qwen1.5-0.5b f32"   # 16c's one-device streams it equals
+
+
+def tp_server_rank(mesh, rank):
+    """16f on one rank: Qwen1.5-0.5B at full width, DIST_LAYERS layers,
+    f32 (16c's twin: the same seeded weights, magnitude 2:4, packed) behind
+    ``launch.serve.run_frontend`` with TP_SERVER_ARGS under ``mesh`` —
+    rank 0 the router, two replicas, the supervisor and the HTTP server
+    on port 0; rank 1 the followers of both — until SIGTERM.  On rank 0 a
+    ``replica_worker`` death is armed on r0 once r0 has streamed a token
+    (requests in flight).  Returns the launches of the run (the counts set
+    to 0 just before it) and, on rank 0, the recovery counters."""
+    import threading
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruner import prune_linears
+    from repro_torch.dist import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import LM
+    from repro_torch.obs import Obs
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.faults import FaultPlan, FaultSpec
+
+    args = serve.build_parser().parse_args(TP_SERVER_ARGS)
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              num_layers=DIST_LAYERS, dtype="float32")
+    model = LM(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = prune_linears(model.init(gen), "2:4")
+    plan = FaultPlan()
+    config = dataclasses.replace(ServeConfig.from_args(args), faults=plan)
+    obs = Obs.create(metrics=True, trace=False)
+
+    def total(name, replica=None):
+        fam = obs.metrics.get(name)
+        return sum(child.value for labels, child in (
+            fam.children() if fam is not None else [])
+            if replica is None or labels[0] == replica)
+
+    armed = threading.Event()
+
+    def arm():          # r0's next worker pass raises, requests in flight
+        while not armed.is_set():
+            if total("serve_tokens_total", "r0") > 0:
+                with plan._lock:
+                    plan.specs.append(FaultSpec(
+                        "replica_worker", after=0, count=1, replica="r0"))
+                armed.set()
+            time.sleep(0.001)
+
+    if rank == 0:
+        threading.Thread(target=arm, daemon=True).start()
+    ops.reset_launch_counts()                    # the run starts
+    t0 = time.monotonic()
+    with torch.no_grad(), use_mesh(mesh):
+        serve.run_frontend(cfg, model, params, args, config, obs)
+    torch.cuda.synchronize()
+    res = dict(counts=ops.launch_counts(),        # ... and ends
+               wall_s=time.monotonic() - t0)
+    armed.set()
+    if rank == 0:
+        res.update(fired=dict(plan.fired),
+                   restarts=total("replica_restarts_total", "r0"),
+                   failed_over=total("requests_failed_over_total"))
+    return res
+
+
+def tp_server_client(lines, ready, up, want, smi):
+    """16f's client: phase 3's 8 greedy requests (64-token prompts, 32
+    new), streamed concurrently over HTTP/SSE to rank 0's server once it
+    says where it serves: their streams, gated equal to ``want`` (16c's
+    one-device streams of the same model)."""
+    import asyncio
+
+    from repro_torch.serve.frontend import sse_decode
+
+    ready.wait(timeout=900)
+    if "port" not in up:
+        fail(f"16f: rank 0's server did not come up: {''.join(lines)}")
+    from repro_torch.configs import get_config
+
+    vocab = get_config("qwen1.5-0.5b").vocab_size
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, size=64, dtype=np.int32).tolist()
+               for _ in range(8)]
+
+    async def run():
+        return await asyncio.gather(*[_http(
+            up["host"], up["port"], "POST", "/v1/completions",
+            {"prompt": p, "max_tokens": 32, "uid": i, "stream": True})
+            for i, p in enumerate(prompts)])
+
+    t0 = time.monotonic()
+    replies = asyncio.run(run())
+    dt = time.monotonic() - t0
+    streams = []
+    for status, _, rest in replies:
+        chunks = sse_decode(rest)
+        if status != 200 or not chunks or not chunks[-1].finished:
+            fail(f"16f: the server answered {status}: {rest[-300:]!r}")
+        streams.append([t for ch in chunks for t in ch.tokens])
+    same = sum(a == b for a, b in zip(streams, want))
+    if same != len(want):
+        fail(f"16f: {same} of {len(want)} streams equal 16c's one-device "
+             f"streams")
+    toks = sum(len(x) for x in streams)
+    say(f"  16f: 8 streamed completions through the server under 1x2 (two "
+        f"replicas, r0's worker killed mid-stream), {toks} tokens in "
+        f"{dt:.2f} s = {toks / dt:.1f} tok/s, {same}/{len(want)} streams "
+        f"equal to 16c's one-device {TP_SERVER_CASE} streams ({smi})")
+    return dict(streams=streams, tok_s=toks / dt, wall_s=dt)
+
+
 def moe_train(mesh=None, out=None):
     """phi3.5-moe SMOKE (f32) on the card, 3 steps of a global batch of
     8 x 32, data-parallel over ``mesh`` or on one device: each step's
@@ -6734,8 +7127,10 @@ def dist_rank_main(work, parts="bc") -> int:
     on 2x1 (paper_tiny_lm, and phi3.5-moe SMOKE routing the global
     batch); 16c (``c``): tensor-parallel serving on 1x2 (``tp_serve``);
     16d (``d``): the recurrent and expert families' tensor-parallel
-    serving on 1x2 (``tp_family_serve``).  Each result saved under
-    ``WORK``."""
+    serving on 1x2 (``tp_family_serve``); 16e (``e``): the prefix-LM's
+    and the encoder-decoder's (``tp_frontend_serve``); 16f (``f``): the
+    serve CLI's server on 1x2 until SIGTERM (``tp_server_rank``).  Each
+    result saved under ``WORK``."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -6785,9 +7180,20 @@ def dist_rank_main(work, parts="bc") -> int:
         with torch.no_grad():
             res["16d"] = tp_family_serve(tp)
         res["16d_wall_s"] = time.monotonic() - t0
+    if "e" in parts:
+        comm.barrier()
+        t0 = time.monotonic()
+        with torch.no_grad():
+            res["16e"] = tp_frontend_serve(tp)
+        res["16e_wall_s"] = time.monotonic() - t0
+    if "f" in parts:                 # the last: it serves until SIGTERM
+        comm.barrier()
+        torch.cuda.empty_cache()
+        res["16f"] = tp_server_rank(tp, rank)
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     comm.barrier()
+    torch.distributed.destroy_process_group()   # not at the exit
     return 0
 
 
@@ -6868,7 +7274,7 @@ def _tp_check(ranks, one, smi):
 
 def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
                    losses_one=None, moe_one=None, tp_one=None,
-                   family_one=None):
+                   family_one=None, frontend_one=None):
     """16b and 16c: two ranks that share the card, each a process of its
     own (``--dist-rank``), a gloo group on CUDA tensors (NCCL refuses two
     ranks on one device).  16b: their Qwen prunes must give 16a's masks
@@ -6878,11 +7284,18 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
     agreement with the one-shard run is printed; each rank must launch
     hessian_accum and nm_select itself; the data-parallel trainers' steps
     must equal the one-rank runs' (paper_tiny_lm, and phi3.5-moe SMOKE:
-    loss and aux).  16c: ``_tp_check``; 16d: ``_tp_family_check``.
-    Returns (the ranks' launches, summed, and numbers)."""
+    loss and aux).  16c: ``_tp_check``; 16d: ``_tp_family_check``; 16e:
+    ``_tp_frontend_check``; 16f: ``tp_server_client`` streams to rank 0's
+    server, then SIGTERM goes to both ranks, which must print
+    "draining..." and exit 0; each rank must have launched paged_attn,
+    and r0's armed worker death must have fired once, been restarted and
+    failed requests over.  Returns (the ranks' launches, summed, and
+    numbers)."""
     import tempfile
 
     import torch
+
+    import threading
 
     out = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
@@ -6896,18 +7309,49 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(2)]
-        logs = []
+        # each rank's output, line by line; rank 0's server (16f) noted
+        # when it says where it serves
+        lines = [[], []]
+        ready, up = threading.Event(), {}
+
+        def pump(r):
+            for line in procs[r].stdout:
+                lines[r].append(line)
+                m = re.match(r"serving on http://([\d.]+):(\d+)", line)
+                if m and r == 0:
+                    up.update(host=m.group(1), port=int(m.group(2)))
+                    ready.set()
+            if r == 0:
+                ready.set()                      # the process ended
+
+        pumps = [threading.Thread(target=pump, args=(r,), daemon=True)
+                 for r in range(2)]
+        for t in pumps:
+            t.start()
         try:
+            if "f" in parts:
+                out["16f_client"] = tp_server_client(
+                    lines[0], ready, up,
+                    tp_one[TP_SERVER_CASE]["modes"]["continuous"]["streams"],
+                    smi)
+                for p in procs:                  # as torchrun signals them
+                    p.send_signal(signal.SIGTERM)
             for p in procs:
-                logs.append(p.communicate(timeout=900)[0])
+                p.wait(timeout=900)
+            for t in pumps:
+                t.join(timeout=30)
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
+        logs = ["".join(x) for x in lines]
         wall = time.monotonic() - t0
         for r, (p, text) in enumerate(zip(procs, logs)):
             if p.returncode != 0:
                 fail(f"16b: rank {r} exited {p.returncode}: {text[-3000:]}")
+            if "f" in parts and "draining..." not in text:
+                fail(f"16f: rank {r} exited without draining: "
+                     f"{text[-3000:]}")
         ranks = []
         for r in range(2):
             with open(os.path.join(work, f"rank{r}.json")) as f:
@@ -6946,6 +7390,32 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
         out["16d"] = {r["rank"]: r["16d"] for r in ranks}
         say(f"  16d: the ranks' serving took "
             f"{max(r['16d_wall_s'] for r in ranks):.1f} s")
+    if "e" in parts:
+        for k, v in _tp_frontend_check(ranks, frontend_one, smi).items():
+            counts[k] = counts.get(k, 0) + v
+        out["16e"] = {r["rank"]: r["16e"] for r in ranks}
+        say(f"  16e: the ranks' serving took "
+            f"{max(r['16e_wall_s'] for r in ranks):.1f} s")
+    if "f" in parts:
+        f0 = ranks[0]["16f"]
+        for r in ranks:
+            if r["16f"]["counts"]["paged_attn"] <= 0:
+                fail(f"16f: rank {r['rank']} never launched paged_attn")
+            for k, v in r["16f"]["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+        if (f0["fired"] != {"replica_worker": 1} or f0["restarts"] != 1
+                or f0["failed_over"] < 1):
+            fail(f"16f: the armed replica_worker death: fired "
+                 f"{f0['fired']}, restarts {f0['restarts']}, failed over "
+                 f"{f0['failed_over']}")
+        out["16f"] = {r["rank"]: r["16f"] for r in ranks}
+        say(f"  16f: r0's worker died mid-stream once; the supervisor "
+            f"restarted it (mirrored to rank 1) and failed "
+            f"{f0['failed_over']:g} requests over; SIGTERM: both ranks "
+            f"printed draining... and exited 0; launches rank 0 "
+            f"{f0['counts']}, rank 1 {ranks[1]['16f']['counts']}; the "
+            f"server's run {max(r['16f']['wall_s'] for r in ranks):.1f} s "
+            f"({smi})")
     if "b" not in parts:
         out.update(wall_s=wall)
         return counts, out
@@ -6986,7 +7456,7 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
     return counts, out
 
 
-def dist_phase(smi, parts="abcd"):
+def dist_phase(smi, parts="abcdef"):
     """Phase 16 (those of ``parts``; 16a runs for 16b too): (the mesh
     runs' launches — prune kernels, and 16c's and 16d's serving kernels
     — and numbers)."""
@@ -6995,6 +7465,7 @@ def dist_phase(smi, parts="abcd"):
     out = {}
     counts = {k: 0 for k in PRUNE_KERNELS}
     wants = flat_one = losses_one = moe_one = tp_one = family_one = None
+    frontend_one = None
     if "a" in parts or "b" in parts:
         t = time.monotonic()
         say("  16a: a 1-rank NCCL group (--mesh host)")
@@ -7005,7 +7476,7 @@ def dist_phase(smi, parts="abcd"):
         torch.cuda.empty_cache()
     if "b" in parts:
         moe_one = moe_train()
-    if "c" in parts:
+    if "c" in parts or "f" in parts:        # 16f's streams are 16c's
         t = time.monotonic()
         with torch.no_grad():
             tp_one = tp_serve()
@@ -7019,7 +7490,14 @@ def dist_phase(smi, parts="abcd"):
         out["16d_one_device"] = family_one
         say(f"  16d's one-device runs took {time.monotonic() - t:.1f} s")
         torch.cuda.empty_cache()
-    ranks = "".join(p for p in "bcd" if p in parts)
+    if "e" in parts:
+        t = time.monotonic()
+        with torch.no_grad():
+            frontend_one = tp_frontend_serve()
+        out["16e_one_device"] = frontend_one
+        say(f"  16e's one-device runs took {time.monotonic() - t:.1f} s")
+        torch.cuda.empty_cache()
+    ranks = "".join(p for p in "bcdef" if p in parts)
     if ranks:
         t = time.monotonic()
         say(f"  16{'/16'.join(ranks)}: two ranks on the one card (gloo)"
@@ -7027,10 +7505,14 @@ def dist_phase(smi, parts="abcd"):
             + (", 16c tensor-parallel serving on 1x2" if "c" in ranks
                else "")
             + (", 16d the recurrent and expert families on 1x2"
-               if "d" in ranks else ""))
+               if "d" in ranks else "")
+            + (", 16e the prefix-LM and the encoder-decoder on 1x2"
+               if "e" in ranks else "")
+            + (", 16f the server, its two replicas and the supervisor on "
+               "1x2" if "f" in ranks else ""))
         c, out["16bc"] = dist_two_ranks(smi, ranks, wants, flat_one,
                                         losses_one, moe_one, tp_one,
-                                        family_one)
+                                        family_one, frontend_one)
         for k in c:
             counts[k] = counts.get(k, 0) + c[k]
         say(f"  the two ranks took {time.monotonic() - t:.1f} s")
@@ -7042,8 +7524,8 @@ def partial_run(only, gen, rows, t_start) -> int:
     widths) with the MoE widths' and the weighted hessian_accum's ("1"),
     those alone ("1m", "1w"), the xLSTM widths' rows ("1x"), the
     frontend models' rows ("1e": flash_attn with a prefix and S != T, the
-    new widths), 16c's rank-local shapes ("1t"), phases 12, 13, 14, 15
-    and/or 16 (or parts of them), then a
+    new widths), 16c's rank-local shapes ("1t"), phases 11, 12, 13, 14,
+    15 and/or 16 (or parts of them), then a
     summary line; no result lines."""
     import torch
 
@@ -7070,6 +7552,9 @@ def partial_run(only, gen, rows, t_start) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    if "11" in only:
+        say(f"phase 11 (partial; {smi})")
+        out["counts_11"], out["frontend"] = frontend_on_card(smi)
     parts = "abc" if "13" in only else "".join(
         p[2] for p in sorted(only) if p.startswith("13") and len(p) == 3)
     if parts:
@@ -7097,10 +7582,10 @@ def partial_run(only, gen, rows, t_start) -> int:
         out["serve_15"], out["prune_15"], out["frontend"] = frontend_phase(
             smi, parts)
     if "1t" in only:
-        say(f"phase 1 (partial): the kernels at 16c's and 16d's rank-local "
-            f"shapes ({smi})")
+        say(f"phase 1 (partial): the kernels at 16c's, 16d's and 16e's "
+            f"rank-local shapes ({smi})")
         out["tp_widths"] = check_tp_widths(gen, rows)
-    parts = "abcd" if "16" in only else "".join(
+    parts = "abcdef" if "16" in only else "".join(
         p[2] for p in sorted(only) if p.startswith("16") and len(p) == 3)
     if parts:
         say(f"phase 16 (partial: {parts}; {smi})")
@@ -7130,14 +7615,14 @@ def main(argv) -> int:
     only = None
     if argv[:1] == ["--phases"] and len(argv) == 2:
         only = set(argv[1].split(","))
-        if not only <= {"1", "1m", "1w", "1x", "1e", "1t", "12", "12a",
+        if not only <= {"1", "1m", "1w", "1x", "1e", "1t", "11", "12", "12a",
                         "12b", "12c", "12d", "13", "13a", "13b", "13c", "14",
                         "14a", "14b", "14c", "14d", "15", "15a", "15b",
                         "15c", "15d", "15e", "16", "16a", "16b", "16c",
-                        "16d"}:
-            print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 1e, 1t, 12, "
+                        "16d", "16e", "16f"}:
+            print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 1e, 1t, 11, 12, "
                   "12a-12d, 13, 13a-13c, 14, 14a-14d, 15, 15a-15e, 16 and "
-                  "16a-16d", file=sys.stderr)
+                  "16a-16f", file=sys.stderr)
             return 2
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -7352,13 +7837,16 @@ def main(argv) -> int:
          f"the recurrent and expert families on 1x2 (Jamba's first "
          f"{TP_JAMBA_SLOTS} slots without the experts, xlstm-350m "
          f"{TP_XLSTM_LAYERS} layers, phi3.5-moe {TP_PHI_LAYERS} layers; bf16 "
-         f"and f32) ({smi})")
+         f"and f32); 16e the prefix-LM and the encoder-decoder on 1x2 "
+         f"(paligemma-3b 2 of 18 layers, seamless-m4t-large-v2 2 + 2; bf16 "
+         f"and f32); 16f the server under 1x2 (Qwen1.5-0.5B {DIST_LAYERS} "
+         f"layers f32, two replicas, a worker's death, SIGTERM) ({smi})")
     t16 = time.monotonic()
     prune_16, dist_out = dist_phase(smi)
     for k in prune_16:
         counts[k] += prune_16[k]
     say(f"  phase 16 took {time.monotonic() - t16:.1f} s; launches (16a's "
-        f"mesh run, 16b's, 16c's and 16d's two ranks): {prune_16}")
+        f"mesh run, 16b-16f's two ranks): {prune_16}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "

@@ -61,12 +61,16 @@ class DistContext:
     a MoE layer routes the global batch (``models.moe``).  Replicated
     work (every rank the same rows) and the calibration shards (each
     shard its own program in the reference) leave it off.
+    ``channel``: the groups the collectives under this context take
+    (a ``dist.comm.Channel``; None: the mesh's own) — a serve replica's
+    engine has a channel of its own.
     """
 
     mesh: object                 # torch.distributed DeviceMesh
     dp_axes: Tuple[str, ...]
     tp_axis: Optional[str]
     split_rows: bool = False
+    channel: object = None       # dist.comm.Channel
 
     @property
     def dp(self) -> int:
@@ -93,20 +97,21 @@ def current_ctx() -> Optional[DistContext]:
 @contextlib.contextmanager
 def use_mesh(mesh, dp_axes: Optional[Sequence[str]] = None,
              tp_axis: Optional[str] = "model",
-             split_rows: bool = False) -> Iterator[DistContext]:
+             split_rows: bool = False,
+             channel=None) -> Iterator[DistContext]:
     """Activate ``mesh`` as the ambient device context.
 
     ``dp_axes`` defaults to the batch axes present in the mesh
     (``pod``/``data``); ``tp_axis`` degrades to ``None`` when the mesh has
     no such axis, so a mesh like ``(2,) ("data",)`` works too;
-    ``split_rows`` as :class:`DistContext`'s."""
+    ``split_rows`` and ``channel`` as :class:`DistContext`'s."""
     from repro_torch.dist.mesh import dp_axes_of
 
     if dp_axes is None:
         dp_axes = dp_axes_of(mesh)
     if tp_axis is not None and tp_axis not in mesh.mesh_dim_names:
         tp_axis = None
-    ctx = DistContext(mesh, tuple(dp_axes), tp_axis, split_rows)
+    ctx = DistContext(mesh, tuple(dp_axes), tp_axis, split_rows, channel)
     _stack().append(ctx)
     try:
         yield ctx

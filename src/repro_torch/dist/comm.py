@@ -7,12 +7,22 @@ On a ``nccl`` group the tensors stay on the card.  On a ``gloo`` group —
 the CPU, or two ranks that share one card, which NCCL refuses — a CUDA
 tensor is staged through the host: copied to the CPU, reduced there and
 copied back.  That staging happens only on ``gloo`` groups.
+
+A :class:`Channel` is a set of groups of its own over one mesh
+(:func:`open_channel`): a group for each axis, for the data axes
+together and for the whole mesh, with a timeout of its own.  Two threads
+that make collectives at times of their own (the serve front end's
+replicas) each take a channel: on one group their collectives could
+interleave differently on each rank.  Without one (None) a collective
+takes the mesh's own groups.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -21,22 +31,68 @@ _GROUPS: Dict[Tuple[int, Tuple[str, ...]], Any] = {}
 SUM, MAX = dist.ReduceOp.SUM, dist.ReduceOp.MAX
 
 
-def group_of(mesh, axes):
+@dataclasses.dataclass(frozen=True, eq=False)
+class Channel:
+    """This rank's groups of one channel, by the mesh axes each spans,
+    and their collectives' timeout in seconds (None: the backend's
+    default)."""
+
+    groups: Dict[Tuple[str, ...], Any]
+    timeout: Optional[float]
+
+
+def _enumeration(mesh, axes: Tuple[str, ...]) -> List[List[int]]:
+    """The world ranks of every group over ``axes`` (one a row)."""
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in axes]
+    rest = [d for d in range(len(names)) if d not in dims]
+    size = math.prod(mesh.shape[d] for d in dims)
+    return mesh.mesh.permute(*rest, *dims).reshape(-1, size).tolist()
+
+
+def group_of(mesh, axes, channel: Optional[Channel] = None):
     """The process group of this rank over mesh ``axes`` (one name, or a
     tuple such as ``("pod", "data")``, which every rank must ask for in
-    the same order the first time: it is created collectively)."""
+    the same order the first time: it is created collectively) — on
+    ``channel`` where one is given."""
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if channel is not None:
+        if axes not in channel.groups:
+            raise KeyError(f"the channel has no group over {axes}")
+        return channel.groups[axes]
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     key = (id(mesh), axes)
     if key not in _GROUPS:
-        names = list(mesh.mesh_dim_names)
-        dims = [names.index(a) for a in axes]
-        rest = [d for d in range(len(names)) if d not in dims]
-        size = math.prod(mesh.shape[d] for d in dims)
-        ranks = mesh.mesh.permute(*rest, *dims).reshape(-1, size).tolist()
-        _GROUPS[key] = dist.new_subgroups_by_enumeration(ranks)[0]
+        _GROUPS[key] = dist.new_subgroups_by_enumeration(
+            _enumeration(mesh, axes))[0]
     return _GROUPS[key]
+
+
+def world_of(mesh, channel: Optional[Channel] = None):
+    """The group of every rank of ``mesh`` on ``channel`` (None, the
+    default group, without one)."""
+    return None if channel is None else group_of(mesh, mesh.mesh_dim_names,
+                                                 channel)
+
+
+def open_channel(mesh, timeout: Optional[float] = None) -> Channel:
+    """A new channel over ``mesh``: a group over each axis, over the data
+    axes together (``pod``, ``data``) and over the whole mesh, each with
+    ``timeout`` seconds for its collectives (None: the backend's
+    default).  Every rank must open its channels in the same order: the
+    groups are created collectively."""
+    from repro_torch.dist.mesh import dp_axes_of
+
+    names = tuple(mesh.mesh_dim_names)
+    wanted = [(a,) for a in names]
+    for axes in (dp_axes_of(mesh), names):
+        if len(axes) > 1 and axes not in wanted:
+            wanted.append(axes)
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=timeout)}
+    return Channel({axes: dist.new_subgroups_by_enumeration(
+        _enumeration(mesh, axes), **kw)[0] for axes in wanted}, timeout)
 
 
 def size(group) -> int:

@@ -22,8 +22,12 @@ Tensor-parallel serving (the resident-weights layout, ``fsdp_axes=()``):
     down-projections (``wo``, ``out_proj``) their in dim (the Megatron
     pairing, one all-reduce a block); the embedding is vocab-parallel;
     the router and the attention's and MLP's vectors stay whole; a dim
-    that does not divide stays whole; the attention projections keep
-    whole heads of ``cfg.hd`` on every rank.  2:4-packed ``vals`` /
+    that does not divide stays whole; the attention projections — the
+    self-attention's and the cross-attention's (``xattn``), the
+    encoder's as the decoder's — keep whole heads of ``cfg.hd`` on every
+    rank; a modality frontend's ``frontend_proj`` is column-parallel (its
+    output all-gathered, ``models.layers.frontend_apply``); the encoder's
+    final norm stays whole.  2:4-packed ``vals`` /
     ``idx`` take their projection's rule; a row-parallel split of them
     takes rows ``[r·K/(2·tp), …)`` and needs ``K/tp % 4 == 0`` besides
     (``idx`` holds positions inside a group of 4 rows), else the leaf
@@ -63,9 +67,8 @@ Tensor-parallel serving (the resident-weights layout, ``fsdp_axes=()``):
     ``host_arena_stage_spec``): the arena takes its page shapes from the
     rank's pool leaves.
 
-The FSDP branch of ``param_specs`` and the rules of a modality frontend
-and an encoder come with their tensor parallelism (ROADMAP.md); until
-then ``LM.serve_tp`` refuses them under tp > 1.
+The FSDP branch of ``param_specs`` comes with the trainer's model axis
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -151,7 +154,7 @@ def batch_sharding(mesh, dp_axes: Optional[Sequence[str]] = None) -> Shard:
 # (in, out) linears whose OUT dim splits over model (column-parallel)
 _COL_PARALLEL = frozenset({"wq", "wk", "wv", "wi", "wg", "wz", "wf",
                            "wo_gate", "in_proj", "dt_proj", "x_proj",
-                           "head"})
+                           "frontend_proj", "head"})
 # (in, out) linears whose IN dim is the model-parallel contraction
 _ROW_PARALLEL = frozenset({"wo", "out_proj"})
 # the blocks whose leaves follow one decision of the block (state_split)
@@ -232,7 +235,7 @@ def param_split(path: str, shape: Sequence[int], tp: int,
         return fits(1)
     if len(shape) == 2 and key in _ROW_PARALLEL:
         k_full = shape[0] * (2 if packed else 1)
-        if block == "attn" and (k_full // tp) % head_dim:
+        if block in ("attn", "xattn") and (k_full // tp) % head_dim:
             return None
         if packed and (k_full // tp) % 4:
             return None          # a rank's rows would cut a group of 4
@@ -278,9 +281,12 @@ def shard_params(params: Any, mesh=None, *, cfg, tp_axis: str = "model"
     """This rank's params under :func:`param_split` for the model of
     config ``cfg``: a split leaf becomes its block, a fresh contiguous
     tensor; a whole leaf is kept as it is.  Mamba's ``in_proj`` is x | z
-    side by side, and a rank takes its block of each half.
-    ``mesh=None`` takes the active context's; without a context, or with
-    a model axis of 1, the tree comes back unchanged."""
+    side by side, and a rank takes its block of each half.  A leaf that
+    already is this rank's block (this function's output: a tree that
+    another engine on the same mesh sharded) is kept as it is, so that
+    sharding twice shards once.  ``mesh=None`` takes the active
+    context's; without a context, or with a model axis of 1, the tree
+    comes back unchanged."""
     if mesh is None:
         from repro_torch.dist.api import current_ctx
 
@@ -292,14 +298,21 @@ def shard_params(params: Any, mesh=None, *, cfg, tp_axis: str = "model"
     if shard.count == 1:
         return params
 
+    mark = (shard.index, shard.count)
+
     def place(path, leaf):
+        if getattr(leaf, "rank_block", None) == mark:
+            return leaf                           # already this rank's
         dim = param_split(path, leaf.shape, shard.count, cfg)
         if dim is None:
             return leaf
         if "/mamba/in_proj" in f"/{path}":                   # x | z
-            return torch.cat([take_block(half, dim, shard)
-                              for half in leaf.chunk(2, dim)], dim=dim)
-        return take_block(leaf, dim, shard)
+            block = torch.cat([take_block(half, dim, shard)
+                               for half in leaf.chunk(2, dim)], dim=dim)
+        else:
+            block = take_block(leaf, dim, shard)
+        block.rank_block = mark
+        return block
 
     return _walk(params, "", place)
 

@@ -34,23 +34,31 @@ stops where it is.
 
 ``--mesh`` takes any spec whose size is the world's, one process a
 rank started by ``torchrun`` (``none``: one device; ``host``: a 1×1 mesh
-over this process).  A model axis > 1 serves tensor-parallel — the
-dense decoders, Mamba, the hybrid, the xLSTM and the MoE decoders, their
-2:4-packed linears split column- and row-parallel, the pool split by KV
-heads and the state rows by d_inner or whole heads, a MoE's experts by
-E (``serve.engine``); the data axis replicates continuous mode and
-splits a static bucket's rows:
+over this process).  A model axis > 1 serves tensor-parallel — every
+family: the dense decoders, Mamba, the hybrid, the xLSTM, the MoE
+decoders, the prefix-LM and the encoder-decoder, their 2:4-packed
+linears split column- and row-parallel, the pool split by KV heads and
+the state rows by d_inner or whole heads, a MoE's experts by E
+(``serve.engine``); the data axis replicates continuous mode and splits
+a static bucket's rows:
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
       --arch qwen1.5-0.5b --magnitude-24 --sparse --mesh 1x2
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
-      --arch xlstm-350m --smoke --mesh 1x2
+      --arch qwen1.5-0.5b --magnitude-24 --sparse --mesh 1x2 \\
+      --server --port 8000 --replicas 2
 
-Under a mesh of more than one rank the batch runs ``generate`` on one
-engine a rank (no router: its worker thread would take requests at
-times of its own on each rank) and rank 0 prints; ``--server`` and
-``--replicas`` > 1 under such a mesh raise, as do the prefix-LM and the
-encoder-decoder under a model axis > 1 (ROADMAP.md, Queue 1).
+Under a mesh of several ranks the router, its replicas, the supervisor
+and the HTTP server run on rank 0, which alone binds the port; every
+other rank runs one follower a replica, stepped in lockstep with rank
+0's replica on the records it broadcasts, one replica's step at a time
+(``serve.frontend.lockstep``; each replica's engine on a channel of its
+own, whose collectives time out after ``--group-timeout`` seconds —
+rank 0 sends a keep-alive well inside it while idle).  SIGTERM on every
+rank (as ``torchrun`` sends it): rank 0 drains and stops the followers,
+and every rank exits 0 after "draining..."; a rank that dies fails the
+others' next collective, and they exit non-zero.  Static mode runs
+``generate`` on one engine a rank, and rank 0 prints.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ import argparse
 import asyncio
 import signal
 import time
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -75,8 +84,10 @@ from repro_torch.serve.config import ServeConfig
 from repro_torch.serve.engine import ServeEngine, effective_mode
 from repro_torch.serve.frontend import (CompletionRequest,
                                         CompletionResponse, Replica, Router,
-                                        Supervisor, run_server,
+                                        Supervisor, follow, run_server,
                                         to_engine_request)
+from repro_torch.serve.frontend.lockstep import die, locksteps
+from repro_torch.serve.frontend.router import ReplicaFailed
 
 
 def install_sigterm_handler():
@@ -155,6 +166,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="data-parallel engine replicas behind the "
                          "least-loaded router (--server / batch "
                          "continuous mode)")
+    ap.add_argument("--group-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="under a mesh of several ranks: the timeout of "
+                         "each replica's collectives (default: the "
+                         "backend's); an idle replica sends a keep-alive "
+                         "well inside it")
     ap.add_argument("--queue-depth", type=int, default=None,
                     help="per-replica wait-queue cap; a full queue "
                          "answers 429 instead of buffering unboundedly")
@@ -201,25 +218,44 @@ def load_model(args):
 
 
 def make_engine(model, params, config: ServeConfig,
-                obs: Obs = None) -> ServeEngine:
-    return ServeEngine(model, params, config, obs=obs)
+                obs: Obs = None, **kw) -> ServeEngine:
+    return ServeEngine(model, params, config, obs=obs, **kw)
+
+
+def make_engines(model, params, config: ServeConfig, obs: Obs,
+                 group_timeout: Optional[float] = None
+                 ) -> List[ServeEngine]:
+    """``config.replicas`` engines on one ``obs`` registry, each under
+    its ``r{i}`` label.  The first engine packs the 2:4 weights (and
+    shards them under a model axis > 1); the others serve that packed
+    copy.  Under a mesh of several ranks each engine takes a channel of
+    its own (``dist.comm.open_channel``, ``group_timeout`` seconds),
+    opened on every rank in replica order."""
+    ctx = current_ctx()
+    engines: List[ServeEngine] = []
+    for i in range(config.replicas):
+        kw = {}
+        if ctx is not None and ctx.mesh.mesh.numel() > 1:
+            kw["channel"] = comm.open_channel(ctx.mesh, group_timeout)
+        engines.append(make_engine(model, params, config,
+                                   obs=obs.labelled(f"r{i}"), **kw))
+        params = engines[0].params
+    return engines
 
 
 def make_router(model, params, config: ServeConfig,
-                obs: Obs = None) -> Router:
-    """``config.replicas`` engines behind a least-loaded router.  Every
-    replica has the same seed (a request's stream does not depend on
-    which replica serves it: per-(uid, step) keys) and writes its
-    ``replica``-labelled series into the one ``obs`` registry.  The first
-    engine packs the 2:4 weights; the others serve that packed copy."""
+                obs: Obs = None, group_timeout: Optional[float] = None
+                ) -> Router:
+    """``config.replicas`` engines (:func:`make_engines`) behind a
+    least-loaded router.  Every replica has the same seed (a request's
+    stream does not depend on which replica serves it: per-(uid, step)
+    keys) and writes its ``replica``-labelled series into the one
+    ``obs`` registry."""
     if obs is None:
         obs = Obs.create(metrics=config.metrics, trace=config.trace)
-    engines = []
-    for i in range(config.replicas):
-        engines.append(make_engine(model, params, config,
-                                   obs=obs.labelled(f"r{i}")))
-        params = engines[0].params
-    return Router([Replica(e, name=f"r{i}") for i, e in enumerate(engines)])
+    engines = make_engines(model, params, config, obs, group_timeout)
+    return Router([Replica(e, name=f"r{i}", lockstep=ls) for i, (e, ls)
+                   in enumerate(zip(engines, locksteps(engines)))])
 
 
 def _random_requests(cfg, args):
@@ -241,8 +277,14 @@ def run_batch(cfg, model, params, args, config: ServeConfig,
     creqs = _random_requests(cfg, args)
     mode = effective_mode(model.cfg, config.mode)
     ranks = _mesh_ranks()
-    if mode == "continuous" and ranks == 1:
-        router = make_router(model, params, config, obs=obs)
+    main_rank = comm.is_main_rank()
+    if mode == "continuous":
+        if not main_rank:                      # a follower a replica
+            follow(make_engines(model, params, config, obs,
+                                args.group_timeout))
+            return
+        router = make_router(model, params, config, obs=obs,
+                             group_timeout=args.group_timeout)
         engines = [r.engine for r in router.replicas]
         _print_packed(args, engines[0])
         t0 = time.monotonic()
@@ -252,34 +294,35 @@ def run_batch(cfg, model, params, args, config: ServeConfig,
             print("draining...", flush=True)
             router.drain(timeout=30)
             return
+        except ReplicaFailed as e:             # a rank is gone
+            die(str(e))
         dt = time.monotonic() - t0
         router.drain(timeout=30)
+        _print_mesh(ranks, engines[0])
         _summary(results, engines, dt)
         return
-    # static buckets (and any mode under a mesh of several ranks, where
-    # every rank steps its engine itself): the same wire objects, lowered
-    # onto generate()
+    # static buckets (every rank steps its engine itself under a mesh):
+    # the same wire objects, lowered onto generate()
     if mode != config.mode:
         print(f"note: {config.mode} unsupported for {cfg.name} — "
               f"fell back to {mode}")
-    if ranks > 1 and config.replicas > 1:
-        raise SystemExit("--replicas > 1 under a mesh of several ranks: "
-                         "the router's replicas under a mesh are not "
-                         "ported (ROADMAP.md, Queue 1)")
     eng = make_engine(model, params, config, obs=obs.labelled("r0"))
-    main_rank = comm.is_main_rank()
     if main_rank:
         _print_packed(args, eng)
     t0 = time.monotonic()
     raw = eng.generate([to_engine_request(c, c.uid) for c in creqs])
     dt = time.monotonic() - t0
     if main_rank:
-        if ranks > 1:
-            mesh = current_ctx().mesh
-            shape = "x".join(str(n) for n in mesh.shape)
-            print(f"mesh {shape} {tuple(mesh.mesh_dim_names)}: {ranks} "
-                  f"ranks, model axis {eng.tp}")
+        _print_mesh(ranks, eng)
         _summary([CompletionResponse.from_result(r) for r in raw], [eng], dt)
+
+
+def _print_mesh(ranks: int, eng) -> None:
+    if ranks > 1:
+        mesh = current_ctx().mesh
+        shape = "x".join(str(n) for n in mesh.shape)
+        print(f"mesh {shape} {tuple(mesh.mesh_dim_names)}: {ranks} ranks, "
+              f"model axis {eng.tp}")
 
 
 def _print_packed(args, eng) -> None:
@@ -343,7 +386,7 @@ def _summary(results, engines, dt) -> None:
 
 
 def _export_trace(obs: Obs, path) -> None:
-    if path and obs.tracer.enabled:
+    if path and obs.tracer.enabled and comm.is_main_rank():
         n = obs.tracer.export(path)
         print(f"wrote {n} trace events -> {path}")
 
@@ -353,7 +396,9 @@ async def _serve_until_sigterm(router: Router, host: str, port: int) -> None:
     cancels the server task at its await, and its shutdown drains.  (A
     KeyboardInterrupt raised from a plain signal handler can land inside a
     transport's close callback; the connection then never detaches, and
-    the server's ``wait_closed`` waits for ever.)"""
+    the server's ``wait_closed`` waits for ever.)  A replica's fatal
+    failure (a lockstep replica whose collective failed) ends the
+    process at once, exit code 1 (``lockstep.die``)."""
     task = asyncio.ensure_future(run_server(router, host, port))
 
     def stop() -> None:
@@ -361,22 +406,28 @@ async def _serve_until_sigterm(router: Router, host: str, port: int) -> None:
         task.cancel()
 
     asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop)
+    while not task.done():
+        await asyncio.wait([task], timeout=0.25)
+        try:
+            router.raise_fatal()
+        except ReplicaFailed as e:       # a rank is gone: nothing to
+            die(str(e))                  # drain, no one to serve with
     await task
 
 
 def run_frontend(cfg, model, params, args, config: ServeConfig,
                  obs: Obs) -> None:
-    if _mesh_ranks() > 1:
-        raise SystemExit("--server under a mesh of several ranks: the "
-                         "front end's replicas and router under a mesh "
-                         "are not ported (ROADMAP.md, Queue 1)")
     if config.mode != "continuous":
         raise SystemExit("--server needs the continuous runtime "
                          "(streaming sessions); drop --serve-mode static")
     if effective_mode(model.cfg, config.mode) != "continuous":
         raise SystemExit(f"--server unsupported for {cfg.name}: the arch "
                          "falls back to the static bucketed engine")
-    router = make_router(model, params, config, obs=obs)
+    if not comm.is_main_rank():                # a follower a replica
+        follow(make_engines(model, params, config, obs, args.group_timeout))
+        return
+    router = make_router(model, params, config, obs=obs,
+                         group_timeout=args.group_timeout)
     _print_packed(args, router.replicas[0].engine)
     # supervision: restart crashed or stalled workers and fail their
     # in-flight requests over
@@ -400,6 +451,7 @@ def main(argv=None) -> None:
     # one obs bundle for the process: every replica labels its series
     # into this registry and tracer
     obs = Obs.create(metrics=config.metrics, trace=config.trace)
+    owns_group = not torch.distributed.is_initialized()
     try:
         with mesh_context(args.mesh, args.device):
             cfg, model, params = load_model(args)
@@ -407,10 +459,21 @@ def main(argv=None) -> None:
                 run_frontend(cfg, model, params, args, config, obs)
             else:
                 run_batch(cfg, model, params, args, config, obs)
+        if owns_group and torch.distributed.is_initialized():
+            _close_process_group()
     finally:
         _export_trace(obs, args.trace_out)
         if previous is not None:       # a caller's own handler comes back
             signal.signal(signal.SIGTERM, previous)
+
+
+def _close_process_group() -> None:
+    """End the process group this launcher started once every rank is
+    done (a barrier), instead of leaving its groups to the interpreter's
+    exit, where a follower rank of the server has aborted in gloo
+    ("terminate called without an active exception")."""
+    comm.barrier()
+    torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

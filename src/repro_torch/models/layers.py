@@ -31,10 +31,12 @@ which of them are blocks: a column-parallel linear gives the rank's
 output columns (its bias is sliced to them), a row-parallel one
 (:func:`linear_rows`) sums the rank's partial product over the model
 group and adds the bias once, after the sum; attention runs on the
-rank's query heads and KV heads; the embedding is vocab-parallel (the
-rank's rows, zeros elsewhere, summed) and the head all-gathers its
-vocab columns, so every rank holds the same logits.  Whole weights run
-as on one device, with no collective.
+rank's query heads and KV heads — the encoder's non-causal attention and
+the decoder's cross-attention too; the embedding is vocab-parallel (the
+rank's rows, zeros elsewhere, summed), the frontend's projection
+all-gathers its columns and the head its vocab columns, so every rank
+holds the same frontend prefix, encoder output and logits.  Whole
+weights run as on one device, with no collective.
 """
 
 from __future__ import annotations
@@ -99,7 +101,7 @@ def model_group() -> ModelGroup:
         raise ValueError("these params hold one rank's blocks "
                          "(dist.sharding.shard_params) but no mesh with a "
                          "model axis > 1 is active (dist.use_mesh)")
-    group = comm.group_of(ctx.mesh, ctx.tp_axis)
+    group = comm.group_of(ctx.mesh, ctx.tp_axis, ctx.channel)
     return ModelGroup(group, comm.rank(group))
 
 
@@ -493,7 +495,8 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
           block-table attention through ``ops.paged_attention``, whose
           kernel takes the window;
       cross-attention (``cross_kv`` = the encoder's (B, S, KV, hd) K and
-          V, computed or cached by the caller): no rope, no cache
+          V at the rank's KV heads, computed or cached by the caller): no
+          rope, no cache
           update, every key visible — ``ops.attention(causal=False)``
           over S ≠ T keys, or with ``differentiable`` or in decode
           (``pos`` given) :func:`_sdpa` under an all-true mask, as the
@@ -511,20 +514,21 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     dev = h.device
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
 
+    hp = attn_heads(p, cfg)
     if cross_kv is not None:
-        nh, kv = cfg.num_heads, cfg.num_kv_heads
         q = linear(h_in, p["wq"], p.get("bq"), caps=caps,
-                   name=f"{prefix}wq").reshape(b, t, nh, hd)
-        k, v = cross_kv
+                   name=f"{prefix}wq").reshape(b, t, hp.nh, hd)
+        qa, k, v, nh, kv = _operands(hp, q, *cross_kv)
         if differentiable or pos is not None:
             seen = torch.ones((t, k.shape[1]), dtype=torch.bool, device=dev)
-            out = _sdpa(q, k, v, seen, nh, kv)
+            out = _sdpa(qa, k, v, seen, nh, kv)
         else:
-            out = ops.attention(q, k, v, causal=False).reshape(b, t, nh * hd)
-        return h + linear(out.to(h.dtype), p["wo"], caps=caps,
-                          name=f"{prefix}wo")
+            out = ops.attention(qa, k, v, causal=False).reshape(b, t,
+                                                                nh * hd)
+        out = _own_heads(hp, out, hd).to(h.dtype)
+        return h + linear_rows(out, p["wo"], full=full, caps=caps,
+                               name=f"{prefix}wo")
 
-    hp = attn_heads(p, cfg)
     if paged is None and (cache is None or pos is None):
         positions = torch.arange(t, device=dev)[None, :]
         q, k, v = _qkv(p, h_in, cfg, positions, caps, prefix)
@@ -699,8 +703,14 @@ def frontend_apply(p, feats: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The stubbed modality frontend: precomputed patch / frame features
     (B, F, frontend_dim) projected to d_model, in the projection's dtype.
     A plain product (no kernel stands behind it in the reference
-    either)."""
-    return feats.to(p["frontend_proj"].dtype) @ p["frontend_proj"]
+    either).  A rank's column block of the projection gives its columns,
+    all-gathered in rank order: every rank holds the same (B, F,
+    d_model)."""
+    w = p["frontend_proj"]
+    y = feats.to(w.dtype) @ w
+    if w.shape[1] != cfg.d_model:
+        y = comm.all_gather_last(y, model_group().group)
+    return y
 
 
 def unembed_init(rng, cfg: ArchConfig, dtype) -> Params:

@@ -245,7 +245,7 @@ def moe_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     split_experts = p["wi"].shape[0] != mc.num_experts
     # the expert-parallel route serves only, and serving drops the aux:
     # it makes no data collective for the global token fractions
-    group = (comm.group_of(ctx.mesh, ctx.dp_axes)
+    group = (comm.group_of(ctx.mesh, ctx.dp_axes, ctx.channel)
              if ctx is not None and ctx.split_rows and ctx.dp > 1
              and not split_experts else None)
     gates, aux = route(x2, p["router"], mc.top_k, group)

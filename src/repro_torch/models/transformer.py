@@ -59,10 +59,15 @@ serve methods run a rank's blocks of the params
 state (``LM.state_init``: Mamba's d_inner channels, whole mLSTM / sLSTM
 heads, where ``dist.sharding.state_split`` splits the block), and the
 layers make the collectives (``models.layers``, ``models.ssm``, the
-expert-parallel dispatch of ``models.moe``).  It covers the dense
-decoders, the Mamba LM and Jamba's hybrid, the xLSTM and the MoE
-decoders; a model with leading prefix blocks, a modality frontend or an
-encoder raises (ROADMAP.md, Queue 1).
+expert-parallel dispatch of ``models.moe``).  It covers every block kind
+and family: the dense decoders, the Mamba LM and Jamba's hybrid, the
+xLSTM, the MoE decoders, leading prefix blocks (each by the rules of its
+kind), the prefix-LM — the frontend's projection column-parallel and
+all-gathered, so every rank holds the whole prefix — and the
+encoder-decoder: the encoder's attention on the rank's heads with its
+``wo`` and MLP row-parallel, so every rank holds the same ``enc_out``,
+and each cross-attention on the rank's heads with its ``xk`` / ``xv``
+cached at the rank's KV heads.
 """
 
 from __future__ import annotations
@@ -82,7 +87,8 @@ from repro_torch.models.layers import (Params, attn_apply, attn_cache_init,
                                        attn_init, attn_paged_cache_init,
                                        embed_apply, embed_init, embed_scale,
                                        frontend_apply, linear, mlp_apply,
-                                       mlp_init, rmsnorm, rmsnorm_init,
+                                       mlp_init, out_dim, rmsnorm,
+                                       rmsnorm_init,
                                        sub_keys, unembed_apply, unembed_init)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models import ssm
@@ -318,15 +324,16 @@ class LM:
                cache, pos, differentiable: bool,
                enc_out: Optional[torch.Tensor]) -> torch.Tensor:
         """A decoder block's cross-attention: K / V from ``enc_out``
-        through ``xattn.wk`` / ``wv`` (captured under those names), stored
-        into the dense cache at prefill; in decode (no ``enc_out``) read
-        back from it."""
+        through ``xattn.wk`` / ``wv`` (captured under those names; a
+        rank's KV heads under a model axis that splits them), stored into
+        the dense cache at prefill; in decode (no ``enc_out``) read back
+        from it."""
         cfg = self.cfg
         if enc_out is None:
             xk, xv = cache["xk"], cache["xv"]
         else:
-            b, s, _ = enc_out.shape
-            shape = (b, s, cfg.num_kv_heads, cfg.hd)
+            b, s, _ = enc_out.shape        # the rank's KV heads' columns
+            shape = (b, s, out_dim(p["xattn"]["wk"]) // cfg.hd, cfg.hd)
             xk = linear(enc_out, p["xattn"]["wk"], caps=caps,
                         name=f"{name_prefix}xattn.wk").reshape(shape)
             xv = linear(enc_out, p["xattn"]["wv"], caps=caps,
@@ -610,28 +617,9 @@ class LM:
 
     # ------------------------------------------ tensor-parallel serving
     def serve_tp(self) -> int:
-        """The active context's model axis (1 without a context); raises
-        for a model whose tensor-parallel serving is not ported."""
+        """The active context's model axis (1 without a context)."""
         ctx = current_ctx()
-        tp = 1 if ctx is None else ctx.tp
-        if tp == 1:
-            return 1
-        cfg = self.cfg
-        missing = []
-        if cfg.prefix:
-            missing.append("leading prefix blocks")
-        if cfg.frontend is not None:
-            missing.append("a modality frontend")
-        if cfg.encdec:
-            missing.append("an encoder")
-        if missing:
-            raise ValueError(
-                f"{cfg.name}: tensor-parallel serving (model axis {tp}) "
-                "covers decoders of attn / attn_local, mamba, mlstm and "
-                f"slstm blocks with a dense MLP or experts; "
-                f"{', '.join(missing)} wait for their port (ROADMAP.md, "
-                "Queue 1)")
-        return tp
+        return 1 if ctx is None else ctx.tp
 
     def cache_kv_heads(self) -> int:
         """KV heads this rank's paged pool or dense cache holds: its block
@@ -646,9 +634,10 @@ class LM:
                    ) -> List[Dict[str, torch.Tensor]]:
         """The dense decode cache of static mode: one (B, max_len, KV, hd)
         K and V per attention layer (a decoder block's with its (B,
-        frontend_len, KV, hd) cross K / V ``xk`` / ``xv``), the (B, ...)
-        init state per recurrent layer.  A prefix-LM's ``max_len`` counts
-        its frontend positions."""
+        frontend_len, KV, hd) cross K / V ``xk`` / ``xv``; KV the rank's
+        heads, :meth:`cache_kv_heads`), the (B, ...) init state per
+        recurrent layer.  A prefix-LM's ``max_len`` counts its frontend
+        positions."""
         dt = dtype or self.dtype
         cfg = self.cfg
         kvh = self.cache_kv_heads()
@@ -659,7 +648,7 @@ class LM:
                 continue
             c = attn_cache_init(cfg, batch, max_len, dt, self.device, kvh)
             if kind == "dec_attn":
-                shape = (batch, cfg.frontend_len, cfg.num_kv_heads, cfg.hd)
+                shape = (batch, cfg.frontend_len, kvh, cfg.hd)
                 c["xk"] = torch.zeros(shape, dtype=dt, device=self.device)
                 c["xv"] = torch.zeros(shape, dtype=dt, device=self.device)
             cache.append(c)
@@ -687,7 +676,6 @@ class LM:
         last position's logits (B, V) f32.  The attention is the
         full-sequence one (``flash_attn`` on the card).  A frontend model
         takes ``frontend_feats``."""
-        self.serve_tp()
         batch = _batch(tokens, frontend_feats)
         enc_out = self.encode(params, batch) if self.cfg.encdec else None
         h = self.first_hidden(params, batch)
@@ -746,7 +734,6 @@ class LM:
         position ``min(length, start+C) - 1`` (the sampling logits when
         this is the final chunk), (1, V) f32."""
         self._refuse_paged()
-        self.serve_tp()
         h = embed_apply(params["embed"], tokens, self.cfg)
         t = h.shape[1]
         lengths = torch.full((1,), length, dtype=torch.int32,
@@ -772,7 +759,6 @@ class LM:
         prefix-LM's counts its frontend positions; an encoder-decoder's
         cross-attention reads the cached ``xk`` / ``xv``).  Returns logits
         (B, V) f32; the cache is updated in place."""
-        self.serve_tp()
         h = embed_apply(params["embed"], token[:, None], self.cfg)
         paged = None if block_tables is None else {
             "block_tables": block_tables}

@@ -48,8 +48,9 @@ attention heads, Mamba's d_inner channels, whole mLSTM / sLSTM heads, a
 block of the experts), each rank's pool holds its KV heads and its
 width of the recurrent state rows (``StatePool``'s init rows too), and
 the layers make one all-reduce a block and all-gather the logits, so
-every rank samples the same tokens (``LM.serve_tp`` refuses a prefix, a
-frontend and an encoder).  A MoE's experts dispatch expert-parallel:
+every rank samples the same tokens — the prefix-LM's frontend prefix
+and the encoder-decoder's encoder output too.  A MoE's experts dispatch
+expert-parallel:
 the tokens of a bucket split over data route in each data rank's rows,
 those of a bucket every rank holds in the reference's token blocks
 (``models.moe``).  The ranks' schedules
@@ -62,8 +63,12 @@ axis replicates continuous mode's schedule, pool and burst state (the
 reference replicates them over ``data``); in static mode a bucket whose
 rows divide over the data axes splits them (the reference's
 ``_place_batch``), each data rank decodes its rows — drawing the whole
-bucket's noise when sampling — and the tokens are all-gathered.  Every
-rank returns the same results; the launcher prints rank 0's.
+bucket's noise when sampling, its rows of ``extra_batch`` with them — and
+the tokens are all-gathered.  Every rank returns the same results; the
+launcher prints rank 0's.  An engine's collectives take its ``channel``
+(``dist.comm.open_channel``): each of the front end's replicas has one,
+so that two replicas stepping at times of their own never share a group
+(``serve.frontend.lockstep``).
 
 Counters, latency histograms and request spans go to the engine's
 :class:`~repro_torch.obs.Obs` bundle (``obs=``; the serve launcher
@@ -164,7 +169,8 @@ def effective_mode(cfg, mode: str, extra_batch=None) -> str:
 class ServeEngine:
     def __init__(self, model, params, config: Optional[ServeConfig] = None,
                  *, extra_batch: Optional[Dict[str, torch.Tensor]] = None,
-                 obs: Optional[Obs] = None, mesh=None, **knobs):
+                 obs: Optional[Obs] = None, mesh=None, channel=None,
+                 **knobs):
         """``config`` carries every knob; bare keywords build one (or
         override fields of the given one).  Validation happens once, in
         ``ServeConfig.validate``.  ``extra_batch``: batch entries beside
@@ -172,7 +178,10 @@ class ServeEngine:
         ``frontend_feats``).  ``obs`` is the metrics / trace bundle
         (default: a private one from ``config.metrics`` / ``trace``).
         ``mesh``: a DeviceMesh to serve under (default: the active
-        context's; see the module docstring)."""
+        context's; see the module docstring); ``channel``: the groups its
+        collectives take (a ``dist.comm.Channel``; None: the mesh's own).
+        ``params`` may be another engine's on the same mesh: the leaves
+        that already are this rank's blocks stay as they are."""
         if config is None:
             config = ServeConfig(**knobs)
         elif knobs:
@@ -185,12 +194,11 @@ class ServeEngine:
             ctx = current_ctx()
             mesh = ctx.mesh if ctx is not None else None
         self.mesh = mesh
+        self.channel = channel
         self.tp = model_shard(mesh).count
         self.dp_axes = dp_axes_of(mesh) if mesh is not None else ()
         self.dp = batch_sharding(mesh).count if mesh is not None else 1
         self.ranks = mesh.mesh.numel() if mesh is not None else 1
-        with self._context():
-            model.serve_tp()        # a model not yet ported raises here
         # compressed-weight serving: leaves that verify as 2:4 are packed
         # ONCE at load, so the device holds only (vals, idx) — and then
         # each rank's blocks of them (whole heads a rank)
@@ -245,7 +253,8 @@ class ServeEngine:
         mesh."""
         if self.mesh is None:
             return contextlib.nullcontext()
-        return use_mesh(self.mesh, self.dp_axes, split_rows=data)
+        return use_mesh(self.mesh, self.dp_axes, split_rows=data,
+                        channel=self.channel)
 
     def _agree(self, plan) -> None:
         """Raise unless every rank is about to run the same ``plan`` (a
@@ -254,7 +263,8 @@ class ServeEngine:
             return
         mine = hashlib.blake2b(repr(plan).encode(),
                                digest_size=8).hexdigest()
-        every = comm.all_gather_object(mine, None)
+        every = comm.all_gather_object(
+            mine, comm.world_of(self.mesh, self.channel))
         if len(set(every)) > 1:
             raise RuntimeError(
                 f"serve ranks parted: burst plan digests {every} differ "
@@ -355,7 +365,7 @@ class ServeEngine:
                 off + plen, max_new, early_exit=early_exit, eos=self.eos,
                 rows=(rows.start, b) if split else None, **self.sampling)
         if split:
-            group = comm.group_of(self.mesh, self.dp_axes)
+            group = comm.group_of(self.mesh, self.dp_axes, self.channel)
             out = comm.all_gather_rows(out, group)
             n_emitted = comm.all_gather_rows(n_emitted, group)
             steps_run = comm.all_reduce_(steps_run.reshape(1).clone(),
@@ -468,34 +478,48 @@ class ContinuousSession:
         return StreamEvent(uid=uid, tokens=[], finished=True,
                            result=_result(seq), finish_reason=reason)
 
-    def _expire_deadlines(self) -> List[StreamEvent]:
-        """The hard-deadline sweep, once per sync interval: every request
-        whose ``deadline_hard`` deadline has passed — waiting, swapped
-        out or slotted — is cancelled with ``finish_reason="timeout"``.
-        Under a mesh rank 0 reads its clock and broadcasts the verdict
-        (every rank holds the same hard-deadline requests, so all of them
-        join the broadcast or none does)."""
-        hard = [s for s in (*self.sched.running, *self.sched.waiting)
-                if s.req.deadline_hard and s.req.deadline is not None]
-        if not hard:
-            return []
+    def due_deadlines(self) -> List[int]:
+        """The uids whose ``deadline_hard`` deadline has passed on this
+        process's clock — waiting, swapped out or slotted."""
         now = time.monotonic()
-        expired = [s.req.uid for s in hard if now >= s.req.deadline]
-        if self.engine.ranks > 1:    # the clock is rank 0's alone
-            expired = comm.broadcast_object(expired)
+        return [s.req.uid for s in (*self.sched.running, *self.sched.waiting)
+                if s.req.deadline_hard and s.req.deadline is not None
+                and now >= s.req.deadline]
+
+    def _expire_deadlines(self, expired: Optional[List[int]] = None
+                          ) -> List[StreamEvent]:
+        """The hard-deadline sweep, once per sync interval: every request
+        of ``expired`` (default: :meth:`due_deadlines`) is cancelled with
+        ``finish_reason="timeout"``.  Under a mesh the verdict is rank
+        0's: given by its caller (the front end's lockstep record), or
+        broadcast here — every rank holds the same hard-deadline
+        requests, so all of them join the broadcast or none does."""
+        if expired is None:
+            if not any(s.req.deadline_hard and s.req.deadline is not None
+                       for s in (*self.sched.running, *self.sched.waiting)):
+                return []
+            expired = self.due_deadlines()
+            eng = self.engine
+            if eng.ranks > 1:        # the clock is rank 0's alone
+                expired = comm.broadcast_object(
+                    expired, comm.world_of(eng.mesh, eng.channel))
         return [ev for uid in expired
                 if (ev := self.cancel(uid, reason="timeout")) is not None]
 
     # ------------------------------------------------- one sync interval
-    def step(self) -> List[StreamEvent]:
+    def step(self, expired: Optional[List[int]] = None
+             ) -> List[StreamEvent]:
+        """One sync interval; ``expired``: rank 0's hard-deadline verdict
+        where its caller carries it (default: swept here)."""
         with self.engine._context():
-            return self._step()
+            return self._step(expired)
 
-    def _step(self) -> List[StreamEvent]:
+    def _step(self, expired: Optional[List[int]] = None
+              ) -> List[StreamEvent]:
         eng, sched, pool = self.engine, self.sched, self.engine.pool
         m = eng.m
         # 0) hard deadlines retire before what they hold shapes admission
-        events: List[StreamEvent] = self._expire_deadlines()
+        events: List[StreamEvent] = self._expire_deadlines(expired)
         # 1) join-at-prefill: new requests take free slots/pages now
         #    (recurrent-state slot rows reset to the init state — stale
         #    state cannot be masked by length as pages are)

@@ -14,6 +14,8 @@ of ``repro.serve.frontend``).
              deadline mapping
   supervisor replica crash/stall detection, worker restart, and
              in-flight failover with replay suppression
+  lockstep   under a mesh of several ranks: rank 0's replicas send one
+             record a step to the other ranks' followers
 
 The reference's docs/serving_frontend.md describes the API surface and
 its contracts, the failure model included; they hold here unchanged.
@@ -24,6 +26,7 @@ from repro_torch.serve.frontend.protocol import (CompletionChunk,
                                                  CompletionResponse,
                                                  sse_decode, sse_encode,
                                                  to_engine_request)
+from repro_torch.serve.frontend.lockstep import Follower, follow
 from repro_torch.serve.frontend.replica import Replica, ReplicaDraining
 from repro_torch.serve.frontend.router import NoHealthyReplicas, Router
 from repro_torch.serve.frontend.server import Server, run_server
@@ -33,12 +36,14 @@ __all__ = [
     "CompletionChunk",
     "CompletionRequest",
     "CompletionResponse",
+    "Follower",
     "NoHealthyReplicas",
     "Replica",
     "ReplicaDraining",
     "Router",
     "Server",
     "Supervisor",
+    "follow",
     "run_server",
     "sse_decode",
     "sse_encode",

@@ -37,36 +37,46 @@ subscriptions).  Per-request delivered-token counts are what failover
 replay-suppression trims, so a re-submitted request's client stream
 continues exactly where it stopped.
 
-PyTorch keeps grad mode and the current device per thread, so the
-worker sets both itself: it steps under ``torch.no_grad()`` (the kernel
-wrappers refuse inputs that require grad while grad mode is on) and
-inside ``torch.cuda.device`` of the engine's model.  Every replica
-launches on its device's default stream, so replicas serialise on the
-card; their host work shares one interpreter.  Callbacks get token ids
-as Python ints (``StreamEvent.tokens``, ``Result.tokens`` in numpy),
-never device tensors, so no delivery syncs the card.
+Under a mesh of several ranks (``engine.ranks`` > 1) this is rank 0's
+side of a replica that the other ranks' followers mirror
+(``serve.frontend.lockstep``): every op it applies to its session — a
+submit, a cancel, a restart — is logged, and before each step its worker
+takes the turn that the process's replicas share and broadcasts them in
+one record, with rank 0's hard-deadline verdict, then steps and gives
+the turn up; an idle worker sends a keep-alive record where none went
+out, and a worker that ends sends the stop record.  A failure other than
+an injected fault is fatal there (:attr:`fatal`): the supervisor leaves
+the replica down and the launcher exits non-zero.
+
+PyTorch keeps grad mode, the current device and the current stream per
+thread, so the worker sets them itself (``lockstep.worker_scope``): it
+steps under ``torch.no_grad()`` and, on the card, on the engine's device
+and on a stream of the replica's own, which every worker generation of
+the replica takes in turn.  Replicas may overlap on the card; their
+host work shares one interpreter.  Callbacks get token ids as Python
+ints (``StreamEvent.tokens``, ``Result.tokens`` in numpy), never device
+tensors, so no delivery syncs the card.
 """
 
 from __future__ import annotations
 
-import contextlib
 import threading
 import time
 from typing import Callable, Dict, List, Optional
 
-import torch
+import numpy as np
 
-from repro_torch.serve.engine import Request, ServeEngine, StreamEvent
+from repro_torch.serve.engine import (Request, Result, ServeEngine,
+                                      StreamEvent)
 from repro_torch.serve.faults import FaultError
+from repro_torch.serve.frontend.lockstep import (Lockstep, locksteps,
+                                                 new_stream,
+                                                 replica_session,
+                                                 worker_scope)
 
 # a replica whose worker hasn't completed a step (or an idle check) in
 # this long while work is pending is reported unhealthy
 HEALTH_STALL_S = 60.0
-
-# every replica's session seed: sampling is keyed per (uid, step) from it,
-# so one seed for all is what makes a request's stream the same on any
-# replica (the router's parity contract)
-SEED = 0
 
 
 class ReplicaDraining(RuntimeError):
@@ -75,10 +85,20 @@ class ReplicaDraining(RuntimeError):
 
 
 class Replica:
-    def __init__(self, engine: ServeEngine, name: str = "r0"):
+    def __init__(self, engine: ServeEngine, name: str = "r0",
+                 lockstep: Optional[Lockstep] = None):
+        """``lockstep``: rank 0's side of this replica under a mesh of
+        several ranks (``lockstep.locksteps``: one turn for all the
+        replicas of the process); a replica alone under such a mesh
+        makes its own."""
         self.name = name
         self.engine = engine
-        self.session = self._new_session()
+        self.session = replica_session(engine)
+        self._stream = new_stream(engine.model.device)
+        self._lockstep = lockstep or locksteps([engine])[0]
+        # a failure no restart mends (a collective that failed, ranks that
+        # parted): the replica stays down
+        self.fatal: Optional[BaseException] = None
         # health/queue-depth gauges: callback-backed, evaluated at
         # /metrics collection time (no writes from the worker loop)
         m = engine.m
@@ -119,6 +139,8 @@ class Replica:
             if req.uid in self._subs:
                 raise ValueError(f"uid {req.uid} already in flight")
             self.session.submit(req)     # may raise QueueFull/ValueError
+            if self._lockstep is not None:
+                self._lockstep.log("submit", req)
             self._subs[req.uid] = on_event
             self._inflight[req.uid] = req
         self._idle.clear()
@@ -140,11 +162,6 @@ class Replica:
             return False
         return time.monotonic() - self.last_step < HEALTH_STALL_S
 
-    def _new_session(self):
-        # the wait-queue cap is the engine's ServeConfig.queue_depth
-        return self.engine.session(seed=SEED,
-                                   max_waiting=self.engine.config.queue_depth)
-
     def stats(self) -> Dict[str, float]:
         # ``engine.stats`` is assembled from the registry's locked
         # counters: reading it on the server thread races no worker
@@ -152,15 +169,13 @@ class Replica:
 
     # ------------------------------------------------------------ worker
     def _run(self) -> None:
-        dev = torch.device(self.engine.model.device)
-        scope = (torch.cuda.device(dev) if dev.type == "cuda"
-                 else contextlib.nullcontext())
-        with torch.no_grad(), scope:
+        with worker_scope(self._stream):
             self._loop()
 
     def _loop(self) -> None:
         gen = self._gen
         faults = self.engine.faults
+        lockstep = self._lockstep
         try:
             while not self._closed and gen == self._gen:
                 if faults is not None and faults.hit(
@@ -171,8 +186,18 @@ class Replica:
                     if gen != self._gen:   # restarted under the lock wait
                         return
                     busy = self.session.has_work()
-                    events: List[StreamEvent] = (self.session.step()
-                                                 if busy else [])
+                    events: List[StreamEvent] = []
+                    if busy and lockstep is not None:
+                        with lockstep.turn.lock:     # record and step
+                            expired = self.session.due_deadlines()
+                            lockstep.send(True, expired)
+                            events = self.session.step(expired=expired)
+                            if self._stream is not None:
+                                self._stream.synchronize()
+                    elif busy:
+                        events = self.session.step()
+                    elif lockstep is not None:
+                        lockstep.keepalive()
                     subs = [(self._subs.get(ev.uid), ev) for ev in events]
                     for ev in events:
                         # delivered-token accounting happens at the
@@ -195,6 +220,9 @@ class Replica:
                     self._idle.set()
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
+            if (lockstep is not None and self._closed
+                    and gen == self._gen):
+                lockstep.stop()              # drained or closed
         except BaseException as e:          # worker death:
             # capture instead of vanishing — healthy goes False (dead
             # thread) and the supervisor drives restart + failover
@@ -202,6 +230,9 @@ class Replica:
             self.engine.obs.tracer.instant(
                 "replica_crash", track=self.engine.obs.label,
                 args={"replica": self.name, "error": repr(e)})
+            if lockstep is not None and not isinstance(e, FaultError):
+                self.fatal = e
+                self._end_inflight()
 
     # ---------------------------------------------------- fault recovery
     def cancel(self, uid: int, reason: str = "cancelled") -> bool:
@@ -214,12 +245,26 @@ class Replica:
             ev = self.session.cancel(uid, reason=reason)
             if ev is None:
                 return False
+            if self._lockstep is not None:
+                self._lockstep.log("cancel", uid, reason)
             cb = self._subs.pop(uid, None)
             self._inflight.pop(uid, None)
             self._delivered.pop(uid, None)
         if cb is not None:
             cb(ev)
         return True
+
+    def _end_inflight(self) -> None:
+        """A fatal failure: every in-flight request gets its terminal
+        event now (``finish_reason`` "error"), so that no client waits on
+        a replica that will not step again."""
+        for req, _, cb in self.take_inflight():
+            if cb is not None:
+                cb(StreamEvent(uid=req.uid, tokens=[], finished=True,
+                               result=Result(uid=req.uid,
+                                             tokens=np.zeros(0, np.int32),
+                                             prompt_len=len(req.prompt)),
+                               finish_reason="error"))
 
     def take_inflight(self):
         """Snapshot and clear the in-flight registrations — the
@@ -245,9 +290,14 @@ class Replica:
         self._gen += 1
         old = self._thread
         if old.is_alive():
-            old.join(timeout=2.0)
+            # a lockstep worker may be inside a step's collectives: the
+            # new one must not broadcast on the channel before it is out
+            old.join(timeout=None if self._lockstep is not None else 2.0)
         self.crashed = None
-        self.session = self._new_session()
+        with self._lock:
+            self.session = replica_session(self.engine)
+            if self._lockstep is not None:
+                self._lockstep.restart()
         self._subs = {}
         self._inflight = {}
         self._delivered = {}
@@ -266,14 +316,19 @@ class Replica:
     # --------------------------------------------------------- lifecycle
     def drain(self, timeout: Optional[float] = None) -> bool:
         """Stop intake, finish in-flight requests, park the worker.
-        Returns True once idle (False on timeout — work still live)."""
+        Returns True once idle (False on timeout — work still live).  A
+        lockstep replica whose drain times out is closed
+        (:meth:`close`): its worker sends the stop record after its
+        current step, so that no follower waits on it for ever."""
         self._draining = True
         self._wake.set()
-        done = self._idle.wait(timeout=timeout)
-        if done:
-            self._closed = True
-            self._wake.set()
-            self._thread.join(timeout=5.0)
+        end = None if timeout is None else time.monotonic() + timeout
+        while not (done := self._idle.wait(timeout=0.25)):
+            if self.fatal is not None or (end is not None
+                                          and time.monotonic() >= end):
+                break                        # a failed lockstep: no wait
+        if done or self._lockstep is not None:
+            self.close()
         return done
 
     def close(self) -> None:
@@ -283,3 +338,12 @@ class Replica:
         self._closed = True
         self._wake.set()
         self._thread.join(timeout=5.0)
+        self._stop_followers()
+
+    def _stop_followers(self) -> None:
+        """The stop record from the caller's thread where no worker sent
+        it (the worker died first); never beside a live worker, nor over
+        a channel that failed."""
+        if (self._lockstep is not None and self.fatal is None
+                and not self._thread.is_alive()):
+            self._lockstep.stop()

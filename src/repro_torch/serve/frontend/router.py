@@ -41,6 +41,11 @@ from repro_torch.serve.scheduler import QueueFull
 RETRY_BACKOFF_S = 0.05
 
 
+class ReplicaFailed(RuntimeError):
+    """A replica's failure that no restart mends (a lockstep replica
+    whose collective failed: a rank is gone)."""
+
+
 class NoHealthyReplicas(RuntimeError):
     """Every replica is down (crashed/stalled, none merely draining) —
     transient while the supervisor restarts workers, so the server
@@ -154,8 +159,17 @@ class Router:
             uid = self.assign_uid(creq)
             rep = self.submit(creq, make_cb(uid), uid=uid)
             names[uid] = rep.name
-        done.wait()
+        while not done.wait(timeout=0.25):
+            self.raise_fatal()
         return [out[k] for k in sorted(out)]
+
+    def raise_fatal(self) -> None:
+        """Raise a replica's fatal failure (a lockstep replica whose
+        collective failed), if one has one."""
+        for r in self.replicas:
+            if r.fatal is not None:
+                raise ReplicaFailed(
+                    f"replica {r.name} failed: {r.fatal!r}") from r.fatal
 
     # --------------------------------------------------------- lifecycle
     def health(self) -> Dict[str, Dict[str, float]]:

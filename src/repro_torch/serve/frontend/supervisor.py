@@ -29,6 +29,10 @@ Counters and trace: ``replica_restarts_total``,
 histogram, and ``replica_crash`` / ``replica_restart`` / ``failover``
 trace instants.
 
+A replica whose failure is :attr:`~repro_torch.serve.frontend.replica.
+Replica.fatal` (a lockstep replica's collective failed: a rank is gone)
+is left down — a restart would carry on without that rank.
+
 ``check_once()`` is the whole algorithm and is directly callable —
 tests and chip_smoke drive recovery deterministically without
 the polling thread; ``start()``/``stop()`` wrap it in a daemon poller
@@ -91,7 +95,7 @@ class Supervisor:
         this directly for deterministic chaos runs)."""
         recovered: List[str] = []
         for rep in self.router.replicas:
-            if rep.healthy or rep.draining:
+            if rep.healthy or rep.draining or rep.fatal is not None:
                 continue
             t0 = time.monotonic()
             m = rep.engine.m

@@ -36,8 +36,9 @@ reference's aux.  The loss and
 metrics are reduced the same way, so every rank's NaN guard decides
 alike, and the straggler watchdog reads the slowest rank's step time.
 Parameters stay replicated: the reference's FSDP sharding and a
-``model`` axis > 1 (tensor parallelism) are not ported (ROADMAP.md),
-and the latter is refused.  Only rank 0 writes checkpoints and
+``model`` axis > 1 in training (tensor parallelism, which serving has:
+``serve.engine``) are not ported (ROADMAP.md, Queue 1), and the latter
+is refused.  Only rank 0 writes checkpoints and
 ``metrics.jsonl``; every rank reads them back on resume.
 """
 

@@ -19,28 +19,34 @@ package on one device — the reference's own mesh tests fail on this jax
   every rank's logits bit-equal, and every rank's all-reduce and
   all-gather results;
 * the rules: ``dist.sharding.param_split`` against the reference's
-  ``param_specs`` on every leaf of nine SMOKE trees — the four dense
-  decoders', ``paper-tiny-mamba``, Jamba, the xLSTM, phi3.5-moe and
-  kimi-k2 — dense and packed (the recurrent blocks' linears too), at tp
-  2 and 4 (``head_dim=cfg.hd``), every leaf equal but the rank-local
-  ones (``dist.sharding.RANK_LOCAL``), each asserted at the port's dim,
-  and two twins whose recurrent blocks stay whole (every leaf of such a
+  ``param_specs`` on every leaf of eleven SMOKE trees — the four dense
+  decoders', ``paper-tiny-mamba``, Jamba, the xLSTM, phi3.5-moe,
+  kimi-k2, the prefix-LM (paligemma-3b: ``frontend_proj``) and the
+  encoder-decoder (seamless-m4t-large-v2: the encoder's layers, the
+  port's ``enc/layers/{i}`` held against the reference's stacked
+  ``enc/layers``, and ``xattn``) — dense and packed (the recurrent
+  blocks' and the encoder's linears too), at tp 2 and 4, and seamless
+  also at 8, where ``xattn``'s row-parallel head guard keeps ``wo``
+  whole (``head_dim=cfg.hd``), every leaf equal but the rank-local ones
+  (``dist.sharding.RANK_LOCAL``), each asserted at the port's dim, and
+  two twins whose recurrent blocks stay whole (every leaf of such a
   block whole);
   the cache rules (``kv_head_split``, ``state_split``) against
-  ``paged_kv_block_specs`` / ``decode_cache_block_specs`` /
-  ``paged_state_block_specs``, the recurrent dense cache taking the
-  paged rule (whole heads);
+  ``paged_kv_block_specs`` / ``decode_cache_block_specs`` (a decoder
+  block's cross ``xk`` / ``xv`` too) / ``paged_state_block_specs``, the
+  recurrent dense cache taking the paged rule (whole heads);
 * a rank's params at tp 2 (Qwen1.5-0.5B SMOKE, packed): under
   BYTES_RATIO of the whole tree's, every split leaf fresh and contiguous;
 * the schedule: a hard deadline is rank 0's to call, and ranks whose
   burst plans differ raise;
-* the prefix-LM and the encoder-decoder under 1x2 raise naming
-  ROADMAP.md, as do ``--server`` and ``--replicas 2``; the CLI's
-  ``--mesh 1x2`` prints one device's streams (qwen3-14b and xlstm-350m
-  SMOKE).
+* the CLI's ``--mesh 1x2`` prints one device's streams (qwen3-14b and
+  xlstm-350m SMOKE; continuous mode goes through the router and its
+  lockstep followers).
 
 The recurrent and expert families' serving is
-tests/test_torch_tp_serve_families.py.
+tests/test_torch_tp_serve_families.py; the prefix-LM's and the
+encoder-decoder's tests/test_torch_tp_serve_frontend.py; the router, its
+replicas and the HTTP server under a mesh tests/test_torch_tp_server.py.
 """
 
 import dataclasses
@@ -66,6 +72,7 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch import configs
 from repro_torch.configs import paper_tiny_lm
 from repro_torch.core.pruner import LINEARS, prune_linears
+from repro_torch.dist import use_mesh
 from repro_torch.dist.sharding import (RANK_LOCAL, block_splits,
                                        kv_head_split, state_split)
 from repro_torch.dist.sharding import param_specs as t_param_specs
@@ -78,12 +85,18 @@ BYTES_RATIO = 0.6
 WORLDS = (2, 4)
 RULE_ARCHS = ("qwen3-14b", "gemma-2b", "qwen1.5-0.5b", "paper_tiny_lm",
               "paper-tiny-mamba", "jamba-1.5-large-398b", "xlstm-350m",
-              "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b")
+              "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b", "paligemma_3b",
+              "seamless_m4t_large_v2")
+# (arch, tp) cases beyond tp 2 and 4: seamless SMOKE at 8, where a rank's
+# 8 of xattn.wo's 64 input rows would cut a head of 16 (the reference's
+# row-parallel head guard keeps it whole)
+RULE_EXTRA_TP = (("seamless_m4t_large_v2", 8),)
 # twins whose recurrent blocks stay whole at tp 2 and 4 (the families'
 # test serves them): rule id → tests/torch_dist_worker.py's FAM_MODELS
 WHOLE_TWINS = {"jamba-whole": "jamba_whole", "xlstm-whole": "xlstm_whole"}
 # the linears packed in the rules' trees (the reference's names)
 PACKED = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("wi", "wg", "wo"),
+          "xattn": ("wq", "wk", "wv", "wo"),
           "shared": ("wi", "wg", "wo"),
           "mamba": ("in_proj", "x_proj", "dt_proj", "out_proj"),
           "mlstm": ("wq", "wk", "wv", "wo"),
@@ -242,18 +255,6 @@ def test_deadlines_are_rank_0s_and_parted_plans_raise(tp):
         assert sch["parted"] is not None and "parted" in sch["parted"]
 
 
-def test_unported_models_and_server_refuse_under_a_mesh(tp):
-    """The prefix-LM and the encoder-decoder refuse a model axis of 2;
-    ``--server`` and ``--replicas 2`` refuse a mesh of two ranks."""
-    for r in tp["ranks"][2]:
-        assert sorted(r["refusals"]) == ["encdec", "prefix_lm"]
-        for name, msg in r["refusals"].items():
-            assert msg is not None and "ROADMAP.md" in msg, name
-        for key in ("cli_server", "cli_replicas"):
-            _, exit_msg = r[key]
-            assert exit_msg is not None and "ROADMAP.md" in exit_msg, key
-
-
 @pytest.mark.parametrize("arch", list(W.CLI_CASES))
 def test_cli_mesh_1x2_prints_one_device_streams(tp, arch):
     def streams(text):      # one device names its router's replica
@@ -279,6 +280,17 @@ class _FakeMesh:
     def __init__(self, tp):
         self.axis_names = ("data", "model")
         self.shape = {"data": 1, "model": tp}
+
+
+class _FakeTorchMesh:
+    """What a context over a DeviceMesh reads of it for the port's cache
+    shapes (``use_mesh``, ``DistContext.tp``): its axis names and
+    shape."""
+
+    mesh_dim_names = ("data", "model")
+
+    def __init__(self, tp):
+        self.shape = (1, tp)
 
 
 def _model_dim(spec, lead):
@@ -341,6 +353,8 @@ def _rule_configs(arch):
 _RULE_CASES = [(arch, packed, tp) for arch in RULE_ARCHS + tuple(WHOLE_TWINS)
                for packed in (False, True) for tp in (2, 4)
                if not (packed and arch == "jamba-whole")]
+_RULE_CASES += [(arch, packed, tp) for arch, tp in RULE_EXTRA_TP
+                for packed in (False, True)]
 
 
 @pytest.mark.parametrize(
@@ -366,6 +380,8 @@ def test_param_rule_matches_reference(arch, packed, tp_size):
     params = model.init(gen)
     if packed:
         linears = LINEARS + model.block_linears()
+        if tcfg.encdec:                   # the encoder's layers too
+            prune_linears({"layers": params["enc"]["layers"]}, "2:4")
         params = compressed_param_tree(
             prune_linears(params, "2:4", linears=linears),
             DEFAULT_SPARSE_PATTERNS + linear_patterns(linears))
@@ -378,6 +394,8 @@ def test_param_rule_matches_reference(arch, packed, tp_size):
             ref = "/".join(["layers", f"s{int(parts[1]) % period}",
                             *parts[2:]])
             lead = 1
+        elif parts[:2] == ["enc", "layers"]:    # the reference's stack
+            ref, lead = "/".join(["enc", "layers", *parts[3:]]), 1
         else:
             ref, lead = path, 0
         leaf = [p for p in parts if p not in ("vals", "idx")]
@@ -404,12 +422,26 @@ def test_param_rule_matches_reference(arch, packed, tp_size):
                    for p, d in got.items())
     if tcfg.moe is not None:
         assert any(p.endswith("moe/wi") and d == 0 for p, d in got.items())
+    if tcfg.frontend is not None:
+        assert got["embed/frontend_proj"] == 1       # column-parallel
+    if tcfg.encdec:
+        wo = got["layers/0/xattn/wo/vals" if packed else "layers/0/xattn/wo"]
+        k = (tcfg.num_heads * tcfg.hd) // tp_size
+        assert wo == (None if k % tcfg.hd else 0), wo     # the head guard
+        assert got["enc/ln/scale"] is None
+        assert any(p.startswith("enc/layers/1/") and d is not None
+                   for p, d in got.items())
 
 
-@pytest.mark.parametrize("tp_size", (2, 4))
-@pytest.mark.parametrize("arch", RULE_ARCHS + tuple(WHOLE_TWINS))
+_CACHE_CASES = [(arch, tp) for arch in RULE_ARCHS + tuple(WHOLE_TWINS)
+                for tp in (2, 4)] + list(RULE_EXTRA_TP)
+
+
+@pytest.mark.parametrize("arch,tp_size", _CACHE_CASES,
+                         ids=[f"{a}-{t}" for a, t in _CACHE_CASES])
 def test_cache_rules_match_reference(arch, tp_size):
-    """The KV rules, and each recurrent kind's state rule against
+    """The KV rules — a decoder block's cross ``xk`` / ``xv`` with its
+    self-attention's K / V — and each recurrent kind's state rule against
     ``paged_state_block_specs`` and the recurrent kinds of
     ``decode_cache_block_specs``: the dense cache takes the paged rule,
     whole heads, where the reference's splits inside an mLSTM head or
@@ -427,6 +459,20 @@ def test_cache_rules_match_reference(arch, tp_size):
     dense = _model_dim(decode_cache_block_specs("attn", dims, mesh)["k"], 0)
     # the reference's hd fallback (dim 3) is a whole cache in the port
     assert split == (dense if dense == 2 else None)
+    if "dec_attn" in cfg.period:
+        cross = decode_cache_block_specs("dec_attn", dims, mesh)
+        assert sorted(cross) == ["k", "v", "xk", "xv"]
+        for key in ("xk", "xv"):
+            d = _model_dim(cross[key], 0)
+            assert split == (d if d == 2 else None), key
+        # the port's cache: xk / xv at the rank's KV heads, as k / v
+        with use_mesh(_FakeTorchMesh(tp_size)):
+            cache = LM(tcfg, device="meta").init_cache(2, 8)
+        kvh = cfg.num_kv_heads // (tp_size if split else 1)
+        layer = cache[tcfg.num_layers - 1]
+        assert layer["xk"].shape == (2, cfg.frontend_len, kvh, cfg.hd)
+        assert layer["xv"].shape == layer["xk"].shape
+        assert layer["k"].shape[2] == kvh
     for kind in set(cfg.period) & {"mamba", "mlstm", "slstm"}:
         got = state_split(kind, tcfg, tp_size)
         want = paged_state_block_specs(kind, dims, mesh)

@@ -1,9 +1,10 @@
-"""The rank side of tests/test_torch_dist.py and
-tests/test_torch_tp_serve.py: one process of a ``gloo`` group on the
-CPU, spawned with :func:`run_groups`.  It imports only ``torch`` and the
-port (no jax), runs every distributed case of its world size — the
-prune / train cases (:func:`_cases`), the tensor-parallel serving ones
-(:func:`_tp_cases`) or the 2x4 shared-prefix case
+"""The rank side of tests/test_torch_dist.py and the tensor-parallel
+serving tests: one process of a ``gloo`` group on the CPU, spawned with
+:func:`run_groups`.  It imports only ``torch`` and the port (no jax),
+runs every distributed case of its world size — the prune / train cases
+(:func:`_cases`), the tensor-parallel serving ones (:func:`_tp_cases`,
+:func:`_fam_cases`, :func:`_front_cases`), the router's under a mesh
+(:func:`_server_cases`) or the 2x4 shared-prefix case
 (:func:`_prefix_cases`, for tests/test_torch_prefix_cache.py) — and
 sends its results back to the test process, which holds them against
 the JAX package.
@@ -389,25 +390,6 @@ def _tp_layout(mesh):
             "tok": tuple(eng.params["embed"]["tok"].shape)}
 
 
-def _tp_refusals(mesh):
-    """The models whose tensor parallelism is not ported — the prefix-LM
-    and the encoder-decoder: the message of the error each raises under
-    ``mesh`` (None: it did not)."""
-    from repro_torch import configs
-    from repro_torch.models.transformer import LM
-    from repro_torch.serve.engine import ServeEngine
-
-    out = {}
-    for name, cfg in (("prefix_lm", configs.get_smoke("paligemma_3b")),
-                      ("encdec", configs.get_smoke("seamless_m4t_large_v2"))):
-        try:
-            ServeEngine(LM(cfg, device="cpu"), {}, mesh=mesh, **TP_BASE)
-            out[name] = None
-        except ValueError as e:
-            out[name] = str(e)
-    return out
-
-
 def _cli(argv):
     """``launch.serve.main(argv)``'s standard output (and the message of
     the SystemExit it raised, if any)."""
@@ -500,12 +482,8 @@ def _tp_cases(rank: int, world: int, flats, _, tmp: str) -> dict:
     if world == 2:
         res["schedule"] = _tp_schedule(mesh, rank, model, params)
         res["layout"] = _tp_layout(mesh)
-        res["refusals"] = _tp_refusals(mesh)
         res["cli"] = {arch: _cli(argv + ["--mesh", "1x2"])
                       for arch, argv in CLI_CASES.items()}
-        res["cli_server"] = _cli(CLI_ARGS + ["--mesh", "1x2", "--server"])
-        res["cli_replicas"] = _cli(CLI_ARGS + ["--mesh", "1x2",
-                                               "--replicas", "2"])
     dist.barrier()
     return res
 
@@ -735,6 +713,283 @@ def _fam_cases(rank: int, world: int, flats, _, tmp: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# tensor-parallel serving of the prefix-LM and the encoder-decoder
+# (tests/test_torch_tp_serve_frontend.py)
+# ----------------------------------------------------------------------
+FRONT_ARCHS = ("paligemma_3b", "seamless_m4t_large_v2")
+# tests/test_torch_mamba_serve.py's twin with leading prefix blocks (an
+# attention and a Mamba block) before its attention periods
+PREFIX_TWIN = dict(name="prefix-twin", family="hybrid", num_layers=4,
+                   d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+                   d_ff=128, vocab_size=256, period=("attn",),
+                   prefix=("attn", "mamba"), mlp_kind="swiglu",
+                   ssm_mlp=True, ssm_state=4, ssm_conv=4, dtype="float32")
+# one static bucket of four rows: split over the data axis of a 2x2 mesh
+FRONT_BASE = dict(max_batch=4, max_len=48)
+PREFIX_MODES = {"static": dict(mode="static"),
+                "continuous": dict(page_size=8, prefill_chunk=8)}
+FRONT_LOGIT_LEN = 16                    # dense cache positions past F
+
+
+def front_requests():
+    """Four 7-token prompts (one bucket), 3-6 new tokens each."""
+    rng = np.random.default_rng(5)
+    return [(u, rng.integers(0, 256, size=7).astype(np.int32), m)
+            for u, m in enumerate((6, 4, 5, 3))]
+
+
+def front_feats(cfg, b=4, seed=6):
+    """(b, F, fd) stub features, f32 by numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    return (0.25 * rng.standard_normal(
+        (b, cfg.frontend_len, cfg.frontend_dim))).astype(np.float32)
+
+
+def front_offset(cfg) -> int:
+    """Dense cache positions ahead of the text: the prefix-LM's frontend
+    positions, none for the encoder-decoder."""
+    return 0 if cfg.encdec else cfg.frontend_len
+
+
+def _front_logits(model, params, mesh):
+    """A dense prefill of two logit prompts with their features and one
+    decode step (B, V); the encoder-decoder's cached cross K / V."""
+    from repro_torch.dist import use_mesh
+    from repro_torch.dist.sharding import shard_params
+    from repro_torch.serve.sparse import compressed_param_tree
+
+    cfg = model.cfg
+    sp = shard_params(compressed_param_tree(params), mesh, cfg=cfg)
+    toks = torch.from_numpy(logit_prompts())
+    feats = torch.from_numpy(front_feats(cfg, b=2, seed=9))
+    nxt = torch.tensor(DECODE_TOKENS, dtype=torch.int32)
+    off = front_offset(cfg)
+    with use_mesh(mesh):
+        cache = model.init_cache(2, off + FRONT_LOGIT_LEN)
+        out = {"prefill": model.prefill(sp, toks, cache,
+                                        frontend_feats=feats),
+               "decode": model.decode_step(sp, nxt, cache,
+                                           off + LOGIT_TOKENS)}
+    if cfg.encdec:
+        out["xk"] = cache[0]["xk"]
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _front_cases(rank: int, world: int, flats, _, tmp: str) -> dict:
+    """Both frontend models on 1x2 (world 2) or 2x2 (world 4): static
+    streams with a feature row each, the logits; on 1x2 a rank's bytes
+    and the prefix-block twin continuous and static."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.dist import mesh_from_spec
+    from repro_torch.models.base import ArchConfig
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.sparse import compressed_param_tree
+
+    mesh = mesh_from_spec("1x2" if world == 2 else "2x2", device="cpu")
+    res: dict = {"rank": rank, "streams": {}, "logits": {}, "layout": {}}
+    reqs = [Request(uid=u, prompt=p, max_new_tokens=m)
+            for u, p, m in front_requests()]
+    for arch in FRONT_ARCHS:
+        model = LM(configs.get_smoke(arch), device="cpu")
+        params = model.params_from_jax(flats[arch])
+        feats = torch.from_numpy(front_feats(model.cfg))
+        eng = ServeEngine(model, params, mesh=mesh,
+                          extra_batch={"frontend_feats": feats},
+                          **FRONT_BASE)
+        res["streams"][arch] = [r.tokens.tolist()
+                                for r in eng.generate(reqs)]
+        res["logits"][arch] = _front_logits(model, params, mesh)
+        if world == 2:
+            whole = compressed_param_tree(params)
+            res["layout"][arch] = {
+                "rank_bytes": _tree_bytes(eng.params),
+                "whole_bytes": _tree_bytes(whole),
+                "frontend_proj": tuple(
+                    eng.params["embed"]["frontend_proj"].shape)}
+    if world == 2:
+        model = LM(ArchConfig(**PREFIX_TWIN), device="cpu")
+        params = model.params_from_jax(flats["prefix"])
+        for mode, kw in PREFIX_MODES.items():
+            eng = ServeEngine(model, params, mesh=mesh, **FRONT_BASE, **kw)
+            res["streams"]["prefix", mode] = [r.tokens.tolist()
+                                              for r in eng.generate(reqs)]
+    dist.barrier()
+    return res
+
+
+# ----------------------------------------------------------------------
+# the router, its replicas and the server under a mesh
+# (tests/test_torch_tp_server.py)
+# ----------------------------------------------------------------------
+# the serve CLI's model: qwen3-14b SMOKE (4 query / 2 KV heads), seed-0
+# weights, magnitude 2:4, packed; bursts of two steps, four slots
+SERVER_ARGS = ["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
+               "--magnitude-24", "--sparse", "--steps-per-sync", "2",
+               "--max-batch", "4"]
+SERVER_TIMEOUT_S = 3.0                 # the replicas' group timeout
+DRAIN_MAX_NEW = 120                    # a request, each burst slowed,
+DRAIN_TIMEOUT_S = 0.2                  # far longer than the drain waits
+
+
+def server_requests(n=6, max_new=10):
+    """``n`` six-token prompts, ``max_new`` greedy tokens each."""
+    return [(u, [1 + u, 2, 3, 4 + u, 5, 6], max_new) for u in range(n)]
+
+
+def one_device_streams(reqs, argv=SERVER_ARGS):
+    """The CLI's model served on one device (no mesh, no router): the
+    greedy streams of ``reqs`` ((uid, prompt, max new) triples)."""
+    from repro_torch.launch import serve
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    args = serve.build_parser().parse_args(argv)
+    _, model, params = serve.load_model(args)
+    eng = ServeEngine(model, params, ServeConfig.from_args(args))
+    return [r.tokens.tolist() for r in eng.generate(
+        [Request(uid=u, prompt=np.asarray(p, np.int32), max_new_tokens=m)
+         for u, p, m in reqs])]
+
+
+def _worker_death_mid_stream(mesh, rank: int) -> dict:
+    """Two replicas under ``mesh``, the supervisor polling: eight
+    requests through the router; once r0 has streamed a token of a
+    request it still holds, a ``replica_worker`` death is armed on r0 —
+    its next pass raises with requests in flight, the supervisor
+    restarts it (mirrored to the followers as a restart op) and fails
+    them over.  Rank 0: the streams and the recovery counters; the other
+    ranks: their followers' steps."""
+    import dataclasses as dc
+    import threading
+    import time
+
+    from repro_torch.dist import use_mesh
+    from repro_torch.launch import serve
+    from repro_torch.obs import Obs
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.faults import FaultPlan, FaultSpec
+    from repro_torch.serve.frontend import (CompletionRequest, Supervisor,
+                                            follow)
+
+    args = serve.build_parser().parse_args(SERVER_ARGS)
+    _, model, params = serve.load_model(args)
+    plan = FaultPlan()
+    config = dc.replace(ServeConfig.from_args(args), replicas=2,
+                        faults=plan)
+    reqs = server_requests(8, 16)
+    with use_mesh(mesh):
+        if rank != 0:
+            obs = Obs.create(metrics=True, trace=False)
+            return {"steps": [f.steps for f in follow(serve.make_engines(
+                model, params, config, obs, SERVER_TIMEOUT_S))]}
+        router = serve.make_router(model, params, config,
+                                   group_timeout=SERVER_TIMEOUT_S)
+        sup = Supervisor(router, poll_s=0.05)
+        sup.start()
+        toks = {u: [] for u, _, _ in reqs}
+        finished, done = [], threading.Event()
+
+        def on_event(uid):
+            def cb(ev):                    # a replica's worker thread
+                toks[uid].extend(ev.tokens)
+                if ev.finished:
+                    finished.append(uid)
+                    if len(finished) == len(reqs):
+                        done.set()
+            return cb
+
+        placed = {u: router.submit(CompletionRequest(
+            prompt=p, max_tokens=m, uid=u), on_event(u), uid=u).name
+            for u, p, m in reqs}
+        mine = [u for u, name in placed.items() if name == "r0"]
+        r0 = router.replicas[0]
+        deadline = time.monotonic() + 60
+        while not (r0.load and any(0 < len(toks[u]) < 16 for u in mine)):
+            if time.monotonic() > deadline:
+                raise RuntimeError("r0 never streamed a token")
+            time.sleep(0.001)
+        with plan._lock:                       # armed: r0's next pass
+            plan.specs.append(FaultSpec("replica_worker", after=0,
+                                        count=1, replica="r0"))
+        done.wait(timeout=120)
+        router.drain(timeout=30)
+        sup.stop()
+        out = {"streams": [toks[u] for u, _, _ in reqs], "placed": placed,
+               "fired": dict(plan.fired),
+               "restarts": r0.engine.m.snapshot()["replica_restarts"],
+               "failed_over": sum(r.engine.m.snapshot()["failed_over"]
+                                  for r in router.replicas)}
+    out["one_device"] = one_device_streams(reqs)
+    return out
+
+
+def _drain_timeout(mesh, rank: int) -> dict:
+    """One replica under ``mesh`` with a long request in flight (every
+    burst slowed by 20 ms), drained with a timeout far shorter than the
+    request: the drain gives up, the replica closes, and its worker's
+    stop record ends the follower (which would otherwise time out in its
+    broadcast and end its process).
+    Rank 0: what the drain returned, the tokens streamed and whether the
+    worker is gone; the other ranks: their follower's steps."""
+    import dataclasses as dc
+    import time
+
+    from repro_torch.dist import use_mesh
+    from repro_torch.launch import serve
+    from repro_torch.obs import Obs
+    from repro_torch.serve.config import ServeConfig
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.frontend import CompletionRequest, follow
+
+    args = serve.build_parser().parse_args(SERVER_ARGS)
+    _, model, params = serve.load_model(args)
+    config = dc.replace(ServeConfig.from_args(args), faults=FaultPlan.parse(
+        [f"slow_burst:delay_s=0.02,count={DRAIN_MAX_NEW}"]))
+    with use_mesh(mesh):
+        if rank != 0:
+            obs = Obs.create(metrics=True, trace=False)
+            return {"steps": [f.steps for f in follow(serve.make_engines(
+                model, params, config, obs, SERVER_TIMEOUT_S))]}
+        router = serve.make_router(model, params, config,
+                                   group_timeout=SERVER_TIMEOUT_S)
+        toks = []
+        router.submit(CompletionRequest(prompt=[1, 2, 3, 4, 5, 6],
+                                        max_tokens=DRAIN_MAX_NEW, uid=0),
+                      lambda ev: toks.extend(ev.tokens), uid=0)
+        deadline = time.monotonic() + 60
+        while not toks:
+            if time.monotonic() > deadline:
+                raise RuntimeError("the request never streamed a token")
+            time.sleep(0.001)
+        drained = router.drain(timeout=DRAIN_TIMEOUT_S)
+        return {"drained": drained, "tokens": len(toks),
+                "worker_alive": router.replicas[0]._thread.is_alive()}
+
+
+def _server_cases(rank: int, world: int, _, __, tmp: str) -> dict:
+    """On 1x2: the batch CLI with two replicas (continuous through the
+    router and its followers; static on one engine a rank), a replica
+    worker's death mid-stream and a drain that times out."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import mesh_from_spec
+
+    mesh = mesh_from_spec("1x2", device="cpu")
+    cli = SERVER_ARGS + ["--requests", "4", "--max-new", "6", "--mesh",
+                         "1x2", "--replicas", "2"]
+    res = {"rank": rank,
+           "cli": {"continuous": _cli(cli),
+                   "static": _cli(cli + ["--serve-mode", "static"])},
+           "death": _worker_death_mid_stream(mesh, rank),
+           "drain": _drain_timeout(mesh, rank)}
+    dist.barrier()
+    return res
+
+
 # the reference's tests/test_prefix_cache.py::test_shared_prefix_2x4_mesh_parity
 PREFIX_2X4 = dict(max_batch=4, max_len=64, page_size=8, num_pages=17,
                   steps_per_sync=4)
@@ -786,6 +1041,7 @@ def _prefix_cases(rank: int, world: int, flat, _, tmp: str) -> dict:
 
 
 CASES = {"dist": _cases, "tp": _tp_cases, "tp_families": _fam_cases,
+         "tp_frontend": _front_cases, "tp_server": _server_cases,
          "prefix_2x4": _prefix_cases}
 
 
