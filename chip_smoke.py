@@ -46,6 +46,11 @@ sharing the card, pruning and training over a DeviceMesh.
                                           # the server under the mesh):
                                           # its one-device runs and the
                                           # two ranks' (no 16a / 16b)
+    python3 chip_smoke.py --phases 16g    # training with FSDP on 2x1 and
+                                          # tensor-parallel on 1x2, and a
+                                          # resume across them: one
+                                          # device's runs, then the two
+                                          # ranks'
 
 Phases (any failure exits non-zero; no exception is swallowed):
 
@@ -313,7 +318,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
      form in f64: the chunkwise error within XLSTM_F64_RATIO times the
      quadratic's), and
      the static prefill of one 9216-token prompt (the chunkwise path) + 32
-     tokens, with one sLSTM layer's 9216-step loop timed alone; 14d MS 2:4
+     tokens, with one sLSTM layer's loop timed alone over
+     XLSTM_LOOP_STEPS steps; 14d MS 2:4
      through the launcher's default (pipelined) engine at
      XLSTM_PRUNE_LAYERS (one period) on 128 x 2048 random ids in
      XLSTM_CALIB_SHARDS shards (hessian_accum 33 a shard, nm_select 33,
@@ -401,7 +407,20 @@ Phases (any failure exits non-zero; no exception is swallowed):
      streamed a token; then SIGTERM to both ranks: the streams equal
      16c's one-device f32 streams, the death fired once and failed
      requests over, each rank launched paged_attn, printed "draining..."
-     and exited 0.
+     and exited 0.  16g, in the same two processes before 16f: the
+     Trainer on Qwen1.5-0.5B at full width, DIST_LAYERS layers, the
+     reference's keyed init, TRAIN_16G's 3 steps of 8 x 128 random ids
+     (AdamW, f32 moments) — (a) on 2x1 with FSDP (the default), (b) on
+     1x2 tensor-parallel, each in f32 and in bf16 — against the same runs
+     on one device (in this process, before the ranks start): the f32
+     runs' losses within DIST_LOSS_ABS, the ranks' bit-equal, every leaf
+     within DIST_TRAIN_REL by norm with at most DIST_TRAIN_OUTLIERS of
+     its entries past DIST_TRAIN_ENTRY_ABS; bf16 printed; each rank's
+     bytes of params and moments against one device's and the seconds a
+     step; (c) the 2x1 f32 run's step-2 checkpoint resumed for step 3 on
+     1x2, its loss within DIST_LOSS_ABS of the uninterrupted run's.  16b
+     also trains the tiny LM once replicated (``fsdp_axes=()``), at the
+     same gates as its FSDP run.
 
 Then a ``{"kernels": [...]}`` line (every ported kernel, its check — a
 failed check has ended the run before — its numbers at the phase 1
@@ -501,6 +520,9 @@ DENSE_CALIB_SHARDS = {"gemma3_12b": 4}  # phase 12c: Gemma3-12B's segment is
                                      # hold ≈ 84 GB of linear inputs: the same
                                      # tokens in 4 shards (calib_shard)
 LOG = []
+# wall seconds spent in timing only — device_ms's loops (the calls past a
+# row's first, checked one) and profiler runs — and the calls, so far
+TIMING = {"device_ms_s": 0.0, "device_ms_calls": 0, "profiled_s": 0.0}
 
 
 def say(*parts) -> None:
@@ -529,7 +551,7 @@ def _device_us(prof) -> list:
             if e.device_type() == cuda and not e.is_user_annotation()]
 
 
-def device_ms(fn, arg_sets, n: int = 30, reps: int = 5) -> float:
+def device_ms(fn, arg_sets, n: int = 10, reps: int = 3) -> float:
     """Device time of one call of ``fn`` in ms: the median over ``reps``
     of the mean of ``n`` back-to-back calls, cycling through
     ``arg_sets`` (rotated so that the weights stream from device memory).
@@ -538,6 +560,7 @@ def device_ms(fn, arg_sets, n: int = 30, reps: int = 5) -> float:
     device alone, not the host's launch gaps."""
     import torch
 
+    t_start = time.monotonic()
     for a in arg_sets[:2]:
         fn(*a)
     torch.cuda.synchronize()
@@ -566,6 +589,8 @@ def device_ms(fn, arg_sets, n: int = 30, reps: int = 5) -> float:
                  "the card")
         else:                    # the host fell behind: spin longer, redo
             spin_s *= 2
+    TIMING["device_ms_s"] += time.monotonic() - t_start
+    TIMING["device_ms_calls"] += 2 + n * (1 + reps)
     return statistics.median(times)
 
 
@@ -1139,7 +1164,7 @@ def check_flash(gen, rows):
         torch.cuda.synchronize()
         err, tol = err_of(got, want, torch.bfloat16)
         del got, want
-        n, reps = (30, 5) if b == 8 else (5, 3)
+        n, reps = (10, 3) if b == 8 else (5, 3)
 
         def plain_chunked(q, k, v, causal):
             for i in range(0, q.shape[0], chunk):
@@ -1649,6 +1674,7 @@ def profiled(fn):
     and kernel count."""
     import torch
 
+    t_start = time.monotonic()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1657,6 +1683,7 @@ def profiled(fn):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     evs = _device_us(prof)
+    TIMING["profiled_s"] += time.monotonic() - t_start
     return out, wall, sum(d for d, _ in evs) / 1e6, len(evs)
 
 
@@ -4870,6 +4897,9 @@ XLSTM_QUAD_T = 16384                 # 14c: one mLSTM layer, chunkwise
                                      # f32 tensor is 4.3 GB, ≈ 3 live
 XLSTM_LONG = 9216                    # 14c: the smallest prompt > 8192 that
                                      # is a multiple of 1024 (chunkwise)
+XLSTM_LOOP_STEPS = 1024              # 14c: the sLSTM loop timed alone over
+                                     # these steps (a step's time is the
+                                     # same at every position)
 XLSTM_PRUNE_LAYERS = 8               # 14d: one period (7 mLSTM + the sLSTM)
 XLSTM_PRUNE_PACKED = 7 * 4 + 5       # of the 24, its 33 linears (all 24
                                      # layers until phases 15e and 16 came)
@@ -5262,7 +5292,8 @@ def xlstm_long(model, packed, smi):
     XLSTM_F64_RATIO times the quadratic's; (ii) the
     whole model's static prefill of one XLSTM_LONG-token prompt (the
     chunkwise path) and 32 decode tokens, and one sLSTM layer's prefill
-    over the same length alone (its per-token loop: host time)."""
+    over XLSTM_LOOP_STEPS tokens alone (its per-token loop: host time; a
+    step costs the same at every position)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -5331,7 +5362,7 @@ def xlstm_long(model, packed, smi):
     hbm = torch.cuda.max_memory_allocated()
     sp = packed["layers"][3]["slstm"]
     with torch.no_grad():
-        h = torch.randn(1, XLSTM_LONG, cfg.d_model, generator=g,
+        h = torch.randn(1, XLSTM_LOOP_STEPS, cfg.d_model, generator=g,
                         device="cuda").to(torch.bfloat16)
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -5340,13 +5371,14 @@ def xlstm_long(model, packed, smi):
         s_wall = time.monotonic() - t0
     say(f"  14c: static prefill of a {XLSTM_LONG}-token prompt + 32 decode "
         f"tokens: {wall:.3f} s; HBM held {hbm / 2**30:.3f} GiB; launches "
-        f"{counts}; one sLSTM layer's {XLSTM_LONG}-step loop alone "
-        f"{s_wall:.3f} s ({s_wall / XLSTM_LONG * 1e6:.1f} µs a step; 3 "
-        f"layers ≈ {3 * s_wall:.3f} s of the prefill) ({smi})")
+        f"{counts}; one sLSTM layer's loop alone over {XLSTM_LOOP_STEPS} "
+        f"steps {s_wall:.3f} s ({s_wall / XLSTM_LOOP_STEPS * 1e6:.1f} µs a "
+        f"step; 3 layers ≈ {3 * XLSTM_LONG * s_wall / XLSTM_LOOP_STEPS:.3f}"
+        f" s of the prefill) ({smi})")
     if counts["nm_spmm"] <= 0:
         fail("phase 14c: the long prefill did not launch the tiled nm_spmm")
     out.update(long_wall_s=wall, long_hbm_gib=hbm / 2**30, launches=counts,
-               slstm_layer_s=s_wall)
+               slstm_layer_s=XLSTM_LONG * s_wall / XLSTM_LOOP_STEPS)
     return counts, out
 
 
@@ -6123,9 +6155,10 @@ def _dist_same(label, got, want, reports=None, want_reports=None):
                      f"{q.recon_error}")
 
 
-def _dist_train(mesh=None, out=None, grad_compression=True):
+def _dist_train(mesh=None, out=None, grad_compression=True, fsdp_axes=None):
     """DIST_TRAIN's steps of paper_tiny_lm (f32), on ``mesh``
-    (data-parallel) or one device: (losses, final params flat, info)."""
+    (data-parallel: FSDP over data by default, ``fsdp_axes=()``
+    replicated) or one device: (losses, final params flat, info)."""
     import tempfile
 
     import torch
@@ -6148,8 +6181,9 @@ def _dist_train(mesh=None, out=None, grad_compression=True):
                                       seq_len=t, ckpt_every=n,
                                       out_dir=out or tmp, log_every=1,
                                       grad_compression=grad_compression),
-                          mesh=mesh)
-        params, _, info = trainer.run()
+                          mesh=mesh, fsdp_axes=fsdp_axes)
+        params, opt_state, info = trainer.run()
+        params, _, _ = trainer.gather_state(params, opt_state)
         losses = None
         if os.path.exists(os.path.join(out or tmp, "metrics.jsonl")):
             with open(os.path.join(out or tmp, "metrics.jsonl")) as f:
@@ -6378,7 +6412,7 @@ def check_tp_widths(gen, rows):
     bf16 at KERNEL_TOL_REL (flash_attn's bf16 at BF16_KERNEL_TOL_REL, as
     in every flash_attn row) with its route asserted: nm_spmm_decode (M 8,
     a decode step; bias and silu where the path fuses them) and nm_spmm
-    (M 256) at TP_LINEARS, timed; paged_attn at TP_PAGED (bf16 pages,
+    (M 256) at TP_LINEARS, timed at ``mlp.wi``; paged_attn at TP_PAGED (bf16 pages,
     ragged lengths over 8 pages of 16, the 16-byte-copy route); flash_attn
     at TP_FLASH, causal (the tensor cores for bf16, the f32 FMA kernel
     for f32), the same bits from a second call.  16d's shapes beside
@@ -6399,7 +6433,9 @@ def check_tp_widths(gen, rows):
     family = tp_family_linears()
     for m in (8, 256):
         for lin in (*TP_LINEARS, *family):
-            row = nm_row(gen, m, *lin)
+            # checked, and timed at a rank's widest linear, mlp.wi (the
+            # others' times hold within 2 % from run to run)
+            row = nm_row(gen, m, *lin, timed=lin[0].endswith("mlp.wi"))
             rows.append(row)
             out[row["kernel"]].append(row)
     for label, m, k, n, act in tp_frontend_linears():
@@ -7110,6 +7146,244 @@ def moe_train(mesh=None, out=None):
             return [(r["loss"], r["aux"]) for r in map(json.loads, f)]
 
 
+# ----------------------------------------------------------------------
+# 16g: FSDP and a model axis in training, on 16b's two ranks (gloo)
+# ----------------------------------------------------------------------
+TRAIN_16G = dict(steps=3, batch=8, seq=128)   # Qwen1.5-0.5B, DIST_LAYERS
+TRAIN_16G_RUNS = (("2x1", "float32"), ("2x1", "bfloat16"),
+                  ("1x2", "float32"), ("1x2", "bfloat16"))
+# a checkpoint's gather holds one whole leaf on the card at a time: a
+# rank's bytes there rise by at most this many of the largest whole leaf
+# while it writes (a whole-tree gather: ≈ 3.3 of them)
+SAVE_RISE_LEAVES = 1.5
+
+
+class _RankRows:
+    """16g's batches: the global batch of token ids from a seeded
+    torch.Generator on the card (Qwen's vocabulary makes the synthetic
+    corpus's (V, V) table 92 GB), of which a rank keeps its rows over the
+    data axis (``dist.sharding.batch_sharding``, as ``DataPipeline``)."""
+
+    def __init__(self, cfg, batch, seq, mesh=None, seed=0):
+        from repro_torch.dist.sharding import batch_sharding
+
+        self.cfg, self.batch, self.seq, self.seed = cfg, batch, seq, seed
+        self.shard = None if mesh is None else batch_sharding(mesh)
+
+    def batch_at(self, step):
+        import torch
+
+        g = torch.Generator(device="cuda")
+        g.manual_seed(1000 * self.seed + step)
+        toks = torch.randint(0, self.cfg.vocab_size, (self.batch, self.seq),
+                             generator=g, device="cuda", dtype=torch.int32)
+        if self.shard is not None:
+            toks = self.shard.take(toks)
+        return {"tokens": toks, "labels": toks}
+
+
+def train_16g(mesh=None, dtype="float32", out=None, save_at=()):
+    """TRAIN_16G's steps of Qwen1.5-0.5B at full width and DIST_LAYERS
+    layers in ``dtype`` (AdamW's moments f32; the reference's keyed
+    init), through the Trainer: on ``mesh`` (its default: FSDP over
+    data, blocks over model) or on one device; a run that finds a
+    checkpoint in ``out`` resumes from it.  It writes a checkpoint there
+    after the steps of ``save_at`` only (the state is 2.2 GB in f32, and
+    only (c) reads one), and measures how far the rank's bytes on the
+    card rose while it wrote (``save_rise``) against the largest whole
+    leaf (``whole_leaf``, rank 0's).  Returns (the model, the whole
+    params — on rank 0's host under a mesh, None elsewhere — and info:
+    every step's loss, step seconds, the bytes of params and moments the
+    rank held, the run's wall seconds)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim import AdamW, tree_leaves
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train import TrainConfig, Trainer
+
+    n, b, t = TRAIN_16G["steps"], TRAIN_16G["batch"], TRAIN_16G["seq"]
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"),
+                              num_layers=DIST_LAYERS, dtype=dtype)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        trainer = Trainer(LM(cfg, device="cuda"),
+                          AdamW(lr=warmup_cosine(1e-3, 1, n)),
+                          _RankRows(cfg, b, t, mesh),
+                          TrainConfig(total_steps=n, global_batch=b,
+                                      seq_len=t, ckpt_every=1,
+                                      out_dir=out or tmp, log_every=n),
+                          mesh=mesh)
+        save, rise = trainer._save, {}
+
+        def saving(step, *state):
+            if step in save_at:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                save(step, *state)
+                rise["save_rise"] = torch.cuda.max_memory_allocated() - base
+
+        trainer._save = saving
+        t0 = time.monotonic()
+        params, opt_state, info = trainer.run()
+        info["wall_s"] = time.monotonic() - t0
+        params, _, _ = trainer.gather_state(params, opt_state, to_host=True)
+    info.update(rise)
+    if params is not None and tree_leaves(params)[0] is not None:
+        info["whole_leaf"] = max(v.numel() * v.element_size()
+                                 for v in tree_leaves(params))
+    return trainer.model, params, info
+
+
+def _flat32(model, params):
+    """An f32 model's params (the reference's paths) as host tensors."""
+    import torch
+
+    return {k: torch.from_numpy(v)
+            for k, v in model.params_to_flat(params).items()}
+
+
+def train_16g_one(work):
+    """16g's one-device runs, in this process: f32 (its params saved to
+    ``work`` for the ranks to hold theirs against) and bf16.  Returns
+    {dtype: (losses, median step seconds, bytes held)}."""
+    import statistics
+
+    import torch
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        model, params, info = train_16g(dtype=dtype)
+        if dtype == "float32":
+            torch.save(_flat32(model, params),
+                       os.path.join(work, "one_f32.pt"))
+        out[dtype] = (info["losses"], statistics.median(info["step_seconds"]),
+                      info["rank_state_bytes"])
+        del model, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_16g_rank(work, rank):
+    """16g on one of the two ranks: TRAIN_16G_RUNS (2x1 with FSDP, 1x2
+    tensor-parallel; f32 and bf16), then (c) the 2x1 f32 run's step-2
+    checkpoint resumed for step 3 on 1x2.  Rank 0 holds each f32 run's
+    params against the one-device run's (``work``/one_f32.pt): each
+    leaf's relative error by norm and its entries past
+    DIST_TRAIN_ENTRY_ABS."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from repro_torch.dist import comm, mesh_from_spec
+
+    meshes = {spec: mesh_from_spec(spec, "cuda", backend="gloo")
+              for spec in ("2x1", "1x2")}
+    one = (torch.load(os.path.join(work, "one_f32.pt")) if rank == 0
+           else None)
+    res = {}
+    for spec, dtype in TRAIN_16G_RUNS:
+        comm.barrier()
+        saved = (os.path.join(work, "16g_saved")
+                 if (spec, dtype) == ("2x1", "float32") else None)
+        model, params, info = train_16g(meshes[spec], dtype, out=saved,
+                                        save_at=(2,) if saved else ())
+        run = dict(losses=info["losses"], bytes=info["rank_state_bytes"],
+                   step_s=statistics.median(info["step_seconds"]),
+                   wall_s=info["wall_s"], save_rise=info.get("save_rise"),
+                   whole_leaf=info.get("whole_leaf"))
+        if rank == 0 and dtype == "float32":
+            rel, far = {}, {}
+            for k, v in _flat32(model, params).items():
+                d = v - one[k]
+                rel[k] = float(d.norm() / one[k].norm().clamp(min=1e-30))
+                far[k] = int((d.abs() > DIST_TRAIN_ENTRY_ABS).sum()
+                             ) / v.numel()
+            run.update(rel=rel, far=far)
+        res[f"{spec} {dtype}"] = run
+        del model, params
+        torch.cuda.empty_cache()
+    # (c): the 2x1 run's step-2 checkpoint, step 3 on 1x2
+    resumed = os.path.join(work, "16g_resumed")
+    if rank == 0:
+        os.makedirs(resumed)
+        shutil.copytree(os.path.join(work, "16g_saved", "step_00000002"),
+                        os.path.join(resumed, "step_00000002"))
+    comm.barrier()
+    model, params, info = train_16g(meshes["1x2"], "float32", out=resumed)
+    res["resumed"] = dict(losses=info["losses"], wall_s=info["wall_s"])
+    del model, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_16g_check(ranks, one, smi):
+    """16g's gates: each f32 run's losses within DIST_LOSS_ABS of one
+    device's, the ranks' bit-equal, every leaf within DIST_TRAIN_REL by
+    norm with at most DIST_TRAIN_OUTLIERS of its entries past
+    DIST_TRAIN_ENTRY_ABS; the 2x1 f32 run's checkpoint raising no rank's
+    bytes on the card by more than SAVE_RISE_LEAVES whole leaves; (c)'s
+    step 3 within DIST_LOSS_ABS of the uninterrupted run's.  bf16
+    printed.  Returns the numbers."""
+    out = {}
+    key = "2x1 float32"
+    leaf = ranks[0]["16g"][key]["whole_leaf"]
+    rises = [r["16g"][key]["save_rise"] for r in ranks]
+    if max(rises) > SAVE_RISE_LEAVES * leaf:
+        fail(f"16g {key}: writing the checkpoint raised a rank's bytes on "
+             f"the card by {rises}, past {SAVE_RISE_LEAVES} of the largest "
+             f"whole leaf's {leaf}")
+    say(f"  16g {key}: the step-2 checkpoint raised the ranks' bytes on "
+        f"the card by {rises[0] / 2**20:.1f} / {rises[1] / 2**20:.1f} MiB "
+        f"(the largest whole leaf {leaf / 2**20:.1f} MiB)")
+    out["save_rise"] = dict(rises=rises, whole_leaf=leaf)
+    for spec, dtype in TRAIN_16G_RUNS:
+        key = f"{spec} {dtype}"
+        r0, r1 = (r["16g"][key] for r in ranks)
+        losses1, step1, bytes1 = one[dtype]
+        if r0["losses"] != r1["losses"]:
+            fail(f"16g {key}: the ranks' losses differ: {r0['losses']} "
+                 f"against {r1['losses']}")
+        far_loss = max(abs(a - b) for a, b in zip(r0["losses"], losses1))
+        if dtype == "float32":
+            if far_loss > DIST_LOSS_ABS:
+                fail(f"16g {key}: losses {r0['losses']} against one "
+                     f"device's {losses1}")
+            worst = max(r0["rel"], key=r0["rel"].get)
+            outlier = max(r0["far"], key=r0["far"].get)
+            if (r0["rel"][worst] > DIST_TRAIN_REL
+                    or r0["far"][outlier] > DIST_TRAIN_OUTLIERS):
+                fail(f"16g {key}: trained {worst} {r0['rel'][worst]:.3e} "
+                     f"from one device's by norm; {outlier} "
+                     f"{r0['far'][outlier]:.2e} of its entries past "
+                     f"{DIST_TRAIN_ENTRY_ABS:g}")
+        ratio = [r["16g"][key]["bytes"] / bytes1 for r in ranks]
+        say(f"  16g {key}: losses {r0['losses']} (one device "
+            f"{losses1}; at most {far_loss:.2e} apart"
+            + (f"; params {r0['rel'][worst]:.2e} by norm at most, "
+               f"{worst}" if dtype == "float32" else "")
+            + f"); a rank held {r0['bytes'] / 2**20:.1f} MiB of params "
+            f"and moments, {ratio[0]:.3f} / {ratio[1]:.3f} of one "
+            f"device's {bytes1 / 2**20:.1f}; {r0['step_s']:.3f} s a step "
+            f"(one device {step1:.3f}), the run {r0['wall_s']:.1f} s ({smi})")
+        out[key] = dict(r0, ratio=ratio, one_losses=losses1,
+                        one_step_s=step1, one_bytes=bytes1)
+    got = ranks[0]["16g"]["resumed"]["losses"]
+    want = one["float32"][0][-1]
+    if len(got) != 1 or abs(got[0] - want) > DIST_LOSS_ABS:
+        fail(f"16g (c): step 3 resumed on 1x2 from 2x1's step-2 checkpoint "
+             f"lost {got} against the uninterrupted run's {want}")
+    say(f"  16g (c): 2x1's step-2 checkpoint resumed on 1x2: step 3 loss "
+        f"{got[0]} against the uninterrupted run's {want} (the run "
+        f"{ranks[0]['16g']['resumed']['wall_s']:.1f} s)")
+    out["resumed"] = dict(loss=got[0], want=want)
+    return out
+
+
 def _free_port() -> int:
     import socket
 
@@ -7128,9 +7402,11 @@ def dist_rank_main(work, parts="bc") -> int:
     batch); 16c (``c``): tensor-parallel serving on 1x2 (``tp_serve``);
     16d (``d``): the recurrent and expert families' tensor-parallel
     serving on 1x2 (``tp_family_serve``); 16e (``e``): the prefix-LM's
-    and the encoder-decoder's (``tp_frontend_serve``); 16f (``f``): the
-    serve CLI's server on 1x2 until SIGTERM (``tp_server_rank``).  Each
-    result saved under ``WORK``."""
+    and the encoder-decoder's (``tp_frontend_serve``); 16g (``g``): the
+    trainer with FSDP on 2x1 and tensor-parallel on 1x2, and a resume
+    across them (``train_16g_rank``); 16f (``f``, the last): the serve
+    CLI's server on 1x2 until SIGTERM (``tp_server_rank``).  Each result
+    saved under ``WORK``."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
@@ -7166,6 +7442,11 @@ def dist_rank_main(work, parts="bc") -> int:
                                       grad_compression=False)
         res["train"] = dict(losses=losses, wall_s=time.monotonic() - t0)
         torch.save(flat, os.path.join(work, f"train_{rank}.pt"))
+        # the replicated route (fsdp_axes=()) against the same one rank
+        losses, flat, _ = _dist_train(dp, out=os.path.join(work, "rep"),
+                                      grad_compression=False, fsdp_axes=())
+        res["train_rep"] = dict(losses=losses)
+        torch.save(flat, os.path.join(work, f"train_rep_{rank}.pt"))
         res["moe_train"] = moe_train(dp, out=os.path.join(work, "moe"))
         torch.cuda.empty_cache()
     if "c" in parts:
@@ -7186,6 +7467,12 @@ def dist_rank_main(work, parts="bc") -> int:
         with torch.no_grad():
             res["16e"] = tp_frontend_serve(tp)
         res["16e_wall_s"] = time.monotonic() - t0
+    if "g" in parts:
+        comm.barrier()
+        t0 = time.monotonic()
+        res["16g"] = train_16g_rank(work, rank)
+        res["16g_wall_s"] = time.monotonic() - t0
+        torch.cuda.empty_cache()
     if "f" in parts:                 # the last: it serves until SIGTERM
         comm.barrier()
         torch.cuda.empty_cache()
@@ -7299,6 +7586,11 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
 
     out = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        if "g" in parts:       # the one-device runs the ranks hold theirs to
+            t0 = time.monotonic()
+            g_one = train_16g_one(work)
+            out["16g_one_s"] = time.monotonic() - t0
+            say(f"  16g's one-device runs took {out['16g_one_s']:.1f} s")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                    MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
                    WORLD_SIZE="2")
@@ -7366,17 +7658,20 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
                              for k, w in wants[0].items()]
                     out[f"2x1 mask agreement with one shard, rank {r}"] = \
                         min(agree)
-            got = torch.load(os.path.join(work, f"train_{r}.pt"))
-            for k, v in flat_one.items():
-                err = float((got[k] - v).norm() / v.norm().clamp(min=1e-30))
-                far = int(((got[k] - v).abs() > DIST_TRAIN_ENTRY_ABS).sum())
-                out.setdefault("train_rel", []).append(err)
-                out.setdefault("train_far", []).append(far)
-                if err > DIST_TRAIN_REL or far > (DIST_TRAIN_OUTLIERS
-                                                  * v.numel()):
-                    fail(f"16b rank {r}: trained {k} {err:.3e} from one "
-                         f"rank's by norm, {far} entries past "
-                         f"{DIST_TRAIN_ENTRY_ABS:g}")
+            for name in ("train", "train_rep"):
+                got = torch.load(os.path.join(work, f"{name}_{r}.pt"))
+                for k, v in flat_one.items():
+                    err = float((got[k] - v).norm()
+                                / v.norm().clamp(min=1e-30))
+                    far = int(((got[k] - v).abs()
+                               > DIST_TRAIN_ENTRY_ABS).sum())
+                    out.setdefault(f"{name}_rel", []).append(err)
+                    out.setdefault(f"{name}_far", []).append(far)
+                    if err > DIST_TRAIN_REL or far > (DIST_TRAIN_OUTLIERS
+                                                      * v.numel()):
+                        fail(f"16b rank {r} ({name}): trained {k} "
+                             f"{err:.3e} from one rank's by norm, {far} "
+                             f"entries past {DIST_TRAIN_ENTRY_ABS:g}")
     counts = {k: 0 for k in PRUNE_KERNELS}
     if "c" in parts:
         for k, v in _tp_check(ranks, tp_one, smi).items():
@@ -7396,6 +7691,10 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
         out["16e"] = {r["rank"]: r["16e"] for r in ranks}
         say(f"  16e: the ranks' serving took "
             f"{max(r['16e_wall_s'] for r in ranks):.1f} s")
+    if "g" in parts:
+        out["16g"] = train_16g_check(ranks, g_one, smi)
+        say(f"  16g: the ranks' training took "
+            f"{max(r['16g_wall_s'] for r in ranks):.1f} s")
     if "f" in parts:
         f0 = ranks[0]["16f"]
         for r in ranks:
@@ -7431,10 +7730,12 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
             for k in counts:
                 counts[k] += c[k]
     losses = ranks[0]["train"]["losses"]
-    for a, b in zip(losses, losses_one):
-        if abs(a - b) > DIST_LOSS_ABS:
-            fail(f"16b: data-parallel losses {losses} against one rank's "
-                 f"{losses_one}")
+    for name in ("train", "train_rep"):
+        for a, b in zip(ranks[0][name]["losses"], losses_one):
+            if abs(a - b) > DIST_LOSS_ABS:
+                fail(f"16b ({name}): data-parallel losses "
+                     f"{ranks[0][name]['losses']} against one rank's "
+                     f"{losses_one}")
     for r in ranks:
         for (loss, aux), (loss1, aux1) in zip(r["moe_train"], moe_one):
             if abs(loss - loss1) > DIST_LOSS_ABS or abs(
@@ -7448,15 +7749,18 @@ def dist_two_ranks(smi, parts="bc", wants=None, flat_one=None,
     say(f"  16b: both ranks' masks equal 16a's on 1x2 (one shard) and 2x1 "
         f"(two shards; least agreement of a linear with the one-shard run "
         f"{min(v for k, v in out.items() if 'agreement' in k):.6f}); the "
-        f"data-parallel trainer's losses {losses} (one rank: {losses_one}),"
-        f" params {max(out['train_rel']):.2e} apart by norm at most, "
-        f"{max(out['train_far'])} entries past {DIST_TRAIN_ENTRY_ABS:g} in "
-        f"a leaf at most; wall {wall:.1f} s for the two processes ({smi})")
+        f"data-parallel trainer's losses {losses} with FSDP, "
+        f"{ranks[0]['train_rep']['losses']} replicated (one rank: "
+        f"{losses_one}), params {max(out['train_rel']):.2e} / "
+        f"{max(out['train_rep_rel']):.2e} apart by norm at most, "
+        f"{max(out['train_far'])} / {max(out['train_rep_far'])} entries past "
+        f"{DIST_TRAIN_ENTRY_ABS:g} in a leaf at most; wall {wall:.1f} s for "
+        f"the two processes ({smi})")
     out.update(wall_s=wall, ranks=ranks)
     return counts, out
 
 
-def dist_phase(smi, parts="abcdef"):
+def dist_phase(smi, parts="abcdefg"):
     """Phase 16 (those of ``parts``; 16a runs for 16b too): (the mesh
     runs' launches — prune kernels, and 16c's and 16d's serving kernels
     — and numbers)."""
@@ -7497,7 +7801,7 @@ def dist_phase(smi, parts="abcdef"):
         out["16e_one_device"] = frontend_one
         say(f"  16e's one-device runs took {time.monotonic() - t:.1f} s")
         torch.cuda.empty_cache()
-    ranks = "".join(p for p in "bcdef" if p in parts)
+    ranks = "".join(p for p in "bcdefg" if p in parts)
     if ranks:
         t = time.monotonic()
         say(f"  16{'/16'.join(ranks)}: two ranks on the one card (gloo)"
@@ -7508,6 +7812,8 @@ def dist_phase(smi, parts="abcdef"):
                if "d" in ranks else "")
             + (", 16e the prefix-LM and the encoder-decoder on 1x2"
                if "e" in ranks else "")
+            + (", 16g the trainer with FSDP on 2x1 and tensor-parallel on "
+               "1x2" if "g" in ranks else "")
             + (", 16f the server, its two replicas and the supervisor on "
                "1x2" if "f" in ranks else ""))
         c, out["16bc"] = dist_two_ranks(smi, ranks, wants, flat_one,
@@ -7585,7 +7891,7 @@ def partial_run(only, gen, rows, t_start) -> int:
         say(f"phase 1 (partial): the kernels at 16c's, 16d's and 16e's "
             f"rank-local shapes ({smi})")
         out["tp_widths"] = check_tp_widths(gen, rows)
-    parts = "abcdef" if "16" in only else "".join(
+    parts = "abcdefg" if "16" in only else "".join(
         p[2] for p in sorted(only) if p.startswith("16") and len(p) == 3)
     if parts:
         say(f"phase 16 (partial: {parts}; {smi})")
@@ -7619,10 +7925,10 @@ def main(argv) -> int:
                         "12b", "12c", "12d", "13", "13a", "13b", "13c", "14",
                         "14a", "14b", "14c", "14d", "15", "15a", "15b",
                         "15c", "15d", "15e", "16", "16a", "16b", "16c",
-                        "16d", "16e", "16f"}:
+                        "16d", "16e", "16f", "16g"}:
             print("chip_smoke: --phases takes 1, 1m, 1w, 1x, 1e, 1t, 11, 12, "
                   "12a-12d, 13, 13a-13c, 14, 14a-14d, 15, 15a-15e, 16 and "
-                  "16a-16f", file=sys.stderr)
+                  "16a-16g", file=sys.stderr)
             return 2
     elif argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -7643,7 +7949,10 @@ def main(argv) -> int:
     t_start = time.monotonic()
 
     def head(msg):
-        say(f"[{time.monotonic() - t_start:.0f} s] {msg}")
+        say(f"[{time.monotonic() - t_start:.0f} s; timing only so far: "
+            f"device_ms {TIMING['device_ms_s']:.1f} s in "
+            f"{TIMING['device_ms_calls']} calls, profiler runs "
+            f"{TIMING['profiled_s']:.1f} s] {msg}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7674,20 +7983,29 @@ def main(argv) -> int:
     head("phases 8 and 10's trainer chains done beside the build (the "
          "longest " + f"{max(w for _, w in trained.values()):.1f} s)")
     head("phase 1: kernels against their plain versions")
-    per_kernel = check_nm_spmm(gen, rows)
-    paged_main, paged_long, paged_shared = check_paged(gen, rows)
-    check_hessian(gen, rows)
-    hess_rows = check_hessian_stacked(gen, rows)
-    hess_w_rows = check_hessian_weighted(gen, rows)
-    select_rows = check_nm_select(gen, rows)
-    flash_rows = check_flash(gen, rows)
-    flash_256 = check_flash_256(gen, rows)
-    dense_rows = check_dense_widths(gen, rows)
-    moe_rows = check_moe_widths(gen, rows)
-    xlstm_rows = check_xlstm_widths(gen, rows)
-    flash_frontend = check_flash_frontend(gen, rows)
-    frontend_rows = check_frontend_widths(gen, rows)
-    tp_rows = check_tp_widths(gen, rows)
+
+    def check(fn):
+        """``fn(gen, rows)``, its seconds and its timing loops' printed."""
+        t, d0 = time.monotonic(), TIMING["device_ms_s"]
+        out = fn(gen, rows)
+        say(f"  ({fn.__name__}: {time.monotonic() - t:.1f} s, its timing "
+            f"loops {TIMING['device_ms_s'] - d0:.1f} s)")
+        return out
+
+    per_kernel = check(check_nm_spmm)
+    paged_main, paged_long, paged_shared = check(check_paged)
+    check(check_hessian)
+    hess_rows = check(check_hessian_stacked)
+    hess_w_rows = check(check_hessian_weighted)
+    select_rows = check(check_nm_select)
+    flash_rows = check(check_flash)
+    flash_256 = check(check_flash_256)
+    dense_rows = check(check_dense_widths)
+    moe_rows = check(check_moe_widths)
+    xlstm_rows = check(check_xlstm_widths)
+    flash_frontend = check(check_flash_frontend)
+    frontend_rows = check(check_frontend_widths)
+    tp_rows = check(check_tp_widths)
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"{len(bad)} kernel checks out of tolerance: "
@@ -7839,8 +8157,11 @@ def main(argv) -> int:
          f"{TP_XLSTM_LAYERS} layers, phi3.5-moe {TP_PHI_LAYERS} layers; bf16 "
          f"and f32); 16e the prefix-LM and the encoder-decoder on 1x2 "
          f"(paligemma-3b 2 of 18 layers, seamless-m4t-large-v2 2 + 2; bf16 "
-         f"and f32); 16f the server under 1x2 (Qwen1.5-0.5B {DIST_LAYERS} "
-         f"layers f32, two replicas, a worker's death, SIGTERM) ({smi})")
+         f"and f32); 16g the trainer on Qwen1.5-0.5B ({DIST_LAYERS} layers, "
+         f"f32 and bf16) with FSDP on 2x1 and tensor-parallel on 1x2, and "
+         f"2x1's checkpoint resumed on 1x2; 16f the server under 1x2 "
+         f"(Qwen1.5-0.5B {DIST_LAYERS} layers f32, two replicas, a worker's "
+         f"death, SIGTERM) ({smi})")
     t16 = time.monotonic()
     prune_16, dist_out = dist_phase(smi)
     for k in prune_16:
@@ -7925,6 +8246,9 @@ def main(argv) -> int:
                             "hessian_weighted": hess_w_rows, "moe": moe_out,
                             "dist": dist_out},
                            default=str) + "\n")
+    say(f"timing only: device_ms {TIMING['device_ms_s']:.1f} s in "
+        f"{TIMING['device_ms_calls']} calls, profiler runs "
+        f"{TIMING['profiled_s']:.1f} s")
     say(f"all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

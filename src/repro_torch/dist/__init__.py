@@ -21,8 +21,7 @@ from repro_torch.dist.mesh import (add_mesh_argument, dp_axes_of,
                                    init_process_group, make_host_mesh,
                                    make_mesh, make_production_mesh,
                                    mesh_context, mesh_from_spec, rank_device)
-from repro_torch.dist.sharding import (FSDP_EXCLUDE_EMBED, Shard,
-                                       batch_sharding, batch_spec,
+from repro_torch.dist.sharding import (Shard, batch_sharding, batch_spec,
                                        replicated, row_sharding)
 
 __all__ = [
@@ -30,6 +29,6 @@ __all__ = [
     "add_mesh_argument", "dp_axes_of", "init_process_group",
     "make_host_mesh", "make_mesh", "make_production_mesh", "mesh_context",
     "mesh_from_spec", "rank_device",
-    "FSDP_EXCLUDE_EMBED", "Shard", "batch_sharding", "batch_spec",
+    "Shard", "batch_sharding", "batch_spec",
     "replicated", "row_sharding",
 ]

@@ -15,6 +15,15 @@ that make collectives at times of their own (the serve front end's
 replicas) each take a channel: on one group their collectives could
 interleave differently on each rank.  Without one (None) a collective
 takes the mesh's own groups.
+
+The layers' collectives over a model axis are
+:func:`copy_to_model`, :func:`reduce_from_model` and :func:`gather_last`:
+``torch.autograd.Function`` s whose backward is the collective's adjoint
+(the Megatron pair ``f`` / ``g``, and the logits' gather), so that the
+trainer differentiates through them; serving runs them under
+``no_grad``, where they are the plain collectives.  ``torch.distributed.nn.functional`` is not used: its
+``all_reduce`` all-reduces the gradient too, which counts a loss that
+every rank of the group computes alike once a rank.
 """
 
 from __future__ import annotations
@@ -115,6 +124,39 @@ def all_reduce_(t: torch.Tensor, group, op=SUM) -> torch.Tensor:
     return t
 
 
+def reduce_scatter_(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, of which this rank keeps its
+    block along ``dim`` (block ``rank(group)`` of ``size(group)`` equal
+    blocks): ``reduce_scatter_tensor`` on NCCL; gloo has none, so there
+    it is an ``all_reduce`` (on the host for a CUDA tensor) followed by
+    the rank's block.  Returns a fresh contiguous tensor."""
+    n, r = size(group), rank(group)
+    if n == 1:
+        return t.clone(memory_format=torch.contiguous_format)
+    if dist.get_backend(group) == "gloo":
+        host = t.to("cpu", copy=True).contiguous()
+        dist.all_reduce(host, group=group)
+        k = t.shape[dim] // n
+        return host.narrow(dim, r * k, k).contiguous().to(t.device)
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim``, in group-rank order
+    (an FSDP block's whole leaf)."""
+    n = size(group)
+    if n == 1:
+        return t
+    src = t.cpu() if _staged(group, t) else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
 def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``t`` concatenated along dim 0, in group-rank order."""
     n = size(group)
@@ -132,6 +174,71 @@ def all_gather_last(t: torch.Tensor, group) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=-1).to(t.device)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g32 = g.to(torch.float32, copy=True).contiguous()
+        all_reduce_(g32, ctx.group)
+        return g32.to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the group forward, in place in ``x``'s dtype;
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.mark_dirty(x)
+        return all_reduce_(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """The ranks' blocks of the last dim concatenated forward; the
+    rank's block of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.width = group, x.shape[-1]
+        return all_gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, k = rank(ctx.group), ctx.width
+        return g[..., r * k:(r + 1) * k].contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Where an activation that every rank of ``group`` holds alike
+    enters a rank-local region (a column-parallel product): ``x``, whose
+    gradient — each rank's part — is summed over ``group``."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Where a rank-local region ends (a row-parallel product, the
+    vocab-parallel embedding): the ranks' partial ``x`` summed over
+    ``group`` in place (``x``, a fresh contiguous product, is the sum);
+    the gradient passes through whole."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """:func:`all_gather_last` with a gradient: each rank keeps its own
+    block of the gathered gradient."""
+    return _GatherLast.apply(x, group)
 
 
 def all_to_all_rows(t: torch.Tensor, group) -> torch.Tensor:

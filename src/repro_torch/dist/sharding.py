@@ -1,5 +1,5 @@
-"""Sharding rules as rank-local slicing (a port of ``repro.dist.sharding``
-without its FSDP branch).
+"""Sharding rules as rank-local slicing (a port of
+``repro.dist.sharding``).
 
 In the reference a rule is a ``NamedSharding`` that tells the compiler
 where each block of an array lives.  Here every process is one rank and
@@ -67,8 +67,22 @@ Tensor-parallel serving (the resident-weights layout, ``fsdp_axes=()``):
     ``host_arena_stage_spec``): the arena takes its page shapes from the
     rank's pool leaves.
 
-The FSDP branch of ``param_specs`` comes with the trainer's model axis
-(ROADMAP.md, Queue 1).
+Training (the reference's ``param_specs`` with ``fsdp_axes``, the
+trainer's layout): :func:`param_rule` gives a leaf's :class:`Rule` — its
+dim over ``model`` (:func:`param_split`) and its dim over the FSDP axes
+(the data (+pod) axes; :func:`fsdp_split`).  A column-parallel kernel
+puts FSDP on its in dim, a row-parallel one on its out dim, ``tok`` on
+dim 1, an expert stack on its ``d`` dim (``wi`` / ``wg`` dim 1, ``wo``
+dim 2), any other matrix on dim 0; the router and the vectors stay
+whole, and so does a dim that does not divide.  (The reference's
+``fsdp_exclude`` patterns serve its XLA dry run alone, which has no
+counterpart here: its trainer passes none.)  Where the port's
+model dim of a rank-local leaf (:data:`RANK_LOCAL`) is the reference's
+FSDP dim, the leaf stays whole over the data axes (the recurrent blocks
+train under a model axis of 1 only, where no leaf has a model dim).
+:func:`shard_params` with ``fsdp_axes`` takes a rank's model block, then
+its FSDP block of that; :func:`gather_params` is the inverse (over the
+FSDP group, then the model group), for checkpoints and tests.
 """
 
 from __future__ import annotations
@@ -80,11 +94,6 @@ import torch
 
 from repro_torch.dist.api import axis_size
 from repro_torch.dist.mesh import dp_axes_of
-
-# Param-path patterns the reference keeps out of FSDP: the embedding and
-# the LM head (kept here for the FSDP port; parameters are replicated)
-FSDP_EXCLUDE_EMBED: Tuple[str, ...] = ("embed/tok", "unembed/head")
-
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
@@ -243,14 +252,18 @@ def param_split(path: str, shape: Sequence[int], tp: int,
     return None                  # the f32 router, vectors: whole
 
 
-def _walk(tree: Any, path: str, fn):
+def _walk(tree: Any, path: str, fn, *rest):
+    """``fn(path, leaf, *rest's leaves)`` over a tree (``rest``: trees of
+    the same structure)."""
     if isinstance(tree, dict):
-        return {k: _walk(v, f"{path}/{k}" if path else str(k), fn)
+        return {k: _walk(v, f"{path}/{k}" if path else str(k), fn,
+                         *(r[k] for r in rest))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_walk(v, f"{path}/{i}" if path else str(i), fn)
+        return type(tree)(_walk(v, f"{path}/{i}" if path else str(i), fn,
+                                *(r[i] for r in rest))
                           for i, v in enumerate(tree))
-    return fn(path, tree)
+    return fn(path, tree, *rest)
 
 
 def param_specs(params: Any, tp: int, cfg) -> Any:
@@ -258,6 +271,96 @@ def param_specs(params: Any, tp: int, cfg) -> Any:
     (None: whole)."""
     return _walk(params, "", lambda path, leaf: param_split(
         path, leaf.shape, tp, cfg))
+
+
+# always whole over the FSDP axes, whatever their shape (the f32 router)
+_REPLICATED = frozenset({"router"})
+
+
+@dataclasses.dataclass(frozen=True)
+class Rule:
+    """Where a leaf splits: ``tp`` its dim over the model axis, ``fsdp``
+    its dim over the FSDP axes (None: whole)."""
+
+    tp: Optional[int] = None
+    fsdp: Optional[int] = None
+
+
+def fsdp_split(path: str, shape: Sequence[int], dp: int,
+               tp_dim: Optional[int] = None) -> Optional[int]:
+    """The dim of the leaf at ``path`` that splits over FSDP axes of
+    ``dp`` ranks, or None: the reference's ``param_specs`` FSDP branch
+    for an unstacked dense leaf (the trainer's; it packs none) whose
+    model dim is ``tp_dim``."""
+    if dp <= 1:
+        return None
+    parts = path.split("/")
+    key = parts[-1]
+    shape = tuple(shape)
+    if len(shape) == 3 and key in ("wi", "wg", "wo") and "moe" in parts:
+        dim = 2 if key == "wo" else 1                 # the experts' d
+    elif key == "tok" and len(shape) == 2:
+        dim = 1
+    elif len(shape) == 2 and key in _COL_PARALLEL:
+        dim = 0
+    elif len(shape) == 2 and key in _ROW_PARALLEL:
+        dim = 1
+    elif key in _REPLICATED or len(shape) < 2:
+        return None
+    else:
+        dim = 0                                       # any other matrix
+    if dim == tp_dim or shape[dim] % dp:
+        return None
+    return dim
+
+
+def param_rule(path: str, shape: Sequence[int], cfg, tp: int, dp: int = 1
+               ) -> Rule:
+    """The :class:`Rule` of the leaf at ``path``: :func:`param_split`
+    over a model axis of ``tp``, :func:`fsdp_split` over FSDP axes of
+    ``dp``."""
+    tp_dim = param_split(path, shape, tp, cfg)
+    return Rule(tp_dim, fsdp_split(path, shape, dp, tp_dim))
+
+
+def param_rules(params: Any, cfg, tp: int, dp: int = 1) -> Any:
+    """:func:`param_rule` over a param tree (whole leaves' shapes): the
+    tree of :class:`Rule` s."""
+    return _walk(params, "", lambda path, leaf: param_rule(
+        path, leaf.shape, cfg, tp, dp))
+
+
+def grad_sums(rules: Any) -> Any:
+    """The tree of bools (like ``rules``, a :func:`param_rules` tree) that
+    names the whole leaves a rank applies inside a rank-local region on
+    the training route: in an attention block whose query heads split
+    over the model axis, every leaf held whole but the pre-norm ``ln``
+    — a KV projection kept whole (one KV head, or KV heads a rank's
+    query heads straddle) and its bias, a bias that ``layers.linear``
+    slices to the rank's columns, the q / k-norm scales.  Each rank's
+    gradient of such a leaf is its heads' part, and the trainer sums it
+    over the model group.  A pre-norm scale, a bias added after the
+    row-parallel sum and the embedding are applied to whole activations,
+    so that every rank already holds their whole gradient."""
+    def mark(tree, local):
+        if isinstance(tree, dict):
+            wq = tree.get("wq")
+            heads = isinstance(wq, Rule) and wq.tp is not None
+            return {k: mark(v, heads and k != "ln") if heads else
+                    mark(v, local) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(mark(v, local) for v in tree)
+        return local and tree.tp is None
+
+    return mark(rules, False)
+
+
+def fsdp_shard(mesh, fsdp_axes: Sequence[str]) -> Shard:
+    """This rank's block over the FSDP axes present in ``mesh``
+    (``Shard(0, 1)`` without any)."""
+    axes = tuple(a for a in fsdp_axes if mesh is not None
+                 and a in mesh.mesh_dim_names)
+    return axes_shard(mesh, axes) if axes else Shard(0, 1)
 
 
 def model_shard(mesh, tp_axis: str = "model") -> Shard:
@@ -276,17 +379,18 @@ def take_block(t: torch.Tensor, dim: int, shard: Shard) -> torch.Tensor:
         memory_format=torch.contiguous_format)
 
 
-def shard_params(params: Any, mesh=None, *, cfg, tp_axis: str = "model"
-                 ) -> Any:
-    """This rank's params under :func:`param_split` for the model of
-    config ``cfg``: a split leaf becomes its block, a fresh contiguous
-    tensor; a whole leaf is kept as it is.  Mamba's ``in_proj`` is x | z
-    side by side, and a rank takes its block of each half.  A leaf that
+def shard_params(params: Any, mesh=None, *, cfg, tp_axis: str = "model",
+                 fsdp_axes: Sequence[str] = ()) -> Any:
+    """This rank's params under :func:`param_rule` for the model of
+    config ``cfg``: a split leaf becomes its model block (Mamba's
+    ``in_proj``: its block of x and of z), then its block of that over
+    ``fsdp_axes`` (none by default: the serving layout), a fresh
+    contiguous tensor; a whole leaf is kept as it is.  A leaf that
     already is this rank's block (this function's output: a tree that
     another engine on the same mesh sharded) is kept as it is, so that
     sharding twice shards once.  ``mesh=None`` takes the active
-    context's; without a context, or with a model axis of 1, the tree
-    comes back unchanged."""
+    context's; without a context, or with no axis of more than one
+    rank, the tree comes back unchanged."""
     if mesh is None:
         from repro_torch.dist.api import current_ctx
 
@@ -295,26 +399,72 @@ def shard_params(params: Any, mesh=None, *, cfg, tp_axis: str = "model"
             return params
         mesh = ctx.mesh
     shard = model_shard(mesh, tp_axis)
-    if shard.count == 1:
+    fs = fsdp_shard(mesh, fsdp_axes)
+    if shard.count == 1 and fs.count == 1:
         return params
 
-    mark = (shard.index, shard.count)
+    mark = ((shard.index, shard.count) if fs.count == 1 else
+            (shard.index, shard.count, fs.index, fs.count))
 
     def place(path, leaf):
         if getattr(leaf, "rank_block", None) == mark:
             return leaf                           # already this rank's
-        dim = param_split(path, leaf.shape, shard.count, cfg)
-        if dim is None:
+        rule = param_rule(path, leaf.shape, cfg, shard.count, fs.count)
+        if rule.tp is None and rule.fsdp is None:
             return leaf
-        if "/mamba/in_proj" in f"/{path}":                   # x | z
-            block = torch.cat([take_block(half, dim, shard)
-                               for half in leaf.chunk(2, dim)], dim=dim)
-        else:
-            block = take_block(leaf, dim, shard)
+        block = leaf
+        if rule.tp is not None and "/mamba/in_proj" in f"/{path}":  # x | z
+            block = torch.cat([take_block(half, rule.tp, shard)
+                               for half in leaf.chunk(2, rule.tp)],
+                              dim=rule.tp)
+        elif rule.tp is not None:
+            block = take_block(leaf, rule.tp, shard)
+        if rule.fsdp is not None:
+            block = take_block(block, rule.fsdp, fs)
         block.rank_block = mark
         return block
 
     return _walk(params, "", place)
+
+
+def gather_params(params: Any, rules: Any, mesh, *, tp_axis: str = "model",
+                  fsdp_axes: Sequence[str] = (), to_host: bool = False
+                  ) -> Any:
+    """The inverse of :func:`shard_params` (a collective: every rank of
+    ``mesh`` calls it): each leaf's blocks all-gathered over the FSDP
+    group along its ``fsdp`` dim, then over the model group along its
+    ``tp`` dim, by ``rules`` (the tree of :func:`param_rules` of the
+    whole params).  Every rank gets the whole tree — or, ``to_host``,
+    each whole leaf is copied to the host of the main rank (None on the
+    others) as soon as it is gathered, so that the device holds one
+    whole leaf at a time (a checkpoint of a state that the device could
+    not hold whole)."""
+    from repro_torch.dist import comm
+
+    keep = comm.is_main_rank()
+    fs = fsdp_shard(mesh, fsdp_axes)
+    fgroup = (comm.group_of(mesh, tuple(a for a in fsdp_axes
+                                        if a in mesh.mesh_dim_names))
+              if fs.count > 1 else None)
+    mgroup = (comm.group_of(mesh, tp_axis)
+              if model_shard(mesh, tp_axis).count > 1 else None)
+
+    def whole(path, leaf, rule):
+        if rule.fsdp is not None and fgroup is not None:
+            leaf = comm.all_gather_dim(leaf, fgroup, rule.fsdp)
+        if rule.tp is not None and mgroup is not None:
+            parts = comm.all_gather_dim(leaf, mgroup, rule.tp)
+            if "/mamba/in_proj" in f"/{path}":                # x | z
+                halves = [b.chunk(2, rule.tp) for b in
+                          parts.chunk(comm.size(mgroup), rule.tp)]
+                parts = torch.cat([h[0] for h in halves]
+                                  + [h[1] for h in halves], dim=rule.tp)
+            leaf = parts
+        if to_host:
+            return leaf.to("cpu", copy=True) if keep else None
+        return leaf
+
+    return _walk(params, "", whole, rules)
 
 
 # ----------------------------------------------------------------------

@@ -21,13 +21,22 @@ The run is under ``torch.use_deterministic_algorithms`` (with
 ``CUBLAS_WORKSPACE_CONFIG`` set, as cuBLAS requires), so that a resumed
 run is bit-identical to an uninterrupted one on the card.
 
-``--mesh Dx1`` trains data-parallel over D ranks, one process each,
-started by ``torchrun`` (each rank takes its rows of the global batch;
-the gradients' mean is one f32 all-reduce); ``--grad-compression``
-applies int8 error feedback to the reduced gradients:
+``--mesh DxM`` trains over D x M ranks, one process each, started by
+``torchrun``: each rank takes its rows of the global batch over the D
+data ranks, with FSDP over them by default (a rank holds its blocks of
+the params, the AdamW moments and the error-feedback residuals; a step
+all-gathers the params and reduce-scatters the gradients' mean), as the
+reference's CLI gets it through its Trainer; with M > 1 the dense
+decoders train tensor-parallel over the M model ranks as well (the
+other families raise: ROADMAP.md).  ``--grad-compression`` applies
+int8 error feedback to the reduced gradients, each scale the whole
+tensor's.  The checkpoints hold whole leaves, so a run resumes on
+another mesh:
 
-  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
       --mesh 2x1 --smoke --steps 20 --out runs/dp2
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \\
+      --mesh 2x2 --arch qwen3-14b --smoke --steps 20 --out runs/dp2tp2
 """
 
 from __future__ import annotations
@@ -114,6 +123,11 @@ def _run(args, device) -> dict:
     print(f"trained {info['steps']} steps "
           f"(stragglers: {info['straggler_events']}, skipped: "
           f"{info['skipped_steps']}); checkpoints in {args.out}")
+    if trainer.layout is not None:
+        print(f"mesh {'x'.join(map(str, trainer.mesh.shape))}: FSDP over "
+              f"{trainer.fsdp_axes or 'no axis'}; rank 0 held "
+              f"{info['rank_state_bytes'] / 2**20:.1f} MiB of params and "
+              "moments")
     if secs:
         hbm = (f"; HBM held {torch.cuda.max_memory_allocated() / 2**20:.1f}"
                " MiB" if device.type == "cuda" else "")

@@ -37,6 +37,21 @@ rank's rows, zeros elsewhere, summed), the frontend's projection
 all-gathers its columns and the head its vocab columns, so every rank
 holds the same frontend prefix, encoder output and logits.  Whole
 weights run as on one device, with no collective.
+
+The collectives of the attention, MLP, embedding and head are
+``dist.comm``'s differentiable ones (the Megatron pair), so that the
+dense decoders also train tensor-parallel (``differentiable=True``
+under a model axis > 1); under serving's ``no_grad`` they are the plain
+collectives.  ``copy_to_model`` stands where the replicated activation
+enters a rank-local region — after an attention's or an MLP's pre-norm,
+and after the final norm before a vocab-parallel head — so that the
+ranks' parts of its gradient are summed; the row-parallel sum and the
+vocab-parallel embedding's sum go through ``reduce_from_model`` and the
+head's logits, like a straddling rank's query heads, through
+``gather_last``.  A whole leaf that a rank applies inside such a region
+(a KV projection or bias kept whole, a bias sliced in :func:`linear`,
+the q / k-norm scales) gets only the rank's part of its gradient; the
+trainer sums those over the model group (``dist.sharding.grad_sums``).
 """
 
 from __future__ import annotations
@@ -151,7 +166,7 @@ def linear_rows(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     k = in_dim(w)
     if k == full:
         if x.shape[-1] != full:
-            x = comm.all_gather_last(x, model_group().group)
+            x = comm.gather_last(x, model_group().group)
         return linear(x, w, b, caps=caps, name=name)
     mg = model_group()
     if x.shape[-1] == full:
@@ -162,7 +177,7 @@ def linear_rows(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
         y = ops.nm_matmul(x, w["vals"], w["idx"], out_dtype=torch.float32)
     else:
         y = x @ w.to(x.dtype)
-    comm.all_reduce_(y, mg.group)
+    y = comm.reduce_from_model(y, mg.group)
     if b is not None:
         y = y + b.to(y.dtype)
     return y.to(x.dtype)
@@ -254,8 +269,8 @@ def attn_heads(p: Params, cfg: ArchConfig) -> Heads:
 def _gather_heads(q: torch.Tensor) -> torch.Tensor:
     """(..., nh_l, hd) → every rank's heads (..., nh, hd), rank order."""
     *lead, nh_l, hd = q.shape
-    full = comm.all_gather_last(q.reshape(*lead, nh_l * hd),
-                                model_group().group)
+    full = comm.gather_last(q.reshape(*lead, nh_l * hd),
+                            model_group().group)
     return full.reshape(*lead, -1, hd)
 
 
@@ -515,6 +530,8 @@ def attn_apply(p: Params, h: torch.Tensor, cfg: ArchConfig, *,
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
 
     hp = attn_heads(p, cfg)
+    if hp.nh != cfg.num_heads:                          # a rank's heads
+        h_in = comm.copy_to_model(h_in, model_group().group)
     if cross_kv is not None:
         q = linear(h_in, p["wq"], p.get("bq"), caps=caps,
                    name=f"{prefix}wq").reshape(b, t, hp.nh, hd)
@@ -645,6 +662,8 @@ def mlp_apply(p, h: torch.Tensor, cfg: ArchConfig, *,
     hidden width on one device — ``wi`` / ``wg`` column-parallel and
     ``wo`` row-parallel where a rank holds their blocks."""
     h_in = rmsnorm(p["ln"], h, cfg.norm_eps)
+    if out_dim(p["wi"]) != (d_ff or cfg.d_ff):          # a rank's columns
+        h_in = comm.copy_to_model(h_in, model_group().group)
     # glu gates fuse their activation into the projection epilogue (a true
     # in-kernel epilogue for 2:4-packed weights)
     if cfg.mlp_kind in ("swiglu", "geglu"):
@@ -693,7 +712,7 @@ def embed_apply(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         mine = (ids >= 0) & (ids < n)
         h = tok[torch.clamp(ids, 0, n - 1)]
         h = torch.where(mine[..., None], h, torch.zeros_like(h))
-        comm.all_reduce_(h, mg.group)
+        h = comm.reduce_from_model(h, mg.group)
     if cfg.embed_scale:
         h = h * embed_scale(cfg, h.dtype)
     return h
@@ -720,17 +739,17 @@ def unembed_init(rng, cfg: ArchConfig, dtype) -> Params:
     return p
 
 
-def unembed_apply(p, embed_p, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def unembed_apply(p, embed_p, h: torch.Tensor, cfg: ArchConfig
+                  ) -> torch.Tensor:
     """Logits in the model dtype (bf16 for a bf16 config, as the
     reference).  The tied head is a dense product left to torch.matmul,
     as the reference leaves it to XLA.  A rank's vocab block of the head
     (tied or not) gives its logit columns, all-gathered in rank order:
     every rank holds the same logits."""
     h = rmsnorm(p["ln"], h, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = h @ embed_p["tok"].T.to(h.dtype)
-    else:
-        logits = h @ p["head"].to(h.dtype)
-    if logits.shape[-1] != cfg.vocab_size:
-        logits = comm.all_gather_last(logits, model_group().group)
-    return logits
+    head = embed_p["tok"].T if cfg.tie_embeddings else p["head"]
+    if head.shape[-1] == cfg.vocab_size:
+        return h @ head.to(h.dtype)
+    group = model_group().group
+    return comm.gather_last(comm.copy_to_model(h, group) @ head.to(h.dtype),
+                            group)

@@ -68,6 +68,12 @@ encoder-decoder: the encoder's attention on the rank's heads with its
 ``wo`` and MLP row-parallel, so every rank holds the same ``enc_out``,
 and each cross-attention on the rank's heads with its ``xk`` / ``xv``
 cached at the rank's KV heads.
+
+The training route (``differentiable=True``) runs under a model axis >
+1 for the dense decoders (:meth:`LM.check_tp_training`): the layers'
+differentiable collectives (``models.layers``), the logits all-gathered
+before the loss, so that every rank of the model group computes the
+same loss.  The recurrent, expert and frontend families raise there.
 """
 
 from __future__ import annotations
@@ -365,6 +371,8 @@ class LM:
         """(logits, the MoE layers' aux losses summed in layer order — 0
         for a model without experts), as the reference's ``forward``."""
         batch = _batch(tokens, frontend_feats)
+        if differentiable:
+            self.check_tp_training(self.serve_tp())
         enc_out = (self.encode(params, batch, differentiable=differentiable)
                    if self.cfg.encdec else None)
         h = self.first_hidden(params, batch)
@@ -614,6 +622,23 @@ class LM:
                             get_params=functools.partial(get_params, li),
                             set_params=functools.partial(set_params, li))
                 for li in range(cfg.enc_layers)]
+
+    # ------------------------------------------ tensor-parallel training
+    def check_tp_training(self, tp: int) -> None:
+        """Raise unless the training route runs under a model axis of
+        ``tp``: any model at 1, the dense decoders (attention blocks and
+        dense MLPs, no prefix blocks, experts or frontend) above it."""
+        cfg = self.cfg
+        dense = (set(self.kinds) <= set(ATTN_KINDS) and cfg.moe is None
+                 and cfg.frontend is None and not cfg.encdec)
+        if tp > 1 and not dense:
+            raise ValueError(
+                f"{cfg.name}: training under a model axis > 1 covers the "
+                f"dense decoders; blocks {sorted(set(self.kinds))}"
+                f"{' with experts' if cfg.moe is not None else ''}"
+                f"{' and a frontend' if cfg.frontend is not None else ''} "
+                "are not ported there yet (ROADMAP.md, Queue 1); train "
+                "them on a Dx1 mesh")
 
     # ------------------------------------------ tensor-parallel serving
     def serve_tp(self) -> int:

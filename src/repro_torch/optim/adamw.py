@@ -9,6 +9,15 @@ reference, on the reference's leaves, where the layers are stacked
 The params are the port's trees — nested dicts, the layers a list under
 ``"layers"`` — and the state is the reference's ``OptState(step, mu,
 nu)`` with ``mu``/``nu`` shaped like them.
+
+Under a mesh the trainer hands :meth:`AdamW.update` a rank's shards
+(``dist.sharding``: model blocks, FSDP blocks) with ``counted``, which
+names the leaves whose squares this rank adds to the global norm: one
+rank of every set that holds the same block, so that a leaf split over
+the data group is summed over it, a leaf split over the model group
+over that, and a leaf held whole on every rank counts once.  One
+all-reduce over the world makes the norm, and so the clip scale, one
+device's.
 """
 
 from __future__ import annotations
@@ -85,12 +94,16 @@ class AdamW:
         return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
 
     @torch.no_grad()
-    def update(self, grads: Any, state: OptState, params: Any
+    def update(self, grads: Any, state: OptState, params: Any,
+               counted: Any = None, group=None
                ) -> Tuple[Any, OptState, dict]:
-        """Returns (new_params, new_state, {"grad_norm", "lr"})."""
+        """Returns (new_params, new_state, {"grad_norm", "lr"}).
+        ``counted`` (a tree of bools like ``grads``) and ``group``: the
+        arguments are one rank's shards, and the squares of the leaves
+        it counts are summed over ``group`` (the module docstring)."""
         step = state.step + 1
         g32 = tree_map(lambda g: g.float(), grads)
-        gnorm = torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(g32)))
+        gnorm = torch.sqrt(global_sq(g32, counted, group))
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
             g32 = tree_map(lambda g: g * scale, g32)
@@ -114,6 +127,22 @@ class AdamW:
                        reference_ndim(params))
         return _pick(out, 0), OptState(step, _pick(out, 1), _pick(out, 2)), {
             "grad_norm": gnorm, "lr": lr}
+
+
+def global_sq(g32: Any, counted: Any = None, group=None) -> torch.Tensor:
+    """The sum of the squares of every gradient entry: of the leaves of
+    ``g32`` on one device, or of the leaves that this rank ``counted``,
+    summed over ``group``."""
+    if counted is None:
+        return sum(torch.sum(g * g) for g in tree_leaves(g32))
+    from repro_torch.dist import comm
+
+    leaves = tree_leaves(g32)
+    total = torch.zeros((1,), dtype=torch.float32, device=leaves[0].device)
+    for g, mine in zip(leaves, tree_leaves(counted)):
+        if mine:
+            total = total + torch.sum(g * g)
+    return comm.all_reduce_(total, group)[0]
 
 
 def _pick(tree: Any, i: int) -> Any:

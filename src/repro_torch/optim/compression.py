@@ -20,22 +20,28 @@ frameworks quantize alike.  A scale is per leaf, and the reference's
 leaves stack the layers: ``layers/s{j}`` holds slot j of every period,
 ``enc/layers`` every encoder layer.  The port keeps per-layer lists, so
 ``ef_quantize(..., period=len(cfg.period))`` quantizes each such stack
-with one scale, as the reference does.
+with one scale, as the reference does.  Under FSDP or a model axis a
+rank holds a block of each leaf and of its residual; ``group`` (the
+world) takes each scale's amax over every block, so that the scale is
+the whole tensor's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
 from repro_torch.dist import comm
-from repro_torch.optim.adamw import tree_map
+from repro_torch.optim.adamw import tree_leaves, tree_map
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8: (q int8, scale f32 0-dim)."""
-    amax = torch.max(torch.abs(x))
+def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8: (q int8, scale f32 0-dim); ``amax``:
+    the whole tensor's max |x| where ``x`` is a block of it."""
+    if amax is None:
+        amax = torch.max(torch.abs(x))
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -82,24 +88,31 @@ def _unstacks(stacked: Any, like: Any, period: int) -> Any:
     return out
 
 
-def ef_quantize(grads: Any, residual: Any,
-                period: int = 0) -> Tuple[Any, Any]:
+def ef_quantize(grads: Any, residual: Any, period: int = 0,
+                group=None) -> Tuple[Any, Any]:
     """Quantize (grads + residual) to int8 and back: (dequantized grads,
     new residual).  ``period`` > 0 names a model's trees (per-layer
     lists under ``"layers"``): each of the reference's stacked leaves is
-    quantized whole, with one scale."""
+    quantized whole, with one scale.  With ``group`` the leaves are a
+    rank's blocks: each scale's amax is the maximum over ``group``."""
     if period:
         deq, res = ef_quantize(_stacks(grads, period),
-                               _stacks(residual, period))
+                               _stacks(residual, period), group=group)
         return (_unstacks(deq, grads, period),
                 _unstacks(res, residual, period))
 
-    def one(g, r):
-        x = g.to(torch.float32) + r
-        deq = dequantize_int8(*quantize_int8(x))
+    xs = tree_map(lambda g, r: g.to(torch.float32) + r, grads, residual)
+    amaxes = iter([None] * len(tree_leaves(xs)))
+    if group is not None:
+        amax = torch.stack([torch.max(torch.abs(x))
+                            for x in tree_leaves(xs)])
+        amaxes = iter(comm.all_reduce_(amax, group, op=comm.MAX).unbind(0))
+
+    def one(x):
+        deq = dequantize_int8(*quantize_int8(x, next(amaxes)))
         return deq, x - deq
 
-    pairs = tree_map(one, grads, residual)
+    pairs = tree_map(one, xs)
     first = tree_map(lambda g, p: p[0], grads, pairs)
     second = tree_map(lambda g, p: p[1], grads, pairs)
     return first, second

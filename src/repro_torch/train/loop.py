@@ -23,35 +23,59 @@ routing and the expert products are torch ops, so the gradient reaches
 the router and every expert.
 
 Under a mesh (``mesh=``, or the active ``dist.use_mesh`` context) the
-trainer is data-parallel over the mesh's data (+pod) axes, one process a
-rank: the pipeline (``DataPipeline`` under the same mesh) hands each
-rank its rows of the global batch, each rank takes the gradients of its
-rows, and an f32 ``all_reduce`` (in buckets of 2**24 elements) takes
-their mean — the global batch's gradient when every rank's rows weigh
-the same tokens.  The steps run under the mesh's context, so a MoE
-layer routes the global batch as the reference does (capacity, top-C
-and the load-balance fractions over every rank's tokens:
+trainer runs one process a rank, as the reference's pjit'd step lays it
+out:
+
+  - the pipeline (``DataPipeline`` under the same mesh) hands each rank
+    its rows of the global batch over the data (+pod) axes; ranks that
+    differ only in their model coordinate get the same rows;
+  - FSDP by default: params, AdamW moments and error-feedback residuals
+    are held as a rank's blocks over ``fsdp_axes`` (None: the data axes;
+    ``()`` turns it off and replicates them), by the reference's rule
+    (``dist.sharding.param_rule``), and under a ``model`` axis > 1 as
+    its tensor-parallel blocks too — the dense decoders only
+    (``LM.check_tp_training``; the other families raise, ROADMAP.md);
+  - a step all-gathers the FSDP blocks (the whole tree at once), runs
+    forward and backward on the differentiable route (its collectives
+    over the model group: ``models.layers``), sums over the model group
+    the gradients of the whole leaves a rank applies to its heads only
+    (``dist.sharding.grad_sums``), takes the mean over the data group —
+    a reduce-scatter to each rank's block for an FSDP leaf, an f32
+    all-reduce (in buckets of 2**24 elements) for a whole one — and
+    steps AdamW on the blocks, its global norm summed over the ranks
+    (``optim.adamw``) and int8 error feedback scaled by each whole
+    tensor's amax (``optim.compression``).
+
+The mean over ranks is the global batch's gradient when every rank's
+rows weigh the same tokens.  The steps run under the mesh's context, so
+a MoE layer routes the global batch as the reference does (capacity,
+top-C and the load-balance fractions over every rank's tokens:
 ``models.moe``), and the mean of the ranks' aux losses is the
-reference's aux.  The loss and
-metrics are reduced the same way, so every rank's NaN guard decides
-alike, and the straggler watchdog reads the slowest rank's step time.
-Parameters stay replicated: the reference's FSDP sharding and a
-``model`` axis > 1 in training (tensor parallelism, which serving has:
-``serve.engine``) are not ported (ROADMAP.md, Queue 1), and the latter
-is refused.  Only rank 0 writes checkpoints and
-``metrics.jsonl``; every rank reads them back on resume.
+reference's aux.  The loss and metrics are reduced the same way, so
+every rank's NaN guard decides alike, and the straggler watchdog reads
+the slowest rank's step time.  Checkpoints hold whole leaves in the
+reference's layout: every rank joins the gather
+(``dist.sharding.gather_params``), a leaf at a time, each whole leaf
+copied to the host on rank 0 only and freed on the device before the
+next (a rank holds its blocks and at most one whole leaf), and rank 0
+writes them and ``metrics.jsonl``; on resume every rank reads them and
+takes its blocks under the mesh it runs on now — a run saved on one
+mesh resumes on another (the reference's elastic restore).
+:meth:`Trainer.run` returns a rank's blocks, which
+:meth:`Trainer.gather_state` makes whole.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import logging
-import contextlib
 import os
 import statistics
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,7 +83,11 @@ import torch
 from repro_torch import random as rnd
 from repro_torch.ckpt import CheckpointStore
 from repro_torch.dist import comm
-from repro_torch.dist.api import axis_size, current_ctx, use_mesh
+from repro_torch.dist.api import current_ctx, use_mesh
+from repro_torch.dist.mesh import dp_axes_of
+from repro_torch.dist.sharding import (fsdp_shard, gather_params, grad_sums,
+                                       model_shard, param_rules,
+                                       shard_params)
 from repro_torch.optim import AdamW, OptState, tree_leaves, tree_map
 from repro_torch.optim.compression import ef_init, ef_quantize
 
@@ -106,14 +134,110 @@ def allreduce_mean(tensors, group):
     return out
 
 
+@dataclasses.dataclass
+class Layout:
+    """How a rank holds the training state under a mesh: ``rules`` (the
+    whole params' ``dist.sharding.param_rules``; FSDP over
+    ``fsdp_axes``, the batch axes or none), ``sums`` (the leaves whose
+    gradients are summed over the model group,
+    ``dist.sharding.grad_sums``), ``counted`` (the leaves this rank adds
+    to the global norm), and the groups over the batch axes (``data``)
+    and over ``model`` (each None at one rank: nothing to reduce)."""
+
+    mesh: Any
+    fsdp_axes: tuple
+    rules: Any
+    sums: Any
+    counted: Any
+    data: Any
+    model: Any
+
+    def shard(self, tree, cfg):
+        """A rank's blocks of a whole tree shaped like the params."""
+        return shard_params(tree, self.mesh, cfg=cfg,
+                            fsdp_axes=self.fsdp_axes)
+
+    def gather(self, tree, to_host: bool = False):
+        """The whole tree from every rank's blocks (a collective); with
+        ``to_host`` a leaf at a time, on the host of rank 0 alone (None
+        elsewhere)."""
+        return gather_params(tree, self.rules, self.mesh,
+                             fsdp_axes=self.fsdp_axes, to_host=to_host)
+
+    def gather_fsdp(self, tree):
+        """Each FSDP block all-gathered to the rank's model block."""
+        return tree_map(lambda t, r: t if r.fsdp is None else
+                        comm.all_gather_dim(t, self.data, r.fsdp),
+                        tree, self.rules)
+
+    def reduce(self, grads):
+        """The model-group fix-up, then the mean over the data group: an
+        FSDP leaf reduce-scattered to this rank's block, a whole one
+        all-reduced (the f32 sums, cast back to each gradient's
+        dtype)."""
+        leaves, rules = tree_leaves(grads), tree_leaves(self.rules)
+        if self.model is not None:
+            sums = tree_leaves(self.sums)
+            fixed = [g.float() for g, s in zip(leaves, sums) if s]
+            if fixed:
+                flat = torch.cat([g.reshape(-1) for g in fixed])
+                comm.all_reduce_(flat, self.model)
+                it = iter(flat.split([g.numel() for g in fixed]))
+                leaves = [next(it).view(g.shape).to(g.dtype) if s else g
+                          for g, s in zip(leaves, sums)]
+        if self.data is not None:
+            n = comm.size(self.data)
+            whole = [i for i, r in enumerate(rules) if r.fsdp is None]
+            means = iter(allreduce_mean([leaves[i] for i in whole],
+                                        self.data))
+            leaves = [next(means) if r.fsdp is None else
+                      (comm.reduce_scatter_(g.float(), self.data, r.fsdp)
+                       / n).to(g.dtype) for g, r in zip(leaves, rules)]
+        it = iter(leaves)
+        return tree_map(lambda _: next(it), grads)
+
+
+def make_layout(model, params, mesh, dp_axes: Sequence[str],
+                fsdp_axes: Sequence[str]) -> Layout:
+    """The :class:`Layout` of the whole ``params`` on ``mesh``; FSDP over
+    ``fsdp_axes``: the batch axes ``dp_axes``, or none."""
+    names = mesh.mesh_dim_names
+    dp_axes = tuple(a for a in dp_axes if a in names)
+    fsdp_axes = tuple(a for a in fsdp_axes if a in names)
+    if fsdp_axes not in ((), dp_axes):
+        raise ValueError(f"Trainer: fsdp_axes {fsdp_axes} must be the batch "
+                         f"axes {dp_axes} or ()")
+    tp = model_shard(mesh).count
+    dp = fsdp_shard(mesh, dp_axes).count
+    rules = param_rules(params, model.cfg, tp,
+                        fsdp_shard(mesh, fsdp_axes).count)
+    coord = dict(zip(names, mesh.get_coordinate()))
+
+    def counted(r):
+        split = (fsdp_axes if r.fsdp is not None else ()) + (
+            ("model",) if r.tp is not None else ())
+        return all(coord[a] == 0 for a in names if a not in split)
+
+    return Layout(
+        mesh=mesh, fsdp_axes=fsdp_axes, rules=rules, sums=grad_sums(rules),
+        counted=tree_map(counted, rules),
+        data=comm.group_of(mesh, dp_axes) if dp > 1 else None,
+        model=comm.group_of(mesh, "model") if tp > 1 else None)
+
+
 def make_train_step(model, opt: AdamW, microbatches: int = 1,
                     grad_compression: bool = False,
-                    group=None) -> Callable:
+                    layout: Optional[Layout] = None) -> Callable:
     """(params, opt_state, ef_state, batch) → (params, opt_state,
-    ef_state, metrics), with no host sync inside.  With a process
-    ``group`` the batch is this rank's rows: the gradients, the loss and
-    the metrics are averaged over the group before the update (the
-    ``tokens`` metric summed)."""
+    ef_state, metrics), with no host sync inside.  With a ``layout``
+    the state is a rank's blocks and the batch its rows: the step
+    gathers the FSDP blocks, reduces the gradients to the rank's blocks
+    (:meth:`Layout.reduce`), and averages the loss and the metrics over
+    the data group (the ``tokens`` metric summed).  The step's
+    ``reduced_grads(params, batch)`` gives (loss, metrics, gradients) as
+    the update takes them."""
+    group = None if layout is None else layout.data
+    world = None if layout is None else torch.distributed.group.WORLD
 
     def grads_of(params, batch):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -123,35 +247,45 @@ def make_train_step(model, opt: AdamW, microbatches: int = 1,
         metrics = {k: v.detach() for k, v in metrics.items()}
         return loss.detach(), metrics, tree_map(lambda _: next(grads), live)
 
-    def step(params, opt_state: OptState, ef_state, batch):
+    def reduced_grads(params, batch):
+        """(loss, metrics, gradients) of a step, reduced as the update
+        takes them: over the group, to this rank's blocks."""
+        full = params if layout is None else layout.gather_fsdp(params)
         if microbatches > 1:
             gsum = lsum = metrics = None
             for mb in range(microbatches):
                 part = {k: v.chunk(microbatches)[mb] for k, v in batch.items()}
-                loss, metrics, grads = grads_of(params, part)
+                loss, metrics, grads = grads_of(full, part)
                 g32 = tree_map(lambda g: g.float(), grads)
                 gsum = g32 if gsum is None else tree_map(torch.add, gsum, g32)
                 lsum = loss if lsum is None else lsum + loss
             grads = tree_map(lambda g: g / microbatches, gsum)
             loss = lsum / microbatches
         else:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = grads_of(full, batch)
+        del full
+        if layout is not None:
+            grads = layout.reduce(grads)
         if group is not None:
-            leaves = tree_leaves(grads)
             keys = sorted(metrics)
-            reduced = allreduce_mean(
-                [*leaves, loss, *(metrics[k] for k in keys)], group)
-            it = iter(reduced[:len(leaves)])
-            grads = tree_map(lambda _: next(it), grads)
-            loss = reduced[len(leaves)]
-            metrics = dict(zip(keys, reduced[len(leaves) + 1:]))
+            reduced = allreduce_mean([loss, *(metrics[k] for k in keys)],
+                                     group)
+            loss = reduced[0]
+            metrics = dict(zip(keys, reduced[1:]))
             metrics["tokens"] = metrics["tokens"] * comm.size(group)
+        return loss, metrics, grads
+
+    def step(params, opt_state: OptState, ef_state, batch):
+        loss, metrics, grads = reduced_grads(params, batch)
         if grad_compression:
-            grads, ef_state = ef_quantize(grads, ef_state,
-                                          period=len(model.cfg.period))
+            grads, ef_state = ef_quantize(
+                grads, ef_state, period=len(model.cfg.period),
+                group=None if layout is None else world)
         # NaN guard: a non-finite loss leaves everything as it was
         ok = torch.isfinite(loss)
-        new_params, new_opt, stats = opt.update(grads, opt_state, params)
+        new_params, new_opt, stats = opt.update(
+            grads, opt_state, params,
+            counted=None if layout is None else layout.counted, group=world)
         new_params = tree_map(lambda n, o: torch.where(ok, n, o),
                               new_params, params)
         new_opt = OptState(*(tree_map(lambda n, o: torch.where(ok, n, o),
@@ -161,6 +295,7 @@ def make_train_step(model, opt: AdamW, microbatches: int = 1,
                    "skipped": (~ok).to(torch.float32)}
         return new_params, new_opt, ef_state, metrics
 
+    step.reduced_grads = reduced_grads
     return step
 
 
@@ -168,9 +303,16 @@ class StragglerError(RuntimeError):
     pass
 
 
+def _residuals(ef_state) -> bool:
+    """Whether ``ef_state`` is the error-feedback residuals' tree (not
+    the 0-dim placeholder of a run without compression)."""
+    return not isinstance(ef_state, torch.Tensor) or ef_state.dim() > 0
+
+
 class Trainer:
     def __init__(self, model, opt: AdamW, pipeline, cfg: TrainConfig,
-                 mesh=None, dp_axes=None):
+                 mesh=None, dp_axes=None,
+                 fsdp_axes: Optional[Sequence[str]] = None):
         if mesh is None:
             ctx = current_ctx()
             if ctx is not None:
@@ -184,32 +326,62 @@ class Trainer:
         self.mesh = mesh
         self.group = None
         if mesh is not None:
-            if ("model" in mesh.mesh_dim_names
-                    and axis_size(mesh, "model") > 1):
-                raise ValueError(
-                    "Trainer: a model axis > 1 (tensor parallelism) is not "
-                    "ported (ROADMAP.md); train on a data-parallel mesh "
-                    "(Dx1)")
+            model.check_tp_training(model_shard(mesh).count)
             if dp_axes is None:
-                from repro_torch.dist.mesh import dp_axes_of
                 dp_axes = dp_axes_of(mesh)
+            # None: FSDP over the batch axes; () replicates
+            if fsdp_axes is None:
+                fsdp_axes = dp_axes
             self.group = comm.group_of(mesh, tuple(dp_axes))
         self.dp_axes = dp_axes
+        self.fsdp_axes = tuple(fsdp_axes or ())
+        self.layout: Optional[Layout] = None
         self.store = CheckpointStore(cfg.out_dir, keep=cfg.keep_ckpts)
         self.metrics_path = os.path.join(cfg.out_dir, "metrics.jsonl")
         self.straggler_events = 0
         self.skipped_steps = 0
         self._step_fn = make_train_step(model, opt, cfg.microbatches,
-                                        cfg.grad_compression, self.group)
+                                        cfg.grad_compression)
 
     # ------------------------------------------------------------------
+    def _place(self, params, opt_state: OptState, ef_state):
+        """A rank's blocks of a whole state under the mesh (the state
+        itself without one); sets the step's :class:`Layout`."""
+        if self.mesh is None:
+            return params, opt_state, ef_state
+        self.layout = make_layout(self.model, params, self.mesh,
+                                  self.dp_axes, self.fsdp_axes)
+        self._step_fn = make_train_step(
+            self.model, self.opt, self.cfg.microbatches,
+            self.cfg.grad_compression, layout=self.layout)
+        shard = functools.partial(self.layout.shard, cfg=self.model.cfg)
+        if _residuals(ef_state):
+            ef_state = shard(ef_state)
+        return shard(params), OptState(opt_state.step, shard(opt_state.mu),
+                                       shard(opt_state.nu)), ef_state
+
+    def gather_state(self, params, opt_state: OptState, ef_state=None,
+                     to_host: bool = False):
+        """The whole state from a rank's blocks (a collective under a
+        mesh; the state itself without one); ``ef_state`` None is left
+        out.  ``to_host``: gathered a leaf at a time onto rank 0's host,
+        None on the other ranks (a checkpoint's gather)."""
+        if self.layout is None:
+            return params, opt_state, ef_state
+        g = functools.partial(self.layout.gather, to_host=to_host)
+        if ef_state is not None and _residuals(ef_state):
+            ef_state = g(ef_state)
+        return g(params), OptState(opt_state.step, g(opt_state.mu),
+                                   g(opt_state.nu)), ef_state
+
     def init_state(self, seed: int = 0):
         """(params, opt_state, ef_state) from the reference's keyed init:
-        ``LM.init(key(seed))``."""
+        ``LM.init(key(seed))`` of the whole tree, then a rank's blocks of
+        it under a mesh."""
         params = self.model.init(rnd.key(seed, self.model.device))
         ef = (ef_init(params) if self.cfg.grad_compression else
               torch.zeros((), dtype=torch.float32, device=self.model.device))
-        return params, self.opt.init(params), ef
+        return self._place(params, self.opt.init(params), ef)
 
     def to_flat(self, params, opt_state: OptState,
                 ef_state) -> Dict[str, np.ndarray]:
@@ -249,17 +421,20 @@ class Trainer:
         return params, opt, ef
 
     def restore_or_init(self):
-        """(start_step, params, opt_state, ef_state)."""
+        """(start_step, params, opt_state, ef_state): the newest
+        checkpoint's whole leaves, as a rank's blocks under the mesh the
+        trainer runs on (whatever mesh wrote them), or the init."""
         restored = self.store.restore(convert=self.from_flat)
         if restored is None:
             return (0, *self.init_state())
-        step, (params, opt_state, ef_state), _ = restored
+        step, state, _ = restored
         log.info("restored checkpoint at step %d", step)
-        return step, params, opt_state, ef_state
+        return (step, *self._place(*state))
 
     def _save(self, step, params, opt_state, ef_state) -> None:
+        whole = self.gather_state(params, opt_state, ef_state, to_host=True)
         if comm.is_main_rank():
-            self.store.save(step, self.to_flat(params, opt_state, ef_state))
+            self.store.save(step, self.to_flat(*whole))
         if self.group is not None:
             comm.barrier()        # the checkpoint is whole before going on
 
@@ -293,9 +468,12 @@ class Trainer:
     # ------------------------------------------------------------------
     def run(self, max_steps: Optional[int] = None):
         """Train until ``cfg.total_steps`` (resuming automatically).
-        Returns (params, opt_state, info); ``info`` has the steps run,
-        straggler events, skipped steps, the first and last loss of this
-        run and its step seconds."""
+        Returns (params, opt_state, info): under a mesh a rank's blocks
+        of the params and optimizer state (:meth:`gather_state` makes
+        them whole); ``info`` has the steps run, straggler events,
+        skipped steps, the first and last loss of this run and every
+        step's, its step seconds and the bytes of params and moments
+        this rank held (``rank_state_bytes``)."""
         cfg = self.cfg
         start, params, opt_state, ef_state = self.restore_or_init()
         end = min(cfg.total_steps, start + (max_steps or cfg.total_steps))
@@ -341,11 +519,15 @@ class Trainer:
             if step % cfg.ckpt_every == 0 or step == end:
                 self._save(step, params, opt_state, ef_state)
 
+        held = sum(t.numel() * t.element_size() for t in tree_leaves(
+            [params, opt_state.mu, opt_state.nu]))
         return params, opt_state, {
+            "rank_state_bytes": held,
             "steps": step - start,
             "straggler_events": self.straggler_events,
             "skipped_steps": self.skipped_steps,
             "first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None,
+            "losses": losses,
             "step_seconds": durations,
         }

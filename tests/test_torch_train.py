@@ -343,15 +343,21 @@ def test_microbatches_average_the_gradients():
                                float(one[3]["grad_norm"]), rtol=1e-4)
 
 
-def test_unported_training_knobs_are_refused():
-    """int8 gradient compression and a data-parallel mesh are ported
-    (tests/test_torch_compression.py, tests/test_torch_dist.py); a
-    ``model`` axis > 1 — tensor parallelism — is still refused."""
+def test_unported_training_knobs_are_refused(tmp_path):
+    """int8 gradient compression, a data-parallel mesh with FSDP and a
+    ``model`` axis > 1 for the dense decoders are ported
+    (tests/test_torch_compression.py, tests/test_torch_dist.py,
+    tests/test_torch_fsdp_train.py, tests/test_torch_tp_train.py); a
+    ``model`` axis > 1 — tensor parallelism — is still refused for the
+    recurrent, expert and frontend families."""
     cfg = configs.get_smoke("paper_tiny_lm")
     model = LM(cfg, device="cpu")
     assert callable(make_train_step(model, AdamW(), grad_compression=True))
+    model.check_tp_training(2)                 # a dense decoder trains
+    xlstm = LM(configs.get_smoke("xlstm_350m"), device="cpu")
     with pytest.raises(ValueError, match="ROADMAP.md"):
-        Trainer(model, AdamW(), None, TrainConfig(out_dir="unused"),
+        Trainer(xlstm, AdamW(), None,
+                TrainConfig(out_dir=str(tmp_path / "unused")),
                 mesh=_FakeMesh((1, 2), (0, 1)))
 
 

@@ -89,7 +89,8 @@ def _trainer_run(mesh, out: str, grad_compression: bool):
                     ckpt_every=TRAIN_STEPS, out_dir=out, log_every=1,
                     grad_compression=grad_compression),
         mesh=mesh)
-    params, _, info = trainer.run()
+    params, opt_state, info = trainer.run()
+    params, _, _ = trainer.gather_state(params, opt_state)
     return model.params_to_flat(params), info["first_loss"], info[
         "last_loss"]
 
@@ -1045,6 +1046,17 @@ CASES = {"dist": _cases, "tp": _tp_cases, "tp_families": _fam_cases,
          "prefix_2x4": _prefix_cases}
 
 
+def _cases_of(cases: str):
+    """A key of :data:`CASES`, or ``"module:function"`` of another test
+    helper module (imported in the rank)."""
+    if ":" not in cases:
+        return CASES[cases]
+    import importlib
+
+    module, name = cases.split(":")
+    return getattr(importlib.import_module(module), name)
+
+
 def _worker(rank: int, worlds, inits, tmp: str, queue,
             cases: str = "dist") -> None:
     """Run the cases of each world size in turn: one group of every
@@ -1061,8 +1073,8 @@ def _worker(rank: int, worlds, inits, tmp: str, queue,
         try:
             dist.init_process_group("gloo", init_method=init, rank=rank,
                                     world_size=world)
-            queue.put((world, CASES[cases](rank, world, flat, calib,
-                                           os.path.join(tmp, str(world)))))
+            queue.put((world, _cases_of(cases)(
+                rank, world, flat, calib, os.path.join(tmp, str(world)))))
         except BaseException:                   # the test reports it
             queue.put((world, {"rank": rank,
                                "error": traceback.format_exc()}))
@@ -1075,7 +1087,8 @@ def _worker(rank: int, worlds, inits, tmp: str, queue,
 def run_groups(worlds, flat, calib, timeout: float = 300.0,
                cases: str = "dist"):
     """Spawn ``max(worlds)`` ranks once and run every case of ``cases``
-    (a key of :data:`CASES`) in a group of each size of ``worlds``
+    (a key of :data:`CASES`, or ``"module:function"``) in a group of
+    each size of ``worlds``
     (largest first; a ``file://`` rendezvous in a temporary directory
     each); returns {world: results in rank order}."""
     worlds = sorted(worlds, reverse=True)
